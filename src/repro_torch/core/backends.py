@@ -1,0 +1,250 @@
+"""Backend/op registry for the compute engine (PyTorch port of
+``repro/core/backends.py``).
+
+The paper's claim is that ONE full-precision compute engine serves every
+dense layer of a CNN (conv-as-im2col, FC, deconv).  This module is the
+software form of that claim: a fixed op set (`OP_SET`), a
+`register_backend` / `get_backend` API so execution targets plug in without
+touching `ComputeEngine`, and dispatch counters plus a bounded dispatch log.
+
+Built-in backends:
+
+  ref    : the plain oracles of kernels/ref.py.
+  eager  : PyTorch formulations with the same precision policy and the same
+           fused epilogue; the counterpart of the JAX package's `xla`, and
+           the path every module runs on the CPU.
+  cuda   : the hand-written Hopper kernels (kernels/gemm.py).  It takes CUDA
+           tensors only: given a CPU tensor it raises, it never falls back.
+
+This slice registers `matmul` and `conv2d` on each; `bmm` and `attention`
+come with the LM slice.  The measured autotune policy and the autodiff
+capability of the JAX registry are later work: the `cuda` backend picks its
+tiles with a fixed heuristic (`kernels/ops.py::default_tiles`).
+
+Op contract (`ctx` is an `OpContext` carrying the engine's precision policy
+and the tile plan):
+
+  matmul(x, w, scale, shift, *, act, out_dtype, ctx)   (M,K)@(K,N) -> (M,N)
+      fused epilogue act((x @ w) * scale + shift), scale/shift (N,) or None,
+      fp32 accumulation.
+  conv2d(x, w, scale, shift, *, size, stride, pad, act, out_dtype, ctx)
+      NHWC x, flattened (kh*kw*Cin, Cout) w, same fused epilogue: one
+      engine invocation per conv+BN+act layer.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+from typing import Any, Callable, Mapping
+
+import torch
+
+from repro_torch.core.precision import Precision
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels import ref
+from repro_torch.kernels.common import apply_act, im2col
+
+OP_SET = ("matmul", "bmm", "conv2d", "attention")
+
+
+@dataclasses.dataclass(frozen=True)
+class OpContext:
+    """Per-dispatch context handed to backend op implementations."""
+    precision: Precision
+    # (bm, bk, bn) for GEMM-shaped ops on tiled backends, () otherwise.
+    tiles: tuple = ()
+
+
+@dataclasses.dataclass(frozen=True)
+class Backend:
+    """A registered execution target: op impls plus an optional
+    `tile_picker(op, shapes, dtype) -> tuple` for tiled backends."""
+    name: str
+    ops: Mapping[str, Callable]
+    tile_picker: Callable[[str, tuple, Any], tuple] | None = None
+
+    def op(self, name: str) -> Callable:
+        """The registered impl for `name`; NotImplementedError when this
+        backend does not provide it."""
+        try:
+            return self.ops[name]
+        except KeyError:
+            raise NotImplementedError(
+                f"backend {self.name!r} does not implement op {name!r} "
+                f"(has: {sorted(self.ops)})") from None
+
+    def tiles(self, op: str, shapes: tuple, dtype) -> tuple:
+        """Tile plan for one dispatch, () for an untiled backend."""
+        if self.tile_picker is None:
+            return ()
+        return tuple(self.tile_picker(op, shapes, dtype))
+
+
+_REGISTRY: dict[str, Backend] = {}
+
+
+def register_backend(name: str, ops: Mapping[str, Callable], *,
+                     tile_picker=None, overwrite: bool = False) -> Backend:
+    """Register a backend implementing (a subset of) OP_SET.
+
+    Raises ValueError on a duplicate name without `overwrite`, and on op
+    names outside OP_SET (typos fail at registration, not dispatch).
+    """
+    if name in _REGISTRY and not overwrite:
+        raise ValueError(f"backend {name!r} already registered "
+                         "(pass overwrite=True to replace)")
+    unknown = set(ops) - set(OP_SET)
+    if unknown:
+        raise ValueError(f"unknown ops {sorted(unknown)}; op set is {OP_SET}")
+    be = Backend(name=name, ops=dict(ops), tile_picker=tile_picker)
+    _REGISTRY[name] = be
+    return be
+
+
+def get_backend(name: str) -> Backend:
+    """The registered `Backend` for `name`; ValueError naming the
+    registered backends when unknown."""
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise ValueError(f"unknown backend {name!r}; registered: "
+                         f"{list_backends()}") from None
+
+
+def list_backends() -> tuple[str, ...]:
+    """Sorted names of all registered backends."""
+    return tuple(sorted(_REGISTRY))
+
+
+# ------------------------------------------------------ dispatch counts ---
+# Incremented by ComputeEngine on every dispatch.  PyTorch runs eagerly, so
+# unlike the JAX package (which counts once per trace) every call counts; a
+# snapshot diff around one forward is that forward's op plan
+# (CompiledNetwork captures it from its build).  The bounded LOG keeps the
+# per-dispatch detail (shapes, dtype, tile plan).
+
+_DISPATCH = collections.Counter()
+_DISPATCH_LOG: list[dict] = []
+_DISPATCH_LOG_LIMIT = 65536
+
+
+def record_dispatch(backend: str, op: str, shapes: tuple | None = None,
+                    dtype=None, tiles: tuple = ()) -> None:
+    """Count one engine dispatch and append its detail record
+    ``{backend, op, shapes, dtype, tiles}`` to the bounded log (oldest
+    records win; past the limit only the counter advances)."""
+    _DISPATCH[(backend, op)] += 1
+    if len(_DISPATCH_LOG) < _DISPATCH_LOG_LIMIT:
+        _DISPATCH_LOG.append({
+            "backend": backend, "op": op, "shapes": shapes,
+            "dtype": None if dtype is None else str(dtype),
+            "tiles": tuple(tiles or ())})
+
+
+def dispatch_counts() -> dict[tuple[str, str], int]:
+    return dict(_DISPATCH)
+
+
+def dispatch_log() -> list[dict]:
+    """Copy of the per-dispatch detail records (dispatch order)."""
+    return list(_DISPATCH_LOG)
+
+
+def dispatch_log_size() -> int:
+    """Current log length: snapshot before a run, slice after."""
+    return len(_DISPATCH_LOG)
+
+
+def counts_since(snapshot: Mapping[tuple[str, str], int]
+                 ) -> dict[tuple[str, str], int]:
+    out = {k: v - snapshot.get(k, 0) for k, v in _DISPATCH.items()}
+    return {k: v for k, v in out.items() if v}
+
+
+def reset_dispatch_counts() -> None:
+    """Clear the dispatch counters AND the detail log."""
+    _DISPATCH.clear()
+    _DISPATCH_LOG.clear()
+
+
+# --------------------------------------------------------- shared pieces ---
+
+def im2col_conv2d(matmul_impl: Callable) -> Callable:
+    """Build a conv2d op from a matmul op via materialized im2col: the
+    paper's canonical conv lowering."""
+
+    def conv2d(x, w, scale, shift, *, size, stride, pad, act, out_dtype,
+               ctx):
+        cols = im2col(x, size, size, stride, pad)     # (B, OH, OW, khkwC)
+        b, oh, ow, _ = cols.shape
+        y = matmul_impl(cols.reshape(b * oh * ow, -1), w, scale, shift,
+                        act=act, out_dtype=out_dtype, ctx=ctx)
+        return y.reshape(b, oh, ow, -1)
+
+    return conv2d
+
+
+def gemm_dims(op: str, shapes: tuple) -> tuple[int, int, int] | None:
+    """The (m, k, n) GEMM an op's shapes run: conv2d maps to its im2col
+    GEMM; None for ops without a GEMM-shaped tiling."""
+    if op in ("matmul", "bmm"):
+        return tuple(shapes[-3:])
+    if op == "conv2d":
+        (b, h, w, c), n, size, stride, pad = shapes
+        oh = (h + 2 * pad - size) // stride + 1
+        ow = (w + 2 * pad - size) // stride + 1
+        return (b * oh * ow, size * size * c, n)
+    return None
+
+
+# ----------------------------------------------------------- ref backend ---
+
+def _ref_matmul(x, w, scale, shift, *, act, out_dtype, ctx):
+    return ref.matmul_ref(x, w, scale=scale, shift=shift, act=act,
+                          out_dtype=out_dtype)
+
+
+# --------------------------------------------------------- eager backend ---
+
+def _eager_matmul(x, w, scale, shift, *, act, out_dtype, ctx):
+    # Same math as the kernel in PyTorch ops.  Emission dtype =
+    # precision.reduce_dtype: f32 under fp32_strict, bf16 under mixed, as
+    # the JAX `xla` backend.
+    rdt = ctx.precision.reduce_dtype
+    acc = torch.matmul(x, w).to(rdt)
+    if scale is not None:
+        acc = acc * scale.to(rdt)
+    if shift is not None:
+        acc = acc + shift.to(rdt)
+    return apply_act(acc, act).to(out_dtype)
+
+
+# ---------------------------------------------------------- cuda backend ---
+
+def _cuda_matmul(x, w, scale, shift, *, act, out_dtype, ctx):
+    if x.device.type != "cuda":
+        raise ValueError(f"backend 'cuda' runs on CUDA tensors, got x on "
+                         f"{x.device}; use backend 'eager' on the CPU")
+    return kernel_ops.matmul(x, w, scale, shift, act=act,
+                             out_dtype=out_dtype, tiles=ctx.tiles)
+
+
+def _cuda_tile_picker(op: str, shapes: tuple, dtype) -> tuple:
+    dims = gemm_dims(op, shapes)
+    return () if dims is None else kernel_ops.default_tiles(*dims)
+
+
+register_backend("ref", {
+    "matmul": _ref_matmul,
+    "conv2d": im2col_conv2d(_ref_matmul),
+})
+
+register_backend("eager", {
+    "matmul": _eager_matmul,
+    "conv2d": im2col_conv2d(_eager_matmul),
+})
+
+register_backend("cuda", {
+    "matmul": _cuda_matmul,
+    "conv2d": im2col_conv2d(_cuda_matmul),
+}, tile_picker=_cuda_tile_picker)

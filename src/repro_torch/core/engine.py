@@ -1,0 +1,137 @@
+"""ComputeEngine: the paper's contribution as a PyTorch module (port of
+``repro/core/engine.py``).
+
+Every dense computation of the Darknet path (conv layers via im2col, the
+connected layers, the deconv GEMM) routes through this engine.  The engine
+is a thin dispatcher: each op resolves through the backend/op registry
+(core/backends.py), so adding an execution target is `register_backend` and
+no engine change.  Built-in backends: `cuda` (the hand-written Hopper
+kernel, the default), `eager` (PyTorch formulations, the CPU path) and `ref`
+(plain oracles).
+
+The card is the default: `make_engine()` is the `cuda` backend on
+``device="cuda"`` and raises when there is no GPU; the CPU is used only when
+the caller asks for it (``make_engine("eager", device="cpu")``).
+
+The engine is a frozen dataclass, so it is hashable and can key caches.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core import backends
+from repro_torch.core.precision import Precision
+
+
+@dataclasses.dataclass(frozen=True)
+class ComputeEngine:
+    backend: str = "cuda"
+    precision: Precision = Precision("fp32_strict")
+    # Where the network's parameters and activations live.
+    device: torch.device = torch.device("cuda")
+
+    def __post_init__(self):
+        # A bare "cuda" gets its index, so it compares equal to the device
+        # of the tensors made on it.
+        dev = torch.device(self.device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device()
+                               if torch.cuda.is_available() else 0)
+        object.__setattr__(self, "device", dev)
+
+    # ---------------------------------------------------------- dispatch ---
+    def _resolve(self, op: str, shapes: tuple, dtype) -> backends.OpContext:
+        """Look up the backend's tile plan and count the dispatch (with its
+        shapes, dtype and tiles in the dispatch log)."""
+        tiles = backends.get_backend(self.backend).tiles(op, shapes, dtype)
+        backends.record_dispatch(self.backend, op, shapes=shapes,
+                                 dtype=dtype, tiles=tiles)
+        return backends.OpContext(precision=self.precision, tiles=tiles)
+
+    def _op(self, op: str):
+        return backends.get_backend(self.backend).op(op)
+
+    # --------------------------------------------------------------- ops ---
+    def matmul(self, x, w, *, scale=None, shift=None, act: str = "linear",
+               out_dtype=None):
+        """act((x @ w) * scale + shift) over the last dim of x.
+
+        Args:
+          x: (..., K) input; leading dims are flattened for the kernel and
+            restored on the result.
+          w: (K, N) weight.
+          scale, shift: (N,) epilogue vectors or None (folded BN / bias).
+          act: activation name understood by `kernels.common.apply_act`.
+          out_dtype: result dtype; defaults to the policy compute dtype.
+
+        Returns (..., N) with fp32 accumulation regardless of out_dtype.
+        Raises NotImplementedError when the backend lacks the op.
+        """
+        *lead, k = x.shape
+        n = w.shape[-1]
+        out_dtype = out_dtype or self.precision.compute_dtype
+        xc = x.to(self.precision.compute_dtype).reshape(-1, k)
+        wc = w.to(self.precision.compute_dtype)
+        ctx = self._resolve("matmul", (xc.shape[0], k, n), xc.dtype)
+        y = self._op("matmul")(xc, wc, scale, shift, act=act,
+                               out_dtype=out_dtype, ctx=ctx)
+        return y.reshape(*lead, n)
+
+    def conv2d(self, x, w, *, scale=None, shift=None, size: int,
+               stride: int = 1, pad: int = 0, act: str = "linear",
+               out_dtype=None):
+        """Fused conv+BN+activation as ONE engine invocation.
+
+        Args:
+          x: (B, H, W, Cin) NHWC input.
+          w: (kh*kw*Cin, Cout) flattened HWIO weight.
+          scale, shift: (Cout,) or None (folded batch-norm / bias epilogue).
+          size, stride, pad: square kernel size, stride, symmetric padding.
+          act: activation name; out_dtype defaults to the compute dtype.
+
+        Returns (B, OH, OW, Cout).  Raises NotImplementedError when the
+        backend lacks the op.
+        """
+        out_dtype = out_dtype or self.precision.compute_dtype
+        xc = x.to(self.precision.compute_dtype)
+        wc = w.to(self.precision.compute_dtype)
+        ctx = self._resolve(
+            "conv2d", (tuple(xc.shape), wc.shape[-1], size, stride, pad),
+            xc.dtype)
+        return self._op("conv2d")(xc, wc, scale, shift, size=size,
+                                  stride=stride, pad=pad, act=act,
+                                  out_dtype=out_dtype, ctx=ctx)
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the work queued on `device` (a no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def make_engine(backend: str = "cuda", policy: str = "fp32_strict",
+                device: str | torch.device = "cuda") -> ComputeEngine:
+    """An engine on `device` (the card by default).
+
+    Turns TF32 off in PyTorch's CUDA matmuls and convolutions: neither
+    precision policy uses it, and under fp32_strict the products must be
+    true fp32.  Raises RuntimeError for a CUDA device when no GPU is
+    available (it never drops to the CPU), ValueError for an unknown
+    backend or for the `cuda` backend on a non-CUDA device.
+    """
+    backends.get_backend(backend)  # fail fast on unknown backends
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass "
+                           "device='cpu' with the 'eager' or 'ref' backend "
+                           "to run on the CPU")
+    if backend == "cuda" and device.type != "cuda":
+        raise ValueError(f"backend 'cuda' runs on a CUDA device, not "
+                         f"{device}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return ComputeEngine(backend=backend, precision=Precision(policy),
+                         device=device)
+

@@ -1,0 +1,208 @@
+// Fused GEMM forward for Hopper (sm_90a): y = act((x @ w) * scale + shift).
+//
+// Replaces src/repro/kernels/gemm.py::_gemm_kernel (launched by
+// _gemm_forward), forward only: the training residuals (act'(u) and the raw
+// accumulator) come with the CNN-training slice.
+//
+// What bounds it on an H100: the Darknet main path's GEMMs are im2col
+// convolutions with K from 27 to 2304 and N from 32 to 1000; at batch 8 every
+// conv GEMM does 30 or more FLOPs per byte it must move, so under
+// fp32_strict (no tensor cores, no TF32) the card's fp32 FFMA rate is the
+// roof: about 67 TFLOP/s on the SXM part, 51 on PCIe.
+//
+// What the design does about it, kept simple and exact first:
+//   * each block owns one BM x BN output tile and loops over K inside the
+//     block (the TPU kernel's sequential "arbitrary" K grid axis), staging
+//     BK-deep x and w tiles in shared memory as fp32;
+//   * each thread keeps a 4 x 4 micro-tile of fp32 accumulators in registers
+//     and reads its operands from shared memory as float4, so one pair of
+//     shared loads feeds 16 FFMAs;
+//   * tile loads are bounds-checked and zero-filled, so any (M, K, N) runs
+//     without padding in memory (layer 1 has K = 27, the head M = 1 and
+//     N = 1000);
+//   * the epilogue (scale, shift, activation) runs on the registers and the
+//     store is masked, so the output is written once;
+//   * M tiles go on gridDim.x (gridDim.y is capped at 65,535).
+// No split-K and no atomics: every output element is one thread's fmaf chain
+// over k = 0..K-1 in order, whatever M, the tile size or the block, so rows
+// padded into a larger serving batch are bitwise identical to the same rows
+// run alone.  wgmma, TMA and 3xTF32 are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BK = 16;  // K depth of one shared-memory stage
+constexpr int TM = 4;   // accumulator rows per thread
+constexpr int TN = 4;   // accumulator columns per thread
+constexpr int XPAD = 4; // keeps the transposed x stores off one bank
+
+enum Act { ACT_LINEAR = 0, ACT_RELU = 1, ACT_LEAKY = 2, ACT_SILU = 3, ACT_GELU = 4 };
+enum DType { DT_F32 = 0, DT_BF16 = 1 };
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// Same formulas as kernels/common.py::apply_act: where-based relu/leaky with
+// slope 0.1, silu as x*sigmoid(x), tanh-gelu with 0.044715.  The multiplies
+// and adds are rounded one by one (no contraction) as PyTorch's separate
+// elementwise ops round them.
+__device__ __forceinline__ float activate(float u, int act) {
+  switch (act) {
+    case ACT_RELU:
+      return u > 0.f ? u : 0.f;
+    case ACT_LEAKY:
+      return u > 0.f ? u : __fmul_rn(0.1f, u);
+    case ACT_SILU:
+      return __fmul_rn(u, 1.f / (1.f + expf(-u)));
+    case ACT_GELU: {
+      const float c = 0.7978845608028654f;  // sqrt(2 / pi)
+      const float cube = __fmul_rn(__fmul_rn(u, u), u);
+      const float inner = __fmul_rn(c, __fadd_rn(u, __fmul_rn(0.044715f, cube)));
+      return __fmul_rn(__fmul_rn(0.5f, u), __fadd_rn(1.f, tanhf(inner)));
+    }
+    default:
+      return u;
+  }
+}
+
+template <typename Tin, typename Tout, int BM, int BN>
+__global__ void __launch_bounds__((BM / TM) * (BN / TN))
+gemm_fused_fwd_kernel(const Tin* __restrict__ x, const Tin* __restrict__ w,
+                      const float* __restrict__ scale,
+                      const float* __restrict__ shift, Tout* __restrict__ y,
+                      int M, int K, int N, int act) {
+  constexpr int THREADS = (BM / TM) * (BN / TN);
+  constexpr int TCOLS = BN / TN;
+  static_assert((BM * BK) % THREADS == 0, "x tile must split evenly");
+  static_assert((BK * BN) % THREADS == 0, "w tile must split evenly");
+
+  __shared__ __align__(16) float xs[BK][BM + XPAD];  // x tile, k-major
+  __shared__ __align__(16) float ws[BK][BN];         // w tile
+
+  const int tid = threadIdx.x;
+  const int tcol = tid % TCOLS;
+  const int trow = tid / TCOLS;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * BM;
+  const int col0 = blockIdx.y * BN;
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += BK) {
+#pragma unroll
+    for (int it = 0; it < BM * BK / THREADS; ++it) {
+      const int i = tid + it * THREADS;
+      const int r = i / BK, c = i % BK;
+      const int64_t gr = row0 + r;
+      const int gk = k0 + c;
+      xs[c][r] = (gr < M && gk < K) ? to_f32(x[gr * K + gk]) : 0.f;
+    }
+#pragma unroll
+    for (int it = 0; it < BK * BN / THREADS; ++it) {
+      const int i = tid + it * THREADS;
+      const int r = i / BN, c = i % BN;
+      const int gk = k0 + r, gc = col0 + c;
+      ws[r][c] = (gk < K && gc < N)
+                     ? to_f32(w[static_cast<int64_t>(gk) * N + gc]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      const float4 a = *reinterpret_cast<const float4*>(&xs[kk][trow * TM]);
+      const float4 b = *reinterpret_cast<const float4*>(&ws[kk][tcol * TN]);
+      const float av[TM] = {a.x, a.y, a.z, a.w};
+      const float bv[TN] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+  float sc[TN], sh[TN];
+#pragma unroll
+  for (int j = 0; j < TN; ++j) {
+    const int gc = col0 + tcol * TN + j;
+    sc[j] = (scale != nullptr && gc < N) ? scale[gc] : 1.f;
+    sh[j] = (shift != nullptr && gc < N) ? shift[gc] : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int64_t gr = row0 + trow * TM + i;
+    if (gr >= M) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int gc = col0 + tcol * TN + j;
+      if (gc >= N) continue;
+      float u = acc[i][j];
+      if (scale != nullptr) u = __fmul_rn(u, sc[j]);
+      if (shift != nullptr) u = __fadd_rn(u, sh[j]);
+      store(y + gr * N + gc, activate(u, act));
+    }
+  }
+}
+
+template <typename Tin, typename Tout, int T>
+cudaError_t launch_tile(const void* x, const void* w, const void* scale,
+                        const void* shift, void* y, int M, int K, int N,
+                        int act, cudaStream_t stream) {
+  const unsigned grid_m = static_cast<unsigned>((static_cast<int64_t>(M) + T - 1) / T);
+  const unsigned grid_n = static_cast<unsigned>((N + T - 1) / T);
+  if (grid_n > 65535u) return cudaErrorInvalidValue;
+  gemm_fused_fwd_kernel<Tin, Tout, T, T>
+      <<<dim3(grid_m, grid_n), (T / TM) * (T / TN), 0, stream>>>(
+          static_cast<const Tin*>(x), static_cast<const Tin*>(w),
+          static_cast<const float*>(scale), static_cast<const float*>(shift),
+          static_cast<Tout*>(y), M, K, N, act);
+  return cudaGetLastError();
+}
+
+template <typename Tin, typename Tout>
+cudaError_t launch(const void* x, const void* w, const void* scale,
+                   const void* shift, void* y, int M, int K, int N, int act,
+                   int tile, cudaStream_t stream) {
+  switch (tile) {
+    case 64:
+      return launch_tile<Tin, Tout, 64>(x, w, scale, shift, y, M, K, N, act, stream);
+    case 32:
+      return launch_tile<Tin, Tout, 32>(x, w, scale, shift, y, M, K, N, act, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// x (M, K) and w (K, N) row-major in `in_dtype`; scale and shift fp32 (N,)
+// or null; y (M, N) row-major in `out_dtype`.  `tile` is the square output
+// tile (64 or 32).  Launches on `stream` and returns cudaGetLastError().
+extern "C" int gemm_fused_fwd(const void* x, const void* w, const void* scale,
+                              const void* shift, void* y, int M, int K, int N,
+                              int in_dtype, int out_dtype, int act, int tile,
+                              void* stream) {
+  if (M <= 0 || N <= 0) return 0;
+  if (K < 0 || act < ACT_LINEAR || act > ACT_GELU) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (in_dtype == DT_F32 && out_dtype == DT_F32)
+    return launch<float, float>(x, w, scale, shift, y, M, K, N, act, tile, s);
+  if (in_dtype == DT_F32 && out_dtype == DT_BF16)
+    return launch<float, __nv_bfloat16>(x, w, scale, shift, y, M, K, N, act, tile, s);
+  if (in_dtype == DT_BF16 && out_dtype == DT_F32)
+    return launch<__nv_bfloat16, float>(x, w, scale, shift, y, M, K, N, act, tile, s);
+  if (in_dtype == DT_BF16 && out_dtype == DT_BF16)
+    return launch<__nv_bfloat16, __nv_bfloat16>(x, w, scale, shift, y, M, K, N, act, tile, s);
+  return cudaErrorInvalidValue;
+}
+
+extern "C" const char* gemm_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
