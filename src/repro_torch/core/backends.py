@@ -17,9 +17,16 @@ Built-in backends:
            tensors only: given a CPU tensor it raises, it never falls back.
 
 This slice registers `matmul` and `conv2d` on each; `bmm` and `attention`
-come with the LM slice.  The measured autotune policy and the autodiff
-capability of the JAX registry are later work: the `cuda` backend picks its
-tiles with a fixed heuristic (`kernels/ops.py::default_tiles`).
+come with the LM slice.  Each backend declares which ops autograd may flow
+through (`differentiable`, as the JAX registry's autodiff capability):
+`ref` and `eager` are plain differentiable PyTorch, and `cuda` carries
+`kernels/gemm.py::GemmFused`, whose backward runs the dX / dW kernels.
+The engine calls `guard_grad` on every dispatch, so an op that a backend
+does not declare differentiable raises a clear NotImplementedError when
+it is dispatched with grad enabled on an operand that requires it.  The
+measured autotune policy of the JAX registry is later work: the `cuda`
+backend picks its tiles with fixed heuristics
+(`kernels/ops.py::default_tiles`, `default_bwd_tiles`).
 
 Op contract (`ctx` is an `OpContext` carrying the engine's precision policy
 and the tile plan):
@@ -57,11 +64,17 @@ class OpContext:
 
 @dataclasses.dataclass(frozen=True)
 class Backend:
-    """A registered execution target: op impls plus an optional
-    `tile_picker(op, shapes, dtype) -> tuple` for tiled backends."""
+    """A registered execution target: op impls, an optional
+    `tile_picker(op, shapes, dtype) -> tuple` for tiled backends, and
+    `differentiable`, the ops autograd may flow through."""
     name: str
     ops: Mapping[str, Callable]
     tile_picker: Callable[[str, tuple, Any], tuple] | None = None
+    differentiable: frozenset = frozenset(OP_SET)
+
+    def supports_grad(self, op: str) -> bool:
+        """Whether autograd may flow through this backend's `op`."""
+        return op in self.differentiable
 
     def op(self, name: str) -> Callable:
         """The registered impl for `name`; NotImplementedError when this
@@ -84,11 +97,17 @@ _REGISTRY: dict[str, Backend] = {}
 
 
 def register_backend(name: str, ops: Mapping[str, Callable], *,
-                     tile_picker=None, overwrite: bool = False) -> Backend:
+                     tile_picker=None, differentiable=None,
+                     overwrite: bool = False) -> Backend:
     """Register a backend implementing (a subset of) OP_SET.
 
-    Raises ValueError on a duplicate name without `overwrite`, and on op
-    names outside OP_SET (typos fail at registration, not dispatch).
+    `differentiable` names the ops autograd may flow through; None means
+    every registered op (right for backends of plain PyTorch ops).  A
+    kernel backend names only the ops whose kernels have a backward.
+
+    Raises ValueError on a duplicate name without `overwrite`, on op names
+    outside OP_SET (typos fail at registration, not dispatch), and on a
+    `differentiable` entry naming an unregistered op.
     """
     if name in _REGISTRY and not overwrite:
         raise ValueError(f"backend {name!r} already registered "
@@ -96,7 +115,13 @@ def register_backend(name: str, ops: Mapping[str, Callable], *,
     unknown = set(ops) - set(OP_SET)
     if unknown:
         raise ValueError(f"unknown ops {sorted(unknown)}; op set is {OP_SET}")
-    be = Backend(name=name, ops=dict(ops), tile_picker=tile_picker)
+    diff = frozenset(ops if differentiable is None else differentiable)
+    if not diff <= set(ops):
+        raise ValueError(f"differentiable names unregistered ops "
+                         f"{sorted(diff - set(ops))}; registered: "
+                         f"{sorted(ops)}")
+    be = Backend(name=name, ops=dict(ops), tile_picker=tile_picker,
+                 differentiable=diff)
     _REGISTRY[name] = be
     return be
 
@@ -114,6 +139,25 @@ def get_backend(name: str) -> Backend:
 def list_backends() -> tuple[str, ...]:
     """Sorted names of all registered backends."""
     return tuple(sorted(_REGISTRY))
+
+
+def guard_grad(backend: Backend, op: str, *operands) -> None:
+    """Raise NotImplementedError, naming the backend and the op, when `op`
+    is dispatched with grad enabled on an operand that requires grad and
+    `backend` does not declare `op` differentiable.  None and non-tensor
+    operands are ignored.  The engine calls it on every dispatch with all
+    gradient-carrying operands, scale and shift included."""
+    if backend.supports_grad(op) or not torch.is_grad_enabled():
+        return
+    if any(isinstance(t, torch.Tensor) and t.requires_grad
+           for t in operands):
+        raise NotImplementedError(
+            f"op {op!r} on backend {backend.name!r} is not differentiable: "
+            f"the backend declares differentiable="
+            f"{sorted(backend.differentiable)}, which does not include "
+            f"{op!r}.  Use a backend that supports grad for {op!r} (the "
+            f"'eager' backend differentiates every registered op), or "
+            f"register the backend with a differentiable {op!r}.")
 
 
 # ------------------------------------------------------ dispatch counts ---
@@ -247,4 +291,4 @@ register_backend("eager", {
 register_backend("cuda", {
     "matmul": _cuda_matmul,
     "conv2d": im2col_conv2d(_cuda_matmul),
-}, tile_picker=_cuda_tile_picker)
+}, tile_picker=_cuda_tile_picker, differentiable=("matmul", "conv2d"))

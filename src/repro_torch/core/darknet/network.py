@@ -3,9 +3,15 @@ port of ``repro/core/darknet/network.py``).
 
 Mirrors the paper's flow (Fig. 1): parse the Darknet description, map every
 conv/deconv/FC layer onto the compute engine, keep the rest as cheap
-elementwise/pooling glue.  Inference only (the paper's framework is an
-inference accelerator); weights come from `init` or from a state dict (see
-`repro_torch.convert.params_from_jax` for the JAX package's trees).
+elementwise/pooling glue.  Weights come from `init` or from a state dict
+(see `repro_torch.convert.params_from_jax` for the JAX package's trees).
+
+The parameters are trainable (`repro_torch.train`), as the JAX package
+differentiates `apply`.  Batch-norm stays in its folded inference form in
+training too: ``mean`` and ``var`` are parameters that receive gradients
+through `layers.fold_batchnorm`, with no batch statistics and no running
+average.  `CompiledNetwork` runs under ``torch.inference_mode()``, so
+serving builds no autograd graph.
 
 `Network` is an ``nn.Module``: its parameters are registered under the JAX
 tree's keys (``l{i}.w``, ``l{i}.gamma``, ``beta``, ``mean``, ``var``,
@@ -135,10 +141,8 @@ class Network(nn.Module):
             else:
                 tensors = None
             if tensors is not None:
-                # Inference only in this slice: no autograd state.
                 self.add_module(f"l{p.index}", nn.ParameterDict({
-                    k: nn.Parameter(v.to(self.engine.device),
-                                    requires_grad=False)
+                    k: nn.Parameter(v.to(self.engine.device))
                     for k, v in tensors.items()}))
             cur_hw, cur_c = p.out_shape[:2], p.out_shape[2]
         return self

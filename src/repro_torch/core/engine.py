@@ -53,6 +53,14 @@ class ComputeEngine:
     def _op(self, op: str):
         return backends.get_backend(self.backend).op(op)
 
+    def _guard(self, op: str, *operands) -> None:
+        """The autodiff capability check (`backends.guard_grad`): an op the
+        backend does not declare differentiable raises a clear
+        NotImplementedError when dispatched with grad enabled on an
+        operand that requires grad."""
+        backends.guard_grad(backends.get_backend(self.backend), op,
+                            *operands)
+
     # --------------------------------------------------------------- ops ---
     def matmul(self, x, w, *, scale=None, shift=None, act: str = "linear",
                out_dtype=None):
@@ -67,13 +75,16 @@ class ComputeEngine:
           out_dtype: result dtype; defaults to the policy compute dtype.
 
         Returns (..., N) with fp32 accumulation regardless of out_dtype.
-        Raises NotImplementedError when the backend lacks the op.
+        Raises NotImplementedError when the backend lacks the op, or when
+        it is differentiated and the backend does not declare it
+        differentiable.
         """
         *lead, k = x.shape
         n = w.shape[-1]
         out_dtype = out_dtype or self.precision.compute_dtype
         xc = x.to(self.precision.compute_dtype).reshape(-1, k)
         wc = w.to(self.precision.compute_dtype)
+        self._guard("matmul", xc, wc, scale, shift)
         ctx = self._resolve("matmul", (xc.shape[0], k, n), xc.dtype)
         y = self._op("matmul")(xc, wc, scale, shift, act=act,
                                out_dtype=out_dtype, ctx=ctx)
@@ -92,11 +103,13 @@ class ComputeEngine:
           act: activation name; out_dtype defaults to the compute dtype.
 
         Returns (B, OH, OW, Cout).  Raises NotImplementedError when the
-        backend lacks the op.
+        backend lacks the op, or when it is differentiated and the backend
+        does not declare it differentiable.
         """
         out_dtype = out_dtype or self.precision.compute_dtype
         xc = x.to(self.precision.compute_dtype)
         wc = w.to(self.precision.compute_dtype)
+        self._guard("conv2d", xc, wc, scale, shift)
         ctx = self._resolve(
             "conv2d", (tuple(xc.shape), wc.shape[-1], size, stride, pad),
             xc.dtype)

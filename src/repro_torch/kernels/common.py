@@ -84,7 +84,31 @@ def im2col(x: torch.Tensor, kh: int, kw: int, stride: int, pad: int
     weight layout.  The patches are built in that order directly, one
     strided slice of the zero-padded input per (ki, kj) tap, so no
     channel-major reorder is needed (``F.unfold`` would give (C, kh, kw)).
+    Differentiable through `Im2col`, whose backward is `col2im`.
     """
+    return Im2col.apply(x, kh, kw, stride, pad)
+
+
+class Im2col(torch.autograd.Function):
+    """`im2col` with the JAX package's custom VJP: the backward scatters
+    the patch cotangents back with `col2im` (taps summed in fp32 into one
+    buffer) and casts to the input's dtype.  Autograd through the ``cat``
+    of tap slices would give the same numbers with one padded zero tensor
+    per tap."""
+
+    @staticmethod
+    def forward(ctx, x, kh, kw, stride, pad):
+        ctx.geometry = (tuple(x.shape), x.dtype, kh, kw, stride, pad)
+        return _im2col(x, kh, kw, stride, pad)
+
+    @staticmethod
+    def backward(ctx, g):
+        x_shape, dtype, kh, kw, stride, pad = ctx.geometry
+        dx = col2im(g, x_shape, kh, kw, stride, pad).to(dtype)
+        return dx, None, None, None, None
+
+
+def _im2col(x, kh, kw, stride, pad):
     b, h, w, _ = x.shape
     oh = (h + 2 * pad - kh) // stride + 1
     ow = (w + 2 * pad - kw) // stride + 1

@@ -1,8 +1,11 @@
 // Fused GEMM forward for Hopper (sm_90a): y = act((x @ w) * scale + shift).
 //
 // Replaces src/repro/kernels/gemm.py::_gemm_kernel (launched by
-// _gemm_forward), forward only: the training residuals (act'(u) and the raw
-// accumulator) come with the CNN-training slice.
+// _gemm_forward), with and without its training residuals: a training
+// forward also writes g = act'(u) (when an activation is fused) and the raw
+// fp32 accumulator racc = x @ w (when a scale is fused), both from the
+// registers the epilogue already holds, as _gemm_kernel writes g_ref and
+// racc_ref from its VMEM tile.
 //
 // What bounds it on an H100: the Darknet main path's GEMMs are im2col
 // convolutions with K from 27 to 2304 and N from 32 to 1000; at batch 8 every
@@ -70,11 +73,47 @@ __device__ __forceinline__ float activate(float u, int act) {
   }
 }
 
-template <typename Tin, typename Tout, int BM, int BN>
+// d act(u) / du, as kernels/common.py::act_deriv: at exactly u = 0 relu
+// gives 0 and leaky its slope 0.1; silu and gelu round op by op as
+// PyTorch's separate elementwise ops do.
+__device__ __forceinline__ float activate_deriv(float u, int act) {
+  switch (act) {
+    case ACT_RELU:
+      return u > 0.f ? 1.f : 0.f;
+    case ACT_LEAKY:
+      return u > 0.f ? 1.f : 0.1f;
+    case ACT_SILU: {
+      const float s = 1.f / (1.f + expf(-u));
+      return __fmul_rn(s, __fadd_rn(1.f, __fmul_rn(u, __fadd_rn(1.f, -s))));
+    }
+    case ACT_GELU: {
+      const float c = 0.7978845608028654f;  // sqrt(2 / pi)
+      const float u2 = __fmul_rn(u, u);
+      const float cube = __fmul_rn(u2, u);
+      const float t =
+          tanhf(__fmul_rn(c, __fadd_rn(u, __fmul_rn(0.044715f, cube))));
+      // 0.5 (1 + t) + 0.5 u (1 - t^2) c (1 + 3 * 0.044715 u^2)
+      const float lhs = __fmul_rn(0.5f, __fadd_rn(1.f, t));
+      const float one_m_t2 = __fadd_rn(1.f, -__fmul_rn(t, t));
+      const float poly = __fadd_rn(1.f, __fmul_rn(0.134145f, u2));
+      const float rhs =
+          __fmul_rn(__fmul_rn(__fmul_rn(__fmul_rn(0.5f, u), one_m_t2), c), poly);
+      return __fadd_rn(lhs, rhs);
+    }
+    default:
+      return 1.f;
+  }
+}
+
+// RES = false is the serving forward; RES = true also writes g and racc
+// where those pointers are not null.  The arithmetic of y is the same in
+// both, so a training forward's y has the serving forward's bits.
+template <typename Tin, typename Tout, int BM, int BN, bool RES>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 gemm_fused_fwd_kernel(const Tin* __restrict__ x, const Tin* __restrict__ w,
                       const float* __restrict__ scale,
                       const float* __restrict__ shift, Tout* __restrict__ y,
+                      float* __restrict__ g, float* __restrict__ racc,
                       int M, int K, int N, int act) {
   constexpr int THREADS = (BM / TM) * (BN / TN);
   constexpr int TCOLS = BN / TN;
@@ -147,37 +186,66 @@ gemm_fused_fwd_kernel(const Tin* __restrict__ x, const Tin* __restrict__ w,
       if (scale != nullptr) u = __fmul_rn(u, sc[j]);
       if (shift != nullptr) u = __fadd_rn(u, sh[j]);
       store(y + gr * N + gc, activate(u, act));
+      if constexpr (RES) {
+        if (g != nullptr) g[gr * N + gc] = activate_deriv(u, act);
+        if (racc != nullptr) racc[gr * N + gc] = acc[i][j];
+      }
     }
   }
 }
 
-template <typename Tin, typename Tout, int T>
+template <typename Tin, typename Tout, int T, bool RES>
 cudaError_t launch_tile(const void* x, const void* w, const void* scale,
-                        const void* shift, void* y, int M, int K, int N,
-                        int act, cudaStream_t stream) {
+                        const void* shift, void* y, float* g, float* racc,
+                        int M, int K, int N, int act, cudaStream_t stream) {
   const unsigned grid_m = static_cast<unsigned>((static_cast<int64_t>(M) + T - 1) / T);
   const unsigned grid_n = static_cast<unsigned>((N + T - 1) / T);
   if (grid_n > 65535u) return cudaErrorInvalidValue;
-  gemm_fused_fwd_kernel<Tin, Tout, T, T>
+  gemm_fused_fwd_kernel<Tin, Tout, T, T, RES>
       <<<dim3(grid_m, grid_n), (T / TM) * (T / TN), 0, stream>>>(
           static_cast<const Tin*>(x), static_cast<const Tin*>(w),
           static_cast<const float*>(scale), static_cast<const float*>(shift),
-          static_cast<Tout*>(y), M, K, N, act);
+          static_cast<Tout*>(y), g, racc, M, K, N, act);
   return cudaGetLastError();
 }
 
-template <typename Tin, typename Tout>
+template <typename Tin, typename Tout, bool RES>
 cudaError_t launch(const void* x, const void* w, const void* scale,
-                   const void* shift, void* y, int M, int K, int N, int act,
-                   int tile, cudaStream_t stream) {
+                   const void* shift, void* y, float* g, float* racc, int M,
+                   int K, int N, int act, int tile, cudaStream_t stream) {
   switch (tile) {
     case 64:
-      return launch_tile<Tin, Tout, 64>(x, w, scale, shift, y, M, K, N, act, stream);
+      return launch_tile<Tin, Tout, 64, RES>(x, w, scale, shift, y, g, racc,
+                                             M, K, N, act, stream);
     case 32:
-      return launch_tile<Tin, Tout, 32>(x, w, scale, shift, y, M, K, N, act, stream);
+      return launch_tile<Tin, Tout, 32, RES>(x, w, scale, shift, y, g, racc,
+                                             M, K, N, act, stream);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+template <bool RES>
+int dispatch(const void* x, const void* w, const void* scale,
+             const void* shift, void* y, float* g, float* racc, int M, int K,
+             int N, int in_dtype, int out_dtype, int act, int tile,
+             void* stream) {
+  if (M <= 0 || N <= 0) return 0;
+  if (K < 0 || act < ACT_LINEAR || act > ACT_GELU) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (in_dtype == DT_F32 && out_dtype == DT_F32)
+    return launch<float, float, RES>(x, w, scale, shift, y, g, racc, M, K, N,
+                                     act, tile, s);
+  if (in_dtype == DT_F32 && out_dtype == DT_BF16)
+    return launch<float, __nv_bfloat16, RES>(x, w, scale, shift, y, g, racc,
+                                             M, K, N, act, tile, s);
+  if (in_dtype == DT_BF16 && out_dtype == DT_F32)
+    return launch<__nv_bfloat16, float, RES>(x, w, scale, shift, y, g, racc,
+                                             M, K, N, act, tile, s);
+  if (in_dtype == DT_BF16 && out_dtype == DT_BF16)
+    return launch<__nv_bfloat16, __nv_bfloat16, RES>(
+        x, w, scale, shift, y, g, racc, M, K, N, act, tile, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -189,18 +257,22 @@ extern "C" int gemm_fused_fwd(const void* x, const void* w, const void* scale,
                               const void* shift, void* y, int M, int K, int N,
                               int in_dtype, int out_dtype, int act, int tile,
                               void* stream) {
-  if (M <= 0 || N <= 0) return 0;
-  if (K < 0 || act < ACT_LINEAR || act > ACT_GELU) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (in_dtype == DT_F32 && out_dtype == DT_F32)
-    return launch<float, float>(x, w, scale, shift, y, M, K, N, act, tile, s);
-  if (in_dtype == DT_F32 && out_dtype == DT_BF16)
-    return launch<float, __nv_bfloat16>(x, w, scale, shift, y, M, K, N, act, tile, s);
-  if (in_dtype == DT_BF16 && out_dtype == DT_F32)
-    return launch<__nv_bfloat16, float>(x, w, scale, shift, y, M, K, N, act, tile, s);
-  if (in_dtype == DT_BF16 && out_dtype == DT_BF16)
-    return launch<__nv_bfloat16, __nv_bfloat16>(x, w, scale, shift, y, M, K, N, act, tile, s);
-  return cudaErrorInvalidValue;
+  return dispatch<false>(x, w, scale, shift, y, nullptr, nullptr, M, K, N,
+                         in_dtype, out_dtype, act, tile, stream);
+}
+
+// The training forward: as gemm_fused_fwd, and also g = act'(u) and
+// racc = x @ w, both fp32 (M, N) row-major, each written where its pointer
+// is not null (g when act is not linear, racc when a scale is fused, as
+// _gemm_forward's want_g / want_acc).
+extern "C" int gemm_fused_fwd_res(const void* x, const void* w,
+                                  const void* scale, const void* shift,
+                                  void* y, void* g, void* racc, int M, int K,
+                                  int N, int in_dtype, int out_dtype, int act,
+                                  int tile, void* stream) {
+  return dispatch<true>(x, w, scale, shift, y, static_cast<float*>(g),
+                        static_cast<float*>(racc), M, K, N, in_dtype,
+                        out_dtype, act, tile, stream);
 }
 
 extern "C" const char* gemm_error_string(int code) {

@@ -1,25 +1,36 @@
 """The paper's "Innovative Compute Engine" on Hopper: the fused GEMM
-``y = act((x @ w) * scale + shift)``, forward.
+``y = act((x @ w) * scale + shift)``, forward and backward.
 
-Replaces ``repro/kernels/gemm.py::_gemm_kernel`` (launched by
-``_gemm_forward``).  The kernel is hand-written CUDA C++ in
-``csrc/gemm.cu``, built by ``build.py`` into a library with a plain C
-interface and called through ctypes.  The header of ``csrc/gemm.cu`` says
-what bounds it on the H100 (the fp32 FFMA rate: under ``fp32_strict`` there
-are no tensor cores) and what its design does about that.
+Replaces ``repro/kernels/gemm.py``'s three TPU kernels on the CNN path:
+``_gemm_kernel`` (launched by ``_gemm_forward``, with and without its
+training residuals), ``gemm_bwd_dx`` and ``gemm_bwd_dw``.  The kernels are
+hand-written CUDA C++ in ``csrc/gemm.cu`` and ``csrc/gemm_bwd.cu``, built
+by ``build.py`` into libraries with a plain C interface and called through
+ctypes.  Each source's header says what bounds it on the H100 (the fp32
+FFMA rate: under ``fp32_strict`` there are no tensor cores) and what its
+design does about that.
 
-Three pieces, side by side:
+Beside each kernel wrapper stands its plain PyTorch version:
 
-  gemm_fused_fwd   the wrapper: checks device, dtype, shape and contiguity,
-                   allocates the output, and launches the kernel on PyTorch's
-                   current stream for a CUDA tensor; only for a CPU tensor
-                   does it run the plain version instead.  A failed build or
-                   launch raises; nothing falls back.
-  gemm_fused_plain the plain PyTorch version of the same function (fp32
-                   torch.matmul, then the epilogue): the CPU path, and what
-                   the kernel is held against on the card.
-  launches         the count of kernel launches, so a run can show that its
-                   path went through the kernel (`reset_launches`).
+  gemm_fused_fwd         forward; ``residuals=True`` also returns
+                         g = act'(u) and the raw fp32 accumulator
+  gemm_fused_plain       its plain version, without residuals
+  gemm_fused_res_plain   its plain version, with residuals
+  gemm_bwd_dx            dX = dY . W^T            (gemm_bwd_dx_plain)
+  gemm_bwd_dw            dW = X^T . dY, split     (gemm_bwd_dw_plain)
+                         contraction plus a reduce pass
+
+A wrapper checks device, dtype, shape and contiguity, allocates its outputs
+and workspace, and launches on PyTorch's current stream for a CUDA tensor;
+only for a CPU tensor does it run the plain version instead.  A failed
+build or launch raises; nothing falls back.  Each kernel has its own
+launch count (`launches`, `launches_res`, `launches_dx`, `launches_dw`,
+`launches_reduce`), moved only where the kernel is launched, so a run can
+show that its path went through the kernels (`reset_launches`).
+
+`GemmFused` is the ``torch.autograd.Function`` of ``jax.custom_vjp``
+``_gemm``: its forward is the residual-emitting kernel, its backward the
+epilogue's column sums in PyTorch and the two backward kernels.
 """
 from __future__ import annotations
 
@@ -28,18 +39,31 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import ACTIVATIONS, epilogue
+from repro_torch.kernels.common import (ACTIVATIONS, act_deriv, apply_act,
+                                       epilogue)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-TILES = (64, 32)  # the square output tiles the kernel is instantiated for
+TILES = (64, 32)  # the square output tiles the kernels are instantiated for
+BK = 16           # contraction depth of one stage; split chunks are whole stages
 
-launches = 0
+launches = 0         # gemm_fused_fwd, serving forward (no residuals)
+launches_res = 0     # gemm_fused_fwd with residuals (the training forward)
+launches_dx = 0      # gemm_bwd_dx
+launches_dw = 0      # gemm_bwd_dw
+launches_reduce = 0  # the split-contraction reduce pass of either
 
 
 def reset_launches() -> None:
-    """Set the launch count to 0."""
-    global launches
-    launches = 0
+    """Set every launch count to 0."""
+    global launches, launches_res, launches_dx, launches_dw, launches_reduce
+    launches = launches_res = launches_dx = launches_dw = launches_reduce = 0
+
+
+def launch_counts() -> dict[str, int]:
+    """The launch counts by kernel name."""
+    return {"gemm_fused_fwd": launches, "gemm_fused_fwd_res": launches_res,
+            "gemm_bwd_dx": launches_dx, "gemm_bwd_dw": launches_dw,
+            "gemm_bwd_reduce": launches_reduce}
 
 
 def gemm_fused_plain(x, w, scale=None, shift=None, *, act: str = "linear",
@@ -50,16 +74,33 @@ def gemm_fused_plain(x, w, scale=None, shift=None, *, act: str = "linear",
     return epilogue(acc, scale, shift, act).to(out_dtype or x.dtype)
 
 
+def gemm_fused_res_plain(x, w, scale=None, shift=None, *,
+                         act: str = "linear", out_dtype=None):
+    """`gemm_fused_plain` with the training residuals: ``(y, g, racc)``,
+    g = act'(u) in fp32 when act is not linear (else None) and racc = the
+    fp32 x @ w when a scale is fused (else None)."""
+    acc = torch.matmul(x.float(), w.float())
+    u = epilogue(acc, scale, shift, "linear")
+    y = apply_act(u, act).to(out_dtype or x.dtype)
+    g = None if act == "linear" else act_deriv(u, act)
+    return y, g, (acc if scale is not None else None)
+
+
+def gemm_bwd_dx_plain(dy, w, *, out_dtype=None) -> torch.Tensor:
+    """dX = dY . W^T for dy (M, N), w (K, N): fp32 products and sums."""
+    return torch.matmul(dy.float(), w.float().t()).to(out_dtype or dy.dtype)
+
+
+def gemm_bwd_dw_plain(x, dy, *, out_dtype=None) -> torch.Tensor:
+    """dW = X^T . dY for x (M, K), dy (M, N): fp32 products and sums."""
+    return torch.matmul(x.float().t(), dy.float()).to(out_dtype or x.dtype)
+
+
 def _check(x, w, scale, shift, act, out_dtype):
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"need x (M, K) and w (K, N); got {tuple(x.shape)} "
                          f"and {tuple(w.shape)}")
-    if x.dtype not in _DTYPES or w.dtype != x.dtype:
-        raise TypeError(f"x and w must share float32 or bfloat16; got "
-                        f"{x.dtype} and {w.dtype}")
-    if out_dtype not in _DTYPES:
-        raise TypeError(f"out_dtype must be float32 or bfloat16, got "
-                        f"{out_dtype}")
+    _check_dtypes(x, w, out_dtype)
     if act not in ACTIVATIONS:
         raise ValueError(f"unknown activation: {act!r}")
     n = w.shape[1]
@@ -69,72 +110,242 @@ def _check(x, w, scale, shift, act, out_dtype):
                              f"{v.dtype} {tuple(v.shape)}")
 
 
-_FN = None
+def _check_dtypes(a, b, out_dtype):
+    if a.dtype not in _DTYPES or b.dtype != a.dtype:
+        raise TypeError(f"operands must share float32 or bfloat16; got "
+                        f"{a.dtype} and {b.dtype}")
+    if out_dtype not in _DTYPES:
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got "
+                        f"{out_dtype}")
 
 
-def _kernel():
-    """The bound C entry point, built and loaded on first use."""
-    global _FN
-    if _FN is None:
-        fn = build.load("gemm").gemm_fused_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                       + [ctypes.c_void_p])
+def _check_cuda(name: str, tile: int, **tensors) -> None:
+    """What every kernel takes: CUDA tensors on one device, contiguous,
+    dimensions below 2**31, an instantiated tile."""
+    first = next(iter(tensors.values()))
+    if first.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {first.device}")
+    if tile not in TILES:
+        raise ValueError(f"tile must be one of {TILES}, got {tile}")
+    for key, v in tensors.items():
+        if v is None:
+            continue
+        if v.device != first.device:
+            raise ValueError(f"{key} is on {v.device}, {name}'s first "
+                             f"operand on {first.device}")
+        if not v.is_contiguous():
+            raise ValueError(f"{key} must be contiguous")
+        if max(v.shape, default=0) >= 2**31:
+            raise ValueError(f"{key} {tuple(v.shape)} is too large for the "
+                             f"kernel")
+
+
+_FNS: dict = {}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {  # entry point -> (library, argument types)
+    "gemm_fused_fwd": ("gemm", [_P] * 5 + [_I] * 7 + [_P]),
+    "gemm_fused_fwd_res": ("gemm", [_P] * 7 + [_I] * 7 + [_P]),
+    "gemm_bwd_dx": ("gemm_bwd", [_P] * 3 + [_I] * 7 + [_P]),
+    "gemm_bwd_dw": ("gemm_bwd", [_P] * 3 + [_I] * 7 + [_P]),
+    "gemm_bwd_reduce": ("gemm_bwd", [_P, _P, ctypes.c_longlong, _I, _I, _P]),
+}
+_ERROR_STRINGS = {"gemm": "gemm_error_string",
+                  "gemm_bwd": "gemm_bwd_error_string"}
+
+
+def _kernel(entry: str):
+    """The bound C entry point, its library built and loaded on first use."""
+    fn = _FNS.get(entry)
+    if fn is None:
+        lib, argtypes = _SIGNATURES[entry]
+        fn = getattr(build.load(lib), entry)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+        _FNS[entry] = fn
+    return fn
 
 
-def _error_string(code: int) -> str:
-    fn = build.load("gemm").gemm_error_string
-    fn.argtypes = [ctypes.c_int]
-    fn.restype = ctypes.c_char_p
-    return fn(code).decode()
+def _launch(entry: str, device, *args, what: str) -> None:
+    """Call a C entry point on PyTorch's current stream of `device`;
+    RuntimeError with the CUDA error string when the launch fails."""
+    rc = _kernel(entry)(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        lib = _SIGNATURES[entry][0]
+        fn = getattr(build.load(lib), _ERROR_STRINGS[lib])
+        fn.argtypes = [ctypes.c_int]
+        fn.restype = ctypes.c_char_p
+        raise RuntimeError(f"{entry} launch failed for {what}: "
+                           f"{fn(rc).decode()}")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def gemm_fused_fwd(x, w, scale=None, shift=None, *, act: str = "linear",
-                   out_dtype=None, tile: int = 64) -> torch.Tensor:
+                   out_dtype=None, tile: int = 64, residuals: bool = False):
     """act((x @ w) * scale + shift) for x (M, K), w (K, N) row-major.
 
     x and w share float32 or bfloat16; scale/shift are float32 (N,) or
     None; the result is (M, N) in `out_dtype` (default x.dtype), with fp32
     accumulation.  `tile` is the square output tile (one of `TILES`).
-    A CPU tensor runs `gemm_fused_plain`; a CUDA tensor launches the kernel
+    With `residuals`, returns ``(y, g, racc)``: g = act'(u) fp32 (M, N)
+    when act is not linear, racc = the fp32 accumulator x @ w when a scale
+    is fused, each else None (``_gemm_forward(..., residuals=True)``); y
+    has the same bits as without residuals.
+    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
     and raises RuntimeError if the launch fails.
     """
     out_dtype = out_dtype or x.dtype
     _check(x, w, scale, shift, act, out_dtype)
     if x.device.type == "cpu":
-        return gemm_fused_plain(x, w, scale, shift, act=act,
-                                out_dtype=out_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"gemm_fused_fwd runs on cuda or cpu, not "
-                         f"{x.device}")
-    if tile not in TILES:
-        raise ValueError(f"tile must be one of {TILES}, got {tile}")
-    for name, v in (("x", x), ("w", w), ("scale", scale), ("shift", shift)):
-        if v is None:
-            continue
-        if v.device != x.device:
-            raise ValueError(f"{name} is on {v.device}, x on {x.device}")
-        if not v.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        plain = gemm_fused_res_plain if residuals else gemm_fused_plain
+        return plain(x, w, scale, shift, act=act, out_dtype=out_dtype)
+    _check_cuda("gemm_fused_fwd", tile, x=x, w=w, scale=scale, shift=shift)
     m, k = x.shape
     n = w.shape[1]
-    if max(m, k, n) >= 2**31:
-        raise ValueError(f"dimension too large for the kernel: {(m, k, n)}")
     y = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    if m == 0 or n == 0:
+    g = racc = None
+    if residuals:
+        if act != "linear":
+            g = torch.empty((m, n), dtype=torch.float32, device=x.device)
+        if scale is not None:
+            racc = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    if m and n:
+        args = [_ptr(x), _ptr(w), _ptr(scale), _ptr(shift), _ptr(y)]
+        if residuals:
+            args += [_ptr(g), _ptr(racc)]
+        args += [m, k, n, _DTYPES[x.dtype], _DTYPES[out_dtype],
+                 ACTIVATIONS.index(act), tile]
+        entry = "gemm_fused_fwd_res" if residuals else "gemm_fused_fwd"
+        _launch(entry, x.device, *args, what=f"(M, K, N) = {(m, k, n)}")
+        global launches, launches_res
+        if residuals:
+            launches_res += 1
+        else:
+            launches += 1
+    return (y, g, racc) if residuals else y
+
+
+def split_chunk(kdim: int, splits: int) -> tuple[int, int]:
+    """(chunk, splits) for a contraction of `kdim` cut into at most
+    `splits` pieces of whole BK stages; the returned split count is the
+    number of non-empty pieces."""
+    per_split = -(-kdim // max(1, splits))
+    chunk = BK * max(1, -(-per_split // BK))
+    return chunk, max(1, -(-kdim // chunk))
+
+
+def _bwd(entry, a, b, dims, out_shape, kdim, out_dtype, tile, splits):
+    """Launch the backward GEMM `entry` on operands a, b, with `dims` the
+    entry point's three sizes ((M, N, K) for dX, (M, K, N) for dW), and
+    the reduce pass when the contraction `kdim` is split; returns the
+    output tensor."""
+    global launches_dx, launches_dw, launches_reduce
+    out = torch.empty(out_shape, dtype=out_dtype, device=a.device)
+    if out.numel() == 0:
+        return out
+    chunk, splits = split_chunk(kdim, splits)
+    target = out if splits == 1 else torch.empty(
+        (splits, *out_shape), dtype=torch.float32, device=a.device)
+    what = f"sizes {dims}"
+    _launch(entry, a.device, _ptr(a), _ptr(b), _ptr(target), *dims,
+            _DTYPES[a.dtype], _DTYPES[target.dtype], tile, chunk, what=what)
+    if entry == "gemm_bwd_dx":
+        launches_dx += 1
+    else:
+        launches_dw += 1
+    if splits > 1:
+        _launch("gemm_bwd_reduce", a.device, _ptr(target), _ptr(out),
+                out.numel(), splits, _DTYPES[out_dtype], what=what)
+        launches_reduce += 1
+    return out
+
+
+def gemm_bwd_dx(dy, w, *, out_dtype=None, tile: int = 64,
+                splits: int = 1) -> torch.Tensor:
+    """dX[m, k] = sum_n dY[m, n] W[k, n] for dy (M, N), w (K, N) -> (M, K).
+
+    dy and w share float32 or bfloat16; fp32 accumulation; the result in
+    `out_dtype` (default dy.dtype).  `splits` > 1 cuts the contraction
+    into that many pieces (see `split_chunk`) whose fp32 partials a reduce
+    pass adds in a fixed order.  A CPU tensor runs `gemm_bwd_dx_plain`; a
+    CUDA tensor launches the kernel or raises.
+    """
+    out_dtype = out_dtype or dy.dtype
+    if dy.dim() != 2 or w.dim() != 2 or dy.shape[1] != w.shape[1]:
+        raise ValueError(f"need dy (M, N) and w (K, N); got "
+                         f"{tuple(dy.shape)} and {tuple(w.shape)}")
+    _check_dtypes(dy, w, out_dtype)
+    if dy.device.type == "cpu":
+        return gemm_bwd_dx_plain(dy, w, out_dtype=out_dtype)
+    _check_cuda("gemm_bwd_dx", tile, dy=dy, w=w)
+    (m, n), k = dy.shape, w.shape[0]
+    return _bwd("gemm_bwd_dx", dy, w, (m, n, k), (m, k), n, out_dtype, tile,
+                splits)
+
+
+def gemm_bwd_dw(x, dy, *, out_dtype=None, tile: int = 64,
+                splits: int = 1) -> torch.Tensor:
+    """dW[k, n] = sum_m X[m, k] dY[m, n] for x (M, K), dy (M, N) -> (K, N).
+
+    As `gemm_bwd_dx`, with the contraction over M (the rows of the
+    forward), which `splits` cuts; default out_dtype x.dtype.  A CPU
+    tensor runs `gemm_bwd_dw_plain`.
+    """
+    out_dtype = out_dtype or x.dtype
+    if x.dim() != 2 or dy.dim() != 2 or x.shape[0] != dy.shape[0]:
+        raise ValueError(f"need x (M, K) and dy (M, N); got "
+                         f"{tuple(x.shape)} and {tuple(dy.shape)}")
+    _check_dtypes(x, dy, out_dtype)
+    if x.device.type == "cpu":
+        return gemm_bwd_dw_plain(x, dy, out_dtype=out_dtype)
+    _check_cuda("gemm_bwd_dw", tile, x=x, dy=dy)
+    (m, k), n = x.shape, dy.shape[1]
+    return _bwd("gemm_bwd_dw", x, dy, (m, k, n), (k, n), m, out_dtype, tile,
+                splits)
+
+
+class GemmFused(torch.autograd.Function):
+    """The fused GEMM with its gradient (``repro``'s ``_gemm`` custom VJP).
+
+    ``GemmFused.apply(x, w, scale, shift, act, out_dtype, tile, dx_plan,
+    dw_plan)``; the plans are ``(tile, splits)`` of the two backward GEMMs
+    (`kernels.ops.default_bwd_tiles`).  The forward saves x, w, scale and
+    the residuals g and racc.  The backward, as ``_gemm_vjp_bwd``:
+    dyg = dy * g; dshift = sum_rows dyg and dscale = sum_rows dyg * racc,
+    in fp32 in PyTorch; dacc = dyg * scale cast to x's dtype; then dX and
+    dW by the kernels.  dX is not computed when x needs no gradient (the
+    network's first layer, whose input is the image).
+    """
+
+    @staticmethod
+    def forward(ctx, x, w, scale, shift, act, out_dtype, tile, dx_plan,
+                dw_plan):
+        y, g, racc = gemm_fused_fwd(x, w, scale, shift, act=act,
+                                    out_dtype=out_dtype, tile=tile,
+                                    residuals=True)
+        ctx.save_for_backward(x, w, scale, g, racc)
+        ctx.plans = (dx_plan, dw_plan)
         return y
-    rc = _kernel()(
-        x.data_ptr(), w.data_ptr(),
-        None if scale is None else scale.data_ptr(),
-        None if shift is None else shift.data_ptr(),
-        y.data_ptr(), m, k, n, _DTYPES[x.dtype], _DTYPES[out_dtype],
-        ACTIVATIONS.index(act), tile,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"gemm_fused_fwd launch failed for (M, K, N) = "
-                           f"{(m, k, n)}: {_error_string(rc)}")
-    global launches
-    launches += 1
-    return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, scale, g, racc = ctx.saved_tensors
+        need_x, need_w, need_scale, need_shift = ctx.needs_input_grad[:4]
+        (dx_tile, dx_splits), (dw_tile, dw_splits) = ctx.plans
+        dyg = dy.float()                                   # dL/du
+        if g is not None:
+            dyg = dyg * g
+        dshift = dyg.sum(0) if need_shift else None
+        dscale = (dyg * racc).sum(0) if need_scale else None
+        dacc = dyg * scale if scale is not None else dyg   # dL/d(x @ w)
+        dacc = dacc.to(x.dtype).contiguous()
+        dx = dw = None
+        if need_x:
+            dx = gemm_bwd_dx(dacc, w, out_dtype=x.dtype, tile=dx_tile,
+                             splits=dx_splits)
+        if need_w:
+            dw = gemm_bwd_dw(x, dacc, out_dtype=w.dtype, tile=dw_tile,
+                             splits=dw_splits)
+        return dx, dw, dscale, dshift, None, None, None, None, None

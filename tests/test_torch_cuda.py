@@ -7,9 +7,11 @@ so it runs on a machine that has PyTorch for CUDA and no jax:
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
 (``--noconftest`` because tests/conftest.py imports jax.)  It holds the
-fused-GEMM kernel against its plain version, checks the row-independence
-that bucketed serving relies on, and runs a small network on the `cuda`
-engine against `eager` on the same card.
+fused-GEMM kernel, its residual variant and the dX / dW kernels against
+their plain versions, checks the row-independence that bucketed serving
+relies on, that a training forward leaves the serving bits unchanged and
+that a split dW gives the same bits twice, and runs a small network and a
+small train step on the `cuda` engine against `eager` on the same card.
 """
 import pytest
 import torch
@@ -18,7 +20,9 @@ from repro_torch.configs.darknet_ref import DARKNET_SMALL_CFG, SEGNET_SMALL_CFG
 from repro_torch.core import make_engine
 from repro_torch.core.darknet.network import Network
 from repro_torch.kernels import gemm, ops
-from repro_torch.kernels.common import ACTIVATIONS
+from repro_torch.kernels.common import ACTIVATIONS, epilogue
+from repro_torch.train import optimizer as opt
+from repro_torch.train.train_step import make_cnn_train_step
 
 pytestmark = pytest.mark.cuda
 
@@ -35,7 +39,7 @@ def card():
 
 
 def _relmax(a, b) -> float:
-    a, b = a.double(), b.double()
+    a, b = a.detach().double(), b.detach().double()
     return float((a - b).abs().max() / (b.abs().max() + 1e-12))
 
 
@@ -98,3 +102,117 @@ def test_network_on_cuda_engine_matches_eager(card, cfg):
     with torch.inference_mode():
         got, want = net(x), ref(x)
     assert _relmax(got, want) <= 1e-4
+
+
+def _operands(card, m, k, n, dtype=torch.float32, seed=0):
+    g = torch.Generator(device=card).manual_seed(seed + m + k + n)
+    x = torch.randn(m, k, generator=g, device=card).to(dtype)
+    w = (torch.randn(k, n, generator=g, device=card) / k ** 0.5).to(dtype)
+    scale = torch.rand(n, generator=g, device=card) + 0.5
+    shift = torch.randn(n, generator=g, device=card) * 0.1
+    return x, w, scale, shift
+
+
+@pytest.mark.parametrize("m,k,n", MATMUL_CASES)
+def test_residual_kernel_matches_plain_and_keeps_the_serving_bits(card, m,
+                                                                  k, n):
+    x, w, scale, shift = _operands(card, m, k, n)
+    u_all = torch.matmul(x, w)
+    for act in ACTIVATIONS:
+        for sc, sh in ((None, None), (scale, None), (scale, shift)):
+            want = gemm.gemm_fused_res_plain(x, w, sc, sh, act=act)
+            u = epilogue(u_all, sc, sh, "linear")
+            for tile in gemm.TILES:
+                before = gemm.launch_counts()
+                got = gemm.gemm_fused_fwd(x, w, sc, sh, act=act, tile=tile,
+                                          residuals=True)
+                after = gemm.launch_counts()
+                assert after["gemm_fused_fwd_res"] == before[
+                    "gemm_fused_fwd_res"] + 1
+                assert after["gemm_fused_fwd"] == before["gemm_fused_fwd"]
+                assert torch.equal(got[0], gemm.gemm_fused_fwd(
+                    x, w, sc, sh, act=act, tile=tile))
+                assert (got[1] is None) == (act == "linear")
+                assert (got[2] is None) == (sc is None)
+                assert _relmax(got[0], want[0]) <= 1e-5
+                if got[1] is not None:
+                    # relu/leaky step at u = 0: compare away from the kink.
+                    away = u.abs() > 1e-5 * u.abs().max()
+                    assert _relmax(got[1][away], want[1][away]) <= 1e-5
+                if got[2] is not None:
+                    assert _relmax(got[2], want[2]) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("m,k,n", MATMUL_CASES + [(4096, 27, 32)])
+def test_bwd_kernels_match_plain_versions(card, m, k, n, dtype, tol):
+    x, w, _, _ = _operands(card, m, k, n, dtype, seed=1)
+    dy = torch.randn(m, n, device=card).to(dtype)
+    want_dx = gemm.gemm_bwd_dx_plain(dy, w)
+    want_dw = gemm.gemm_bwd_dw_plain(x, dy)
+    for tile in gemm.TILES:
+        for splits in (1, 2, 7):
+            before = gemm.launch_counts()
+            dx = gemm.gemm_bwd_dx(dy, w, tile=tile, splits=splits)
+            dw = gemm.gemm_bwd_dw(x, dy, tile=tile, splits=splits)
+            after = gemm.launch_counts()
+            assert after["gemm_bwd_dx"] == before["gemm_bwd_dx"] + 1
+            assert after["gemm_bwd_dw"] == before["gemm_bwd_dw"] + 1
+            reduces = (gemm.split_chunk(n, splits)[1] > 1) + (
+                gemm.split_chunk(m, splits)[1] > 1)
+            assert after["gemm_bwd_reduce"] == before[
+                "gemm_bwd_reduce"] + reduces
+            assert dx.dtype == dw.dtype == dtype
+            assert tuple(dx.shape) == (m, k) and tuple(dw.shape) == (k, n)
+            assert _relmax(dx, want_dx) <= tol, (tile, splits)
+            assert _relmax(dw, want_dw) <= tol, (tile, splits)
+
+
+def test_split_dw_gives_the_same_bits_twice(card):
+    x, _, _, _ = _operands(card, 100352, 288, 64, seed=2)
+    dy = torch.randn(100352, 64, device=card)
+    _, _, _, splits = ops.default_bwd_tiles("dw", 288, 100352, 64)
+    assert splits > 1
+    first = gemm.gemm_bwd_dw(x, dy, tile=32, splits=splits)
+    assert torch.equal(first, gemm.gemm_bwd_dw(x, dy, tile=32,
+                                               splits=splits))
+
+
+def test_bwd_wrappers_refuse_what_the_kernels_do_not_take(card):
+    dy = torch.zeros(8, 5, device=card)
+    w = torch.zeros(4, 5, device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        gemm.gemm_bwd_dx(dy, torch.zeros(5, 4, device=card).t())
+    with pytest.raises(ValueError, match="contiguous"):
+        gemm.gemm_bwd_dw(torch.zeros(4, 8, device=card).t(), dy)
+    with pytest.raises(ValueError, match="tile"):
+        gemm.gemm_bwd_dx(dy, w, tile=16)
+    with pytest.raises(ValueError, match="on cpu"):
+        gemm.gemm_bwd_dw(torch.zeros(8, 4, device=card), dy.cpu())
+
+
+def test_small_train_step_on_cuda_matches_eager(card):
+    cuda = Network(DARKNET_SMALL_CFG, make_engine("cuda"),
+                   generator=torch.Generator().manual_seed(0))
+    eager = Network(DARKNET_SMALL_CFG, make_engine("eager", device=card))
+    eager.load_state_dict(cuda.state_dict())
+    ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=1)
+    g = torch.Generator().manual_seed(1)
+    batch = (torch.randn((4, *cuda.in_shape), generator=g).to(card),
+             torch.randint(0, 10, (4,), generator=g).to(card))
+    results = []
+    for net in (cuda, eager):
+        state = opt.adamw_init(dict(net.named_parameters()))
+        gemm.reset_launches()
+        state, metrics = make_cnn_train_step(net, ocfg)(state, batch)
+        results.append((metrics, gemm.launch_counts(), state))
+    (mc, lc, sc), (me, le, se) = results
+    assert lc["gemm_fused_fwd_res"] == 4 and lc["gemm_bwd_dw"] == 4
+    assert lc["gemm_bwd_dx"] == 3 and lc["gemm_fused_fwd"] == 0
+    assert sum(le.values()) == 0  # eager launches none of the kernels
+    assert abs(mc["loss"].item() - me["loss"].item()) <= 1e-5 * abs(
+        me["loss"].item())
+    for name, p in eager.named_parameters():
+        assert _relmax(dict(cuda.named_parameters())[name], p) <= 1e-4
+        assert _relmax(sc["mu"][name], se["mu"][name]) <= 1e-4
