@@ -57,6 +57,40 @@ script exits non-zero.  Phases:
               forward: kernel, plain, bound and library (torch.matmul) ms;
               the whole train step's ms and images/s on `cuda` and `eager`
               at batch 8 and 64.
+  9. check_attn  the flash-attention forward kernel against its plain
+              version: head ratios (16,16), (14,2), (8,1), Sq 1/4/16 against
+              Skv 64/256, causal on and off, kv_len none / per batch with a 0,
+              head dims 32/64/128, fp32 and bf16; then qwen2-0.5b's shapes
+              (prefill chunks, a 512-token prompt, shallow decode).  Rows
+              with no live key must be exactly 0.  Bars as phase 2.
+ 10. check_decode  the split-KV decode kernel's partials and empty-span
+              sentinels against its plain version over Sq 1/4/8 against
+              Skv 256/1024 and qwen2-0.5b's decode shapes; at one split its
+              partial must equal the forward kernel's output bit for bit.
+ 11. lm       full-width, full-depth qwen2-0.5b (random weights from a seed,
+              random QKV biases), `cuda` against `eager` on the card:
+              prefill logits and caches at S = 512 and one decode dispatch
+              against a 1024-row cache, within 1e-4 max-relative; the tied
+              head is one contiguous tensor and a decode dispatch allocates
+              less than its size (it is never copied); a sequence's decode
+              logits are bitwise equal in batch bucket 1 and 8.
+ 12. lm_serve the LM main path: a PagedServingEngine on `cuda` (chunk 64,
+              prefill budget 256, buckets 1/2/4/8, 256 blocks of 16,
+              max_len 1024) serves 24 requests (prompts 8-700 tokens,
+              max_new 4-48, numpy seed), with the launch counts set to 0
+              just before and read just after: every request completes,
+              builds stay within the bound, both attention kernels ran and
+              no `eager` op was dispatched.  Then the slot engine on a
+              smaller stream: a token that differs from the paged engine's
+              is allowed only where the `eager` top-2 margin is below 10 x
+              the measured logits error (counted and printed).
+ 13. timing_lm  each attention kernel at the path's shapes: kernel, plain,
+              bound and torch's scaled_dot_product_attention (TF32 off, a
+              baseline only) ms, each the device time of CUDA-graph replays
+              (`graph_ms`), and the kernel's time when called back to back
+              from Python (`enqueued_ms`, host enqueue included); the paged
+              step's prefill-chunk and decode dispatch ms, tokens/s, p50
+              and p99.
 Then the kernels line, and last the result line.
 """
 from __future__ import annotations
@@ -74,11 +108,21 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.configs.base import get_arch  # noqa: E402
 from repro_torch.configs.darknet_ref import DARKNET19_CFG  # noqa: E402
 from repro_torch.core import backends, make_engine  # noqa: E402
 from repro_torch.core.darknet.network import Network  # noqa: E402
 from repro_torch.kernels import build, gemm, ops  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import flash_decode as fd  # noqa: E402
 from repro_torch.kernels.common import ACTIVATIONS, epilogue  # noqa: E402
+from repro_torch.kernels.ref import attention_mask  # noqa: E402
+from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.serve import kvcache, kvpool  # noqa: E402
+from repro_torch.serve.engine import Request, ServingEngine  # noqa: E402
+from repro_torch.serve.scheduler import PagedServingEngine  # noqa: E402
+from repro_torch.serve.serve_step import (make_decode_step,  # noqa: E402
+                                          make_paged_step, make_prefill_step)
 from repro_torch.serve.frontend import (CNNServingEngine,  # noqa: E402
                                         ImageRequest)
 from repro_torch.train import optimizer as opt  # noqa: E402
@@ -101,6 +145,17 @@ REPLACES = "src/repro/kernels/gemm.py:75"  # _gemm_kernel
 REPLACES_DX = "src/repro/kernels/gemm.py:251"  # gemm_bwd_dx's pallas_call
 REPLACES_DW = "src/repro/kernels/gemm.py:283"  # gemm_bwd_dw's pallas_call
 TRAIN_BATCH, TRAIN_STEPS, BIG_BATCH = 8, 3, 64
+SOURCE_ATTN = "src/repro_torch/kernels/csrc/flash_attention.cu"
+SOURCE_DECODE = "src/repro_torch/kernels/csrc/flash_decode.cu"
+REPLACES_ATTN = "src/repro/kernels/flash_attention.py:354"  # _flash_kernel
+REPLACES_DECODE = "src/repro/kernels/flash_decode.py:168"  # _decode_kernel
+HEAD_RATIOS = ((16, 16), (14, 2), (8, 1))
+LM_ARCH = "qwen2-0.5b"
+LM_PREFILL, LM_CACHE = 512, 1024       # lm phase: prompt and cache rows
+SERVE = dict(kv_blocks=256, block_size=16, max_len=1024, chunk=64,
+             prefill_budget=256, batch_buckets=(1, 2, 4, 8))
+N_REQUESTS = 24
+MARGIN_FACTOR = 10  # a slot/paged token mismatch needs margin < 10 x error
 
 
 def emit(phase: str, **fields) -> None:
@@ -217,6 +272,32 @@ def cuda_ms(fn, reps: int = 20, repeats: int = 5) -> float:
         start.record()
         for _ in range(reps):
             fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def graph_ms(fn, reps: int = 20, repeats: int = 5) -> float:
+    """Device time of one call of `fn`: `reps` calls captured in one CUDA
+    graph after a warm call, the graph replayed `repeats` times between
+    CUDA events, the median per call.  Unlike `cuda_ms` it leaves out the
+    host's time to enqueue each call, which exceeds the device time of a
+    small kernel."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
@@ -365,6 +446,431 @@ def bound(flops, nbytes, peak_flops, peak_bw) -> tuple[float, str]:
     ops_ms, bytes_ms = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
                                    else "bytes")
+
+
+# ----------------------------------------------------------------- the LM ---
+
+def qkv(b, sq, skv, h, kv, d, dtype, gen):
+    """Attention operands drawn on the card from the CUDA generator `gen`."""
+    dev = gen.device
+    q = torch.randn(b, sq, h, d, generator=gen, device=dev) / math.sqrt(d)
+    k = torch.randn(b, skv, kv, d, generator=gen, device=dev)
+    v = torch.randn(b, skv, kv, d, generator=gen, device=dev)
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+def live_mask(q, k, kv_len, causal) -> torch.Tensor:
+    """(B, Sq, Skv) bool: the (query, key) pairs the attention reads."""
+    b, sq = q.shape[:2]
+    return attention_mask(b, sq, k.shape[1], causal=causal, kv_len=kv_len,
+                          device=q.device).expand(b, sq, k.shape[1])
+
+
+def attn_work(q, k, kv_len, causal, out_bytes) -> tuple[float, float]:
+    """(FLOPs, bytes) these inputs need: 4 D FLOPs per live (query row,
+    key) pair and query head; q, each live key's k and v row once, and the
+    output once."""
+    _, _, h, d = q.shape
+    mask = live_mask(q, k, kv_len, causal)
+    keys = float(mask.any(1).sum())            # live key rows, all batches
+    flops = 4.0 * d * h * float(mask.sum())
+    nbytes = q.element_size() * (q.numel() + 2.0 * keys * k.shape[2] * d)
+    return flops, nbytes + out_bytes
+
+
+def check_attn_case(q, k, v, kvl, causal) -> tuple[float, float]:
+    """Forward kernel vs plain at one case: (max-relative, max-abs) error;
+    rows with no live key must come out exactly 0."""
+    got = fa.flash_attention_fwd(q, k, v, kvl, causal=causal)
+    want = fa.flash_attention_plain(q, k, v, kvl, causal=causal)
+    where = f"q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype} causal={causal}"
+    check(bool(torch.isfinite(got).all()), f"non-finite attention at {where}")
+    dead = ~live_mask(q, k, kvl, causal).any(-1)          # (B, Sq)
+    check(bool((got[dead] == 0).all()), f"dead rows not 0 at {where}")
+    err = relmax(got, want)
+    check(err <= (FP32_TOL if q.dtype == torch.float32 else BF16_TOL),
+          f"flash_attention vs plain at {where}: {err:.3e}")
+    return err, float((got.float() - want.float()).abs().max())
+
+
+def check_decode_case(q, k, v, kvl, causal) -> tuple[float, float, int]:
+    """Decode partials vs plain at one case, the empty-span sentinels, and
+    at one split the forward kernel's bits: (max-relative, max-abs error,
+    splits)."""
+    skv = k.shape[1]
+    n_splits, span = ops.decode_splits(skv, k.shape[2])
+    got = fd.flash_decode_partials(q, k, v, kvl, causal=causal,
+                                   n_splits=n_splits, span=span)
+    want = fd.flash_decode_plain(q, k, v, kvl, causal=causal,
+                                 n_splits=n_splits, span=span)
+    where = (f"q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype} causal="
+             f"{causal} splits={n_splits}x{span}")
+    check(all(bool(torch.isfinite(t).all()) for t in got),
+          f"non-finite partials at {where}")
+    check(torch.equal(got[1] == fd.EMPTY_SPAN_LSE,
+                      want[1] == fd.EMPTY_SPAN_LSE),
+          f"empty spans differ at {where}")
+    check(bool((got[0][got[1] == fd.EMPTY_SPAN_LSE] == 0).all()),
+          f"an empty span's partial is not 0 at {where}")
+    err = max(relmax(got[0], want[0]), relmax(got[1], want[1]))
+    check(err <= (FP32_TOL if q.dtype == torch.float32 else BF16_TOL),
+          f"flash_decode vs plain at {where}: {err:.3e}")
+    one, _ = fd.flash_decode_partials(q, k, v, kvl, causal=causal,
+                                      n_splits=1, span=-(-skv // 64) * 64)
+    fwd = fa.flash_attention_fwd(q, k, v, kvl, causal=causal)
+    check(torch.equal(one[:, :, 0].transpose(1, 2).to(q.dtype), fwd),
+          f"one-split decode is not the forward kernel's bits at {where}")
+    return err, float((got[0] - want[0]).abs().max()), n_splits
+
+
+def attn_phases(cgen) -> dict:
+    """Phases check_attn and check_decode; returns the fp32 max-abs errors
+    at qwen2-0.5b's shapes."""
+    worst = {"attn": {"fp32": 0.0, "bf16": 0.0},
+             "decode": {"fp32": 0.0, "bf16": 0.0}}
+    path_abs = {"attn": 0.0, "decode": 0.0}
+    dev = cgen.device
+    cases = 0
+    for h, kv in HEAD_RATIOS:
+        for d in (32, 64, 128):
+            for dt in (torch.float32, torch.bfloat16):
+                kind = "fp32" if dt == torch.float32 else "bf16"
+                for sq in (1, 4, 16):
+                    for skv in (64, 256):
+                        q, k, v = qkv(2, sq, skv, h, kv, d, dt, cgen)
+                        kvl = torch.tensor([skv // 2 + 3, 0],
+                                           dtype=torch.int32, device=dev)
+                        for causal in (True, False):
+                            for lens in (None, kvl):
+                                err, _ = check_attn_case(q, k, v, lens,
+                                                         causal)
+                                worst["attn"][kind] = max(
+                                    worst["attn"][kind], err)
+                                cases += 1
+                for sq in (1, 4, 8):
+                    for skv in (256, 1024):
+                        q, k, v = qkv(3, sq, skv, h, kv, d, dt, cgen)
+                        kvl = torch.tensor([skv, skv // 3, 0],
+                                           dtype=torch.int32, device=dev)
+                        for causal in (True, False):
+                            err, _, _ = check_decode_case(q, k, v, kvl,
+                                                          causal)
+                            worst["decode"][kind] = max(
+                                worst["decode"][kind], err)
+    torch.cuda.synchronize()
+    emit("check_attn", grid_cases=cases, relmax=worst["attn"])
+    cfg = get_arch(LM_ARCH)
+    h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    rows = []
+    for name, (b, sq, skv, lens, causal) in {
+            "prefill_chunk": (1, 64, LM_CACHE, [576], True),
+            "prompt_512": (1, LM_PREFILL, LM_PREFILL, None, True),
+            "shallow_decode": (8, 1, 128, [1, 17, 40, 64, 80, 100, 127, 128],
+                               False)}.items():
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = qkv(b, sq, skv, h, kv, d, dt, cgen)
+            kvl = (None if lens is None else
+                   torch.tensor(lens, dtype=torch.int32, device=dev))
+            err, mabs = check_attn_case(q, k, v, kvl, causal)
+            if dt == torch.float32:
+                path_abs["attn"] = max(path_abs["attn"], mabs)
+            rows.append({"shape": name, "dtype": str(dt), "relmax": err,
+                         "max_abs": mabs})
+    emit("check_attn", arch=LM_ARCH, cases=rows)
+    rows = []
+    for name, (b, sq, skv, lens, causal) in {
+            "decode_b8": (8, 1, LM_CACHE, [1024, 700, 300, 256, 129, 65, 1,
+                                           0], False),
+            "decode_b1": (1, 1, LM_CACHE, [913], False),
+            "chunk_8": (1, 8, 512, [400], True)}.items():
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = qkv(b, sq, skv, h, kv, d, dt, cgen)
+            kvl = torch.tensor(lens, dtype=torch.int32, device=dev)
+            err, mabs, splits = check_decode_case(q, k, v, kvl, causal)
+            if dt == torch.float32:
+                path_abs["decode"] = max(path_abs["decode"], mabs)
+            rows.append({"shape": name, "dtype": str(dt), "splits": splits,
+                         "relmax": err, "max_abs": mabs})
+    torch.cuda.synchronize()
+    emit("check_decode", relmax=worst["decode"], arch=LM_ARCH, cases=rows,
+         bitwise_one_split=True)
+    return path_abs
+
+
+def lm_params(cfg, dev):
+    """Full-width random parameters from a seed, with random QKV biases
+    (the init's zeros would leave the bias epilogue untested)."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    params = tfm.init_params(cfg, generator=gen, device=dev)
+    with torch.no_grad():
+        for lp in params["layers"]:
+            for name in ("bq", "bk", "bv"):
+                b = lp["attn"][name]
+                b.copy_(torch.randn(b.shape, generator=gen, device=dev) * 0.1)
+    return params
+
+
+def lm_phase(cfg, params, dev) -> dict:
+    """Phase lm: cuda vs eager at full width; returns the logits error."""
+    cuda, eager = make_engine("cuda"), make_engine("eager", device=dev)
+    rng = np.random.default_rng(5)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (1, LM_PREFILL))).to(dev)
+    nxt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 1))).to(dev)
+    head = tfm.head_weight(params, cfg)
+    head_ptr = head.data_ptr()
+    out = {}
+    with torch.inference_mode():
+        for label, eng in (("cuda", cuda), ("eager", eager)):
+            before = (fa.launches, fd.launches)
+            logits, caches = make_prefill_step(eng, cfg)(params, tokens)
+            buf = kvcache.cache_init(cfg, 1, LM_CACHE, device=dev)
+            for name in ("k", "v"):
+                buf[0][name][:, :, :LM_PREFILL] = caches[0][name]
+            step = make_decode_step(eng, cfg)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            dlogits, _ = step(params, buf, nxt,
+                              torch.tensor(LM_PREFILL, device=dev))
+            torch.cuda.synchronize()
+            extra = torch.cuda.max_memory_allocated(dev) - base
+            out[label] = {"logits": logits, "caches": caches,
+                          "dlogits": dlogits, "decode_extra_bytes": extra,
+                          "launches": (fa.launches - before[0],
+                                       fd.launches - before[1])}
+    cu, ea = out["cuda"], out["eager"]
+    errs = {"prefill_logits": relmax(cu["logits"], ea["logits"]),
+            "k_cache": relmax(cu["caches"][0]["k"], ea["caches"][0]["k"]),
+            "v_cache": relmax(cu["caches"][0]["v"], ea["caches"][0]["v"]),
+            "decode_logits": relmax(cu["dlogits"], ea["dlogits"])}
+    abs_err = max(float((cu[k] - ea[k]).abs().max())
+                  for k in ("logits", "dlogits"))
+    head_bytes = head.numel() * head.element_size()
+    emit("lm", arch=LM_ARCH, layers=cfg.n_layers, d_model=cfg.d_model,
+         prefill=LM_PREFILL, cache_rows=LM_CACHE, relmax=errs,
+         logits_max_abs_err=abs_err,
+         logits_max_abs=float(ea["logits"].abs().max()),
+         launches_cuda={"flash_attention": cu["launches"][0],
+                        "flash_decode": cu["launches"][1]},
+         launches_eager=ea["launches"],
+         decode_extra_mb=cu["decode_extra_bytes"] / 1e6,
+         head_mb=head_bytes / 1e6)
+    for key, err in errs.items():
+        check(math.isfinite(err) and err <= LOGIT_TOL,
+              f"{key} cuda vs eager {err:.3e} > {LOGIT_TOL:g}")
+    check(cu["launches"] == (cfg.n_layers, cfg.n_layers),
+          f"lm launches {cu['launches']}, want one of each per layer")
+    check(ea["launches"] == (0, 0), "the eager engine launched a kernel")
+    check(head.is_contiguous() and tfm.head_weight(params, cfg).data_ptr()
+          == head_ptr, "the head weight moved")
+    check(cu["decode_extra_bytes"] < head_bytes,
+          f"a decode dispatch allocated {cu['decode_extra_bytes']} bytes, "
+          f"as much as the head: it was copied")
+    return {"abs_err": abs_err, "errs": errs}
+
+
+def bucket_phase(cfg, params, dev) -> dict:
+    """A sequence's decode logits in batch bucket 1 and in bucket 8 (the
+    other rows padded as the scheduler pads them) must be bitwise equal:
+    a 300-token sequence against 320 and 512 gathered rows (the decode
+    formulation) and a 100-token one against 128 (the forward kernel)."""
+    step = make_paged_step(make_engine("cuda"), cfg)
+    cache = kvpool.PagedKVCache(cfg, 64, 16, device=dev)
+    rng = np.random.default_rng(8)
+    chunk = SERVE["chunk"]
+    seqs = {300: np.arange(0, 32, dtype=np.int32),
+            100: np.arange(40, 48, dtype=np.int32)}
+    result = {}
+    with torch.inference_mode():
+        for n, table in seqs.items():            # prefill, chunk by chunk
+            prompt = rng.integers(1, cfg.vocab_size, n)
+            rows = -(-n // chunk) * chunk // 16
+            for c0 in range(0, n, chunk):
+                toks = np.zeros((1, chunk), np.int64)
+                part = prompt[c0:c0 + chunk]
+                toks[0, :len(part)] = part
+                step(params, cache.pools, table[None, :rows], toks,
+                     np.array([c0], np.int32))
+        for n, nb in ((300, 20), (300, 32), (100, 8)):
+            runs = []
+            for bb in (1, 8):
+                tables = np.full((bb, nb), cache.trash_block, np.int32)
+                tables[0] = seqs[n][:nb]
+                toks = np.zeros((bb, 1), np.int64)
+                toks[0, 0] = 7
+                pos = np.zeros(bb, np.int32)
+                pos[0] = n
+                pools = [{k: t.clone() for k, t in e.items()}
+                         for e in cache.pools]
+                logits, _ = step(params, pools, tables, toks, pos)
+                runs.append(logits[:1])
+            torch.cuda.synchronize()
+            result[str(nb * 16)] = bool(torch.equal(runs[0], runs[1]))
+    emit("lm_bucket", bitwise=result,
+         formulation={r: ("decode" if ops.use_decode_formulation(1, int(r))
+                          else "forward") for r in result})
+    check(all(result.values()), f"bucket 1 and 8 logits differ: {result}")
+    return result
+
+
+def requests(cfg, n, seed, prompt, new) -> list:
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, prompt=rng.integers(
+        1, cfg.vocab_size, int(rng.integers(prompt[0], prompt[1] + 1))
+    ).tolist(), max_new=int(rng.integers(new[0], new[1] + 1)))
+        for i in range(n)]
+
+
+def lm_serve_phase(cfg, params, dev, abs_err) -> dict:
+    """Phase lm_serve: the LM main path, then the slot engine."""
+    cuda, eager = make_engine("cuda"), make_engine("eager", device=dev)
+    server = PagedServingEngine(cfg, params, engine=cuda, **SERVE)
+    reqs = requests(cfg, N_REQUESTS, 6, (8, 700), (4, 48))
+    gemm.reset_launches()
+    fa.reset_launches()
+    fd.reset_launches()
+    backends.reset_dispatch_counts()
+    t0 = time.perf_counter()
+    server.run(reqs)  # ---- the main path, driven once
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"gemm_fused_fwd": gemm.launches,
+                "flash_attention": fa.launches, "flash_decode": fd.launches}
+    dispatch = backends.dispatch_counts()
+    st = server.stats()
+    comp = st["compile"]
+    emit("lm_serve", requests=N_REQUESTS,
+         completed=st["requests"]["completed"],
+         rejected=st["requests"]["rejected"], tokens=st["tokens"],
+         prompt_tokens=sum(len(r.prompt) for r in reqs), steps=st["steps"],
+         wall_s=wall, tokens_per_s=st["throughput"],
+         p50_ms=st["latency_s"]["p50"] * 1e3,
+         p99_ms=st["latency_s"]["p99"] * 1e3, builds=comp["traces"],
+         trace_bound=st["trace_bound"], calls=comp["calls"],
+         dispatches={str(k): v for k, v in comp["dispatches"].items()},
+         peak_active=st["peak_active"], pool=st["pool"], launches=launches,
+         engine_dispatch={f"{b}.{o}": c for (b, o), c in dispatch.items()})
+    check(st["requests"]["completed"] == N_REQUESTS
+          and st["requests"]["rejected"] == 0
+          and all(r.done and len(r.out) == r.max_new for r in reqs),
+          f"{st['requests']['completed']} of {N_REQUESTS} completed")
+    check(comp["traces"] <= st["trace_bound"],
+          f"{comp['traces']} builds > bound {st['trace_bound']}")
+    check(launches["flash_attention"] > 0 and launches["flash_decode"] > 0
+          and launches["gemm_fused_fwd"] > 0,
+          f"the main path skipped a kernel: {launches}")
+    check(all(b == "cuda" for b, _ in dispatch),
+          f"an engine op left the cuda backend: {dispatch}")
+    check(any(nb * SERVE["block_size"] >= ops.DECODE_MIN_SKV and bb > 1
+              for bb, cc, nb in comp["dispatches"] if cc == 1),
+          "no batched decode dispatch reached the decode formulation")
+
+    # the slot engine on a smaller stream, against the paged engine
+    small = [requests(cfg, 6, 7, (8, 40), (4, 12)) for _ in range(2)]
+    PagedServingEngine(cfg, params, engine=cuda, **SERVE).run(small[0])
+    ServingEngine(cfg, params, engine=cuda, slots=4, max_len=256).run(
+        small[1])
+    mismatches = []
+    head = tfm.head_weight(params, cfg)
+    for a, b in zip(*small):
+        check(a.done and b.done, "a small-stream request did not complete")
+        if a.out == b.out:
+            continue
+        j = next(i for i, (x, y) in enumerate(zip(a.out, b.out)) if x != y)
+        with torch.inference_mode():
+            h = tfm.forward_hidden(eager, cfg, params, tokens=torch.tensor(
+                [a.prompt + a.out[:j]], device=dev))
+            top2 = torch.topk(h[0, -1] @ head, 2).values
+        margin = float(top2[0] - top2[1])
+        mismatches.append({"rid": a.rid, "token": j, "eager_margin": margin,
+                           "allowed_below": MARGIN_FACTOR * abs_err})
+    emit("lm_slot", requests=len(small[0]),
+         tokens=sum(len(r.out) for r in small[0]), mismatches=mismatches,
+         n_mismatches=len(mismatches))
+    check(all(m["eager_margin"] < m["allowed_below"] for m in mismatches),
+          f"slot vs paged token mismatch at a clear margin: {mismatches}")
+    return {"launches": launches, "stats": st, "wall_s": wall}
+
+
+def sdpa(q, k, v, kv_len, causal):
+    """torch's scaled_dot_product_attention on the same problem (the
+    library baseline; the port never calls it)."""
+    mask = live_mask(q, k, kv_len, causal)[:, None]
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask, enable_gqa=True)
+
+
+def timing_lm_phase(cfg, params, dev, cgen, peak_flops, peak_bw,
+                    serve: dict, smi: str) -> dict:
+    """Phase timing_lm: the attention kernels at the path's shapes and the
+    paged step's dispatch times."""
+    h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    rows = {}
+    for name, (b, sq, skv, lens, causal) in {
+            "prefill_chunk": (1, 64, LM_CACHE, [576], True),
+            "prompt_2048": (1, 2048, 2048, None, True),
+            "decode_b8": (8, 1, LM_CACHE, [LM_CACHE] * 8, False),
+            "decode_b1": (1, 1, LM_CACHE, [LM_CACHE], False)}.items():
+        q, k, v = qkv(b, sq, skv, h, kv, d, torch.float32, cgen)
+        kvl = (None if lens is None else
+               torch.tensor(lens, dtype=torch.int32, device=dev))
+        if ops.use_decode_formulation(sq, skv):
+            ns, span = ops.decode_splits(skv, kv)
+            kernel, fn, plain = "flash_decode", (
+                lambda: fd.flash_decode_partials(q, k, v, kvl, causal=causal,
+                                                 n_splits=ns, span=span)), (
+                lambda: fd.flash_decode_plain(q, k, v, kvl, causal=causal,
+                                              n_splits=ns, span=span))
+            out_bytes = 4.0 * b * h * ns * sq * (d + 1)
+            parts = fn()
+            extra = {"splits": ns, "span": span,
+                     "combine_ms": graph_ms(lambda: fd.combine(*parts))}
+        else:
+            kernel, fn, plain = "flash_attention", (
+                lambda: fa.flash_attention_fwd(q, k, v, kvl, causal=causal)), (
+                lambda: fa.flash_attention_plain(q, k, v, kvl, causal=causal))
+            out_bytes = 4.0 * q.numel()
+            extra = {}
+        flops, nbytes = attn_work(q, k, kvl, causal, out_bytes)
+        bound_ms, bound_by = bound(flops, nbytes, peak_flops, peak_bw)
+        ms = graph_ms(fn)
+        row = {"kernel": kernel, "shape": [b, sq, skv, h, kv, d],
+               "causal": causal, "ms": ms, "enqueued_ms": cuda_ms(fn),
+               "plain_ms": graph_ms(plain),
+               "library_ms": graph_ms(lambda: sdpa(q, k, v, kvl, causal)),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "ops_ms": flops / peak_flops * 1e3,
+               "bytes_ms": nbytes / peak_bw * 1e3,
+               "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+               "bound_share": bound_ms / ms, **extra}
+        rows[name] = row
+        emit("timing_lm", name=name, smi=smi, **row)
+        del q, k, v
+    step = make_paged_step(make_engine("cuda"), cfg)
+    cache = kvpool.PagedKVCache(cfg, SERVE["kv_blocks"], SERVE["block_size"],
+                                device=dev)
+    chunk = SERVE["chunk"]
+    dispatch = {}
+    with torch.inference_mode():
+        for name, (bb, c, nb, pos) in {
+                "prefill_chunk_b1_nb64": (1, chunk, 64, 512),
+                "decode_b1_nb32": (1, 1, 32, 400),
+                "decode_b8_nb32": (8, 1, 32, 400),
+                "decode_b8_nb8": (8, 1, 8, 100)}.items():
+            tables = np.arange(bb * nb, dtype=np.int32).reshape(bb, nb)
+            toks = np.ones((bb, c), np.int64)
+            posv = np.full(bb, pos, np.int32)
+            ms = host_ms(lambda: step(params, cache.pools, tables, toks,
+                                      posv))
+            dispatch[name] = {"ms": ms, "tokens_per_s": bb * c / ms * 1e3}
+    st = serve["stats"]
+    emit("timing_lm_step", smi=smi, dispatch=dispatch,
+         serve_tokens_per_s=st["throughput"],
+         p50_ms=st["latency_s"]["p50"] * 1e3,
+         p99_ms=st["latency_s"]["p99"] * 1e3)
+    return rows
 
 
 def main() -> int:
@@ -750,6 +1256,17 @@ def main() -> int:
          kernel_ms=kernel_ms, **parts,
          kernel_share=kernel_ms / steps[f"cuda_b{TRAIN_BATCH}"]["ms"])
 
+    # ------------------------------------------------------ 9-13. the LM
+    attn_abs = attn_phases(cgen)
+    cfg = get_arch(LM_ARCH)
+    params = lm_params(cfg, dev)
+    lm = lm_phase(cfg, params, dev)
+    serve_lm = lm_serve_phase(cfg, params, dev, lm["abs_err"])
+    lm_rows = timing_lm_phase(cfg, params, dev, cgen, peak_flops, peak_bw,
+                              serve_lm, smi)
+    bucket_phase(cfg, params, dev)
+    lm_launches = serve_lm["launches"]
+
     def kernel_entry(name, source, replaces, launches, max_abs_err, row):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "checked": True, "launches": launches,
@@ -771,6 +1288,12 @@ def main() -> int:
         kernel_entry("gemm_bwd_dw", SOURCE_BWD, REPLACES_DW,
                      train_launches["gemm_bwd_dw"],
                      bwd_max_abs["gemm_bwd_dw"], tt["gemm_bwd_dw"]),
+        kernel_entry("flash_attention", SOURCE_ATTN, REPLACES_ATTN,
+                     lm_launches["flash_attention"], attn_abs["attn"],
+                     lm_rows["prefill_chunk"]),
+        kernel_entry("flash_decode", SOURCE_DECODE, REPLACES_DECODE,
+                     lm_launches["flash_decode"], attn_abs["decode"],
+                     lm_rows["decode_b8"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -7,8 +7,15 @@ is its inverse, for holding trained parameters and optimizer moments
 against the JAX trees.  Layouts are kept
 as they are: conv weights flattened HWIO ``(kh*kw*Cin, Cout)``, deconv
 weights ``(Cin, kh*kw*Cout)``, connected weights ``(nin, nout)`` with the
-input flattened in (h, w, c) order, and the per-channel vectors.  This
-module reads numpy only; it imports no jax.
+input flattened in (h, w, c) order, and the per-channel vectors.
+
+`lm_params_from_jax` does the same for the tree of ``repro``'s
+``models.transformer.init_params`` (dense GQA stacks): the JAX tree keeps
+each layer-program entry's layers stacked under a leading layer axis
+(``stacks[0]["attn"]["wq"]`` is (n_layers, D, H*hd)); the port keeps one
+dict per layer (``layers[i]["attn"]["wq"]``, (D, H*hd)).  Every other
+layout is kept.  `lm_params_to_numpy` is its inverse.  This module reads
+numpy only; it imports no jax.
 """
 from __future__ import annotations
 
@@ -37,4 +44,52 @@ def params_to_numpy(state_dict: Mapping[str, torch.Tensor]
         layer, name = key.split(".", 1)
         tree.setdefault(layer, {})[name] = (
             value.detach().float().cpu().numpy())
+    return tree
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, Mapping):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def lm_params_from_jax(tree: Mapping, cfg, device=None) -> dict:
+    """The JAX LM tree (numpy-convertible leaves) -> the port's parameter
+    dict (`repro_torch.models.transformer`), fp32 tensors on `device`, with
+    the stacked layers unstacked and the tied head attached."""
+    from repro_torch.models import transformer as tfm
+    (_, n), = tfm.stack_program(cfg)
+    (stack,) = tree["stacks"]
+
+    def tensor(a):
+        return torch.tensor(np.asarray(a, np.float32), device=device)
+
+    params = {key: _tree_map(tensor, tree[key])
+              for key in ("embed", "final_norm", "lm_head") if key in tree}
+    params["layers"] = [_tree_map(lambda a, i=i: tensor(np.asarray(a)[i]),
+                                  stack) for i in range(n)]
+    return tfm.attach_head(params, cfg)
+
+
+def lm_params_to_numpy(params: Mapping) -> dict:
+    """Inverse of `lm_params_from_jax`: the JAX tree layout (layers stacked
+    under ``stacks[0]``) as fp32 numpy arrays; the derived tied head is
+    dropped."""
+    def array(t):
+        return t.detach().float().cpu().numpy()
+
+    tree = {key: _tree_map(array, params[key])
+            for key in ("embed", "final_norm", "lm_head") if key in params}
+    layers = [_tree_map(array, lp) for lp in params["layers"]]
+
+    def stack(*leaves):
+        return np.stack(leaves)
+
+    def stack_tree(trees):
+        first = trees[0]
+        if isinstance(first, Mapping):
+            return {k: stack_tree([t[k] for t in trees]) for k in first}
+        return stack(*trees)
+
+    tree["stacks"] = [stack_tree(layers)]
     return tree

@@ -14,10 +14,13 @@ from repro_torch.core.backends import (OP_SET, counts_since,
                                        dispatch_counts, get_backend,
                                        list_backends, register_backend,
                                        reset_dispatch_counts)
+from repro_torch.core.compile_cache import (StepCompileCache,
+                                            normalize_buckets, pick_bucket)
 from repro_torch.core.engine import ComputeEngine, make_engine
 from repro_torch.core.precision import Precision, assert_non_quantized
 
 __all__ = ["ComputeEngine", "make_engine", "Precision",
            "assert_non_quantized", "OP_SET", "register_backend",
            "get_backend", "list_backends", "dispatch_counts",
-           "counts_since", "reset_dispatch_counts"]
+           "counts_since", "reset_dispatch_counts", "StepCompileCache",
+           "normalize_buckets", "pick_bucket"]

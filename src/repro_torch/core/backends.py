@@ -16,17 +16,19 @@ Built-in backends:
   cuda   : the hand-written Hopper kernels (kernels/gemm.py).  It takes CUDA
            tensors only: given a CPU tensor it raises, it never falls back.
 
-This slice registers `matmul` and `conv2d` on each; `bmm` and `attention`
-come with the LM slice.  Each backend declares which ops autograd may flow
+Each backend registers `matmul`, `conv2d` and `attention`; `bmm` comes
+with a later slice.  Each backend declares which ops autograd may flow
 through (`differentiable`, as the JAX registry's autodiff capability):
 `ref` and `eager` are plain differentiable PyTorch, and `cuda` carries
 `kernels/gemm.py::GemmFused`, whose backward runs the dX / dW kernels.
-The engine calls `guard_grad` on every dispatch, so an op that a backend
+The `cuda` attention kernels are forward only (their backward comes with
+LM training), so `attention` is not in `cuda`'s differentiable set.  The
+engine calls `guard_grad` on every dispatch, so an op that a backend
 does not declare differentiable raises a clear NotImplementedError when
 it is dispatched with grad enabled on an operand that requires it.  The
 measured autotune policy of the JAX registry is later work: the `cuda`
 backend picks its tiles with fixed heuristics
-(`kernels/ops.py::default_tiles`, `default_bwd_tiles`).
+(`kernels/ops.py::default_tiles`, `default_bwd_tiles`, `decode_splits`).
 
 Op contract (`ctx` is an `OpContext` carrying the engine's precision policy
 and the tile plan):
@@ -37,6 +39,15 @@ and the tile plan):
   conv2d(x, w, scale, shift, *, size, stride, pad, act, out_dtype, ctx)
       NHWC x, flattened (kh*kw*Cin, Cout) w, same fused epilogue: one
       engine invocation per conv+BN+act layer.
+  attention(q, k, v, *, causal, sm_scale, kv_len, ctx)
+      softmax(q k^T * sm_scale) v with fp32 softmax statistics, grouped KV:
+      q (B,Sq,H,D), k/v (B,Skv,KV,D), query head h attends kv-head
+      h // (H/KV), no caller-side broadcast.  kv_len (None | int | scalar
+      or (B,) tensor) masks keys at/beyond the per-batch length, clamped to
+      Skv; causal queries right-align against kv_len when given, else Skv;
+      fully-masked rows return exact 0.  Output (B,Sq,H,D).  On `cuda`,
+      decode-shaped dispatches (`kernel_ops.use_decode_formulation`) take
+      the split-KV decode kernel, the rest the forward kernel.
 """
 from __future__ import annotations
 
@@ -248,6 +259,11 @@ def _ref_matmul(x, w, scale, shift, *, act, out_dtype, ctx):
                           out_dtype=out_dtype)
 
 
+def _ref_attention(q, k, v, *, causal, sm_scale, kv_len=None, ctx):
+    return ref.flash_attention_ref(q, k, v, causal=causal,
+                                   sm_scale=sm_scale, kv_len=kv_len)
+
+
 # --------------------------------------------------------- eager backend ---
 
 def _eager_matmul(x, w, scale, shift, *, act, out_dtype, ctx):
@@ -263,6 +279,32 @@ def _eager_matmul(x, w, scale, shift, *, act, out_dtype, ctx):
     return apply_act(acc, act).to(out_dtype)
 
 
+def _eager_attention(q, k, v, *, causal, sm_scale, kv_len=None, ctx):
+    # The JAX `xla` formulation: the G query heads sharing a kv-head are
+    # folded into the query-sequence axis, (B, KV, G*Sq, D) against
+    # (B, KV, Skv, D), so K / V are read once per group and never
+    # broadcast.  fp32 scores and softmax; fully-masked rows exact 0.
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    if sm_scale is None:
+        sm_scale = 1.0 / d ** 0.5
+    qf = (q.reshape(b, sq, kvh, g, d).permute(0, 2, 3, 1, 4)
+          .reshape(b, kvh, g * sq, d).float())
+    kt = k.transpose(1, 2).float()                        # (B, KV, Skv, D)
+    vt = v.transpose(1, 2).float()
+    s = torch.matmul(qf, kt.transpose(-1, -2)) * sm_scale
+    mask = ref.attention_mask(b, sq, skv, causal=causal, kv_len=kv_len,
+                              device=q.device)
+    maskf = mask[:, None].expand(-1, g, sq, skv).reshape(-1, g * sq, skv)
+    s = s.masked_fill(~maskf[:, None], float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(maskf.any(-1)[:, None, :, None], p, 0.0)
+    o = torch.matmul(p, vt)                               # (B, KV, G*Sq, D)
+    return (o.reshape(b, kvh, g, sq, d).permute(0, 3, 1, 2, 4)
+            .reshape(b, sq, h, d).to(q.dtype))
+
+
 # ---------------------------------------------------------- cuda backend ---
 
 def _cuda_matmul(x, w, scale, shift, *, act, out_dtype, ctx):
@@ -273,6 +315,16 @@ def _cuda_matmul(x, w, scale, shift, *, act, out_dtype, ctx):
                              out_dtype=out_dtype, tiles=ctx.tiles)
 
 
+def _cuda_attention(q, k, v, *, causal, sm_scale, kv_len=None, ctx):
+    if q.device.type != "cuda":
+        raise ValueError(f"backend 'cuda' runs on CUDA tensors, got q on "
+                         f"{q.device}; use backend 'eager' on the CPU")
+    if kernel_ops.use_decode_formulation(q.shape[1], k.shape[1]):
+        return kernel_ops.attention_decode(q, k, v, kv_len, sm_scale,
+                                           causal=causal)
+    return kernel_ops.attention(q, k, v, kv_len, sm_scale, causal=causal)
+
+
 def _cuda_tile_picker(op: str, shapes: tuple, dtype) -> tuple:
     dims = gemm_dims(op, shapes)
     return () if dims is None else kernel_ops.default_tiles(*dims)
@@ -281,14 +333,17 @@ def _cuda_tile_picker(op: str, shapes: tuple, dtype) -> tuple:
 register_backend("ref", {
     "matmul": _ref_matmul,
     "conv2d": im2col_conv2d(_ref_matmul),
+    "attention": _ref_attention,
 })
 
 register_backend("eager", {
     "matmul": _eager_matmul,
     "conv2d": im2col_conv2d(_eager_matmul),
+    "attention": _eager_attention,
 })
 
 register_backend("cuda", {
     "matmul": _cuda_matmul,
     "conv2d": im2col_conv2d(_cuda_matmul),
+    "attention": _cuda_attention,
 }, tile_picker=_cuda_tile_picker, differentiable=("matmul", "conv2d"))

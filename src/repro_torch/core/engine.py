@@ -2,7 +2,8 @@
 ``repro/core/engine.py``).
 
 Every dense computation of the Darknet path (conv layers via im2col, the
-connected layers, the deconv GEMM) routes through this engine.  The engine
+connected layers, the deconv GEMM) and of the dense LM (every projection,
+the LM head, attention) routes through this engine.  The engine
 is a thin dispatcher: each op resolves through the backend/op registry
 (core/backends.py), so adding an execution target is `register_backend` and
 no engine change.  Built-in backends: `cuda` (the hand-written Hopper
@@ -23,6 +24,7 @@ import torch
 
 from repro_torch.core import backends
 from repro_torch.core.precision import Precision
+from repro_torch.kernels import ops as kernel_ops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,6 +118,44 @@ class ComputeEngine:
         return self._op("conv2d")(xc, wc, scale, shift, size=size,
                                   stride=stride, pad=pad, act=act,
                                   out_dtype=out_dtype, ctx=ctx)
+
+    def attention(self, q, k, v, *, causal: bool = True, sm_scale=None,
+                  kv_len=None):
+        """softmax(q k^T / sqrt(D)) v, fp32 softmax statistics, grouped KV.
+
+        Args:
+          q: (B, Sq, H, D) queries.
+          k, v: (B, Skv, KV, D) with KV <= H and H % KV == 0, the compact
+            grouped layout: query head h attends kv-head h // (H/KV) and no
+            caller-side broadcast happens.  KV == H is plain MHA.
+          causal: queries right-align against the live key extent, Skv or
+            kv_len when given (a prefill chunk into a larger cache keeps
+            causality between its own tokens).  Sq <= Skv is required.
+          sm_scale: softmax scale, a float or a tensor; default 1/sqrt(D).
+          kv_len: None, an int, or a scalar or (B,) int tensor: keys at
+            positions >= kv_len are masked per batch row; values above Skv
+            clamp to Skv.  Rows with no live key return exact 0.
+
+        Returns (B, Sq, H, D) in the compute dtype.  Raises ValueError on a
+        non-dividing head ratio, mismatched shapes or dtypes, causal with
+        Sq > Skv, or a mis-shaped kv_len; NotImplementedError when it is
+        differentiated on a backend whose attention is forward only
+        (`cuda`).
+        """
+        kernel_ops.validate_attention_shapes(q, k, v)
+        if causal and q.shape[1] > k.shape[1]:
+            raise ValueError(
+                f"causal attention requires Sq <= Skv (right-aligned "
+                f"queries); got Sq={q.shape[1]}, Skv={k.shape[1]}")
+        kernel_ops.validate_kv_len(kv_len, q.shape[0])
+        dt = self.precision.compute_dtype
+        qc, kc, vc = q.to(dt), k.to(dt), v.to(dt)
+        self._guard("attention", qc, kc, vc, sm_scale)
+        ctx = self._resolve("attention",
+                            (tuple(qc.shape), tuple(kc.shape)), qc.dtype)
+        return self._op("attention")(qc, kc, vc, causal=causal,
+                                     sm_scale=sm_scale, kv_len=kv_len,
+                                     ctx=ctx)
 
 
 def synchronize(device: torch.device) -> None:

@@ -9,7 +9,9 @@ library, or `build_all` builds every library ahead of time, one ``nvcc``
 per source, all started together.
 
 The compiler's resource report (``-Xptxas -v``: registers, shared memory,
-spills) is kept beside each library as ``<lib>.log``.
+spills) is kept beside each library as ``<lib>.log``.  `launch` binds and
+calls a C entry point; every entry point returns its cudaError_t, and a
+failure raises with the library's ``<lib>_error_string``.
 """
 from __future__ import annotations
 
@@ -23,11 +25,12 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("gemm", "gemm_bwd")
+SOURCES = ("gemm", "gemm_bwd", "flash_attention", "flash_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_FNS: dict = {}  # entry name -> bound C function
 _LOCK = threading.Lock()
 
 
@@ -94,3 +97,25 @@ def load(name: str) -> ctypes.CDLL:
             (path,) = build_all((name,))
             lib = _LIBS[name] = ctypes.CDLL(str(path))
         return lib
+
+
+def launch(lib: str, entry: str, argtypes: list, stream: int, *args,
+           what: str) -> None:
+    """Call the C entry point `entry` of ``csrc/<lib>.cu`` (its library
+    built and loaded on first use) with `args` and the CUDA `stream` last.
+    Every entry point returns a cudaError_t; a non-zero one raises
+    RuntimeError naming `what`, with the string of ``<lib>_error_string``.
+    """
+    fn = _FNS.get(entry)
+    if fn is None:
+        fn = getattr(load(lib), entry)
+        fn.argtypes = [*argtypes, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FNS[entry] = fn
+    rc = fn(*args, stream)
+    if rc != 0:
+        err = getattr(load(lib), f"{lib}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        raise RuntimeError(f"{entry} launch failed for {what}: "
+                           f"{err(rc).decode()}")

@@ -140,42 +140,23 @@ def _check_cuda(name: str, tile: int, **tensors) -> None:
                              f"kernel")
 
 
-_FNS: dict = {}
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {  # entry point -> (library, argument types)
-    "gemm_fused_fwd": ("gemm", [_P] * 5 + [_I] * 7 + [_P]),
-    "gemm_fused_fwd_res": ("gemm", [_P] * 7 + [_I] * 7 + [_P]),
-    "gemm_bwd_dx": ("gemm_bwd", [_P] * 3 + [_I] * 7 + [_P]),
-    "gemm_bwd_dw": ("gemm_bwd", [_P] * 3 + [_I] * 7 + [_P]),
-    "gemm_bwd_reduce": ("gemm_bwd", [_P, _P, ctypes.c_longlong, _I, _I, _P]),
+_SIGNATURES = {  # entry point -> (library, argument types before the stream)
+    "gemm_fused_fwd": ("gemm", [_P] * 5 + [_I] * 7),
+    "gemm_fused_fwd_res": ("gemm", [_P] * 7 + [_I] * 7),
+    "gemm_bwd_dx": ("gemm_bwd", [_P] * 3 + [_I] * 7),
+    "gemm_bwd_dw": ("gemm_bwd", [_P] * 3 + [_I] * 7),
+    "gemm_bwd_reduce": ("gemm_bwd", [_P, _P, ctypes.c_longlong, _I, _I]),
 }
-_ERROR_STRINGS = {"gemm": "gemm_error_string",
-                  "gemm_bwd": "gemm_bwd_error_string"}
-
-
-def _kernel(entry: str):
-    """The bound C entry point, its library built and loaded on first use."""
-    fn = _FNS.get(entry)
-    if fn is None:
-        lib, argtypes = _SIGNATURES[entry]
-        fn = getattr(build.load(lib), entry)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _FNS[entry] = fn
-    return fn
 
 
 def _launch(entry: str, device, *args, what: str) -> None:
     """Call a C entry point on PyTorch's current stream of `device`;
     RuntimeError with the CUDA error string when the launch fails."""
-    rc = _kernel(entry)(*args, torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        lib = _SIGNATURES[entry][0]
-        fn = getattr(build.load(lib), _ERROR_STRINGS[lib])
-        fn.argtypes = [ctypes.c_int]
-        fn.restype = ctypes.c_char_p
-        raise RuntimeError(f"{entry} launch failed for {what}: "
-                           f"{fn(rc).decode()}")
+    lib, argtypes = _SIGNATURES[entry]
+    build.launch(lib, entry, argtypes,
+                 torch.cuda.current_stream(device).cuda_stream, *args,
+                 what=what)
 
 
 def _ptr(t):

@@ -1,12 +1,15 @@
 """Any-shape wrappers over the port's kernels (PyTorch port of
-``repro/kernels/ops.py::matmul``).
+``repro/kernels/ops.py``: `matmul`, `attention`, `attention_decode` and
+their shape checks).
 
-The JAX wrapper pads (M, K, N) up to tile multiples and slices the result,
-because its TPU kernel's BlockSpecs need whole blocks.  The port's CUDA
-kernel masks the ragged edges itself (bounds-checked, zero-filled tile
-loads and a masked store), so this wrapper does NOT pad: it only makes the
-operands contiguous and picks the tile.  Any (M, K, N) runs, the property
-of the paper's Figure 3.
+The JAX wrappers pad to tile multiples and slice the result, because the
+TPU kernels' BlockSpecs need whole blocks.  The port's CUDA kernels mask
+the ragged edges themselves, so these wrappers do NOT pad.  `matmul` makes
+x contiguous and picks the tile (w must already be contiguous: a weight is
+laid out once, never copied per call).  Any (M, K, N) runs, the property of
+the paper's Figure 3.  The attention wrappers fold sm_scale into q in fp32
+and hand the kernels q, k and v in the engine layout (B, S, heads, D)
+through strides, with no transpose.
 
 With grad enabled and an operand that requires it, `matmul` goes through
 `gemm.GemmFused`: the forward kernel also writes its training residuals
@@ -21,6 +24,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as flash_kernel
+from repro_torch.kernels import flash_decode as decode_kernel
 from repro_torch.kernels import gemm as gemm_kernel
 
 # Below this many 64 x 64 output tiles the card's 132 SMs are not kept
@@ -78,7 +83,11 @@ def matmul(x, w, scale=None, shift=None, *, act: str = "linear",
     m, k = x.shape
     n = w.shape[1]
     bm = (tiles or default_tiles(m, k, n))[0]
-    x, w = x.contiguous(), w.contiguous()
+    if not w.is_contiguous():
+        raise ValueError(f"w {tuple(w.shape)} must be contiguous: lay a "
+                         f"weight out once (a transposed view would be "
+                         f"copied on every call)")
+    x = x.contiguous()
     scale = None if scale is None else scale.float().contiguous()
     shift = None if shift is None else shift.float().contiguous()
     out_dtype = out_dtype or x.dtype
@@ -91,3 +100,122 @@ def matmul(x, w, scale=None, shift=None, *, act: str = "linear",
             (dx_plan[0], dx_plan[3]), (dw_plan[0], dw_plan[3]))
     return gemm_kernel.gemm_fused_fwd(x, w, scale, shift, act=act,
                                       out_dtype=out_dtype, tile=bm)
+
+
+# ------------------------------------------------------------- attention ---
+# Decode-shaped dispatches (a short query against a deep key extent) take
+# the split-KV formulation: same constants as the JAX package, so the same
+# dispatches pick the same formulation.
+DECODE_MAX_SQ = 8
+DECODE_MIN_SKV = 256
+# The decode grid is (splits, B * KV, row chunks); splitting aims at this
+# many blocks at batch 1 (one per SM of the H100), one 64-key tile at least
+# per split.
+_DECODE_BLOCKS = 132
+
+
+def use_decode_formulation(sq: int, skv: int) -> bool:
+    """Whether an (Sq, Skv) attention dispatch is decode-shaped: Sq within
+    DECODE_MAX_SQ and the key extent at or above DECODE_MIN_SKV."""
+    return sq <= DECODE_MAX_SQ and skv >= DECODE_MIN_SKV
+
+
+def decode_splits(skv: int, kv_heads: int) -> tuple[int, int]:
+    """(n_splits, span) of the split-KV decode for a key extent of `skv`
+    over `kv_heads` kv-heads: enough spans that the grid has about
+    `_DECODE_BLOCKS` blocks at batch 1, each span a whole number of 64-key
+    tiles, no span empty.  From the shape alone and not from the batch, so
+    a sequence's bits are the same run to run and in every batch bucket."""
+    tile = decode_kernel.TILE
+    tiles = max(1, -(-skv // tile))
+    want = max(1, min(tiles, -(-_DECODE_BLOCKS // kv_heads)))
+    span = tile * -(-tiles // want)
+    return -(-(tiles * tile) // span), span
+
+
+def validate_attention_shapes(q, k, v) -> None:
+    """Grouped-layout contract: q (B, Sq, H, D), k / v (B, Skv, KV, D) with
+    KV <= H, H % KV == 0, one dtype.  Raises ValueError naming the
+    offending shapes or dtypes, at dispatch and not inside a kernel."""
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"attention expects 4-D (B, S, heads, head_dim) "
+                         f"operands; got q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}")
+    if k.shape != v.shape:
+        raise ValueError(f"k/v shapes differ: {tuple(k.shape)} vs "
+                         f"{tuple(v.shape)}")
+    b, _, h, d = q.shape
+    kb, _, kvh, kd = k.shape
+    if kb != b or kd != d:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} "
+                         f"disagree on batch or head_dim")
+    if kvh == 0 or kvh > h or h % kvh != 0:
+        raise ValueError(
+            f"grouped attention requires KV heads to evenly divide query "
+            f"heads (KV <= H, H % KV == 0); got H={h}, KV={kvh}")
+    if q.dtype != k.dtype or q.dtype != v.dtype:
+        raise ValueError(f"q/k/v dtype mismatch: q={q.dtype}, k={k.dtype}, "
+                         f"v={v.dtype}")
+
+
+def validate_kv_len(kv_len, b: int) -> None:
+    """A kv_len is None, an int, a scalar tensor or a (B,) tensor; raises
+    ValueError on any other shape."""
+    if kv_len is None or isinstance(kv_len, int):
+        return
+    shape = tuple(torch.as_tensor(kv_len).shape)
+    if len(shape) > 1 or (len(shape) == 1 and shape[0] != b):
+        raise ValueError(f"kv_len must be a scalar or ({b},) vector; got "
+                         f"shape {shape}")
+
+
+def normalize_kv_len(kv_len, b: int, skv: int, device) -> torch.Tensor | None:
+    """A kv_len argument as a contiguous (B,) int32 tensor on `device`,
+    clamped to Skv, or None (see `validate_kv_len` for the forms)."""
+    if kv_len is None:
+        return None
+    validate_kv_len(kv_len, b)
+    kvl = torch.as_tensor(kv_len, device=device).to(torch.int32)
+    return torch.clamp(kvl.reshape(-1).expand(b), max=skv).contiguous()
+
+
+def scale_queries(q, sm_scale=None) -> torch.Tensor:
+    """q * sm_scale in fp32, cast back to q's dtype (the JAX wrappers' fold
+    of a possibly traced scale into q); sm_scale defaults to 1/sqrt(D)."""
+    scale = 1.0 / q.shape[-1] ** 0.5 if sm_scale is None else sm_scale
+    if isinstance(scale, torch.Tensor):
+        scale = scale.to(device=q.device, dtype=torch.float32)
+    return (q.float() * scale).to(q.dtype)
+
+
+def attention(q, k, v, kv_len=None, sm_scale=None, *,
+              causal: bool = True) -> torch.Tensor:
+    """Grouped flash attention, any sequence lengths, through the forward
+    kernel: q (B, Sq, H, D), k / v (B, Skv, KV, D) with H % KV == 0, head h
+    attends kv-head h // (H // KV) with no broadcast.  ``kv_len`` (None,
+    an int, or a scalar or (B,) tensor) masks keys at or past it, clamped
+    to Skv; causal queries right-align against kv_len (else Skv); rows with
+    no live key are exact 0.  Returns (B, Sq, H, D) in q's dtype."""
+    validate_attention_shapes(q, k, v)
+    kvl = normalize_kv_len(kv_len, q.shape[0], k.shape[1], q.device)
+    return flash_kernel.flash_attention_fwd(scale_queries(q, sm_scale), k, v,
+                                            kvl, causal=causal)
+
+
+def attention_decode(q, k, v, kv_len=None, sm_scale=None, *,
+                     causal: bool = True) -> torch.Tensor:
+    """`attention`'s contract computed by the split-KV decode kernel and
+    the `combine` merge, over the spans of `decode_splits`.  Keys past Skv
+    are masked by kv_len (Skv when None).  Partials and the merge are
+    fp32; returns (B, Sq, H, D) in q's dtype.  Inference only."""
+    validate_attention_shapes(q, k, v)
+    b = q.shape[0]
+    skv, kvh = k.shape[1], k.shape[2]
+    n_splits, span = decode_splits(skv, kvh)
+    kvl = normalize_kv_len(skv if kv_len is None else kv_len, b, skv,
+                           q.device)
+    o_part, lse_part = decode_kernel.flash_decode_partials(
+        scale_queries(q, sm_scale), k, v, kvl, causal=causal,
+        n_splits=n_splits, span=span)
+    o = decode_kernel.combine(o_part, lse_part)           # (B, H, Sq, D)
+    return o.transpose(1, 2).to(q.dtype)

@@ -5,7 +5,7 @@ Deliberately the most obvious formulation: fp32 products and fp32
 accumulation through ``torch.matmul`` on fp32 copies of the operands, no
 tiling, so a disagreement points at the kernel, not the oracle.  On a CUDA
 device the engine turns TF32 off (core/engine.py), so these are true fp32
-products.  The attention oracle comes with the LM slice.
+products.
 """
 from __future__ import annotations
 
@@ -34,3 +34,53 @@ def bmm_ref(x, w, *, out_dtype=None):
     """Batched GEMM oracle: (B, M, K) @ (B, K, N), fp32 accumulation."""
     out_dtype = out_dtype or x.dtype
     return torch.bmm(x.float(), w.float()).to(out_dtype)
+
+
+def attention_mask(b: int, sq: int, skv: int, *, causal: bool, kv_len,
+                   device) -> torch.Tensor:
+    """(B or 1, Sq, Skv) bool mask of the live (query, key) pairs: keys at or
+    past ``kv_len`` (None, an int, or a scalar or (B,) tensor; clamped to
+    Skv) are masked per batch row, and causal queries right-align against
+    the live extent (kv_len when given, else Skv)."""
+    kj = torch.arange(skv, device=device)
+    qi = torch.arange(sq, device=device)
+    if kv_len is None:
+        mask = torch.ones((1, sq, skv), dtype=torch.bool, device=device)
+        if causal:
+            mask = mask & (kj[None, :] <= qi[:, None] + (skv - sq))[None]
+        return mask
+    kvl = torch.as_tensor(kv_len, dtype=torch.int64, device=device)
+    kvl = torch.clamp(kvl.reshape(-1).expand(b), max=skv)
+    mask = (kj[None, None] < kvl[:, None, None]).expand(b, sq, skv)
+    if causal:
+        mask = mask & (kj[None, None]
+                       <= qi[None, :, None] + (kvl[:, None, None] - sq))
+    return mask
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, sm_scale=None,
+                        kv_len=None):
+    """Oracle for the grouped attention kernels.
+
+    q: (B, Sq, H, D); k, v: (B, Skv, KV, D) with H % KV == 0: query head
+    h = kv * G + g attends kv-head h // G (G = H // KV), read through a
+    grouped einsum, never broadcast.  ``kv_len`` (None, an int, or a scalar
+    or (B,) tensor) masks keys at or past it per batch row, clamped to Skv;
+    causal queries right-align against kv_len when given, else Skv; rows
+    with no live key return exact 0.  Returns (B, Sq, H, D) in q.dtype,
+    softmax in fp32.
+    """
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    if sm_scale is None:
+        sm_scale = 1.0 / d ** 0.5
+    qg = q.reshape(b, sq, kvh, g, d).float()
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * sm_scale
+    mask = attention_mask(b, sq, skv, causal=causal, kv_len=kv_len,
+                          device=q.device)
+    logits = logits.masked_fill(~mask[:, None, None], float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    p = torch.where(mask.any(-1)[:, None, None, :, None], p, 0.0)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return out.reshape(b, sq, h, d).to(q.dtype)

@@ -1,10 +1,11 @@
-"""Serving frontend, CNN half (PyTorch port of ``repro/serve/frontend.py``).
+"""Serving frontend (PyTorch port of ``repro/serve/frontend.py``).
 
 The paper's framework is an inference accelerator: build the network once,
 then feed it a stream of requests.  This module is the traffic side of that
 deployment shape: a `ServingFrontend` protocol, a shared `Request` base
 carrying identity + lifecycle + latency timestamps, and one stats schema
-(`STATS_KEYS`) that the LM engines of a later slice share.
+(`STATS_KEYS`) that the LM engines (serve/engine.py, serve/scheduler.py)
+share.
 
 `CNNServingEngine` drains its request queue into padded-bucket dispatches
 through a `CompileCache`: each step stacks up to top-bucket images, pads to
@@ -38,7 +39,8 @@ LATENCY_KEYS = ("avg", "max", "p50", "p95", "p99")
 
 class RejectedRequest(ValueError):
     """An ADMISSION failure: the request itself is inadmissible (bad image
-    shape) and was counted as rejected.
+    shape, a prompt the KV cache cannot hold) and was counted as
+    rejected.
 
     Engines raise this, and only this, from `submit`'s admission checks,
     so `run` can skip a rejected request and keep serving the batch while
@@ -167,7 +169,7 @@ def build_stats(*, engine: str, submitted: int, completed: int,
                 latency: LatencyAgg, items: int,
                 extra: dict | None = None) -> dict:
     """Assemble the shared stats dict; `items` is the engine's throughput
-    unit (images for CNN)."""
+    unit (images for CNN, generated tokens for LM)."""
     stats = {
         "engine": engine,
         "requests": {"submitted": submitted, "completed": completed,

@@ -41,6 +41,20 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def device_kernels(prof) -> collections.Counter:
+    """Device microseconds by kernel name from a finished profiler.  Host
+    operators also report the device time of the kernels they launched;
+    only the device-side events (kernels, copies, fills) are counted, so
+    nothing is counted twice."""
+    kernels = collections.Counter()
+    for evt in prof.key_averages():
+        us = _device_us(evt)
+        if us > 0 and getattr(evt, "device_type", None) is not None and \
+                str(evt.device_type).endswith("CUDA"):
+            kernels[evt.key] += us
+    return kernels
+
+
 def profile_bucket(cache, bucket: int, reps: int, seed: int) -> dict:
     """Profile `reps` dispatches of a `bucket`-image batch through `cache`."""
     net = cache.net
@@ -62,15 +76,7 @@ def profile_bucket(cache, bucket: int, reps: int, seed: int) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         profiled_s = calls()
-    kernels = collections.Counter()
-    for evt in prof.key_averages():
-        us = _device_us(evt)
-        # Host-side operators also report the device time of the kernels
-        # they launched; only the device-side events (kernels, copies,
-        # fills) are counted, so nothing is counted twice.
-        if us > 0 and getattr(evt, "device_type", None) is not None and \
-                str(evt.device_type).endswith("CUDA"):
-            kernels[evt.key] += us
+    kernels = device_kernels(prof)
     device_us = sum(kernels.values())
     wall_ms = wall_s * 1e3 / reps
     out = {"phase": "profile", "bucket": bucket, "reps": reps,

@@ -12,14 +12,27 @@ their plain versions, checks the row-independence that bucketed serving
 relies on, that a training forward leaves the serving bits unchanged and
 that a split dW gives the same bits twice, and runs a small network and a
 small train step on the `cuda` engine against `eager` on the same card.
+For the LM: the flash-attention and split-KV decode kernels against their
+plain versions (and bit for bit against each other at one split, and
+across batch sizes), the reduced qwen2-0.5b on `cuda` against `eager`, and
+the paged engine on `cuda` launching both kernels.
 """
 import pytest
 import torch
 
+import numpy as np
+
+from repro_torch.configs.base import get_arch, reduced
 from repro_torch.configs.darknet_ref import DARKNET_SMALL_CFG, SEGNET_SMALL_CFG
 from repro_torch.core import make_engine
 from repro_torch.core.darknet.network import Network
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import gemm, ops
+from repro_torch.models import transformer as tfm
+from repro_torch.serve.engine import Request
+from repro_torch.serve.scheduler import PagedServingEngine
+from repro_torch.serve.serve_step import make_prefill_step
 from repro_torch.kernels.common import ACTIVATIONS, epilogue
 from repro_torch.train import optimizer as opt
 from repro_torch.train.train_step import make_cnn_train_step
@@ -216,3 +229,106 @@ def test_small_train_step_on_cuda_matches_eager(card):
     for name, p in eager.named_parameters():
         assert _relmax(dict(cuda.named_parameters())[name], p) <= 1e-4
         assert _relmax(sc["mu"][name], se["mu"][name]) <= 1e-4
+
+
+HEAD_RATIOS = [(16, 16), (14, 2), (8, 1)]
+
+
+def _qkv(card, b, sq, skv, h, kv, d, dtype=torch.float32, seed=0):
+    g = torch.Generator(device=card).manual_seed(seed + sq + skv + h + d)
+    q = (torch.randn(b, sq, h, d, generator=g, device=card) / d ** 0.5)
+    k = torch.randn(b, skv, kv, d, generator=g, device=card)
+    v = torch.randn(b, skv, kv, d, generator=g, device=card)
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("h,kv", HEAD_RATIOS)
+def test_attention_kernels_match_plain_versions(card, h, kv, d, dtype, tol):
+    for sq, skv in ((1, 64), (4, 256), (16, 256), (64, 700)):
+        q, k, v = _qkv(card, 2, sq, skv, h, kv, d, dtype)
+        kvl = torch.tensor([skv, skv // 3], dtype=torch.int32, device=card)
+        for causal in (True, False):
+            for lens in (None, kvl):
+                before = fa.launches
+                got = fa.flash_attention_fwd(q, k, v, lens, causal=causal)
+                assert fa.launches == before + 1
+                want = fa.flash_attention_plain(q, k, v, lens, causal=causal)
+                assert got.dtype == dtype
+                assert _relmax(got, want) <= tol, (sq, skv, causal)
+            n_splits, span = ops.decode_splits(skv, kv)
+            before = fd.launches
+            o, lse = fd.flash_decode_partials(q, k, v, kvl, causal=causal,
+                                              n_splits=n_splits, span=span)
+            assert fd.launches == before + 1
+            wo, wl = fd.flash_decode_plain(q, k, v, kvl, causal=causal,
+                                           n_splits=n_splits, span=span)
+            assert torch.equal(lse == fd.EMPTY_SPAN_LSE,
+                               wl == fd.EMPTY_SPAN_LSE)
+            assert _relmax(o, wo) <= tol and _relmax(lse, wl) <= tol
+
+
+@pytest.mark.parametrize("h,kv", HEAD_RATIOS)
+def test_single_split_decode_is_the_forward_kernel_bit_for_bit(card, h, kv):
+    for sq, skv in ((1, 256), (8, 1024), (3, 700)):
+        q, k, v = _qkv(card, 2, sq, skv, h, kv, 64, seed=1)
+        kvl = torch.tensor([skv, 130], dtype=torch.int32, device=card)
+        for causal in (True, False):
+            o, _ = fd.flash_decode_partials(q, k, v, kvl, causal=causal,
+                                            n_splits=1,
+                                            span=-(-skv // 64) * 64)
+            fwd = fa.flash_attention_fwd(q, k, v, kvl, causal=causal)
+            assert torch.equal(o[:, :, 0].transpose(1, 2), fwd)
+
+
+def test_attention_rows_do_not_depend_on_the_batch(card):
+    """A sequence's output is bitwise the same alone and inside a batch of
+    8, through both formulations and the merge."""
+    q, k, v = _qkv(card, 8, 1, 1024, 14, 2, 64, seed=2)
+    kvl = torch.arange(300, 1100, 100, dtype=torch.int32, device=card)
+    for fn in (ops.attention, ops.attention_decode):
+        full = fn(q, k, v, kvl, causal=False)
+        one = fn(q[:1], k[:1], v[:1], kvl[:1], causal=False)
+        assert torch.equal(full[:1], one)
+
+
+def test_empty_rows_are_exact_zero_on_the_card(card):
+    q, k, v = _qkv(card, 2, 4, 512, 8, 2, 64, seed=3)
+    zero = torch.zeros(2, dtype=torch.int32, device=card)
+    for out in (ops.attention(q, k, v, zero),
+                ops.attention_decode(q, k, v, zero)):
+        assert torch.all(out == 0)
+
+
+def test_reduced_lm_on_cuda_matches_eager(card):
+    cfg = reduced(get_arch("qwen2-0.5b"))
+    params = tfm.init_params(cfg, generator=torch.Generator(
+        device=card).manual_seed(0), device=card)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 300),
+                           generator=torch.Generator().manual_seed(1)).to(card)
+    with torch.inference_mode():
+        got = make_prefill_step(make_engine("cuda"), cfg)(params, tokens)
+        want = make_prefill_step(make_engine("eager", device=card), cfg)(
+            params, tokens)
+    assert _relmax(got[0], want[0]) <= 1e-4
+    assert _relmax(got[1][0]["k"], want[1][0]["k"]) <= 1e-4
+
+
+def test_paged_engine_on_cuda_launches_both_attention_kernels(card):
+    cfg = reduced(get_arch("qwen2-0.5b"))
+    params = tfm.init_params(cfg, generator=torch.Generator(
+        device=card).manual_seed(0), device=card)
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab_size, n).tolist(),
+                    max_new=4) for i, n in enumerate((300, 40, 5))]
+    fa.reset_launches()
+    fd.reset_launches()
+    paged = PagedServingEngine(cfg, params, kv_blocks=64, block_size=16,
+                               max_len=512, chunk=64, prefill_budget=128)
+    paged.run(reqs)
+    assert all(r.done and len(r.out) == 4 for r in reqs)
+    assert fa.launches > 0 and fd.launches > 0
+    st = paged.stats()
+    assert st["compile"]["traces"] <= st["trace_bound"]

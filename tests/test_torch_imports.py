@@ -7,7 +7,8 @@ by default.
   src/repro_torch/ or chip_smoke.py.  The pattern matches ``repro.`` and
   ``repro `` only, never the ``repro_torch`` prefix.
 * `make_engine()` raises when there is no GPU instead of running on the
-  CPU, and the `cuda` backend raises on a CPU tensor.
+  CPU, and the `cuda` backend raises on a CPU tensor; so do the LM serving
+  engines, which default to the card.
 """
 import re
 import subprocess
@@ -54,7 +55,7 @@ def test_every_port_module_imports_with_jax_blocked():
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300, cwd=ROOT)
     assert res.returncode == 0, res.stderr[-3000:]
-    assert int(res.stdout.split()[-1]) >= 15  # every module was walked
+    assert int(res.stdout.split()[-1]) >= 42  # every module was walked
 
 
 def test_forbidden_import_pattern_spares_the_port_prefix():
@@ -97,6 +98,17 @@ def test_cuda_backend_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         eng.conv2d(torch.zeros(1, 4, 4, 2), torch.zeros(18, 3), size=3,
                    pad=1)
+
+
+def test_lm_serving_engines_default_to_the_card(monkeypatch):
+    from repro_torch.configs.base import get_arch, reduced
+    from repro_torch.serve.engine import ServingEngine
+    from repro_torch.serve.scheduler import PagedServingEngine
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced(get_arch("qwen2-0.5b"))
+    for cls in (ServingEngine, PagedServingEngine):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cls(cfg, {})
 
 
 def test_unknown_backend_and_policy_fail_fast():
