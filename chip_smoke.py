@@ -67,14 +67,26 @@ script exits non-zero.  Phases:
               sentinels against its plain version over Sq 1/4/8 against
               Skv 256/1024 and qwen2-0.5b's decode shapes; at one split its
               partial must equal the forward kernel's output bit for bit.
- 11. lm       full-width, full-depth qwen2-0.5b (random weights from a seed,
+ 11. check_lm_gemm  the fused GEMM against its plain version at qwen2-0.5b's
+              GEMMs (q, k, v with the bias as shift, o, the gate with silu,
+              up, down, the tied head reading the (V, D) embedding layout
+              transposed in place) at M 1, 8 and 64 with the path's tile,
+              every epilogue and dtype as phase 2; the transposed head must
+              give the bits of a row-major copy.
+ 12. timing_lm_gemm  each of those GEMMs in fp32 with its epilogue:
+              kernel, plain, torch.matmul and bound ms (CUDA-graph
+              replays over 24 distinct weights, one per layer, so they
+              come from device memory as on the path), summed per
+              dispatch (24 layers x 7 + the head) at each M.
+ 13. lm       full-width, full-depth qwen2-0.5b (random weights from a seed,
               random QKV biases), `cuda` against `eager` on the card:
               prefill logits and caches at S = 512 and one decode dispatch
               against a 1024-row cache, within 1e-4 max-relative; the tied
-              head is one contiguous tensor and a decode dispatch allocates
-              less than its size (it is never copied); a sequence's decode
-              logits are bitwise equal in batch bucket 1 and 8.
- 12. lm_serve the LM main path: a PagedServingEngine on `cuda` (chunk 64,
+              head is the embedding table's storage, read in place, and a
+              decode dispatch allocates less than its size (it is never
+              copied); a sequence's decode logits are bitwise equal in batch
+              bucket 1 and 8.
+ 14. lm_serve the LM main path: a PagedServingEngine on `cuda` (chunk 64,
               prefill budget 256, buckets 1/2/4/8, 256 blocks of 16,
               max_len 1024) serves 24 requests (prompts 8-700 tokens,
               max_new 4-48, numpy seed), with the launch counts set to 0
@@ -84,13 +96,14 @@ script exits non-zero.  Phases:
               smaller stream: a token that differs from the paged engine's
               is allowed only where the `eager` top-2 margin is below 10 x
               the measured logits error (counted and printed).
- 13. timing_lm  each attention kernel at the path's shapes: kernel, plain,
+ 15. timing_lm  each attention kernel at the path's shapes: kernel, plain,
               bound and torch's scaled_dot_product_attention (TF32 off, a
               baseline only) ms, each the device time of CUDA-graph replays
               (`graph_ms`), and the kernel's time when called back to back
-              from Python (`enqueued_ms`, host enqueue included); the paged
-              step's prefill-chunk and decode dispatch ms, tokens/s, p50
-              and p99.
+              from Python (`enqueued_ms`, host enqueue included); for the
+              decode kernel also `combine` and `op_ms`, partials plus
+              merge, the function SDPA computes; the paged step's
+              prefill-chunk and decode dispatch ms, tokens/s, p50 and p99.
 Then the kernels line, and last the result line.
 """
 from __future__ import annotations
@@ -155,6 +168,7 @@ LM_PREFILL, LM_CACHE = 512, 1024       # lm phase: prompt and cache rows
 SERVE = dict(kv_blocks=256, block_size=16, max_len=1024, chunk=64,
              prefill_budget=256, batch_buckets=(1, 2, 4, 8))
 N_REQUESTS = 24
+LM_GEMM_ROWS = (1, 8, 64)  # decode row, batch-8 decode, 64-token chunk
 MARGIN_FACTOR = 10  # a slot/paged token mismatch needs margin < 10 x error
 
 
@@ -216,23 +230,30 @@ def randomize_bn(net: Network, gen: torch.Generator) -> None:
                 p.copy_(torch.randn(n, generator=gen) * 0.1)
 
 
-def operands(m, k, n, dtype, gen):
-    """GEMM operands drawn on the card from the CUDA generator `gen`."""
+def operands(m, k, n, dtype, gen, trans=False):
+    """GEMM operands drawn on the card from the CUDA generator `gen`; with
+    `trans`, w is the (K, N) transpose of a row-major (N, K) tensor, as the
+    tied LM head reads the embedding table."""
     dev = gen.device
     x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
-    w = (torch.randn(k, n, generator=gen, device=dev)
+    shape = (n, k) if trans else (k, n)
+    w = (torch.randn(shape, generator=gen, device=dev)
          / math.sqrt(k)).to(dtype)
+    w = w.t() if trans else w
     scale = torch.rand(n, generator=gen, device=dev) + 0.5
     shift = torch.randn(n, generator=gen, device=dev) * 0.1
     return x, w, scale, shift
 
 
-def check_shape(m, k, n, tiles, gen) -> dict:
-    """Kernel vs plain at one shape over dtypes, activations, epilogues."""
+def check_shape(m, k, n, tiles, gen, trans=False) -> dict:
+    """Kernel vs plain at one shape over dtypes, activations, epilogues;
+    with `trans` the kernel reads w transposed in place, and must give the
+    bits of a row-major copy of w."""
     worst = {"fp32": 0.0, "bf16": 0.0}
     max_abs = 0.0
     for in_dt in (torch.float32, torch.bfloat16):
-        x, w, scale, shift = operands(m, k, n, in_dt, gen)
+        x, w, scale, shift = operands(m, k, n, in_dt, gen, trans)
+        w_rows = w.contiguous() if trans else None
         for out_dt in (torch.float32, torch.bfloat16):
             kind = ("fp32" if in_dt == out_dt == torch.float32 else "bf16")
             tol = FP32_TOL if kind == "fp32" else BF16_TOL
@@ -251,11 +272,16 @@ def check_shape(m, k, n, tiles, gen) -> dict:
                               f"{in_dt}->{out_dt} {act} scale={sc is not None}"
                               f" shift={sh is not None} tile={tile}: "
                               f"{err:.3e} > {tol:g}")
+                        if trans:
+                            check(torch.equal(got, gemm.gemm_fused_fwd(
+                                x, w_rows, sc, sh, act=act, out_dtype=out_dt,
+                                tile=tile)), f"transposed w changes the bits "
+                                f"at {(m, k, n)} {in_dt} {act} tile={tile}")
                         worst[kind] = max(worst[kind], err)
                         if kind == "fp32":
                             max_abs = max(max_abs, float(
                                 (got - want).abs().max()))
-    return {"shape": [m, k, n], "tiles": list(tiles),
+    return {"shape": [m, k, n], "tiles": list(tiles), "trans_w": trans,
             "relmax_fp32": worst["fp32"], "relmax_bf16": worst["bf16"],
             "max_abs_err_fp32": max_abs}
 
@@ -597,6 +623,105 @@ def attn_phases(cgen) -> dict:
     return path_abs
 
 
+def lm_gemms(cfg) -> list[dict]:
+    """The GEMMs one dispatch of the dense LM makes: each layer's seven
+    projections and the tied head, with name, (K, N), fused epilogue (the
+    QKV bias is the shift; SwiGLU's gate fuses silu), launches per
+    dispatch and whether w is read transposed (the head, from the (V, D)
+    embedding table)."""
+    d, q = cfg.d_model, cfg.n_heads * cfg.head_dim
+    kv = cfg.n_kv_heads * cfg.head_dim
+    layer = [("q", d, q, "linear", cfg.qkv_bias),
+             ("k", d, kv, "linear", cfg.qkv_bias),
+             ("v", d, kv, "linear", cfg.qkv_bias),
+             ("o", q, d, "linear", False),
+             ("gate", d, cfg.d_ff, "silu", False),
+             ("up", d, cfg.d_ff, "linear", False),
+             ("down", cfg.d_ff, d, "linear", False)]
+    out = [{"name": name, "k": k, "n": n, "act": act, "shift": shift,
+            "per_dispatch": cfg.n_layers, "trans": False}
+           for name, k, n, act, shift in layer]
+    return out + [{"name": "head", "k": d, "n": cfg.vocab_padded,
+                   "act": "linear", "shift": False, "per_dispatch": 1,
+                   "trans": cfg.tie_embeddings}]
+
+
+def lm_gemm_check(cfg, cgen) -> float:
+    """Phase check_lm_gemm: the fused GEMM against its plain version at
+    the LM's shapes, M 1, 8 and 64 (a decode row, a batch-8 decode, a
+    64-token prefill chunk) with the path's tile, every epilogue and
+    dtype as phase 2, the head reading w transposed; returns the fp32
+    max-abs error."""
+    max_abs, seen = 0.0, set()
+    for m in LM_GEMM_ROWS:
+        for g in lm_gemms(cfg):
+            key = (m, g["k"], g["n"], g["trans"])
+            if key in seen:             # q / o and k / v share a shape
+                continue
+            seen.add(key)
+            tiles = (ops.default_tiles(m, g["k"], g["n"])[0],)
+            res = check_shape(m, g["k"], g["n"], tiles, cgen, g["trans"])
+            max_abs = max(max_abs, res["max_abs_err_fp32"])
+            emit("check_lm_gemm", arch=LM_ARCH, m=m, gemm=g["name"], **res)
+    torch.cuda.synchronize()
+    return max_abs
+
+
+def lm_gemm_timing(cfg, cgen, peak_flops, peak_bw, smi) -> dict:
+    """Phase timing_lm_gemm: each LM GEMM at M 1, 8 and 64, fp32 with its
+    epilogue: the kernel, its plain version and torch.matmul (cuBLAS fp32,
+    TF32 off, no epilogue), each the device time of CUDA-graph replays,
+    and the bound.  As on the path, each timed call runs the GEMM once
+    per layer over that many distinct weights, so the weights come from
+    device memory and not from the 50 MB L2.  Sums per dispatch (24
+    layers x 7 + the head) at each M, and their total over the three."""
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms",
+            "bytes_ms")
+    total = dict.fromkeys(keys, 0.0)
+    per_m = {}
+    for m in LM_GEMM_ROWS:
+        disp = dict.fromkeys(keys, 0.0)
+        for g in lm_gemms(cfg):
+            k, n, reps = g["k"], g["n"], g["per_dispatch"]
+            x, w, _, shift = operands(m, k, n, torch.float32, cgen,
+                                      g["trans"])
+            ws = [w] + [w.clone() for _ in range(reps - 1)]
+            sh = shift if g["shift"] else None
+            act = g["act"]
+            tile = ops.default_tiles(m, k, n)[0]
+            flops = 2.0 * m * k * n
+            nbytes = 4.0 * (m * k + k * n + m * n + (n if g["shift"] else 0))
+
+            def each(fn):
+                return graph_ms(lambda: [fn(wi) for wi in ws],
+                                reps=max(1, 20 // reps)) / reps
+
+            row = {"ms": each(lambda wi: gemm.gemm_fused_fwd(
+                       x, wi, None, sh, act=act, tile=tile)),
+                   "plain_ms": each(lambda wi: gemm.gemm_fused_plain(
+                       x, wi, None, sh, act=act)),
+                   "library_ms": each(lambda wi: torch.matmul(x, wi)),
+                   "ops_ms": flops / peak_flops * 1e3,
+                   "bytes_ms": nbytes / peak_bw * 1e3}
+            row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
+            emit("timing_lm_gemm", m=m, gemm=g["name"], shape=[m, k, n],
+                 act=act, shift=g["shift"], trans_w=g["trans"], tile=tile,
+                 per_dispatch=reps, **row,
+                 bound_by=("operations" if row["ops_ms"] >= row["bytes_ms"]
+                           else "bytes"), bound_share=row["bound_ms"]
+                 / row["ms"])
+            for key in keys:
+                disp[key] += reps * row[key]
+            del x, w, ws
+        per_m[str(m)] = disp
+        for key in keys:
+            total[key] += disp[key]
+    emit("timing_lm_gemm_total", smi=smi, per_dispatch=per_m,
+         launches_per_dispatch=sum(g["per_dispatch"] for g in lm_gemms(cfg)),
+         **total)
+    return total
+
+
 def lm_params(cfg, dev):
     """Full-width random parameters from a seed, with random QKV biases
     (the init's zeros would leave the bias epilogue untested)."""
@@ -618,7 +743,7 @@ def lm_phase(cfg, params, dev) -> dict:
                                            (1, LM_PREFILL))).to(dev)
     nxt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 1))).to(dev)
     head = tfm.head_weight(params, cfg)
-    head_ptr = head.data_ptr()
+    table = params["embed"]["tokens"]
     out = {}
     with torch.inference_mode():
         for label, eng in (("cuda", cuda), ("eager", eager)):
@@ -662,8 +787,11 @@ def lm_phase(cfg, params, dev) -> dict:
     check(cu["launches"] == (cfg.n_layers, cfg.n_layers),
           f"lm launches {cu['launches']}, want one of each per layer")
     check(ea["launches"] == (0, 0), "the eager engine launched a kernel")
-    check(head.is_contiguous() and tfm.head_weight(params, cfg).data_ptr()
-          == head_ptr, "the head weight moved")
+    check(gemm.is_transposed(head) and head.data_ptr() == table.data_ptr()
+          and tfm.head_weight(params, cfg).data_ptr() == table.data_ptr()
+          and table.is_contiguous() and set(params) == {
+              "embed", "final_norm", "layers"},
+          "the tied head is not the embedding table read in place")
     check(cu["decode_extra_bytes"] < head_bytes,
           f"a decode dispatch allocated {cu['decode_extra_bytes']} bytes, "
           f"as much as the head: it was copied")
@@ -825,8 +953,11 @@ def timing_lm_phase(cfg, params, dev, cgen, peak_flops, peak_bw,
                                               n_splits=ns, span=span))
             out_bytes = 4.0 * b * h * ns * sq * (d + 1)
             parts = fn()
+            # op_ms: the whole function on the path, partials and merge,
+            # which is what library_ms (one SDPA call) computes
             extra = {"splits": ns, "span": span,
-                     "combine_ms": graph_ms(lambda: fd.combine(*parts))}
+                     "combine_ms": graph_ms(lambda: fd.combine(*parts)),
+                     "op_ms": graph_ms(lambda: fd.combine(*fn()))}
         else:
             kernel, fn, plain = "flash_attention", (
                 lambda: fa.flash_attention_fwd(q, k, v, kvl, causal=causal)), (
@@ -1256,9 +1387,11 @@ def main() -> int:
          kernel_ms=kernel_ms, **parts,
          kernel_share=kernel_ms / steps[f"cuda_b{TRAIN_BATCH}"]["ms"])
 
-    # ------------------------------------------------------ 9-13. the LM
+    # ------------------------------------------------------ 9-15. the LM
     attn_abs = attn_phases(cgen)
     cfg = get_arch(LM_ARCH)
+    lm_gemm_abs = lm_gemm_check(cfg, cgen)
+    lm_gemm = lm_gemm_timing(cfg, cgen, peak_flops, peak_bw, smi)
     params = lm_params(cfg, dev)
     lm = lm_phase(cfg, params, dev)
     serve_lm = lm_serve_phase(cfg, params, dev, lm["abs_err"])
@@ -1267,33 +1400,40 @@ def main() -> int:
     bucket_phase(cfg, params, dev)
     lm_launches = serve_lm["launches"]
 
-    def kernel_entry(name, source, replaces, launches, max_abs_err, row):
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "checked": True, "launches": launches,
-                "max_abs_err": max_abs_err, "ms": row["ms"],
-                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                "bound_by": ("operations" if row["ops_ms"] >= row["bytes_ms"]
-                             else "bytes"),
-                "library_ms": row["library_ms"]}
+    def kernel_entry(name, source, replaces, path, launches, max_abs_err,
+                     row):
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "path": path, "checked": True,
+                 "launches": launches, "max_abs_err": max_abs_err,
+                 "ms": row["ms"], "plain_ms": row["plain_ms"],
+                 "bound_ms": row["bound_ms"],
+                 "bound_by": ("operations" if row["ops_ms"] >= row["bytes_ms"]
+                              else "bytes"),
+                 "library_ms": row["library_ms"]}
+        if "op_ms" in row:
+            entry["op_ms"] = row["op_ms"]
+        return entry
 
     print(json.dumps({"kernels": [
-        kernel_entry("gemm_fused_fwd", SOURCE, REPLACES, main_launches,
-                     path_max_abs, totals),
-        kernel_entry("gemm_fused_fwd_res", SOURCE, REPLACES,
+        kernel_entry("gemm_fused_fwd", SOURCE, REPLACES, "cnn_serve",
+                     main_launches, path_max_abs, totals),
+        kernel_entry("gemm_fused_fwd_res", SOURCE, REPLACES, "cnn_train",
                      train_launches["gemm_fused_fwd_res"], res_max_abs,
                      tt["gemm_fused_fwd_res"]),
-        kernel_entry("gemm_bwd_dx", SOURCE_BWD, REPLACES_DX,
+        kernel_entry("gemm_bwd_dx", SOURCE_BWD, REPLACES_DX, "cnn_train",
                      train_launches["gemm_bwd_dx"],
                      bwd_max_abs["gemm_bwd_dx"], tt["gemm_bwd_dx"]),
-        kernel_entry("gemm_bwd_dw", SOURCE_BWD, REPLACES_DW,
+        kernel_entry("gemm_bwd_dw", SOURCE_BWD, REPLACES_DW, "cnn_train",
                      train_launches["gemm_bwd_dw"],
                      bwd_max_abs["gemm_bwd_dw"], tt["gemm_bwd_dw"]),
+        kernel_entry("gemm_fused_fwd:lm", SOURCE, REPLACES, "lm_serve",
+                     lm_launches["gemm_fused_fwd"], lm_gemm_abs, lm_gemm),
         kernel_entry("flash_attention", SOURCE_ATTN, REPLACES_ATTN,
-                     lm_launches["flash_attention"], attn_abs["attn"],
-                     lm_rows["prefill_chunk"]),
+                     "lm_serve", lm_launches["flash_attention"],
+                     attn_abs["attn"], lm_rows["prefill_chunk"]),
         kernel_entry("flash_decode", SOURCE_DECODE, REPLACES_DECODE,
-                     lm_launches["flash_decode"], attn_abs["decode"],
-                     lm_rows["decode_b8"]),
+                     "lm_serve", lm_launches["flash_decode"],
+                     attn_abs["decode"], lm_rows["decode_b8"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -56,7 +56,7 @@ def _tree_map(fn, tree):
 def lm_params_from_jax(tree: Mapping, cfg, device=None) -> dict:
     """The JAX LM tree (numpy-convertible leaves) -> the port's parameter
     dict (`repro_torch.models.transformer`), fp32 tensors on `device`, with
-    the stacked layers unstacked and the tied head attached."""
+    the stacked layers unstacked."""
     from repro_torch.models import transformer as tfm
     (_, n), = tfm.stack_program(cfg)
     (stack,) = tree["stacks"]
@@ -68,13 +68,12 @@ def lm_params_from_jax(tree: Mapping, cfg, device=None) -> dict:
               for key in ("embed", "final_norm", "lm_head") if key in tree}
     params["layers"] = [_tree_map(lambda a, i=i: tensor(np.asarray(a)[i]),
                                   stack) for i in range(n)]
-    return tfm.attach_head(params, cfg)
+    return params
 
 
 def lm_params_to_numpy(params: Mapping) -> dict:
     """Inverse of `lm_params_from_jax`: the JAX tree layout (layers stacked
-    under ``stacks[0]``) as fp32 numpy arrays; the derived tied head is
-    dropped."""
+    under ``stacks[0]``) as fp32 numpy arrays."""
     def array(t):
         return t.detach().float().cpu().numpy()
 

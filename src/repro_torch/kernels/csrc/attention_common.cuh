@@ -3,9 +3,10 @@
 // decode kernel (flash_decode.cu).
 //
 // Both kernels walk 64-key tiles of one (batch, kv-head) pair for a tile of
-// up to 64 query rows and update each row's online-softmax state (m, l) and
-// its fp32 accumulator with `tile_step` below.  The per-row arithmetic of a
-// tile depends on nothing but that row's data:
+// up to 16 * RT query rows (RT, the rows per thread, is 4 or 1) and update
+// each row's online-softmax state (m, l) and its fp32 accumulator with
+// `tile_step` below.  The per-row arithmetic of a tile depends on nothing
+// but that row's data:
 //   * a score is one fmaf chain over d = 0..D-1 in order;
 //   * the row max is exact (max does not round);
 //   * p = exp(s - m_new), zeroed where s <= -5e29 (a masked key), as the
@@ -20,7 +21,17 @@
 // problem (flash_decode.py at n_splits = 1 equals flash_attention.py, the
 // property `test_single_split_degenerates_bit_identically` pins in the JAX
 // package), and a row's bits do not depend on the other rows of its tile,
-// on the batch size or on the tile a row lands in.
+// on the batch size, on the tile a row lands in or on RT.
+//
+// RT is picked per launch from the grid alone (`pick_rt`): 64-row blocks
+// when they give at least every other SM a block, else 16-row blocks,
+// four times as many.  A 64-token prefill chunk of qwen2-0.5b at batch 1
+// has 7 * 64 rows per kv-head, 14 blocks of 64 rows on 132 SMs, each
+// walking the whole key extent; 16-row blocks make that 56.  Where the
+// 64-row grid is already near a wave, 16-row blocks are slower: each
+// thread then does 4 FFMAs per 5 shared loads instead of 16 per 8 (a
+// 512-token prompt, 112 blocks of 64 rows, ran 0.082 ms on 64-row and
+// 0.092 ms on 16-row blocks on an H100 SXM).
 //
 // Keys are masked per row by one bound: key j is live for row r iff
 // j < row_end[r], where row_end = kv_len (or Skv) without causal masking and
@@ -36,9 +47,9 @@
 
 namespace attn {
 
-constexpr int ROWS = 64;      // query rows of one block
 constexpr int BKV = 64;       // keys of one tile
 constexpr int THREADS = 256;  // 16 x 16 threads; 8 warps
+constexpr int SMS = 132;      // streaming multiprocessors of an H100 SXM
 constexpr float NEG = -1e30f;
 constexpr float NEG_HALF = -5e29f;
 constexpr unsigned FULL = 0xffffffffu;
@@ -50,11 +61,16 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162flo
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
+// Rows per thread of a launch whose grid has `blocks64` blocks at 64 rows
+// per block: 4 when those cover half the SMs or more, else 1.
+inline int pick_rt(long long blocks64) { return 2 * blocks64 >= SMS ? 4 : 1; }
+
 // Dynamic shared memory of one block, in floats: q rows, the k and v tile
 // (rows padded by one float so column reads hit distinct banks), the score /
 // probability tile, and per-row m, l, alpha and row_end.
-template <int D>
+template <int D, int RT>
 struct Smem {
+  static constexpr int ROWS = 16 * RT;  // query rows of one block
   static constexpr int LD = D + 1;
   static constexpr int PLD = BKV + 1;
   static constexpr int Q = 0;
@@ -73,13 +89,13 @@ struct Smem {
 // position gr / G of head kvh * G + gr % G, so a block's largest position
 // is its last row's.  Returns the key bound of the whole block (the largest
 // row_end), which may be <= 0 when every row is fully masked.
-template <typename T, int D>
+template <typename T, int D, int RT>
 __device__ __forceinline__ int load_rows(float* sm, const T* __restrict__ q,
                                          int64_t qsb, int64_t qss, int64_t qsh,
                                          int b, int kvh, int G, int Sq,
                                          int r0, int nrows, int kvlen,
                                          int causal) {
-  using S = Smem<D>;
+  using S = Smem<D, RT>;
   float* qs = sm + S::Q;
   int* row_end = reinterpret_cast<int*>(sm + S::END);
   for (int i = threadIdx.x; i < nrows * D; i += THREADS) {
@@ -88,7 +104,7 @@ __device__ __forceinline__ int load_rows(float* sm, const T* __restrict__ q,
     const int h = kvh * G + gr % G;
     qs[r * S::LD + d] = to_f32(q[b * qsb + (gr / G) * qss + h * qsh + d]);
   }
-  for (int r = threadIdx.x; r < ROWS; r += THREADS) {
+  for (int r = threadIdx.x; r < S::ROWS; r += THREADS) {
     sm[S::M + r] = NEG;
     sm[S::L + r] = 0.f;
     const int pos = (r0 + r) / G;
@@ -100,12 +116,33 @@ __device__ __forceinline__ int load_rows(float* sm, const T* __restrict__ q,
 
 // Stage keys [t0, t0 + BKV) of one (batch, kv-head) in shared memory as
 // fp32; keys at or past Skv read as 0 (they are masked by row_end <= Skv).
-template <typename T, int D>
+// fp32 rows are read as float4 where `vec` says the rows are 16-byte
+// aligned (the same values, a quarter of the load instructions).
+template <typename T, int D, int RT>
 __device__ __forceinline__ void load_kv_tile(float* sm, const T* __restrict__ k,
                                              const T* __restrict__ v,
                                              int64_t kss, int64_t vss, int t0,
-                                             int skv) {
-  using S = Smem<D>;
+                                             int skv, bool vec) {
+  using S = Smem<D, RT>;
+  if constexpr (sizeof(T) == sizeof(float)) {
+    if (vec) {
+      constexpr int D4 = D / 4;
+      for (int i = threadIdx.x; i < BKV * D4; i += THREADS) {
+        const int c = i / D4, d = (i % D4) * 4;
+        const int j = t0 + c;
+        float4 kk = make_float4(0.f, 0.f, 0.f, 0.f), vv = kk;
+        if (j < skv) {
+          kk = *reinterpret_cast<const float4*>(k + j * kss + d);
+          vv = *reinterpret_cast<const float4*>(v + j * vss + d);
+        }
+        float* ks = sm + S::K + c * S::LD + d;
+        float* vs = sm + S::V + c * S::LD + d;
+        ks[0] = kk.x; ks[1] = kk.y; ks[2] = kk.z; ks[3] = kk.w;
+        vs[0] = vv.x; vs[1] = vv.y; vs[2] = vv.z; vs[3] = vv.w;
+      }
+      return;
+    }
+  }
   for (int i = threadIdx.x; i < BKV * D; i += THREADS) {
     const int c = i / D, d = i % D;
     const int j = t0 + c;
@@ -117,11 +154,11 @@ __device__ __forceinline__ void load_kv_tile(float* sm, const T* __restrict__ k,
 
 // One online-softmax update of rows [0, nrows) with the staged tile of keys
 // [t0, t0 + BKV).  Thread (tr, tc) = (tid / 16, tid % 16) owns rows
-// tr + 16 i (i < 4) and, in the accumulator, columns tc + 16 j (j < D / 16).
-template <int D>
+// tr + 16 i (i < RT) and, in the accumulator, columns tc + 16 j (j < D / 16).
+template <int D, int RT>
 __device__ __forceinline__ void tile_step(float* sm, int t0, int nrows,
-                                          float (&acc)[4][D / 16]) {
-  using S = Smem<D>;
+                                          float (&acc)[RT][D / 16]) {
+  using S = Smem<D, RT>;
   constexpr int NJ = D / 16;
   const float* qs = sm + S::Q;
   const float* ks = sm + S::K;
@@ -133,25 +170,25 @@ __device__ __forceinline__ void tile_step(float* sm, int t0, int nrows,
 
   // 1. scores s = q . k, masked to -1e30
   if (tr < nrows) {
-    float s[4][4];
+    float s[RT][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RT; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 8
     for (int d = 0; d < D; ++d) {
-      float a[4], bb[4];
+      float a[RT], bb[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[(tr + 16 * i) * S::LD + d];
+      for (int i = 0; i < RT; ++i) a[i] = qs[(tr + 16 * i) * S::LD + d];
 #pragma unroll
       for (int j = 0; j < 4; ++j) bb[j] = ks[(tc + 16 * j) * S::LD + d];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RT; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) s[i][j] = __fmaf_rn(a[i], bb[j], s[i][j]);
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RT; ++i) {
       const int r = tr + 16 * i;
       if (r < nrows) {
 #pragma unroll
@@ -194,28 +231,28 @@ __device__ __forceinline__ void tile_step(float* sm, int t0, int nrows,
 
   // 3. acc = acc * alpha + P V
   if (tr < nrows) {
-    float pv[4][NJ];
+    float pv[RT][NJ];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RT; ++i)
 #pragma unroll
       for (int j = 0; j < NJ; ++j) pv[i][j] = 0.f;
 #pragma unroll 4
     for (int c = 0; c < BKV; ++c) {
-      float p[4], vv[NJ];
+      float p[RT], vv[NJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < RT; ++i) {
         const int r = tr + 16 * i;
         p[i] = r < nrows ? ps[r * S::PLD + c] : 0.f;
       }
 #pragma unroll
       for (int j = 0; j < NJ; ++j) vv[j] = vs[c * S::LD + tc + 16 * j];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RT; ++i)
 #pragma unroll
         for (int j = 0; j < NJ; ++j) pv[i][j] = __fmaf_rn(p[i], vv[j], pv[i][j]);
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RT; ++i) {
       const int r = tr + 16 * i;
       if (r < nrows) {
         const float al = sm[S::ALPHA + r];
@@ -230,20 +267,23 @@ __device__ __forceinline__ void tile_step(float* sm, int t0, int nrows,
 
 // Walk the tiles [lo, hi) (lo a multiple of BKV) of one (batch, kv-head)
 // for the staged rows, skipping every tile at or past the block's key bound.
-template <typename T, int D>
+template <typename T, int D, int RT>
 __device__ __forceinline__ void walk(float* sm, const T* __restrict__ k,
                                      const T* __restrict__ v, int64_t kss,
                                      int64_t vss, int skv, int lo, int hi,
-                                     int nrows, float (&acc)[4][D / 16]) {
+                                     int nrows, float (&acc)[RT][D / 16]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RT; ++i)
 #pragma unroll
     for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.f;
+  const bool vec = ((reinterpret_cast<uintptr_t>(k) |
+                     reinterpret_cast<uintptr_t>(v)) % 16 == 0) &&
+                   kss % 4 == 0 && vss % 4 == 0;
   __syncthreads();  // the rows and their state are staged
   for (int t0 = lo; t0 < hi; t0 += BKV) {
-    load_kv_tile<T, D>(sm, k, v, kss, vss, t0, skv);
+    load_kv_tile<T, D, RT>(sm, k, v, kss, vss, t0, skv, vec);
     __syncthreads();
-    tile_step<D>(sm, t0, nrows, acc);
+    tile_step<D, RT>(sm, t0, nrows, acc);
   }
 }
 

@@ -19,6 +19,11 @@
 //     block owns one (batch, kv-head) pair and 64 of its G * Sq query rows
 //     (position-major), so the G query heads that share a kv-head read each
 //     K / V tile once from device memory;
+//   * short queries would leave the card idle (a 64-token prefill chunk at
+//     batch 1 is 14 such blocks on 132 SMs, each walking every live key
+//     tile in turn), so a launch whose 64-row grid covers less than half
+//     the SMs takes 16-row blocks instead, four times as many
+//     (attention_common.cuh::pick_rt); the bits are the same either way;
 //   * q, k and v are read in the engine layout (B, S, heads, D) through
 //     strides, so the caller neither transposes nor pads; ragged edges are
 //     masked in the kernel (keys past Skv read as 0 and are masked);
@@ -36,7 +41,7 @@ namespace {
 
 using namespace attn;
 
-template <typename T, int D>
+template <typename T, int D, int RT>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ kv_len,
@@ -44,22 +49,22 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  int64_t qsb, int64_t qss, int64_t qsh, int64_t ksb,
                  int64_t kss, int64_t ksh, int64_t vsb, int64_t vss,
                  int64_t vsh, int causal) {
-  using S = Smem<D>;
+  using S = Smem<D, RT>;
   extern __shared__ float sm[];
   const int G = H / KV;
   const int b = blockIdx.y / KV, kvh = blockIdx.y % KV;
-  const int r0 = blockIdx.x * ROWS;
-  const int nrows = min(ROWS, G * Sq - r0);
+  const int r0 = blockIdx.x * S::ROWS;
+  const int nrows = min(S::ROWS, G * Sq - r0);
   const int kvlen = kv_len ? kv_len[b] : Skv;
-  const int end = load_rows<T, D>(sm, q, qsb, qss, qsh, b, kvh, G, Sq, r0,
-                                  nrows, kvlen, causal);
-  float acc[4][D / 16];
-  walk<T, D>(sm, k + b * ksb + kvh * ksh, v + b * vsb + kvh * vsh, kss, vss,
-             Skv, 0, min(end, Skv), nrows, acc);
+  const int end = load_rows<T, D, RT>(sm, q, qsb, qss, qsh, b, kvh, G, Sq,
+                                      r0, nrows, kvlen, causal);
+  float acc[RT][D / 16];
+  walk<T, D, RT>(sm, k + b * ksb + kvh * ksh, v + b * vsb + kvh * vsh, kss,
+                 vss, Skv, 0, min(end, Skv), nrows, acc);
 
   const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RT; ++i) {
     const int r = tr + 16 * i;
     if (r >= nrows) continue;
     const int gr = r0 + r;
@@ -73,23 +78,34 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* kv_len, void* o, int B, int Sq, int Skv, int H,
-                   int KV, const long long* st, int causal,
-                   cudaStream_t stream) {
+template <typename T, int D, int RT>
+cudaError_t launch_rt(const void* q, const void* k, const void* v,
+                      const int* kv_len, void* o, int B, int Sq, int Skv,
+                      int H, int KV, const long long* st, int causal,
+                      cudaStream_t stream) {
   static bool smem_set = false;
-  auto kernel = flash_fwd_kernel<T, D>;
-  const size_t bytes = Smem<D>::bytes;
+  auto kernel = flash_fwd_kernel<T, D, RT>;
+  const size_t bytes = Smem<D, RT>::bytes;
   cudaError_t err = allow_smem(kernel, bytes, smem_set);
   if (err != cudaSuccess) return err;
   const int rows = (H / KV) * Sq;
-  const dim3 grid((rows + ROWS - 1) / ROWS, B * KV);
+  const dim3 grid((rows + Smem<D, RT>::ROWS - 1) / Smem<D, RT>::ROWS, B * KV);
   kernel<<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), kv_len, static_cast<T*>(o), Sq, Skv, H, KV,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal);
   return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const int* kv_len, void* o, int B, int Sq, int Skv, int H,
+                   int KV, const long long* st, int causal,
+                   cudaStream_t stream) {
+  const long long blocks64 = ((H / KV) * static_cast<long long>(Sq) + 63) / 64 * B * KV;
+  if (pick_rt(blocks64) == 4)
+    return launch_rt<T, D, 4>(q, k, v, kv_len, o, B, Sq, Skv, H, KV, st, causal, stream);
+  return launch_rt<T, D, 1>(q, k, v, kv_len, o, B, Sq, Skv, H, KV, st, causal, stream);
 }
 
 template <typename T>

@@ -18,9 +18,10 @@
 //
 // What the design does about it:
 //   * one block per (split, batch * kv-head) serves all G query heads of the
-//     group (G * Sq rows; a third grid axis takes rows past 64), so each
-//     K / V tile is read once, not G times as under the JAX index map
-//     (which walks one query head per program);
+//     group (G * Sq rows; a third grid axis takes rows past a block's 64,
+//     or 16 when the 64-row grid covers less than half the SMs: pick_rt),
+//     so each K / V tile is read once, not G times as under the JAX index
+//     map (which walks one query head per program);
 //   * the split count and span come from the shape alone
 //     (kernels/ops.py::decode_splits), so a result has the same bits run to
 //     run and whatever the batch;
@@ -37,7 +38,7 @@ namespace {
 
 using namespace attn;
 
-template <typename T, int D>
+template <typename T, int D, int RT>
 __global__ void __launch_bounds__(THREADS)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ kv_len,
@@ -46,25 +47,25 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     int64_t qsh, int64_t ksb, int64_t kss, int64_t ksh,
                     int64_t vsb, int64_t vss, int64_t vsh, int causal,
                     int n_splits, int span) {
-  using S = Smem<D>;
+  using S = Smem<D, RT>;
   extern __shared__ float sm[];
   const int G = H / KV;
   const int split = blockIdx.x;
   const int b = blockIdx.y / KV, kvh = blockIdx.y % KV;
-  const int r0 = blockIdx.z * ROWS;
-  const int nrows = min(ROWS, G * Sq - r0);
+  const int r0 = blockIdx.z * S::ROWS;
+  const int nrows = min(S::ROWS, G * Sq - r0);
   const int kvlen = kv_len[b];
-  const int end = load_rows<T, D>(sm, q, qsb, qss, qsh, b, kvh, G, Sq, r0,
-                                  nrows, kvlen, causal);
+  const int end = load_rows<T, D, RT>(sm, q, qsb, qss, qsh, b, kvh, G, Sq,
+                                      r0, nrows, kvlen, causal);
   const int lo = split * span;
   const int hi = min(min(lo + span, Skv), end);
-  float acc[4][D / 16];
-  walk<T, D>(sm, k + b * ksb + kvh * ksh, v + b * vsb + kvh * vsh, kss, vss,
-             Skv, lo, hi, nrows, acc);
+  float acc[RT][D / 16];
+  walk<T, D, RT>(sm, k + b * ksb + kvh * ksh, v + b * vsb + kvh * vsh, kss,
+                 vss, Skv, lo, hi, nrows, acc);
 
   const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RT; ++i) {
     const int r = tr + 16 * i;
     if (r >= nrows) continue;
     const int gr = r0 + r;
@@ -83,17 +84,19 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* kv_len, float* o_part, float* lse_part, int B,
-                   int Sq, int Skv, int H, int KV, const long long* st,
-                   int causal, int n_splits, int span, cudaStream_t stream) {
+template <typename T, int D, int RT>
+cudaError_t launch_rt(const void* q, const void* k, const void* v,
+                      const int* kv_len, float* o_part, float* lse_part,
+                      int B, int Sq, int Skv, int H, int KV,
+                      const long long* st, int causal, int n_splits, int span,
+                      cudaStream_t stream) {
   static bool smem_set = false;
-  auto kernel = flash_decode_kernel<T, D>;
-  const size_t bytes = Smem<D>::bytes;
+  auto kernel = flash_decode_kernel<T, D, RT>;
+  const size_t bytes = Smem<D, RT>::bytes;
   cudaError_t err = allow_smem(kernel, bytes, smem_set);
   if (err != cudaSuccess) return err;
   const int rows = (H / KV) * Sq;
+  constexpr int ROWS = Smem<D, RT>::ROWS;
   const dim3 grid(n_splits, B * KV, (rows + ROWS - 1) / ROWS);
   kernel<<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -101,6 +104,20 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal,
       n_splits, span);
   return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const int* kv_len, float* o_part, float* lse_part, int B,
+                   int Sq, int Skv, int H, int KV, const long long* st,
+                   int causal, int n_splits, int span, cudaStream_t stream) {
+  const long long blocks64 =
+      static_cast<long long>(n_splits) * B * KV * (((H / KV) * Sq + 63) / 64);
+  if (pick_rt(blocks64) == 4)
+    return launch_rt<T, D, 4>(q, k, v, kv_len, o_part, lse_part, B, Sq, Skv, H, KV,
+                              st, causal, n_splits, span, stream);
+  return launch_rt<T, D, 1>(q, k, v, kv_len, o_part, lse_part, B, Sq, Skv, H, KV,
+                            st, causal, n_splits, span, stream);
 }
 
 template <typename T>

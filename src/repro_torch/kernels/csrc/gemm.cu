@@ -25,7 +25,13 @@
 //     N = 1000);
 //   * the epilogue (scale, shift, activation) runs on the registers and the
 //     store is masked, so the output is written once;
-//   * M tiles go on gridDim.x (gridDim.y is capped at 65,535).
+//   * M tiles go on gridDim.x (gridDim.y is capped at 65,535);
+//   * w may be stored transposed, (N, K) row-major (the TW flag, serving
+//     forward only): a tied LM head reads the (V, D) embedding table in
+//     place instead of a (D, V) copy of it.  The tile load then walks k
+//     fastest, so neighbouring threads still read neighbouring addresses;
+//     the arithmetic is the same fmaf chain, so the bits are those of the
+//     row-major w.
 // No split-K and no atomics: every output element is one thread's fmaf chain
 // over k = 0..K-1 in order, whatever M, the tile size or the block, so rows
 // padded into a larger serving batch are bitwise identical to the same rows
@@ -107,8 +113,9 @@ __device__ __forceinline__ float activate_deriv(float u, int act) {
 
 // RES = false is the serving forward; RES = true also writes g and racc
 // where those pointers are not null.  The arithmetic of y is the same in
-// both, so a training forward's y has the serving forward's bits.
-template <typename Tin, typename Tout, int BM, int BN, bool RES>
+// both, so a training forward's y has the serving forward's bits.  TW: w is
+// stored (N, K) row-major instead of (K, N).
+template <typename Tin, typename Tout, int BM, int BN, bool RES, bool TW>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 gemm_fused_fwd_kernel(const Tin* __restrict__ x, const Tin* __restrict__ w,
                       const float* __restrict__ scale,
@@ -121,7 +128,8 @@ gemm_fused_fwd_kernel(const Tin* __restrict__ x, const Tin* __restrict__ w,
   static_assert((BK * BN) % THREADS == 0, "w tile must split evenly");
 
   __shared__ __align__(16) float xs[BK][BM + XPAD];  // x tile, k-major
-  __shared__ __align__(16) float ws[BK][BN];         // w tile
+  // w tile; padded when TW, whose k-fastest stores would hit one bank
+  __shared__ __align__(16) float ws[BK][BN + (TW ? XPAD : 0)];
 
   const int tid = threadIdx.x;
   const int tcol = tid % TCOLS;
@@ -147,10 +155,12 @@ gemm_fused_fwd_kernel(const Tin* __restrict__ x, const Tin* __restrict__ w,
 #pragma unroll
     for (int it = 0; it < BK * BN / THREADS; ++it) {
       const int i = tid + it * THREADS;
-      const int r = i / BN, c = i % BN;
+      const int r = TW ? i % BK : i / BN, c = TW ? i / BK : i % BN;
       const int gk = k0 + r, gc = col0 + c;
       ws[r][c] = (gk < K && gc < N)
-                     ? to_f32(w[static_cast<int64_t>(gk) * N + gc]) : 0.f;
+                     ? to_f32(TW ? w[static_cast<int64_t>(gc) * K + gk]
+                                 : w[static_cast<int64_t>(gk) * N + gc])
+                     : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -194,14 +204,14 @@ gemm_fused_fwd_kernel(const Tin* __restrict__ x, const Tin* __restrict__ w,
   }
 }
 
-template <typename Tin, typename Tout, int T, bool RES>
+template <typename Tin, typename Tout, int T, bool RES, bool TW>
 cudaError_t launch_tile(const void* x, const void* w, const void* scale,
                         const void* shift, void* y, float* g, float* racc,
                         int M, int K, int N, int act, cudaStream_t stream) {
   const unsigned grid_m = static_cast<unsigned>((static_cast<int64_t>(M) + T - 1) / T);
   const unsigned grid_n = static_cast<unsigned>((N + T - 1) / T);
   if (grid_n > 65535u) return cudaErrorInvalidValue;
-  gemm_fused_fwd_kernel<Tin, Tout, T, T, RES>
+  gemm_fused_fwd_kernel<Tin, Tout, T, T, RES, TW>
       <<<dim3(grid_m, grid_n), (T / TM) * (T / TN), 0, stream>>>(
           static_cast<const Tin*>(x), static_cast<const Tin*>(w),
           static_cast<const float*>(scale), static_cast<const float*>(shift),
@@ -209,56 +219,74 @@ cudaError_t launch_tile(const void* x, const void* w, const void* scale,
   return cudaGetLastError();
 }
 
-template <typename Tin, typename Tout, bool RES>
+template <typename Tin, typename Tout, bool RES, bool TW>
 cudaError_t launch(const void* x, const void* w, const void* scale,
                    const void* shift, void* y, float* g, float* racc, int M,
                    int K, int N, int act, int tile, cudaStream_t stream) {
   switch (tile) {
     case 64:
-      return launch_tile<Tin, Tout, 64, RES>(x, w, scale, shift, y, g, racc,
-                                             M, K, N, act, stream);
+      return launch_tile<Tin, Tout, 64, RES, TW>(x, w, scale, shift, y, g,
+                                                 racc, M, K, N, act, stream);
     case 32:
-      return launch_tile<Tin, Tout, 32, RES>(x, w, scale, shift, y, g, racc,
-                                             M, K, N, act, stream);
+      return launch_tile<Tin, Tout, 32, RES, TW>(x, w, scale, shift, y, g,
+                                                 racc, M, K, N, act, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-template <bool RES>
-int dispatch(const void* x, const void* w, const void* scale,
+template <bool RES, bool TW>
+int by_dtype(const void* x, const void* w, const void* scale,
              const void* shift, void* y, float* g, float* racc, int M, int K,
              int N, int in_dtype, int out_dtype, int act, int tile,
-             void* stream) {
-  if (M <= 0 || N <= 0) return 0;
-  if (K < 0 || act < ACT_LINEAR || act > ACT_GELU) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+             cudaStream_t s) {
   if (in_dtype == DT_F32 && out_dtype == DT_F32)
-    return launch<float, float, RES>(x, w, scale, shift, y, g, racc, M, K, N,
-                                     act, tile, s);
+    return launch<float, float, RES, TW>(x, w, scale, shift, y, g, racc, M, K,
+                                         N, act, tile, s);
   if (in_dtype == DT_F32 && out_dtype == DT_BF16)
-    return launch<float, __nv_bfloat16, RES>(x, w, scale, shift, y, g, racc,
-                                             M, K, N, act, tile, s);
+    return launch<float, __nv_bfloat16, RES, TW>(x, w, scale, shift, y, g,
+                                                 racc, M, K, N, act, tile, s);
   if (in_dtype == DT_BF16 && out_dtype == DT_F32)
-    return launch<__nv_bfloat16, float, RES>(x, w, scale, shift, y, g, racc,
-                                             M, K, N, act, tile, s);
+    return launch<__nv_bfloat16, float, RES, TW>(x, w, scale, shift, y, g,
+                                                 racc, M, K, N, act, tile, s);
   if (in_dtype == DT_BF16 && out_dtype == DT_BF16)
-    return launch<__nv_bfloat16, __nv_bfloat16, RES>(
+    return launch<__nv_bfloat16, __nv_bfloat16, RES, TW>(
         x, w, scale, shift, y, g, racc, M, K, N, act, tile, s);
   return cudaErrorInvalidValue;
 }
 
+// The transposed-w variant is instantiated for the serving forward only.
+template <bool RES>
+int dispatch(const void* x, const void* w, const void* scale,
+             const void* shift, void* y, float* g, float* racc, int M, int K,
+             int N, int in_dtype, int out_dtype, int act, int tile,
+             int trans_w, void* stream) {
+  if (M <= 0 || N <= 0) return 0;
+  if (K < 0 || act < ACT_LINEAR || act > ACT_GELU) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!trans_w)
+    return by_dtype<RES, false>(x, w, scale, shift, y, g, racc, M, K, N,
+                                in_dtype, out_dtype, act, tile, s);
+  if constexpr (RES) {
+    return cudaErrorInvalidValue;
+  } else {
+    return by_dtype<false, true>(x, w, scale, shift, y, g, racc, M, K, N,
+                                 in_dtype, out_dtype, act, tile, s);
+  }
+}
+
 }  // namespace
 
-// x (M, K) and w (K, N) row-major in `in_dtype`; scale and shift fp32 (N,)
-// or null; y (M, N) row-major in `out_dtype`.  `tile` is the square output
+// x (M, K) row-major and w (K, N) row-major, or (N, K) row-major when
+// `trans_w` is not 0, both in `in_dtype`; scale and shift fp32 (N,) or
+// null; y (M, N) row-major in `out_dtype`.  `tile` is the square output
 // tile (64 or 32).  Launches on `stream` and returns cudaGetLastError().
 extern "C" int gemm_fused_fwd(const void* x, const void* w, const void* scale,
                               const void* shift, void* y, int M, int K, int N,
                               int in_dtype, int out_dtype, int act, int tile,
-                              void* stream) {
+                              int trans_w, void* stream) {
   return dispatch<false>(x, w, scale, shift, y, nullptr, nullptr, M, K, N,
-                         in_dtype, out_dtype, act, tile, stream);
+                         in_dtype, out_dtype, act, tile, trans_w, stream);
 }
 
 // The training forward: as gemm_fused_fwd, and also g = act'(u) and
@@ -272,7 +300,7 @@ extern "C" int gemm_fused_fwd_res(const void* x, const void* w,
                                   int tile, void* stream) {
   return dispatch<true>(x, w, scale, shift, y, static_cast<float*>(g),
                         static_cast<float*>(racc), M, K, N, in_dtype,
-                        out_dtype, act, tile, stream);
+                        out_dtype, act, tile, 0, stream);
 }
 
 extern "C" const char* gemm_error_string(int code) {

@@ -142,7 +142,7 @@ def _check_cuda(name: str, tile: int, **tensors) -> None:
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {  # entry point -> (library, argument types before the stream)
-    "gemm_fused_fwd": ("gemm", [_P] * 5 + [_I] * 7),
+    "gemm_fused_fwd": ("gemm", [_P] * 5 + [_I] * 8),
     "gemm_fused_fwd_res": ("gemm", [_P] * 7 + [_I] * 7),
     "gemm_bwd_dx": ("gemm_bwd", [_P] * 3 + [_I] * 7),
     "gemm_bwd_dw": ("gemm_bwd", [_P] * 3 + [_I] * 7),
@@ -163,10 +163,21 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def is_transposed(w) -> bool:
+    """Whether the 2-D `w` is not contiguous but its transpose is: a
+    (K, N) view of a row-major (N, K) tensor, which the serving forward
+    reads in place."""
+    return not w.is_contiguous() and w.t().is_contiguous()
+
+
 def gemm_fused_fwd(x, w, scale=None, shift=None, *, act: str = "linear",
                    out_dtype=None, tile: int = 64, residuals: bool = False):
-    """act((x @ w) * scale + shift) for x (M, K), w (K, N) row-major.
+    """act((x @ w) * scale + shift) for x (M, K) and w (K, N).
 
+    x is row-major.  w is row-major, or, for the serving forward only, the
+    transpose of a row-major (N, K) tensor (`is_transposed`: a tied LM
+    head's ``embed.t()``), which the kernel reads in place with the same
+    arithmetic, so the bits are those of a row-major copy.
     x and w share float32 or bfloat16; scale/shift are float32 (N,) or
     None; the result is (M, N) in `out_dtype` (default x.dtype), with fp32
     accumulation.  `tile` is the square output tile (one of `TILES`).
@@ -182,7 +193,12 @@ def gemm_fused_fwd(x, w, scale=None, shift=None, *, act: str = "linear",
     if x.device.type == "cpu":
         plain = gemm_fused_res_plain if residuals else gemm_fused_plain
         return plain(x, w, scale, shift, act=act, out_dtype=out_dtype)
-    _check_cuda("gemm_fused_fwd", tile, x=x, w=w, scale=scale, shift=shift)
+    trans_w = is_transposed(w)
+    if trans_w and residuals:
+        raise ValueError("the residual forward takes a row-major w; only the "
+                         "serving forward reads a transposed w in place")
+    _check_cuda("gemm_fused_fwd", tile, x=x, w=w.t() if trans_w else w,
+                scale=scale, shift=shift)
     m, k = x.shape
     n = w.shape[1]
     y = torch.empty((m, n), dtype=out_dtype, device=x.device)
@@ -198,6 +214,8 @@ def gemm_fused_fwd(x, w, scale=None, shift=None, *, act: str = "linear",
             args += [_ptr(g), _ptr(racc)]
         args += [m, k, n, _DTYPES[x.dtype], _DTYPES[out_dtype],
                  ACTIVATIONS.index(act), tile]
+        if not residuals:
+            args.append(int(trans_w))
         entry = "gemm_fused_fwd_res" if residuals else "gemm_fused_fwd"
         _launch(entry, x.device, *args, what=f"(M, K, N) = {(m, k, n)}")
         global launches, launches_res

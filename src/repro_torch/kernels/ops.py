@@ -5,8 +5,9 @@ their shape checks).
 The JAX wrappers pad to tile multiples and slice the result, because the
 TPU kernels' BlockSpecs need whole blocks.  The port's CUDA kernels mask
 the ragged edges themselves, so these wrappers do NOT pad.  `matmul` makes
-x contiguous and picks the tile (w must already be contiguous: a weight is
-laid out once, never copied per call).  Any (M, K, N) runs, the property of
+x contiguous and picks the tile.  A weight is never copied per call: w must
+be row-major, or, on the forward-only path, the transpose of a row-major
+tensor (a tied LM head's ``embed.t()``), which the kernel reads in place.  Any (M, K, N) runs, the property of
 the paper's Figure 3.  The attention wrappers fold sm_scale into q in fp32
 and hand the kernels q, k and v in the engine layout (B, S, heads, D)
 through strides, with no transpose.
@@ -75,24 +76,30 @@ def matmul(x, w, scale=None, shift=None, *, act: str = "linear",
     (M, K) x (K, N).
 
     scale/shift are (N,) vectors (cast to float32) or None; `tiles` pins
-    (bm, bk, bn), else `default_tiles` picks.  Differentiable: with grad
-    enabled and an operand that requires it, the call goes through
-    `gemm.GemmFused`, whose backward uses `default_bwd_tiles`.  On a CPU
-    tensor the kernel wrappers run their plain versions.
+    (bm, bk, bn), else `default_tiles` picks.  w is row-major, or the
+    transpose of a row-major tensor (read in place; forward only).
+    Differentiable: with grad enabled and an operand that requires it, the
+    call goes through `gemm.GemmFused`, whose backward uses
+    `default_bwd_tiles`.  On a CPU tensor the kernel wrappers run their
+    plain versions.
     """
     m, k = x.shape
     n = w.shape[1]
     bm = (tiles or default_tiles(m, k, n))[0]
-    if not w.is_contiguous():
-        raise ValueError(f"w {tuple(w.shape)} must be contiguous: lay a "
-                         f"weight out once (a transposed view would be "
-                         f"copied on every call)")
+    if not (w.is_contiguous() or gemm_kernel.is_transposed(w)):
+        raise ValueError(f"w {tuple(w.shape)} must be contiguous or the "
+                         f"transpose of a contiguous tensor: a weight is "
+                         f"never copied per call")
     x = x.contiguous()
     scale = None if scale is None else scale.float().contiguous()
     shift = None if shift is None else shift.float().contiguous()
     out_dtype = out_dtype or x.dtype
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, w, scale, shift)):
+        if not w.is_contiguous():
+            raise ValueError(f"w {tuple(w.shape)} must be contiguous for "
+                             f"training: the backward kernels take a "
+                             f"row-major (K, N) weight")
         dx_plan = default_bwd_tiles("dx", m, n, k)
         dw_plan = default_bwd_tiles("dw", k, m, n)
         return gemm_kernel.GemmFused.apply(

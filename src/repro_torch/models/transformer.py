@@ -11,13 +11,13 @@ Parameters (plain dicts of tensors)::
 
     {"embed": {"tokens": (V_padded, D)}, "final_norm": {...},
      "layers": [{"norm1", "attn", "norm2", "mlp"}, ...],
-     "lm_head": {"w": (D, V_padded)}            # untied configs
-     "head": {"w": (D, V_padded)}}              # tied: embed.T, contiguous
+     "lm_head": {"w": (D, V_padded)}}           # untied configs only
 
-A tied head is the embedding's transpose.  It is laid out contiguously ONCE
-per parameter load (`attach_head`), so the head GEMM never copies the
-table per call (544 MB at qwen2-0.5b).  Caches are a list aligned with the
-layer program, ``[{"k", "v": (n_layers, B, S, KV, hd)}]``, as in JAX.
+A tied head is the embedding's transpose, ``embed.t()``: a view that the
+GEMM kernel reads in place, so the head neither copies the table per call
+nor keeps a second copy of it (544 MB at qwen2-0.5b).  Caches are a list
+aligned with the layer program, ``[{"k", "v": (n_layers, B, S, KV, hd)}]``,
+as in JAX.
 MoE, MLA, SSM, hybrid and the modality frontends come with their model
 code; their families raise NotImplementedError here.
 """
@@ -43,8 +43,7 @@ def stack_program(cfg) -> list[tuple[str, int]]:
 
 def init_params(cfg, *, generator: torch.Generator, device=None) -> dict:
     """Random parameters with the JAX package's initialisation rules (its
-    numbers differ: this draws from `generator`, which lives on `device`).
-    The tied head is attached."""
+    numbers differ: this draws from `generator`, which lives on `device`)."""
     stack_program(cfg)
     params = {"embed": embed_init(generator, cfg.vocab_padded, cfg.d_model,
                                   device),
@@ -59,27 +58,15 @@ def init_params(cfg, *, generator: torch.Generator, device=None) -> dict:
         params["lm_head"] = {"w": torch.randn(
             cfg.d_model, cfg.vocab_padded, generator=generator,
             device=device) / cfg.d_model ** 0.5}
-    return attach_head(params, cfg)
-
-
-def attach_head(params: dict, cfg) -> dict:
-    """For a tied config, lay out the head ``embed.T`` contiguously once as
-    ``params["head"]["w"]``; returns params.  Call it again after the
-    embedding changes."""
-    if cfg.tie_embeddings:
-        params["head"] = {"w": params["embed"]["tokens"].t().contiguous()}
     return params
 
 
 def head_weight(params: dict, cfg):
-    """The (D, V_padded) head weight, contiguous: the tied copy from
-    `attach_head`, or the untied ``lm_head``."""
-    if not cfg.tie_embeddings:
-        return params["lm_head"]["w"]
-    if "head" not in params:
-        raise KeyError("tied head missing: build it once with "
-                       "transformer.attach_head(params, cfg)")
-    return params["head"]["w"]
+    """The (D, V_padded) head weight: the untied ``lm_head``, or for a
+    tied config the view ``embed.t()`` of the embedding table (no copy)."""
+    if cfg.tie_embeddings:
+        return params["embed"]["tokens"].t()
+    return params["lm_head"]["w"]
 
 
 def _dense_layer(engine, cfg, lp, h, cos, sin, return_kv=False):

@@ -12,9 +12,10 @@ their plain versions, checks the row-independence that bucketed serving
 relies on, that a training forward leaves the serving bits unchanged and
 that a split dW gives the same bits twice, and runs a small network and a
 small train step on the `cuda` engine against `eager` on the same card.
-For the LM: the flash-attention and split-KV decode kernels against their
-plain versions (and bit for bit against each other at one split, and
-across batch sizes), the reduced qwen2-0.5b on `cuda` against `eager`, and
+For the LM: the GEMM reading a transposed weight in place (the tied head),
+the flash-attention and split-KV decode kernels against their plain
+versions (and bit for bit against each other at one split, and across
+batch sizes and block heights), the reduced qwen2-0.5b on `cuda` against `eager`, and
 the paged engine on `cuda` launching both kernels.
 """
 import pytest
@@ -102,6 +103,32 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError, match="on cpu"):
         gemm.gemm_fused_fwd(x, w.cpu())
     assert tuple(ops.matmul(x, w).shape) == (4, 3)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("m,k,n", MATMUL_CASES + [(64, 896, 3000)])
+def test_transposed_weight_gives_the_row_major_bits(card, m, k, n, dtype,
+                                                    tol):
+    """w read transposed in place (a tied LM head's embed.t()) gives the
+    bits of its row-major copy, within the bar of the plain version; the
+    residual forward refuses it."""
+    g = torch.Generator(device=card).manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=g, device=card).to(dtype)
+    table = (torch.randn(n, k, generator=g, device=card) / k ** 0.5).to(dtype)
+    w = table.t()
+    shift = torch.randn(n, generator=g, device=card)
+    assert gemm.is_transposed(w) or min(k, n) == 1
+    for act in ACTIVATIONS:
+        want = gemm.gemm_fused_plain(x, w, None, shift, act=act)
+        for tile in gemm.TILES:
+            got = gemm.gemm_fused_fwd(x, w, None, shift, act=act, tile=tile)
+            assert torch.equal(got, gemm.gemm_fused_fwd(
+                x, w.contiguous(), None, shift, act=act, tile=tile))
+            assert _relmax(got, want) <= tol
+    if gemm.is_transposed(w):
+        with pytest.raises(ValueError, match="row-major"):
+            gemm.gemm_fused_fwd(x, w, residuals=True)
 
 
 @pytest.mark.parametrize("cfg", [DARKNET_SMALL_CFG, SEGNET_SMALL_CFG])
@@ -292,6 +319,26 @@ def test_attention_rows_do_not_depend_on_the_batch(card):
         full = fn(q, k, v, kvl, causal=False)
         one = fn(q[:1], k[:1], v[:1], kvl[:1], causal=False)
         assert torch.equal(full[:1], one)
+
+
+def test_block_rows_do_not_change_the_bits(card):
+    """A launch whose 64-row grid fills the card takes 64-row blocks, a
+    smaller one 16-row blocks; a sequence's output is the same bits in
+    both (a batch of 12 against the sequence alone), in both kernels."""
+    q, k, v = _qkv(card, 12, 64, 1024, 14, 2, 64, seed=4)
+    kvl = torch.arange(200, 1100, 75, dtype=torch.int32, device=card)
+    full = fa.flash_attention_fwd(q, k, v, kvl, causal=True)
+    one = fa.flash_attention_fwd(q[:1], k[:1], v[:1], kvl[:1], causal=True)
+    assert torch.equal(full[:1], one)
+    q, k, v = _qkv(card, 8, 1, 1024, 14, 2, 64, seed=5)
+    kvl = kvl[:8]
+    ns, span = ops.decode_splits(1024, 2)
+    full = fd.flash_decode_partials(q, k, v, kvl, causal=False,
+                                    n_splits=ns, span=span)
+    one = fd.flash_decode_partials(q[:1], k[:1], v[:1], kvl[:1],
+                                   causal=False, n_splits=ns, span=span)
+    assert torch.equal(full[0][:1], one[0]) and torch.equal(full[1][:1],
+                                                            one[1])
 
 
 def test_empty_rows_are_exact_zero_on_the_card(card):

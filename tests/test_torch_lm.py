@@ -24,7 +24,7 @@ from repro.serve import serve_step as jax_serve_step
 from repro_torch import convert
 from repro_torch.configs import base
 from repro_torch.core import make_engine
-from repro_torch.kernels import ops
+from repro_torch.kernels import gemm, ops
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tfm
 from repro_torch.serve import kvcache, serve_step
@@ -87,16 +87,22 @@ def test_params_round_trip_through_the_jax_layout(lm):
 
 
 def test_tied_head_is_laid_out_once(lm):
+    """The tied head is the embedding table itself, read transposed in
+    place: no second copy, nothing to keep in step with the table."""
     _, cfg, _, params = lm
+    table = params["embed"]["tokens"]
     w = tfm.head_weight(params, cfg)
-    assert w.is_contiguous() and w.shape == (cfg.d_model, cfg.vocab_padded)
-    assert torch.equal(w, params["embed"]["tokens"].t())
-    assert tfm.head_weight(params, cfg) is w
-    with pytest.raises(KeyError, match="attach_head"):
-        tfm.head_weight({"embed": params["embed"]}, cfg)
+    assert w.shape == (cfg.d_model, cfg.vocab_padded)
+    assert w.data_ptr() == table.data_ptr() and gemm.is_transposed(w)
+    assert set(params) == {"embed", "final_norm", "layers"}
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (5, cfg.d_model)).astype(np.float32))
+    got, want = ops.matmul(x, w), ops.matmul(x, w.contiguous())
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
     with pytest.raises(ValueError, match="contiguous"):
-        ops.matmul(torch.zeros(2, cfg.d_model),
-                   params["embed"]["tokens"].t())  # a view is not copied
+        ops.matmul(x, table[::2].t())       # neither layout: refused
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.matmul(x, table.clone().requires_grad_().t())  # training
 
 
 def test_forward_prefill_logits_and_caches_match_jax(lm):
