@@ -104,12 +104,55 @@ script exits non-zero.  Phases:
               decode kernel also `combine` and `op_ms`, partials plus
               merge, the function SDPA computes; the paged step's
               prefill-chunk and decode dispatch ms, tokens/s, p50 and p99.
-Then the kernels line, and last the result line.
+ 16. check_attn_bwd  the lse forward and the dQ and dK / dV kernels against
+              their plain versions: head ratios (16,16), (14,2), (8,1), head
+              dims 32/64/128, fp32 and bf16, (Sq, Skv) 64/64, 100/100,
+              40/130, causal on and off, kv_len none / per batch with a 0;
+              then qwen2-0.5b's training shape (batch 8, 512 positions, 14 /
+              2 heads of 64).  Bars as phase 2; the lse launch keeps the
+              serving launch's o bitwise; rows and keys with no live pair
+              get exactly 0; two runs of each kernel give the same bits.
+ 17. lm_train the LM training main path: full-width, full-depth qwen2-0.5b
+              through launch.train.train_loop (batch 8 x 512, ce_chunk 512,
+              remat, 3 AdamW steps, lr 3e-4, warmup 1, SyntheticLM seed 0)
+              on `cuda`, with the launch counts set to 0 just before and
+              read just after (exact counts per step, every GEMM and
+              attention through the kernels, no `eager` op), then on `eager`
+              and on `ref` from the same seeded parameters.  Step 1 (loss
+              and gradients of loss_fn, cuda vs eager): loss <= 1e-5
+              relative, every gradient <= 1e-4, two cuda runs bitwise equal
+              (the embedding's scatter-add included).  Later steps and the
+              parameters and moments after step 3: <= 1e-5 / 1e-4 or
+              FLOOR_FACTOR times the drift between two correct fp32
+              programs, `ref` against `eager` on the card (a host run of
+              the full-width model would take minutes), whichever is
+              larger.  The tied head is read in place: a head GEMM's
+              forward and backward under grad allocate less than a copy of
+              the embedding table beyond their outputs.
+ 18. lm_train_restart  reduced qwen2-0.5b on `cuda`: 4 steps straight vs a
+              crash at step 3 and a restart from the step-2 checkpoint
+              (under build/): the same losses and bit-identical parameters
+              and moments.
+ 19. timing_lm_train  the train step's median ms, tokens/s and peak GB on
+              `cuda` and `eager`; the device time by kernel name of one
+              `cuda` step (torch.profiler); the lse forward and the dQ and
+              dK / dV kernels at the training shape: kernel, plain, bound
+              (14 D FLOPs per live pair and head, 4 D / 6 D / 8 D for the
+              three kernels, at the FFMA rate) and library ms (SDPA with
+              enable_gqa, TF32 off: its forward, and its autograd backward,
+              which computes dQ, dK and dV at once: compare `op_ms`, Delta
+              plus both kernels); each GEMM of the step at M = 4096 checked
+              against its plain version (the head reading the embedding
+              transposed, its dX bitwise a row-major copy's) and timed as
+              kernel, plain, torch.matmul and bound ms, summed per step.
+Then the kernels line, and last the result line.  Every JSON line carries
+`t`, the seconds since the script started.
 """
 from __future__ import annotations
 
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -121,15 +164,19 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.configs.base import get_arch  # noqa: E402
+from repro_torch.configs.base import (ShapeConfig, get_arch,  # noqa: E402
+                                       reduced)
 from repro_torch.configs.darknet_ref import DARKNET19_CFG  # noqa: E402
 from repro_torch.core import backends, make_engine  # noqa: E402
 from repro_torch.core.darknet.network import Network  # noqa: E402
+from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
 from repro_torch.kernels import build, gemm, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
 from repro_torch.kernels.common import ACTIVATIONS, epilogue  # noqa: E402
 from repro_torch.kernels.ref import attention_mask  # noqa: E402
+from repro_torch.launch.fault import FailureInjected  # noqa: E402
+from repro_torch.launch.train import train_loop  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.serve import kvcache, kvpool  # noqa: E402
 from repro_torch.serve.engine import Request, ServingEngine  # noqa: E402
@@ -140,7 +187,9 @@ from repro_torch.serve.frontend import (CNNServingEngine,  # noqa: E402
                                         ImageRequest)
 from repro_torch.train import optimizer as opt  # noqa: E402
 from repro_torch.train.train_step import (cnn_loss_fn,  # noqa: E402
-                                          make_cnn_train_step)
+                                          make_cnn_train_step,
+                                          make_train_step)
+from repro_torch.tree import flatten, unflatten_like  # noqa: E402
 
 MATMUL_CASES = [(2, 64, 10), (32, 128, 256), (32, 256, 128), (33, 177, 99)]
 BURSTS = (1, 3, 8, 2, 9, 4, 1, 5)
@@ -170,10 +219,20 @@ SERVE = dict(kv_blocks=256, block_size=16, max_len=1024, chunk=64,
 N_REQUESTS = 24
 LM_GEMM_ROWS = (1, 8, 64)  # decode row, batch-8 decode, 64-token chunk
 MARGIN_FACTOR = 10  # a slot/paged token mismatch needs margin < 10 x error
+SOURCE_ATTN_BWD = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+REPLACES_DQ = "src/repro/kernels/flash_attention.py:409"  # _flash_bwd_dq_kernel
+REPLACES_DKV = "src/repro/kernels/flash_attention.py:441"  # _flash_bwd_dkv_kernel
+LM_TRAIN = dict(batch=8, seq=512, steps=3, seed=0)  # lm_train's train_loop
+FLOOR_BACKEND = "ref"  # the second correct fp32 program of phase 17
+RESTART = dict(steps=4, batch=2, seq=64, ckpt_every=2, seed=1)
+RESTART_FAIL_AT = 3
+BWD_SHAPES = ((64, 64), (100, 100), (40, 130))  # check_attn_bwd's (Sq, Skv)
+_T0 = time.perf_counter()
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, "t": round(time.perf_counter() - _T0,
+                                                 1), **fields}), flush=True)
 
 
 def check(ok: bool, msg: str) -> None:
@@ -464,6 +523,33 @@ def host_ms(fn, reps: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     return statistics.median(times) * 1e3
+
+
+def all_launches() -> dict:
+    """Every kernel wrapper's launch count, by kernel name."""
+    return {**gemm.launch_counts(), **fa.launch_counts(),
+            "flash_decode": fd.launches}
+
+
+def reset_all_launches() -> None:
+    """Set every launch count and the engine's dispatch counts to 0."""
+    gemm.reset_launches()
+    fa.reset_launches()
+    fd.reset_launches()
+    backends.reset_dispatch_counts()
+
+
+def drift(run: dict, ref: dict) -> dict:
+    """Loss, parameter and moment distance of a training `run` from `ref`
+    (each ``{"losses", "params", "state"}``, parameters and moments keyed
+    by name)."""
+    return {"loss": [abs(a - b) / abs(b)
+                     for a, b in zip(run["losses"], ref["losses"])],
+            "params": {k: relmax(run["params"][k], p)
+                       for k, p in ref["params"].items()},
+            "moments": {f"{m}.{k}": relmax(run["state"][m][k],
+                                           ref["state"][m][k])
+                        for m in ("mu", "nu") for k in ref["params"]}}
 
 
 def bound(flops, nbytes, peak_flops, peak_bw) -> tuple[float, str]:
@@ -855,10 +941,7 @@ def lm_serve_phase(cfg, params, dev, abs_err) -> dict:
     cuda, eager = make_engine("cuda"), make_engine("eager", device=dev)
     server = PagedServingEngine(cfg, params, engine=cuda, **SERVE)
     reqs = requests(cfg, N_REQUESTS, 6, (8, 700), (4, 48))
-    gemm.reset_launches()
-    fa.reset_launches()
-    fd.reset_launches()
-    backends.reset_dispatch_counts()
+    reset_all_launches()
     t0 = time.perf_counter()
     server.run(reqs)  # ---- the main path, driven once
     torch.cuda.synchronize()
@@ -1002,6 +1085,545 @@ def timing_lm_phase(cfg, params, dev, cgen, peak_flops, peak_bw,
          p50_ms=st["latency_s"]["p50"] * 1e3,
          p99_ms=st["latency_s"]["p99"] * 1e3)
     return rows
+
+
+# ---------------------------------------------------------- LM training ---
+
+def check_attn_bwd_case(q, k, v, kvl, causal, gen) -> tuple[dict, dict]:
+    """The lse forward and both backward kernels vs their plain versions at
+    one case: (max-relative errors, fp32 max-abs errors) by output.  The
+    lse launch must keep the serving launch's o, dead rows and keys must
+    get exactly 0, and each kernel run twice the same bits."""
+    where = f"q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype} causal={causal}"
+    args = dict(causal=causal)
+    do = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
+    o, lse = fa.flash_attention_fwd(q, k, v, kvl, return_lse=True, **args)
+    check(torch.equal(o, fa.flash_attention_fwd(q, k, v, kvl, **args)),
+          f"the lse launch changes o's bits at {where}")
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    bwd = (q, k, v, do, lse, delta, kvl)
+    dq = fa.flash_attention_bwd_dq(*bwd, **args)
+    dk, dv = fa.flash_attention_bwd_dkv(*bwd, **args)
+    wo, wlse = fa.flash_attention_plain(q, k, v, kvl, return_lse=True,
+                                        **args)
+    want = {"o": wo, "lse": wlse,
+            "dq": fa.flash_attention_bwd_dq_plain(*bwd, **args)}
+    want["dk"], want["dv"] = fa.flash_attention_bwd_dkv_plain(*bwd, **args)
+    got = {"o": o, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
+    check(all(bool(torch.isfinite(t).all()) for t in got.values()),
+          f"non-finite attention backward at {where}")
+    errs = {key: relmax(got[key], want[key]) for key in got}
+    tol = FP32_TOL if q.dtype == torch.float32 else BF16_TOL
+    check(max(errs.values()) <= tol,
+          f"attention backward vs plain at {where}: {errs}")
+    live = live_mask(q, k, kvl, causal)
+    dead_rows, dead_keys = ~live.any(-1), ~live.any(1)
+    check(bool((dq[dead_rows] == 0).all() and (dk[dead_keys] == 0).all()
+               and (dv[dead_keys] == 0).all()
+               and (lse.transpose(1, 2)[dead_rows] == 0).all()),
+          f"dead rows or keys not exactly 0 at {where}")
+    again = fa.flash_attention_bwd_dkv(*bwd, **args)
+    check(torch.equal(dq, fa.flash_attention_bwd_dq(*bwd, **args))
+          and torch.equal(dk, again[0]) and torch.equal(dv, again[1]),
+          f"two runs of the backward kernels differ at {where}")
+    max_abs = {key: float((got[key].float() - want[key].float()).abs().max())
+               for key in got}
+    return errs, max_abs
+
+
+def attn_bwd_phase(cgen) -> dict:
+    """Phase check_attn_bwd; returns the fp32 max-abs errors at the
+    training shape by output."""
+    worst = {"fp32": 0.0, "bf16": 0.0}
+    cases = 0
+    dev = cgen.device
+    for h, kv in HEAD_RATIOS:
+        for d in (32, 64, 128):
+            for dt in (torch.float32, torch.bfloat16):
+                kind = "fp32" if dt == torch.float32 else "bf16"
+                for sq, skv in BWD_SHAPES:
+                    q, k, v = qkv(2, sq, skv, h, kv, d, dt, cgen)
+                    kvl = torch.tensor([skv // 2 + 3, 0], dtype=torch.int32,
+                                       device=dev)
+                    for causal in (True, False):
+                        for lens in (None, kvl):
+                            errs, _ = check_attn_bwd_case(q, k, v, lens,
+                                                          causal, cgen)
+                            worst[kind] = max(worst[kind],
+                                              max(errs.values()))
+                            cases += 1
+    torch.cuda.synchronize()
+    emit("check_attn_bwd", grid_cases=cases, relmax=worst)
+    cfg = get_arch(LM_ARCH)
+    b, s = LM_TRAIN["batch"], LM_TRAIN["seq"]
+    rows, path_abs = [], {}
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = qkv(b, s, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, dt,
+                      cgen)
+        errs, mabs = check_attn_bwd_case(q, k, v, None, True, cgen)
+        if dt == torch.float32:
+            path_abs = mabs
+        rows.append({"dtype": str(dt), "relmax": errs, "max_abs": mabs})
+        del q, k, v
+    torch.cuda.synchronize()
+    emit("check_attn_bwd", arch=LM_ARCH, shape=[b, s, s, cfg.n_heads,
+                                                cfg.n_kv_heads, cfg.head_dim],
+         causal=True, cases=rows, bitwise_two_runs=True)
+    return path_abs
+
+
+def lm_train_params(cfg, dev, seed):
+    """`train_loop`'s parameters: `init_params` from a CUDA generator
+    seeded with `seed`."""
+    return tfm.init_params(cfg, generator=torch.Generator(
+        device=dev).manual_seed(seed), device=dev)
+
+
+def lm_train_batch(cfg, dev, step, batch, seq, seed):
+    """`train_loop`'s batch of `step`, on the card."""
+    data = SyntheticLM(cfg, ShapeConfig("train", seq, batch, "train"),
+                       seed=seed)
+    return {k: torch.from_numpy(a).to(dev) for k, a in
+            data.batch(step).items()}
+
+
+def lm_grads(engine, cfg, params, batch) -> tuple[torch.Tensor, dict]:
+    """loss_fn (remat, ce_chunk as train_loop) and its gradient with
+    respect to every parameter, by flat name."""
+    leaves = {k: p.detach().requires_grad_()
+              for k, p in flatten(params).items()}
+    loss = tfm.loss_fn(engine, cfg, unflatten_like(leaves, params), batch,
+                       remat=True, ce_chunk=min(512, batch["tokens"].shape[1]))
+    return loss.detach(), dict(zip(leaves, torch.autograd.grad(
+        loss, list(leaves.values()))))
+
+
+def lm_train_launches(cfg, m: int) -> dict:
+    """Exact kernel launches of one LM train step at M = batch x seq rows:
+    every GEMM's residual forward twice (the layer's and the CE chunk's
+    recompute in the backward), one dX and one dW each, the reduce passes
+    their plans split, and per layer two lse forwards, one dQ and one dK /
+    dV."""
+    want = {"gemm_fused_fwd": 0, "gemm_fused_fwd_res": 0, "gemm_bwd_dx": 0,
+            "gemm_bwd_dw": 0, "gemm_bwd_reduce": 0, "flash_attention": 0,
+            "flash_attention_lse": 2 * cfg.n_layers,
+            "flash_attention_bwd_dq": cfg.n_layers,
+            "flash_attention_bwd_dkv": cfg.n_layers, "flash_decode": 0}
+    for g in lm_gemms(cfg):
+        k, n, reps = g["k"], g["n"], g["per_dispatch"]
+        dx = ops.default_bwd_tiles("dx", m, n, k)
+        dw = (ops.default_bwd_tiles("dw", n, m, k) if g["trans"]
+              else ops.default_bwd_tiles("dw", k, m, n))
+        want["gemm_fused_fwd_res"] += 2 * reps
+        want["gemm_bwd_dx"] += reps
+        want["gemm_bwd_dw"] += reps
+        want["gemm_bwd_reduce"] += reps * ((dx[3] > 1) + (dw[3] > 1))
+    return want
+
+
+def head_copy_check(cfg, params, dev) -> dict:
+    """The tied head under grad reads the embedding in place: the head
+    GEMM's forward allocates its output and less than half a table more,
+    its backward dE and dX and less than half a table more."""
+    table = params["embed"]["tokens"]
+    m = LM_TRAIN["batch"] * LM_TRAIN["seq"]
+    e = table.detach().requires_grad_()
+    x = torch.randn(m, cfg.d_model, device=dev, requires_grad=True)
+    e_bytes = table.numel() * table.element_size()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    y = ops.matmul(x, e.t(), out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    fwd = torch.cuda.max_memory_allocated(dev) - base
+    dy = torch.ones_like(y)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    dx, de = torch.autograd.grad(y, (x, e), dy)
+    torch.cuda.synchronize()
+    bwd = torch.cuda.max_memory_allocated(dev) - base
+    y_bytes = y.numel() * 4
+    out = {"fwd_extra_mb": (fwd - y_bytes) / 1e6,
+           "bwd_extra_mb": (bwd - de.numel() * 4 - dx.numel() * 4) / 1e6,
+           "table_mb": e_bytes / 1e6}
+    check(fwd < y_bytes + e_bytes / 2 and
+          bwd < (de.numel() + dx.numel()) * 4 + e_bytes / 2,
+          f"the tied head was copied under grad: {out}")
+    return out
+
+
+def lm_train_phase(cfg, dev) -> dict:
+    """Phase lm_train (see the module docstring); returns the cuda run's
+    launch counts."""
+    seed, b, s = LM_TRAIN["seed"], LM_TRAIN["batch"], LM_TRAIN["seq"]
+    engines = {"cuda": make_engine("cuda"),
+               "eager": make_engine("eager", device=dev),
+               "floor": make_engine(FLOOR_BACKEND, device=dev)}
+    params = lm_train_params(cfg, dev, seed)
+    head = tfm.head_weight(params, cfg)
+    check(gemm.is_transposed(head) and head.data_ptr()
+          == params["embed"]["tokens"].data_ptr(),
+          "the tied head is not the embedding table's transpose")
+    head_mem = head_copy_check(cfg, params, dev)
+    n_leaves = len(flatten(params))
+    batch0 = lm_train_batch(cfg, dev, 0, b, s, seed)
+    loss_c, grads_c = lm_grads(engines["cuda"], cfg, params, batch0)
+    loss_c2, grads_c2 = lm_grads(engines["cuda"], cfg, params, batch0)
+    bitwise = torch.equal(loss_c, loss_c2) and all(
+        torch.equal(g, grads_c2[k]) for k, g in grads_c.items())
+    del grads_c2
+    loss_e, grads_e = lm_grads(engines["eager"], cfg, params, batch0)
+    grad_err = {k: relmax(g, grads_e[k]) for k, g in grads_c.items()}
+    grad_abs = max(float((g - grads_e[k]).abs().max())
+                   for k, g in grads_c.items())
+    del grads_c
+    loss_f, grads_f = lm_grads(engines["floor"], cfg, params, batch0)
+    grad_floor = {k: relmax(g, grads_e[k]) for k, g in grads_f.items()}
+    del grads_f, grads_e, params
+    torch.cuda.empty_cache()
+    step1 = {"loss_rel_err": abs(loss_c.item() - loss_e.item())
+             / abs(loss_e.item()),
+             "loss_rel_floor": abs(loss_f.item() - loss_e.item())
+             / abs(loss_e.item())}
+
+    runs = {}
+    want = lm_train_launches(cfg, b * s)
+    for label in ("cuda", "eager", "floor"):
+        metrics: list = []
+        torch.cuda.synchronize()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        p, st = train_loop(cfg, steps=LM_TRAIN["steps"], batch=b, seq=s,
+                           ckpt_dir="", seed=seed, engine=engines[label],
+                           metrics_out=metrics, log_every=1)  # main path
+        torch.cuda.synchronize()
+        runs[label] = {"params": flatten(p), "state": st,
+                       "losses": [m["loss"] for m in metrics],
+                       "wall_s": time.perf_counter() - t0,
+                       "launches": all_launches(),
+                       "dispatch": backends.dispatch_counts()}
+    cu, ea, fl = runs["cuda"], runs["eager"], runs["floor"]
+    err, floor = drift(cu, ea), drift(fl, ea)
+    worst = {key: max(err[key].values()) for key in ("params", "moments")}
+    worst_floor = {key: max(floor[key].values())
+                   for key in ("params", "moments")}
+    steps = LM_TRAIN["steps"]
+    want_total = {k: steps * v for k, v in want.items()}
+    emit("lm_train", arch=LM_ARCH, layers=cfg.n_layers, d_model=cfg.d_model,
+         batch=b, seq=s, steps=steps, floor_backend=FLOOR_BACKEND,
+         losses_cuda=cu["losses"], losses_eager=ea["losses"],
+         losses_floor=fl["losses"], loss_rel_err=err["loss"],
+         loss_rel_floor=floor["loss"], step1=step1,
+         step1_grads_bitwise_two_runs=bitwise,
+         grad_relmax_worst=max(grad_err.values()),
+         grad_floor_worst=max(grad_floor.values()),
+         grad_max_abs_err=grad_abs,
+         param_relmax_worst=worst["params"],
+         param_floor_worst=worst_floor["params"],
+         moment_relmax_worst=worst["moments"],
+         moment_floor_worst=worst_floor["moments"],
+         floor_factor=FLOOR_FACTOR, launches=cu["launches"],
+         want_launches=want_total, head_memory=head_mem,
+         wall_s={k: r["wall_s"] for k, r in runs.items()},
+         dispatch={f"{bk}.{o}": c for (bk, o), c in cu["dispatch"].items()},
+         eager_launches=sum(ea["launches"].values()),
+         grad_relmax=grad_err)
+    check(all(math.isfinite(x) for x in cu["losses"]), "non-finite loss")
+    check(bitwise, "two cuda runs of the step-1 gradients differ")
+    check(step1["loss_rel_err"] <= FP32_TOL,
+          f"step-1 loss cuda vs eager {step1['loss_rel_err']:.3e}")
+    check(err["loss"][0] <= FP32_TOL,
+          f"train_loop step-1 loss cuda vs eager {err['loss'][0]:.3e}")
+    check(len(grad_err) == n_leaves,
+          f"{len(grad_err)} gradients, want {n_leaves}")
+    check(max(grad_err.values()) <= TRAIN_TOL,
+          f"step-1 gradient cuda vs eager {max(grad_err.values()):.3e}")
+    for i, (e, f) in enumerate(zip(err["loss"], floor["loss"])):
+        check(e <= max(FP32_TOL, FLOOR_FACTOR * f),
+              f"step-{i + 1} loss cuda vs eager {e:.3e}, "
+              f"{FLOOR_BACKEND} vs eager {f:.3e}")
+    for key in ("params", "moments"):
+        check(worst[key] <= max(TRAIN_TOL, FLOOR_FACTOR * worst_floor[key]),
+              f"{key} after {steps} steps: cuda vs eager {worst[key]:.3e}, "
+              f"{FLOOR_BACKEND} vs eager {worst_floor[key]:.3e}")
+    check(cu["launches"] == want_total,
+          f"lm_train launches {cu['launches']}, want {want_total}")
+    check(set(cu["dispatch"]) == {("cuda", "matmul"), ("cuda", "attention")},
+          f"an engine op left the cuda backend: {cu['dispatch']}")
+    check(sum(ea["launches"].values()) + sum(fl["launches"].values()) == 0,
+          "the eager or floor engine launched a kernel of the port")
+    return cu["launches"]
+
+
+def lm_restart_phase(dev) -> None:
+    """Phase lm_train_restart (see the module docstring)."""
+    cfg = reduced(get_arch(LM_ARCH))
+    root = build.BUILD_DIR / "lm_train_restart"
+    shutil.rmtree(root, ignore_errors=True)
+    args = dict(RESTART, log_every=100, engine=make_engine("cuda"))
+    ref: list = []
+    p_ref, s_ref = train_loop(cfg, ckpt_dir=str(root / "a"), metrics_out=ref,
+                              **args)
+    got: list = []
+    try:
+        train_loop(cfg, ckpt_dir=str(root / "b"), fail_at_step=RESTART_FAIL_AT,
+                   metrics_out=got, **args)
+        crashed = False
+    except FailureInjected:
+        crashed = True
+    p_got, s_got = train_loop(cfg, ckpt_dir=str(root / "b"), metrics_out=got,
+                              **args)
+    shutil.rmtree(root, ignore_errors=True)
+    losses = {m["step"]: m["loss"] for m in ref}
+    again = {m["step"]: m["loss"] for m in got}
+    flat_ref, flat_got = flatten((p_ref, s_ref)), flatten((p_got, s_got))
+    bitwise = set(flat_ref) == set(flat_got) and all(
+        torch.equal(v, flat_got[k]) if isinstance(v, torch.Tensor)
+        else v == flat_got[k] for k, v in flat_ref.items())
+    emit("lm_train_restart", arch=cfg.name, **RESTART,
+         fail_at_step=RESTART_FAIL_AT, crashed=crashed,
+         losses=[losses[i] for i in sorted(losses)],
+         losses_after_restart=[again[i] for i in sorted(again)],
+         bitwise=bitwise, leaves=len(flat_ref))
+    check(crashed, "the injected failure did not fire")
+    check(again == losses, "losses differ after the restart")
+    check(bitwise, "parameters or moments differ after the restart")
+
+
+def attn_train_rows(cfg, cgen, peak_flops, peak_bw) -> dict:
+    """The lse forward and the dQ and dK / dV kernels at the training
+    shape: kernel, plain, bound and library ms (CUDA-graph replays;
+    library: SDPA with enable_gqa, its forward, and its autograd
+    backward by CUDA events)."""
+    b, s = LM_TRAIN["batch"], LM_TRAIN["seq"]
+    h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = qkv(b, s, s, h, kv, d, torch.float32, cgen)
+    do = torch.randn(q.shape, generator=cgen, device=q.device)
+    o, lse = fa.flash_attention_fwd(q, k, v, None, return_lse=True)
+    delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+    bwd = (q, k, v, do, lse, delta, None)
+    pairs = float(live_mask(q, k, None, True).sum()) * h
+    f4 = 4.0 * q.numel() + 2.0 * 4.0 * k.numel()       # q, k, v once
+    rowb = 2 * 4.0 * b * h * s                         # lse and delta
+    work = {"flash_attention_lse": (4 * d * pairs, f4 + 4.0 * q.numel()
+                                    + 4.0 * b * h * s),
+            "flash_attention_bwd_dq": (6 * d * pairs, f4 + 8.0 * q.numel()
+                                       + rowb),
+            "flash_attention_bwd_dkv": (8 * d * pairs, f4 + 4.0 * q.numel()
+                                        + rowb + 8.0 * k.numel())}
+    mask = live_mask(q, k, None, True)[:, None]
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    dot = do.transpose(1, 2)
+    sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), reps=5, repeats=3)
+    fns = {"flash_attention_lse": (
+               lambda: fa.flash_attention_fwd(q, k, v, None, return_lse=True),
+               lambda: fa.flash_attention_plain(q, k, v, None,
+                                                return_lse=True),
+               graph_ms(lambda: sdpa(q, k, v, None, True))),
+           "flash_attention_bwd_dq": (
+               lambda: fa.flash_attention_bwd_dq(*bwd),
+               lambda: fa.flash_attention_bwd_dq_plain(*bwd), sdpa_bwd),
+           "flash_attention_bwd_dkv": (
+               lambda: fa.flash_attention_bwd_dkv(*bwd),
+               lambda: fa.flash_attention_bwd_dkv_plain(*bwd), sdpa_bwd)}
+
+    def whole_bwd():
+        dl = (do * o).sum(-1).transpose(1, 2).contiguous()
+        fa.flash_attention_bwd_dq(q, k, v, do, lse, dl)
+        fa.flash_attention_bwd_dkv(q, k, v, do, lse, dl)
+
+    op_ms = graph_ms(whole_bwd)
+    rows = {}
+    for name, (fn, plain, library) in fns.items():
+        flops, nbytes = work[name]
+        bound_ms, bound_by = bound(flops, nbytes, peak_flops, peak_bw)
+        ms = graph_ms(fn)
+        rows[name] = {"ms": ms, "plain_ms": graph_ms(plain),
+                      "library_ms": library, "bound_ms": bound_ms,
+                      "bound_by": bound_by,
+                      "ops_ms": flops / peak_flops * 1e3,
+                      "bytes_ms": nbytes / peak_bw * 1e3,
+                      "gflop": flops / 1e9, "bound_share": bound_ms / ms}
+        if name != "flash_attention_lse":
+            rows[name]["op_ms"] = op_ms
+    return rows
+
+
+def lm_train_gemm_rows(cfg, cgen, peak_flops, peak_bw) -> dict:
+    """Each GEMM of the LM train step at M = batch x seq in fp32: the
+    residual forward (the head reading the embedding transposed), dX and
+    dW, each checked against its plain version (the head's dX and forward
+    bitwise a row-major copy's) and timed (kernel, plain, torch.matmul by
+    CUDA events; bound), summed per step by the step's launch counts (q /
+    o and k / v share a shape and are measured once).  The bar is
+    FP32_TOL for a contraction of up to 4096 terms and grows with the
+    square root of a longer one (`gemm_tol`): the head's dX sums 151936
+    products in one fp32 chain, and two summation orders of that many
+    terms part by about 2.4e-7 sqrt(151936 / 4096) relative.  Each row
+    also gives the kernel's and the plain version's distance from an fp64
+    product, to show which order lies nearer.  Returns per kernel the
+    sums and the fp32 max-abs error."""
+    m = LM_TRAIN["batch"] * LM_TRAIN["seq"]
+    dev = cgen.device
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "bytes_ms")
+    tot = {name: dict.fromkeys(keys, 0.0) | {"max_abs_err": 0.0}
+           for name in ("gemm_fused_fwd_res", "gemm_bwd_dx", "gemm_bwd_dw")}
+    measured = {}
+    for g in lm_gemms(cfg):
+        k, n, act, trans = g["k"], g["n"], g["act"], g["trans"]
+        per_step = {"gemm_fused_fwd_res": 2 * g["per_dispatch"],
+                    "gemm_bwd_dx": g["per_dispatch"],
+                    "gemm_bwd_dw": g["per_dispatch"]}
+        key = (k, n, act, g["shift"], trans)
+        if key in measured:
+            for name, row in measured[key].items():
+                for kk in keys:
+                    tot[name][kk] += per_step[name] * row[kk]
+            continue
+        measured[key] = {}
+        x, w, _, shift = operands(m, k, n, torch.float32, cgen, trans)
+        sh = shift if g["shift"] else None
+        dy = torch.randn(m, n, generator=cgen, device=dev)
+        tile = ops.default_tiles(m, k, n)[0]
+        dx_plan = ops.default_bwd_tiles("dx", m, n, k)
+        dw_plan = (ops.default_bwd_tiles("dw", n, m, k) if trans
+                   else ops.default_bwd_tiles("dw", k, m, n))
+        dx_args = dict(tile=dx_plan[0], splits=dx_plan[3])
+        dw_args = dict(tile=dw_plan[0], splits=dw_plan[3])
+        dw_ops = (dy, x) if trans else (x, dy)
+        kernels = {
+            "gemm_fused_fwd_res": (
+                lambda: gemm.gemm_fused_fwd(x, w, None, sh, act=act,
+                                            tile=tile, residuals=True),
+                lambda: gemm.gemm_fused_res_plain(x, w, None, sh, act=act),
+                lambda: torch.matmul(x, w),
+                4.0 * (m * k + k * n + (2 + (act != "linear")) * m * n), k,
+                lambda: epilogue(x.double() @ w.double(), None,
+                                 None if sh is None else sh.double(), act)),
+            "gemm_bwd_dx": (
+                lambda: gemm.gemm_bwd_dx(dy, w, **dx_args),
+                lambda: gemm.gemm_bwd_dx_plain(dy, w),
+                lambda: torch.matmul(dy, w.t()),
+                4.0 * (m * n + k * n + m * k), n,
+                lambda: dy.double() @ w.double().t()),
+            "gemm_bwd_dw": (
+                lambda: gemm.gemm_bwd_dw(*dw_ops, **dw_args),
+                lambda: gemm.gemm_bwd_dw_plain(*dw_ops),
+                lambda: torch.matmul(dw_ops[0].t(), dw_ops[1]),
+                4.0 * (m * k + m * n + k * n), m,
+                lambda: dw_ops[0].double().t() @ dw_ops[1].double())}
+        for name, (fn, plain, library, nbytes, kdim, exact) in \
+                kernels.items():
+            got, want = fn(), plain()
+            got, want = (got[0], want[0]) if isinstance(got, tuple) else (
+                got, want)
+            err, tol = relmax(got, want), gemm_tol(kdim)
+            check(bool(torch.isfinite(got).all()) and err <= tol,
+                  f"{name} vs plain at the LM train GEMM {g['name']} "
+                  f"{(m, k, n)}: {err:.3e} > {tol:.3e}")
+            ref64 = exact()
+            fp64 = {"kernel": relmax(got, ref64), "plain": relmax(want,
+                                                                   ref64)}
+            del ref64
+            tot[name]["max_abs_err"] = max(tot[name]["max_abs_err"], float(
+                (got - want).abs().max()))
+            if trans and name != "gemm_bwd_dw":
+                wr = w.contiguous()
+                same = (gemm.gemm_bwd_dx(dy, wr, **dx_args)
+                        if name == "gemm_bwd_dx" else gemm.gemm_fused_fwd(
+                            x, wr, None, sh, act=act, tile=tile,
+                            residuals=True)[0])
+                check(torch.equal(got, same), f"the transposed head's "
+                      f"{name} is not a row-major copy's bits")
+                del wr, same
+            del got, want
+            row = {"relmax": err, "tol": tol, "relmax_fp64": fp64,
+                   "ms": cuda_ms(fn, reps=3, repeats=3),
+                   "plain_ms": cuda_ms(plain, reps=3, repeats=3),
+                   "library_ms": cuda_ms(library, reps=3, repeats=3),
+                   "ops_ms": 2.0 * m * k * n / peak_flops * 1e3,
+                   "bytes_ms": nbytes / peak_bw * 1e3}
+            row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
+            emit("timing_lm_train_gemm", kernel=name, gemm=g["name"],
+                 shape=[m, k, n], act=act, trans_w=trans,
+                 per_step=per_step[name], **row,
+                 bound_share=row["bound_ms"] / row["ms"])
+            measured[key][name] = row
+            for kk in keys:
+                tot[name][kk] += per_step[name] * row[kk]
+        del x, w, dy
+    return tot
+
+
+def gemm_tol(kdim: int) -> float:
+    """The GEMM bar for a contraction of `kdim` terms (see
+    `lm_train_gemm_rows`)."""
+    return FP32_TOL * max(1.0, math.sqrt(kdim / 4096))
+
+
+def device_time_by_kernel(step_fn) -> dict:
+    """Device time of one call of `step_fn` by kernel name (the device's
+    own events, not the host ops that launched them), from torch.profiler;
+    {} when the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step_fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            out[e.key] = {"ms": us / 1e3, "calls": e.count}
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]["ms"]))
+
+
+def timing_lm_train_phase(cfg, dev, cgen, peak_flops, peak_bw, smi,
+                          launches: dict) -> dict:
+    """Phase timing_lm_train (see the module docstring); `launches` are
+    phase lm_train's counts over its LM_TRAIN["steps"] steps."""
+    seed, b, s = LM_TRAIN["seed"], LM_TRAIN["batch"], LM_TRAIN["seq"]
+    ocfg = opt.AdamWConfig(warmup_steps=1, decay_steps=LM_TRAIN["steps"])
+    batch = lm_train_batch(cfg, dev, 0, b, s, seed)
+    steps = {}
+    for label in ("cuda", "eager"):
+        params = lm_train_params(cfg, dev, seed)
+        state = opt.adamw_init(flatten(params))
+        step = make_train_step(make_engine(label, device=dev), cfg, ocfg,
+                               ce_chunk=min(512, s))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = host_ms(lambda: step(params, state, batch), reps=3)
+        steps[label] = {"ms": ms, "tokens_per_s": b * s / ms * 1e3,
+                        "peak_gb": torch.cuda.max_memory_allocated(dev)
+                        / 1e9}
+        if label == "cuda":
+            by_kernel = device_time_by_kernel(
+                lambda: step(params, state, batch))
+        del params, state, step
+        torch.cuda.empty_cache()
+    device_ms = sum(r["ms"] for r in by_kernel.values())
+    emit("timing_lm_train_step", smi=smi, arch=LM_ARCH, batch=b, seq=s,
+         steps=steps, device_ms=device_ms,
+         device_busy_share=device_ms / steps["cuda"]["ms"],
+         top_kernels=dict(list(by_kernel.items())[:20]))
+    rows = attn_train_rows(cfg, cgen, peak_flops, peak_bw)
+    for name, row in rows.items():
+        emit("timing_lm_train", kernel=name, smi=smi,
+             launches_per_step=launches[name] // LM_TRAIN["steps"],
+             shape=[b, s, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+             causal=True, **row)
+    gemms = lm_train_gemm_rows(cfg, cgen, peak_flops, peak_bw)
+    emit("timing_lm_train_gemm_total", smi=smi, m=b * s, per_step=gemms)
+    return {"attn": rows, "gemm": gemms}
 
 
 def main() -> int:
@@ -1246,18 +1868,7 @@ def main() -> int:
     torch.cuda.synchronize()
     cu, ea, ho = runs["cuda"], runs["eager"], runs["host"]
     train_launches = cu["launches"]
-
-    def drift(run) -> dict:
-        """Loss, parameter and moment distance of `run` from eager."""
-        return {"loss": [abs(a - b) / abs(b)
-                         for a, b in zip(run["losses"], ea["losses"])],
-                "params": {k: relmax(run["params"][k], p)
-                           for k, p in ea["params"].items()},
-                "moments": {f"{m}.{k}": relmax(run["state"][m][k],
-                                               ea["state"][m][k])
-                            for m in ("mu", "nu") for k in ea["params"]}}
-
-    err, floor = drift(cu), drift(ho)
+    err, floor = drift(cu, ea), drift(ho, ea)
     worst = {key: max(err[key].values()) for key in ("params", "moments")}
     worst_floor = {key: max(floor[key].values())
                    for key in ("params", "moments")}
@@ -1399,6 +2010,15 @@ def main() -> int:
                               serve_lm, smi)
     bucket_phase(cfg, params, dev)
     lm_launches = serve_lm["launches"]
+    del params, serve_lm
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------- 16-19. LM training
+    bwd_abs = attn_bwd_phase(cgen)
+    tl = lm_train_phase(cfg, dev)
+    lm_restart_phase(dev)
+    train_rows = timing_lm_train_phase(cfg, dev, cgen, peak_flops, peak_bw,
+                                       smi, tl)
 
     def kernel_entry(name, source, replaces, path, launches, max_abs_err,
                      row):
@@ -1434,6 +2054,31 @@ def main() -> int:
         kernel_entry("flash_decode", SOURCE_DECODE, REPLACES_DECODE,
                      "lm_serve", lm_launches["flash_decode"],
                      attn_abs["decode"], lm_rows["decode_b8"]),
+        kernel_entry("gemm_fused_fwd_res:lm", SOURCE, REPLACES, "lm_train",
+                     tl["gemm_fused_fwd_res"],
+                     train_rows["gemm"]["gemm_fused_fwd_res"]["max_abs_err"],
+                     train_rows["gemm"]["gemm_fused_fwd_res"]),
+        kernel_entry("gemm_bwd_dx:lm", SOURCE_BWD, REPLACES_DX, "lm_train",
+                     tl["gemm_bwd_dx"],
+                     train_rows["gemm"]["gemm_bwd_dx"]["max_abs_err"],
+                     train_rows["gemm"]["gemm_bwd_dx"]),
+        kernel_entry("gemm_bwd_dw:lm", SOURCE_BWD, REPLACES_DW, "lm_train",
+                     tl["gemm_bwd_dw"],
+                     train_rows["gemm"]["gemm_bwd_dw"]["max_abs_err"],
+                     train_rows["gemm"]["gemm_bwd_dw"]),
+        kernel_entry("flash_attention_lse", SOURCE_ATTN, REPLACES_ATTN,
+                     "lm_train", tl["flash_attention_lse"],
+                     max(bwd_abs["o"], bwd_abs["lse"]),
+                     train_rows["attn"]["flash_attention_lse"]),
+        kernel_entry("flash_attention_bwd_dq", SOURCE_ATTN_BWD, REPLACES_DQ,
+                     "lm_train", tl["flash_attention_bwd_dq"],
+                     bwd_abs["dq"],
+                     train_rows["attn"]["flash_attention_bwd_dq"]),
+        kernel_entry("flash_attention_bwd_dkv", SOURCE_ATTN_BWD,
+                     REPLACES_DKV, "lm_train",
+                     tl["flash_attention_bwd_dkv"],
+                     max(bwd_abs["dk"], bwd_abs["dv"]),
+                     train_rows["attn"]["flash_attention_bwd_dkv"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -4,7 +4,7 @@ Every architecture is a frozen ``ArchConfig`` (hashable, so it can key a
 cache); ``reduced()`` gives the small same-family config of the CPU tests.
 The port carries its own copy because the JAX module imports jax.  The
 input specs and the ``SHAPES`` of the JAX dry run stay behind: the port has
-no dry run.  `get_arch` knows the dense GQA configs the port runs; the
+no dry run; `ShapeConfig` comes along for the trainer's data pipeline.  `get_arch` knows the dense GQA configs the port runs; the
 other families come with their model code.
 """
 from __future__ import annotations
@@ -13,6 +13,15 @@ import dataclasses
 import importlib
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One (sequence length, global batch) cell of a workload."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -14,8 +14,12 @@ input flattened in (h, w, c) order, and the per-channel vectors.
 each layer-program entry's layers stacked under a leading layer axis
 (``stacks[0]["attn"]["wq"]`` is (n_layers, D, H*hd)); the port keeps one
 dict per layer (``layers[i]["attn"]["wq"]``, (D, H*hd)).  Every other
-layout is kept.  `lm_params_to_numpy` is its inverse.  This module reads
-numpy only; it imports no jax.
+layout is kept.  `lm_params_to_numpy` is its inverse.
+`opt_state_from_jax` / `opt_state_to_numpy` carry the JAX AdamW state
+(``{"mu": tree, "nu": tree, "step"}``) to and from the port's (moments
+keyed by the flat parameter names of `repro_torch.tree.flatten`), so a
+JAX step and a port step start from the same (params, moments).  This
+module reads numpy only; it imports no jax.
 """
 from __future__ import annotations
 
@@ -23,6 +27,8 @@ from typing import Mapping
 
 import numpy as np
 import torch
+
+from repro_torch.tree import flatten, unflatten_like
 
 
 def params_from_jax(tree: Mapping[str, Mapping]) -> dict[str, torch.Tensor]:
@@ -92,3 +98,21 @@ def lm_params_to_numpy(params: Mapping) -> dict:
 
     tree["stacks"] = [stack_tree(layers)]
     return tree
+
+
+def opt_state_from_jax(state: Mapping, cfg, device=None) -> dict:
+    """The JAX LM AdamW state ``{"mu", "nu": tree, "step"}`` (numpy
+    leaves) -> the port's ``{"mu", "nu": {flat name: tensor}, "step":
+    int}`` (`train.optimizer.adamw_init` over ``tree.flatten(params)``)."""
+    return {"mu": flatten(lm_params_from_jax(state["mu"], cfg, device)),
+            "nu": flatten(lm_params_from_jax(state["nu"], cfg, device)),
+            "step": int(np.asarray(state["step"]))}
+
+
+def opt_state_to_numpy(state: Mapping, params: Mapping) -> dict:
+    """Inverse of `opt_state_from_jax`: the moments in the JAX tree layout
+    as fp32 numpy arrays and the step as an int32 scalar; `params` (the
+    port's nested parameters) gives the nesting of the flat names."""
+    return {key: lm_params_to_numpy(unflatten_like(state[key], params))
+            for key in ("mu", "nu")} | {
+        "step": np.asarray(state["step"], np.int32)}

@@ -20,12 +20,16 @@ Each backend registers `matmul`, `conv2d` and `attention`; `bmm` comes
 with a later slice.  Each backend declares which ops autograd may flow
 through (`differentiable`, as the JAX registry's autodiff capability):
 `ref` and `eager` are plain differentiable PyTorch, and `cuda` carries
-`kernels/gemm.py::GemmFused`, whose backward runs the dX / dW kernels.
-The `cuda` attention kernels are forward only (their backward comes with
-LM training), so `attention` is not in `cuda`'s differentiable set.  The
-engine calls `guard_grad` on every dispatch, so an op that a backend
-does not declare differentiable raises a clear NotImplementedError when
-it is dispatched with grad enabled on an operand that requires it.  The
+`kernels/gemm.py::GemmFused`, whose backward runs the dX / dW kernels,
+and `kernels/flash_attention.py::FlashAttention`, whose backward runs the
+dQ / dK / dV kernels.  A backend may also name dispatches of a
+differentiable op that stay inference only (`inference_only`): on `cuda`
+a decode-shaped `attention` (`kernel_ops.use_decode_formulation`) takes
+the split-KV decode kernel, which has no backward, as in the JAX package.
+The engine calls `guard_grad` on every dispatch, so an op that a backend
+does not declare differentiable, or an inference-only dispatch, raises a
+clear NotImplementedError when it is dispatched with grad enabled on an
+operand that requires it.  The
 measured autotune policy of the JAX registry is later work: the `cuda`
 backend picks its tiles with fixed heuristics
 (`kernels/ops.py::default_tiles`, `default_bwd_tiles`, `decode_splits`).
@@ -76,12 +80,15 @@ class OpContext:
 @dataclasses.dataclass(frozen=True)
 class Backend:
     """A registered execution target: op impls, an optional
-    `tile_picker(op, shapes, dtype) -> tuple` for tiled backends, and
-    `differentiable`, the ops autograd may flow through."""
+    `tile_picker(op, shapes, dtype) -> tuple` for tiled backends,
+    `differentiable`, the ops autograd may flow through, and an optional
+    `inference_only(op, operands) -> bool` naming the dispatches of those
+    ops that have no backward."""
     name: str
     ops: Mapping[str, Callable]
     tile_picker: Callable[[str, tuple, Any], tuple] | None = None
     differentiable: frozenset = frozenset(OP_SET)
+    inference_only: Callable[[str, tuple], bool] | None = None
 
     def supports_grad(self, op: str) -> bool:
         """Whether autograd may flow through this backend's `op`."""
@@ -109,12 +116,14 @@ _REGISTRY: dict[str, Backend] = {}
 
 def register_backend(name: str, ops: Mapping[str, Callable], *,
                      tile_picker=None, differentiable=None,
-                     overwrite: bool = False) -> Backend:
+                     inference_only=None, overwrite: bool = False) -> Backend:
     """Register a backend implementing (a subset of) OP_SET.
 
     `differentiable` names the ops autograd may flow through; None means
     every registered op (right for backends of plain PyTorch ops).  A
-    kernel backend names only the ops whose kernels have a backward.
+    kernel backend names only the ops whose kernels have a backward, and
+    `inference_only(op, operands)` may mark the dispatches of those that
+    take a formulation without one.
 
     Raises ValueError on a duplicate name without `overwrite`, on op names
     outside OP_SET (typos fail at registration, not dispatch), and on a
@@ -132,7 +141,7 @@ def register_backend(name: str, ops: Mapping[str, Callable], *,
                          f"{sorted(diff - set(ops))}; registered: "
                          f"{sorted(ops)}")
     be = Backend(name=name, ops=dict(ops), tile_picker=tile_picker,
-                 differentiable=diff)
+                 differentiable=diff, inference_only=inference_only)
     _REGISTRY[name] = be
     return be
 
@@ -155,13 +164,21 @@ def list_backends() -> tuple[str, ...]:
 def guard_grad(backend: Backend, op: str, *operands) -> None:
     """Raise NotImplementedError, naming the backend and the op, when `op`
     is dispatched with grad enabled on an operand that requires grad and
-    `backend` does not declare `op` differentiable.  None and non-tensor
-    operands are ignored.  The engine calls it on every dispatch with all
-    gradient-carrying operands, scale and shift included."""
-    if backend.supports_grad(op) or not torch.is_grad_enabled():
+    `backend` does not declare `op` differentiable, or declares this
+    dispatch inference only.  None and non-tensor operands are ignored.
+    The engine calls it on every dispatch with all gradient-carrying
+    operands, scale and shift included."""
+    if not kernel_ops.needs_grad(*operands):
         return
-    if any(isinstance(t, torch.Tensor) and t.requires_grad
-           for t in operands):
+    if (backend.supports_grad(op) and backend.inference_only is not None
+            and backend.inference_only(op, operands)):
+        raise NotImplementedError(
+            f"op {op!r} on backend {backend.name!r} is differentiable, but "
+            f"this dispatch ({[tuple(t.shape) for t in operands[:2]]}) "
+            f"takes a formulation that is inference only and has no "
+            f"backward.  Differentiate a training-shaped dispatch, or use "
+            f"the 'eager' backend.")
+    if not backend.supports_grad(op):
         raise NotImplementedError(
             f"op {op!r} on backend {backend.name!r} is not differentiable: "
             f"the backend declares differentiable="
@@ -325,6 +342,13 @@ def _cuda_attention(q, k, v, *, causal, sm_scale, kv_len=None, ctx):
     return kernel_ops.attention(q, k, v, kv_len, sm_scale, causal=causal)
 
 
+def _cuda_inference_only(op: str, operands: tuple) -> bool:
+    """A decode-shaped attention dispatch takes the split-KV kernel, which
+    has no backward."""
+    return op == "attention" and kernel_ops.use_decode_formulation(
+        operands[0].shape[1], operands[1].shape[1])
+
+
 def _cuda_tile_picker(op: str, shapes: tuple, dtype) -> tuple:
     dims = gemm_dims(op, shapes)
     return () if dims is None else kernel_ops.default_tiles(*dims)
@@ -346,4 +370,4 @@ register_backend("cuda", {
     "matmul": _cuda_matmul,
     "conv2d": im2col_conv2d(_cuda_matmul),
     "attention": _cuda_attention,
-}, tile_picker=_cuda_tile_picker, differentiable=("matmul", "conv2d"))
+}, tile_picker=_cuda_tile_picker, inference_only=_cuda_inference_only)

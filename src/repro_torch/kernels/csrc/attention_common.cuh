@@ -114,16 +114,17 @@ __device__ __forceinline__ int load_rows(float* sm, const T* __restrict__ q,
   return causal ? kvlen - Sq + last + 1 : kvlen;
 }
 
-// Stage keys [t0, t0 + BKV) of one (batch, kv-head) in shared memory as
-// fp32; keys at or past Skv read as 0 (they are masked by row_end <= Skv).
-// fp32 rows are read as float4 where `vec` says the rows are 16-byte
-// aligned (the same values, a quarter of the load instructions).
-template <typename T, int D, int RT>
-__device__ __forceinline__ void load_kv_tile(float* sm, const T* __restrict__ k,
-                                             const T* __restrict__ v,
-                                             int64_t kss, int64_t vss, int t0,
-                                             int skv, bool vec) {
-  using S = Smem<D, RT>;
+// Stage keys [t0, t0 + BKV) of one (batch, kv-head) into `ks` / `vs`
+// (rows of `ld` floats) as fp32; keys at or past Skv read as 0 (they are
+// masked by row_end <= Skv).  fp32 rows are read as float4 where `vec`
+// says the rows are 16-byte aligned (the same values, a quarter of the
+// load instructions).
+template <typename T, int D>
+__device__ __forceinline__ void stage_kv(float* ks, float* vs, int ld,
+                                         const T* __restrict__ k,
+                                         const T* __restrict__ v,
+                                         int64_t kss, int64_t vss, int t0,
+                                         int skv, bool vec) {
   if constexpr (sizeof(T) == sizeof(float)) {
     if (vec) {
       constexpr int D4 = D / 4;
@@ -135,10 +136,10 @@ __device__ __forceinline__ void load_kv_tile(float* sm, const T* __restrict__ k,
           kk = *reinterpret_cast<const float4*>(k + j * kss + d);
           vv = *reinterpret_cast<const float4*>(v + j * vss + d);
         }
-        float* ks = sm + S::K + c * S::LD + d;
-        float* vs = sm + S::V + c * S::LD + d;
-        ks[0] = kk.x; ks[1] = kk.y; ks[2] = kk.z; ks[3] = kk.w;
-        vs[0] = vv.x; vs[1] = vv.y; vs[2] = vv.z; vs[3] = vv.w;
+        float* kr = ks + c * ld + d;
+        float* vr = vs + c * ld + d;
+        kr[0] = kk.x; kr[1] = kk.y; kr[2] = kk.z; kr[3] = kk.w;
+        vr[0] = vv.x; vr[1] = vv.y; vr[2] = vv.z; vr[3] = vv.w;
       }
       return;
     }
@@ -147,9 +148,28 @@ __device__ __forceinline__ void load_kv_tile(float* sm, const T* __restrict__ k,
     const int c = i / D, d = i % D;
     const int j = t0 + c;
     const bool in = j < skv;
-    sm[S::K + c * S::LD + d] = in ? to_f32(k[j * kss + d]) : 0.f;
-    sm[S::V + c * S::LD + d] = in ? to_f32(v[j * vss + d]) : 0.f;
+    ks[c * ld + d] = in ? to_f32(k[j * kss + d]) : 0.f;
+    vs[c * ld + d] = in ? to_f32(v[j * vss + d]) : 0.f;
   }
+}
+
+// Whether fp32 K / V rows may be read as float4.
+template <typename T>
+__device__ __forceinline__ bool kv_vec(const T* k, const T* v, int64_t kss,
+                                       int64_t vss) {
+  return ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) %
+              16 == 0) &&
+         kss % 4 == 0 && vss % 4 == 0;
+}
+
+// Stage a key tile into the forward / decode block's shared memory.
+template <typename T, int D, int RT>
+__device__ __forceinline__ void load_kv_tile(float* sm, const T* __restrict__ k,
+                                             const T* __restrict__ v,
+                                             int64_t kss, int64_t vss, int t0,
+                                             int skv, bool vec) {
+  using S = Smem<D, RT>;
+  stage_kv<T, D>(sm + S::K, sm + S::V, S::LD, k, v, kss, vss, t0, skv, vec);
 }
 
 // One online-softmax update of rows [0, nrows) with the staged tile of keys
@@ -276,9 +296,7 @@ __device__ __forceinline__ void walk(float* sm, const T* __restrict__ k,
   for (int i = 0; i < RT; ++i)
 #pragma unroll
     for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.f;
-  const bool vec = ((reinterpret_cast<uintptr_t>(k) |
-                     reinterpret_cast<uintptr_t>(v)) % 16 == 0) &&
-                   kss % 4 == 0 && vss % 4 == 0;
+  const bool vec = kv_vec(k, v, kss, vss);
   __syncthreads();  // the rows and their state are staged
   for (int t0 = lo; t0 < hi; t0 += BKV) {
     load_kv_tile<T, D, RT>(sm, k, v, kss, vss, t0, skv, vec);

@@ -31,9 +31,13 @@
 //     registers; each thread's 4 x 4 score micro-tile and 4 x D/16
 //     accumulator micro-tile get two FFMAs per shared load;
 //   * the tile update is attention_common.cuh::tile_step, shared with the
-//     decode kernel, so the two give the same bits at one split.
-// wgmma, TMA, double buffering and an lse output (for the backward) are
-// later work.
+//     decode kernel, so the two give the same bits at one split;
+//   * the training launch (the LSE template flag, as gemm.cu's RES flag)
+//     also writes each row's fp32 softmax residual lse = m + log l to a
+//     (B, H, Sq) tensor, 0 for a row with no live key (as _finish), for the
+//     backward kernels of flash_attention_bwd.cu.  o is computed the same
+//     way with or without it, so the serving launch keeps its bits.
+// wgmma, TMA and double buffering are later work.
 
 #include "attention_common.cuh"
 
@@ -41,11 +45,12 @@ namespace {
 
 using namespace attn;
 
-template <typename T, int D, int RT>
+template <typename T, int D, int RT, bool LSE>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ kv_len,
-                 T* __restrict__ o, int Sq, int Skv, int H, int KV,
+                 T* __restrict__ o, float* __restrict__ lse, int Sq, int Skv,
+                 int H, int KV,
                  int64_t qsb, int64_t qss, int64_t qsh, int64_t ksb,
                  int64_t kss, int64_t ksh, int64_t vsb, int64_t vss,
                  int64_t vsh, int causal) {
@@ -75,16 +80,21 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < D / 16; ++j)
       store(orow + tc + 16 * j, __fdiv_rn(acc[i][j], lsafe));
+    if constexpr (LSE) {
+      if (tc == 0)
+        lse[(static_cast<int64_t>(b) * H + h) * Sq + gr / G] =
+            l > 0.f ? __fadd_rn(sm[S::M + r], logf(l)) : 0.f;
+    }
   }
 }
 
-template <typename T, int D, int RT>
+template <typename T, int D, int RT, bool LSE>
 cudaError_t launch_rt(const void* q, const void* k, const void* v,
-                      const int* kv_len, void* o, int B, int Sq, int Skv,
-                      int H, int KV, const long long* st, int causal,
+                      const int* kv_len, void* o, float* lse, int B, int Sq,
+                      int Skv, int H, int KV, const long long* st, int causal,
                       cudaStream_t stream) {
   static bool smem_set = false;
-  auto kernel = flash_fwd_kernel<T, D, RT>;
+  auto kernel = flash_fwd_kernel<T, D, RT, LSE>;
   const size_t bytes = Smem<D, RT>::bytes;
   cudaError_t err = allow_smem(kernel, bytes, smem_set);
   if (err != cudaSuccess) return err;
@@ -92,37 +102,59 @@ cudaError_t launch_rt(const void* q, const void* k, const void* v,
   const dim3 grid((rows + Smem<D, RT>::ROWS - 1) / Smem<D, RT>::ROWS, B * KV);
   kernel<<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), kv_len, static_cast<T*>(o), Sq, Skv, H, KV,
+      static_cast<const T*>(v), kv_len, static_cast<T*>(o), lse, Sq, Skv, H,
+      KV,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool LSE>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* kv_len, void* o, int B, int Sq, int Skv, int H,
-                   int KV, const long long* st, int causal,
+                   const int* kv_len, void* o, float* lse, int B, int Sq,
+                   int Skv, int H, int KV, const long long* st, int causal,
                    cudaStream_t stream) {
   const long long blocks64 = ((H / KV) * static_cast<long long>(Sq) + 63) / 64 * B * KV;
   if (pick_rt(blocks64) == 4)
-    return launch_rt<T, D, 4>(q, k, v, kv_len, o, B, Sq, Skv, H, KV, st, causal, stream);
-  return launch_rt<T, D, 1>(q, k, v, kv_len, o, B, Sq, Skv, H, KV, st, causal, stream);
+    return launch_rt<T, D, 4, LSE>(q, k, v, kv_len, o, lse, B, Sq, Skv, H, KV,
+                                   st, causal, stream);
+  return launch_rt<T, D, 1, LSE>(q, k, v, kv_len, o, lse, B, Sq, Skv, H, KV,
+                                 st, causal, stream);
 }
 
-template <typename T>
+template <typename T, bool LSE>
 cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
-                       const int* kv_len, void* o, int B, int Sq, int Skv,
-                       int H, int KV, const long long* st, int causal,
-                       cudaStream_t stream) {
+                       const int* kv_len, void* o, float* lse, int B, int Sq,
+                       int Skv, int H, int KV, const long long* st,
+                       int causal, cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch<T, 32>(q, k, v, kv_len, o, B, Sq, Skv, H, KV, st, causal, stream);
+      return launch<T, 32, LSE>(q, k, v, kv_len, o, lse, B, Sq, Skv, H, KV,
+                                st, causal, stream);
     case 64:
-      return launch<T, 64>(q, k, v, kv_len, o, B, Sq, Skv, H, KV, st, causal, stream);
+      return launch<T, 64, LSE>(q, k, v, kv_len, o, lse, B, Sq, Skv, H, KV,
+                                st, causal, stream);
     case 128:
-      return launch<T, 128>(q, k, v, kv_len, o, B, Sq, Skv, H, KV, st, causal, stream);
+      return launch<T, 128, LSE>(q, k, v, kv_len, o, lse, B, Sq, Skv, H, KV,
+                                 st, causal, stream);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+template <bool LSE>
+int dispatch(const void* q, const void* k, const void* v, const void* kv_len,
+             void* o, float* lse, int B, int Sq, int Skv, int H, int KV,
+             int D, const long long* strides, int causal, int dtype,
+             void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int* kvl = static_cast<const int*>(kv_len);
+  if (dtype == DT_F32)
+    return dispatch_d<float, LSE>(D, q, k, v, kvl, o, lse, B, Sq, Skv, H, KV,
+                                  strides, causal, s);
+  if (dtype == DT_BF16)
+    return dispatch_d<__nv_bfloat16, LSE>(D, q, k, v, kvl, o, lse, B, Sq, Skv,
+                                          H, KV, strides, causal, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -136,14 +168,20 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    int Skv, int H, int KV, int D,
                                    const long long* strides, int causal,
                                    int dtype, void* stream) {
-  const auto s = static_cast<cudaStream_t>(stream);
-  const int* kvl = static_cast<const int*>(kv_len);
-  if (dtype == DT_F32)
-    return dispatch_d<float>(D, q, k, v, kvl, o, B, Sq, Skv, H, KV, strides, causal, s);
-  if (dtype == DT_BF16)
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, kvl, o, B, Sq, Skv, H, KV, strides,
-                                     causal, s);
-  return cudaErrorInvalidValue;
+  return dispatch<false>(q, k, v, kv_len, o, nullptr, B, Sq, Skv, H, KV, D,
+                         strides, causal, dtype, stream);
+}
+
+// The training forward: as flash_attention_fwd, and also lse (B, H, Sq)
+// fp32 contiguous, each row's m + log l (0 for a row with no live key).
+extern "C" int flash_attention_fwd_lse(const void* q, const void* k,
+                                       const void* v, const void* kv_len,
+                                       void* o, void* lse, int B, int Sq,
+                                       int Skv, int H, int KV, int D,
+                                       const long long* strides, int causal,
+                                       int dtype, void* stream) {
+  return dispatch<true>(q, k, v, kv_len, o, static_cast<float*>(lse), B, Sq,
+                        Skv, H, KV, D, strides, causal, dtype, stream);
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

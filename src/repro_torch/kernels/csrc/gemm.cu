@@ -26,9 +26,9 @@
 //   * the epilogue (scale, shift, activation) runs on the registers and the
 //     store is masked, so the output is written once;
 //   * M tiles go on gridDim.x (gridDim.y is capped at 65,535);
-//   * w may be stored transposed, (N, K) row-major (the TW flag, serving
-//     forward only): a tied LM head reads the (V, D) embedding table in
-//     place instead of a (D, V) copy of it.  The tile load then walks k
+//   * w may be stored transposed, (N, K) row-major (the TW flag, in the
+//     serving and the training forward): a tied LM head reads the (V, D)
+//     embedding table in place instead of a (D, V) copy of it.  The tile load then walks k
 //     fastest, so neighbouring threads still read neighbouring addresses;
 //     the arithmetic is the same fmaf chain, so the bits are those of the
 //     row-major w.
@@ -255,7 +255,6 @@ int by_dtype(const void* x, const void* w, const void* scale,
   return cudaErrorInvalidValue;
 }
 
-// The transposed-w variant is instantiated for the serving forward only.
 template <bool RES>
 int dispatch(const void* x, const void* w, const void* scale,
              const void* shift, void* y, float* g, float* racc, int M, int K,
@@ -264,15 +263,11 @@ int dispatch(const void* x, const void* w, const void* scale,
   if (M <= 0 || N <= 0) return 0;
   if (K < 0 || act < ACT_LINEAR || act > ACT_GELU) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!trans_w)
-    return by_dtype<RES, false>(x, w, scale, shift, y, g, racc, M, K, N,
-                                in_dtype, out_dtype, act, tile, s);
-  if constexpr (RES) {
-    return cudaErrorInvalidValue;
-  } else {
-    return by_dtype<false, true>(x, w, scale, shift, y, g, racc, M, K, N,
-                                 in_dtype, out_dtype, act, tile, s);
-  }
+  if (trans_w)
+    return by_dtype<RES, true>(x, w, scale, shift, y, g, racc, M, K, N,
+                               in_dtype, out_dtype, act, tile, s);
+  return by_dtype<RES, false>(x, w, scale, shift, y, g, racc, M, K, N,
+                              in_dtype, out_dtype, act, tile, s);
 }
 
 }  // namespace
@@ -297,10 +292,10 @@ extern "C" int gemm_fused_fwd_res(const void* x, const void* w,
                                   const void* scale, const void* shift,
                                   void* y, void* g, void* racc, int M, int K,
                                   int N, int in_dtype, int out_dtype, int act,
-                                  int tile, void* stream) {
+                                  int tile, int trans_w, void* stream) {
   return dispatch<true>(x, w, scale, shift, y, static_cast<float*>(g),
                         static_cast<float*>(racc), M, K, N, in_dtype,
-                        out_dtype, act, tile, 0, stream);
+                        out_dtype, act, tile, trans_w, stream);
 }
 
 extern "C" const char* gemm_error_string(int code) {

@@ -8,6 +8,9 @@
 // one templated kernel computes C[i,j] = sum_p A(i,p) B(p,j) with a
 // transpose flag per operand: dX reads dY as stored and W transposed, dW
 // reads X transposed and dY as stored.  No operand is copied to transpose it.
+// A tied LM head's w = E^T needs no kernel of its own: dX = dY . E reads
+// both operands as stored, and dE = dY^T . X is gemm_bwd_dw with its two
+// operands swapped (kernels/gemm.py::GemmFused).
 //
 // What bounds it on an H100: as the forward (gemm.cu), every backward GEMM
 // of the Darknet path does tens of FLOPs per byte it must move, so under
@@ -182,15 +185,20 @@ int dispatch(const void* a, const void* b, void* c, int R, int P, int C,
 
 }  // namespace
 
-// dY (M, N) and W (K, N) row-major in `in_dtype`.  With chunk >= N, `out`
-// is dX (M, K) in `out_dtype`; with a smaller chunk, `out` is an fp32
-// workspace (ceil(N / chunk), M, K) of partials for gemm_bwd_reduce, and
-// `out_dtype` must be fp32.  `chunk` is a multiple of 16; `tile` is the
-// square output tile (64 or 32).  Launches on `stream` and returns
-// cudaGetLastError().
+// dY (M, N) and W (K, N) row-major in `in_dtype`, or, when `trans_w` is
+// not 0, W stored (N, K) row-major (a tied LM head's embedding table: then
+// dX = dY . E is a product of two row-major operands, with the same fmaf
+// chain over n).  With chunk >= N, `out` is dX (M, K) in `out_dtype`; with
+// a smaller chunk, `out` is an fp32 workspace (ceil(N / chunk), M, K) of
+// partials for gemm_bwd_reduce, and `out_dtype` must be fp32.  `chunk` is
+// a multiple of 16; `tile` is the square output tile (64 or 32).
+// Launches on `stream` and returns cudaGetLastError().
 extern "C" int gemm_bwd_dx(const void* dy, const void* w, void* out, int M,
                            int N, int K, int in_dtype, int out_dtype,
-                           int tile, int chunk, void* stream) {
+                           int tile, int chunk, int trans_w, void* stream) {
+  if (trans_w)
+    return dispatch<false, false>(dy, w, out, M, N, K, in_dtype, out_dtype,
+                                  tile, chunk, stream);
   return dispatch<false, true>(dy, w, out, M, N, K, in_dtype, out_dtype,
                                tile, chunk, stream);
 }

@@ -1,26 +1,35 @@
-"""Grouped flash-attention forward on Hopper.
+"""Grouped flash attention on Hopper, forward and backward.
 
-Replaces ``repro/kernels/flash_attention.py``'s ``_flash_kernel`` (launched
-by ``_forward``) on the LM serving path: prefill chunks, whole-prompt
-prefill and decode against a short extent.  The kernel is hand-written CUDA
-C++ in ``csrc/flash_attention.cu`` (its per-tile update shared with the
-decode kernel in ``csrc/attention_common.cuh``), built by ``build.py`` and
-called through ctypes.  The source's header says what bounds it on the
-H100 and what its design does about that.
+Replaces ``repro/kernels/flash_attention.py``'s three TPU kernels:
+``_flash_kernel`` (launched by ``_forward``, with and without its lse
+residual) on the LM serving and training paths, and the backward's
+``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``.  The kernels are
+hand-written CUDA C++ in ``csrc/flash_attention.cu`` (its per-tile update
+shared with the decode kernel in ``csrc/attention_common.cuh``) and
+``csrc/flash_attention_bwd.cu``, built by ``build.py`` and called through
+ctypes.  Each source's header says what bounds it on the H100 and what
+its design does about that.
 
-  flash_attention_fwd     the kernel wrapper
-  flash_attention_plain   its plain PyTorch version
+  flash_attention_fwd        the forward; ``return_lse=True`` also returns
+                             the per-row softmax residual lse (B, H, Sq)
+  flash_attention_plain      its plain PyTorch version
+  flash_attention_bwd_dq     dQ = (P o (dO V^T - Delta)) K
+                             (flash_attention_bwd_dq_plain)
+  flash_attention_bwd_dkv    dK = (P o (dO V^T - Delta))^T Q, dV = P^T dO
+                             (flash_attention_bwd_dkv_plain)
+  FlashAttention             the autograd Function of the JAX ``_flash``
+                             custom VJP
 
-Both take q already scaled by sm_scale (``kernels/ops.py::attention``
-folds the scale into q in fp32) and read q (B, Sq, H, D), k / v
-(B, Skv, KV, D) in the engine layout, with no transpose or padding.  The
-wrapper checks device, dtype and shape, allocates the output and launches
-on PyTorch's current stream for a CUDA tensor; only for a CPU tensor does
-it run the plain version.  A failed build or launch raises; nothing falls
-back.  `launches` counts the kernel's launches and moves nowhere else.
-
-Forward only: the lse output and the backward kernels (dQ, dK / dV) come
-with LM training.
+All take q already scaled by sm_scale (``kernels/ops.py::attention``
+folds the scale into q in fp32, a differentiable multiply outside the
+Function) and read q (B, Sq, H, D), k / v (B, Skv, KV, D) and dO
+(B, Sq, H, D) in the engine layout, with no transpose or padding; dK / dV
+come out compact (B, Skv, KV, D).  A wrapper checks device, dtype and
+shape, allocates its outputs and launches on PyTorch's current stream for
+a CUDA tensor; only for a CPU tensor does it run the plain version.  A
+failed build or launch raises; nothing falls back.  Each kernel has its
+own launch count (`launches`, `launches_lse`, `launches_dq`,
+`launches_dkv`), moved only where the kernel is launched.
 """
 from __future__ import annotations
 
@@ -29,31 +38,119 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels.ref import attention_mask, flash_attention_ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)  # the head dims the kernels are instantiated for
 
-launches = 0
+launches = 0      # flash_attention_fwd, serving forward (no lse)
+launches_lse = 0  # flash_attention_fwd with the lse (the training forward)
+launches_dq = 0   # flash_attention_bwd_dq
+launches_dkv = 0  # flash_attention_bwd_dkv
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 STRIDES = ctypes.POINTER(ctypes.c_longlong)
 _ARGTYPES = [_P] * 5 + [_I] * 6 + [STRIDES, _I, _I]
+_SIGNATURES = {  # entry point -> (library, argument types before the stream)
+    "flash_attention_fwd": ("flash_attention", _ARGTYPES),
+    "flash_attention_fwd_lse": ("flash_attention",
+                                [_P] * 6 + [_I] * 6 + [STRIDES, _I, _I]),
+    "flash_attention_bwd_dq": ("flash_attention_bwd",
+                               [_P] * 8 + [_I] * 6 + [STRIDES, _I, _I]),
+    "flash_attention_bwd_dkv": ("flash_attention_bwd",
+                                [_P] * 9 + [_I] * 6 + [STRIDES, _I, _I]),
+}
 
 
 def reset_launches() -> None:
-    """Set the launch count to 0."""
-    global launches
-    launches = 0
+    """Set every launch count to 0."""
+    global launches, launches_lse, launches_dq, launches_dkv
+    launches = launches_lse = launches_dq = launches_dkv = 0
 
 
-def flash_attention_plain(q, k, v, kv_len=None, *, causal: bool = True):
+def launch_counts() -> dict[str, int]:
+    """The launch counts by kernel name."""
+    return {"flash_attention": launches, "flash_attention_lse": launches_lse,
+            "flash_attention_bwd_dq": launches_dq,
+            "flash_attention_bwd_dkv": launches_dkv}
+
+
+def _grouped_scores(q, k):
+    """fp32 scores (B, KV, G, Sq, Skv) of the grouped layout: query head
+    h = kv * G + g against kv-head kv, no broadcast."""
+    b, sq, h, d = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, sq, kvh, h // kvh, d).float()
+    return torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float())
+
+
+def _live(q, k, kv_len, causal):
+    """(B or 1, 1, 1, Sq, Skv) bool mask of the live (query, key) pairs,
+    broadcast against the grouped scores."""
+    b, sq = q.shape[:2]
+    return attention_mask(b, sq, k.shape[1], causal=causal, kv_len=kv_len,
+                          device=q.device)[:, None, None]
+
+
+def flash_attention_plain(q, k, v, kv_len=None, *, causal: bool = True,
+                          return_lse: bool = False):
     """The kernel's function in plain PyTorch: softmax(q k^T) v with fp32
     statistics, grouped KV, keys at or past the (B,) ``kv_len`` masked,
     causal queries right-aligned against the live extent, exact 0 for rows
-    with no live key; q is already scaled.  Returns q's dtype."""
-    return flash_attention_ref(q, k, v, causal=causal, sm_scale=1.0,
-                               kv_len=kv_len)
+    with no live key; q is already scaled.  Returns q's dtype; with
+    ``return_lse`` also the fp32 (B, H, Sq) logsumexp of each row's live
+    scores, 0 for a row with no live key."""
+    o = flash_attention_ref(q, k, v, causal=causal, sm_scale=1.0,
+                            kv_len=kv_len)
+    if not return_lse:
+        return o
+    live = _live(q, k, kv_len, causal)
+    s = _grouped_scores(q, k).masked_fill(~live, float("-inf"))
+    lse = torch.where(live.any(-1), torch.logsumexp(s, dim=-1), 0.0)
+    b, sq, h, _ = q.shape
+    return o, lse.reshape(b, h, sq)
+
+
+def _bwd_tiles(q, k, v, do, lse, delta, kv_len, causal):
+    """The backward's fp32 P = exp(s - lse) on the live pairs (exact 0
+    elsewhere) and dS = P o (dO V^T - Delta), (B, KV, G, Sq, Skv), with
+    the grouped dO (B, Sq, KV, G, D)."""
+    b, sq, h, d = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    rows = (b, kvh, g, sq, 1)
+    p = torch.where(_live(q, k, kv_len, causal),
+                    torch.exp(_grouped_scores(q, k) - lse.reshape(rows)),
+                    0.0)
+    dog = do.reshape(b, sq, kvh, g, d).float()
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, v.float())
+    return p, p * (dp - delta.reshape(rows)), dog
+
+
+def flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, kv_len=None, *,
+                                 causal: bool = True):
+    """The dQ kernel's function in plain PyTorch, fp32 arithmetic:
+    dQ = dS K with dS = P o (dO V^T - Delta), P = exp(s - lse) on the live
+    pairs and exact 0 elsewhere; q is already scaled, lse and delta fp32
+    (B, H, Sq).  Returns (B, Sq, H, D) in q's dtype."""
+    _, ds, _ = _bwd_tiles(q, k, v, do, lse, delta, kv_len, causal)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float())
+    return dq.reshape(q.shape).to(q.dtype)
+
+
+def flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, kv_len=None, *,
+                                  causal: bool = True):
+    """The dK / dV kernel's function in plain PyTorch, fp32 arithmetic:
+    dK = dS^T Q and dV = P^T dO, the G query heads of a group summed, as
+    `flash_attention_bwd_dq_plain`.  Returns compact (B, Skv, KV, D) in
+    k's and v's dtype."""
+    b, sq, h, d = q.shape
+    kvh = k.shape[2]
+    p, ds, dog = _bwd_tiles(q, k, v, do, lse, delta, kv_len, causal)
+    qg = q.reshape(b, sq, kvh, h // kvh, d).float()
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
+    return dk.to(k.dtype), dv.to(v.dtype)
 
 
 def check_operands(q, k, v, kv_len) -> None:
@@ -97,32 +194,171 @@ def cuda_args(q, k, v, kv_len) -> tuple:
     return (b, sq, k.shape[1], h, k.shape[2], d, strides)
 
 
-def flash_attention_fwd(q, k, v, kv_len=None, *, causal: bool = True):
+def _launch(entry: str, q, *args, what: str) -> None:
+    lib, argtypes = _SIGNATURES[entry]
+    build.launch(lib, entry, argtypes,
+                 torch.cuda.current_stream(q.device).cuda_stream, *args,
+                 what=what)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _on_card(name: str, q) -> bool:
+    """True for a CUDA tensor, False for a CPU one (the plain version);
+    ValueError for any other device."""
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {q.device}")
+    return q.device.type == "cuda"
+
+
+def flash_attention_fwd(q, k, v, kv_len=None, *, causal: bool = True,
+                        return_lse: bool = False):
     """softmax(q k^T) v for q (B, Sq, H, D) and k, v (B, Skv, KV, D), q
     already scaled; head h reads kv-head h // (H // KV).
 
     ``kv_len``: None or a (B,) int32 tensor of live extents clamped to Skv
     (`ops.normalize_kv_len`); causal queries right-align against it (else
     against Skv).  Returns (B, Sq, H, D) contiguous in q's dtype, fp32
-    softmax statistics.  A CPU tensor runs `flash_attention_plain`; a CUDA
+    softmax statistics.  With ``return_lse`` (the training launch) returns
+    ``(o, lse)``, lse the fp32 (B, H, Sq) per-row m + log l in the scaled
+    score space, 0 for a row with no live key; o has the bits of the
+    launch without it.  A CPU tensor runs `flash_attention_plain`; a CUDA
     tensor launches the kernel and raises RuntimeError if it fails.
     """
     check_operands(q, k, v, kv_len)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, kv_len, causal=causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_fwd runs on cuda or cpu, not "
-                         f"{q.device}")
+    if not _on_card("flash_attention_fwd", q):
+        return flash_attention_plain(q, k, v, kv_len, causal=causal,
+                                     return_lse=return_lse)
     b, sq, skv, h, kvh, d, strides = cuda_args(q, k, v, kv_len)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if o.numel():
-        build.launch(
-            "flash_attention", "flash_attention_fwd", _ARGTYPES,
-            torch.cuda.current_stream(q.device).cuda_stream,
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if kv_len is None else kv_len.data_ptr(), o.data_ptr(),
-            b, sq, skv, h, kvh, d, strides, int(causal), DTYPES[q.dtype],
-            what=f"q {tuple(q.shape)}, k {tuple(k.shape)}")
-        global launches
-        launches += 1
-    return o
+        global launches, launches_lse
+        entry = "flash_attention_fwd_lse" if return_lse else \
+            "flash_attention_fwd"
+        outs = (o, lse) if return_lse else (o,)
+        _launch(entry, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                _ptr(kv_len), *(t.data_ptr() for t in outs),
+                b, sq, skv, h, kvh, d, strides, int(causal), DTYPES[q.dtype],
+                what=f"q {tuple(q.shape)}, k {tuple(k.shape)}")
+        if return_lse:
+            launches_lse += 1
+        else:
+            launches += 1
+    return (o, lse) if return_lse else o
+
+
+def _check_bwd(q, do, lse, delta) -> None:
+    b, sq, h, _ = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"dO must be {q.dtype} {tuple(q.shape)}; got "
+                         f"{do.dtype} {tuple(do.shape)}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (b, h, sq) or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 {(b, h, sq)}; got "
+                             f"{t.dtype} {tuple(t.shape)}")
+
+
+def _bwd_args(q, k, v, do, lse, delta, kv_len) -> tuple:
+    """The C entry points' operand pointers and sizes, after the checks
+    the kernels need on the card (lse / delta contiguous on q's device,
+    dO contiguous along D)."""
+    b, sq, skv, h, kvh, d, _ = cuda_args(q, k, v, kv_len)
+    for name, t in (("do", do), ("lse", lse), ("delta", delta)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    if do.stride(3) != 1:
+        raise ValueError("do must be contiguous along the head dim")
+    if not (lse.is_contiguous() and delta.is_contiguous()):
+        raise ValueError("lse and delta must be contiguous")
+    strides = (ctypes.c_longlong * 12)(
+        *(s for t in (q, k, v, do) for s in t.stride()[:3]))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), _ptr(kv_len))
+    return ptrs, (b, sq, skv, h, kvh, d, strides)
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, kv_len=None, *,
+                           causal: bool = True):
+    """dQ (B, Sq, H, D) in q's dtype, for q already scaled: the forward's
+    operands, dO (B, Sq, H, D), its lse and Delta = rowsum(dO o O), fp32
+    (B, H, Sq).  A CPU tensor runs `flash_attention_bwd_dq_plain`; a
+    CUDA tensor launches the kernel and raises RuntimeError if it fails."""
+    check_operands(q, k, v, kv_len)
+    _check_bwd(q, do, lse, delta)
+    if not _on_card("flash_attention_bwd_dq", q):
+        return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, kv_len,
+                                            causal=causal)
+    if k.shape[1] == 0:
+        return torch.zeros_like(q)
+    ptrs, dims = _bwd_args(q, k, v, do, lse, delta, kv_len)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if dq.numel():
+        global launches_dq
+        _launch("flash_attention_bwd_dq", q, *ptrs, dq.data_ptr(), *dims,
+                int(causal), DTYPES[q.dtype],
+                what=f"q {tuple(q.shape)}, k {tuple(k.shape)}")
+        launches_dq += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, kv_len=None, *,
+                            causal: bool = True):
+    """(dK, dV), each compact (B, Skv, KV, D) in k's dtype: the G query
+    heads of a group are reduced inside the kernel, in a fixed order with
+    no atomics.  Operands as `flash_attention_bwd_dq`; a CPU tensor runs
+    `flash_attention_bwd_dkv_plain`."""
+    check_operands(q, k, v, kv_len)
+    _check_bwd(q, do, lse, delta)
+    if not _on_card("flash_attention_bwd_dkv", q):
+        return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                             kv_len, causal=causal)
+    ptrs, dims = _bwd_args(q, k, v, do, lse, delta, kv_len)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    if dk.numel():
+        global launches_dkv
+        _launch("flash_attention_bwd_dkv", q, *ptrs, dk.data_ptr(),
+                dv.data_ptr(), *dims, int(causal), DTYPES[q.dtype],
+                what=f"q {tuple(q.shape)}, k {tuple(k.shape)}")
+        launches_dkv += 1
+    return dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Grouped flash attention with its gradient (``repro``'s ``_flash``
+    custom VJP).
+
+    ``FlashAttention.apply(q, k, v, kv_len, causal)``, q already scaled.
+    The forward is the lse-emitting kernel and saves (q, k, v, kv_len, o,
+    lse).  The backward computes Delta = rowsum(dO o O) in fp32 in PyTorch
+    (as ``_flash_vjp_bwd``; a row with no live key has O = 0, so Delta = 0
+    there) and launches the dQ and dK / dV kernels.  kv_len and causal get
+    no gradient.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_len, causal):
+        o, lse = flash_attention_fwd(q, k, v, kv_len, causal=causal,
+                                     return_lse=True)
+        ctx.save_for_backward(q, k, v, kv_len, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, kv_len, o, lse = ctx.saved_tensors
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        dq = dk = dv = None
+        if ctx.needs_input_grad[0]:
+            dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, kv_len,
+                                        causal=ctx.causal)
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, kv_len,
+                                             causal=ctx.causal)
+        return dq, dk, dv, None, None

@@ -30,7 +30,11 @@ show that its path went through the kernels (`reset_launches`).
 
 `GemmFused` is the ``torch.autograd.Function`` of ``jax.custom_vjp``
 ``_gemm``: its forward is the residual-emitting kernel, its backward the
-epilogue's column sums in PyTorch and the two backward kernels.
+epilogue's column sums in PyTorch and the two backward kernels.  It takes
+a tied LM head's ``w = embed.t()`` in place, with no copy of the table:
+the forward reads w transposed, dX = dY . E reads both operands as
+stored, and dE = dY^T . X is `gemm_bwd_dw` with its operands swapped,
+handed to autograd as its transpose.
 """
 from __future__ import annotations
 
@@ -143,8 +147,8 @@ def _check_cuda(name: str, tile: int, **tensors) -> None:
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {  # entry point -> (library, argument types before the stream)
     "gemm_fused_fwd": ("gemm", [_P] * 5 + [_I] * 8),
-    "gemm_fused_fwd_res": ("gemm", [_P] * 7 + [_I] * 7),
-    "gemm_bwd_dx": ("gemm_bwd", [_P] * 3 + [_I] * 7),
+    "gemm_fused_fwd_res": ("gemm", [_P] * 7 + [_I] * 8),
+    "gemm_bwd_dx": ("gemm_bwd", [_P] * 3 + [_I] * 8),
     "gemm_bwd_dw": ("gemm_bwd", [_P] * 3 + [_I] * 7),
     "gemm_bwd_reduce": ("gemm_bwd", [_P, _P, ctypes.c_longlong, _I, _I]),
 }
@@ -165,8 +169,8 @@ def _ptr(t):
 
 def is_transposed(w) -> bool:
     """Whether the 2-D `w` is not contiguous but its transpose is: a
-    (K, N) view of a row-major (N, K) tensor, which the serving forward
-    reads in place."""
+    (K, N) view of a row-major (N, K) tensor, which the forward kernels
+    and `gemm_bwd_dx` read in place."""
     return not w.is_contiguous() and w.t().is_contiguous()
 
 
@@ -174,10 +178,10 @@ def gemm_fused_fwd(x, w, scale=None, shift=None, *, act: str = "linear",
                    out_dtype=None, tile: int = 64, residuals: bool = False):
     """act((x @ w) * scale + shift) for x (M, K) and w (K, N).
 
-    x is row-major.  w is row-major, or, for the serving forward only, the
-    transpose of a row-major (N, K) tensor (`is_transposed`: a tied LM
-    head's ``embed.t()``), which the kernel reads in place with the same
-    arithmetic, so the bits are those of a row-major copy.
+    x is row-major.  w is row-major, or the transpose of a row-major
+    (N, K) tensor (`is_transposed`: a tied LM head's ``embed.t()``), which
+    the kernel reads in place with the same arithmetic, so the bits are
+    those of a row-major copy.
     x and w share float32 or bfloat16; scale/shift are float32 (N,) or
     None; the result is (M, N) in `out_dtype` (default x.dtype), with fp32
     accumulation.  `tile` is the square output tile (one of `TILES`).
@@ -194,9 +198,6 @@ def gemm_fused_fwd(x, w, scale=None, shift=None, *, act: str = "linear",
         plain = gemm_fused_res_plain if residuals else gemm_fused_plain
         return plain(x, w, scale, shift, act=act, out_dtype=out_dtype)
     trans_w = is_transposed(w)
-    if trans_w and residuals:
-        raise ValueError("the residual forward takes a row-major w; only the "
-                         "serving forward reads a transposed w in place")
     _check_cuda("gemm_fused_fwd", tile, x=x, w=w.t() if trans_w else w,
                 scale=scale, shift=shift)
     m, k = x.shape
@@ -213,9 +214,7 @@ def gemm_fused_fwd(x, w, scale=None, shift=None, *, act: str = "linear",
         if residuals:
             args += [_ptr(g), _ptr(racc)]
         args += [m, k, n, _DTYPES[x.dtype], _DTYPES[out_dtype],
-                 ACTIVATIONS.index(act), tile]
-        if not residuals:
-            args.append(int(trans_w))
+                 ACTIVATIONS.index(act), tile, int(trans_w)]
         entry = "gemm_fused_fwd_res" if residuals else "gemm_fused_fwd"
         _launch(entry, x.device, *args, what=f"(M, K, N) = {(m, k, n)}")
         global launches, launches_res
@@ -235,11 +234,12 @@ def split_chunk(kdim: int, splits: int) -> tuple[int, int]:
     return chunk, max(1, -(-kdim // chunk))
 
 
-def _bwd(entry, a, b, dims, out_shape, kdim, out_dtype, tile, splits):
+def _bwd(entry, a, b, dims, out_shape, kdim, out_dtype, tile, splits,
+         *flags):
     """Launch the backward GEMM `entry` on operands a, b, with `dims` the
-    entry point's three sizes ((M, N, K) for dX, (M, K, N) for dW), and
-    the reduce pass when the contraction `kdim` is split; returns the
-    output tensor."""
+    entry point's three sizes ((M, N, K) for dX, (M, K, N) for dW), the
+    entry's trailing `flags`, and the reduce pass when the contraction
+    `kdim` is split; returns the output tensor."""
     global launches_dx, launches_dw, launches_reduce
     out = torch.empty(out_shape, dtype=out_dtype, device=a.device)
     if out.numel() == 0:
@@ -249,7 +249,8 @@ def _bwd(entry, a, b, dims, out_shape, kdim, out_dtype, tile, splits):
         (splits, *out_shape), dtype=torch.float32, device=a.device)
     what = f"sizes {dims}"
     _launch(entry, a.device, _ptr(a), _ptr(b), _ptr(target), *dims,
-            _DTYPES[a.dtype], _DTYPES[target.dtype], tile, chunk, what=what)
+            _DTYPES[a.dtype], _DTYPES[target.dtype], tile, chunk, *flags,
+            what=what)
     if entry == "gemm_bwd_dx":
         launches_dx += 1
     else:
@@ -265,6 +266,10 @@ def gemm_bwd_dx(dy, w, *, out_dtype=None, tile: int = 64,
                 splits: int = 1) -> torch.Tensor:
     """dX[m, k] = sum_n dY[m, n] W[k, n] for dy (M, N), w (K, N) -> (M, K).
 
+    w is row-major, or the transpose of a row-major (N, K) tensor (a tied
+    LM head's ``embed.t()``), read in place: dX = dY . E is then a product
+    of two row-major operands with the same fmaf chain over n, so the bits
+    are those of a row-major copy of w.
     dy and w share float32 or bfloat16; fp32 accumulation; the result in
     `out_dtype` (default dy.dtype).  `splits` > 1 cuts the contraction
     into that many pieces (see `split_chunk`) whose fp32 partials a reduce
@@ -278,10 +283,11 @@ def gemm_bwd_dx(dy, w, *, out_dtype=None, tile: int = 64,
     _check_dtypes(dy, w, out_dtype)
     if dy.device.type == "cpu":
         return gemm_bwd_dx_plain(dy, w, out_dtype=out_dtype)
-    _check_cuda("gemm_bwd_dx", tile, dy=dy, w=w)
+    trans_w = is_transposed(w)
+    _check_cuda("gemm_bwd_dx", tile, dy=dy, w=w.t() if trans_w else w)
     (m, n), k = dy.shape, w.shape[0]
     return _bwd("gemm_bwd_dx", dy, w, (m, n, k), (m, k), n, out_dtype, tile,
-                splits)
+                splits, int(trans_w))
 
 
 def gemm_bwd_dw(x, dy, *, out_dtype=None, tile: int = 64,
@@ -310,12 +316,15 @@ class GemmFused(torch.autograd.Function):
 
     ``GemmFused.apply(x, w, scale, shift, act, out_dtype, tile, dx_plan,
     dw_plan)``; the plans are ``(tile, splits)`` of the two backward GEMMs
-    (`kernels.ops.default_bwd_tiles`).  The forward saves x, w, scale and
+    (`kernels.ops.default_bwd_tiles`; for a transposed w, dw_plan is that
+    of the swapped product dE = dY^T . X).  The forward saves x, w, scale and
     the residuals g and racc.  The backward, as ``_gemm_vjp_bwd``:
     dyg = dy * g; dshift = sum_rows dyg and dscale = sum_rows dyg * racc,
     in fp32 in PyTorch; dacc = dyg * scale cast to x's dtype; then dX and
     dW by the kernels.  dX is not computed when x needs no gradient (the
-    network's first layer, whose input is the image).
+    network's first layer, whose input is the image).  For a transposed
+    w (`is_transposed`, a tied head ``E.t()``) dW is computed as
+    dE = dY^T . X, (N, K) like E, and returned as its transpose.
     """
 
     @staticmethod
@@ -344,7 +353,10 @@ class GemmFused(torch.autograd.Function):
         if need_x:
             dx = gemm_bwd_dx(dacc, w, out_dtype=x.dtype, tile=dx_tile,
                              splits=dx_splits)
-        if need_w:
+        if need_w and is_transposed(w):
+            dw = gemm_bwd_dw(dacc, x, out_dtype=w.dtype, tile=dw_tile,
+                             splits=dw_splits).t()
+        elif need_w:
             dw = gemm_bwd_dw(x, dacc, out_dtype=w.dtype, tile=dw_tile,
                              splits=dw_splits)
         return dx, dw, dscale, dshift, None, None, None, None, None

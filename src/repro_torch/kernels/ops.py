@@ -6,16 +6,19 @@ The JAX wrappers pad to tile multiples and slice the result, because the
 TPU kernels' BlockSpecs need whole blocks.  The port's CUDA kernels mask
 the ragged edges themselves, so these wrappers do NOT pad.  `matmul` makes
 x contiguous and picks the tile.  A weight is never copied per call: w must
-be row-major, or, on the forward-only path, the transpose of a row-major
-tensor (a tied LM head's ``embed.t()``), which the kernel reads in place.  Any (M, K, N) runs, the property of
-the paper's Figure 3.  The attention wrappers fold sm_scale into q in fp32
-and hand the kernels q, k and v in the engine layout (B, S, heads, D)
-through strides, with no transpose.
+be row-major, or the transpose of a row-major tensor (a tied LM head's
+``embed.t()``), which the kernels read in place, forward and backward.
+Any (M, K, N) runs, the property of the paper's Figure 3.  The attention
+wrappers fold sm_scale into q in fp32 and hand the kernels q, k and v in
+the engine layout (B, S, heads, D) through strides, with no transpose.
 
 With grad enabled and an operand that requires it, `matmul` goes through
-`gemm.GemmFused`: the forward kernel also writes its training residuals
-and the backward runs the dX / dW kernels.  Otherwise it makes the
-forward-only launch that serving makes.
+`gemm.GemmFused` and `attention` through `flash_attention.FlashAttention`:
+the forward kernels also write their training residuals (act'(u) and the
+accumulator; the softmax lse) and the backward runs the dX / dW and the
+dQ / dK / dV kernels.  Otherwise each makes the forward-only launch that
+serving makes.  The split-KV decode formulation is inference only, as in
+the JAX package: `attention_decode` raises under grad.
 
 Tiles and the backward's split count are fixed heuristics
 (`default_tiles`, `default_bwd_tiles`).  A measured autotuner, the
@@ -70,6 +73,14 @@ def default_bwd_tiles(variant: str, rows: int, kdim: int, cols: int
     return (t, bk, t, gemm_kernel.split_chunk(kdim, splits)[1])
 
 
+def needs_grad(*operands) -> bool:
+    """Whether autograd will differentiate a call on `operands`: grad is
+    enabled and a tensor among them requires it (None and non-tensors are
+    ignored)."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in operands)
+
+
 def matmul(x, w, scale=None, shift=None, *, act: str = "linear",
            out_dtype=None, tiles: tuple = ()) -> torch.Tensor:
     """Fused GEMM act((x @ w) * scale + shift) on the compute engine, any
@@ -77,11 +88,12 @@ def matmul(x, w, scale=None, shift=None, *, act: str = "linear",
 
     scale/shift are (N,) vectors (cast to float32) or None; `tiles` pins
     (bm, bk, bn), else `default_tiles` picks.  w is row-major, or the
-    transpose of a row-major tensor (read in place; forward only).
+    transpose of a row-major tensor (read in place, forward and backward).
     Differentiable: with grad enabled and an operand that requires it, the
     call goes through `gemm.GemmFused`, whose backward uses
-    `default_bwd_tiles`.  On a CPU tensor the kernel wrappers run their
-    plain versions.
+    `default_bwd_tiles` (for a transposed w, dW is the (N, K) product
+    dY^T . X, planned as such).  On a CPU tensor the kernel wrappers run
+    their plain versions.
     """
     m, k = x.shape
     n = w.shape[1]
@@ -94,14 +106,10 @@ def matmul(x, w, scale=None, shift=None, *, act: str = "linear",
     scale = None if scale is None else scale.float().contiguous()
     shift = None if shift is None else shift.float().contiguous()
     out_dtype = out_dtype or x.dtype
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (x, w, scale, shift)):
-        if not w.is_contiguous():
-            raise ValueError(f"w {tuple(w.shape)} must be contiguous for "
-                             f"training: the backward kernels take a "
-                             f"row-major (K, N) weight")
+    if needs_grad(x, w, scale, shift):
         dx_plan = default_bwd_tiles("dx", m, n, k)
-        dw_plan = default_bwd_tiles("dw", k, m, n)
+        dw_plan = (default_bwd_tiles("dw", n, m, k) if not w.is_contiguous()
+                   else default_bwd_tiles("dw", k, m, n))
         return gemm_kernel.GemmFused.apply(
             x, w, scale, shift, act, out_dtype, bm,
             (dx_plan[0], dx_plan[3]), (dw_plan[0], dw_plan[3]))
@@ -202,11 +210,17 @@ def attention(q, k, v, kv_len=None, sm_scale=None, *,
     attends kv-head h // (H // KV) with no broadcast.  ``kv_len`` (None,
     an int, or a scalar or (B,) tensor) masks keys at or past it, clamped
     to Skv; causal queries right-align against kv_len (else Skv); rows with
-    no live key are exact 0.  Returns (B, Sq, H, D) in q's dtype."""
+    no live key are exact 0.  Returns (B, Sq, H, D) in q's dtype.
+    Differentiable: with grad enabled and an operand that requires it the
+    call goes through `flash_attention.FlashAttention` (the lse forward and
+    the dQ / dK / dV kernels); the fold of sm_scale into q stays an
+    ordinary differentiable multiply outside it."""
     validate_attention_shapes(q, k, v)
     kvl = normalize_kv_len(kv_len, q.shape[0], k.shape[1], q.device)
-    return flash_kernel.flash_attention_fwd(scale_queries(q, sm_scale), k, v,
-                                            kvl, causal=causal)
+    qs = scale_queries(q, sm_scale)
+    if needs_grad(qs, k, v):
+        return flash_kernel.FlashAttention.apply(qs, k, v, kvl, causal)
+    return flash_kernel.flash_attention_fwd(qs, k, v, kvl, causal=causal)
 
 
 def attention_decode(q, k, v, kv_len=None, sm_scale=None, *,
@@ -214,8 +228,13 @@ def attention_decode(q, k, v, kv_len=None, sm_scale=None, *,
     """`attention`'s contract computed by the split-KV decode kernel and
     the `combine` merge, over the spans of `decode_splits`.  Keys past Skv
     are masked by kv_len (Skv when None).  Partials and the merge are
-    fp32; returns (B, Sq, H, D) in q's dtype.  Inference only."""
+    fp32; returns (B, Sq, H, D) in q's dtype.  Inference only, as in the
+    JAX package: raises NotImplementedError under grad."""
     validate_attention_shapes(q, k, v)
+    if needs_grad(q, k, v, sm_scale):
+        raise NotImplementedError(
+            f"the split-KV decode formulation (Sq {q.shape[1]} against Skv "
+            f"{k.shape[1]}) is inference only: it has no backward kernels")
     b = q.shape[0]
     skv, kvh = k.shape[1], k.shape[2]
     n_splits, span = decode_splits(skv, kvh)

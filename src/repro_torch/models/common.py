@@ -1,9 +1,10 @@
-"""Shared model pieces: norms, RoPE, embeddings, the LM head (PyTorch port of
-``repro/models/common.py``).  The chunked cross-entropy of the training
-loss comes with LM training."""
+"""Shared model pieces: norms, RoPE, embeddings, the LM head and the
+chunked cross-entropy of the training loss (PyTorch port of
+``repro/models/common.py``)."""
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import ComputeEngine
 
@@ -84,8 +85,12 @@ def embed_init(generator: torch.Generator, vocab_padded: int, d: int,
 
 def embed_lookup(p: dict, tokens, compute_dtype):
     """Rows of the embedding table for `tokens`, cast to the compute dtype
-    after the gather (the same values as casting the table first)."""
-    return p["tokens"][tokens].to(compute_dtype)
+    after the gather (the same values as casting the table first).  The
+    gather is `F.embedding`, whose gradient (a scatter-add over repeated
+    tokens) PyTorch sums in a fixed order on the card, so a train step's
+    bits are the same run to run."""
+    return torch.nn.functional.embedding(tokens, p["tokens"]).to(
+        compute_dtype)
 
 
 # ---------------------------------------------------------------- LM head ---
@@ -96,3 +101,42 @@ def lm_head_logits(engine: ComputeEngine, h, w_head, *, vocab_real: int):
     logits = engine.matmul(h, w_head, out_dtype=torch.float32)
     logits[..., vocab_real:] = -1e30
     return logits
+
+
+# -------------------------------------------------- chunked cross-entropy ---
+
+def _chunk_ce(engine: ComputeEngine, hx, w_head, lx, vocab_real: int):
+    """Sum over one (B, chunk) slice of logsumexp(logits) - gold logit."""
+    logits = engine.matmul(hx, w_head, out_dtype=torch.float32)
+    pad = torch.arange(logits.shape[-1], device=logits.device) >= vocab_real
+    logits = logits.masked_fill(pad, -1e30)
+    lse = torch.logsumexp(logits, dim=-1)                    # (B, chunk)
+    gold = torch.gather(logits, -1, lx.long()[..., None])[..., 0]
+    return torch.sum(lse - gold)
+
+
+def chunked_cross_entropy(engine: ComputeEngine, h, w_head, labels, *,
+                          vocab_real: int, chunk: int = 512):
+    """Mean token cross-entropy over (B, S), in fp32.
+
+    h (B, S, D); w_head (D, V_padded), e.g. a tied head's ``embed.t()``,
+    read in place; labels (B, S) int.  Runs over sequence chunks of
+    `chunk` (S must be a multiple of it): the head logits of a chunk in
+    fp32 from the engine's GEMM, the padded vocab masked to -1e30, then
+    logsumexp minus the gold logit.  Each chunk runs under
+    ``torch.utils.checkpoint`` (its logits are recomputed in the backward),
+    so one (B, chunk, V) logits tensor is alive at a time: 2.49 GB at
+    B 8 x 512 x 151936.  The JAX version scans the chunks under jit.
+    """
+    b, s, _ = h.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of the CE chunk "
+                         f"{chunk}")
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, s, chunk):
+        total = total + checkpoint(
+            _chunk_ce, engine, h[:, c0:c0 + chunk], w_head,
+            labels[:, c0:c0 + chunk], vocab_real, use_reentrant=False,
+            preserve_rng_state=False)
+    return total / (b * s)

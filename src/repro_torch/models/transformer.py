@@ -17,18 +17,23 @@ A tied head is the embedding's transpose, ``embed.t()``: a view that the
 GEMM kernel reads in place, so the head neither copies the table per call
 nor keeps a second copy of it (544 MB at qwen2-0.5b).  Caches are a list
 aligned with the layer program, ``[{"k", "v": (n_layers, B, S, KV, hd)}]``,
-as in JAX.
+as in JAX.  `loss_fn` is the training loss: the forward under autograd,
+each layer recomputed in the backward (``remat``, the JAX
+``jax.checkpoint`` of the scanned layer body) and the chunked
+cross-entropy through the (tied) head.
 MoE, MLA, SSM, hybrid and the modality frontends come with their model
 code; their families raise NotImplementedError here.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import ComputeEngine
 from repro_torch.models import attention as attn
-from repro_torch.models.common import (embed_init, embed_lookup, norm_apply,
-                                       norm_init, rope_table)
+from repro_torch.models.common import (chunked_cross_entropy, embed_init,
+                                       embed_lookup, norm_apply, norm_init,
+                                       rope_table)
 from repro_torch.models.mlp import mlp_forward, mlp_init
 
 
@@ -86,11 +91,50 @@ def _embed(engine, params, tokens):
                         engine.precision.compute_dtype)
 
 
-def forward_hidden(engine: ComputeEngine, cfg, params: dict, *, tokens):
+def forward_hidden(engine: ComputeEngine, cfg, params: dict, *, tokens,
+                   remat: bool = False):
     """Full-sequence forward to the final hidden states (B, S, D); tokens
-    (B, S) int."""
-    return forward_prefill(engine, cfg, params, tokens=tokens,
-                           collect_caches=False)[0]
+    (B, S) int.  With ``remat`` each layer runs under
+    ``torch.utils.checkpoint``: its activations are not kept for the
+    backward, which recomputes them (the same values, so the same
+    gradients; only the layer inputs stay alive)."""
+    if not remat:
+        return forward_prefill(engine, cfg, params, tokens=tokens,
+                               collect_caches=False)[0]
+    stack_program(cfg)
+    h = _embed(engine, params, tokens)
+    cos, sin = rope_table(torch.arange(h.shape[1], device=h.device),
+                          cfg.head_dim, cfg.rope_theta)
+
+    def layer(lp, x):
+        return _dense_layer(engine, cfg, lp, x, cos, sin)[0]
+
+    for lp in params["layers"]:
+        h = checkpoint(layer, lp, h, use_reentrant=False,
+                       preserve_rng_state=False)
+    return norm_apply(cfg.norm, params["final_norm"], h, cfg.norm_eps)
+
+
+def loss_fn(engine: ComputeEngine, cfg, params: dict, batch: dict, *,
+            remat: bool = True, ce_chunk: int = 512):
+    """Mean token cross-entropy of a training batch ``{"tokens",
+    "labels"}``, each (B, S) int, dense family only.
+
+    The forward dispatches the same engine ops as serving (on `cuda` the
+    GEMM and attention kernels, differentiable through `GemmFused` and
+    `FlashAttention`), so training and inference share one set of
+    numerics; the head is `head_weight` (a tied head reads the embedding
+    in place).  ``remat`` recomputes each layer in the backward, the JAX
+    ``jax.checkpoint`` of the layer body.  The JAX ``n_q_chunks`` and
+    ``kernel_attention=False`` belong to its blockwise attention oracle,
+    which the port does not have yet, so they are left out; the port has
+    no MoE family, so there is no aux loss.
+    """
+    h = forward_hidden(engine, cfg, params, tokens=batch["tokens"],
+                       remat=remat)
+    return chunked_cross_entropy(engine, h, head_weight(params, cfg),
+                                 batch["labels"], vocab_real=cfg.vocab_size,
+                                 chunk=ce_chunk)
 
 
 def forward_prefill(engine: ComputeEngine, cfg, params: dict, *, tokens,

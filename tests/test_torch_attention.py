@@ -210,15 +210,21 @@ def test_engine_attention_contract_errors():
 
 
 def test_cuda_attention_is_forward_only_and_refuses_cpu_tensors():
-    """`attention` is not in the cuda backend's differentiable set, so a
-    differentiated dispatch raises NotImplementedError naming it; on a
-    CPU tensor the cuda backend raises instead of falling back."""
+    """`attention` is in the cuda backend's differentiable set, but its
+    decode-shaped dispatches (the split-KV kernel) are forward only: one
+    differentiated raises NotImplementedError naming the op.  On a CPU
+    tensor the cuda backend raises instead of falling back, with or
+    without grad."""
     from repro_torch.core import ComputeEngine, get_backend
-    assert "attention" not in get_backend("cuda").differentiable
+    assert "attention" in get_backend("cuda").differentiable
     eng = ComputeEngine(backend="cuda", device=torch.device("cpu"))
+    qd = torch.zeros(1, 1, 4, 32, requires_grad=True)
+    kd = vd = torch.zeros(1, 256, 2, 32)
+    with pytest.raises(NotImplementedError, match="'attention'"):
+        eng.attention(qd, kd, vd, causal=False)
     q = torch.zeros(1, 2, 4, 32, requires_grad=True)
     k = v = torch.zeros(1, 2, 2, 32)
-    with pytest.raises(NotImplementedError, match="attention"):
+    with pytest.raises(ValueError, match="CUDA tensors"):
         eng.attention(q, k, v)
     with pytest.raises(ValueError, match="CUDA tensors"):
         eng.attention(q.detach(), k, v)

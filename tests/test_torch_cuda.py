@@ -16,14 +16,20 @@ For the LM: the GEMM reading a transposed weight in place (the tied head),
 the flash-attention and split-KV decode kernels against their plain
 versions (and bit for bit against each other at one split, and across
 batch sizes and block heights), the reduced qwen2-0.5b on `cuda` against `eager`, and
-the paged engine on `cuda` launching both kernels.
+the paged engine on `cuda` launching both kernels.  For LM training: the
+tied head's `GemmFused` gradients through ``embed.t()`` against a
+row-major copy, the lse forward and the dQ / dK / dV kernels against
+their plain versions (exact-0 dead rows, two runs bitwise), and the
+reduced qwen2-0.5b's loss gradients and a train step on `cuda` against
+`eager`.
 """
 import pytest
 import torch
 
 import numpy as np
 
-from repro_torch.configs.base import get_arch, reduced
+from repro_torch.configs.base import ShapeConfig, get_arch, reduced
+from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.configs.darknet_ref import DARKNET_SMALL_CFG, SEGNET_SMALL_CFG
 from repro_torch.core import make_engine
 from repro_torch.core.darknet.network import Network
@@ -36,7 +42,8 @@ from repro_torch.serve.scheduler import PagedServingEngine
 from repro_torch.serve.serve_step import make_prefill_step
 from repro_torch.kernels.common import ACTIVATIONS, epilogue
 from repro_torch.train import optimizer as opt
-from repro_torch.train.train_step import make_cnn_train_step
+from repro_torch.train.train_step import make_cnn_train_step, make_train_step
+from repro_torch.tree import flatten
 
 pytestmark = pytest.mark.cuda
 
@@ -111,8 +118,8 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card):
 def test_transposed_weight_gives_the_row_major_bits(card, m, k, n, dtype,
                                                     tol):
     """w read transposed in place (a tied LM head's embed.t()) gives the
-    bits of its row-major copy, within the bar of the plain version; the
-    residual forward refuses it."""
+    bits of its row-major copy, within the bar of the plain version; so
+    does the residual forward (the training launch), y and g alike."""
     g = torch.Generator(device=card).manual_seed(m + k + n)
     x = torch.randn(m, k, generator=g, device=card).to(dtype)
     table = (torch.randn(n, k, generator=g, device=card) / k ** 0.5).to(dtype)
@@ -127,8 +134,13 @@ def test_transposed_weight_gives_the_row_major_bits(card, m, k, n, dtype,
                 x, w.contiguous(), None, shift, act=act, tile=tile))
             assert _relmax(got, want) <= tol
     if gemm.is_transposed(w):
-        with pytest.raises(ValueError, match="row-major"):
-            gemm.gemm_fused_fwd(x, w, residuals=True)
+        for act in ("linear", "silu"):
+            got = gemm.gemm_fused_fwd(x, w, None, shift, act=act,
+                                      residuals=True)
+            want = gemm.gemm_fused_fwd(x, w.contiguous(), None, shift,
+                                       act=act, residuals=True)
+            assert all(a is None and b is None or torch.equal(a, b)
+                       for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("cfg", [DARKNET_SMALL_CFG, SEGNET_SMALL_CFG])
@@ -223,7 +235,7 @@ def test_bwd_wrappers_refuse_what_the_kernels_do_not_take(card):
     dy = torch.zeros(8, 5, device=card)
     w = torch.zeros(4, 5, device=card)
     with pytest.raises(ValueError, match="contiguous"):
-        gemm.gemm_bwd_dx(dy, torch.zeros(5, 4, device=card).t())
+        gemm.gemm_bwd_dx(dy, torch.zeros(4, 10, device=card)[:, ::2])
     with pytest.raises(ValueError, match="contiguous"):
         gemm.gemm_bwd_dw(torch.zeros(4, 8, device=card).t(), dy)
     with pytest.raises(ValueError, match="tile"):
@@ -379,3 +391,124 @@ def test_paged_engine_on_cuda_launches_both_attention_kernels(card):
     assert fa.launches > 0 and fd.launches > 0
     st = paged.stats()
     assert st["compile"]["traces"] <= st["trace_bound"]
+
+
+@pytest.mark.parametrize("m,k,n", [(64, 128, 512), (100, 64, 1000)])
+def test_tied_head_gradients_on_the_card_equal_a_row_major_copy(card, m, k,
+                                                                 n):
+    """GemmFused reads w = E^T in place: forward, dX = dY E and
+    dE = dY^T X give the bits of the same GEMMs on a row-major copy."""
+    g = torch.Generator(device=card).manual_seed(m + n)
+    table = torch.randn(n, k, generator=g, device=card) / k ** 0.5
+    x = torch.randn(m, k, generator=g, device=card)
+    dy = torch.randn(m, n, generator=g, device=card)
+    e = table.clone().requires_grad_()
+    w = table.t().contiguous().requires_grad_()
+    xs = [x.clone().requires_grad_() for _ in range(2)]
+    before = gemm.launch_counts()
+    y_t = ops.matmul(xs[0], e.t())
+    dx_t, de = torch.autograd.grad(y_t, (xs[0], e), dy)
+    after = gemm.launch_counts()
+    assert after["gemm_fused_fwd_res"] == before["gemm_fused_fwd_res"] + 1
+    assert after["gemm_bwd_dx"] == before["gemm_bwd_dx"] + 1
+    assert after["gemm_bwd_dw"] == before["gemm_bwd_dw"] + 1
+    y_r = ops.matmul(xs[1], w)
+    dx_r, dw = torch.autograd.grad(y_r, (xs[1], w), dy)
+    assert torch.equal(y_t, y_r) and torch.equal(dx_t, dx_r)
+    assert de.shape == table.shape
+    assert _relmax(de, dw.t()) <= 1e-5
+    assert _relmax(de, gemm.gemm_bwd_dw_plain(dy, x)) <= 1e-5
+
+
+ATTN_BWD_CASES = [  # b, sq, skv, h, kv, d, causal, kv_len
+    (2, 64, 64, 2, 2, 32, True, None),
+    (1, 40, 100, 4, 2, 64, True, None),
+    (2, 70, 70, 14, 2, 64, False, [50, 0]),
+    (2, 33, 130, 14, 2, 64, True, [130, 20]),
+    (1, 16, 16, 3, 1, 128, False, None),
+]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("b,sq,skv,h,kv,d,causal,kv_len", ATTN_BWD_CASES)
+def test_attention_bwd_kernels_match_plain_versions(card, b, sq, skv, h, kv,
+                                                    d, causal, kv_len, dtype,
+                                                    tol):
+    q, k, v = _qkv(card, b, sq, skv, h, kv, d, dtype, seed=7)
+    do = torch.randn(q.shape, device=card).to(dtype)
+    kvl = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32,
+                                                   device=card)
+    o, lse = fa.flash_attention_fwd(q, k, v, kvl, causal=causal,
+                                    return_lse=True)
+    wo, wlse = fa.flash_attention_plain(q, k, v, kvl, causal=causal,
+                                        return_lse=True)
+    assert torch.equal(o, fa.flash_attention_fwd(q, k, v, kvl,
+                                                 causal=causal))
+    assert _relmax(o, wo) <= tol and _relmax(lse, wlse) <= tol
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, kvl,
+                                   causal=causal)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, kvl,
+                                        causal=causal)
+    want = (fa.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, kvl,
+                                            causal=causal),
+            *fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, kvl,
+                                              causal=causal))
+    for got, w in zip((dq, dk, dv), want):
+        assert got.dtype == dtype and got.shape == w.shape
+        assert bool(torch.isfinite(got).all())
+        assert _relmax(got, w) <= tol
+    assert torch.equal(dq, fa.flash_attention_bwd_dq(
+        q, k, v, do, lse, delta, kvl, causal=causal))
+    again = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, kvl,
+                                       causal=causal)
+    assert torch.equal(dk, again[0]) and torch.equal(dv, again[1])
+    if kv_len is not None and kv_len[-1] < skv:   # dead keys, dead rows
+        assert bool((dk[-1, kv_len[-1]:] == 0).all())
+    if kv_len == [50, 0]:
+        assert bool((dq[1] == 0).all() and (dk[1] == 0).all())
+
+
+def test_reduced_lm_loss_gradients_on_cuda_match_eager(card):
+    cfg = reduced(get_arch("qwen2-0.5b"))
+    batch = {k: torch.from_numpy(v).to(card) for k, v in SyntheticLM(
+        cfg, ShapeConfig("t", 128, 2, "train"), seed=0).batch(0).items()}
+    out = {}
+    for name in ("cuda", "eager"):
+        params = tfm.init_params(cfg, generator=torch.Generator(
+            device=card).manual_seed(0), device=card)
+        leaves = list(flatten(params).values())
+        for p in leaves:
+            p.requires_grad_()
+        fa.reset_launches()
+        loss = tfm.loss_fn(make_engine(name, device=card), cfg, params,
+                           batch, ce_chunk=64)
+        out[name] = (loss, torch.autograd.grad(loss, leaves),
+                     fa.launch_counts())
+    assert abs(out["cuda"][0].item() - out["eager"][0].item()) <= \
+        1e-5 * abs(out["eager"][0].item())
+    for a, b in zip(out["cuda"][1], out["eager"][1]):
+        assert _relmax(a, b) <= 1e-4
+    n = cfg.n_layers
+    assert out["cuda"][2] == {"flash_attention": 0,
+                              "flash_attention_lse": 2 * n,
+                              "flash_attention_bwd_dq": n,
+                              "flash_attention_bwd_dkv": n}
+
+
+def test_reduced_lm_train_step_is_deterministic_on_the_card(card):
+    cfg = reduced(get_arch("qwen2-0.5b"))
+    batch = {k: torch.from_numpy(v).to(card) for k, v in SyntheticLM(
+        cfg, ShapeConfig("t", 128, 2, "train"), seed=1).batch(0).items()}
+    runs = []
+    for _ in range(2):
+        params = tfm.init_params(cfg, generator=torch.Generator(
+            device=card).manual_seed(0), device=card)
+        step = make_train_step(make_engine("cuda"), cfg, opt.AdamWConfig(),
+                               ce_chunk=64)
+        params, _, m = step(params, opt.adamw_init(flatten(params)), batch)
+        runs.append((m["loss"], flatten(params)))
+    assert torch.equal(runs[0][0], runs[1][0])
+    for name, p in runs[0][1].items():
+        assert torch.equal(p, runs[1][1][name]), name

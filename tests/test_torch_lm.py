@@ -101,8 +101,10 @@ def test_tied_head_is_laid_out_once(lm):
     assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
     with pytest.raises(ValueError, match="contiguous"):
         ops.matmul(x, table[::2].t())       # neither layout: refused
-    with pytest.raises(ValueError, match="contiguous"):
-        ops.matmul(x, table.clone().requires_grad_().t())  # training
+    e = table.clone().requires_grad_()      # training reads it in place too
+    (de,) = torch.autograd.grad(ops.matmul(x, e.t()).sum(), (e,))
+    assert de.shape == table.shape
+    assert torch.allclose(de, x.sum(0).expand_as(table), atol=1e-5)
 
 
 def test_forward_prefill_logits_and_caches_match_jax(lm):
