@@ -145,6 +145,34 @@ script exits non-zero.  Phases:
               against its plain version (the head reading the embedding
               transposed, its dX bitwise a row-major copy's) and timed as
               kernel, plain, torch.matmul and bound ms, summed per step.
+ 20. check_ssd  the SSD chunk-scan kernel against its plain version: the
+              SSD_GRID cases (S a multiple of the chunk and ragged, G 1 / 2,
+              P 32 / 64, N 16 / 128, chunk 64 / 256, batch 1 / 4) and the
+              prefill shape of mamba2-1.3b (4 x 1000, 64 heads of 64, N 128,
+              chunk 256), fp32 and bf16, with and without an initial state:
+              y and the final state within the bars of phase 2, two runs
+              bitwise equal.
+ 21. ssm      full-width, full-depth mamba2-1.3b (random weights from a
+              seed, dt bias, A and D moved off their init), `cuda` against
+              `eager` on the card: the prefill of 4 x 1000 tokens (logits
+              and every layer's conv tails and state within 1e-4
+              max-relative, one SSD launch per layer), then 16 decode steps
+              from those caches, both fed the same tokens, logits within
+              1e-4 at every step.
+ 22. ssm_serve  the SSM main path: the slot ServingEngine on `cuda`, 4
+              slots, 8 requests (prompts 8-48 tokens, max_new 4-16, numpy
+              seed), with the launch counts set to 0 just before and read
+              just after: every request completes, every prompt is
+              prefilled through the SSD kernel (one launch per layer), no
+              `eager` op; each request served in a reused slot gives the
+              stream it gets alone on a fresh engine.
+ 23. timing_ssm  prefill ms (S 1000) and decode ms per token at batch 1
+              and 4 on `cuda` and `eager`; the device time by kernel name
+              of one `cuda` prefill and of one `cuda` decode step at batch 4
+              (torch.profiler); the SSD kernel at the
+              prefill shape and at 4 x 2048: kernel, plain and bound ms (the
+              causal pairs and the state terms at the FFMA rate; no single
+              PyTorch call computes SSD, so no library time).
 Then the kernels line, and last the result line.  Every JSON line carries
 `t`, the seconds since the script started.
 """
@@ -173,6 +201,7 @@ from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
 from repro_torch.kernels import build, gemm, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
+from repro_torch.kernels import ssd  # noqa: E402
 from repro_torch.kernels.common import ACTIVATIONS, epilogue  # noqa: E402
 from repro_torch.kernels.ref import attention_mask  # noqa: E402
 from repro_torch.launch.fault import FailureInjected  # noqa: E402
@@ -227,6 +256,19 @@ FLOOR_BACKEND = "ref"  # the second correct fp32 program of phase 17
 RESTART = dict(steps=4, batch=2, seq=64, ckpt_every=2, seed=1)
 RESTART_FAIL_AT = 3
 BWD_SHAPES = ((64, 64), (100, 100), (40, 130))  # check_attn_bwd's (Sq, Skv)
+SOURCE_SSD = "src/repro_torch/kernels/csrc/ssd.cu"
+REPLACES_SSD = "src/repro/kernels/ssd.py:97"  # ssd_scan -> _ssd_kernel
+SSM_ARCH = "mamba2-1.3b"
+SSM_PREFILL = (4, 1000)  # ssm phase: batch x prompt tokens
+SSM_DECODE_STEPS = 16
+SSM_SERVE = dict(slots=4, requests=8, prompt=(8, 48), new=(4, 16),
+                 max_len=128)
+# check_ssd's (batch, S, H, P, G, N, chunk): S a multiple of the chunk and
+# ragged, G 1 and 2, P 32 and 64, N 16 and 128, chunk 64 and 256, batch 1
+# and 4 (the path's prefill shape is added)
+SSD_GRID = ((1, 512, 4, 64, 1, 128, 256), (4, 300, 8, 32, 2, 16, 64),
+            (1, 1000, 8, 64, 2, 128, 256), (4, 130, 4, 32, 1, 128, 64),
+            (1, 256, 4, 32, 2, 16, 256))
 _T0 = time.perf_counter()
 
 
@@ -528,7 +570,7 @@ def host_ms(fn, reps: int = 5) -> float:
 def all_launches() -> dict:
     """Every kernel wrapper's launch count, by kernel name."""
     return {**gemm.launch_counts(), **fa.launch_counts(),
-            "flash_decode": fd.launches}
+            "flash_decode": fd.launches, "ssd_scan": ssd.launches}
 
 
 def reset_all_launches() -> None:
@@ -536,6 +578,7 @@ def reset_all_launches() -> None:
     gemm.reset_launches()
     fa.reset_launches()
     fd.reset_launches()
+    ssd.reset_launches()
     backends.reset_dispatch_counts()
 
 
@@ -1208,7 +1251,8 @@ def lm_train_launches(cfg, m: int) -> dict:
             "gemm_bwd_dw": 0, "gemm_bwd_reduce": 0, "flash_attention": 0,
             "flash_attention_lse": 2 * cfg.n_layers,
             "flash_attention_bwd_dq": cfg.n_layers,
-            "flash_attention_bwd_dkv": cfg.n_layers, "flash_decode": 0}
+            "flash_attention_bwd_dkv": cfg.n_layers, "flash_decode": 0,
+            "ssd_scan": 0}
     for g in lm_gemms(cfg):
         k, n, reps = g["k"], g["n"], g["per_dispatch"]
         dx = ops.default_bwd_tiles("dx", m, n, k)
@@ -1626,6 +1670,270 @@ def timing_lm_train_phase(cfg, dev, cgen, peak_flops, peak_bw, smi,
     return {"attn": rows, "gemm": gemms}
 
 
+# ---------------------------------------------------------------- the SSM ---
+
+def ssd_operands(b, s, h, p, g, n, dtype, gen, init=False):
+    """SSD operands drawn on the card from the CUDA generator `gen`: x
+    (b, s, h, p), dt = softplus(N(0,1) - 0.5), A = -exp(0.3 N(0,1)) per
+    head, B and C (b, s, g, n), optionally an fp32 initial state."""
+    dev = gen.device
+    x = torch.randn(b, s, h, p, generator=gen, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, s, h, generator=gen, device=dev) - 0.5)
+    a = -torch.exp(0.3 * torch.randn(h, generator=gen, device=dev))
+    bm = torch.randn(b, s, g, n, generator=gen, device=dev).to(dtype)
+    cm = torch.randn(b, s, g, n, generator=gen, device=dev).to(dtype)
+    init = (torch.randn(b, h, p, n, generator=gen, device=dev) if init
+            else None)
+    return x, dt, a, bm, cm, init
+
+
+def ssd_work(x, bm, chunk) -> tuple[float, float]:
+    """(FLOPs, bytes) of one SSD scan on these inputs: per (batch, head)
+    and chunk of q live rows, the q(q+1)/2 causal (query, key) pairs times
+    N (C·Bᵀ) and P (the product with x̄), and q N P each for the carried
+    state's term and the state update, 2 FLOPs a multiply-add; x, dt, dA,
+    B and C (per group, not per head) read once, y and the final state
+    written once."""
+    b, s, h, p = x.shape
+    g, n = bm.shape[2], bm.shape[3]
+    flops = 0.0
+    for c0 in range(0, s, chunk):
+        q = min(chunk, s - c0)
+        flops += 2.0 * (q * (q + 1) / 2 * (n + p) + 2 * q * n * p)
+    flops *= b * h
+    es = x.element_size()
+    nbytes = (2 * x.numel() * es + 2 * 4.0 * b * s * h
+              + 2 * bm.numel() * es + 4.0 * b * h * p * n)
+    return flops, nbytes
+
+
+def check_ssd_phase(cfg, cgen) -> float:
+    """Phase check_ssd: the SSD kernel against its plain version over
+    SSD_GRID and the path's prefill shape, fp32 and bf16, with and without
+    an initial state; y and the final state within the bars, two runs
+    bitwise equal.  Returns the worst fp32 max-abs error of y at the path's
+    shape."""
+    path = (*SSM_PREFILL, cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_ngroups,
+            cfg.ssm_state, cfg.ssm_chunk)
+    rows, worst, path_abs = [], {"fp32": 0.0, "bf16": 0.0}, 0.0
+    for case in [*SSD_GRID, path]:
+        b, s, h, p, g, n, chunk = case
+        for dtype, kind in ((torch.float32, "fp32"), (torch.bfloat16,
+                                                      "bf16")):
+            for init in (False, True):
+                x, dt, a, bm, cm, st = ssd_operands(b, s, h, p, g, n, dtype,
+                                                    cgen, init)
+                got = ops.ssd(x, dt, a, bm, cm, chunk=chunk, init_state=st)
+                again = ops.ssd(x, dt, a, bm, cm, chunk=chunk,
+                                init_state=st)
+                want = ssd.ssd_scan_plain(x, dt, (dt * a).contiguous(), bm,
+                                          cm, chunk=chunk, init_state=st)
+                torch.cuda.synchronize()
+                where = f"{case} {kind} init={init}"
+                check(all(bool(torch.isfinite(t).all()) for t in got),
+                      f"non-finite SSD output at {where}")
+                err = max(relmax(got[0], want[0]), relmax(got[1], want[1]))
+                check(err <= (FP32_TOL if kind == "fp32" else BF16_TOL),
+                      f"SSD kernel vs plain {err:.3e} at {where}")
+                check(torch.equal(got[0], again[0])
+                      and torch.equal(got[1], again[1]),
+                      f"two SSD runs differ at {where}")
+                worst[kind] = max(worst[kind], err)
+                if case == path and kind == "fp32":
+                    path_abs = max(path_abs, float(
+                        (got[0].double() - want[0].double()).abs().max()))
+                rows.append({"case": list(case), "dtype": kind,
+                             "init": init, "relmax": err})
+    emit("check_ssd", cases=len(rows), relmax=worst, path_shape=list(path),
+         path_max_abs_err=path_abs, rows=rows)
+    return path_abs
+
+
+def ssm_params(cfg, dev):
+    """Full-width random parameters from a seed, with every head's dt bias,
+    A and D moved off the init's constants (so the heads decay at
+    different rates and the D skip is tested)."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    params = tfm.init_params(cfg, generator=gen, device=dev)
+    with torch.no_grad():
+        for lp in params["layers"]:
+            for name, scale in (("dt_bias", 0.5), ("A_log", 0.3),
+                                ("D", 0.5)):
+                t = lp["mixer"][name]
+                t.add_(torch.randn(t.shape, generator=gen, device=dev)
+                       * scale)
+    return params
+
+
+def ssm_phase(cfg, params, dev) -> None:
+    """Phase ssm: cuda vs eager prefill and 16 decode steps at full width."""
+    cuda, eager = make_engine("cuda"), make_engine("eager", device=dev)
+    b, s = SSM_PREFILL
+    rng = np.random.default_rng(9)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).to(dev)
+    out, launches = {}, {}
+    with torch.inference_mode():
+        for label, engine in (("cuda", cuda), ("eager", eager)):
+            reset_all_launches()
+            out[label] = make_prefill_step(engine, cfg)(params, tokens)
+            torch.cuda.synchronize()
+            launches[label] = {**all_launches(), "dispatch": {
+                f"{k[0]}.{k[1]}": v
+                for k, v in backends.dispatch_counts().items()}}
+        (lc, cc), (le, ce) = out["cuda"], out["eager"]
+        logit_err = relmax(lc[..., :cfg.vocab_size], le[..., :cfg.vocab_size])
+        cache_err = {name: max(relmax(cc[0][name][i], t[i])
+                               for i in range(cfg.n_layers))
+                     for name, t in ce[0].items()}
+        decode_err, agree = [], 0
+        tok = le[:, -1].argmax(-1, keepdim=True)
+        for step in range(SSM_DECODE_STEPS):
+            lc, cc = make_decode_step(cuda, cfg)(params, cc, tok, s + step)
+            le, ce = make_decode_step(eager, cfg)(params, ce, tok, s + step)
+            decode_err.append(relmax(lc[..., :cfg.vocab_size],
+                                     le[..., :cfg.vocab_size]))
+            nxt = le[:, -1].argmax(-1, keepdim=True)
+            agree += int(torch.equal(lc[:, -1].argmax(-1, keepdim=True), nxt))
+            tok = nxt
+        state_err = relmax(cc[0]["ssm"], ce[0]["ssm"])
+    torch.cuda.synchronize()
+    emit("ssm", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+         heads=cfg.ssm_nheads, head_dim=cfg.ssm_headdim,
+         state=cfg.ssm_state, chunk=cfg.ssm_chunk, batch=b, prompt=s,
+         logits_relmax=logit_err, cache_relmax=cache_err,
+         decode_steps=SSM_DECODE_STEPS, decode_relmax=decode_err,
+         state_relmax_after_decode=state_err, greedy_agree=agree,
+         launches=launches)
+    check(bool(torch.isfinite(out["cuda"][0][..., :cfg.vocab_size]).all()),
+          "non-finite prefill logits")
+    check(logit_err <= LOGIT_TOL, f"prefill logits cuda vs eager "
+          f"{logit_err:.3e}")
+    check(max(cache_err.values()) <= LOGIT_TOL,
+          f"prefill caches cuda vs eager {cache_err}")
+    check(max(decode_err) <= LOGIT_TOL,
+          f"decode logits cuda vs eager {decode_err}")
+    check(launches["cuda"]["ssd_scan"] == cfg.n_layers
+          and launches["cuda"]["dispatch"].get("cuda.ssd") == cfg.n_layers,
+          f"the cuda prefill did not run the SSD kernel once per layer: "
+          f"{launches['cuda']}")
+    check(sum(v for k, v in launches["eager"].items() if k != "dispatch")
+          == 0, "the eager engine launched a kernel of the port")
+
+
+def ssm_serve_phase(cfg, params, dev) -> dict:
+    """Phase ssm_serve: the slot engine on cuda; reused slots vs alone."""
+    cuda = make_engine("cuda")
+    n, prompt, new = (SSM_SERVE["requests"], SSM_SERVE["prompt"],
+                      SSM_SERVE["new"])
+    kw = dict(engine=cuda, slots=SSM_SERVE["slots"],
+              max_len=SSM_SERVE["max_len"])
+    server = ServingEngine(cfg, params, **kw)
+    reqs = requests(cfg, n, 10, prompt, new)
+    reset_all_launches()
+    t0 = time.perf_counter()
+    server.run(reqs)  # ---- the main path, driven once
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_launches()
+    dispatch = backends.dispatch_counts()
+    st = server.stats()
+    # the first `slots` requests took fresh slots, the rest reused ones:
+    # each of those alone on a fresh engine must give the same stream
+    reused = reqs[SSM_SERVE["slots"]:]
+    alone = requests(cfg, n, 10, prompt, new)[SSM_SERVE["slots"]:]
+    for r in alone:
+        ServingEngine(cfg, params, **kw).run([r])
+    same = [a.out == r.out for a, r in zip(alone, reused)]
+    emit("ssm_serve", arch=cfg.name, slots=SSM_SERVE["slots"], requests=n,
+         completed=st["requests"]["completed"], tokens=st["tokens"],
+         prompt_tokens=sum(len(r.prompt) for r in reqs), steps=st["steps"],
+         wall_s=wall, tokens_per_s=st["throughput"],
+         p50_ms=st["latency_s"]["p50"] * 1e3,
+         p99_ms=st["latency_s"]["p99"] * 1e3, launches=launches,
+         engine_dispatch={f"{b}.{o}": c for (b, o), c in dispatch.items()},
+         reused_slot_requests=len(reused), equal_to_alone=same)
+    check(st["requests"]["completed"] == n
+          and all(r.done and len(r.out) == r.max_new for r in reqs),
+          f"{st['requests']['completed']} of {n} completed")
+    check(launches["ssd_scan"] == n * cfg.n_layers
+          and launches["gemm_fused_fwd"] > 0,
+          f"the main path skipped a kernel: {launches}")
+    check(all(b == "cuda" for b, _ in dispatch),
+          f"an engine op left the cuda backend: {dispatch}")
+    check(all(same), f"a reused slot's stream differs from the request "
+          f"alone: {same}")
+    return {"launches": launches, "stats": st, "wall_s": wall}
+
+
+def timing_ssm_phase(cfg, params, dev, cgen, peak_flops, peak_bw,
+                     smi) -> dict:
+    """Phase timing_ssm: prefill and decode ms at batch 1 and 4, the SSD
+    kernel at the prefill shape and at 4 x 2048 (kernel, plain, bound),
+    and the device time by kernel name of one prefill and of one decode
+    step at batch 4."""
+    cuda, eager = make_engine("cuda"), make_engine("eager", device=dev)
+    s = SSM_PREFILL[1]
+    rng = np.random.default_rng(11)
+    steps = {}
+    with torch.inference_mode():
+        for b in (1, SSM_PREFILL[0]):
+            tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                   (b, s))).to(dev)
+            for label, engine in (("cuda", cuda), ("eager", eager)):
+                prefill = make_prefill_step(engine, cfg)
+                decode = make_decode_step(engine, cfg)
+                _, caches = prefill(params, tokens)
+                tok = tokens[:, -1:]
+                pre = host_ms(lambda: prefill(params, tokens), reps=3)
+                dec = host_ms(lambda: decode(params, caches, tok, s))
+                steps[f"{label}_b{b}"] = {
+                    "prefill_ms": pre, "prefill_tokens_per_s": b * s / pre
+                    * 1e3, "decode_step_ms": dec,
+                    "decode_ms_per_token": dec / b}
+                if label == "cuda" and b == SSM_PREFILL[0]:
+                    decode_kernels = device_time_by_kernel(
+                        lambda: decode(params, caches, tok, s))
+                del caches
+        tokens = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, SSM_PREFILL)).to(dev)
+        prefill = make_prefill_step(cuda, cfg)
+        by_kernel = device_time_by_kernel(lambda: prefill(params, tokens))
+    device_ms = sum(r["ms"] for r in by_kernel.values())
+    decode_ms = sum(r["ms"] for r in decode_kernels.values())
+    cuda_b = steps[f"cuda_b{SSM_PREFILL[0]}"]
+    emit("timing_ssm_step", smi=smi, arch=cfg.name, prompt=s, steps=steps,
+         prefill_device_ms=device_ms,
+         prefill_busy_share=device_ms / cuda_b["prefill_ms"],
+         top_kernels=dict(list(by_kernel.items())[:20]),
+         decode_device_ms=decode_ms,
+         decode_busy_share=decode_ms / cuda_b["decode_step_ms"],
+         decode_top_kernels=dict(list(decode_kernels.items())[:12]))
+    rows = {}
+    for b, seq in (SSM_PREFILL, (4, 2048)):
+        x, dt, a, bm, cm, _ = ssd_operands(
+            b, seq, cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_ngroups,
+            cfg.ssm_state, torch.float32, cgen)
+        da = (dt * a).contiguous()
+        chunk = cfg.ssm_chunk
+        ms = cuda_ms(lambda: ops.ssd(x, dt, a, bm, cm, chunk=chunk), reps=5)
+        plain_ms = cuda_ms(lambda: ssd.ssd_scan_plain(x, dt, da, bm, cm,
+                                                      chunk=chunk), reps=2,
+                           repeats=3)
+        flops, nbytes = ssd_work(x, bm, chunk)
+        bound_ms, bound_by = bound(flops, nbytes, peak_flops, peak_bw)
+        rows[f"{b}x{seq}"] = row = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "ops_ms": flops / peak_flops * 1e3,
+            "bytes_ms": nbytes / peak_bw * 1e3, "library_ms": None,
+            "tflops": flops / ms / 1e9, "bound_share": bound_ms / ms}
+        emit("timing_ssm", kernel="ssd_scan", smi=smi,
+             shape=[b, seq, cfg.ssm_nheads, cfg.ssm_headdim,
+                    cfg.ssm_ngroups, cfg.ssm_state, chunk], **row)
+        del x, dt, a, bm, cm, da
+    return {"steps": steps, "ssd": rows}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
@@ -2019,6 +2327,17 @@ def main() -> int:
     lm_restart_phase(dev)
     train_rows = timing_lm_train_phase(cfg, dev, cgen, peak_flops, peak_bw,
                                        smi, tl)
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------ 20-23. the SSM
+    scfg = get_arch(SSM_ARCH)
+    ssd_abs = check_ssd_phase(scfg, cgen)
+    sparams = ssm_params(scfg, dev)
+    ssm_phase(scfg, sparams, dev)
+    serve_ssm = ssm_serve_phase(scfg, sparams, dev)
+    ssm_rows = timing_ssm_phase(scfg, sparams, dev, cgen, peak_flops,
+                                peak_bw, smi)
+    del sparams
 
     def kernel_entry(name, source, replaces, path, launches, max_abs_err,
                      row):
@@ -2079,6 +2398,9 @@ def main() -> int:
                      tl["flash_attention_bwd_dkv"],
                      max(bwd_abs["dk"], bwd_abs["dv"]),
                      train_rows["attn"]["flash_attention_bwd_dkv"]),
+        kernel_entry("ssd_scan", SOURCE_SSD, REPLACES_SSD, "ssm_serve",
+                     serve_ssm["launches"]["ssd_scan"], ssd_abs,
+                     ssm_rows["ssd"][f"{SSM_PREFILL[0]}x{SSM_PREFILL[1]}"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

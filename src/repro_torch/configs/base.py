@@ -4,8 +4,10 @@ Every architecture is a frozen ``ArchConfig`` (hashable, so it can key a
 cache); ``reduced()`` gives the small same-family config of the CPU tests.
 The port carries its own copy because the JAX module imports jax.  The
 input specs and the ``SHAPES`` of the JAX dry run stay behind: the port has
-no dry run; `ShapeConfig` comes along for the trainer's data pipeline.  `get_arch` knows the dense GQA configs the port runs; the
-other families come with their model code.
+no dry run; `ShapeConfig` comes along for the trainer's data pipeline.
+`get_arch` knows the configs the port runs, the dense GQA ones and
+mamba2-1.3b (the SSM family); the other families come with their model
+code.
 """
 from __future__ import annotations
 
@@ -115,6 +117,7 @@ _MODULES = {
     "qwen2-1.5b": "qwen2_1p5b",
     "qwen2.5-3b": "qwen2p5_3b",
     "qwen2-0.5b": "qwen2_0p5b",
+    "mamba2-1.3b": "mamba2_1p3b",
 }
 ARCH_IDS = tuple(_MODULES)
 

@@ -16,8 +16,8 @@ Built-in backends:
   cuda   : the hand-written Hopper kernels (kernels/gemm.py).  It takes CUDA
            tensors only: given a CPU tensor it raises, it never falls back.
 
-Each backend registers `matmul`, `conv2d` and `attention`; `bmm` comes
-with a later slice.  Each backend declares which ops autograd may flow
+Each backend registers `matmul`, `conv2d`, `attention` and `ssd`; `bmm`
+comes with a later slice.  Each backend declares which ops autograd may flow
 through (`differentiable`, as the JAX registry's autodiff capability):
 `ref` and `eager` are plain differentiable PyTorch, and `cuda` carries
 `kernels/gemm.py::GemmFused`, whose backward runs the dX / dW kernels,
@@ -25,7 +25,9 @@ and `kernels/flash_attention.py::FlashAttention`, whose backward runs the
 dQ / dK / dV kernels.  A backend may also name dispatches of a
 differentiable op that stay inference only (`inference_only`): on `cuda`
 a decode-shaped `attention` (`kernel_ops.use_decode_formulation`) takes
-the split-KV decode kernel, which has no backward, as in the JAX package.
+the split-KV decode kernel, which has no backward, as in the JAX package,
+and every `ssd` dispatch takes the SSD chunk-scan kernel, which has none
+either (the JAX kernel has no VJP).
 The engine calls `guard_grad` on every dispatch, so an op that a backend
 does not declare differentiable, or an inference-only dispatch, raises a
 clear NotImplementedError when it is dispatched with grad enabled on an
@@ -52,6 +54,15 @@ and the tile plan):
       fully-masked rows return exact 0.  Output (B,Sq,H,D).  On `cuda`,
       decode-shaped dispatches (`kernel_ops.use_decode_formulation`) take
       the split-KV decode kernel, the rest the forward kernel.
+  ssd(x, dt, A, B, C, *, chunk, init_state, ctx)
+      the Mamba2 SSD scan in chunks of `chunk` rows: x (Bt,S,H,P), dt
+      (Bt,S,H) fp32 after softplus, A (H,) fp32 negative, B / C (Bt,S,G,N)
+      with head h reading group h // (H/G), init_state None or fp32
+      (Bt,H,P,N).  h_t = exp(dt_t A) h_{t-1} + dt_t x_t ⊗ B_t, y_t = C_t·h_t.
+      Returns (y (Bt,S,H,P) in x's dtype, final state (Bt,H,P,N) fp32).
+      `ref` runs `kernels/ssd.py::ssd_scan_plain`, `eager` the JAX
+      `models/ssm.py::ssd_chunked` formulation, `cuda` the kernel.  The JAX
+      engine has no such op: its model runs the einsum form everywhere.
 """
 from __future__ import annotations
 
@@ -64,9 +75,10 @@ import torch
 from repro_torch.core.precision import Precision
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd as ssd_kernel
 from repro_torch.kernels.common import apply_act, im2col
 
-OP_SET = ("matmul", "bmm", "conv2d", "attention")
+OP_SET = ("matmul", "bmm", "conv2d", "attention", "ssd")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -281,6 +293,11 @@ def _ref_attention(q, k, v, *, causal, sm_scale, kv_len=None, ctx):
                                    sm_scale=sm_scale, kv_len=kv_len)
 
 
+def _ref_ssd(x, dt, A, B, C, *, chunk, init_state=None, ctx):
+    return ssd_kernel.ssd_scan_plain(x, dt, dt * A, B, C, chunk=chunk,
+                                     init_state=init_state)
+
+
 # --------------------------------------------------------- eager backend ---
 
 def _eager_matmul(x, w, scale, shift, *, act, out_dtype, ctx):
@@ -322,6 +339,53 @@ def _eager_attention(q, k, v, *, causal, sm_scale, kv_len=None, ctx):
             .reshape(b, sq, h, d).to(q.dtype))
 
 
+def _eager_ssd(x, dt, A, Bm, Cm, *, chunk, init_state=None, ctx):
+    # The JAX `models/ssm.py::ssd_chunked` formulation (its `xla` path):
+    # the ragged tail padded with dt = 0 rows (exact), per-chunk decay
+    # matrices exp(segsum(dA)), the intra-chunk GEMM term, per-chunk input
+    # states, a short recurrence over the chunk states and the carried
+    # state's term.  Heads are folded as (G, H/G) instead of repeating B
+    # and C to every head: the same products, no broadcast copy.
+    b, s_orig, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    rep = h // g
+    s = -(-s_orig // chunk) * chunk
+    if s != s_orig:
+        pad = s - s_orig
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+        Bm = torch.nn.functional.pad(Bm, (0, 0, 0, 0, 0, pad))
+        Cm = torch.nn.functional.pad(Cm, (0, 0, 0, 0, 0, pad))
+    nc = s // chunk
+    xdt = (x.float() * dt.float()[..., None]).reshape(b, nc, chunk, g, rep,
+                                                      p)
+    da = (dt.float() * A.float()).reshape(b, nc, chunk, h).movedim(-1, 2)
+    cs = torch.cumsum(da, dim=-1)                         # (b, nc, H, Q)
+    bc = Bm.float().reshape(b, nc, chunk, g, n)
+    cc = Cm.float().reshape(b, nc, chunk, g, n)
+    causal = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
+    seg = torch.where(causal, cs[..., :, None] - cs[..., None, :],
+                      float("-inf"))
+    decay = torch.exp(seg).reshape(b, nc, g, rep, chunk, chunk)
+    scores = torch.einsum("bcqgn,bckgn->bcgqk", cc, bc)
+    y_diag = torch.einsum("bcgrqk,bckgrp->bcqgrp", scores[:, :, :, None]
+                          * decay, xdt)
+    decay_in = torch.exp(cs[..., -1:] - cs).reshape(b, nc, g, rep, chunk)
+    states = torch.einsum("bckgn,bcgrk,bckgrp->bcgrpn", bc, decay_in, xdt)
+    state = (torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+             if init_state is None else init_state.float())
+    prev = []
+    for c in range(nc):                                   # the short scan
+        prev.append(state)
+        state = (torch.exp(cs[:, c, :, -1])[..., None, None] * state
+                 + states[:, c].reshape(b, h, p, n))
+    prev = torch.stack(prev, dim=1).reshape(b, nc, g, rep, p, n)
+    y_off = torch.einsum("bcqgn,bcgrq,bcgrpn->bcqgrp", cc,
+                         torch.exp(cs).reshape(b, nc, g, rep, chunk), prev)
+    y = (y_diag + y_off).reshape(b, s, h, p)[:, :s_orig]
+    return y.to(x.dtype), state
+
+
 # ---------------------------------------------------------- cuda backend ---
 
 def _cuda_matmul(x, w, scale, shift, *, act, out_dtype, ctx):
@@ -342,9 +406,18 @@ def _cuda_attention(q, k, v, *, causal, sm_scale, kv_len=None, ctx):
     return kernel_ops.attention(q, k, v, kv_len, sm_scale, causal=causal)
 
 
+def _cuda_ssd(x, dt, A, B, C, *, chunk, init_state=None, ctx):
+    if x.device.type != "cuda":
+        raise ValueError(f"backend 'cuda' runs on CUDA tensors, got x on "
+                         f"{x.device}; use backend 'eager' on the CPU")
+    return kernel_ops.ssd(x, dt, A, B, C, chunk=chunk, init_state=init_state)
+
+
 def _cuda_inference_only(op: str, operands: tuple) -> bool:
-    """A decode-shaped attention dispatch takes the split-KV kernel, which
-    has no backward."""
+    """A decode-shaped attention dispatch takes the split-KV kernel, and
+    every ssd dispatch the SSD kernel: neither has a backward."""
+    if op == "ssd":
+        return True
     return op == "attention" and kernel_ops.use_decode_formulation(
         operands[0].shape[1], operands[1].shape[1])
 
@@ -358,16 +431,19 @@ register_backend("ref", {
     "matmul": _ref_matmul,
     "conv2d": im2col_conv2d(_ref_matmul),
     "attention": _ref_attention,
+    "ssd": _ref_ssd,
 })
 
 register_backend("eager", {
     "matmul": _eager_matmul,
     "conv2d": im2col_conv2d(_eager_matmul),
     "attention": _eager_attention,
+    "ssd": _eager_ssd,
 })
 
 register_backend("cuda", {
     "matmul": _cuda_matmul,
     "conv2d": im2col_conv2d(_cuda_matmul),
     "attention": _cuda_attention,
+    "ssd": _cuda_ssd,
 }, tile_picker=_cuda_tile_picker, inference_only=_cuda_inference_only)

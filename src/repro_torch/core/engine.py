@@ -2,8 +2,9 @@
 ``repro/core/engine.py``).
 
 Every dense computation of the Darknet path (conv layers via im2col, the
-connected layers, the deconv GEMM) and of the dense LM (every projection,
-the LM head, attention) routes through this engine.  The engine
+connected layers, the deconv GEMM), of the dense LM (every projection,
+the LM head, attention) and of the Mamba2 SSM (every projection, the head,
+the SSD scan) routes through this engine.  The engine
 is a thin dispatcher: each op resolves through the backend/op registry
 (core/backends.py), so adding an execution target is `register_backend` and
 no engine change.  Built-in backends: `cuda` (the hand-written Hopper
@@ -156,6 +157,36 @@ class ComputeEngine:
         return self._op("attention")(qc, kc, vc, causal=causal,
                                      sm_scale=sm_scale, kv_len=kv_len,
                                      ctx=ctx)
+
+    def ssd(self, x, dt, A, B, C, *, chunk: int, init_state=None):
+        """The Mamba2 SSD scan (state-space duality) in chunks of `chunk`
+        rows: h_t = exp(dt_t A) h_{t-1} + dt_t x_t ⊗ B_t, y_t = C_t · h_t.
+
+        Args:
+          x: (Bt, S, H, P) per-head inputs.
+          dt: (Bt, S, H) step sizes, already softplus'ed.
+          A: (H,) negative decay rates.
+          B, C: (Bt, S, G, N) with H % G == 0: head h reads group
+            h // (H / G), never broadcast by the caller.
+          chunk: rows per chunk; any S (the ragged tail is exact).
+          init_state: None (zeros) or (Bt, H, P, N), the state before row 0.
+
+        x, B and C run in the compute dtype, dt, A and the state in fp32.
+        Returns (y (Bt, S, H, P) in the compute dtype, final state
+        (Bt, H, P, N) fp32).  Raises ValueError on mismatched shapes;
+        NotImplementedError when differentiated on `cuda`, whose SSD
+        kernel is inference only (as the JAX kernel).
+        """
+        kernel_ops.validate_ssd_shapes(x, dt, A, B, C, init_state)
+        cdt = self.precision.compute_dtype
+        xc, bc, cc = x.to(cdt), B.to(cdt), C.to(cdt)
+        dtf, af = dt.float(), A.float()
+        init = None if init_state is None else init_state.float()
+        self._guard("ssd", xc, dtf, af, bc, cc, init)
+        ctx = self._resolve("ssd", (tuple(xc.shape), tuple(bc.shape), chunk),
+                            xc.dtype)
+        return self._op("ssd")(xc, dtf, af, bc, cc, chunk=chunk,
+                               init_state=init, ctx=ctx)
 
 
 def synchronize(device: torch.device) -> None:

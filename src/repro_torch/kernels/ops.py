@@ -1,6 +1,6 @@
 """Any-shape wrappers over the port's kernels (PyTorch port of
-``repro/kernels/ops.py``: `matmul`, `attention`, `attention_decode` and
-their shape checks).
+``repro/kernels/ops.py``: `matmul`, `attention`, `attention_decode`,
+`ssd` and their shape checks).
 
 The JAX wrappers pad to tile multiples and slice the result, because the
 TPU kernels' BlockSpecs need whole blocks.  The port's CUDA kernels mask
@@ -18,7 +18,8 @@ the forward kernels also write their training residuals (act'(u) and the
 accumulator; the softmax lse) and the backward runs the dX / dW and the
 dQ / dK / dV kernels.  Otherwise each makes the forward-only launch that
 serving makes.  The split-KV decode formulation is inference only, as in
-the JAX package: `attention_decode` raises under grad.
+the JAX package: `attention_decode` raises under grad.  So is `ssd`,
+the SSD chunk scan (its TPU kernel has no VJP).
 
 Tiles and the backward's split count are fixed heuristics
 (`default_tiles`, `default_bwd_tiles`).  A measured autotuner, the
@@ -31,6 +32,7 @@ import torch
 from repro_torch.kernels import flash_attention as flash_kernel
 from repro_torch.kernels import flash_decode as decode_kernel
 from repro_torch.kernels import gemm as gemm_kernel
+from repro_torch.kernels import ssd as ssd_kernel
 
 # Below this many 64 x 64 output tiles the card's 132 SMs are not kept
 # busy, so the 32 x 32 tile (four times as many blocks) is used instead.
@@ -245,3 +247,50 @@ def attention_decode(q, k, v, kv_len=None, sm_scale=None, *,
         n_splits=n_splits, span=span)
     o = decode_kernel.combine(o_part, lse_part)           # (B, H, Sq, D)
     return o.transpose(1, 2).to(q.dtype)
+
+
+# ------------------------------------------------------------------- SSD ---
+
+def validate_ssd_shapes(x, dt, A, B, C, init_state=None) -> None:
+    """The `ssd` contract: x (Bt, S, H, P), dt (Bt, S, H), A (H,), B and C
+    (Bt, S, G, N) with H % G == 0, init_state None or (Bt, H, P, N).
+    Raises ValueError naming the offending shapes, at dispatch and not
+    inside a kernel."""
+    if x.dim() != 4 or B.dim() != 4 or B.shape != C.shape:
+        raise ValueError(f"ssd expects x (Bt, S, H, P) and B, C "
+                         f"(Bt, S, G, N); got x {tuple(x.shape)}, B "
+                         f"{tuple(B.shape)}, C {tuple(C.shape)}")
+    bt, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    if B.shape[:2] != (bt, s) or g < 1 or h % g:
+        raise ValueError(f"ssd: x {tuple(x.shape)} and B {tuple(B.shape)} "
+                         f"disagree on batch or length, or G={g} does not "
+                         f"divide H={h}")
+    if tuple(dt.shape) != (bt, s, h) or tuple(A.shape) != (h,):
+        raise ValueError(f"ssd: dt must be ({bt}, {s}, {h}) and A ({h},); "
+                         f"got {tuple(dt.shape)} and {tuple(A.shape)}")
+    if init_state is not None and tuple(init_state.shape) != (bt, h, p, n):
+        raise ValueError(f"ssd: init_state must be ({bt}, {h}, {p}, {n}); "
+                         f"got {tuple(init_state.shape)}")
+
+
+def ssd(x, dt, A, B, C, *, chunk: int, init_state=None):
+    """The SSD chunk scan through the kernel, in the model's layout: x
+    (Bt, S, H, P), dt (Bt, S, H) after softplus, A (H,) negative, B and C
+    (Bt, S, G, N) read by group (head h reads group h // (H / G), never
+    broadcast to the heads), any S (the kernel masks the ragged last
+    chunk), an optional fp32 init_state (Bt, H, P, N).  dA = dt·A per head
+    and dt are formed here in fp32.  Returns (y (Bt, S, H, P) in x's dtype,
+    final state (Bt, H, P, N) fp32).  Inference only: raises
+    NotImplementedError under grad."""
+    validate_ssd_shapes(x, dt, A, B, C, init_state)
+    if needs_grad(x, dt, A, B, C, init_state):
+        raise NotImplementedError(
+            "the SSD chunk-scan kernel is inference only: it has no "
+            "backward (differentiate the 'eager' ssd op instead)")
+    dtf = dt.float().contiguous()
+    da = (dtf * A.float()).contiguous()
+    x, B, C = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, B, C))
+    init = None if init_state is None else init_state.float().contiguous()
+    return ssd_kernel.ssd_scan(x, dtf, da, B, C, chunk=chunk,
+                               init_state=init)

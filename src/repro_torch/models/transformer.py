@@ -1,7 +1,9 @@
-"""The LM assembled per ArchConfig, dense GQA family (PyTorch port of the
-dense path of ``repro/models/transformer.py``).
+"""The LM assembled per ArchConfig, dense GQA and Mamba2 SSM families
+(PyTorch port of the dense and ``mamba`` paths of
+``repro/models/transformer.py``).
 
-The layer program is static, from the config: ``[("dense", n_layers)]``.
+The layer program is static, from the config: ``[("dense", n_layers)]``
+for the dense family, ``[("mamba", n_layers)]`` for the SSM family.
 The JAX package stacks each program entry's layers under one leading layer
 axis and scans over it; the port keeps one parameter dict per layer in
 ``params["layers"]`` and loops (PyTorch runs eagerly, so there is nothing
@@ -10,19 +12,23 @@ to trace).  `convert.lm_params_from_jax` turns a JAX tree into this form.
 Parameters (plain dicts of tensors)::
 
     {"embed": {"tokens": (V_padded, D)}, "final_norm": {...},
-     "layers": [{"norm1", "attn", "norm2", "mlp"}, ...],
+     "layers": [{"norm1", "attn", "norm2", "mlp"}, ...],   # dense
+     "layers": [{"norm", "mixer"}, ...],                   # mamba
      "lm_head": {"w": (D, V_padded)}}           # untied configs only
 
 A tied head is the embedding's transpose, ``embed.t()``: a view that the
 GEMM kernel reads in place, so the head neither copies the table per call
 nor keeps a second copy of it (544 MB at qwen2-0.5b).  Caches are a list
-aligned with the layer program, ``[{"k", "v": (n_layers, B, S, KV, hd)}]``,
-as in JAX.  `loss_fn` is the training loss: the forward under autograd,
-each layer recomputed in the backward (``remat``, the JAX
-``jax.checkpoint`` of the scanned layer body) and the chunked
-cross-entropy through the (tied) head.
-MoE, MLA, SSM, hybrid and the modality frontends come with their model
-code; their families raise NotImplementedError here.
+aligned with the layer program, as in JAX:
+``[{"k", "v": (n_layers, B, S, KV, hd)}]`` for a dense stack, and for a
+mamba stack ``[{"conv_x", "conv_B", "conv_C": (n_layers, B, conv - 1, C),
+"ssm": (n_layers, B, H, P, N)}]``, O(1) in the sequence length.
+`loss_fn` is the training loss: the forward under autograd, each layer
+recomputed in the backward (``remat``, the JAX ``jax.checkpoint`` of the
+scanned layer body) and the chunked cross-entropy through the (tied)
+head.
+MoE, MLA, the hybrid (zamba2) program and the modality frontends come
+with their model code; their families raise NotImplementedError here.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import ComputeEngine
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (chunked_cross_entropy, embed_init,
                                        embed_lookup, norm_apply, norm_init,
                                        rope_table)
@@ -38,27 +45,36 @@ from repro_torch.models.mlp import mlp_forward, mlp_init
 
 
 def stack_program(cfg) -> list[tuple[str, int]]:
-    """The static layer program; only the dense family is ported."""
+    """The static layer program; the dense and SSM families are ported."""
     if cfg.family == "dense":
         return [("dense", cfg.n_layers)]
+    if cfg.family == "ssm":
+        return [("mamba", cfg.n_layers)]
     raise NotImplementedError(
         f"the {cfg.family!r} family ({cfg.name}) is not ported yet: the "
-        f"port runs dense GQA stacks only")
+        f"port runs dense GQA and mamba stacks only")
+
+
+def _layer_init(kind: str, generator, cfg, device) -> dict:
+    if kind == "mamba":
+        return {"norm": norm_init(cfg.norm, cfg.d_model, device),
+                "mixer": ssm_mod.ssm_init(generator, cfg, device)}
+    return {"norm1": norm_init(cfg.norm, cfg.d_model, device),
+            "attn": attn.gqa_init(generator, cfg, device),
+            "norm2": norm_init(cfg.norm, cfg.d_model, device),
+            "mlp": mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.act,
+                            device)}
 
 
 def init_params(cfg, *, generator: torch.Generator, device=None) -> dict:
     """Random parameters with the JAX package's initialisation rules (its
     numbers differ: this draws from `generator`, which lives on `device`)."""
-    stack_program(cfg)
+    (kind, n), = stack_program(cfg)
     params = {"embed": embed_init(generator, cfg.vocab_padded, cfg.d_model,
                                   device),
               "final_norm": norm_init(cfg.norm, cfg.d_model, device),
-              "layers": [{"norm1": norm_init(cfg.norm, cfg.d_model, device),
-                          "attn": attn.gqa_init(generator, cfg, device),
-                          "norm2": norm_init(cfg.norm, cfg.d_model, device),
-                          "mlp": mlp_init(generator, cfg.d_model, cfg.d_ff,
-                                          cfg.act, device)}
-                         for _ in range(cfg.n_layers)]}
+              "layers": [_layer_init(kind, generator, cfg, device)
+                         for _ in range(n)]}
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": torch.randn(
             cfg.d_model, cfg.vocab_padded, generator=generator,
@@ -74,11 +90,19 @@ def head_weight(params: dict, cfg):
     return params["lm_head"]["w"]
 
 
-def _dense_layer(engine, cfg, lp, h, cos, sin, return_kv=False):
+def _layer(kind, engine, cfg, lp, h, cos, sin, return_cache=False):
+    """One layer of the program: (h, its cache entry or None)."""
+    if kind == "mamba":
+        m = ssm_mod.ssm_forward(
+            engine, lp["mixer"],
+            norm_apply(cfg.norm, lp["norm"], h, cfg.norm_eps), cfg,
+            return_cache=return_cache)
+        m, cache = m if return_cache else (m, None)
+        return h + m, cache
     a = attn.gqa_forward(engine, lp["attn"],
                          norm_apply(cfg.norm, lp["norm1"], h, cfg.norm_eps),
-                         cos, sin, cfg, return_kv=return_kv)
-    a, kv = a if return_kv else (a, None)
+                         cos, sin, cfg, return_kv=return_cache)
+    a, kv = a if return_cache else (a, None)
     h = h + a
     m = mlp_forward(engine, lp["mlp"],
                     norm_apply(cfg.norm, lp["norm2"], h, cfg.norm_eps),
@@ -91,6 +115,13 @@ def _embed(engine, params, tokens):
                         engine.precision.compute_dtype)
 
 
+def _rope(kind, cfg, positions):
+    """The RoPE tables of an attention program, (None, None) for mamba."""
+    if kind == "mamba":
+        return None, None
+    return rope_table(positions, cfg.head_dim, cfg.rope_theta)
+
+
 def forward_hidden(engine: ComputeEngine, cfg, params: dict, *, tokens,
                    remat: bool = False):
     """Full-sequence forward to the final hidden states (B, S, D); tokens
@@ -101,13 +132,12 @@ def forward_hidden(engine: ComputeEngine, cfg, params: dict, *, tokens,
     if not remat:
         return forward_prefill(engine, cfg, params, tokens=tokens,
                                collect_caches=False)[0]
-    stack_program(cfg)
+    (kind, _), = stack_program(cfg)
     h = _embed(engine, params, tokens)
-    cos, sin = rope_table(torch.arange(h.shape[1], device=h.device),
-                          cfg.head_dim, cfg.rope_theta)
+    cos, sin = _rope(kind, cfg, torch.arange(h.shape[1], device=h.device))
 
     def layer(lp, x):
-        return _dense_layer(engine, cfg, lp, x, cos, sin)[0]
+        return _layer(kind, engine, cfg, lp, x, cos, sin)[0]
 
     for lp in params["layers"]:
         h = checkpoint(layer, lp, h, use_reentrant=False,
@@ -118,7 +148,9 @@ def forward_hidden(engine: ComputeEngine, cfg, params: dict, *, tokens,
 def loss_fn(engine: ComputeEngine, cfg, params: dict, batch: dict, *,
             remat: bool = True, ce_chunk: int = 512):
     """Mean token cross-entropy of a training batch ``{"tokens",
-    "labels"}``, each (B, S) int, dense family only.
+    "labels"}``, each (B, S) int.  A mamba stack differentiates on
+    `eager` and `ref` only: the `cuda` SSD kernel is inference only, and
+    `guard_grad` refuses it under grad.
 
     The forward dispatches the same engine ops as serving (on `cuda` the
     GEMM and attention kernels, differentiable through `GemmFused` and
@@ -140,23 +172,23 @@ def loss_fn(engine: ComputeEngine, cfg, params: dict, batch: dict, *,
 def forward_prefill(engine: ComputeEngine, cfg, params: dict, *, tokens,
                     collect_caches: bool = True):
     """Full-sequence forward that also collects the caches: returns
-    (hidden (B, S, D), [{"k", "v": (n_layers, B, S, KV, hd)}]), or
-    (hidden, None) without ``collect_caches``."""
-    stack_program(cfg)
+    (hidden (B, S, D), caches), the caches a one-entry list of the layers'
+    entries stacked under a leading layer axis ({"k", "v"} for dense,
+    {"conv_x", "conv_B", "conv_C", "ssm"} for mamba), or (hidden, None)
+    without ``collect_caches``."""
+    (kind, _), = stack_program(cfg)
     h = _embed(engine, params, tokens)
-    cos, sin = rope_table(torch.arange(h.shape[1], device=h.device),
-                          cfg.head_dim, cfg.rope_theta)
-    ks, vs = [], []
+    cos, sin = _rope(kind, cfg, torch.arange(h.shape[1], device=h.device))
+    entries = []
     for lp in params["layers"]:
-        h, kv = _dense_layer(engine, cfg, lp, h, cos, sin,
-                             return_kv=collect_caches)
-        if collect_caches:
-            ks.append(kv["k"])
-            vs.append(kv["v"])
+        h, entry = _layer(kind, engine, cfg, lp, h, cos, sin,
+                          return_cache=collect_caches)
+        entries.append(entry)
     h = norm_apply(cfg.norm, params["final_norm"], h, cfg.norm_eps)
     if not collect_caches:
         return h, None
-    return h, [{"k": torch.stack(ks), "v": torch.stack(vs)}]
+    return h, [{name: torch.stack([e[name] for e in entries])
+                for name in entries[0]}]
 
 
 def decode_hidden(engine: ComputeEngine, cfg, params: dict, caches: list,
@@ -164,20 +196,36 @@ def decode_hidden(engine: ComputeEngine, cfg, params: dict, caches: list,
     """Decode a chunk of C new tokens against the caches.
 
     token: (B, C) int; C == 1 is one-token decode, C > 1 a chunked-prefill
-    step.  pos: an int, a scalar, or a (B,) tensor of per-sequence START
-    positions; the chunk occupies rows [pos, pos + C).  The caches are
-    written in place (each layer's rows of the stacked tensors).
+    step (attention stacks only: mamba decode is strictly one token).
+    pos: an int, a scalar, or a (B,) tensor of per-sequence START
+    positions; the chunk occupies rows [pos, pos + C) (a mamba stack has
+    no positions and ignores it).  The caches are written in place (each
+    layer's rows of the stacked tensors).
     Returns (hidden (B, C, D), caches).
     """
-    (_, n), = stack_program(cfg)
+    (kind, n), = stack_program(cfg)
     c = token.shape[1]
     h = _embed(engine, params, token)
+    cache = caches[0]
+    if kind == "mamba":
+        if c != 1:
+            raise ValueError(f"mamba decode takes one token per step, got "
+                             f"{c}")
+        for i, lp in enumerate(params["layers"][:n]):
+            x = norm_apply(cfg.norm, lp["norm"], h, cfg.norm_eps)
+            m, new = ssm_mod.ssm_decode(
+                engine, lp["mixer"], x,
+                {name: t[i] for name, t in cache.items()}, cfg)
+            for name, t in new.items():
+                cache[name][i].copy_(t)
+            h = h + m
+        h = norm_apply(cfg.norm, params["final_norm"], h, cfg.norm_eps)
+        return h, caches
     start = torch.as_tensor(pos, device=h.device).to(torch.int64)
     ar = torch.arange(c, device=h.device)
     # (C,) positions for a shared start, (B, C) for per-sequence starts
     positions = start + ar if start.dim() == 0 else start[:, None] + ar
     cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta)
-    cache = caches[0]
     for i, lp in enumerate(params["layers"][:n]):
         x = norm_apply(cfg.norm, lp["norm1"], h, cfg.norm_eps)
         a, _ = attn.gqa_decode(engine, lp["attn"], x,

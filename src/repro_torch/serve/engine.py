@@ -8,6 +8,15 @@ rows; finished slots (EOS / max_new / max_len) free at once.  The engine
 defaults to the card (`make_engine()`); only the sampled token ids come
 back to the host.
 
+A mamba stack differs in two ways.  Its slot rows (conv tails and state)
+are zeroed when a request is admitted; dense caches are left as they are.
+And all of its prompt but the last token runs through the prefill
+(`models.transformer.forward_prefill`, the chunked SSD scan: on `cuda` the
+SSD kernel) into that slot's rows, instead of one lockstep decode step per
+token; the last prompt token then decodes with the other slots and gives
+the first new token.  The JAX engine replays every prompt token through
+the decode program and resets only the position.
+
 Implements the shared `ServingFrontend` protocol (serve/frontend.py) with
 the same stats schema as the CNN engine.  Prompts longer than the KV cache
 are rejected at `submit` with `frontend.RejectedRequest` (or truncated with
@@ -23,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import ComputeEngine, backends, make_engine
+from repro_torch.models.transformer import forward_prefill, stack_program
 from repro_torch.serve import frontend as fe
 from repro_torch.serve import kvcache
 from repro_torch.serve.serve_step import greedy_sample, make_decode_step
@@ -51,6 +61,7 @@ class ServingEngine(fe.ServingFrontend):
                                          engine.precision.compute_dtype,
                                          engine.device)
         self._decode = make_decode_step(engine, cfg)
+        self._ssm = stack_program(cfg) == [("mamba", cfg.n_layers)]
         self.pos = np.zeros(slots, np.int32)          # next write position
         self.active: list[Request | None] = [None] * slots
         self.pending: deque[Request] = deque()
@@ -99,8 +110,36 @@ class ServingEngine(fe.ServingFrontend):
             if self.active[s] is None and self.pending:
                 req = self.pending.popleft()
                 self.active[s] = req
-                self.pos[s] = 0
-                self._replay[s] = deque(req.prompt)
+                self._reset_state(s)
+                self.pos[s] = self._prefill(s, req.prompt)
+                self._replay[s] = deque(req.prompt[self.pos[s]:])
+
+    def _reset_state(self, s: int) -> None:
+        """Zero slot `s`'s rows of every mamba cache entry (conv tails and
+        SSM state), so a new request does not start from the previous
+        occupant's history.  Attention caches need no reset: their stale
+        rows lie past the new position and are masked by it.  (The JAX
+        engine resets only the position, so there a reused slot carries
+        the old state into an SSM request.)"""
+        if self._ssm:
+            for t in self.caches[0].values():
+                t[:, s].zero_()
+
+    def _prefill(self, s: int, prompt: list) -> int:
+        """For a mamba stack, run all of `prompt` but its last token
+        through the prefill and write the caches into slot `s`; returns
+        how many prompt tokens that consumed (0 for a dense stack, whose
+        prompt replays through the decode step)."""
+        if not self._ssm or len(prompt) < 2:
+            return 0
+        toks = torch.tensor([prompt[:-1]], dtype=torch.int64,
+                            device=self.engine.device)
+        with torch.inference_mode():
+            _, caches = forward_prefill(self.engine, self.cfg, self.params,
+                                        tokens=toks)
+            for name, t in self.caches[0].items():
+                t[:, s].copy_(caches[0][name][:, 0])
+        return len(prompt) - 1
 
     def step(self) -> int:
         """One lockstep decode across all slots (idle slots ride along)."""

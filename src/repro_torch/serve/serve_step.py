@@ -5,7 +5,10 @@ engine's cache buffers, and the block-table step of the paged scheduler.
 Each `make_*` returns a plain function over parameter and cache dicts; the
 engines call it under ``torch.inference_mode()``.  Every projection, the
 LM head and attention dispatch the engine, so on the `cuda` backend the
-path runs the port's GEMM, flash-attention and split-KV decode kernels.
+path runs the port's GEMM, flash-attention and split-KV decode kernels,
+and for a mamba stack the GEMM and the SSD chunk-scan kernels (the SSM
+decode step is plain PyTorch around the GEMMs).  The paged step serves
+dense stacks only (`kvpool.PagedKVCache` refuses the others).
 """
 from __future__ import annotations
 
@@ -20,7 +23,9 @@ from repro_torch.serve import kvpool
 
 def make_prefill_step(engine: ComputeEngine, cfg):
     """prefill_step(params, tokens (B, S)) -> (last-position logits
-    (B, 1, V_padded) fp32, caches [{"k", "v": (n_layers, B, S, KV, hd)}])."""
+    (B, 1, V_padded) fp32, caches): [{"k", "v": (n_layers, B, S, KV, hd)}]
+    for a dense stack, the conv tails and final SSD states for a mamba
+    stack (`models.transformer.forward_prefill`)."""
     def prefill_step(params, tokens):
         h, caches = tfm.forward_prefill(engine, cfg, params, tokens=tokens)
         logits = lm_head_logits(engine, h[:, -1:, :],

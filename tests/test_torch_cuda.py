@@ -21,7 +21,10 @@ tied head's `GemmFused` gradients through ``embed.t()`` against a
 row-major copy, the lse forward and the dQ / dK / dV kernels against
 their plain versions (exact-0 dead rows, two runs bitwise), and the
 reduced qwen2-0.5b's loss gradients and a train step on `cuda` against
-`eager`.
+`eager`.  For the SSM: the SSD chunk-scan kernel against its plain version
+(ragged S, groups, an initial state, fp32 and bf16, two runs bitwise), the
+reduced mamba2-1.3b's prefill and decode on `cuda` against `eager`, and
+the slot engine on `cuda` prefilling through the kernel.
 """
 import pytest
 import torch
@@ -36,10 +39,11 @@ from repro_torch.core.darknet.network import Network
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import gemm, ops
+from repro_torch.kernels import ssd
 from repro_torch.models import transformer as tfm
-from repro_torch.serve.engine import Request
+from repro_torch.serve.engine import Request, ServingEngine
 from repro_torch.serve.scheduler import PagedServingEngine
-from repro_torch.serve.serve_step import make_prefill_step
+from repro_torch.serve.serve_step import make_decode_step, make_prefill_step
 from repro_torch.kernels.common import ACTIVATIONS, epilogue
 from repro_torch.train import optimizer as opt
 from repro_torch.train.train_step import make_cnn_train_step, make_train_step
@@ -512,3 +516,74 @@ def test_reduced_lm_train_step_is_deterministic_on_the_card(card):
     assert torch.equal(runs[0][0], runs[1][0])
     for name, p in runs[0][1].items():
         assert torch.equal(p, runs[1][1][name]), name
+
+
+# (batch, S, H, P, G, N, chunk): a multiple of the chunk and ragged, G 1
+# and 2, P 32 and 64, N 16 and 128, chunks shorter and longer than a tile
+SSD_CASES = [(1, 256, 4, 64, 1, 128, 256), (2, 100, 4, 32, 2, 16, 64),
+             (4, 130, 8, 64, 2, 128, 64), (1, 70, 4, 32, 1, 16, 32)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_CASES)
+def test_ssd_kernel_matches_plain_version(card, b, s, h, p, g, n, chunk,
+                                          dtype, tol):
+    gen = torch.Generator(device=card).manual_seed(s + n)
+    x = torch.randn(b, s, h, p, generator=gen, device=card).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, s, h, generator=gen, device=card) - 0.5)
+    a = -torch.exp(0.3 * torch.randn(h, generator=gen, device=card))
+    bm = torch.randn(b, s, g, n, generator=gen, device=card).to(dtype)
+    cm = torch.randn(b, s, g, n, generator=gen, device=card).to(dtype)
+    init = torch.randn(b, h, p, n, generator=gen, device=card)
+    da = (dt * a).contiguous()
+    for state in (None, init):
+        want = ssd.ssd_scan_plain(x, dt, da, bm, cm, chunk=chunk,
+                                  init_state=state)
+        before = ssd.launches
+        got = ops.ssd(x, dt, a, bm, cm, chunk=chunk, init_state=state)
+        again = ops.ssd(x, dt, a, bm, cm, chunk=chunk, init_state=state)
+        torch.cuda.synchronize()
+        assert ssd.launches == before + 2
+        assert got[0].dtype == dtype and got[1].dtype == torch.float32
+        assert _relmax(got[0], want[0]) <= tol
+        assert _relmax(got[1], want[1]) <= tol
+        assert torch.equal(got[0], again[0]) and torch.equal(got[1],
+                                                             again[1])
+
+
+def test_reduced_mamba_on_cuda_matches_eager(card):
+    cfg = reduced(get_arch("mamba2-1.3b"))
+    params = tfm.init_params(cfg, generator=torch.Generator(
+        device=card).manual_seed(0), device=card)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 75),
+                           generator=torch.Generator().manual_seed(1)).to(card)
+    engines = (make_engine("cuda"), make_engine("eager", device=card))
+    before = ssd.launches
+    with torch.inference_mode():
+        got, want = (make_prefill_step(e, cfg)(params, tokens)
+                     for e in engines)
+        assert ssd.launches == before + cfg.n_layers
+        assert _relmax(got[0], want[0]) <= 1e-4
+        for name, t in want[1][0].items():
+            assert _relmax(got[1][0][name], t) <= 1e-4, name
+        tok = tokens[:, -1:]
+        for _ in range(3):
+            lg, _ = make_decode_step(engines[0], cfg)(params, got[1], tok, 0)
+            lw, _ = make_decode_step(engines[1], cfg)(params, want[1], tok, 0)
+            assert _relmax(lg, lw) <= 1e-4
+            tok = lw[:, -1].argmax(-1, keepdim=True)
+
+
+def test_slot_engine_on_cuda_prefills_through_the_ssd_kernel(card):
+    cfg = reduced(get_arch("mamba2-1.3b"))
+    params = tfm.init_params(cfg, generator=torch.Generator(
+        device=card).manual_seed(0), device=card)
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab_size, n).tolist(),
+                    max_new=4) for i, n in enumerate((40, 9, 17))]
+    ssd.reset_launches()
+    ServingEngine(cfg, params, slots=2, max_len=64).run(reqs)
+    assert all(r.done and len(r.out) == 4 for r in reqs)
+    assert ssd.launches == 3 * cfg.n_layers

@@ -71,7 +71,7 @@ def test_other_families_raise_naming_the_family():
     with pytest.raises(NotImplementedError, match="'moe'"):
         tfm.stack_program(cfg)
     with pytest.raises(ValueError, match="unported"):
-        base.get_arch("mamba2-1.3b")
+        base.get_arch("zamba2-7b")
 
 
 def test_params_round_trip_through_the_jax_layout(lm):
