@@ -147,11 +147,12 @@ script exits non-zero.  Phases:
               kernel, plain, torch.matmul and bound ms, summed per step.
  20. check_ssd  the SSD chunk-scan kernel against its plain version: the
               SSD_GRID cases (S a multiple of the chunk and ragged, G 1 / 2,
-              P 32 / 64, N 16 / 128, chunk 64 / 256, batch 1 / 4) and the
+              P 32 / 64, N 16 / 128, chunk 64 / 256, batch 1 / 4), the
               prefill shape of mamba2-1.3b (4 x 1000, 64 heads of 64, N 128,
-              chunk 256), fp32 and bf16, with and without an initial state:
-              y and the final state within the bars of phase 2, two runs
-              bitwise equal.
+              chunk 256) and every shape ssm_serve gives it (batch 1, S =
+              each prompt less its last token), fp32 and bf16, with and
+              without an initial state: y and the final state within the
+              bars of phase 2, two runs bitwise equal.
  21. ssm      full-width, full-depth mamba2-1.3b (random weights from a
               seed, dt bias, A and D moved off their init), `cuda` against
               `eager` on the card: the prefill of 4 x 1000 tokens (logits
@@ -165,14 +166,20 @@ script exits non-zero.  Phases:
               just after: every request completes, every prompt is
               prefilled through the SSD kernel (one launch per layer), no
               `eager` op; each request served in a reused slot gives the
-              stream it gets alone on a fresh engine.
+              stream it gets alone on a fresh engine; every stream equals
+              the slot engine's on `eager` on the card, or differs first
+              where eager's top-2 logit margin is below 10 x phase 21's
+              max-abs logit difference (a near tie).
  23. timing_ssm  prefill ms (S 1000) and decode ms per token at batch 1
               and 4 on `cuda` and `eager`; the device time by kernel name
               of one `cuda` prefill and of one `cuda` decode step at batch 4
-              (torch.profiler); the SSD kernel at the
-              prefill shape and at 4 x 2048: kernel, plain and bound ms (the
-              causal pairs and the state terms at the FFMA rate; no single
-              PyTorch call computes SSD, so no library time).
+              (torch.profiler); the SSD kernel at the prefill shape, at 4 x
+              2048 and at each ssm_serve shape (device time from a CUDA
+              graph; the kernels line takes the mean over ssm_serve's
+              requests): kernel, plain and bound ms (the causal pairs times
+              N once per group for C·Bᵀ, times P per head, and the state
+              terms per head, at the FFMA rate; no single PyTorch call
+              computes SSD, so no library time).
 Then the kernels line, and last the result line.  Every JSON line carries
 `t`, the seconds since the script started.
 """
@@ -1689,35 +1696,58 @@ def ssd_operands(b, s, h, p, g, n, dtype, gen, init=False):
 
 
 def ssd_work(x, bm, chunk) -> tuple[float, float]:
-    """(FLOPs, bytes) of one SSD scan on these inputs: per (batch, head)
-    and chunk of q live rows, the q(q+1)/2 causal (query, key) pairs times
-    N (C·Bᵀ) and P (the product with x̄), and q N P each for the carried
-    state's term and the state update, 2 FLOPs a multiply-add; x, dt, dA,
-    B and C (per group, not per head) read once, y and the final state
-    written once."""
+    """(FLOPs, bytes) that one SSD scan on these inputs needs, 2 FLOPs a
+    multiply-add: per chunk of q live rows, the q(q+1)/2 causal (query,
+    key) pairs times N for C·Bᵀ once per (batch, group), since every head
+    of a group shares it; and per (batch, head) the pairs times P (the
+    scores times x̄) and q N P each for the carried state's term and the
+    state update.  x, dt, dA, B and C (per group, not per head) read once,
+    y and the final state written once."""
     b, s, h, p = x.shape
     g, n = bm.shape[2], bm.shape[3]
     flops = 0.0
     for c0 in range(0, s, chunk):
         q = min(chunk, s - c0)
-        flops += 2.0 * (q * (q + 1) / 2 * (n + p) + 2 * q * n * p)
-    flops *= b * h
+        pairs = q * (q + 1) / 2
+        flops += 2.0 * (g * pairs * n + h * (pairs * p + 2 * q * n * p))
+    flops *= b
     es = x.element_size()
     nbytes = (2 * x.numel() * es + 2 * 4.0 * b * s * h
               + 2 * bm.numel() * es + 4.0 * b * h * p * n)
     return flops, nbytes
 
 
-def check_ssd_phase(cfg, cgen) -> float:
-    """Phase check_ssd: the SSD kernel against its plain version over
-    SSD_GRID and the path's prefill shape, fp32 and bf16, with and without
-    an initial state; y and the final state within the bars, two runs
-    bitwise equal.  Returns the worst fp32 max-abs error of y at the path's
-    shape."""
-    path = (*SSM_PREFILL, cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_ngroups,
+def ssm_serve_requests(cfg) -> list:
+    """Phase ssm_serve's requests, made anew from their seed."""
+    return requests(cfg, SSM_SERVE["requests"], 10, SSM_SERVE["prompt"],
+                    SSM_SERVE["new"])
+
+
+def ssd_shape(cfg, b, s) -> tuple:
+    """check_ssd's case tuple for `cfg`'s mixer at batch `b`, length `s`."""
+    return (b, s, cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_ngroups,
             cfg.ssm_state, cfg.ssm_chunk)
-    rows, worst, path_abs = [], {"fp32": 0.0, "bf16": 0.0}, 0.0
-    for case in [*SSD_GRID, path]:
+
+
+def ssm_serve_shapes(cfg) -> list:
+    """The SSD shape of each ssm_serve request, in request order: the slot
+    engine prefills all of a prompt but its last token at batch 1."""
+    return [ssd_shape(cfg, 1, len(r.prompt) - 1)
+            for r in ssm_serve_requests(cfg)]
+
+
+def check_ssd_phase(cfg, cgen) -> dict:
+    """Phase check_ssd: the SSD kernel against its plain version over
+    SSD_GRID, the ssm phase's prefill shape and every shape ssm_serve
+    gives it, fp32 and bf16, with and without an initial state; y and the
+    final state within the bars, two runs bitwise equal.  Returns the
+    worst fp32 max-abs error of y and the state at the prefill shape and
+    over the serve shapes."""
+    prefill = ssd_shape(cfg, *SSM_PREFILL)
+    serve = sorted(set(ssm_serve_shapes(cfg)))
+    rows, worst = [], {"fp32": 0.0, "bf16": 0.0}
+    path_abs = {"prefill": 0.0, "serve": 0.0}
+    for case in [*SSD_GRID, prefill, *serve]:
         b, s, h, p, g, n, chunk = case
         for dtype, kind in ((torch.float32, "fp32"), (torch.bfloat16,
                                                       "bf16")):
@@ -1740,13 +1770,17 @@ def check_ssd_phase(cfg, cgen) -> float:
                       and torch.equal(got[1], again[1]),
                       f"two SSD runs differ at {where}")
                 worst[kind] = max(worst[kind], err)
-                if case == path and kind == "fp32":
-                    path_abs = max(path_abs, float(
-                        (got[0].double() - want[0].double()).abs().max()))
+                which = ("prefill" if case == prefill else
+                         "serve" if case in serve else None)
+                if which and kind == "fp32":
+                    path_abs[which] = max(path_abs[which], *(float(
+                        (g.double() - w.double()).abs().max())
+                        for g, w in zip(got, want)))
                 rows.append({"case": list(case), "dtype": kind,
                              "init": init, "relmax": err})
-    emit("check_ssd", cases=len(rows), relmax=worst, path_shape=list(path),
-         path_max_abs_err=path_abs, rows=rows)
+    emit("check_ssd", cases=len(rows), relmax=worst,
+         prefill_shape=list(prefill), serve_shapes=[list(c) for c in serve],
+         max_abs_err=path_abs, rows=rows)
     return path_abs
 
 
@@ -1766,8 +1800,9 @@ def ssm_params(cfg, dev):
     return params
 
 
-def ssm_phase(cfg, params, dev) -> None:
-    """Phase ssm: cuda vs eager prefill and 16 decode steps at full width."""
+def ssm_phase(cfg, params, dev) -> float:
+    """Phase ssm: cuda vs eager prefill and 16 decode steps at full width.
+    Returns the largest max-abs logit difference of the two."""
     cuda, eager = make_engine("cuda"), make_engine("eager", device=dev)
     b, s = SSM_PREFILL
     rng = np.random.default_rng(9)
@@ -1786,13 +1821,16 @@ def ssm_phase(cfg, params, dev) -> None:
         cache_err = {name: max(relmax(cc[0][name][i], t[i])
                                for i in range(cfg.n_layers))
                      for name, t in ce[0].items()}
+        v = cfg.vocab_size
+        abs_err = float((lc[..., :v] - le[..., :v]).abs().max())
         decode_err, agree = [], 0
         tok = le[:, -1].argmax(-1, keepdim=True)
         for step in range(SSM_DECODE_STEPS):
             lc, cc = make_decode_step(cuda, cfg)(params, cc, tok, s + step)
             le, ce = make_decode_step(eager, cfg)(params, ce, tok, s + step)
-            decode_err.append(relmax(lc[..., :cfg.vocab_size],
-                                     le[..., :cfg.vocab_size]))
+            decode_err.append(relmax(lc[..., :v], le[..., :v]))
+            abs_err = max(abs_err, float((lc[..., :v] - le[..., :v]).abs()
+                                         .max()))
             nxt = le[:, -1].argmax(-1, keepdim=True)
             agree += int(torch.equal(lc[:, -1].argmax(-1, keepdim=True), nxt))
             tok = nxt
@@ -1804,7 +1842,7 @@ def ssm_phase(cfg, params, dev) -> None:
          logits_relmax=logit_err, cache_relmax=cache_err,
          decode_steps=SSM_DECODE_STEPS, decode_relmax=decode_err,
          state_relmax_after_decode=state_err, greedy_agree=agree,
-         launches=launches)
+         logits_max_abs_err=abs_err, launches=launches)
     check(bool(torch.isfinite(out["cuda"][0][..., :cfg.vocab_size]).all()),
           "non-finite prefill logits")
     check(logit_err <= LOGIT_TOL, f"prefill logits cuda vs eager "
@@ -1819,17 +1857,20 @@ def ssm_phase(cfg, params, dev) -> None:
           f"{launches['cuda']}")
     check(sum(v for k, v in launches["eager"].items() if k != "dispatch")
           == 0, "the eager engine launched a kernel of the port")
+    return abs_err
 
 
-def ssm_serve_phase(cfg, params, dev) -> dict:
-    """Phase ssm_serve: the slot engine on cuda; reused slots vs alone."""
-    cuda = make_engine("cuda")
-    n, prompt, new = (SSM_SERVE["requests"], SSM_SERVE["prompt"],
-                      SSM_SERVE["new"])
+def ssm_serve_phase(cfg, params, dev, abs_err) -> dict:
+    """Phase ssm_serve: the slot engine on cuda; reused slots vs alone, and
+    every stream vs the slot engine on eager on the card, where a token may
+    differ only at a near tie (eager top-2 margin below MARGIN_FACTOR times
+    the ssm phase's max-abs logit difference, `abs_err`)."""
+    cuda, eager = make_engine("cuda"), make_engine("eager", device=dev)
+    n = SSM_SERVE["requests"]
     kw = dict(engine=cuda, slots=SSM_SERVE["slots"],
               max_len=SSM_SERVE["max_len"])
     server = ServingEngine(cfg, params, **kw)
-    reqs = requests(cfg, n, 10, prompt, new)
+    reqs = ssm_serve_requests(cfg)
     reset_all_launches()
     t0 = time.perf_counter()
     server.run(reqs)  # ---- the main path, driven once
@@ -1841,10 +1882,27 @@ def ssm_serve_phase(cfg, params, dev) -> dict:
     # the first `slots` requests took fresh slots, the rest reused ones:
     # each of those alone on a fresh engine must give the same stream
     reused = reqs[SSM_SERVE["slots"]:]
-    alone = requests(cfg, n, 10, prompt, new)[SSM_SERVE["slots"]:]
+    alone = ssm_serve_requests(cfg)[SSM_SERVE["slots"]:]
     for r in alone:
         ServingEngine(cfg, params, **kw).run([r])
     same = [a.out == r.out for a, r in zip(alone, reused)]
+    plain = ssm_serve_requests(cfg)
+    ServingEngine(cfg, params, **{**kw, "engine": eager}).run(plain)
+    head = tfm.head_weight(params, cfg)
+    mismatches = []
+    for a, r in zip(plain, reqs):
+        check(a.done and len(a.out) == len(r.out),
+              f"eager request {a.rid} did not complete as cuda's did")
+        if a.out == r.out:
+            continue
+        j = next(i for i, (x, y) in enumerate(zip(a.out, r.out)) if x != y)
+        with torch.inference_mode():
+            h = tfm.forward_hidden(eager, cfg, params, tokens=torch.tensor(
+                [a.prompt + a.out[:j]], device=dev))
+            top2 = torch.topk(h[0, -1] @ head, 2).values
+        mismatches.append({"rid": a.rid, "token": j,
+                           "eager_margin": float(top2[0] - top2[1]),
+                           "allowed_below": MARGIN_FACTOR * abs_err})
     emit("ssm_serve", arch=cfg.name, slots=SSM_SERVE["slots"], requests=n,
          completed=st["requests"]["completed"], tokens=st["tokens"],
          prompt_tokens=sum(len(r.prompt) for r in reqs), steps=st["steps"],
@@ -1852,7 +1910,9 @@ def ssm_serve_phase(cfg, params, dev) -> dict:
          p50_ms=st["latency_s"]["p50"] * 1e3,
          p99_ms=st["latency_s"]["p99"] * 1e3, launches=launches,
          engine_dispatch={f"{b}.{o}": c for (b, o), c in dispatch.items()},
-         reused_slot_requests=len(reused), equal_to_alone=same)
+         reused_slot_requests=len(reused), equal_to_alone=same,
+         eager_tokens=sum(len(a.out) for a in plain),
+         eager_mismatches=mismatches)
     check(st["requests"]["completed"] == n
           and all(r.done and len(r.out) == r.max_new for r in reqs),
           f"{st['requests']['completed']} of {n} completed")
@@ -1863,15 +1923,20 @@ def ssm_serve_phase(cfg, params, dev) -> dict:
           f"an engine op left the cuda backend: {dispatch}")
     check(all(same), f"a reused slot's stream differs from the request "
           f"alone: {same}")
+    check(all(m["eager_margin"] < m["allowed_below"] for m in mismatches),
+          f"cuda vs eager slot-engine token mismatch at a clear margin: "
+          f"{mismatches}")
     return {"launches": launches, "stats": st, "wall_s": wall}
 
 
 def timing_ssm_phase(cfg, params, dev, cgen, peak_flops, peak_bw,
                      smi) -> dict:
     """Phase timing_ssm: prefill and decode ms at batch 1 and 4, the SSD
-    kernel at the prefill shape and at 4 x 2048 (kernel, plain, bound),
-    and the device time by kernel name of one prefill and of one decode
-    step at batch 4."""
+    kernel (kernel, plain, bound) at the prefill shape and at 4 x 2048 and
+    at each shape ssm_serve gives it (device time from a CUDA graph; the
+    `serve` row is the mean over ssm_serve's requests), and the device
+    time by kernel name of one prefill and of one decode step at batch
+    4."""
     cuda, eager = make_engine("cuda"), make_engine("eager", device=dev)
     s = SSM_PREFILL[1]
     rng = np.random.default_rng(11)
@@ -1910,16 +1975,24 @@ def timing_ssm_phase(cfg, params, dev, cgen, peak_flops, peak_bw,
          decode_busy_share=decode_ms / cuda_b["decode_step_ms"],
          decode_top_kernels=dict(list(decode_kernels.items())[:12]))
     rows = {}
-    for b, seq in (SSM_PREFILL, (4, 2048)):
-        x, dt, a, bm, cm, _ = ssd_operands(
-            b, seq, cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_ngroups,
-            cfg.ssm_state, torch.float32, cgen)
+    serve = ssm_serve_shapes(cfg)
+    for case in [ssd_shape(cfg, *SSM_PREFILL), ssd_shape(cfg, 4, 2048),
+                 *sorted(set(serve))]:
+        b, seq, chunk = case[0], case[1], case[6]
+        x, dt, a, bm, cm, _ = ssd_operands(*case[:6], torch.float32, cgen)
         da = (dt * a).contiguous()
-        chunk = cfg.ssm_chunk
-        ms = cuda_ms(lambda: ops.ssd(x, dt, a, bm, cm, chunk=chunk), reps=5)
-        plain_ms = cuda_ms(lambda: ssd.ssd_scan_plain(x, dt, da, bm, cm,
-                                                      chunk=chunk), reps=2,
-                           repeats=3)
+
+        def kernel():
+            return ops.ssd(x, dt, a, bm, cm, chunk=chunk)
+
+        def plain():
+            return ssd.ssd_scan_plain(x, dt, da, bm, cm, chunk=chunk)
+
+        if case in serve:  # small: enqueueing would outlast the kernel
+            ms, plain_ms = graph_ms(kernel), graph_ms(plain)
+        else:
+            ms = cuda_ms(kernel, reps=5)
+            plain_ms = cuda_ms(plain, reps=2, repeats=3)
         flops, nbytes = ssd_work(x, bm, chunk)
         bound_ms, bound_by = bound(flops, nbytes, peak_flops, peak_bw)
         rows[f"{b}x{seq}"] = row = {
@@ -1927,10 +2000,20 @@ def timing_ssm_phase(cfg, params, dev, cgen, peak_flops, peak_bw,
             "bound_by": bound_by, "ops_ms": flops / peak_flops * 1e3,
             "bytes_ms": nbytes / peak_bw * 1e3, "library_ms": None,
             "tflops": flops / ms / 1e9, "bound_share": bound_ms / ms}
-        emit("timing_ssm", kernel="ssd_scan", smi=smi,
-             shape=[b, seq, cfg.ssm_nheads, cfg.ssm_headdim,
-                    cfg.ssm_ngroups, cfg.ssm_state, chunk], **row)
+        emit("timing_ssm", kernel="ssd_scan", smi=smi, shape=list(case),
+             **row)
         del x, dt, a, bm, cm, da
+    per_request = [rows[f"1x{c[1]}"] for c in serve]
+    mean = {k: statistics.mean(r[k] for r in per_request)
+            for k in ("ms", "plain_ms", "bound_ms", "ops_ms", "bytes_ms")}
+    rows["serve"] = row = {
+        **mean, "library_ms": None,
+        "bound_by": ("operations" if mean["ops_ms"] >= mean["bytes_ms"]
+                     else "bytes"),
+        "bound_share": mean["bound_ms"] / mean["ms"],
+        "lengths": [c[1] for c in serve]}
+    emit("timing_ssm", kernel="ssd_scan", smi=smi, shape="ssm_serve mean",
+         **row)
     return {"steps": steps, "ssd": rows}
 
 
@@ -2333,8 +2416,8 @@ def main() -> int:
     scfg = get_arch(SSM_ARCH)
     ssd_abs = check_ssd_phase(scfg, cgen)
     sparams = ssm_params(scfg, dev)
-    ssm_phase(scfg, sparams, dev)
-    serve_ssm = ssm_serve_phase(scfg, sparams, dev)
+    ssm_abs = ssm_phase(scfg, sparams, dev)
+    serve_ssm = ssm_serve_phase(scfg, sparams, dev, ssm_abs)
     ssm_rows = timing_ssm_phase(scfg, sparams, dev, cgen, peak_flops,
                                 peak_bw, smi)
     del sparams
@@ -2399,8 +2482,8 @@ def main() -> int:
                      max(bwd_abs["dk"], bwd_abs["dv"]),
                      train_rows["attn"]["flash_attention_bwd_dkv"]),
         kernel_entry("ssd_scan", SOURCE_SSD, REPLACES_SSD, "ssm_serve",
-                     serve_ssm["launches"]["ssd_scan"], ssd_abs,
-                     ssm_rows["ssd"][f"{SSM_PREFILL[0]}x{SSM_PREFILL[1]}"]),
+                     serve_ssm["launches"]["ssd_scan"], ssd_abs["serve"],
+                     ssm_rows["ssd"]["serve"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

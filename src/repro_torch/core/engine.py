@@ -26,6 +26,7 @@ import torch
 from repro_torch.core import backends
 from repro_torch.core.precision import Precision
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels import ssd as ssd_kernel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,11 +178,12 @@ class ComputeEngine:
         NotImplementedError when differentiated on `cuda`, whose SSD
         kernel is inference only (as the JAX kernel).
         """
-        kernel_ops.validate_ssd_shapes(x, dt, A, B, C, init_state)
         cdt = self.precision.compute_dtype
         xc, bc, cc = x.to(cdt), B.to(cdt), C.to(cdt)
         dtf, af = dt.float(), A.float()
         init = None if init_state is None else init_state.float()
+        ssd_kernel.check_operands(xc, dtf, bc, cc, chunk=chunk, A=af,
+                                  init_state=init)
         self._guard("ssd", xc, dtf, af, bc, cc, init)
         ctx = self._resolve("ssd", (tuple(xc.shape), tuple(bc.shape), chunk),
                             xc.dtype)

@@ -10,9 +10,12 @@
 // the prefill keeps as the layer's SSM cache.
 //
 // What bounds it on an H100: at mamba2-1.3b's prefill (Q 256, N 128, P 64)
-// the C·Bᵀ scores dominate, Q²N/2 FMAs per chunk and head against Q P
-// inputs, so it is bound by operations (the FFMA rate, 67 TFLOP/s on the
-// SXM part), far above the bytes of x, y, B and C.
+// the function needs, per chunk and head, Q²P/2 FMAs for the scores times
+// x̄ and 2QNP for the state's term and update, and Q²N/2 for C·Bᵀ once
+// per group (G = 1: one product serves all 64 heads), against Q P inputs:
+// it is bound by operations (the FFMA rate, 67 TFLOP/s on the SXM part),
+// far above the bytes of x, y, B and C.  This kernel forms C·Bᵀ for every
+// head, as the TPU kernel does, so it issues about 1.7 times those FMAs.
 //
 // What the design does about it (a simple kernel first; speed is later
 // work):

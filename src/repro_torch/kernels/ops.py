@@ -251,29 +251,6 @@ def attention_decode(q, k, v, kv_len=None, sm_scale=None, *,
 
 # ------------------------------------------------------------------- SSD ---
 
-def validate_ssd_shapes(x, dt, A, B, C, init_state=None) -> None:
-    """The `ssd` contract: x (Bt, S, H, P), dt (Bt, S, H), A (H,), B and C
-    (Bt, S, G, N) with H % G == 0, init_state None or (Bt, H, P, N).
-    Raises ValueError naming the offending shapes, at dispatch and not
-    inside a kernel."""
-    if x.dim() != 4 or B.dim() != 4 or B.shape != C.shape:
-        raise ValueError(f"ssd expects x (Bt, S, H, P) and B, C "
-                         f"(Bt, S, G, N); got x {tuple(x.shape)}, B "
-                         f"{tuple(B.shape)}, C {tuple(C.shape)}")
-    bt, s, h, p = x.shape
-    g, n = B.shape[2], B.shape[3]
-    if B.shape[:2] != (bt, s) or g < 1 or h % g:
-        raise ValueError(f"ssd: x {tuple(x.shape)} and B {tuple(B.shape)} "
-                         f"disagree on batch or length, or G={g} does not "
-                         f"divide H={h}")
-    if tuple(dt.shape) != (bt, s, h) or tuple(A.shape) != (h,):
-        raise ValueError(f"ssd: dt must be ({bt}, {s}, {h}) and A ({h},); "
-                         f"got {tuple(dt.shape)} and {tuple(A.shape)}")
-    if init_state is not None and tuple(init_state.shape) != (bt, h, p, n):
-        raise ValueError(f"ssd: init_state must be ({bt}, {h}, {p}, {n}); "
-                         f"got {tuple(init_state.shape)}")
-
-
 def ssd(x, dt, A, B, C, *, chunk: int, init_state=None):
     """The SSD chunk scan through the kernel, in the model's layout: x
     (Bt, S, H, P), dt (Bt, S, H) after softplus, A (H,) negative, B and C
@@ -281,13 +258,11 @@ def ssd(x, dt, A, B, C, *, chunk: int, init_state=None):
     broadcast to the heads), any S (the kernel masks the ragged last
     chunk), an optional fp32 init_state (Bt, H, P, N).  dA = dt·A per head
     and dt are formed here in fp32.  Returns (y (Bt, S, H, P) in x's dtype,
-    final state (Bt, H, P, N) fp32).  Inference only: raises
-    NotImplementedError under grad."""
-    validate_ssd_shapes(x, dt, A, B, C, init_state)
-    if needs_grad(x, dt, A, B, C, init_state):
-        raise NotImplementedError(
-            "the SSD chunk-scan kernel is inference only: it has no "
-            "backward (differentiate the 'eager' ssd op instead)")
+    final state (Bt, H, P, N) fp32).  The operands are checked by
+    `ssd.check_operands` (at dispatch, by the engine, and again by the
+    kernel wrapper).  Inference only: the kernel has no backward, and the
+    `cuda` backend's `inference_only` hook refuses every ssd dispatch
+    under grad."""
     dtf = dt.float().contiguous()
     da = (dtf * A.float()).contiguous()
     x, B, C = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, B, C))

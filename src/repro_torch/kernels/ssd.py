@@ -44,10 +44,13 @@ def reset_launches() -> None:
     launches = 0
 
 
-def check_operands(x, dt, dA, B, C, chunk: int, init_state=None) -> None:
-    """What the kernel and its plain version take (see the module
-    docstring).  Raises ValueError / TypeError naming the offending
-    operand."""
+def check_operands(x, dt, B, C, *, chunk: int, dA=None, A=None,
+                   init_state=None) -> None:
+    """The SSD contract (see the module docstring), checked once at
+    dispatch: x (Bt, S, H, P) and B, C (Bt, S, G, N) in one of `DTYPES`
+    with G dividing H, dt (and dA when given) (Bt, S, H) fp32, A (when
+    given) (H,), init_state None or (Bt, H, P, N) fp32.  Raises ValueError
+    / TypeError naming the offending operand."""
     if x.dim() != 4 or B.dim() != 4 or B.shape != C.shape:
         raise ValueError(f"need x (Bt, S, H, P) and B, C (Bt, S, G, N); got "
                          f"{tuple(x.shape)}, {tuple(B.shape)}, "
@@ -56,11 +59,14 @@ def check_operands(x, dt, dA, B, C, chunk: int, init_state=None) -> None:
     g = B.shape[2]
     if B.shape[:2] != (bt, s) or g < 1 or h % g:
         raise ValueError(f"x {tuple(x.shape)} and B {tuple(B.shape)} disagree "
-                         f"on batch, length or head grouping (H % G == 0)")
+                         f"on batch or length, or G={g} does not divide H={h}")
     for name, t in (("dt", dt), ("dA", dA)):
-        if t.shape != (bt, s, h) or t.dtype != torch.float32:
+        if t is not None and (t.shape != (bt, s, h)
+                              or t.dtype != torch.float32):
             raise ValueError(f"{name} must be ({bt}, {s}, {h}) float32; got "
                              f"{t.dtype} {tuple(t.shape)}")
+    if A is not None and tuple(A.shape) != (h,):
+        raise ValueError(f"A must be ({h},); got {tuple(A.shape)}")
     if x.dtype not in DTYPES or B.dtype != x.dtype or C.dtype != x.dtype:
         raise TypeError(f"x, B, C must share float32 or bfloat16; got "
                         f"{x.dtype}, {B.dtype}, {C.dtype}")
@@ -80,7 +86,7 @@ def ssd_scan_plain(x, dt, dA, B, C, *, chunk: int, init_state=None):
     y = ((C·Bᵀ) ∘ exp(segsum)) · x̄ + exp(cs) ∘ (C·stateᵀ), then
     state = exp(cs_last)·state + (x̄ ∘ exp(cs_last − cs))ᵀ · B.
     Returns (y (Bt, S, H, P) in x's dtype, state (Bt, H, P, N) fp32)."""
-    check_operands(x, dt, dA, B, C, chunk, init_state)
+    check_operands(x, dt, B, C, chunk=chunk, dA=dA, init_state=init_state)
     bt, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     rep = h // g
@@ -121,7 +127,7 @@ def ssd_scan(x, dt, dA, B, C, *, chunk: int, init_state=None):
     current stream and raises RuntimeError if the launch fails.  On the
     card x, B and C must be contiguous along their last dim, dt and dA
     contiguous, N one of `STATE_DIMS`."""
-    check_operands(x, dt, dA, B, C, chunk, init_state)
+    check_operands(x, dt, B, C, chunk=chunk, dA=dA, init_state=init_state)
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, dA, B, C, chunk=chunk,
                               init_state=init_state)

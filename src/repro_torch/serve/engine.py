@@ -8,14 +8,15 @@ rows; finished slots (EOS / max_new / max_len) free at once.  The engine
 defaults to the card (`make_engine()`); only the sampled token ids come
 back to the host.
 
-A mamba stack differs in two ways.  Its slot rows (conv tails and state)
-are zeroed when a request is admitted; dense caches are left as they are.
-And all of its prompt but the last token runs through the prefill
-(`models.transformer.forward_prefill`, the chunked SSD scan: on `cuda` the
-SSD kernel) into that slot's rows, instead of one lockstep decode step per
-token; the last prompt token then decodes with the other slots and gives
-the first new token.  The JAX engine replays every prompt token through
-the decode program and resets only the position.
+A mamba stack is admitted differently: its slot rows (conv tails and
+state) are zeroed, then all of its prompt but the last token runs through
+the prefill (`models.transformer.forward_prefill`, the chunked SSD scan:
+on `cuda` the SSD kernel) into them, instead of one lockstep decode step
+per token; the last prompt token then decodes with the other slots and
+gives the first new token.  Without the prefill the SSD kernel would never
+run on this path (a decode step is the recurrence).  A dense stack keeps
+the replay, so its streams stay those of the JAX engine, which replays
+every prompt token through the decode program.
 
 Implements the shared `ServingFrontend` protocol (serve/frontend.py) with
 the same stats schema as the CNN engine.  Prompts longer than the KV cache
@@ -110,27 +111,24 @@ class ServingEngine(fe.ServingFrontend):
             if self.active[s] is None and self.pending:
                 req = self.pending.popleft()
                 self.active[s] = req
-                self._reset_state(s)
                 self.pos[s] = self._prefill(s, req.prompt)
                 self._replay[s] = deque(req.prompt[self.pos[s]:])
 
-    def _reset_state(self, s: int) -> None:
-        """Zero slot `s`'s rows of every mamba cache entry (conv tails and
-        SSM state), so a new request does not start from the previous
-        occupant's history.  Attention caches need no reset: their stale
-        rows lie past the new position and are masked by it.  (The JAX
-        engine resets only the position, so there a reused slot carries
-        the old state into an SSM request.)"""
-        if self._ssm:
-            for t in self.caches[0].values():
-                t[:, s].zero_()
-
     def _prefill(self, s: int, prompt: list) -> int:
-        """For a mamba stack, run all of `prompt` but its last token
-        through the prefill and write the caches into slot `s`; returns
-        how many prompt tokens that consumed (0 for a dense stack, whose
-        prompt replays through the decode step)."""
-        if not self._ssm or len(prompt) < 2:
+        """Start slot `s` on `prompt`; returns how many prompt tokens that
+        consumed.  A dense stack consumes none: its prompt replays through
+        the lockstep decode step, and its stale cache rows lie past the new
+        position, masked by it.  A mamba stack's slot rows (conv tails and
+        SSM state) are zeroed, so the request does not start from the
+        previous occupant's history (the JAX engine resets only the
+        position, and there a reused slot carries the old state), and all
+        of the prompt but its last token runs through the prefill (on
+        `cuda` the SSD kernel) into them."""
+        if not self._ssm:
+            return 0
+        for t in self.caches[0].values():
+            t[:, s].zero_()
+        if len(prompt) < 2:
             return 0
         toks = torch.tensor([prompt[:-1]], dtype=torch.int64,
                             device=self.engine.device)

@@ -179,7 +179,7 @@ def test_ssd_wrappers_refuse_what_they_do_not_take():
 
 def test_cuda_ssd_is_refused_under_grad_and_on_the_cpu():
     """The SSD kernel has no backward (the JAX kernel has no VJP): the
-    `cuda` backend marks every ssd dispatch inference only, and the glue
+    `cuda` backend marks every ssd dispatch inference only, so the engine
     raises under grad; given a CPU tensor the op raises, never falls
     back.  `eager` differentiates it."""
     x, dt, a, bm, cm, _ = map(_t, _ssd_inputs(1, 8, 4, 8, 1, 8, seed=1))
@@ -189,8 +189,6 @@ def test_cuda_ssd_is_refused_under_grad_and_on_the_cpu():
         cuda.ssd(xg, dt, a, bm, cm, chunk=4)
     with pytest.raises(NotImplementedError, match="inference only"):
         backends.guard_grad(backends.get_backend("cuda"), "ssd", xg, dt)
-    with pytest.raises(NotImplementedError, match="inference only"):
-        ops.ssd(xg, dt, a, bm, cm, chunk=4)
     with pytest.raises(ValueError, match="CUDA tensors"):
         cuda.ssd(x, dt, a, bm, cm, chunk=4)
     y, _ = ENGINE.ssd(xg, dt, a, bm, cm, chunk=4)
