@@ -180,6 +180,42 @@ script exits non-zero.  Phases:
               N once per group for C·Bᵀ, times P per head, and the state
               terms per head, at the FFMA rate; no single PyTorch call
               computes SSD, so no library time).
+ 24. lm_mixed (run after phases 15 and 23) full-width qwen2-0.5b and
+              mamba2-1.3b prefill of 2 x 256 tokens under the `mixed` policy
+              (bf16 operands and activations, fp32 accumulation) on `cuda`,
+              `eager` and `ref`, and on `eager` in fp32: `cuda` vs `eager`
+              within 5e-2 max-relative (the bf16 bar) or 1.5 x the drift
+              between `ref` and `eager` (two mixed programs of plain
+              PyTorch), whichever is larger, and `cuda`'s distance from
+              the fp32 logits within 5e-2 or 1.5 x `eager`'s.
+ 25. check_bmm  the batched forward, dX and dW kernels of the engine `bmm`
+              op against their plain versions: BMM_CASES of
+              tests/test_grad_conformance.py and a ragged case under both
+              tiles and split counts 1 and 3, then llama4-scout-17b-a16e's
+              expert GEMMs (16 experts, 256 rows each, 5120 <-> 8192) at
+              the path's plans, fp32 (1e-5, scaled as phase 19 for a
+              contraction over 4096 terms) and bf16 (5e-2); every batch
+              slice bitwise the 2-D kernel's at the same plan; reruns
+              bitwise.
+ 26. engine_bmm  this slice's bmm path: make_engine("cuda").bmm at the
+              first expert shape and autograd's gradient of sum(y**2),
+              with the launch counts set to 0 just before and read just
+              after (one launch of each bmm kernel, one `bmm` dispatch),
+              against `eager` on the card: y within the phase-25 bar, the
+              gradients within 1e-4 (two chained GEMMs, as phase 7's).
+ 27. timing_bmm  each bmm kernel at that shape: kernel, plain, torch.bmm
+              (TF32 off) and bound ms (2 B M K N operations at the FFMA
+              rate, or each operand read once and the output written once).
+ 28. conv_direct  this slice's direct-conv path: the 11 DARKNET19_CFG
+              convolutions at batch 8 and full width (224^2 x 3 through
+              14^2 x 512, all stride 1, 3x3 and 1x1), each input padded
+              outside, through conv2d_direct with the launch counts set to
+              0 just before and read just after (11 launches); then fp32
+              and bf16, each against its plain version and against the
+              `cuda` engine's im2col conv2d (linear, no scale or shift),
+              bars as phase 25, reruns bitwise; then per layer kernel,
+              plain, im2col and cuDNN F.conv2d (TF32 off, set here) ms and
+              the bound.
 Then the kernels line, and last the result line.  Every JSON line carries
 `t`, the seconds since the script started.
 """
@@ -203,12 +239,13 @@ from repro_torch.configs.base import (ShapeConfig, get_arch,  # noqa: E402
                                        reduced)
 from repro_torch.configs.darknet_ref import DARKNET19_CFG  # noqa: E402
 from repro_torch.core import backends, make_engine  # noqa: E402
+from repro_torch.core.darknet import cfg as darknet_cfg  # noqa: E402
 from repro_torch.core.darknet.network import Network  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
 from repro_torch.kernels import build, gemm, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
-from repro_torch.kernels import ssd  # noqa: E402
+from repro_torch.kernels import conv_direct, ssd  # noqa: E402
 from repro_torch.kernels.common import ACTIVATIONS, epilogue  # noqa: E402
 from repro_torch.kernels.ref import attention_mask  # noqa: E402
 from repro_torch.launch.fault import FailureInjected  # noqa: E402
@@ -273,6 +310,22 @@ SSM_SERVE = dict(slots=4, requests=8, prompt=(8, 48), new=(4, 16),
 # check_ssd's (batch, S, H, P, G, N, chunk): S a multiple of the chunk and
 # ragged, G 1 and 2, P 32 and 64, N 16 and 128, chunk 64 and 256, batch 1
 # and 4 (the path's prefill shape is added)
+# the engine bmm op: BMM_CASES of tests/test_grad_conformance.py plus a
+# ragged case; llama4-scout-17b-a16e's expert GEMMs (configs/
+# llama4_scout_17b.py: 16 experts, d_model 5120, expert d_ff 8192) at 256
+# rows per expert (a 4096-token batch, top-1): the up and down projections
+BMM_CASES = [(2, 32, 16, 32), (3, 17, 23, 9), (5, 100, 70, 130)]
+EXPERT_BMM = ((16, 256, 5120, 8192), (16, 256, 8192, 5120))
+BMM_KERNELS = ("bmm_fwd", "bmm_bwd_dx", "bmm_bwd_dw")
+REPLACES_BMM = "src/repro/kernels/gemm.py:479"  # _bmm_forward's pallas_call
+REPLACES_BMM_DX = "src/repro/kernels/gemm.py:309"  # bmm_bwd_dx's
+REPLACES_BMM_DW = "src/repro/kernels/gemm.py:336"  # bmm_bwd_dw's
+SOURCE_CONV = "src/repro_torch/kernels/csrc/conv_direct.cu"
+REPLACES_CONV = "src/repro/kernels/conv_direct.py:102"  # conv2d_direct's
+CONV_BATCH = 8
+MIXED_TOL = 5e-2  # the bf16 bar: mixed rounds activations to bf16
+MIXED_FLOOR_FACTOR = 1.5  # lm_mixed: times the drift of two mixed programs
+MIXED_PROMPT = (2, 256)
 SSD_GRID = ((1, 512, 4, 64, 1, 128, 256), (4, 300, 8, 32, 2, 16, 64),
             (1, 1000, 8, 64, 2, 128, 256), (4, 130, 4, 32, 1, 128, 64),
             (1, 256, 4, 32, 2, 16, 256))
@@ -577,7 +630,8 @@ def host_ms(fn, reps: int = 5) -> float:
 def all_launches() -> dict:
     """Every kernel wrapper's launch count, by kernel name."""
     return {**gemm.launch_counts(), **fa.launch_counts(),
-            "flash_decode": fd.launches, "ssd_scan": ssd.launches}
+            "flash_decode": fd.launches, "ssd_scan": ssd.launches,
+            "conv2d_direct": conv_direct.launches}
 
 
 def reset_all_launches() -> None:
@@ -586,6 +640,7 @@ def reset_all_launches() -> None:
     fa.reset_launches()
     fd.reset_launches()
     ssd.reset_launches()
+    conv_direct.reset_launches()
     backends.reset_dispatch_counts()
 
 
@@ -1254,12 +1309,10 @@ def lm_train_launches(cfg, m: int) -> dict:
     recompute in the backward), one dX and one dW each, the reduce passes
     their plans split, and per layer two lse forwards, one dQ and one dK /
     dV."""
-    want = {"gemm_fused_fwd": 0, "gemm_fused_fwd_res": 0, "gemm_bwd_dx": 0,
-            "gemm_bwd_dw": 0, "gemm_bwd_reduce": 0, "flash_attention": 0,
+    want = {**dict.fromkeys(all_launches(), 0),
             "flash_attention_lse": 2 * cfg.n_layers,
             "flash_attention_bwd_dq": cfg.n_layers,
-            "flash_attention_bwd_dkv": cfg.n_layers, "flash_decode": 0,
-            "ssd_scan": 0}
+            "flash_attention_bwd_dkv": cfg.n_layers}
     for g in lm_gemms(cfg):
         k, n, reps = g["k"], g["n"], g["per_dispatch"]
         dx = ops.default_bwd_tiles("dx", m, n, k)
@@ -2017,6 +2070,355 @@ def timing_ssm_phase(cfg, params, dev, cgen, peak_flops, peak_bw,
     return {"steps": steps, "ssd": rows}
 
 
+# ------------------------------------------------- the bmm op, direct conv ---
+
+def bmm_plans(b, m, k, n) -> tuple:
+    """The plans `ops.bmm` gives (B, M, K, N): the forward's tile, and the
+    (tile, splits) of dX and of dW (the backward plans count the batch)."""
+    dx = ops.default_bwd_tiles("dx", m, n, k, batch=b)
+    dw = ops.default_bwd_tiles("dw", k, m, n, batch=b)
+    return ops.default_tiles(m, k, n)[0], (dx[0], dx[3]), (dw[0], dw[3])
+
+
+def check_bmm_case(b, m, k, n, plans, gen) -> dict:
+    """The three bmm kernels against their plain versions at (B, M, K, N),
+    fp32 and bf16, for each (tile, splits) in `plans` (the forward takes
+    the tile): fp32 within gemm_tol of each kernel's contraction (K, N,
+    M), bf16 within BF16_TOL; every batch slice bitwise the 2-D kernel's
+    (`gemm_fused_fwd` linear without scale or shift, `gemm_bwd_dx`,
+    `gemm_bwd_dw`) at the same plan; a rerun bitwise."""
+    dev = gen.device
+    worst = {name: {"fp32": 0.0, "bf16": 0.0} for name in BMM_KERNELS}
+    max_abs = dict.fromkeys(BMM_KERNELS, 0.0)
+    for dt in (torch.float32, torch.bfloat16):
+        kind = "fp32" if dt == torch.float32 else "bf16"
+        x = torch.randn(b, m, k, generator=gen, device=dev).to(dt)
+        w = (torch.randn(b, k, n, generator=gen, device=dev)
+             / math.sqrt(k)).to(dt)
+        dy = torch.randn(b, m, n, generator=gen, device=dev).to(dt)
+        cases = {
+            "bmm_fwd": (k, gemm.bmm_fwd_plain(x, w),
+                        lambda t, s: gemm.bmm_fwd(x, w, tile=t),
+                        lambda i, t, s: gemm.gemm_fused_fwd(x[i], w[i],
+                                                            tile=t)),
+            "bmm_bwd_dx": (n, gemm.bmm_bwd_dx_plain(dy, w),
+                           lambda t, s: gemm.bmm_bwd_dx(dy, w, tile=t,
+                                                        splits=s),
+                           lambda i, t, s: gemm.gemm_bwd_dx(
+                               dy[i], w[i], tile=t, splits=s)),
+            "bmm_bwd_dw": (m, gemm.bmm_bwd_dw_plain(x, dy),
+                           lambda t, s: gemm.bmm_bwd_dw(x, dy, tile=t,
+                                                        splits=s),
+                           lambda i, t, s: gemm.gemm_bwd_dw(
+                               x[i], dy[i], tile=t, splits=s))}
+        for name, (kdim, want, fn, slice2d) in cases.items():
+            tol = gemm_tol(kdim) if kind == "fp32" else BF16_TOL
+            for tile, splits in plans:
+                where = (f"{name} at {(b, m, k, n)} {dt} tile={tile} "
+                         f"splits={splits}")
+                got = fn(tile, splits)
+                check(bool(torch.isfinite(got).all()), f"non-finite {where}")
+                err = relmax(got, want)
+                check(err <= tol, f"{where}: {err:.3e} > {tol:g}")
+                check(torch.equal(got, fn(tile, splits)),
+                      f"two runs of {where} differ")
+                for i in range(b):
+                    check(torch.equal(got[i], slice2d(i, tile, splits)),
+                          f"{where}: batch slice {i} differs from the 2-D "
+                          f"kernel")
+                worst[name][kind] = max(worst[name][kind], err)
+                if kind == "fp32":
+                    max_abs[name] = max(max_abs[name], float(
+                        (got - want).abs().max()))
+                del got
+        del x, w, dy, cases
+    return {"shape": [b, m, k, n], "plans": [list(p) for p in plans],
+            "relmax": worst, "max_abs_err_fp32": max_abs}
+
+
+def check_bmm_phase(cgen) -> dict:
+    """Phase check_bmm: BMM_CASES under every tile and split count, then
+    the llama4-scout expert shapes at the path's plans.  Returns the
+    fp32 max-abs error of each kernel at the expert shapes."""
+    forced = [(t, s) for t in gemm.TILES for s in (1, 3)]
+    for case in BMM_CASES:
+        emit("check_bmm", **check_bmm_case(*case, forced, cgen))
+    path_abs = dict.fromkeys(BMM_KERNELS, 0.0)
+    for case in EXPERT_BMM:
+        tile, dx_plan, dw_plan = bmm_plans(*case)
+        plans = [dx_plan] if dx_plan == dw_plan else [dx_plan, dw_plan]
+        check(all(t == tile for t, _ in plans),
+              f"backward tiles {plans} differ from the forward's {tile}")
+        res = check_bmm_case(*case, plans, cgen)
+        emit("check_bmm", arch="llama4-scout-17b-a16e", **res)
+        for name in path_abs:
+            path_abs[name] = max(path_abs[name],
+                                 res["max_abs_err_fp32"][name])
+        torch.cuda.empty_cache()
+    return path_abs
+
+
+def engine_bmm_phase(dev) -> dict:
+    """Phase engine_bmm: `make_engine("cuda").bmm` and the gradient of
+    sum(y**2) by autograd at the expert shape, the launch counts set to 0
+    just before and read just after, against `eager` on the card."""
+    b, m, k, n = EXPERT_BMM[0]
+    gen = torch.Generator(device=dev).manual_seed(21)
+    x = torch.randn(b, m, k, generator=gen, device=dev)
+    w = torch.randn(b, k, n, generator=gen, device=dev) / math.sqrt(k)
+    runs = {}
+    for label in ("cuda", "eager"):
+        engine = make_engine(label, device=dev)
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        torch.cuda.synchronize()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        y = engine.bmm(xr, wr)  # ---- for "cuda": this slice's path
+        dx, dw = torch.autograd.grad((y ** 2).sum(), (xr, wr))
+        torch.cuda.synchronize()
+        runs[label] = {"y": y.detach(), "dx": dx, "dw": dw,
+                       "wall_s": time.perf_counter() - t0,
+                       "launches": all_launches(),
+                       "dispatch": backends.dispatch_counts()}
+        del xr, wr, y
+    cu, ea = runs["cuda"], runs["eager"]
+    _, (_, dx_splits), (_, dw_splits) = bmm_plans(b, m, k, n)
+    want = {**dict.fromkeys(cu["launches"], 0), "bmm_fwd": 1,
+            "bmm_bwd_dx": 1, "bmm_bwd_dw": 1,
+            "gemm_bwd_reduce": (dx_splits > 1) + (dw_splits > 1)}
+    err = {key: relmax(cu[key], ea[key]) for key in ("y", "dx", "dw")}
+    bars = {"y": gemm_tol(k), "dx": TRAIN_TOL, "dw": TRAIN_TOL}
+    max_abs = {key: float((cu[key] - ea[key]).abs().max())
+               for key in ("y", "dx", "dw")}
+    emit("engine_bmm", shape=[b, m, k, n], arch="llama4-scout-17b-a16e",
+         relmax=err, bars=bars, max_abs_err=max_abs,
+         launches=cu["launches"], want_launches=want,
+         dispatch={f"{bk}.{o}": c for (bk, o), c in cu["dispatch"].items()},
+         eager_launches=sum(ea["launches"].values()),
+         wall_s={key: r["wall_s"] for key, r in runs.items()})
+    check(tuple(cu["y"].shape) == (b, m, n) and tuple(cu["dx"].shape)
+          == (b, m, k) and tuple(cu["dw"].shape) == (b, k, n),
+          "engine bmm shapes")
+    check(all(bool(torch.isfinite(cu[key]).all())
+              for key in ("y", "dx", "dw")), "non-finite engine bmm")
+    for key, bar in bars.items():
+        check(err[key] <= bar, f"engine bmm {key} cuda vs eager "
+              f"{err[key]:.3e} > {bar:g}")
+    check(cu["launches"] == want,
+          f"engine bmm launches {cu['launches']}, want {want}")
+    check(cu["dispatch"] == {("cuda", "bmm"): 1},
+          f"engine bmm dispatches {cu['dispatch']}")
+    check(sum(ea["launches"].values()) == 0
+          and ea["dispatch"] == {("eager", "bmm"): 1},
+          "the eager engine launched a kernel of the port")
+    return {"launches": cu["launches"], "max_abs_err": max_abs}
+
+
+def timing_bmm_phase(gen, peak_flops, peak_bw, smi) -> dict:
+    """Phase timing_bmm: each bmm kernel at the engine_bmm shape with the
+    path's plan: kernel, plain, torch.bmm (TF32 off, a baseline only) and
+    bound ms (2 B M K N FFMA-rate operations; each operand read once, the
+    output written once)."""
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off")
+    b, m, k, n = EXPERT_BMM[0]
+    dev = gen.device
+    x = torch.randn(b, m, k, generator=gen, device=dev)
+    w = torch.randn(b, k, n, generator=gen, device=dev) / math.sqrt(k)
+    dy = torch.randn(b, m, n, generator=gen, device=dev)
+    tile, (dxt, dxs), (dwt, dws) = bmm_plans(b, m, k, n)
+    nbytes = 4.0 * (b * m * k + b * k * n + b * m * n)
+    flops = 2.0 * b * m * k * n
+    rows = {}
+    for name, fn, plain, library in (
+            ("bmm_fwd", lambda: gemm.bmm_fwd(x, w, tile=tile),
+             lambda: gemm.bmm_fwd_plain(x, w), lambda: torch.bmm(x, w)),
+            ("bmm_bwd_dx",
+             lambda: gemm.bmm_bwd_dx(dy, w, tile=dxt, splits=dxs),
+             lambda: gemm.bmm_bwd_dx_plain(dy, w),
+             lambda: torch.bmm(dy, w.transpose(1, 2))),
+            ("bmm_bwd_dw",
+             lambda: gemm.bmm_bwd_dw(x, dy, tile=dwt, splits=dws),
+             lambda: gemm.bmm_bwd_dw_plain(x, dy),
+             lambda: torch.bmm(x.transpose(1, 2), dy))):
+        ms = cuda_ms(fn, reps=5, repeats=3)
+        plain_ms = cuda_ms(plain, reps=5, repeats=3)
+        library_ms = cuda_ms(library, reps=5, repeats=3)
+        bound_ms, bound_by = bound(flops, nbytes, peak_flops, peak_bw)
+        rows[name] = row = {
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "ops_ms": flops / peak_flops * 1e3,
+            "bytes_ms": nbytes / peak_bw * 1e3,
+            "tflops": flops / ms / 1e9, "bound_share": bound_ms / ms}
+        emit("timing_bmm", kernel=name, smi=smi, shape=[b, m, k, n],
+             plans={"tile": tile, "dx": [dxt, dxs], "dw": [dwt, dws]},
+             **row)
+    return rows
+
+
+def path_convs(net: Network, batch: int) -> list[dict]:
+    """The convolutions one forward of `net` runs at `batch`, in layer
+    order: input (H, W, Cin), Cout, kernel size, stride and padding."""
+    out, hwc = [], net.in_shape
+    for p in net.plans:
+        o = p.options
+        if p.type == "convolutional":
+            size = o.get("size", 3)
+            out.append({"layer": p.index, "b": batch, "h": hwc[0],
+                        "w": hwc[1], "cin": hwc[2], "cout": p.out_shape[2],
+                        "size": size, "stride": o.get("stride", 1),
+                        "pad": darknet_cfg.conv_pad(o, size)})
+        hwc = p.out_shape
+    return out
+
+
+def conv_operands(c, dtype, gen):
+    """(x, x padded outside, w (KH, KW, Cin, Cout)) of one layer `c`."""
+    dev, p, size = gen.device, c["pad"], c["size"]
+    x = torch.randn(c["b"], c["h"], c["w"], c["cin"], generator=gen,
+                    device=dev).to(dtype)
+    w = (torch.randn(size, size, c["cin"], c["cout"], generator=gen,
+                     device=dev) / math.sqrt(size * size * c["cin"])
+         ).to(dtype)
+    return x, torch.nn.functional.pad(x, (0, 0, p, p, p, p)), w
+
+
+def conv_direct_phase(net, gen, peak_flops, peak_bw, smi) -> dict:
+    """Phase conv_direct: the 11 DARKNET19_CFG convolutions at batch
+    CONV_BATCH through `conv2d_direct` on inputs padded outside, the
+    launch counts set to 0 just before and read just after; then, fp32
+    and bf16, each against its plain version and against the `cuda`
+    engine's im2col conv2d (linear, no scale or shift), reruns bitwise;
+    then per layer (fp32) kernel, plain, im2col and cuDNN F.conv2d ms
+    (TF32 off) and the bound."""
+    torch.backends.cudnn.allow_tf32 = False
+    layers = path_convs(net, CONV_BATCH)
+    check(len(layers) == 11 and all(c["stride"] == 1 for c in layers),
+          f"DARKNET19 convolutions {layers}")
+    data = [conv_operands(c, torch.float32, gen) for c in layers]
+    torch.cuda.synchronize()
+    reset_all_launches()
+    outs = [conv_direct.conv2d_direct(xp, w)  # ---- this slice's path
+            for _, xp, w in data]
+    torch.cuda.synchronize()
+    launches = all_launches()
+    want = {**dict.fromkeys(launches, 0), "conv2d_direct": len(layers)}
+    check(launches == want, f"conv_direct launches {launches}, want {want}")
+    engines = {torch.float32: make_engine("cuda"),
+               torch.bfloat16: make_engine("cuda", "mixed")}
+    worst = {"plain": {"fp32": 0.0, "bf16": 0.0},
+             "im2col": {"fp32": 0.0, "bf16": 0.0}}
+    max_abs = 0.0
+    for dt, engine in engines.items():
+        kind = "fp32" if dt == torch.float32 else "bf16"
+        for i, c in enumerate(layers):
+            x, xp, w = (data[i] if kind == "fp32"
+                        else conv_operands(c, dt, gen))
+            got = outs[i] if kind == "fp32" else conv_direct.conv2d_direct(
+                xp, w)
+            size, cout = c["size"], c["cout"]
+            tol = (gemm_tol(size * size * c["cin"]) if kind == "fp32"
+                   else BF16_TOL)
+            where = f"conv2d_direct layer {c['layer']} {dt}"
+            check(tuple(got.shape) == (c["b"], c["h"], c["w"], cout),
+                  f"{where}: shape {tuple(got.shape)}")
+            check(bool(torch.isfinite(got).all()), f"non-finite {where}")
+            want_plain = conv_direct.conv2d_direct_plain(xp, w)
+            want_im2col = engine.conv2d(x, w.reshape(-1, cout), size=size,
+                                        pad=c["pad"], out_dtype=dt)
+            for ref, key in ((want_plain, "plain"), (want_im2col, "im2col")):
+                err = relmax(got, ref)
+                check(err <= tol, f"{where} vs {key}: {err:.3e} > {tol:g}")
+                worst[key][kind] = max(worst[key][kind], err)
+            check(torch.equal(got, conv_direct.conv2d_direct(xp, w)),
+                  f"two runs of {where} differ")
+            if kind == "fp32":
+                max_abs = max(max_abs, float((got - want_plain).abs().max()))
+    emit("conv_direct", cfg="DARKNET19_CFG", batch=CONV_BATCH,
+         layers=[[c["layer"], c["h"], c["w"], c["cin"], c["cout"],
+                  c["size"]] for c in layers], launches=launches,
+         relmax=worst, max_abs_err_fp32=max_abs)
+    keys = ("ms", "plain_ms", "im2col_ms", "library_ms", "bound_ms",
+            "ops_ms", "bytes_ms")
+    total = dict.fromkeys(keys, 0.0)
+    for c, (x, xp, w) in zip(layers, data):
+        size, cout = c["size"], c["cout"]
+        w2 = w.reshape(-1, cout)
+        xn = xp.permute(0, 3, 1, 2)  # NCHW view of the NHWC storage
+        wn = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        ms = cuda_ms(lambda: conv_direct.conv2d_direct(xp, w))
+        plain_ms = cuda_ms(lambda: conv_direct.conv2d_direct_plain(xp, w))
+        im2col_ms = cuda_ms(lambda: engines[torch.float32].conv2d(
+            x, w2, size=size, pad=c["pad"]))
+        library_ms = cuda_ms(lambda: torch.nn.functional.conv2d(xn, wn))
+        lib_err = relmax(torch.nn.functional.conv2d(xn, wn).permute(
+            0, 2, 3, 1), conv_direct.conv2d_direct_plain(xp, w))
+        flops = 2.0 * c["b"] * c["h"] * c["w"] * size * size * c["cin"] * cout
+        nbytes = 4.0 * (xp.numel() + w.numel() + c["b"] * c["h"] * c["w"]
+                        * cout)
+        bound_ms, bound_by = bound(flops, nbytes, peak_flops, peak_bw)
+        row = {"ms": ms, "plain_ms": plain_ms, "im2col_ms": im2col_ms,
+               "library_ms": library_ms, "bound_ms": bound_ms,
+               "ops_ms": flops / peak_flops * 1e3,
+               "bytes_ms": nbytes / peak_bw * 1e3}
+        for key in keys:
+            total[key] += row[key]
+        emit("timing_conv_direct", layer=c["layer"], batch=CONV_BATCH,
+             shape=[c["h"], c["w"], c["cin"], cout, size], **row,
+             bound_by=bound_by, tflops=flops / ms / 1e9,
+             bound_share=bound_ms / ms, library_relmax=lib_err)
+    emit("timing_conv_direct_total", smi=smi, batch=CONV_BATCH,
+         layers=len(layers), **total, bound_share=total["bound_ms"]
+         / total["ms"])
+    return {"launches": launches["conv2d_direct"], "max_abs_err": max_abs,
+            "total": total}
+
+
+def lm_mixed_phase(cfg, params, dev) -> dict:
+    """Phase lm_mixed: the full-width prefill of MIXED_PROMPT tokens under
+    the `mixed` policy (bf16 operands and activations, fp32 accumulation
+    and parameters) on `cuda`, `eager` and `ref`, and on `eager` under
+    `fp32_strict`, all on the card.  Over a deep stack two correct mixed
+    programs drift apart by more than bf16 rounding (48 mamba2 layers at
+    2 x 256 tokens on an H100: `ref` and `eager`, no kernel between them,
+    7.9e-2 apart).  So `cuda` vs `eager` is held to MIXED_TOL or
+    MIXED_FLOOR_FACTOR times the `ref` vs `eager` drift, whichever is
+    larger, and `cuda`'s distance from the fp32 logits to MIXED_TOL or
+    MIXED_FLOOR_FACTOR times `eager`'s (the kernels lose no accuracy that
+    eager keeps).  Returns the errors."""
+    b, s = MIXED_PROMPT
+    tokens = torch.from_numpy(np.random.default_rng(17).integers(
+        0, cfg.vocab_size, (b, s))).to(dev)
+    logits = {}
+    with torch.inference_mode():
+        for label, backend, policy in (("cuda", "cuda", "mixed"),
+                                       ("eager", "eager", "mixed"),
+                                       ("ref", "ref", "mixed"),
+                                       ("fp32", "eager", "fp32_strict")):
+            engine = make_engine(backend, policy, device=dev)
+            out, _ = make_prefill_step(engine, cfg)(params, tokens)
+            logits[label] = out[..., :cfg.vocab_size].float()
+    torch.cuda.synchronize()
+    err = {"cuda_eager": relmax(logits["cuda"], logits["eager"]),
+           "ref_eager": relmax(logits["ref"], logits["eager"]),
+           "cuda_fp32": relmax(logits["cuda"], logits["fp32"]),
+           "eager_fp32": relmax(logits["eager"], logits["fp32"])}
+    bars = {"cuda_eager": max(MIXED_TOL,
+                              MIXED_FLOOR_FACTOR * err["ref_eager"]),
+            "cuda_fp32": max(MIXED_TOL,
+                             MIXED_FLOOR_FACTOR * err["eager_fp32"])}
+    emit("lm_mixed", arch=cfg.name, batch=b, prompt=s, policy="mixed",
+         relmax=err, bars=bars, floor_factor=MIXED_FLOOR_FACTOR,
+         logits_max_abs=float(logits["eager"].abs().max()))
+    check(bool(torch.isfinite(logits["cuda"]).all()),
+          f"non-finite mixed logits of {cfg.name}")
+    for key, bar in bars.items():
+        check(err[key] <= bar, f"{cfg.name} mixed prefill {key} "
+              f"{err[key]:.3e} > {bar:.3e}")
+    return err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
@@ -2230,8 +2632,9 @@ def main() -> int:
     grad_floor = {k: relmax(grads_h[k], grads_e[k]) for k in grads_e}
     ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=1)
     train_gemms = path_gemms(net_c, TRAIN_BATCH)
-    want_step = {"gemm_fused_fwd": 0, "gemm_fused_fwd_res": 12,
-                 "gemm_bwd_dx": 11, "gemm_bwd_dw": 12, "gemm_bwd_reduce": 0}
+    want_step = {**dict.fromkeys(gemm.launch_counts(), 0),
+                 "gemm_fused_fwd_res": 12, "gemm_bwd_dx": 11,
+                 "gemm_bwd_dw": 12}
     for i, g in enumerate(train_gemms):
         dx_plans, dw_plans = bwd_plans(g["m"], g["k"], g["n"])
         want_step["gemm_bwd_reduce"] += ((i > 0 and dx_plans[0][1] > 1)
@@ -2400,6 +2803,7 @@ def main() -> int:
     lm_rows = timing_lm_phase(cfg, params, dev, cgen, peak_flops, peak_bw,
                               serve_lm, smi)
     bucket_phase(cfg, params, dev)
+    lm_mixed_phase(cfg, params, dev)
     lm_launches = serve_lm["launches"]
     del params, serve_lm
     torch.cuda.empty_cache()
@@ -2420,7 +2824,16 @@ def main() -> int:
     serve_ssm = ssm_serve_phase(scfg, sparams, dev, ssm_abs)
     ssm_rows = timing_ssm_phase(scfg, sparams, dev, cgen, peak_flops,
                                 peak_bw, smi)
+    lm_mixed_phase(scfg, sparams, dev)
     del sparams
+    torch.cuda.empty_cache()
+
+    # ------------------------------------ 24-28. the bmm op, the direct conv
+    bmm_abs = check_bmm_phase(cgen)
+    eb = engine_bmm_phase(dev)
+    bmm_rows = timing_bmm_phase(cgen, peak_flops, peak_bw, smi)
+    torch.cuda.empty_cache()
+    conv = conv_direct_phase(net, cgen, peak_flops, peak_bw, smi)
 
     def kernel_entry(name, source, replaces, path, launches, max_abs_err,
                      row):
@@ -2484,6 +2897,18 @@ def main() -> int:
         kernel_entry("ssd_scan", SOURCE_SSD, REPLACES_SSD, "ssm_serve",
                      serve_ssm["launches"]["ssd_scan"], ssd_abs["serve"],
                      ssm_rows["ssd"]["serve"]),
+        kernel_entry("bmm_fwd", SOURCE, REPLACES_BMM, "engine_bmm",
+                     eb["launches"]["bmm_fwd"], bmm_abs["bmm_fwd"],
+                     bmm_rows["bmm_fwd"]),
+        kernel_entry("bmm_bwd_dx", SOURCE_BWD, REPLACES_BMM_DX,
+                     "engine_bmm", eb["launches"]["bmm_bwd_dx"],
+                     bmm_abs["bmm_bwd_dx"], bmm_rows["bmm_bwd_dx"]),
+        kernel_entry("bmm_bwd_dw", SOURCE_BWD, REPLACES_BMM_DW,
+                     "engine_bmm", eb["launches"]["bmm_bwd_dw"],
+                     bmm_abs["bmm_bwd_dw"], bmm_rows["bmm_bwd_dw"]),
+        kernel_entry("conv2d_direct", SOURCE_CONV, REPLACES_CONV,
+                     "conv_direct", conv["launches"], conv["max_abs_err"],
+                     conv["total"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

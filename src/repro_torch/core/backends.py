@@ -16,13 +16,17 @@ Built-in backends:
   cuda   : the hand-written Hopper kernels (kernels/gemm.py).  It takes CUDA
            tensors only: given a CPU tensor it raises, it never falls back.
 
-Each backend registers `matmul`, `conv2d`, `attention` and `ssd`; `bmm`
-comes with a later slice.  Each backend declares which ops autograd may flow
+Each backend registers every op of `OP_SET`: `matmul`, `bmm`, `conv2d`,
+`attention` and `ssd`.  Each backend declares which ops autograd may flow
 through (`differentiable`, as the JAX registry's autodiff capability):
 `ref` and `eager` are plain differentiable PyTorch, and `cuda` carries
 `kernels/gemm.py::GemmFused`, whose backward runs the dX / dW kernels,
-and `kernels/flash_attention.py::FlashAttention`, whose backward runs the
-dQ / dK / dV kernels.  A backend may also name dispatches of a
+`kernels/gemm.py::BmmFn`, whose backward runs the batched dX / dW
+kernels, and `kernels/flash_attention.py::FlashAttention`, whose backward
+runs the dQ / dK / dV kernels.  The direct convolution
+(`kernels/conv_direct.py`) is forward only and no backend registers it,
+as in the JAX package; a backend that does must leave `conv2d` out of
+`differentiable`.  A backend may also name dispatches of a
 differentiable op that stay inference only (`inference_only`): on `cuda`
 a decode-shaped `attention` (`kernel_ops.use_decode_formulation`) takes
 the split-KV decode kernel, which has no backward, as in the JAX package,
@@ -42,6 +46,8 @@ and the tile plan):
   matmul(x, w, scale, shift, *, act, out_dtype, ctx)   (M,K)@(K,N) -> (M,N)
       fused epilogue act((x @ w) * scale + shift), scale/shift (N,) or None,
       fp32 accumulation.
+  bmm(x, w, *, out_dtype, ctx)               (B,M,K)@(B,K,N) -> (B,M,N)
+      batched GEMM, fp32 accumulation, no epilogue.
   conv2d(x, w, scale, shift, *, size, stride, pad, act, out_dtype, ctx)
       NHWC x, flattened (kh*kw*Cin, Cout) w, same fused epilogue: one
       engine invocation per conv+BN+act layer.
@@ -288,6 +294,10 @@ def _ref_matmul(x, w, scale, shift, *, act, out_dtype, ctx):
                           out_dtype=out_dtype)
 
 
+def _ref_bmm(x, w, *, out_dtype, ctx):
+    return ref.bmm_ref(x, w, out_dtype=out_dtype)
+
+
 def _ref_attention(q, k, v, *, causal, sm_scale, kv_len=None, ctx):
     return ref.flash_attention_ref(q, k, v, causal=causal,
                                    sm_scale=sm_scale, kv_len=kv_len)
@@ -311,6 +321,12 @@ def _eager_matmul(x, w, scale, shift, *, act, out_dtype, ctx):
     if shift is not None:
         acc = acc + shift.to(rdt)
     return apply_act(acc, act).to(out_dtype)
+
+
+def _eager_bmm(x, w, *, out_dtype, ctx):
+    # The JAX `xla` formulation: fp32 products (bf16 operands widen
+    # exactly) and fp32 accumulation, cast to out_dtype.
+    return torch.bmm(x.float(), w.float()).to(out_dtype)
 
 
 def _eager_attention(q, k, v, *, causal, sm_scale, kv_len=None, ctx):
@@ -396,6 +412,13 @@ def _cuda_matmul(x, w, scale, shift, *, act, out_dtype, ctx):
                              out_dtype=out_dtype, tiles=ctx.tiles)
 
 
+def _cuda_bmm(x, w, *, out_dtype, ctx):
+    if x.device.type != "cuda":
+        raise ValueError(f"backend 'cuda' runs on CUDA tensors, got x on "
+                         f"{x.device}; use backend 'eager' on the CPU")
+    return kernel_ops.bmm(x, w, out_dtype=out_dtype, tiles=ctx.tiles)
+
+
 def _cuda_attention(q, k, v, *, causal, sm_scale, kv_len=None, ctx):
     if q.device.type != "cuda":
         raise ValueError(f"backend 'cuda' runs on CUDA tensors, got q on "
@@ -429,6 +452,7 @@ def _cuda_tile_picker(op: str, shapes: tuple, dtype) -> tuple:
 
 register_backend("ref", {
     "matmul": _ref_matmul,
+    "bmm": _ref_bmm,
     "conv2d": im2col_conv2d(_ref_matmul),
     "attention": _ref_attention,
     "ssd": _ref_ssd,
@@ -436,6 +460,7 @@ register_backend("ref", {
 
 register_backend("eager", {
     "matmul": _eager_matmul,
+    "bmm": _eager_bmm,
     "conv2d": im2col_conv2d(_eager_matmul),
     "attention": _eager_attention,
     "ssd": _eager_ssd,
@@ -443,6 +468,7 @@ register_backend("eager", {
 
 register_backend("cuda", {
     "matmul": _cuda_matmul,
+    "bmm": _cuda_bmm,
     "conv2d": im2col_conv2d(_cuda_matmul),
     "attention": _cuda_attention,
     "ssd": _cuda_ssd,

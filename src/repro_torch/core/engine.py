@@ -4,7 +4,8 @@
 Every dense computation of the Darknet path (conv layers via im2col, the
 connected layers, the deconv GEMM), of the dense LM (every projection,
 the LM head, attention) and of the Mamba2 SSM (every projection, the head,
-the SSD scan) routes through this engine.  The engine
+the SSD scan) routes through this engine, and so does the batched GEMM
+(`bmm`).  The engine
 is a thin dispatcher: each op resolves through the backend/op registry
 (core/backends.py), so adding an execution target is `register_backend` and
 no engine change.  Built-in backends: `cuda` (the hand-written Hopper
@@ -93,6 +94,25 @@ class ComputeEngine:
         y = self._op("matmul")(xc, wc, scale, shift, act=act,
                                out_dtype=out_dtype, ctx=ctx)
         return y.reshape(*lead, n)
+
+    def bmm(self, x, w, *, out_dtype=None):
+        """Batched GEMM (B, M, K) @ (B, K, N), fp32 accumulation.
+
+        Both operands run in the compute dtype.  Returns (B, M, N) in
+        `out_dtype` (default: x's dtype).  Raises ValueError on operands
+        that are not (B, M, K) and (B, K, N); NotImplementedError when the
+        backend lacks the op, or when it is differentiated and the backend
+        does not declare it differentiable.
+        """
+        kernel_ops.validate_bmm_shapes(x, w)
+        _, m, k = x.shape
+        n = w.shape[-1]
+        out_dtype = out_dtype or x.dtype
+        xc = x.to(self.precision.compute_dtype)
+        wc = w.to(self.precision.compute_dtype)
+        self._guard("bmm", xc, wc)
+        ctx = self._resolve("bmm", (m, k, n), xc.dtype)
+        return self._op("bmm")(xc, wc, out_dtype=out_dtype, ctx=ctx)
 
     def conv2d(self, x, w, *, scale=None, shift=None, size: int,
                stride: int = 1, pad: int = 0, act: str = "linear",

@@ -36,6 +36,14 @@
 // over k = 0..K-1 in order, whatever M, the tile size or the block, so rows
 // padded into a larger serving batch are bitwise identical to the same rows
 // run alone.  wgmma, TMA and 3xTF32 are later work.
+//
+// The batched GEMM bmm_fwd (out[b] = x[b] @ w[b], no epilogue) is the same
+// kernel with the batch on gridDim.z: each block offsets x, w and y by
+// blockIdx.z times M*K, K*N and M*N elements (int64), so batch slice b runs
+// exactly the 2-D launch's arithmetic on that slice, bit for bit.  It
+// replaces src/repro/kernels/gemm.py::_bmm_forward (its pallas_call runs
+// _bwd_matmul_kernel with dims ((1,),(0,)) over a (B, M, N, K) grid); the
+// TPU's sequential K axis is the same in-block loop as here.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -136,6 +144,11 @@ gemm_fused_fwd_kernel(const Tin* __restrict__ x, const Tin* __restrict__ w,
   const int trow = tid / TCOLS;
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * BM;
   const int col0 = blockIdx.y * BN;
+  // Batch slice (bmm_fwd; 0 for the 2-D launches): int64 element offsets.
+  const int64_t zb = blockIdx.z;
+  x += zb * M * K;
+  w += zb * K * N;
+  y += zb * M * N;
 
   float acc[TM][TN];
 #pragma unroll
@@ -207,12 +220,14 @@ gemm_fused_fwd_kernel(const Tin* __restrict__ x, const Tin* __restrict__ w,
 template <typename Tin, typename Tout, int T, bool RES, bool TW>
 cudaError_t launch_tile(const void* x, const void* w, const void* scale,
                         const void* shift, void* y, float* g, float* racc,
-                        int M, int K, int N, int act, cudaStream_t stream) {
+                        int M, int K, int N, int act, int batch,
+                        cudaStream_t stream) {
   const unsigned grid_m = static_cast<unsigned>((static_cast<int64_t>(M) + T - 1) / T);
   const unsigned grid_n = static_cast<unsigned>((N + T - 1) / T);
-  if (grid_n > 65535u) return cudaErrorInvalidValue;
+  if (grid_n > 65535u || batch < 1 || batch > 65535) return cudaErrorInvalidValue;
   gemm_fused_fwd_kernel<Tin, Tout, T, T, RES, TW>
-      <<<dim3(grid_m, grid_n), (T / TM) * (T / TN), 0, stream>>>(
+      <<<dim3(grid_m, grid_n, static_cast<unsigned>(batch)),
+         (T / TM) * (T / TN), 0, stream>>>(
           static_cast<const Tin*>(x), static_cast<const Tin*>(w),
           static_cast<const float*>(scale), static_cast<const float*>(shift),
           static_cast<Tout*>(y), g, racc, M, K, N, act);
@@ -222,14 +237,15 @@ cudaError_t launch_tile(const void* x, const void* w, const void* scale,
 template <typename Tin, typename Tout, bool RES, bool TW>
 cudaError_t launch(const void* x, const void* w, const void* scale,
                    const void* shift, void* y, float* g, float* racc, int M,
-                   int K, int N, int act, int tile, cudaStream_t stream) {
+                   int K, int N, int act, int tile, int batch,
+                   cudaStream_t stream) {
   switch (tile) {
     case 64:
-      return launch_tile<Tin, Tout, 64, RES, TW>(x, w, scale, shift, y, g,
-                                                 racc, M, K, N, act, stream);
+      return launch_tile<Tin, Tout, 64, RES, TW>(
+          x, w, scale, shift, y, g, racc, M, K, N, act, batch, stream);
     case 32:
-      return launch_tile<Tin, Tout, 32, RES, TW>(x, w, scale, shift, y, g,
-                                                 racc, M, K, N, act, stream);
+      return launch_tile<Tin, Tout, 32, RES, TW>(
+          x, w, scale, shift, y, g, racc, M, K, N, act, batch, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -238,20 +254,20 @@ cudaError_t launch(const void* x, const void* w, const void* scale,
 template <bool RES, bool TW>
 int by_dtype(const void* x, const void* w, const void* scale,
              const void* shift, void* y, float* g, float* racc, int M, int K,
-             int N, int in_dtype, int out_dtype, int act, int tile,
+             int N, int in_dtype, int out_dtype, int act, int tile, int batch,
              cudaStream_t s) {
   if (in_dtype == DT_F32 && out_dtype == DT_F32)
     return launch<float, float, RES, TW>(x, w, scale, shift, y, g, racc, M, K,
-                                         N, act, tile, s);
+                                         N, act, tile, batch, s);
   if (in_dtype == DT_F32 && out_dtype == DT_BF16)
-    return launch<float, __nv_bfloat16, RES, TW>(x, w, scale, shift, y, g,
-                                                 racc, M, K, N, act, tile, s);
+    return launch<float, __nv_bfloat16, RES, TW>(
+        x, w, scale, shift, y, g, racc, M, K, N, act, tile, batch, s);
   if (in_dtype == DT_BF16 && out_dtype == DT_F32)
-    return launch<__nv_bfloat16, float, RES, TW>(x, w, scale, shift, y, g,
-                                                 racc, M, K, N, act, tile, s);
+    return launch<__nv_bfloat16, float, RES, TW>(
+        x, w, scale, shift, y, g, racc, M, K, N, act, tile, batch, s);
   if (in_dtype == DT_BF16 && out_dtype == DT_BF16)
     return launch<__nv_bfloat16, __nv_bfloat16, RES, TW>(
-        x, w, scale, shift, y, g, racc, M, K, N, act, tile, s);
+        x, w, scale, shift, y, g, racc, M, K, N, act, tile, batch, s);
   return cudaErrorInvalidValue;
 }
 
@@ -259,15 +275,15 @@ template <bool RES>
 int dispatch(const void* x, const void* w, const void* scale,
              const void* shift, void* y, float* g, float* racc, int M, int K,
              int N, int in_dtype, int out_dtype, int act, int tile,
-             int trans_w, void* stream) {
-  if (M <= 0 || N <= 0) return 0;
+             int trans_w, int batch, void* stream) {
+  if (M <= 0 || N <= 0 || batch == 0) return 0;
   if (K < 0 || act < ACT_LINEAR || act > ACT_GELU) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (trans_w)
     return by_dtype<RES, true>(x, w, scale, shift, y, g, racc, M, K, N,
-                               in_dtype, out_dtype, act, tile, s);
+                               in_dtype, out_dtype, act, tile, batch, s);
   return by_dtype<RES, false>(x, w, scale, shift, y, g, racc, M, K, N,
-                              in_dtype, out_dtype, act, tile, s);
+                              in_dtype, out_dtype, act, tile, batch, s);
 }
 
 }  // namespace
@@ -281,7 +297,7 @@ extern "C" int gemm_fused_fwd(const void* x, const void* w, const void* scale,
                               int in_dtype, int out_dtype, int act, int tile,
                               int trans_w, void* stream) {
   return dispatch<false>(x, w, scale, shift, y, nullptr, nullptr, M, K, N,
-                         in_dtype, out_dtype, act, tile, trans_w, stream);
+                         in_dtype, out_dtype, act, tile, trans_w, 1, stream);
 }
 
 // The training forward: as gemm_fused_fwd, and also g = act'(u) and
@@ -295,7 +311,19 @@ extern "C" int gemm_fused_fwd_res(const void* x, const void* w,
                                   int tile, int trans_w, void* stream) {
   return dispatch<true>(x, w, scale, shift, y, static_cast<float*>(g),
                         static_cast<float*>(racc), M, K, N, in_dtype,
-                        out_dtype, act, tile, trans_w, stream);
+                        out_dtype, act, tile, trans_w, 1, stream);
+}
+
+// The batched GEMM: x (B, M, K) and w (B, K, N) row-major in `in_dtype`,
+// y (B, M, N) row-major in `out_dtype`, y[b] = x[b] @ w[b] with fp32
+// accumulation and no epilogue.  B <= 65535 (gridDim.z).  `tile` as
+// gemm_fused_fwd.  Launches on `stream` and returns cudaGetLastError().
+extern "C" int bmm_fwd(const void* x, const void* w, void* y, int B, int M,
+                       int K, int N, int in_dtype, int out_dtype, int tile,
+                       void* stream) {
+  if (B < 0) return cudaErrorInvalidValue;
+  return dispatch<false>(x, w, nullptr, nullptr, y, nullptr, nullptr, M, K, N,
+                         in_dtype, out_dtype, ACT_LINEAR, tile, 0, B, stream);
 }
 
 extern "C" const char* gemm_error_string(int code) {

@@ -33,6 +33,21 @@
 // Accumulation is always fp32; operands are fp32 or bf16 (widened to fp32
 // in shared memory), outputs fp32 or bf16.  wgmma, TMA and 3xTF32 are later
 // work.
+//
+// The batched backward GEMMs of the bmm op,
+//
+//   bmm_bwd_dx   dX[b] = dY[b] . W[b]^T   dY (B, M, N), W (B, K, N) -> (B, M, K)
+//   bmm_bwd_dw   dW[b] = X[b]^T . dY[b]   X (B, M, K), dY (B, M, N) -> (B, K, N)
+//
+// replace src/repro/kernels/gemm.py::bmm_bwd_dx and ::bmm_bwd_dw (the same
+// _bwd_matmul_kernel over a (B, ...) grid).  They are the 2-D kernel with
+// the batch sharing gridDim.z with the contraction split: z = b * splits + s
+// (at most 65,535).  Each block offsets its operands by b times R*P and P*C
+// elements (int64) and writes its partial to slice (s, b) of a workspace laid
+// out (splits, B, R, C), so gemm_bwd_reduce adds the `splits` partials of
+// every one of the B*R*C outputs with no batch stride of its own.  Batch
+// slice b therefore runs the 2-D launch's arithmetic on that slice, bit for
+// bit, at the same (tile, chunk).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,13 +67,16 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162flo
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
-// C (R, C) [+ blockIdx.z * R * C] = sum over p in this block's chunk of
-// A(i, p) B(p, j).  A is (R, P) row-major, or (P, R) when TA; B is (P, C)
-// row-major, or (C, P) when TB.
+// For batch slice bb = blockIdx.z / splits and split s = blockIdx.z % splits:
+// C[s][bb] (R, C) = sum over p in split s's chunk of A[bb](i, p) B[bb](p, j).
+// A[bb] is (R, P) row-major, or (P, R) when TA; B[bb] is (P, C) row-major, or
+// (C, P) when TB; C is (splits, batch, R, C).  The 2-D launches have
+// batch = 1.
 template <typename Tin, typename Tout, int BM, int BN, bool TA, bool TB>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 gemm_bwd_kernel(const Tin* __restrict__ a, const Tin* __restrict__ b,
-                Tout* __restrict__ c, int R, int P, int C, int chunk) {
+                Tout* __restrict__ c, int R, int P, int C, int chunk,
+                int batch) {
   constexpr int THREADS = (BM / TM) * (BN / TN);
   constexpr int TCOLS = BN / TN;
   static_assert((BM * BK) % THREADS == 0, "A tile must split evenly");
@@ -72,7 +90,12 @@ gemm_bwd_kernel(const Tin* __restrict__ a, const Tin* __restrict__ b,
   const int trow = tid / TCOLS;
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * BM;
   const int col0 = blockIdx.y * BN;
-  const int64_t p_begin = static_cast<int64_t>(blockIdx.z) * chunk;
+  const int splits = gridDim.z / batch;
+  const int64_t bb = blockIdx.z / splits;
+  const int split = blockIdx.z % splits;
+  a += bb * R * P;
+  b += bb * P * C;
+  const int64_t p_begin = static_cast<int64_t>(split) * chunk;
   const int64_t p_end = p_begin + chunk < P ? p_begin + chunk : P;
 
   float acc[TM][TN];
@@ -123,7 +146,7 @@ gemm_bwd_kernel(const Tin* __restrict__ a, const Tin* __restrict__ b,
     __syncthreads();
   }
 
-  Tout* out = c + static_cast<int64_t>(blockIdx.z) * R * C;
+  Tout* out = c + (static_cast<int64_t>(split) * batch + bb) * R * C;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int64_t gr = row0 + trow * TM + i;
@@ -150,30 +173,34 @@ reduce_splits_kernel(const float* __restrict__ ws, Tout* __restrict__ out,
 
 template <typename Tin, typename Tout, bool TA, bool TB, int T>
 cudaError_t launch_tile(const void* a, const void* b, void* c, int R, int P,
-                        int C, int chunk, cudaStream_t stream) {
+                        int C, int chunk, int batch, cudaStream_t stream) {
   const unsigned grid_r = static_cast<unsigned>((static_cast<int64_t>(R) + T - 1) / T);
   const unsigned grid_c = static_cast<unsigned>((C + T - 1) / T);
   const int64_t splits = P > 0 ? (static_cast<int64_t>(P) + chunk - 1) / chunk : 1;
-  if (grid_c > 65535u || splits > 65535) return cudaErrorInvalidValue;
+  if (grid_c > 65535u || splits * batch > 65535) return cudaErrorInvalidValue;
   gemm_bwd_kernel<Tin, Tout, T, T, TA, TB>
-      <<<dim3(grid_r, grid_c, static_cast<unsigned>(splits)),
+      <<<dim3(grid_r, grid_c, static_cast<unsigned>(splits * batch)),
          (T / TM) * (T / TN), 0, stream>>>(
           static_cast<const Tin*>(a), static_cast<const Tin*>(b),
-          static_cast<Tout*>(c), R, P, C, chunk);
+          static_cast<Tout*>(c), R, P, C, chunk, batch);
   return cudaGetLastError();
 }
 
 template <bool TA, bool TB>
 int dispatch(const void* a, const void* b, void* c, int R, int P, int C,
-             int in_dtype, int out_dtype, int tile, int chunk, void* stream) {
-  if (R <= 0 || C <= 0) return 0;
-  if (P < 0 || chunk <= 0 || chunk % BK != 0) return cudaErrorInvalidValue;
+             int in_dtype, int out_dtype, int tile, int chunk, int batch,
+             void* stream) {
+  if (R <= 0 || C <= 0 || batch == 0) return 0;
+  if (P < 0 || chunk <= 0 || chunk % BK != 0 || batch < 0)
+    return cudaErrorInvalidValue;
   if (tile != 32 && tile != 64) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define GEMM_BWD_LAUNCH(TIN, TOUT)                                           \
   return tile == 64                                                          \
-             ? launch_tile<TIN, TOUT, TA, TB, 64>(a, b, c, R, P, C, chunk, s) \
-             : launch_tile<TIN, TOUT, TA, TB, 32>(a, b, c, R, P, C, chunk, s)
+             ? launch_tile<TIN, TOUT, TA, TB, 64>(a, b, c, R, P, C, chunk,    \
+                                                  batch, s)                   \
+             : launch_tile<TIN, TOUT, TA, TB, 32>(a, b, c, R, P, C, chunk,    \
+                                                  batch, s)
   if (in_dtype == DT_F32 && out_dtype == DT_F32) GEMM_BWD_LAUNCH(float, float);
   if (in_dtype == DT_F32 && out_dtype == DT_BF16) GEMM_BWD_LAUNCH(float, __nv_bfloat16);
   if (in_dtype == DT_BF16 && out_dtype == DT_F32) GEMM_BWD_LAUNCH(__nv_bfloat16, float);
@@ -198,9 +225,9 @@ extern "C" int gemm_bwd_dx(const void* dy, const void* w, void* out, int M,
                            int tile, int chunk, int trans_w, void* stream) {
   if (trans_w)
     return dispatch<false, false>(dy, w, out, M, N, K, in_dtype, out_dtype,
-                                  tile, chunk, stream);
+                                  tile, chunk, 1, stream);
   return dispatch<false, true>(dy, w, out, M, N, K, in_dtype, out_dtype,
-                               tile, chunk, stream);
+                               tile, chunk, 1, stream);
 }
 
 // X (M, K) and dY (M, N) row-major in `in_dtype`.  `out` is dW (K, N) in
@@ -210,7 +237,28 @@ extern "C" int gemm_bwd_dw(const void* x, const void* dy, void* out, int M,
                            int K, int N, int in_dtype, int out_dtype,
                            int tile, int chunk, void* stream) {
   return dispatch<true, false>(x, dy, out, K, M, N, in_dtype, out_dtype,
-                               tile, chunk, stream);
+                               tile, chunk, 1, stream);
+}
+
+// dY (B, M, N) and W (B, K, N) row-major in `in_dtype`; B * splits <= 65535
+// with splits = ceil(N / chunk).  With chunk >= N, `out` is dX (B, M, K) in
+// `out_dtype`; else the fp32 workspace (splits, B, M, K) for gemm_bwd_reduce
+// over B * M * K outputs.  The rest as gemm_bwd_dx.
+extern "C" int bmm_bwd_dx(const void* dy, const void* w, void* out, int B,
+                          int M, int N, int K, int in_dtype, int out_dtype,
+                          int tile, int chunk, void* stream) {
+  return dispatch<false, true>(dy, w, out, M, N, K, in_dtype, out_dtype, tile,
+                               chunk, B, stream);
+}
+
+// X (B, M, K) and dY (B, M, N) row-major in `in_dtype`.  `out` is dW
+// (B, K, N) in `out_dtype` with chunk >= M, else the fp32 workspace
+// (ceil(M / chunk), B, K, N); the rest as bmm_bwd_dx.
+extern "C" int bmm_bwd_dw(const void* x, const void* dy, void* out, int B,
+                          int M, int K, int N, int in_dtype, int out_dtype,
+                          int tile, int chunk, void* stream) {
+  return dispatch<true, false>(x, dy, out, K, M, N, in_dtype, out_dtype, tile,
+                               chunk, B, stream);
 }
 
 // out (count,) in `out_dtype` = the sum of the `splits` fp32 slices of

@@ -1,14 +1,17 @@
 """The paper's "Innovative Compute Engine" on Hopper: the fused GEMM
-``y = act((x @ w) * scale + shift)``, forward and backward.
+``y = act((x @ w) * scale + shift)``, forward and backward, and the
+batched GEMM of the engine's ``bmm`` op.
 
-Replaces ``repro/kernels/gemm.py``'s three TPU kernels on the CNN path:
-``_gemm_kernel`` (launched by ``_gemm_forward``, with and without its
-training residuals), ``gemm_bwd_dx`` and ``gemm_bwd_dw``.  The kernels are
-hand-written CUDA C++ in ``csrc/gemm.cu`` and ``csrc/gemm_bwd.cu``, built
-by ``build.py`` into libraries with a plain C interface and called through
-ctypes.  Each source's header says what bounds it on the H100 (the fp32
-FFMA rate: under ``fp32_strict`` there are no tensor cores) and what its
-design does about that.
+Replaces ``repro/kernels/gemm.py``'s six TPU kernels: ``_gemm_kernel``
+(launched by ``_gemm_forward``, with and without its training residuals),
+``gemm_bwd_dx`` and ``gemm_bwd_dw``, and the batched ``_bmm_forward``,
+``bmm_bwd_dx`` and ``bmm_bwd_dw``.  The kernels are hand-written CUDA C++
+in ``csrc/gemm.cu`` and ``csrc/gemm_bwd.cu``, built by ``build.py`` into
+libraries with a plain C interface and called through ctypes.  Each
+source's header says what bounds it on the H100 (the fp32 FFMA rate:
+under ``fp32_strict`` there are no tensor cores) and what its design does
+about that.  A batched kernel is its 2-D kernel with the batch in the
+grid: batch slice b has the bits of the 2-D launch on that slice.
 
 Beside each kernel wrapper stands its plain PyTorch version:
 
@@ -19,14 +22,18 @@ Beside each kernel wrapper stands its plain PyTorch version:
   gemm_bwd_dx            dX = dY . W^T            (gemm_bwd_dx_plain)
   gemm_bwd_dw            dW = X^T . dY, split     (gemm_bwd_dw_plain)
                          contraction plus a reduce pass
+  bmm_fwd                out[b] = x[b] @ w[b]     (bmm_fwd_plain)
+  bmm_bwd_dx             dX[b] = dY[b] . W[b]^T   (bmm_bwd_dx_plain)
+  bmm_bwd_dw             dW[b] = X[b]^T . dY[b]   (bmm_bwd_dw_plain)
 
 A wrapper checks device, dtype, shape and contiguity, allocates its outputs
 and workspace, and launches on PyTorch's current stream for a CUDA tensor;
 only for a CPU tensor does it run the plain version instead.  A failed
 build or launch raises; nothing falls back.  Each kernel has its own
 launch count (`launches`, `launches_res`, `launches_dx`, `launches_dw`,
-`launches_reduce`), moved only where the kernel is launched, so a run can
-show that its path went through the kernels (`reset_launches`).
+`launches_reduce`, `launches_bmm`, `launches_bmm_dx`, `launches_bmm_dw`),
+moved only where the kernel is launched, so a run can show that its path
+went through the kernels (`reset_launches`).
 
 `GemmFused` is the ``torch.autograd.Function`` of ``jax.custom_vjp``
 ``_gemm``: its forward is the residual-emitting kernel, its backward the
@@ -34,7 +41,8 @@ epilogue's column sums in PyTorch and the two backward kernels.  It takes
 a tied LM head's ``w = embed.t()`` in place, with no copy of the table:
 the forward reads w transposed, dX = dY . E reads both operands as
 stored, and dE = dY^T . X is `gemm_bwd_dw` with its operands swapped,
-handed to autograd as its transpose.
+handed to autograd as its transpose.  `BmmFn` is the same for ``_bmm``:
+the batched forward, then dX and dW by the batched backward kernels.
 """
 from __future__ import annotations
 
@@ -54,20 +62,26 @@ launches = 0         # gemm_fused_fwd, serving forward (no residuals)
 launches_res = 0     # gemm_fused_fwd with residuals (the training forward)
 launches_dx = 0      # gemm_bwd_dx
 launches_dw = 0      # gemm_bwd_dw
-launches_reduce = 0  # the split-contraction reduce pass of either
+launches_reduce = 0  # the split-contraction reduce pass of any of them
+launches_bmm = 0     # bmm_fwd
+launches_bmm_dx = 0  # bmm_bwd_dx
+launches_bmm_dw = 0  # bmm_bwd_dw
 
 
 def reset_launches() -> None:
     """Set every launch count to 0."""
     global launches, launches_res, launches_dx, launches_dw, launches_reduce
+    global launches_bmm, launches_bmm_dx, launches_bmm_dw
     launches = launches_res = launches_dx = launches_dw = launches_reduce = 0
+    launches_bmm = launches_bmm_dx = launches_bmm_dw = 0
 
 
 def launch_counts() -> dict[str, int]:
     """The launch counts by kernel name."""
     return {"gemm_fused_fwd": launches, "gemm_fused_fwd_res": launches_res,
             "gemm_bwd_dx": launches_dx, "gemm_bwd_dw": launches_dw,
-            "gemm_bwd_reduce": launches_reduce}
+            "gemm_bwd_reduce": launches_reduce, "bmm_fwd": launches_bmm,
+            "bmm_bwd_dx": launches_bmm_dx, "bmm_bwd_dw": launches_bmm_dw}
 
 
 def gemm_fused_plain(x, w, scale=None, shift=None, *, act: str = "linear",
@@ -98,6 +112,26 @@ def gemm_bwd_dx_plain(dy, w, *, out_dtype=None) -> torch.Tensor:
 def gemm_bwd_dw_plain(x, dy, *, out_dtype=None) -> torch.Tensor:
     """dW = X^T . dY for x (M, K), dy (M, N): fp32 products and sums."""
     return torch.matmul(x.float().t(), dy.float()).to(out_dtype or x.dtype)
+
+
+def bmm_fwd_plain(x, w, *, out_dtype=None) -> torch.Tensor:
+    """out[b] = x[b] @ w[b] for x (B, M, K), w (B, K, N): fp32 products
+    and sums (TF32 off on the card)."""
+    return torch.bmm(x.float(), w.float()).to(out_dtype or x.dtype)
+
+
+def bmm_bwd_dx_plain(dy, w, *, out_dtype=None) -> torch.Tensor:
+    """dX[b] = dY[b] . W[b]^T for dy (B, M, N), w (B, K, N): fp32 products
+    and sums."""
+    return torch.bmm(dy.float(), w.float().transpose(1, 2)).to(
+        out_dtype or dy.dtype)
+
+
+def bmm_bwd_dw_plain(x, dy, *, out_dtype=None) -> torch.Tensor:
+    """dW[b] = X[b]^T . dY[b] for x (B, M, K), dy (B, M, N): fp32 products
+    and sums."""
+    return torch.bmm(x.float().transpose(1, 2), dy.float()).to(
+        out_dtype or x.dtype)
 
 
 def _check(x, w, scale, shift, act, out_dtype):
@@ -151,7 +185,12 @@ _SIGNATURES = {  # entry point -> (library, argument types before the stream)
     "gemm_bwd_dx": ("gemm_bwd", [_P] * 3 + [_I] * 8),
     "gemm_bwd_dw": ("gemm_bwd", [_P] * 3 + [_I] * 7),
     "gemm_bwd_reduce": ("gemm_bwd", [_P, _P, ctypes.c_longlong, _I, _I]),
+    "bmm_fwd": ("gemm", [_P] * 3 + [_I] * 7),
+    "bmm_bwd_dx": ("gemm_bwd", [_P] * 3 + [_I] * 8),
+    "bmm_bwd_dw": ("gemm_bwd", [_P] * 3 + [_I] * 8),
 }
+# gridDim.z carries the batch (times the contraction split in the backward)
+MAX_GRID_Z = 65535
 
 
 def _launch(entry: str, device, *args, what: str) -> None:
@@ -237,14 +276,22 @@ def split_chunk(kdim: int, splits: int) -> tuple[int, int]:
 def _bwd(entry, a, b, dims, out_shape, kdim, out_dtype, tile, splits,
          *flags):
     """Launch the backward GEMM `entry` on operands a, b, with `dims` the
-    entry point's three sizes ((M, N, K) for dX, (M, K, N) for dW), the
-    entry's trailing `flags`, and the reduce pass when the contraction
-    `kdim` is split; returns the output tensor."""
+    entry point's sizes ((M, N, K) for dX, (M, K, N) for dW, each led by
+    B for the batched entries), the entry's trailing `flags`, and the
+    reduce pass when the contraction `kdim` is split; returns the output
+    tensor.  A split's fp32 workspace is (splits, *out_shape), so the
+    reduce adds the partials of every output, batch included, in split
+    order."""
     global launches_dx, launches_dw, launches_reduce
+    global launches_bmm_dx, launches_bmm_dw
     out = torch.empty(out_shape, dtype=out_dtype, device=a.device)
     if out.numel() == 0:
         return out
     chunk, splits = split_chunk(kdim, splits)
+    batch = out_shape[0] if len(out_shape) == 3 else 1
+    if batch * splits > MAX_GRID_Z:
+        raise ValueError(f"{entry}: batch {batch} x {splits} contraction "
+                         f"splits exceeds the grid's {MAX_GRID_Z}")
     target = out if splits == 1 else torch.empty(
         (splits, *out_shape), dtype=torch.float32, device=a.device)
     what = f"sizes {dims}"
@@ -253,8 +300,12 @@ def _bwd(entry, a, b, dims, out_shape, kdim, out_dtype, tile, splits,
             what=what)
     if entry == "gemm_bwd_dx":
         launches_dx += 1
-    else:
+    elif entry == "gemm_bwd_dw":
         launches_dw += 1
+    elif entry == "bmm_bwd_dx":
+        launches_bmm_dx += 1
+    else:
+        launches_bmm_dw += 1
     if splits > 1:
         _launch("gemm_bwd_reduce", a.device, _ptr(target), _ptr(out),
                 out.numel(), splits, _DTYPES[out_dtype], what=what)
@@ -360,3 +411,115 @@ class GemmFused(torch.autograd.Function):
             dw = gemm_bwd_dw(x, dacc, out_dtype=w.dtype, tile=dw_tile,
                              splits=dw_splits)
         return dx, dw, dscale, dshift, None, None, None, None, None
+
+
+# ------------------------------------------------------------------- bmm ---
+
+def _check_bmm(name, a, b, a_dims, b_dims, i, j, out_dtype):
+    """Shape and dtype checks of a batched kernel's two operands: 3-D, the
+    same batch, and the contraction a.shape[i] == b.shape[j]."""
+    if a.dim() != 3 or b.dim() != 3 or a.shape[0] != b.shape[0] or (
+            a.shape[i] != b.shape[j]):
+        raise ValueError(f"{name} needs {a_dims} and {b_dims}; got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    _check_dtypes(a, b, out_dtype)
+
+
+def bmm_fwd(x, w, *, out_dtype=None, tile: int = 64) -> torch.Tensor:
+    """out[b] = x[b] @ w[b] for x (B, M, K), w (B, K, N) -> (B, M, N).
+
+    x and w are row-major and share float32 or bfloat16; fp32
+    accumulation, no epilogue; the result in `out_dtype` (default
+    x.dtype).  Slice b has the bits of `gemm_fused_fwd` (linear, no scale
+    or shift) on x[b], w[b] at the same tile.  B is at most 65,535.  A CPU
+    tensor runs `bmm_fwd_plain`; a CUDA tensor launches the kernel or
+    raises.
+    """
+    out_dtype = out_dtype or x.dtype
+    _check_bmm("bmm_fwd", x, w, "x (B, M, K)", "w (B, K, N)", 2, 1,
+               out_dtype)
+    if x.device.type == "cpu":
+        return bmm_fwd_plain(x, w, out_dtype=out_dtype)
+    _check_cuda("bmm_fwd", tile, x=x, w=w)
+    (bsz, m, k), n = x.shape, w.shape[2]
+    if bsz > MAX_GRID_Z:
+        raise ValueError(f"bmm_fwd: batch {bsz} exceeds the grid's "
+                         f"{MAX_GRID_Z}")
+    y = torch.empty((bsz, m, n), dtype=out_dtype, device=x.device)
+    if y.numel():
+        _launch("bmm_fwd", x.device, _ptr(x), _ptr(w), _ptr(y), bsz, m, k, n,
+                _DTYPES[x.dtype], _DTYPES[out_dtype], tile,
+                what=f"(B, M, K, N) = {(bsz, m, k, n)}")
+        global launches_bmm
+        launches_bmm += 1
+    return y
+
+
+def bmm_bwd_dx(dy, w, *, out_dtype=None, tile: int = 64,
+               splits: int = 1) -> torch.Tensor:
+    """dX[b] = dY[b] . W[b]^T for dy (B, M, N), w (B, K, N) -> (B, M, K).
+
+    As `gemm_bwd_dx` per batch slice (row-major w only), with the same
+    bits at the same (tile, splits); B times the split count is at most
+    65,535.  A CPU tensor runs `bmm_bwd_dx_plain`.
+    """
+    out_dtype = out_dtype or dy.dtype
+    _check_bmm("bmm_bwd_dx", dy, w, "dy (B, M, N)", "w (B, K, N)", 2, 2,
+               out_dtype)
+    if dy.device.type == "cpu":
+        return bmm_bwd_dx_plain(dy, w, out_dtype=out_dtype)
+    _check_cuda("bmm_bwd_dx", tile, dy=dy, w=w)
+    (bsz, m, n), k = dy.shape, w.shape[1]
+    return _bwd("bmm_bwd_dx", dy, w, (bsz, m, n, k), (bsz, m, k), n,
+                out_dtype, tile, splits)
+
+
+def bmm_bwd_dw(x, dy, *, out_dtype=None, tile: int = 64,
+               splits: int = 1) -> torch.Tensor:
+    """dW[b] = X[b]^T . dY[b] for x (B, M, K), dy (B, M, N) -> (B, K, N).
+
+    As `gemm_bwd_dw` per batch slice, with the same bits at the same
+    (tile, splits); default out_dtype x.dtype.  A CPU tensor runs
+    `bmm_bwd_dw_plain`.
+    """
+    out_dtype = out_dtype or x.dtype
+    _check_bmm("bmm_bwd_dw", x, dy, "x (B, M, K)", "dy (B, M, N)", 1, 1,
+               out_dtype)
+    if x.device.type == "cpu":
+        return bmm_bwd_dw_plain(x, dy, out_dtype=out_dtype)
+    _check_cuda("bmm_bwd_dw", tile, x=x, dy=dy)
+    (bsz, m, k), n = x.shape, dy.shape[2]
+    return _bwd("bmm_bwd_dw", x, dy, (bsz, m, k, n), (bsz, k, n), m,
+                out_dtype, tile, splits)
+
+
+class BmmFn(torch.autograd.Function):
+    """The batched GEMM with its gradient (``repro``'s ``_bmm`` custom VJP).
+
+    ``BmmFn.apply(x, w, out_dtype, tile, dx_plan, dw_plan)``; the plans are
+    ``(tile, splits)`` of the two backward kernels
+    (`kernels.ops.default_bwd_tiles` with the batch).  The forward saves x
+    and w.  The backward, as ``_bmm_vjp_bwd``: dy cast to x's dtype, then
+    dX by `bmm_bwd_dx` in x's dtype and dW by `bmm_bwd_dw` in w's dtype,
+    each only when its input needs a gradient.
+    """
+
+    @staticmethod
+    def forward(ctx, x, w, out_dtype, tile, dx_plan, dw_plan):
+        ctx.save_for_backward(x, w)
+        ctx.plans = (dx_plan, dw_plan)
+        return bmm_fwd(x, w, out_dtype=out_dtype, tile=tile)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        (dx_tile, dx_splits), (dw_tile, dw_splits) = ctx.plans
+        dyc = dy.to(x.dtype).contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = bmm_bwd_dx(dyc, w, out_dtype=x.dtype, tile=dx_tile,
+                            splits=dx_splits)
+        if ctx.needs_input_grad[1]:
+            dw = bmm_bwd_dw(x, dyc, out_dtype=w.dtype, tile=dw_tile,
+                            splits=dw_splits)
+        return dx, dw, None, None, None, None

@@ -1,6 +1,6 @@
 """Any-shape wrappers over the port's kernels (PyTorch port of
-``repro/kernels/ops.py``: `matmul`, `attention`, `attention_decode`,
-`ssd` and their shape checks).
+``repro/kernels/ops.py``: `matmul`, `bmm`, `attention`,
+`attention_decode`, `ssd` and their shape checks).
 
 The JAX wrappers pad to tile multiples and slice the result, because the
 TPU kernels' BlockSpecs need whole blocks.  The port's CUDA kernels mask
@@ -13,7 +13,8 @@ wrappers fold sm_scale into q in fp32 and hand the kernels q, k and v in
 the engine layout (B, S, heads, D) through strides, with no transpose.
 
 With grad enabled and an operand that requires it, `matmul` goes through
-`gemm.GemmFused` and `attention` through `flash_attention.FlashAttention`:
+`gemm.GemmFused`, `bmm` through `gemm.BmmFn` and `attention` through
+`flash_attention.FlashAttention`:
 the forward kernels also write their training residuals (act'(u) and the
 accumulator; the softmax lse) and the backward runs the dX / dW and the
 dQ / dK / dV kernels.  Otherwise each makes the forward-only launch that
@@ -55,23 +56,26 @@ def default_tiles(m: int, k: int, n: int) -> tuple[int, int, int]:
     return (t, 16, t)
 
 
-def default_bwd_tiles(variant: str, rows: int, kdim: int, cols: int
-                      ) -> tuple[int, int, int, int]:
+def default_bwd_tiles(variant: str, rows: int, kdim: int, cols: int,
+                      batch: int = 1) -> tuple[int, int, int, int]:
     """(bm, bk, bn, splits) for a backward GEMM over its own (rows,
-    contraction, cols): ("dx", M, N, K) or ("dw", K, M, N).  The tile is
-    `default_tiles`' for that problem.  When the output tiles' threads
-    would fill less than half the card, the contraction is split into
-    enough pieces to reach `_SPLIT_THREADS`, none shorter than
-    `_MIN_SPLIT_DEPTH`.
+    contraction, cols): ("dx", M, N, K) or ("dw", K, M, N), `batch` of
+    them for the bmm op.  The tile is `default_tiles`' for one matrix.
+    When the output tiles' threads, counted over the whole batch, would
+    fill less than half the card, the contraction is split into enough
+    pieces to reach `_SPLIT_THREADS`, none shorter than `_MIN_SPLIT_DEPTH`,
+    and no more than the grid's z extent takes (batch x splits <= 65,535).
     The split depends on the shape alone, so a result has the same bits
-    run to run (the counterpart of ``default_gemm_bwd_blocks``)."""
+    run to run, and every output is one fmaf chain per piece, the pieces
+    added in order (the counterpart of ``default_gemm_bwd_blocks``)."""
     if variant not in BWD_VARIANTS:
         raise ValueError(f"unknown backward variant {variant!r}; expected "
                          f"one of {BWD_VARIANTS}")
     t, bk, _ = default_tiles(rows, kdim, cols)
-    threads = -(-rows // t) * -(-cols // t) * (t // 4) ** 2
-    splits = max(1, min(-(-_SPLIT_THREADS // threads),
-                        kdim // _MIN_SPLIT_DEPTH))
+    threads = batch * -(-rows // t) * -(-cols // t) * (t // 4) ** 2
+    splits = max(1, min(-(-_SPLIT_THREADS // max(1, threads)),
+                        kdim // _MIN_SPLIT_DEPTH,
+                        gemm_kernel.MAX_GRID_Z // max(1, batch)))
     return (t, bk, t, gemm_kernel.split_chunk(kdim, splits)[1])
 
 
@@ -117,6 +121,42 @@ def matmul(x, w, scale=None, shift=None, *, act: str = "linear",
             (dx_plan[0], dx_plan[3]), (dw_plan[0], dw_plan[3]))
     return gemm_kernel.gemm_fused_fwd(x, w, scale, shift, act=act,
                                       out_dtype=out_dtype, tile=bm)
+
+
+def validate_bmm_shapes(x, w) -> None:
+    """The bmm contract: x (B, M, K) and w (B, K, N).  Raises ValueError
+    naming the shapes, at dispatch and not inside a kernel."""
+    if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] or (
+            x.shape[2] != w.shape[1]):
+        raise ValueError(f"bmm needs x (B, M, K) and w (B, K, N); got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+
+
+def bmm(x, w, *, out_dtype=None, tiles: tuple = ()) -> torch.Tensor:
+    """Batched GEMM (B, M, K) @ (B, K, N) -> (B, M, N) on the engine, fp32
+    accumulation, the result in `out_dtype` (default x's dtype); any M, K
+    and N (the kernels mask the ragged edges where the JAX wrapper pads).
+
+    `tiles` pins (bm, bk, bn), else `default_tiles` of one matrix picks
+    (the batch stays out of the pick, as out of the JAX key).  Both
+    operands are made contiguous.  Differentiable: with grad enabled and
+    an operand that requires it, the call goes through `gemm.BmmFn`, whose
+    backward plans count the batch (`default_bwd_tiles`).  On a CPU
+    tensor the kernel wrappers run their plain versions.
+    """
+    validate_bmm_shapes(x, w)
+    b, m, k = x.shape
+    n = w.shape[2]
+    bm = (tiles or default_tiles(m, k, n))[0]
+    x, w = x.contiguous(), w.contiguous()
+    out_dtype = out_dtype or x.dtype
+    if needs_grad(x, w):
+        dx_plan = default_bwd_tiles("dx", m, n, k, batch=b)
+        dw_plan = default_bwd_tiles("dw", k, m, n, batch=b)
+        return gemm_kernel.BmmFn.apply(x, w, out_dtype, bm,
+                                       (dx_plan[0], dx_plan[3]),
+                                       (dw_plan[0], dw_plan[3]))
+    return gemm_kernel.bmm_fwd(x, w, out_dtype=out_dtype, tile=bm)
 
 
 # ------------------------------------------------------------- attention ---

@@ -21,7 +21,9 @@ every prompt token through the decode program.
 Implements the shared `ServingFrontend` protocol (serve/frontend.py) with
 the same stats schema as the CNN engine.  Prompts longer than the KV cache
 are rejected at `submit` with `frontend.RejectedRequest` (or truncated with
-`req.truncated` set, under ``on_overflow="truncate"``).
+`req.truncated` set, under ``on_overflow="truncate"``); so is an empty
+prompt, as the paged engine rejects it (the JAX slot engine accepts one
+and decodes the slot's stale last token).
 """
 from __future__ import annotations
 
@@ -82,6 +84,12 @@ class ServingEngine(fe.ServingFrontend):
         self._latency = fe.LatencyAgg()
 
     def submit(self, req: Request):
+        if not req.prompt:
+            # A request starts from its prompt's last token; with none, the
+            # first step would feed the slot's previous occupant's token
+            # (the JAX slot engine does).  Refused as the paged engine does.
+            self._rejected += 1
+            raise fe.RejectedRequest("empty prompt")
         if len(req.prompt) > self.max_len:
             # A longer prompt would replay past the cache end: the write at
             # pos == max_len clamps onto the last row and corrupts it.

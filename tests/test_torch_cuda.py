@@ -24,7 +24,12 @@ reduced qwen2-0.5b's loss gradients and a train step on `cuda` against
 `eager`.  For the SSM: the SSD chunk-scan kernel against its plain version
 (ragged S, groups, an initial state, fp32 and bf16, two runs bitwise), the
 reduced mamba2-1.3b's prefill and decode on `cuda` against `eager`, and
-the slot engine on `cuda` prefilling through the kernel.
+the slot engine on `cuda` prefilling through the kernel.  For the engine
+`bmm` op: the batched forward, dX and dW kernels against their plain
+versions, every batch slice bit for bit the 2-D kernel's at the same plan,
+and `make_engine("cuda").bmm` with its gradient against `eager`.  For the
+direct convolution: the kernel against its plain version (ragged bands,
+1x1, asymmetric, th > OH, fp32 and bf16, two runs bitwise).
 """
 import pytest
 import torch
@@ -39,7 +44,7 @@ from repro_torch.core.darknet.network import Network
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import gemm, ops
-from repro_torch.kernels import ssd
+from repro_torch.kernels import conv_direct, ssd
 from repro_torch.models import transformer as tfm
 from repro_torch.serve.engine import Request, ServingEngine
 from repro_torch.serve.scheduler import PagedServingEngine
@@ -587,3 +592,78 @@ def test_slot_engine_on_cuda_prefills_through_the_ssd_kernel(card):
     ServingEngine(cfg, params, slots=2, max_len=64).run(reqs)
     assert all(r.done and len(r.out) == 4 for r in reqs)
     assert ssd.launches == 3 * cfg.n_layers
+
+
+# (B, M, K, N): BMM_CASES of tests/test_grad_conformance.py, a ragged case
+# and a tall one
+BMM_CASES = [(2, 32, 16, 32), (3, 17, 23, 9), (5, 100, 70, 130),
+             (2, 1000, 64, 48)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("b,m,k,n", BMM_CASES)
+def test_bmm_kernels_match_plain_and_the_2d_kernels(card, b, m, k, n, dtype,
+                                                    tol):
+    gen = torch.Generator(device=card).manual_seed(b + m + k + n)
+    x = torch.randn(b, m, k, generator=gen, device=card).to(dtype)
+    w = (torch.randn(b, k, n, generator=gen, device=card) / k ** 0.5).to(
+        dtype)
+    dy = torch.randn(b, m, n, generator=gen, device=card).to(dtype)
+    for tile in gemm.TILES:
+        for splits in (1, 3):
+            before = gemm.launch_counts()
+            y = gemm.bmm_fwd(x, w, tile=tile)
+            dx = gemm.bmm_bwd_dx(dy, w, tile=tile, splits=splits)
+            dw = gemm.bmm_bwd_dw(x, dy, tile=tile, splits=splits)
+            after = gemm.launch_counts()
+            for name in ("bmm_fwd", "bmm_bwd_dx", "bmm_bwd_dw"):
+                assert after[name] == before[name] + 1, name
+            assert _relmax(y, gemm.bmm_fwd_plain(x, w)) <= tol
+            assert _relmax(dx, gemm.bmm_bwd_dx_plain(dy, w)) <= tol
+            assert _relmax(dw, gemm.bmm_bwd_dw_plain(x, dy)) <= tol
+            assert torch.equal(dw, gemm.bmm_bwd_dw(x, dy, tile=tile,
+                                                   splits=splits))
+            for i in range(b):
+                assert torch.equal(y[i], gemm.gemm_fused_fwd(x[i], w[i],
+                                                             tile=tile))
+                assert torch.equal(dx[i], gemm.gemm_bwd_dx(
+                    dy[i], w[i], tile=tile, splits=splits))
+                assert torch.equal(dw[i], gemm.gemm_bwd_dw(
+                    x[i], dy[i], tile=tile, splits=splits))
+
+
+def test_engine_bmm_and_its_gradient_on_cuda_match_eager(card):
+    gen = torch.Generator(device=card).manual_seed(3)
+    x = torch.randn(4, 96, 200, generator=gen, device=card)
+    w = torch.randn(4, 200, 72, generator=gen, device=card) / 200 ** 0.5
+    out = {}
+    for name in ("cuda", "eager"):
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = make_engine(name, device=card).bmm(xr, wr)
+        out[name] = (y, *torch.autograd.grad((y ** 2).sum(), (xr, wr)))
+    for got, want in zip(out["cuda"], out["eager"]):
+        assert _relmax(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("b,h,w_,cin,kh,kw,cout,th", [
+    (2, 16, 16, 3, 3, 3, 8, 7), (1, 10, 12, 4, 1, 1, 16, 8),
+    (2, 12, 9, 2, 5, 3, 4, 4), (1, 9, 9, 8, 3, 3, 8, 8),
+    (2, 30, 30, 70, 3, 3, 130, 8), (1, 20, 33, 16, 3, 3, 64, 1)])
+def test_conv_direct_kernel_matches_plain_version(card, b, h, w_, cin, kh,
+                                                  kw, cout, th, dtype, tol):
+    gen = torch.Generator(device=card).manual_seed(h + cin + cout)
+    x = torch.randn(b, h, w_, cin, generator=gen, device=card).to(dtype)
+    w = (torch.randn(kh, kw, cin, cout, generator=gen, device=card)
+         / (kh * kw * cin) ** 0.5).to(dtype)
+    before = conv_direct.launches
+    got = conv_direct.conv2d_direct(x, w, th=th)
+    again = conv_direct.conv2d_direct(x, w, th=th)
+    torch.cuda.synchronize()
+    assert conv_direct.launches == before + 2
+    assert got.dtype == dtype
+    assert got.shape == (b, h - kh + 1, w_ - kw + 1, cout)
+    assert _relmax(got, conv_direct.conv2d_direct_plain(x, w)) <= tol
+    assert torch.equal(got, again)

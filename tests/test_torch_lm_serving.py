@@ -153,6 +153,24 @@ def test_inadmissible_requests_rejected_at_submit(served):
         slot.submit(Request(rid=3, prompt=[1] * 9, max_new=2))
 
 
+def test_slot_engine_refuses_an_empty_prompt(served):
+    """An empty prompt would decode the slot's previous occupant's last
+    token (the JAX slot engine does, ROADMAP); the port refuses it at
+    submit, as the paged engine does, counts it rejected, and the streams
+    served around the refusal stay the JAX engine's."""
+    cfg, params, jslot, _ = served
+    reqs = _stream(Request, cfg, 6)
+    slot = ServingEngine(cfg, params, engine=ENGINE, slots=2, max_len=32)
+    slot.run(reqs[:3])
+    with pytest.raises(fe.RejectedRequest, match="empty prompt"):
+        slot.submit(Request(rid=9, prompt=[], max_new=4))
+    assert not slot.pending
+    slot.run(reqs[3:])
+    assert [r.out for r in reqs] == jslot
+    st = slot.stats()
+    assert (st["requests"]["rejected"], st["requests"]["completed"]) == (1, 6)
+
+
 def test_deadline_expires_blocked_requests(served):
     cfg, params, _, _ = served
     paged = _paged(cfg, params, kv_blocks=4, max_wait_s=0.0)

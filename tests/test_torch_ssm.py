@@ -12,8 +12,9 @@ final state, ragged S and G = 2 included.  Bar: 1e-5 max-relative.  Then
 at 1e-5, the prefill step's logits and caches and a 3-token decode at
 1e-4, the slot engine's greedy streams (the port resets a reused slot's
 SSM state, the JAX engine does not), the config, the parameter round
-trip, and the refusals: the paged engine, and the `cuda` `ssd` op under
-grad.  Inputs come from numpy seeds.
+trip, and the refusals: the paged engine, an empty prompt, and the
+`cuda` `ssd` op under grad; under `mixed` the prefill logits, a decode
+step and the loss at 5e-2.  Inputs come from numpy seeds.
 """
 import dataclasses
 
@@ -40,6 +41,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ssd as ssd_kernel
 from repro_torch.models import ssm
 from repro_torch.models import transformer as tfm
+from repro_torch.serve import frontend as fe
 from repro_torch.serve import kvcache, serve_step
 from repro_torch.serve.engine import Request, ServingEngine
 from repro_torch.serve.scheduler import PagedServingEngine
@@ -48,6 +50,7 @@ torch.set_num_threads(1)
 
 TOL = 1e-5
 LM_TOL = 1e-4
+MIXED_TOL = 5e-2  # the bf16 bar of tests/test_grad_conformance.py
 MARGIN = 1e-3
 ENGINE = make_engine("eager", device="cpu")
 REF = make_engine("ref", device="cpu")
@@ -450,3 +453,58 @@ def test_a_reused_slot_matches_the_request_alone_where_jax_does_not(lm):
         runs[label] = (alone.out, after.out)
     assert runs["jax"][0] == runs["port"][0] == runs["port"][1]
     assert runs["jax"][1] != runs["jax"][0]
+
+
+def test_mixed_policy_matches_jax(lm):
+    """`mixed` on `eager` against JAX `xla` `mixed`: prefill logits, one
+    decode step from the prefill's caches (fed JAX's greedy token) and the
+    training loss, at the bf16 bar.  The rounding differs by design: the
+    port's `ssd` op runs x, B and C in bf16 and returns y in bf16, where
+    the JAX mixer feeds its einsum scan the fp32 conv outputs."""
+    jcfg, cfg, jparams, params = lm
+    jeng = jax_make_engine("xla", "mixed")
+    eng = make_engine("eager", "mixed", device="cpu")
+    tokens = np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (2, 32)).astype(np.int32)
+    jlogits, jcaches = jax_serve_step.make_prefill_step(jeng, jcfg)(
+        jparams, {"tokens": jnp.asarray(tokens)})
+    with torch.inference_mode():
+        logits, caches = serve_step.make_prefill_step(eng, cfg)(
+            params, torch.from_numpy(tokens).long())
+    assert logits.dtype == torch.float32
+    assert _relmax(logits, jlogits) <= MIXED_TOL
+    nxt = np.array(jnp.argmax(jlogits[:, -1], -1), np.int32)[:, None]
+    jdec = jax_serve_step.make_decode_step(jeng, jcfg)(
+        jparams, jcaches, jnp.asarray(nxt), jnp.asarray(32, jnp.int32))[0]
+    with torch.inference_mode():
+        dec, _ = serve_step.make_decode_step(eng, cfg)(
+            params, caches, torch.from_numpy(nxt).long(), 32)
+    assert _relmax(dec, jdec) <= MIXED_TOL
+    batch = {"tokens": tokens, "labels": np.roll(tokens, -1, axis=1)}
+    jloss = jax_tfm.loss_fn(jeng, jcfg, jparams,
+                            {k: jnp.asarray(v) for k, v in batch.items()},
+                            remat=False, ce_chunk=16)
+    with torch.no_grad():
+        loss = tfm.loss_fn(eng, cfg, params,
+                           {k: torch.from_numpy(v).long()
+                            for k, v in batch.items()},
+                           remat=False, ce_chunk=16)
+    assert abs(loss.item() - float(jloss)) <= MIXED_TOL * abs(float(jloss))
+
+
+def test_slot_engine_refuses_an_empty_prompt(served):
+    """An empty prompt would decode the slot's previous occupant's last
+    token (the JAX slot engine does, ROADMAP); the port refuses it at
+    submit, as the paged engine does, counts it rejected, and the request
+    served after the refusal in the same slot gets its stream alone."""
+    cfg, params, _, alone = served
+    reqs = _stream(Request, cfg, 2, seed=0)
+    slot = ServingEngine(cfg, params, engine=ENGINE, slots=1, max_len=32)
+    slot.run(reqs[:1])
+    with pytest.raises(fe.RejectedRequest, match="empty prompt"):
+        slot.submit(Request(rid=9, prompt=[], max_new=4))
+    assert not slot.pending
+    slot.run(reqs[1:])
+    assert [r.out for r in reqs] == alone[:2]
+    st = slot.stats()
+    assert (st["requests"]["rejected"], st["requests"]["completed"]) == (1, 2)
