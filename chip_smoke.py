@@ -12,7 +12,8 @@ script exits non-zero.  Phases:
               sources in this checkout (build seconds, ptxas report).
   2. check    the fused-GEMM kernel against its plain PyTorch version on the
               card: the MATMUL_CASES grid of tests/test_grad_conformance.py
-              (both tile sizes) and the 12 DARKNET19 GEMM shapes at batch 1
+              (every plan of both regimes, gemm.PLANS) and the 12 DARKNET19
+              GEMM shapes at batch 1
               and 8, all five activations, with and without scale/shift,
               fp32 and bf16 operands and outputs.  Max-relative error
               <= 1e-5 when everything is fp32, <= 5e-2 with bf16.
@@ -34,7 +35,8 @@ script exits non-zero.  Phases:
               card: the residual forward (y, g = act'(u), racc) over all five
               activations with and without scale and shift, its y bitwise
               equal to the serving launch's; dX and dW (both tiles, with and
-              without a split contraction) on MATMUL_CASES and the 12
+              without a split contraction; the residual forward under every
+              plan) on MATMUL_CASES and the 12
               DARKNET19 GEMMs at batch 8 in their dX and dW roles, fp32 and
               bf16.  Bars as phase 2; g of relu/leaky is compared away from
               the kink (|u| > 1e-5 max|u|), where two summation orders may
@@ -52,7 +54,8 @@ script exits non-zero.  Phases:
               programs, `eager` on the card and `eager` on the host CPU,
               whichever is larger.  Exactly 12 residual forwards, 11 dX,
               12 dW and the planned reduce passes per step, and no serving
-              launch.
+              launch; per step the forward launches by regime (the 11
+              convolutions in B, the 8-row head in A).
   8. timing_train  per backward GEMM of the path at batch 8 and per residual
               forward: kernel, plain, bound and library (torch.matmul) ms;
               the whole train step's ms and images/s on `cuda` and `eager`
@@ -70,14 +73,15 @@ script exits non-zero.  Phases:
  11. check_lm_gemm  the fused GEMM against its plain version at qwen2-0.5b's
               GEMMs (q, k, v with the bias as shift, o, the gate with silu,
               up, down, the tied head reading the (V, D) embedding layout
-              transposed in place) at M 1, 8 and 64 with the path's tile,
+              transposed in place) at M 1, 8 and 64 with the path's plan,
               every epilogue and dtype as phase 2; the transposed head must
               give the bits of a row-major copy.
  12. timing_lm_gemm  each of those GEMMs in fp32 with its epilogue:
               kernel, plain, torch.matmul and bound ms (CUDA-graph
               replays over 24 distinct weights, one per layer, so they
               come from device memory as on the path), summed per
-              dispatch (24 layers x 7 + the head) at each M.
+              dispatch (24 layers x 7 + the head) at each M; each row
+              names its plan.
  13. lm       full-width, full-depth qwen2-0.5b (random weights from a seed,
               random QKV biases), `cuda` against `eager` on the card:
               prefill logits and caches at S = 512 and one decode dispatch
@@ -91,8 +95,9 @@ script exits non-zero.  Phases:
               max_len 1024) serves 24 requests (prompts 8-700 tokens,
               max_new 4-48, numpy seed), with the launch counts set to 0
               just before and read just after: every request completes,
-              builds stay within the bound, both attention kernels ran and
-              no `eager` op was dispatched.  Then the slot engine on a
+              builds stay within the bound, both attention kernels ran, every
+              GEMM launch was regime A's (no dispatch holds more than 64
+              rows) and no `eager` op was dispatched.  Then the slot engine on a
               smaller stream: a token that differs from the paged engine's
               is allowed only where the `eager` top-2 margin is below 10 x
               the measured logits error (counted and printed).
@@ -117,7 +122,8 @@ script exits non-zero.  Phases:
               remat, 3 AdamW steps, lr 3e-4, warmup 1, SyntheticLM seed 0)
               on `cuda`, with the launch counts set to 0 just before and
               read just after (exact counts per step, every GEMM and
-              attention through the kernels, no `eager` op), then on `eager`
+              attention through the kernels, every forward GEMM in regime
+              B, no `eager` op), then on `eager`
               and on `ref` from the same seeded parameters.  Step 1 (loss
               and gradients of loss_fn, cuda vs eager): loss <= 1e-5
               relative, every gradient <= 1e-4, two cuda runs bitwise equal
@@ -164,8 +170,8 @@ script exits non-zero.  Phases:
               slots, 8 requests (prompts 8-48 tokens, max_new 4-16, numpy
               seed), with the launch counts set to 0 just before and read
               just after: every request completes, every prompt is
-              prefilled through the SSD kernel (one launch per layer), no
-              `eager` op; each request served in a reused slot gives the
+              prefilled through the SSD kernel (one launch per layer), every
+              GEMM in regime A, no `eager` op; each request served in a reused slot gives the
               stream it gets alone on a fresh engine; every stream equals
               the slot engine's on `eager` on the card, or differs first
               where eager's top-2 logit margin is below 10 x phase 21's
@@ -173,7 +179,9 @@ script exits non-zero.  Phases:
  23. timing_ssm  prefill ms (S 1000) and decode ms per token at batch 1
               and 4 on `cuda` and `eager`; the device time by kernel name
               of one `cuda` prefill and of one `cuda` decode step at batch 4
-              (torch.profiler); the SSD kernel at the prefill shape, at 4 x
+              (torch.profiler) and their GEMM launches by regime (the
+              prefill's projections B, its last-position head and every
+              decode GEMM A) and plans; the SSD kernel at the prefill shape, at 4 x
               2048 and at each ssm_serve shape (device time from a CUDA
               graph; the kernels line takes the mean over ssm_serve's
               requests): kernel, plain and bound ms (the causal pairs times
@@ -216,6 +224,14 @@ script exits non-zero.  Phases:
               bars as phase 25, reruns bitwise; then per layer kernel,
               plain, im2col and cuDNN F.conv2d (TF32 off, set here) ms and
               the bound.
+ 29. check_regimes (run after phase 11) at every GEMM shape of qwen2-0.5b
+              and mamba2-1.3b, M 1, 4, 8, 64 (regime A's) and 200 (B's),
+              fp32 (with residuals) and bf16: every plan of both regimes
+              gives the path's plan's bits.
+ 30. timing_figure3 (run after phase 27) the paper's Figure 3 GEMM (M 2048,
+              K 4096, N 16384, fp32) against its plain version, then kernel,
+              plain, torch.matmul (cuBLAS fp32, TF32 off) and bound ms,
+              TFLOP/s and the bound share.
 Then the kernels line, and last the result line.  Every JSON line carries
 `t`, the seconds since the script started.
 """
@@ -291,6 +307,8 @@ SERVE = dict(kv_blocks=256, block_size=16, max_len=1024, chunk=64,
              prefill_budget=256, batch_buckets=(1, 2, 4, 8))
 N_REQUESTS = 24
 LM_GEMM_ROWS = (1, 8, 64)  # decode row, batch-8 decode, 64-token chunk
+REGIME_ROWS = (1, 4, 8, 64, 200)  # check_regimes: A's rows and one of B's
+FIGURE3 = (2048, 4096, 16384)  # benchmarks/figure3_gemm.py's fp32 GEMM
 MARGIN_FACTOR = 10  # a slot/paged token mismatch needs margin < 10 x error
 SOURCE_ATTN_BWD = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
 REPLACES_DQ = "src/repro/kernels/flash_attention.py:409"  # _flash_bwd_dq_kernel
@@ -406,7 +424,7 @@ def operands(m, k, n, dtype, gen, trans=False):
     return x, w, scale, shift
 
 
-def check_shape(m, k, n, tiles, gen, trans=False) -> dict:
+def check_shape(m, k, n, plans, gen, trans=False) -> dict:
     """Kernel vs plain at one shape over dtypes, activations, epilogues;
     with `trans` the kernel reads w transposed in place, and must give the
     bits of a row-major copy of w."""
@@ -423,26 +441,27 @@ def check_shape(m, k, n, tiles, gen, trans=False) -> dict:
                                (scale, shift)):
                     want = gemm.gemm_fused_plain(x, w, sc, sh, act=act,
                                                  out_dtype=out_dt)
-                    for tile in tiles:
+                    for plan in plans:
                         got = gemm.gemm_fused_fwd(x, w, sc, sh, act=act,
-                                                  out_dtype=out_dt, tile=tile)
+                                                  out_dtype=out_dt, plan=plan)
                         check(bool(torch.isfinite(got).all()),
                               f"non-finite kernel output at {(m, k, n)}")
                         err = relmax(got, want)
                         check(err <= tol, f"kernel vs plain at {(m, k, n)} "
                               f"{in_dt}->{out_dt} {act} scale={sc is not None}"
-                              f" shift={sh is not None} tile={tile}: "
+                              f" shift={sh is not None} plan={plan}: "
                               f"{err:.3e} > {tol:g}")
                         if trans:
                             check(torch.equal(got, gemm.gemm_fused_fwd(
                                 x, w_rows, sc, sh, act=act, out_dtype=out_dt,
-                                tile=tile)), f"transposed w changes the bits "
-                                f"at {(m, k, n)} {in_dt} {act} tile={tile}")
+                                plan=plan)), f"transposed w changes the bits "
+                                f"at {(m, k, n)} {in_dt} {act} plan={plan}")
                         worst[kind] = max(worst[kind], err)
                         if kind == "fp32":
                             max_abs = max(max_abs, float(
                                 (got - want).abs().max()))
-    return {"shape": [m, k, n], "tiles": list(tiles), "trans_w": trans,
+    return {"shape": [m, k, n], "plans": [list(p) for p in plans],
+            "trans_w": trans,
             "relmax_fp32": worst["fp32"], "relmax_bf16": worst["bf16"],
             "max_abs_err_fp32": max_abs}
 
@@ -503,7 +522,7 @@ def kink_relmax(got, want, u, act) -> tuple[float, int]:
     return relmax(got[away], want[away]), int(((got != want) & ~away).sum())
 
 
-def check_res_shape(m, k, n, tiles, gen) -> dict:
+def check_res_shape(m, k, n, plans, gen) -> dict:
     """The residual forward vs its plain version at one shape over dtypes,
     activations and epilogues; y must equal the serving launch's bits."""
     worst = {"fp32": 0.0, "bf16": 0.0}
@@ -518,13 +537,13 @@ def check_res_shape(m, k, n, tiles, gen) -> dict:
                            (scale, shift)):
                 u = epilogue(acc, sc, sh, "linear")
                 want = gemm.gemm_fused_res_plain(x, w, sc, sh, act=act)
-                for tile in tiles:
+                for plan in plans:
                     got = gemm.gemm_fused_fwd(x, w, sc, sh, act=act,
-                                              tile=tile, residuals=True)
+                                              plan=plan, residuals=True)
                     serve = gemm.gemm_fused_fwd(x, w, sc, sh, act=act,
-                                                tile=tile)
+                                                plan=plan)
                     where = (f"{(m, k, n)} {dt} {act} scale={sc is not None}"
-                             f" shift={sh is not None} tile={tile}")
+                             f" shift={sh is not None} plan={plan}")
                     check(torch.equal(got[0], serve),
                           f"residual y differs from the serving y at {where}")
                     check(all((a is None) == (b is None)
@@ -549,7 +568,7 @@ def check_res_shape(m, k, n, tiles, gen) -> dict:
                             max_abs = max(max_abs, float(
                                 (got[2] - want[2]).abs().max()))
     return {"kernel": "gemm_fused_fwd_res", "shape": [m, k, n],
-            "tiles": list(tiles), "relmax_fp32": worst["fp32"],
+            "plans": [list(p) for p in plans], "relmax_fp32": worst["fp32"],
             "relmax_bf16": worst["bf16"], "max_abs_err_fp32": max_abs,
             "g_differs_at_kink": kink}
 
@@ -837,6 +856,106 @@ def lm_gemms(cfg) -> list[dict]:
                    "trans": cfg.tie_embeddings}]
 
 
+def ssm_gemms(cfg) -> list[dict]:
+    """The GEMMs of one mamba2 forward, as `lm_gemms`: each layer's wz,
+    wx, wB, wC, wdt and out projections (no epilogue; dt in fp32) and the
+    tied head."""
+    d, di = cfg.d_model, cfg.ssm_d_inner
+    gn = cfg.ssm_ngroups * cfg.ssm_state
+    layer = [("wz", d, di), ("wx", d, di), ("wB", d, gn), ("wC", d, gn),
+             ("wdt", d, cfg.ssm_nheads), ("out", di, d)]
+    out = [{"name": name, "k": k, "n": n, "act": "linear", "shift": False,
+            "per_dispatch": cfg.n_layers, "trans": False}
+           for name, k, n in layer]
+    return out + [{"name": "head", "k": d, "n": cfg.vocab_padded,
+                   "act": "linear", "shift": False, "per_dispatch": 1,
+                   "trans": cfg.tie_embeddings}]
+
+
+def regimes_phase(cgen) -> None:
+    """Phase check_regimes: at every GEMM shape of qwen2-0.5b and
+    mamba2-1.3b, M in REGIME_ROWS, fp32 and bf16 operands, every plan of
+    both regimes gives the bits of the path's plan (y, and with residuals
+    g and racc at fp32); the transposed heads read in place."""
+    seen = set()
+    for arch, gemms in ((LM_ARCH, lm_gemms(get_arch(LM_ARCH))),
+                        (SSM_ARCH, ssm_gemms(get_arch(SSM_ARCH)))):
+        rows = []
+        for g in gemms:
+            for m in REGIME_ROWS:
+                k, n, trans = g["k"], g["n"], g["trans"]
+                key = (m, k, n, g["act"], g["shift"], trans)
+                if key in seen:
+                    continue
+                seen.add(key)
+                pick = ops.default_tiles(m, k, n)
+                for dt in (torch.float32, torch.bfloat16):
+                    x, w, scale, shift = operands(m, k, n, dt, cgen, trans)
+                    sh = shift if g["shift"] else None
+                    res = dt == torch.float32
+                    sc = scale if res else None
+                    def run(plan):  # (y, g, racc), the residuals at fp32
+                        out = gemm.gemm_fused_fwd(x, w, sc, sh, act=g["act"],
+                                                  plan=plan, residuals=res)
+                        return out if res else (out,)
+
+                    want = run(pick)
+                    for plan in gemm.PLANS:
+                        check(all(a is None and b is None or torch.equal(a, b)
+                                  for a, b in zip(run(plan), want)),
+                              f"{arch} {g['name']} {(m, k, n)} {dt}: plan "
+                              f"{plan} differs from {pick}")
+                    del x, w
+                rows.append([g["name"], m, k, n, list(pick)])
+        emit("check_regimes", arch=arch, plans=[list(p) for p in gemm.PLANS],
+             bitwise_cases=rows)
+    torch.cuda.synchronize()
+
+
+def regime_counts(fn) -> dict:
+    """The forward GEMM's launches by regime during one call of `fn`."""
+    torch.cuda.synchronize()
+    gemm.reset_launches()
+    fn()
+    torch.cuda.synchronize()
+    counts = gemm.launch_counts()
+    return {"A": counts["gemm_fwd_regime_a"],
+            "B": counts["gemm_fwd_regime_b"]}
+
+
+def figure3_phase(gen, peak_flops, peak_bw, smi) -> dict:
+    """Phase timing_figure3: the paper's Figure 3 GEMM (M 2048, K 4096,
+    N 16384, fp32, no epilogue) through the path's plan, checked against
+    its plain version (FP32_TOL), and timed: kernel, plain, torch.matmul
+    (cuBLAS fp32, TF32 off) and bound ms, TFLOP/s, bound share."""
+    m, k, n = FIGURE3
+    x, w, _, _ = operands(m, k, n, torch.float32, gen)
+    plan = ops.default_tiles(m, k, n)
+    got = gemm.gemm_fused_fwd(x, w, plan=plan)
+    err = relmax(got, gemm.gemm_fused_plain(x, w))
+    check(bool(torch.isfinite(got).all()) and err <= gemm_tol(k),
+          f"the Figure 3 GEMM vs plain: {err:.3e}")
+    del got
+    flops = 2.0 * m * k * n
+    nbytes = 4.0 * (m * k + k * n + m * n)
+    row = {"ms": cuda_ms(lambda: gemm.gemm_fused_fwd(x, w, plan=plan),
+                         reps=5, repeats=3),
+           "plain_ms": cuda_ms(lambda: gemm.gemm_fused_plain(x, w), reps=5,
+                               repeats=3),
+           "library_ms": cuda_ms(lambda: torch.matmul(x, w), reps=5,
+                                 repeats=3),
+           "ops_ms": flops / peak_flops * 1e3,
+           "bytes_ms": nbytes / peak_bw * 1e3}
+    row["bound_ms"], row["bound_by"] = bound(flops, nbytes, peak_flops,
+                                             peak_bw)
+    row.update(tflops=flops / row["ms"] / 1e9,
+               library_tflops=flops / row["library_ms"] / 1e9,
+               bound_share=row["bound_ms"] / row["ms"], relmax=err)
+    emit("timing_figure3", smi=smi, shape=[m, k, n], plan=list(plan), **row)
+    del x, w
+    return row
+
+
 def lm_gemm_check(cfg, cgen) -> float:
     """Phase check_lm_gemm: the fused GEMM against its plain version at
     the LM's shapes, M 1, 8 and 64 (a decode row, a batch-8 decode, a
@@ -850,8 +969,8 @@ def lm_gemm_check(cfg, cgen) -> float:
             if key in seen:             # q / o and k / v share a shape
                 continue
             seen.add(key)
-            tiles = (ops.default_tiles(m, g["k"], g["n"])[0],)
-            res = check_shape(m, g["k"], g["n"], tiles, cgen, g["trans"])
+            plans = (ops.default_tiles(m, g["k"], g["n"]),)
+            res = check_shape(m, g["k"], g["n"], plans, cgen, g["trans"])
             max_abs = max(max_abs, res["max_abs_err_fp32"])
             emit("check_lm_gemm", arch=LM_ARCH, m=m, gemm=g["name"], **res)
     torch.cuda.synchronize()
@@ -879,7 +998,7 @@ def lm_gemm_timing(cfg, cgen, peak_flops, peak_bw, smi) -> dict:
             ws = [w] + [w.clone() for _ in range(reps - 1)]
             sh = shift if g["shift"] else None
             act = g["act"]
-            tile = ops.default_tiles(m, k, n)[0]
+            plan = ops.default_tiles(m, k, n)
             flops = 2.0 * m * k * n
             nbytes = 4.0 * (m * k + k * n + m * n + (n if g["shift"] else 0))
 
@@ -888,7 +1007,7 @@ def lm_gemm_timing(cfg, cgen, peak_flops, peak_bw, smi) -> dict:
                                 reps=max(1, 20 // reps)) / reps
 
             row = {"ms": each(lambda wi: gemm.gemm_fused_fwd(
-                       x, wi, None, sh, act=act, tile=tile)),
+                       x, wi, None, sh, act=act, plan=plan)),
                    "plain_ms": each(lambda wi: gemm.gemm_fused_plain(
                        x, wi, None, sh, act=act)),
                    "library_ms": each(lambda wi: torch.matmul(x, wi)),
@@ -896,7 +1015,8 @@ def lm_gemm_timing(cfg, cgen, peak_flops, peak_bw, smi) -> dict:
                    "bytes_ms": nbytes / peak_bw * 1e3}
             row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
             emit("timing_lm_gemm", m=m, gemm=g["name"], shape=[m, k, n],
-                 act=act, shift=g["shift"], trans_w=g["trans"], tile=tile,
+                 act=act, shift=g["shift"], trans_w=g["trans"],
+                 plan=list(plan),
                  per_dispatch=reps, **row,
                  bound_by=("operations" if row["ops_ms"] >= row["bytes_ms"]
                            else "bytes"), bound_share=row["bound_ms"]
@@ -1051,7 +1171,10 @@ def lm_serve_phase(cfg, params, dev, abs_err) -> dict:
     server.run(reqs)  # ---- the main path, driven once
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    counts = gemm.launch_counts()
     launches = {"gemm_fused_fwd": gemm.launches,
+                "gemm_fwd_regime_a": counts["gemm_fwd_regime_a"],
+                "gemm_fwd_regime_b": counts["gemm_fwd_regime_b"],
                 "flash_attention": fa.launches, "flash_decode": fd.launches}
     dispatch = backends.dispatch_counts()
     st = server.stats()
@@ -1076,6 +1199,11 @@ def lm_serve_phase(cfg, params, dev, abs_err) -> dict:
     check(launches["flash_attention"] > 0 and launches["flash_decode"] > 0
           and launches["gemm_fused_fwd"] > 0,
           f"the main path skipped a kernel: {launches}")
+    # every dispatch holds at most 64 rows (a 64-token chunk or a decode
+    # batch), so every GEMM of the path runs in regime A
+    check(launches["gemm_fwd_regime_a"] == launches["gemm_fused_fwd"]
+          and launches["gemm_fwd_regime_b"] == 0,
+          f"LM serving GEMMs outside regime A: {launches}")
     check(all(b == "cuda" for b, _ in dispatch),
           f"an engine op left the cuda backend: {dispatch}")
     check(any(nb * SERVE["block_size"] >= ops.DECODE_MIN_SKV and bb > 1
@@ -1319,6 +1447,7 @@ def lm_train_launches(cfg, m: int) -> dict:
         dw = (ops.default_bwd_tiles("dw", n, m, k) if g["trans"]
               else ops.default_bwd_tiles("dw", k, m, n))
         want["gemm_fused_fwd_res"] += 2 * reps
+        want["gemm_fwd_regime_b"] += 2 * reps  # every row count is > 64
         want["gemm_bwd_dx"] += reps
         want["gemm_bwd_dw"] += reps
         want["gemm_bwd_reduce"] += reps * ((dx[3] > 1) + (dw[3] > 1))
@@ -1592,7 +1721,7 @@ def lm_train_gemm_rows(cfg, cgen, peak_flops, peak_bw) -> dict:
         x, w, _, shift = operands(m, k, n, torch.float32, cgen, trans)
         sh = shift if g["shift"] else None
         dy = torch.randn(m, n, generator=cgen, device=dev)
-        tile = ops.default_tiles(m, k, n)[0]
+        plan = ops.default_tiles(m, k, n)
         dx_plan = ops.default_bwd_tiles("dx", m, n, k)
         dw_plan = (ops.default_bwd_tiles("dw", n, m, k) if trans
                    else ops.default_bwd_tiles("dw", k, m, n))
@@ -1602,7 +1731,7 @@ def lm_train_gemm_rows(cfg, cgen, peak_flops, peak_bw) -> dict:
         kernels = {
             "gemm_fused_fwd_res": (
                 lambda: gemm.gemm_fused_fwd(x, w, None, sh, act=act,
-                                            tile=tile, residuals=True),
+                                            plan=plan, residuals=True),
                 lambda: gemm.gemm_fused_res_plain(x, w, None, sh, act=act),
                 lambda: torch.matmul(x, w),
                 4.0 * (m * k + k * n + (2 + (act != "linear")) * m * n), k,
@@ -1639,7 +1768,7 @@ def lm_train_gemm_rows(cfg, cgen, peak_flops, peak_bw) -> dict:
                 wr = w.contiguous()
                 same = (gemm.gemm_bwd_dx(dy, wr, **dx_args)
                         if name == "gemm_bwd_dx" else gemm.gemm_fused_fwd(
-                            x, wr, None, sh, act=act, tile=tile,
+                            x, wr, None, sh, act=act, plan=plan,
                             residuals=True)[0])
                 check(torch.equal(got, same), f"the transposed head's "
                       f"{name} is not a row-major copy's bits")
@@ -1654,6 +1783,8 @@ def lm_train_gemm_rows(cfg, cgen, peak_flops, peak_bw) -> dict:
             row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
             emit("timing_lm_train_gemm", kernel=name, gemm=g["name"],
                  shape=[m, k, n], act=act, trans_w=trans,
+                 plan=(list(plan) if name == "gemm_fused_fwd_res" else
+                       dx_plan if name == "gemm_bwd_dx" else dw_plan),
                  per_step=per_step[name], **row,
                  bound_share=row["bound_ms"] / row["ms"])
             measured[key][name] = row
@@ -1972,6 +2103,10 @@ def ssm_serve_phase(cfg, params, dev, abs_err) -> dict:
     check(launches["ssd_scan"] == n * cfg.n_layers
           and launches["gemm_fused_fwd"] > 0,
           f"the main path skipped a kernel: {launches}")
+    # prompts of at most 48 tokens, decode batches of at most 4 rows
+    check(launches["gemm_fwd_regime_a"] == launches["gemm_fused_fwd"]
+          and launches["gemm_fwd_regime_b"] == 0,
+          f"SSM serving GEMMs outside regime A: {launches}")
     check(all(b == "cuda" for b, _ in dispatch),
           f"an engine op left the cuda backend: {dispatch}")
     check(all(same), f"a reused slot's stream differs from the request "
@@ -2012,6 +2147,11 @@ def timing_ssm_phase(cfg, params, dev, cgen, peak_flops, peak_bw,
                 if label == "cuda" and b == SSM_PREFILL[0]:
                     decode_kernels = device_time_by_kernel(
                         lambda: decode(params, caches, tok, s))
+                    regimes = {
+                        "prefill": regime_counts(lambda: prefill(params,
+                                                                 tokens)),
+                        "decode": regime_counts(lambda: decode(
+                            params, caches, tok, s))}
                 del caches
         tokens = torch.from_numpy(rng.integers(
             0, cfg.vocab_size, SSM_PREFILL)).to(dev)
@@ -2020,7 +2160,17 @@ def timing_ssm_phase(cfg, params, dev, cgen, peak_flops, peak_bw,
     device_ms = sum(r["ms"] for r in by_kernel.values())
     decode_ms = sum(r["ms"] for r in decode_kernels.values())
     cuda_b = steps[f"cuda_b{SSM_PREFILL[0]}"]
+    # a prefill's projections take regime B, its last-position head and
+    # every decode GEMM regime A
+    per_layer = 6 * cfg.n_layers
+    check(regimes == {"prefill": {"A": 1, "B": per_layer},
+                      "decode": {"A": per_layer + 1, "B": 0}},
+          f"SSM GEMM launches by regime {regimes}")
+    plans = {f"{g['name']}@{m}": list(ops.default_tiles(m, g["k"], g["n"]))
+             for m in (SSM_PREFILL[0] * s, SSM_PREFILL[0])
+             for g in ssm_gemms(cfg)}
     emit("timing_ssm_step", smi=smi, arch=cfg.name, prompt=s, steps=steps,
+         regime_launches=regimes, gemm_plans=plans,
          prefill_device_ms=device_ms,
          prefill_busy_share=device_ms / cuda_b["prefill_ms"],
          top_kernels=dict(list(by_kernel.items())[:20]),
@@ -2073,17 +2223,17 @@ def timing_ssm_phase(cfg, params, dev, cgen, peak_flops, peak_bw,
 # ------------------------------------------------- the bmm op, direct conv ---
 
 def bmm_plans(b, m, k, n) -> tuple:
-    """The plans `ops.bmm` gives (B, M, K, N): the forward's tile, and the
+    """The plans `ops.bmm` gives (B, M, K, N): the forward's plan, and the
     (tile, splits) of dX and of dW (the backward plans count the batch)."""
     dx = ops.default_bwd_tiles("dx", m, n, k, batch=b)
     dw = ops.default_bwd_tiles("dw", k, m, n, batch=b)
-    return ops.default_tiles(m, k, n)[0], (dx[0], dx[3]), (dw[0], dw[3])
+    return ops.default_tiles(m, k, n), (dx[0], dx[3]), (dw[0], dw[3])
 
 
 def check_bmm_case(b, m, k, n, plans, gen) -> dict:
     """The three bmm kernels against their plain versions at (B, M, K, N),
-    fp32 and bf16, for each (tile, splits) in `plans` (the forward takes
-    the tile): fp32 within gemm_tol of each kernel's contraction (K, N,
+    fp32 and bf16, for each (forward plan, tile, splits) in `plans` (the
+    backward takes the tile and the split count): fp32 within gemm_tol of each kernel's contraction (K, N,
     M), bf16 within BF16_TOL; every batch slice bitwise the 2-D kernel's
     (`gemm_fused_fwd` linear without scale or shift, `gemm_bwd_dx`,
     `gemm_bwd_dw`) at the same plan; a rerun bitwise."""
@@ -2098,32 +2248,31 @@ def check_bmm_case(b, m, k, n, plans, gen) -> dict:
         dy = torch.randn(b, m, n, generator=gen, device=dev).to(dt)
         cases = {
             "bmm_fwd": (k, gemm.bmm_fwd_plain(x, w),
-                        lambda t, s: gemm.bmm_fwd(x, w, tile=t),
-                        lambda i, t, s: gemm.gemm_fused_fwd(x[i], w[i],
-                                                            tile=t)),
+                        lambda p, t, s: gemm.bmm_fwd(x, w, plan=p),
+                        lambda i, p, t, s: gemm.gemm_fused_fwd(x[i], w[i],
+                                                               plan=p)),
             "bmm_bwd_dx": (n, gemm.bmm_bwd_dx_plain(dy, w),
-                           lambda t, s: gemm.bmm_bwd_dx(dy, w, tile=t,
-                                                        splits=s),
-                           lambda i, t, s: gemm.gemm_bwd_dx(
+                           lambda p, t, s: gemm.bmm_bwd_dx(dy, w, tile=t,
+                                                           splits=s),
+                           lambda i, p, t, s: gemm.gemm_bwd_dx(
                                dy[i], w[i], tile=t, splits=s)),
             "bmm_bwd_dw": (m, gemm.bmm_bwd_dw_plain(x, dy),
-                           lambda t, s: gemm.bmm_bwd_dw(x, dy, tile=t,
-                                                        splits=s),
-                           lambda i, t, s: gemm.gemm_bwd_dw(
+                           lambda p, t, s: gemm.bmm_bwd_dw(x, dy, tile=t,
+                                                           splits=s),
+                           lambda i, p, t, s: gemm.gemm_bwd_dw(
                                x[i], dy[i], tile=t, splits=s))}
         for name, (kdim, want, fn, slice2d) in cases.items():
             tol = gemm_tol(kdim) if kind == "fp32" else BF16_TOL
-            for tile, splits in plans:
-                where = (f"{name} at {(b, m, k, n)} {dt} tile={tile} "
-                         f"splits={splits}")
-                got = fn(tile, splits)
+            for plan in plans:
+                where = (f"{name} at {(b, m, k, n)} {dt} plan={plan}")
+                got = fn(*plan)
                 check(bool(torch.isfinite(got).all()), f"non-finite {where}")
                 err = relmax(got, want)
                 check(err <= tol, f"{where}: {err:.3e} > {tol:g}")
-                check(torch.equal(got, fn(tile, splits)),
+                check(torch.equal(got, fn(*plan)),
                       f"two runs of {where} differ")
                 for i in range(b):
-                    check(torch.equal(got[i], slice2d(i, tile, splits)),
+                    check(torch.equal(got[i], slice2d(i, *plan)),
                           f"{where}: batch slice {i} differs from the 2-D "
                           f"kernel")
                 worst[name][kind] = max(worst[name][kind], err)
@@ -2132,23 +2281,25 @@ def check_bmm_case(b, m, k, n, plans, gen) -> dict:
                         (got - want).abs().max()))
                 del got
         del x, w, dy, cases
-    return {"shape": [b, m, k, n], "plans": [list(p) for p in plans],
+    return {"shape": [b, m, k, n],
+            "plans": [[list(p), t, s] for p, t, s in plans],
             "relmax": worst, "max_abs_err_fp32": max_abs}
 
 
 def check_bmm_phase(cgen) -> dict:
-    """Phase check_bmm: BMM_CASES under every tile and split count, then
-    the llama4-scout expert shapes at the path's plans.  Returns the
-    fp32 max-abs error of each kernel at the expert shapes."""
-    forced = [(t, s) for t in gemm.TILES for s in (1, 3)]
+    """Phase check_bmm: BMM_CASES under every forward plan, backward tile
+    and split count, then the llama4-scout expert shapes at the path's
+    plans.  Returns the fp32 max-abs error of each kernel at the expert
+    shapes."""
+    forced = [(p, t, s) for p, t in zip(gemm.PLANS, gemm.TILES * 3)
+              for s in (1, 3)]
     for case in BMM_CASES:
         emit("check_bmm", **check_bmm_case(*case, forced, cgen))
     path_abs = dict.fromkeys(BMM_KERNELS, 0.0)
     for case in EXPERT_BMM:
-        tile, dx_plan, dw_plan = bmm_plans(*case)
-        plans = [dx_plan] if dx_plan == dw_plan else [dx_plan, dw_plan]
-        check(all(t == tile for t, _ in plans),
-              f"backward tiles {plans} differ from the forward's {tile}")
+        plan, dx_plan, dw_plan = bmm_plans(*case)
+        plans = [(plan, *dx_plan)] + ([] if dx_plan == dw_plan
+                                      else [(plan, *dw_plan)])
         res = check_bmm_case(*case, plans, cgen)
         emit("check_bmm", arch="llama4-scout-17b-a16e", **res)
         for name in path_abs:
@@ -2183,7 +2334,8 @@ def engine_bmm_phase(dev) -> dict:
         del xr, wr, y
     cu, ea = runs["cuda"], runs["eager"]
     _, (_, dx_splits), (_, dw_splits) = bmm_plans(b, m, k, n)
-    want = {**dict.fromkeys(cu["launches"], 0), "bmm_fwd": 1,
+    regime = f"gemm_fwd_regime_{ops.default_tiles(m, k, n).regime.lower()}"
+    want = {**dict.fromkeys(cu["launches"], 0), "bmm_fwd": 1, regime: 1,
             "bmm_bwd_dx": 1, "bmm_bwd_dw": 1,
             "gemm_bwd_reduce": (dx_splits > 1) + (dw_splits > 1)}
     err = {key: relmax(cu[key], ea[key]) for key in ("y", "dx", "dw")}
@@ -2225,12 +2377,12 @@ def timing_bmm_phase(gen, peak_flops, peak_bw, smi) -> dict:
     x = torch.randn(b, m, k, generator=gen, device=dev)
     w = torch.randn(b, k, n, generator=gen, device=dev) / math.sqrt(k)
     dy = torch.randn(b, m, n, generator=gen, device=dev)
-    tile, (dxt, dxs), (dwt, dws) = bmm_plans(b, m, k, n)
+    plan, (dxt, dxs), (dwt, dws) = bmm_plans(b, m, k, n)
     nbytes = 4.0 * (b * m * k + b * k * n + b * m * n)
     flops = 2.0 * b * m * k * n
     rows = {}
     for name, fn, plain, library in (
-            ("bmm_fwd", lambda: gemm.bmm_fwd(x, w, tile=tile),
+            ("bmm_fwd", lambda: gemm.bmm_fwd(x, w, plan=plan),
              lambda: gemm.bmm_fwd_plain(x, w), lambda: torch.bmm(x, w)),
             ("bmm_bwd_dx",
              lambda: gemm.bmm_bwd_dx(dy, w, tile=dxt, splits=dxs),
@@ -2251,7 +2403,8 @@ def timing_bmm_phase(gen, peak_flops, peak_bw, smi) -> dict:
             "bytes_ms": nbytes / peak_bw * 1e3,
             "tflops": flops / ms / 1e9, "bound_share": bound_ms / ms}
         emit("timing_bmm", kernel=name, smi=smi, shape=[b, m, k, n],
-             plans={"tile": tile, "dx": [dxt, dxs], "dw": [dwt, dws]},
+             plans={"forward": list(plan), "dx": [dxt, dxs],
+                    "dw": [dwt, dws]},
              **row)
     return rows
 
@@ -2457,11 +2610,11 @@ def main() -> int:
     # ------------------------------------------------------------- 2. check
     path_max_abs = 0.0
     for m, k, n in MATMUL_CASES:
-        emit("check", **check_shape(m, k, n, gemm.TILES, cgen))
+        emit("check", **check_shape(m, k, n, gemm.PLANS, cgen))
     for batch in (1, 8):
         for g in path_gemms(net, batch):
-            tiles = (ops.default_tiles(g["m"], g["k"], g["n"])[0],)
-            res = check_shape(g["m"], g["k"], g["n"], tiles, cgen)
+            plans = (ops.default_tiles(g["m"], g["k"], g["n"]),)
+            res = check_shape(g["m"], g["k"], g["n"], plans, cgen)
             path_max_abs = max(path_max_abs, res["max_abs_err_fp32"])
             emit("check", batch=batch, layer=g["layer"], **res)
     torch.cuda.synchronize()
@@ -2570,9 +2723,9 @@ def main() -> int:
         x, w, scale, shift = operands(m, k, n, torch.float32, cgen)
         sc = scale if g["scale"] else None
         sh = shift if g["shift"] else None
-        tile = ops.default_tiles(m, k, n)[0]
+        plan = ops.default_tiles(m, k, n)
         ms = cuda_ms(lambda: gemm.gemm_fused_fwd(x, w, sc, sh, act=g["act"],
-                                                 tile=tile))
+                                                 plan=plan))
         plain_ms = cuda_ms(lambda: gemm.gemm_fused_plain(x, w, sc, sh,
                                                          act=g["act"]))
         library_ms = cuda_ms(lambda: torch.matmul(x, w))
@@ -2586,7 +2739,7 @@ def main() -> int:
                          ("ops_ms", ops_ms), ("bytes_ms", bytes_ms)):
             totals[key] += val
         emit("timing", batch=8, layer=g["layer"], shape=[m, k, n],
-             act=g["act"], tile=tile, ms=ms, plain_ms=plain_ms,
+             act=g["act"], plan=list(plan), ms=ms, plain_ms=plain_ms,
              library_ms=library_ms, bound_ms=bound_ms,
              bound_by="operations" if ops_ms >= bytes_ms else "bytes",
              tflops=flops / ms / 1e9, bound_share=bound_ms / ms)
@@ -2597,11 +2750,11 @@ def main() -> int:
     res_max_abs = 0.0
     forced = [(t, s) for t in gemm.TILES for s in (1, 3)]
     for m, k, n in MATMUL_CASES:
-        emit("check_bwd", **check_res_shape(m, k, n, gemm.TILES, cgen))
+        emit("check_bwd", **check_res_shape(m, k, n, gemm.PLANS, cgen))
         emit("check_bwd", **check_bwd_shape(m, k, n, forced, forced, cgen))
     for g in path_gemms(net, TRAIN_BATCH):
         m, k, n = g["m"], g["k"], g["n"]
-        res = check_res_shape(m, k, n, (ops.default_tiles(m, k, n)[0],), cgen)
+        res = check_res_shape(m, k, n, (ops.default_tiles(m, k, n),), cgen)
         res_max_abs = max(res_max_abs, res["max_abs_err_fp32"])
         emit("check_bwd", batch=TRAIN_BATCH, layer=g["layer"], **res)
         res = check_bwd_shape(m, k, n, *bwd_plans(m, k, n), cgen)
@@ -2636,6 +2789,8 @@ def main() -> int:
                  "gemm_fused_fwd_res": 12, "gemm_bwd_dx": 11,
                  "gemm_bwd_dw": 12}
     for i, g in enumerate(train_gemms):
+        regime = ops.default_tiles(g["m"], g["k"], g["n"]).regime.lower()
+        want_step[f"gemm_fwd_regime_{regime}"] += 1
         dx_plans, dw_plans = bwd_plans(g["m"], g["k"], g["n"])
         want_step["gemm_bwd_reduce"] += ((i > 0 and dx_plans[0][1] > 1)
                                          + (dw_plans[0][1] > 1))
@@ -2735,15 +2890,15 @@ def main() -> int:
         dy = torch.randn(m, n, generator=cgen, device=dev)
         sc = scale if g["scale"] else None
         sh = shift if g["shift"] else None
-        tile = ops.default_tiles(m, k, n)[0]
+        plan = ops.default_tiles(m, k, n)
         res_out = 1 + (act != "linear") + int(g["scale"])
         record("gemm_fused_fwd_res", g["layer"], [m, k, n], 2.0 * m * k * n,
                4.0 * (m * k + k * n + res_out * m * n
                       + n * (int(g["scale"]) + int(g["shift"]))),
-               lambda: gemm.gemm_fused_fwd(x, w, sc, sh, act=act, tile=tile,
+               lambda: gemm.gemm_fused_fwd(x, w, sc, sh, act=act, plan=plan,
                                            residuals=True),
                lambda: gemm.gemm_fused_res_plain(x, w, sc, sh, act=act),
-               lambda: torch.matmul(x, w), tile=tile)
+               lambda: torch.matmul(x, w), plan=list(plan))
         (dx_plan,), (dw_plan,) = bwd_plans(m, k, n)
         if i > 0:  # the first layer's input is the image: no dX
             record("gemm_bwd_dx", g["layer"], [m, n, k], 2.0 * m * k * n,
@@ -2796,6 +2951,7 @@ def main() -> int:
     attn_abs = attn_phases(cgen)
     cfg = get_arch(LM_ARCH)
     lm_gemm_abs = lm_gemm_check(cfg, cgen)
+    regimes_phase(cgen)
     lm_gemm = lm_gemm_timing(cfg, cgen, peak_flops, peak_bw, smi)
     params = lm_params(cfg, dev)
     lm = lm_phase(cfg, params, dev)
@@ -2832,6 +2988,7 @@ def main() -> int:
     bmm_abs = check_bmm_phase(cgen)
     eb = engine_bmm_phase(dev)
     bmm_rows = timing_bmm_phase(cgen, peak_flops, peak_bw, smi)
+    figure3_phase(cgen, peak_flops, peak_bw, smi)
     torch.cuda.empty_cache()
     conv = conv_direct_phase(net, cgen, peak_flops, peak_bw, smi)
 

@@ -33,7 +33,15 @@ build or launch raises; nothing falls back.  Each kernel has its own
 launch count (`launches`, `launches_res`, `launches_dx`, `launches_dw`,
 `launches_reduce`, `launches_bmm`, `launches_bmm_dx`, `launches_bmm_dw`),
 moved only where the kernel is launched, so a run can show that its path
-went through the kernels (`reset_launches`).
+went through the kernels (`reset_launches`).  The forward kernels also
+count their launches by regime (`launches_a`, `launches_b`).
+
+The forward runs one of two regimes (``csrc/gemm.cu``'s header): A for
+up to 64 rows, bound by the weight bytes, and B for more rows, bound by
+the FFMA rate.  A `Plan` names the regime and its output tile; `PLANS`
+are the instantiated ones and `plan_for` picks one from the shape.  Every
+plan gives every output the same bits (one k-ordered fmaf chain), so the
+plan is a matter of speed only.
 
 `GemmFused` is the ``torch.autograd.Function`` of ``jax.custom_vjp``
 ``_gemm``: its forward is the residual-emitting kernel, its backward the
@@ -47,6 +55,7 @@ the batched forward, then dX and dW by the batched backward kernels.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -55,8 +64,23 @@ from repro_torch.kernels.common import (ACTIVATIONS, act_deriv, apply_act,
                                        epilogue)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-TILES = (64, 32)  # the square output tiles the kernels are instantiated for
-BK = 16           # contraction depth of one stage; split chunks are whole stages
+TILES = (64, 32)  # the backward kernels' square output tiles
+BK = 16           # the backward's stage depth; split chunks are whole stages
+
+
+class Plan(NamedTuple):
+    """A forward plan: the regime ("A": up to 64 rows, one output column a
+    thread; "B": more rows, 8 x 8 or 4 x 4 accumulators a thread) and the
+    block's output tile, bm rows by bn columns."""
+    regime: str
+    bm: int
+    bn: int
+
+
+# The instantiated forward plans; a plan's index is its id in csrc/gemm.cu.
+PLANS = (Plan("A", 8, 16), Plan("A", 64, 16), Plan("A", 64, 64),
+         Plan("B", 128, 128), Plan("B", 64, 32))
+A_MAX_ROWS = 64    # plan_for takes regime A up to this many rows
 
 launches = 0         # gemm_fused_fwd, serving forward (no residuals)
 launches_res = 0     # gemm_fused_fwd with residuals (the training forward)
@@ -66,14 +90,18 @@ launches_reduce = 0  # the split-contraction reduce pass of any of them
 launches_bmm = 0     # bmm_fwd
 launches_bmm_dx = 0  # bmm_bwd_dx
 launches_bmm_dw = 0  # bmm_bwd_dw
+launches_a = 0       # forward launches (serving, residual, bmm) in regime A
+launches_b = 0       # forward launches (serving, residual, bmm) in regime B
 
 
 def reset_launches() -> None:
     """Set every launch count to 0."""
     global launches, launches_res, launches_dx, launches_dw, launches_reduce
-    global launches_bmm, launches_bmm_dx, launches_bmm_dw
+    global launches_bmm, launches_bmm_dx, launches_bmm_dw, launches_a
+    global launches_b
     launches = launches_res = launches_dx = launches_dw = launches_reduce = 0
     launches_bmm = launches_bmm_dx = launches_bmm_dw = 0
+    launches_a = launches_b = 0
 
 
 def launch_counts() -> dict[str, int]:
@@ -81,7 +109,44 @@ def launch_counts() -> dict[str, int]:
     return {"gemm_fused_fwd": launches, "gemm_fused_fwd_res": launches_res,
             "gemm_bwd_dx": launches_dx, "gemm_bwd_dw": launches_dw,
             "gemm_bwd_reduce": launches_reduce, "bmm_fwd": launches_bmm,
-            "bmm_bwd_dx": launches_bmm_dx, "bmm_bwd_dw": launches_bmm_dw}
+            "bmm_bwd_dx": launches_bmm_dx, "bmm_bwd_dw": launches_bmm_dw,
+            "gemm_fwd_regime_a": launches_a, "gemm_fwd_regime_b": launches_b}
+
+
+def plan_for(m: int, k: int, n: int) -> Plan:
+    """The forward's plan for an (M, K, N) GEMM, from the shape alone, as
+    measured fastest on an H100 (``kernels/time_gemm.py``, ``PERF.md``).
+    Up to `A_MAX_ROWS` rows, regime A: blocks of 8 rows by 16 columns up
+    to 16 rows or 1024 columns, and up to 32 rows of a contraction up to
+    1024 deep; beyond, 64 rows by 64 columns for an LM head (32768 columns
+    or more) or a contraction up to 1024 deep, else by 16.  More rows,
+    regime B: 128 x 128 tiles for a contraction of 2048 or more with 128
+    or more such tiles, else 64 x 32."""
+    if m <= A_MAX_ROWS:
+        head = n >= 32768
+        if m <= 16 or n <= 1024 or (m <= 32 and k <= 1024 and not head):
+            return PLANS[0]
+        return PLANS[2] if head or k <= 1024 else PLANS[1]
+    if k >= 2048 and -(-m // 128) * -(-n // 128) >= 128:
+        return PLANS[3]
+    return PLANS[4]
+
+
+def _plan_id(plan) -> int:
+    """The kernel's id of `plan` (a `Plan` or its tuple); ValueError when
+    it is not instantiated."""
+    plan = Plan(*plan)
+    if plan not in PLANS:
+        raise ValueError(f"plan must be one of {PLANS}, got {plan}")
+    return PLANS.index(plan)
+
+
+def _count_forward(plan_id: int) -> None:
+    global launches_a, launches_b
+    if PLANS[plan_id].regime == "A":
+        launches_a += 1
+    else:
+        launches_b += 1
 
 
 def gemm_fused_plain(x, w, scale=None, shift=None, *, act: str = "linear",
@@ -157,13 +222,14 @@ def _check_dtypes(a, b, out_dtype):
                         f"{out_dtype}")
 
 
-def _check_cuda(name: str, tile: int, **tensors) -> None:
+def _check_cuda(name: str, tile: int | None, **tensors) -> None:
     """What every kernel takes: CUDA tensors on one device, contiguous,
-    dimensions below 2**31, an instantiated tile."""
+    dimensions below 2**31, an instantiated backward tile (None for the
+    forward, whose plan `_plan_id` checks)."""
     first = next(iter(tensors.values()))
     if first.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {first.device}")
-    if tile not in TILES:
+    if tile is not None and tile not in TILES:
         raise ValueError(f"tile must be one of {TILES}, got {tile}")
     for key, v in tensors.items():
         if v is None:
@@ -214,7 +280,7 @@ def is_transposed(w) -> bool:
 
 
 def gemm_fused_fwd(x, w, scale=None, shift=None, *, act: str = "linear",
-                   out_dtype=None, tile: int = 64, residuals: bool = False):
+                   out_dtype=None, plan=None, residuals: bool = False):
     """act((x @ w) * scale + shift) for x (M, K) and w (K, N).
 
     x is row-major.  w is row-major, or the transpose of a row-major
@@ -223,7 +289,9 @@ def gemm_fused_fwd(x, w, scale=None, shift=None, *, act: str = "linear",
     those of a row-major copy.
     x and w share float32 or bfloat16; scale/shift are float32 (N,) or
     None; the result is (M, N) in `out_dtype` (default x.dtype), with fp32
-    accumulation.  `tile` is the square output tile (one of `TILES`).
+    accumulation.  `plan` is one of `PLANS` (default `plan_for` the
+    shape); any plan gives the same bits, and one that is not instantiated
+    raises ValueError.
     With `residuals`, returns ``(y, g, racc)``: g = act'(u) fp32 (M, N)
     when act is not linear, racc = the fp32 accumulator x @ w when a scale
     is fused, each else None (``_gemm_forward(..., residuals=True)``); y
@@ -233,14 +301,15 @@ def gemm_fused_fwd(x, w, scale=None, shift=None, *, act: str = "linear",
     """
     out_dtype = out_dtype or x.dtype
     _check(x, w, scale, shift, act, out_dtype)
+    m, k = x.shape
+    n = w.shape[1]
+    plan_id = _plan_id(plan_for(m, k, n) if plan is None else plan)
     if x.device.type == "cpu":
         plain = gemm_fused_res_plain if residuals else gemm_fused_plain
         return plain(x, w, scale, shift, act=act, out_dtype=out_dtype)
     trans_w = is_transposed(w)
-    _check_cuda("gemm_fused_fwd", tile, x=x, w=w.t() if trans_w else w,
+    _check_cuda("gemm_fused_fwd", None, x=x, w=w.t() if trans_w else w,
                 scale=scale, shift=shift)
-    m, k = x.shape
-    n = w.shape[1]
     y = torch.empty((m, n), dtype=out_dtype, device=x.device)
     g = racc = None
     if residuals:
@@ -253,9 +322,11 @@ def gemm_fused_fwd(x, w, scale=None, shift=None, *, act: str = "linear",
         if residuals:
             args += [_ptr(g), _ptr(racc)]
         args += [m, k, n, _DTYPES[x.dtype], _DTYPES[out_dtype],
-                 ACTIVATIONS.index(act), tile, int(trans_w)]
+                 ACTIVATIONS.index(act), plan_id, int(trans_w)]
         entry = "gemm_fused_fwd_res" if residuals else "gemm_fused_fwd"
-        _launch(entry, x.device, *args, what=f"(M, K, N) = {(m, k, n)}")
+        _launch(entry, x.device, *args,
+                what=f"(M, K, N) = {(m, k, n)}, plan {plan_id}")
+        _count_forward(plan_id)
         global launches, launches_res
         if residuals:
             launches_res += 1
@@ -365,8 +436,9 @@ def gemm_bwd_dw(x, dy, *, out_dtype=None, tile: int = 64,
 class GemmFused(torch.autograd.Function):
     """The fused GEMM with its gradient (``repro``'s ``_gemm`` custom VJP).
 
-    ``GemmFused.apply(x, w, scale, shift, act, out_dtype, tile, dx_plan,
-    dw_plan)``; the plans are ``(tile, splits)`` of the two backward GEMMs
+    ``GemmFused.apply(x, w, scale, shift, act, out_dtype, plan, dx_plan,
+    dw_plan)``: `plan` is the forward's (`Plan`), dx_plan and dw_plan
+    the ``(tile, splits)`` of the two backward GEMMs
     (`kernels.ops.default_bwd_tiles`; for a transposed w, dw_plan is that
     of the swapped product dE = dY^T . X).  The forward saves x, w, scale and
     the residuals g and racc.  The backward, as ``_gemm_vjp_bwd``:
@@ -379,10 +451,10 @@ class GemmFused(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, x, w, scale, shift, act, out_dtype, tile, dx_plan,
+    def forward(ctx, x, w, scale, shift, act, out_dtype, plan, dx_plan,
                 dw_plan):
         y, g, racc = gemm_fused_fwd(x, w, scale, shift, act=act,
-                                    out_dtype=out_dtype, tile=tile,
+                                    out_dtype=out_dtype, plan=plan,
                                     residuals=True)
         ctx.save_for_backward(x, w, scale, g, racc)
         ctx.plans = (dx_plan, dw_plan)
@@ -425,31 +497,34 @@ def _check_bmm(name, a, b, a_dims, b_dims, i, j, out_dtype):
     _check_dtypes(a, b, out_dtype)
 
 
-def bmm_fwd(x, w, *, out_dtype=None, tile: int = 64) -> torch.Tensor:
+def bmm_fwd(x, w, *, out_dtype=None, plan=None) -> torch.Tensor:
     """out[b] = x[b] @ w[b] for x (B, M, K), w (B, K, N) -> (B, M, N).
 
     x and w are row-major and share float32 or bfloat16; fp32
     accumulation, no epilogue; the result in `out_dtype` (default
     x.dtype).  Slice b has the bits of `gemm_fused_fwd` (linear, no scale
-    or shift) on x[b], w[b] at the same tile.  B is at most 65,535.  A CPU
+    or shift) on x[b], w[b] under any plan; `plan` as there (default
+    `plan_for` one matrix).  B is at most 65,535.  A CPU
     tensor runs `bmm_fwd_plain`; a CUDA tensor launches the kernel or
     raises.
     """
     out_dtype = out_dtype or x.dtype
     _check_bmm("bmm_fwd", x, w, "x (B, M, K)", "w (B, K, N)", 2, 1,
                out_dtype)
+    (bsz, m, k), n = x.shape, w.shape[2]
+    plan_id = _plan_id(plan_for(m, k, n) if plan is None else plan)
     if x.device.type == "cpu":
         return bmm_fwd_plain(x, w, out_dtype=out_dtype)
-    _check_cuda("bmm_fwd", tile, x=x, w=w)
-    (bsz, m, k), n = x.shape, w.shape[2]
+    _check_cuda("bmm_fwd", None, x=x, w=w)
     if bsz > MAX_GRID_Z:
         raise ValueError(f"bmm_fwd: batch {bsz} exceeds the grid's "
                          f"{MAX_GRID_Z}")
     y = torch.empty((bsz, m, n), dtype=out_dtype, device=x.device)
     if y.numel():
         _launch("bmm_fwd", x.device, _ptr(x), _ptr(w), _ptr(y), bsz, m, k, n,
-                _DTYPES[x.dtype], _DTYPES[out_dtype], tile,
-                what=f"(B, M, K, N) = {(bsz, m, k, n)}")
+                _DTYPES[x.dtype], _DTYPES[out_dtype], plan_id,
+                what=f"(B, M, K, N) = {(bsz, m, k, n)}, plan {plan_id}")
+        _count_forward(plan_id)
         global launches_bmm
         launches_bmm += 1
     return y
@@ -496,8 +571,9 @@ def bmm_bwd_dw(x, dy, *, out_dtype=None, tile: int = 64,
 class BmmFn(torch.autograd.Function):
     """The batched GEMM with its gradient (``repro``'s ``_bmm`` custom VJP).
 
-    ``BmmFn.apply(x, w, out_dtype, tile, dx_plan, dw_plan)``; the plans are
-    ``(tile, splits)`` of the two backward kernels
+    ``BmmFn.apply(x, w, out_dtype, plan, dx_plan, dw_plan)``: `plan` is
+    the forward's, dx_plan and dw_plan the ``(tile, splits)`` of the two
+    backward kernels
     (`kernels.ops.default_bwd_tiles` with the batch).  The forward saves x
     and w.  The backward, as ``_bmm_vjp_bwd``: dy cast to x's dtype, then
     dX by `bmm_bwd_dx` in x's dtype and dW by `bmm_bwd_dw` in w's dtype,
@@ -505,10 +581,10 @@ class BmmFn(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, x, w, out_dtype, tile, dx_plan, dw_plan):
+    def forward(ctx, x, w, out_dtype, plan, dx_plan, dw_plan):
         ctx.save_for_backward(x, w)
         ctx.plans = (dx_plan, dw_plan)
-        return bmm_fwd(x, w, out_dtype=out_dtype, tile=tile)
+        return bmm_fwd(x, w, out_dtype=out_dtype, plan=plan)
 
     @staticmethod
     def backward(ctx, dy):

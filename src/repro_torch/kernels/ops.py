@@ -22,8 +22,9 @@ serving makes.  The split-KV decode formulation is inference only, as in
 the JAX package: `attention_decode` raises under grad.  So is `ssd`,
 the SSD chunk scan (its TPU kernel has no VJP).
 
-Tiles and the backward's split count are fixed heuristics
-(`default_tiles`, `default_bwd_tiles`).  A measured autotuner, the
+The forward's plan (regime and tile), the backward's tiles and its split
+count are fixed heuristics from the shape alone (`default_tiles`,
+`default_bwd_tiles`).  A measured autotuner, the
 counterpart of ``repro/core/autotune.py``, is later work.
 """
 from __future__ import annotations
@@ -36,7 +37,7 @@ from repro_torch.kernels import gemm as gemm_kernel
 from repro_torch.kernels import ssd as ssd_kernel
 
 # Below this many 64 x 64 output tiles the card's 132 SMs are not kept
-# busy, so the 32 x 32 tile (four times as many blocks) is used instead.
+# busy, so the backward takes the 32 x 32 tile (four times as many blocks).
 _MIN_BLOCKS_64 = 264
 # A backward GEMM whose output tiles give fewer threads than half of what
 # the card holds resident (132 SMs x 2048) splits its contraction until
@@ -46,21 +47,26 @@ _MIN_SPLIT_DEPTH = 512
 BWD_VARIANTS = ("dx", "dw")
 
 
-def default_tiles(m: int, k: int, n: int) -> tuple[int, int, int]:
-    """(bm, bk, bn) for an (M, K, N) GEMM: 64 x 64 output tiles when the
-    problem has enough of them to fill the card, else 32 x 32; the K stage
-    is always 16 deep.  The tile never changes an output element's
-    summation order (the kernel has no split-K), only the speed."""
-    blocks = -(-m // 64) * -(-n // 64)
-    t = 64 if blocks >= _MIN_BLOCKS_64 and n > 32 else 32
-    return (t, 16, t)
+def default_tiles(m: int, k: int, n: int) -> gemm_kernel.Plan:
+    """The forward's plan for an (M, K, N) GEMM (`gemm.plan_for`): regime
+    A up to 64 rows, B above, each with its tile.  The plan never changes
+    an output element's summation order (no split-K), only the speed."""
+    return gemm_kernel.plan_for(m, k, n)
+
+
+def _bwd_tile(rows: int, cols: int) -> int:
+    """The backward's square output tile for a (rows, cols) output: 64
+    when there are enough 64 x 64 tiles to fill the card, else 32."""
+    blocks = -(-rows // 64) * -(-cols // 64)
+    return 64 if blocks >= _MIN_BLOCKS_64 and cols > 32 else 32
 
 
 def default_bwd_tiles(variant: str, rows: int, kdim: int, cols: int,
                       batch: int = 1) -> tuple[int, int, int, int]:
     """(bm, bk, bn, splits) for a backward GEMM over its own (rows,
     contraction, cols): ("dx", M, N, K) or ("dw", K, M, N), `batch` of
-    them for the bmm op.  The tile is `default_tiles`' for one matrix.
+    them for the bmm op.  The tile is `_bwd_tile`'s for one matrix, the
+    stage `gemm.BK` deep.
     When the output tiles' threads, counted over the whole batch, would
     fill less than half the card, the contraction is split into enough
     pieces to reach `_SPLIT_THREADS`, none shorter than `_MIN_SPLIT_DEPTH`,
@@ -71,7 +77,7 @@ def default_bwd_tiles(variant: str, rows: int, kdim: int, cols: int,
     if variant not in BWD_VARIANTS:
         raise ValueError(f"unknown backward variant {variant!r}; expected "
                          f"one of {BWD_VARIANTS}")
-    t, bk, _ = default_tiles(rows, kdim, cols)
+    t, bk = _bwd_tile(rows, cols), gemm_kernel.BK
     threads = batch * -(-rows // t) * -(-cols // t) * (t // 4) ** 2
     splits = max(1, min(-(-_SPLIT_THREADS // max(1, threads)),
                         kdim // _MIN_SPLIT_DEPTH,
@@ -93,7 +99,8 @@ def matmul(x, w, scale=None, shift=None, *, act: str = "linear",
     (M, K) x (K, N).
 
     scale/shift are (N,) vectors (cast to float32) or None; `tiles` pins
-    (bm, bk, bn), else `default_tiles` picks.  w is row-major, or the
+    the forward's plan (a `gemm.Plan` or its tuple), else `default_tiles`
+    picks.  w is row-major, or the
     transpose of a row-major tensor (read in place, forward and backward).
     Differentiable: with grad enabled and an operand that requires it, the
     call goes through `gemm.GemmFused`, whose backward uses
@@ -103,7 +110,7 @@ def matmul(x, w, scale=None, shift=None, *, act: str = "linear",
     """
     m, k = x.shape
     n = w.shape[1]
-    bm = (tiles or default_tiles(m, k, n))[0]
+    plan = tiles or default_tiles(m, k, n)
     if not (w.is_contiguous() or gemm_kernel.is_transposed(w)):
         raise ValueError(f"w {tuple(w.shape)} must be contiguous or the "
                          f"transpose of a contiguous tensor: a weight is "
@@ -117,10 +124,10 @@ def matmul(x, w, scale=None, shift=None, *, act: str = "linear",
         dw_plan = (default_bwd_tiles("dw", n, m, k) if not w.is_contiguous()
                    else default_bwd_tiles("dw", k, m, n))
         return gemm_kernel.GemmFused.apply(
-            x, w, scale, shift, act, out_dtype, bm,
+            x, w, scale, shift, act, out_dtype, plan,
             (dx_plan[0], dx_plan[3]), (dw_plan[0], dw_plan[3]))
     return gemm_kernel.gemm_fused_fwd(x, w, scale, shift, act=act,
-                                      out_dtype=out_dtype, tile=bm)
+                                      out_dtype=out_dtype, plan=plan)
 
 
 def validate_bmm_shapes(x, w) -> None:
@@ -137,7 +144,7 @@ def bmm(x, w, *, out_dtype=None, tiles: tuple = ()) -> torch.Tensor:
     accumulation, the result in `out_dtype` (default x's dtype); any M, K
     and N (the kernels mask the ragged edges where the JAX wrapper pads).
 
-    `tiles` pins (bm, bk, bn), else `default_tiles` of one matrix picks
+    `tiles` pins the forward's plan, else `default_tiles` of one matrix picks
     (the batch stays out of the pick, as out of the JAX key).  Both
     operands are made contiguous.  Differentiable: with grad enabled and
     an operand that requires it, the call goes through `gemm.BmmFn`, whose
@@ -147,16 +154,16 @@ def bmm(x, w, *, out_dtype=None, tiles: tuple = ()) -> torch.Tensor:
     validate_bmm_shapes(x, w)
     b, m, k = x.shape
     n = w.shape[2]
-    bm = (tiles or default_tiles(m, k, n))[0]
+    plan = tiles or default_tiles(m, k, n)
     x, w = x.contiguous(), w.contiguous()
     out_dtype = out_dtype or x.dtype
     if needs_grad(x, w):
         dx_plan = default_bwd_tiles("dx", m, n, k, batch=b)
         dw_plan = default_bwd_tiles("dw", k, m, n, batch=b)
-        return gemm_kernel.BmmFn.apply(x, w, out_dtype, bm,
+        return gemm_kernel.BmmFn.apply(x, w, out_dtype, plan,
                                        (dx_plan[0], dx_plan[3]),
                                        (dw_plan[0], dw_plan[3]))
-    return gemm_kernel.bmm_fwd(x, w, out_dtype=out_dtype, tile=bm)
+    return gemm_kernel.bmm_fwd(x, w, out_dtype=out_dtype, plan=plan)
 
 
 # ------------------------------------------------------------- attention ---

@@ -1,0 +1,112 @@
+"""Device time of every forward GEMM plan at the port's path shapes.
+
+    python3 src/repro_torch/kernels/time_gemm.py
+
+Builds `gemm` and, for each (M, K, N) the paths dispatch, prints one JSON
+line: the median device ms of each plan of the shape's regime (regime A
+up to 64 rows, B beyond: `gemm.PLANS`) and of torch.matmul (cuBLAS fp32,
+TF32 off), each over CUDA-graph replays, fp32 with no epilogue, with the
+plan `gemm.plan_for` picks and the fastest.  Up to 64 rows a timed call
+cycles over 24 distinct weights (one per layer, as a dispatch does), so
+the weights come from device memory and not from the 50 MB L2.  The last
+line counts the shapes where the pick is the fastest plan and the worst
+ratio of the pick's time to the fastest.  These are the measurements the
+rule of `plan_for` was set from.  Needs an NVIDIA GPU.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import sys
+from pathlib import Path
+
+# qwen2-0.5b (q and o, k and v, gate and up, down, the tied head) and
+# mamba2-1.3b (wz and wx, wB and wC, wdt, out, the tied head): (K, N,
+# transposed w)
+LM = [(896, 896, False), (896, 128, False), (896, 4864, False),
+      (4864, 896, False), (896, 151936, True)]
+SSM = [(2048, 4096, False), (2048, 128, False), (2048, 64, False),
+       (4096, 2048, False), (2048, 50288, True)]
+ROWS_A = (1, 4, 8, 16, 32, 64)
+# DARKNET19_CFG's GEMMs at batch 8, the LM train step (8 x 512 rows), the
+# SSM prefill (4 x 1000 rows), llama4-scout's expert GEMM and the paper's
+# Figure 3 GEMM
+SHAPES_B = ([(401408, 27, 32, False), (100352, 288, 64, False),
+             (25088, 576, 128, False), (25088, 128, 64, False),
+             (6272, 1152, 256, False), (6272, 256, 128, False),
+             (1568, 2304, 512, False), (1568, 512, 256, False)]
+            + [(4096, k, n, t) for k, n, t in LM]
+            + [(4000, k, n, t) for k, n, t in SSM]
+            + [(256, 5120, 8192, False), (2048, 4096, 16384, False)])
+LAYERS = 24
+
+
+def graph_ms(fn, reps: int, repeats: int = 5) -> float:
+    """Median device ms of one call: `reps` calls captured in a CUDA graph,
+    replayed `repeats` times between CUDA events."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def main() -> int:
+    sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
+    import torch
+    if not torch.cuda.is_available():
+        print("time_gemm: needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import build, gemm
+    build.build_all(("gemm",))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    shapes = [(m, k, n, t) for m in ROWS_A for k, n, t in LM + SSM]
+    shapes += [(8, 512, 1000, False)] + SHAPES_B
+    hits, worst = 0, 1.0
+    for m, k, n, trans in shapes:
+        x = torch.randn(m, k, generator=gen, device=dev)
+        w = torch.randn(n, k, generator=gen, device=dev).t() if trans else \
+            torch.randn(k, n, generator=gen, device=dev)
+        copies = LAYERS if m <= gemm.A_MAX_ROWS and n * k < 2**25 else 1
+        ws = [w] + [w.clone() for _ in range(copies - 1)]
+        regime = "A" if m <= gemm.A_MAX_ROWS else "B"
+        reps = max(1, 20 // copies)
+
+        def each(fn):
+            return graph_ms(lambda: [fn(wi) for wi in ws], reps) / copies
+
+        ms = {"".join(map(str, p)): each(
+            lambda wi, p=p: gemm.gemm_fused_fwd(x, wi, plan=p))
+            for p in gemm.PLANS if p.regime == regime}
+        pick = "".join(map(str, gemm.plan_for(m, k, n)))
+        best = min(ms, key=ms.get)
+        hits += pick == best
+        worst = max(worst, ms[pick] / ms[best])
+        print(json.dumps({"shape": [m, k, n], "trans_w": trans, "ms": ms,
+                          "cublas_ms": each(lambda wi: torch.matmul(x, wi)),
+                          "pick": pick, "best": best}), flush=True)
+        del x, w, ws
+    print(json.dumps({"shapes": len(shapes), "pick_is_fastest": hits,
+                      "worst_pick_over_fastest": worst,
+                      "device": torch.cuda.get_device_name(0)}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

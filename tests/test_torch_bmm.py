@@ -229,7 +229,7 @@ def test_dispatches_are_counted_per_call():
     assert log[1]["shapes"] == (8, 8, 8) and log[1]["tiles"] == ()
     assert backends.get_backend("cuda").tiles(
         "bmm", (256, 5120, 8192), torch.float32) == ops.default_tiles(
-            256, 5120, 8192)
+            256, 5120, 8192) == gemm.plan_for(256, 5120, 8192)
     backends.reset_dispatch_counts()
 
 

@@ -85,28 +85,42 @@ def test_kernel_matches_plain_version(card, m, k, n, dtype, tol):
     for act in ACTIVATIONS:
         for sc, sh in ((None, None), (scale, shift)):
             want = gemm.gemm_fused_plain(x, w, sc, sh, act=act)
-            for tile in gemm.TILES:
-                before = gemm.launches
-                got = gemm.gemm_fused_fwd(x, w, sc, sh, act=act, tile=tile)
-                assert gemm.launches == before + 1
+            for plan in gemm.PLANS:
+                before = gemm.launch_counts()
+                got = gemm.gemm_fused_fwd(x, w, sc, sh, act=act, plan=plan)
+                after = gemm.launch_counts()
+                assert after["gemm_fused_fwd"] == before["gemm_fused_fwd"] + 1
+                regime = f"gemm_fwd_regime_{plan.regime.lower()}"
+                assert after[regime] == before[regime] + 1
                 assert got.dtype == dtype and tuple(got.shape) == (m, n)
-                assert _relmax(got, want) <= tol, (act, tile)
+                assert _relmax(got, want) <= tol, (act, plan)
 
 
-def test_rows_do_not_depend_on_m_or_tile(card):
+@pytest.mark.parametrize("m,k,n,trans", [(70, 300, 90, False),
+                                         (71, 4864, 896, False),
+                                         (72, 896, 3000, True)])
+def test_rows_do_not_depend_on_m_or_tile(card, m, k, n, trans):
     """A row's result is bitwise the same alone, inside a larger M, and
-    under either tile: no split-K, one fixed summation order."""
+    under every plan of either regime: no split-K, one fixed summation
+    order.  At LM widths (qwen2-0.5b's down projection, and a tied head
+    read transposed) rows 0:1, 0:8 and 0:64 go through regime A and the
+    full product through regime B."""
     g = torch.Generator(device=card).manual_seed(0)
-    x = torch.randn(70, 300, generator=g, device=card)
-    w = torch.randn(300, 90, generator=g, device=card)
-    shift = torch.randn(90, generator=g, device=card)
-    full = {t: gemm.gemm_fused_fwd(x, w, None, shift, act="leaky", tile=t)
-            for t in gemm.TILES}
-    assert torch.equal(full[64], full[32])
-    for rows in (slice(0, 1), slice(5, 8), slice(64, 70)):
+    x = torch.randn(m, k, generator=g, device=card)
+    w = torch.randn(n, k, generator=g, device=card).t() if trans else \
+        torch.randn(k, n, generator=g, device=card)
+    shift = torch.randn(n, generator=g, device=card)
+    full = {p: gemm.gemm_fused_fwd(x, w, None, shift, act="leaky", plan=p)
+            for p in gemm.PLANS}
+    assert gemm.plan_for(m, k, n).regime == "B"
+    want = full[gemm.plan_for(m, k, n)]
+    assert all(torch.equal(y, want) for y in full.values())
+    for rows in (slice(0, 1), slice(0, 8), slice(0, 64), slice(5, 8),
+                 slice(64, m)):
         part = gemm.gemm_fused_fwd(x[rows].contiguous(), w, None, shift,
                                    act="leaky")
-        assert torch.equal(part, full[64][rows])
+        assert gemm.plan_for(rows.stop - rows.start, k, n).regime == "A"
+        assert torch.equal(part, want[rows])
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(card):
@@ -114,8 +128,8 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card):
     w = torch.zeros(8, 3, device=card)
     with pytest.raises(ValueError, match="contiguous"):
         gemm.gemm_fused_fwd(torch.zeros(8, 4, device=card).t(), w)
-    with pytest.raises(ValueError, match="tile"):
-        gemm.gemm_fused_fwd(x, w, tile=16)
+    with pytest.raises(ValueError, match="plan"):
+        gemm.gemm_fused_fwd(x, w, plan=("A", 32, 32))
     with pytest.raises(ValueError, match="on cpu"):
         gemm.gemm_fused_fwd(x, w.cpu())
     assert tuple(ops.matmul(x, w).shape) == (4, 3)
@@ -137,17 +151,17 @@ def test_transposed_weight_gives_the_row_major_bits(card, m, k, n, dtype,
     assert gemm.is_transposed(w) or min(k, n) == 1
     for act in ACTIVATIONS:
         want = gemm.gemm_fused_plain(x, w, None, shift, act=act)
-        for tile in gemm.TILES:
-            got = gemm.gemm_fused_fwd(x, w, None, shift, act=act, tile=tile)
+        for plan in gemm.PLANS:
+            got = gemm.gemm_fused_fwd(x, w, None, shift, act=act, plan=plan)
             assert torch.equal(got, gemm.gemm_fused_fwd(
-                x, w.contiguous(), None, shift, act=act, tile=tile))
+                x, w.contiguous(), None, shift, act=act, plan=plan))
             assert _relmax(got, want) <= tol
     if gemm.is_transposed(w):
-        for act in ("linear", "silu"):
+        for act, plan in zip(("linear", "silu") * 3, gemm.PLANS):
             got = gemm.gemm_fused_fwd(x, w, None, shift, act=act,
-                                      residuals=True)
+                                      residuals=True, plan=plan)
             want = gemm.gemm_fused_fwd(x, w.contiguous(), None, shift,
-                                       act=act, residuals=True)
+                                       act=act, residuals=True, plan=plan)
             assert all(a is None and b is None or torch.equal(a, b)
                        for a, b in zip(got, want))
 
@@ -183,16 +197,16 @@ def test_residual_kernel_matches_plain_and_keeps_the_serving_bits(card, m,
         for sc, sh in ((None, None), (scale, None), (scale, shift)):
             want = gemm.gemm_fused_res_plain(x, w, sc, sh, act=act)
             u = epilogue(u_all, sc, sh, "linear")
-            for tile in gemm.TILES:
+            for plan in gemm.PLANS:
                 before = gemm.launch_counts()
-                got = gemm.gemm_fused_fwd(x, w, sc, sh, act=act, tile=tile,
+                got = gemm.gemm_fused_fwd(x, w, sc, sh, act=act, plan=plan,
                                           residuals=True)
                 after = gemm.launch_counts()
                 assert after["gemm_fused_fwd_res"] == before[
                     "gemm_fused_fwd_res"] + 1
                 assert after["gemm_fused_fwd"] == before["gemm_fused_fwd"]
                 assert torch.equal(got[0], gemm.gemm_fused_fwd(
-                    x, w, sc, sh, act=act, tile=tile))
+                    x, w, sc, sh, act=act, plan=plan))
                 assert (got[1] is None) == (act == "linear")
                 assert (got[2] is None) == (sc is None)
                 assert _relmax(got[0], want[0]) <= 1e-5
@@ -610,10 +624,10 @@ def test_bmm_kernels_match_plain_and_the_2d_kernels(card, b, m, k, n, dtype,
     w = (torch.randn(b, k, n, generator=gen, device=card) / k ** 0.5).to(
         dtype)
     dy = torch.randn(b, m, n, generator=gen, device=card).to(dtype)
-    for tile in gemm.TILES:
+    for plan, tile in zip(gemm.PLANS, gemm.TILES * 3):
         for splits in (1, 3):
             before = gemm.launch_counts()
-            y = gemm.bmm_fwd(x, w, tile=tile)
+            y = gemm.bmm_fwd(x, w, plan=plan)
             dx = gemm.bmm_bwd_dx(dy, w, tile=tile, splits=splits)
             dw = gemm.bmm_bwd_dw(x, dy, tile=tile, splits=splits)
             after = gemm.launch_counts()
@@ -626,7 +640,7 @@ def test_bmm_kernels_match_plain_and_the_2d_kernels(card, b, m, k, n, dtype,
                                                    splits=splits))
             for i in range(b):
                 assert torch.equal(y[i], gemm.gemm_fused_fwd(x[i], w[i],
-                                                             tile=tile))
+                                                             plan=plan))
                 assert torch.equal(dx[i], gemm.gemm_bwd_dx(
                     dy[i], w[i], tile=tile, splits=splits))
                 assert torch.equal(dw[i], gemm.gemm_bwd_dw(

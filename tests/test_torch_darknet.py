@@ -367,7 +367,7 @@ def test_registry_dispatches_counts_and_validates():
         eng.conv2d(torch.ones(1, 3, 3, 1), torch.ones(9, 1), size=3)
     assert backends.get_backend("cuda").tiles(
         "conv2d", ((8, 224, 224, 3), 32, 3, 1, 1), torch.float32) == \
-        (32, 16, 32)
+        ("B", 64, 32)
     assert backends.gemm_dims("conv2d", ((8, 224, 224, 3), 32, 3, 1, 1)) \
         == (8 * 224 * 224, 27, 32)
     assert Precision("mixed").param_dtype == torch.float32

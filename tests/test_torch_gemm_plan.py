@@ -1,0 +1,178 @@
+"""The forward GEMM's plans (regime and tile) and the backward's, on the
+CPU.
+
+`ops.default_tiles` picks the forward's plan from (M, K, N): regime A up to
+64 rows, regime B above (``csrc/gemm.cu``'s header).  Every plan it returns
+must be instantiated and its grid must fit the launch limits.  Every plan
+gives every output the same bits, which the card tests and chip_smoke.py
+check; here a CPU tensor runs the plain version under any plan.  The
+backward's (tile, splits) plans choose dW's contraction split and so its
+bits: they are pinned to the values they had before the forward's plans
+existed.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import gemm, ops
+
+torch.set_num_threads(1)
+
+# The forward GEMMs of the paths, (M, K, N): DARKNET19_CFG at batch 1 and 8,
+# qwen2-0.5b at M 1 / 8 / 64 / 4096 (q and o, k and v, gate and up, down,
+# the tied head), mamba2-1.3b at M 1 / 4 / 1000 / 4000 (wz and wx, wB and
+# wC, wdt, out, the tied head) and llama4-scout's expert GEMMs.
+DARKNET19_B1 = [(50176, 27, 32), (12544, 288, 64), (3136, 576, 128),
+                (3136, 128, 64), (784, 1152, 256), (784, 256, 128),
+                (196, 2304, 512), (196, 512, 256), (1, 512, 1000)]
+PATH_SHAPES = (
+    DARKNET19_B1 + [(8 * m, k, n) for m, k, n in DARKNET19_B1[:-1]]
+    + [(8, 512, 1000)]
+    + [(m, k, n) for m in (1, 8, 64, 4096)
+       for k, n in ((896, 896), (896, 128), (896, 4864), (4864, 896),
+                    (896, 151936))]
+    + [(m, k, n) for m in (1, 4, 1000, 4000)
+       for k, n in ((2048, 4096), (2048, 128), (2048, 64), (4096, 2048),
+                    (2048, 50288))]
+    + [(256, 5120, 8192), (256, 8192, 5120), (2048, 4096, 16384)])
+# (M, K, N, batch) -> the backward's (tile, splits) for dX, dW and the
+# transposed-w dW (dE = dY^T . X), as they were before the forward's plans.
+BWD_PLANS = [
+    ((401408, 27, 32, 1), 32, 1, 32, 784, 32, 784),
+    ((100352, 288, 64, 1), 64, 1, 32, 117, 32, 117),
+    ((25088, 576, 128, 1), 64, 1, 32, 30, 32, 30),
+    ((25088, 128, 64, 1), 64, 1, 32, 49, 32, 49),
+    ((6272, 1152, 256, 1), 64, 1, 32, 8, 32, 8),
+    ((6272, 256, 128, 1), 64, 1, 32, 12, 32, 12),
+    ((1568, 2304, 512, 1), 64, 1, 64, 2, 64, 2),
+    ((1568, 512, 256, 1), 32, 1, 32, 3, 32, 3),
+    ((8, 512, 1000, 1), 32, 1, 32, 1, 32, 1),
+    ((1, 896, 896, 1), 32, 1, 32, 1, 32, 1),
+    ((1, 896, 128, 1), 32, 1, 32, 1, 32, 1),
+    ((1, 896, 4864, 1), 32, 9, 64, 1, 64, 1),
+    ((1, 4864, 896, 1), 32, 1, 64, 1, 64, 1),
+    ((1, 896, 151936, 1), 32, 76, 64, 1, 64, 1),
+    ((8, 896, 896, 1), 32, 1, 32, 1, 32, 1),
+    ((8, 896, 128, 1), 32, 1, 32, 1, 32, 1),
+    ((8, 896, 4864, 1), 32, 9, 64, 1, 64, 1),
+    ((8, 4864, 896, 1), 32, 1, 64, 1, 64, 1),
+    ((8, 896, 151936, 1), 32, 76, 64, 1, 64, 1),
+    ((64, 896, 896, 1), 32, 1, 32, 1, 32, 1),
+    ((64, 896, 128, 1), 32, 1, 32, 1, 32, 1),
+    ((64, 896, 4864, 1), 32, 9, 64, 1, 64, 1),
+    ((64, 4864, 896, 1), 32, 1, 64, 1, 64, 1),
+    ((64, 896, 151936, 1), 32, 38, 64, 1, 64, 1),
+    ((4096, 896, 896, 1), 64, 1, 32, 3, 32, 3),
+    ((4096, 896, 128, 1), 64, 1, 32, 8, 32, 8),
+    ((4096, 896, 4864, 1), 64, 1, 64, 1, 64, 1),
+    ((4096, 4864, 896, 1), 64, 1, 64, 1, 64, 1),
+    ((4096, 896, 151936, 1), 64, 1, 64, 1, 64, 1),
+    ((1, 2048, 4096, 1), 32, 8, 64, 1, 64, 1),
+    ((1, 2048, 128, 1), 32, 1, 32, 1, 32, 1),
+    ((1, 2048, 64, 1), 32, 1, 32, 1, 32, 1),
+    ((1, 4096, 2048, 1), 32, 4, 64, 1, 64, 1),
+    ((1, 2048, 50288, 1), 32, 33, 64, 1, 64, 1),
+    ((4, 2048, 4096, 1), 32, 8, 64, 1, 64, 1),
+    ((4, 2048, 128, 1), 32, 1, 32, 1, 32, 1),
+    ((4, 2048, 64, 1), 32, 1, 32, 1, 32, 1),
+    ((4, 4096, 2048, 1), 32, 4, 64, 1, 64, 1),
+    ((4, 2048, 50288, 1), 32, 33, 64, 1, 64, 1),
+    ((1000, 2048, 4096, 1), 64, 2, 64, 1, 64, 1),
+    ((1000, 2048, 128, 1), 64, 1, 32, 1, 32, 1),
+    ((1000, 2048, 64, 1), 64, 1, 32, 1, 32, 1),
+    ((1000, 4096, 2048, 1), 64, 1, 64, 1, 64, 1),
+    ((1000, 2048, 50288, 1), 64, 2, 64, 1, 64, 1),
+    ((4000, 2048, 4096, 1), 64, 1, 64, 1, 64, 1),
+    ((4000, 2048, 128, 1), 64, 1, 32, 7, 32, 7),
+    ((4000, 2048, 64, 1), 64, 1, 32, 7, 32, 7),
+    ((4000, 4096, 2048, 1), 64, 1, 64, 1, 64, 1),
+    ((4000, 2048, 50288, 1), 64, 1, 64, 1, 64, 1),
+    ((256, 5120, 8192, 16), 64, 1, 64, 1, 64, 1),
+    ((256, 8192, 5120, 16), 64, 1, 64, 1, 64, 1),
+]
+
+
+def _grid(plan, m, n, batch=1):
+    return -(-m // plan.bm), -(-n // plan.bn), batch
+
+
+def _check_plan(m, k, n, batch=1):
+    plan = ops.default_tiles(m, k, n)
+    assert plan in gemm.PLANS
+    assert plan == gemm.plan_for(m, k, n) == ops.default_tiles(m, k, n)
+    gx, gy, gz = _grid(plan, m, n, batch)
+    assert gx < 2**31 and gy <= 65535 and gz <= gemm.MAX_GRID_Z
+    # Regime A takes every shape (its ragged and unaligned pieces are
+    # copied element by element), so every M up to 64 rows is A's.
+    assert (plan.regime == "A") == (m <= gemm.A_MAX_ROWS)
+    return plan
+
+
+@pytest.mark.parametrize("m,k,n", PATH_SHAPES)
+def test_forward_plan_of_the_path_shapes(m, k, n):
+    plan = _check_plan(m, k, n)
+    if m <= 8:                       # decode rows: 8-row blocks
+        assert plan == gemm.Plan("A", 8, 16)
+    if m > 64 and k < 2048:          # short contractions: 64 x 32 tiles
+        assert plan == gemm.Plan("B", 64, 32)
+
+
+def test_forward_plan_over_a_seeded_grid():
+    rng = np.random.default_rng(0)
+    dims = np.concatenate([rng.integers(1, 130, (300, 3)),
+                           np.exp(rng.uniform(0, 19, (300, 3))).astype(int)
+                           + 1])
+    for m, k, n in dims.tolist():
+        _check_plan(m, k, min(n, 65535 * 16), batch=int(rng.integers(1, 9)))
+
+
+@pytest.mark.parametrize("m,k,n,batch,dx_tile,dx_splits,dw_tile,dw_splits,"
+                         "dwt_tile,dwt_splits",
+                         [(*s, *p) for s, *p in BWD_PLANS])
+def test_backward_plans_are_unchanged(m, k, n, batch, dx_tile, dx_splits,
+                                      dw_tile, dw_splits, dwt_tile,
+                                      dwt_splits):
+    """dW's split sets its bits, so the backward keeps its own 64 / 32
+    tile rule and the (tile, splits) it had."""
+    bk = gemm.BK
+    assert ops.default_bwd_tiles("dx", m, n, k, batch=batch) == (
+        dx_tile, bk, dx_tile, dx_splits)
+    assert ops.default_bwd_tiles("dw", k, m, n, batch=batch) == (
+        dw_tile, bk, dw_tile, dw_splits)
+    assert ops.default_bwd_tiles("dw", n, m, k, batch=batch) == (
+        dwt_tile, bk, dwt_tile, dwt_splits)
+
+
+@pytest.mark.parametrize("plan", gemm.PLANS)
+def test_every_plan_runs_the_plain_version_on_the_cpu(plan):
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((33, 177)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((177, 99)).astype(np.float32))
+    shift = torch.from_numpy(rng.standard_normal(99).astype(np.float32))
+    before = gemm.launch_counts()
+    got = gemm.gemm_fused_fwd(x, w, None, shift, act="silu", plan=plan)
+    assert torch.equal(got, gemm.gemm_fused_plain(x, w, None, shift,
+                                                  act="silu"))
+    xb, wb = x.reshape(3, 11, 177), w.expand(3, 177, 99)
+    assert torch.equal(gemm.bmm_fwd(xb, wb, plan=tuple(plan)),
+                       gemm.bmm_fwd_plain(xb, wb))
+    assert gemm.launch_counts() == before
+
+
+@pytest.mark.parametrize("plan", [("A", 32, 32), ("B", 64, 64), (64, 16, 64),
+                                  ("C", 64, 64)])
+def test_a_plan_that_is_not_instantiated_is_refused(plan):
+    x, w = torch.zeros(4, 8), torch.zeros(8, 3)
+    with pytest.raises(ValueError, match="plan"):
+        gemm.gemm_fused_fwd(x, w, plan=plan)
+    with pytest.raises(ValueError, match="plan"):
+        gemm.bmm_fwd(x[None], w[None], plan=plan)
+    with pytest.raises(ValueError, match="plan"):
+        ops.matmul(x, w, tiles=plan)
+
+
+def test_regime_counts_are_counted_and_reset():
+    counts = gemm.launch_counts()
+    assert {"gemm_fwd_regime_a", "gemm_fwd_regime_b"} <= set(counts)
+    gemm.reset_launches()
+    assert set(gemm.launch_counts().values()) == {0}
