@@ -34,13 +34,19 @@ script exits non-zero.  Phases:
   6. check_bwd  the training kernels against their plain versions on the
               card: the residual forward (y, g = act'(u), racc) over all five
               activations with and without scale and shift, its y bitwise
-              equal to the serving launch's; dX and dW (both tiles, with and
-              without a split contraction; the residual forward under every
-              plan) on MATMUL_CASES and the 12
+              equal to the serving launch's; dX and dW (every backward plan,
+              gemm.BWD_PLANS, with and without a split contraction; the
+              residual forward under every plan) on MATMUL_CASES and the 12
               DARKNET19 GEMMs at batch 8 in their dX and dW roles, fp32 and
               bf16.  Bars as phase 2; g of relu/leaky is compared away from
               the kink (|u| > 1e-5 max|u|), where two summation orders may
               put u on either side of 0.  Prints each dW's split count.
+              At the same shapes (check_bwd_bits), fp32 and bf16: every
+              backward plan gives the path plan's bits at the path's split
+              for dX (W row-major and a tied head's E^T read in place) and
+              both dW orientations (X^T dY and the tied head's dE = dY^T
+              X); dX in one piece equals gemm_fused_fwd(dY, W^T) bit for
+              bit.
   7. train    the training main path: full-width DARKNET19_CFG at batch 8,
               three AdamW steps (lr 1e-3, warmup 1) on the `cuda` engine and
               on the `eager` engine from the same state and numpy-seeded
@@ -198,12 +204,13 @@ script exits non-zero.  Phases:
               the fp32 logits within 5e-2 or 1.5 x `eager`'s.
  25. check_bmm  the batched forward, dX and dW kernels of the engine `bmm`
               op against their plain versions: BMM_CASES of
-              tests/test_grad_conformance.py and a ragged case under both
-              tiles and split counts 1 and 3, then llama4-scout-17b-a16e's
-              expert GEMMs (16 experts, 256 rows each, 5120 <-> 8192) at
-              the path's plans, fp32 (1e-5, scaled as phase 19 for a
-              contraction over 4096 terms) and bf16 (5e-2); every batch
-              slice bitwise the 2-D kernel's at the same plan; reruns
+              tests/test_grad_conformance.py and a ragged case under every
+              forward and backward plan and split counts 1 and 3, then
+              llama4-scout-17b-a16e's expert GEMMs (16 experts, 256 rows
+              each, 5120 <-> 8192) at the path's plans, fp32 (1e-5, scaled
+              as phase 19 for a contraction over 4096 terms) and bf16
+              (5e-2); every batch slice bitwise the 2-D kernel's at the
+              same plan; every backward plan bitwise the path's; reruns
               bitwise.
  26. engine_bmm  this slice's bmm path: make_engine("cuda").bmm at the
               first expert shape and autograd's gradient of sum(y**2),
@@ -575,7 +582,7 @@ def check_res_shape(m, k, n, plans, gen) -> dict:
 
 def check_bwd_shape(m, k, n, dx_plans, dw_plans, gen) -> dict:
     """dX = dY W^T and dW = X^T dY vs their plain versions at the forward
-    shape (m, k, n), over in/out dtypes and (tile, splits) plans; a dW run
+    shape (m, k, n), over in/out dtypes and (plan, splits) pairs; a dW run
     twice must give the same bits."""
     worst = {"gemm_bwd_dx": {"fp32": 0.0, "bf16": 0.0},
              "gemm_bwd_dw": {"fp32": 0.0, "bf16": 0.0}}
@@ -595,10 +602,10 @@ def check_bwd_shape(m, k, n, dx_plans, dw_plans, gen) -> dict:
                     ("gemm_bwd_dw", gemm.gemm_bwd_dw, gemm.gemm_bwd_dw_plain,
                      x, dy, dw_plans)):
                 want = plain(a, b, out_dtype=out_dt)
-                for tile, splits in plans:
-                    got = fn(a, b, out_dtype=out_dt, tile=tile, splits=splits)
+                for plan, splits in plans:
+                    got = fn(a, b, out_dtype=out_dt, plan=plan, splits=splits)
                     where = (f"{name} at {(m, k, n)} {in_dt}->{out_dt} "
-                             f"tile={tile} splits={splits}")
+                             f"plan={tuple(plan)} splits={splits}")
                     check(bool(torch.isfinite(got).all()),
                           f"non-finite {where}")
                     err = relmax(got, want)
@@ -609,7 +616,7 @@ def check_bwd_shape(m, k, n, dx_plans, dw_plans, gen) -> dict:
                             (got - want).abs().max()))
                     if name == "gemm_bwd_dw":
                         check(torch.equal(got, fn(a, b, out_dtype=out_dt,
-                                                  tile=tile, splits=splits)),
+                                                  plan=plan, splits=splits)),
                               f"two runs of {where} differ")
     return {"shape": [m, k, n], "dx_plans": dx_plans, "dw_plans": dw_plans,
             "dw_splits": [gemm.split_chunk(m, s)[1] for _, s in dw_plans],
@@ -617,11 +624,54 @@ def check_bwd_shape(m, k, n, dx_plans, dw_plans, gen) -> dict:
 
 
 def bwd_plans(m, k, n) -> tuple[list, list]:
-    """The path's (tile, splits) plans of the backward GEMMs of the forward
-    GEMM (m, k, n)."""
-    dx = ops.default_bwd_tiles("dx", m, n, k)
-    dw = ops.default_bwd_tiles("dw", k, m, n)
-    return [(dx[0], dx[3])], [(dw[0], dw[3])]
+    """The path's (plan, splits) of the backward GEMMs of the forward GEMM
+    (m, k, n)."""
+    return [ops.bwd_plan("dx", m, n, k)], [ops.bwd_plan("dw", k, m, n)]
+
+
+def check_bwd_bits(m, k, n, gen) -> dict:
+    """At the forward shape (m, k, n), fp32 and bf16 in and out: every
+    backward plan gives the bits of the path's plan, at the path's split,
+    for dX = dY W^T (W row-major, and a tied head's W = E^T read in place)
+    and both dW orientations (X^T dY, and the tied head's dE = dY^T X); and
+    dX in one piece equals the forward kernel's dY @ W^T (linear, no scale
+    or shift), bit for bit, for both layouts of W."""
+    dev = gen.device
+    cases = 0
+    for in_dt in (torch.float32, torch.bfloat16):
+        x = torch.randn(m, k, generator=gen, device=dev).to(in_dt)
+        w = (torch.randn(k, n, generator=gen, device=dev)
+             / math.sqrt(n)).to(in_dt)
+        e = w.t().contiguous()  # (N, K), the table of a tied head
+        dy = torch.randn(m, n, generator=gen, device=dev).to(in_dt)
+        variants = (
+            ("dx", gemm.gemm_bwd_dx, (dy, w), ops.bwd_plan("dx", m, n, k)),
+            ("dx tied", gemm.gemm_bwd_dx, (dy, e.t()),
+             ops.bwd_plan("dx", m, n, k)),
+            ("dw", gemm.gemm_bwd_dw, (x, dy), ops.bwd_plan("dw", k, m, n)),
+            ("dE", gemm.gemm_bwd_dw, (dy, x), ops.bwd_plan("dw", n, m, k)))
+        for out_dt in (torch.float32, torch.bfloat16):
+            for name, fn, args, (pick, splits) in variants:
+                want = fn(*args, out_dtype=out_dt, plan=pick, splits=splits)
+                for plan in gemm.BWD_PLANS:
+                    check(torch.equal(fn(*args, out_dtype=out_dt, plan=plan,
+                                         splits=splits), want),
+                          f"{name} at {(m, k, n)} {in_dt}->{out_dt} splits="
+                          f"{splits}: plan {tuple(plan)} differs from "
+                          f"{tuple(pick)}")
+                    cases += 1
+            for wt, fwd_w in ((w, w.t()), (e.t(), e)):
+                fwd = gemm.gemm_fused_fwd(dy, fwd_w, out_dtype=out_dt)
+                for plan in gemm.BWD_PLANS:
+                    check(torch.equal(gemm.gemm_bwd_dx(
+                        dy, wt, out_dtype=out_dt, plan=plan, splits=1), fwd),
+                          f"dX in one piece at {(m, k, n)} {in_dt}->{out_dt} "
+                          f"plan {tuple(plan)} is not the forward's dY W^T")
+                    cases += 1
+                del fwd
+        del x, w, e, dy
+    return {"shape": [m, k, n], "plans": [list(p) for p in gemm.BWD_PLANS],
+            "bitwise_cases": cases}
 
 
 def grads_of(net, batch) -> tuple[torch.Tensor, dict]:
@@ -1722,11 +1772,11 @@ def lm_train_gemm_rows(cfg, cgen, peak_flops, peak_bw) -> dict:
         sh = shift if g["shift"] else None
         dy = torch.randn(m, n, generator=cgen, device=dev)
         plan = ops.default_tiles(m, k, n)
-        dx_plan = ops.default_bwd_tiles("dx", m, n, k)
-        dw_plan = (ops.default_bwd_tiles("dw", n, m, k) if trans
-                   else ops.default_bwd_tiles("dw", k, m, n))
-        dx_args = dict(tile=dx_plan[0], splits=dx_plan[3])
-        dw_args = dict(tile=dw_plan[0], splits=dw_plan[3])
+        dx_plan = ops.bwd_plan("dx", m, n, k)
+        dw_plan = (ops.bwd_plan("dw", n, m, k) if trans
+                   else ops.bwd_plan("dw", k, m, n))
+        dx_args = dict(plan=dx_plan[0], splits=dx_plan[1])
+        dw_args = dict(plan=dw_plan[0], splits=dw_plan[1])
         dw_ops = (dy, x) if trans else (x, dy)
         kernels = {
             "gemm_fused_fwd_res": (
@@ -2224,19 +2274,19 @@ def timing_ssm_phase(cfg, params, dev, cgen, peak_flops, peak_bw,
 
 def bmm_plans(b, m, k, n) -> tuple:
     """The plans `ops.bmm` gives (B, M, K, N): the forward's plan, and the
-    (tile, splits) of dX and of dW (the backward plans count the batch)."""
-    dx = ops.default_bwd_tiles("dx", m, n, k, batch=b)
-    dw = ops.default_bwd_tiles("dw", k, m, n, batch=b)
-    return ops.default_tiles(m, k, n), (dx[0], dx[3]), (dw[0], dw[3])
+    (plan, splits) of dX and of dW (the backward plans count the batch)."""
+    return (ops.default_tiles(m, k, n), ops.bwd_plan("dx", m, n, k, b),
+            ops.bwd_plan("dw", k, m, n, b))
 
 
 def check_bmm_case(b, m, k, n, plans, gen) -> dict:
     """The three bmm kernels against their plain versions at (B, M, K, N),
-    fp32 and bf16, for each (forward plan, tile, splits) in `plans` (the
-    backward takes the tile and the split count): fp32 within gemm_tol of each kernel's contraction (K, N,
-    M), bf16 within BF16_TOL; every batch slice bitwise the 2-D kernel's
+    fp32 and bf16, for each (forward plan, backward plan, splits) in
+    `plans`: fp32 within gemm_tol of each kernel's contraction (K, N, M),
+    bf16 within BF16_TOL; every batch slice bitwise the 2-D kernel's
     (`gemm_fused_fwd` linear without scale or shift, `gemm_bwd_dx`,
-    `gemm_bwd_dw`) at the same plan; a rerun bitwise."""
+    `gemm_bwd_dw`) at the same plan; a rerun bitwise; every backward plan
+    bitwise the given one at the same split."""
     dev = gen.device
     worst = {name: {"fp32": 0.0, "bf16": 0.0} for name in BMM_KERNELS}
     max_abs = dict.fromkeys(BMM_KERNELS, 0.0)
@@ -2252,15 +2302,15 @@ def check_bmm_case(b, m, k, n, plans, gen) -> dict:
                         lambda i, p, t, s: gemm.gemm_fused_fwd(x[i], w[i],
                                                                plan=p)),
             "bmm_bwd_dx": (n, gemm.bmm_bwd_dx_plain(dy, w),
-                           lambda p, t, s: gemm.bmm_bwd_dx(dy, w, tile=t,
+                           lambda p, t, s: gemm.bmm_bwd_dx(dy, w, plan=t,
                                                            splits=s),
                            lambda i, p, t, s: gemm.gemm_bwd_dx(
-                               dy[i], w[i], tile=t, splits=s)),
+                               dy[i], w[i], plan=t, splits=s)),
             "bmm_bwd_dw": (m, gemm.bmm_bwd_dw_plain(x, dy),
-                           lambda p, t, s: gemm.bmm_bwd_dw(x, dy, tile=t,
+                           lambda p, t, s: gemm.bmm_bwd_dw(x, dy, plan=t,
                                                            splits=s),
                            lambda i, p, t, s: gemm.gemm_bwd_dw(
-                               x[i], dy[i], tile=t, splits=s))}
+                               x[i], dy[i], plan=t, splits=s))}
         for name, (kdim, want, fn, slice2d) in cases.items():
             tol = gemm_tol(kdim) if kind == "fp32" else BF16_TOL
             for plan in plans:
@@ -2275,6 +2325,11 @@ def check_bmm_case(b, m, k, n, plans, gen) -> dict:
                     check(torch.equal(got[i], slice2d(i, *plan)),
                           f"{where}: batch slice {i} differs from the 2-D "
                           f"kernel")
+                if name != "bmm_fwd":
+                    for other in gemm.BWD_PLANS:
+                        check(torch.equal(got, fn(plan[0], other, plan[2])),
+                              f"{where}: backward plan {tuple(other)} "
+                              f"differs")
                 worst[name][kind] = max(worst[name][kind], err)
                 if kind == "fp32":
                     max_abs[name] = max(max_abs[name], float(
@@ -2282,16 +2337,16 @@ def check_bmm_case(b, m, k, n, plans, gen) -> dict:
                 del got
         del x, w, dy, cases
     return {"shape": [b, m, k, n],
-            "plans": [[list(p), t, s] for p, t, s in plans],
+            "plans": [[list(p), list(t), s] for p, t, s in plans],
             "relmax": worst, "max_abs_err_fp32": max_abs}
 
 
 def check_bmm_phase(cgen) -> dict:
-    """Phase check_bmm: BMM_CASES under every forward plan, backward tile
-    and split count, then the llama4-scout expert shapes at the path's
-    plans.  Returns the fp32 max-abs error of each kernel at the expert
-    shapes."""
-    forced = [(p, t, s) for p, t in zip(gemm.PLANS, gemm.TILES * 3)
+    """Phase check_bmm: BMM_CASES under every forward plan, backward plan
+    and split count 1 and 3, then the llama4-scout expert shapes at the
+    path's plans.  Returns the fp32 max-abs error of each kernel at the
+    expert shapes."""
+    forced = [(p, t, s) for p, t in zip(gemm.PLANS, gemm.BWD_PLANS * 2)
               for s in (1, 3)]
     for case in BMM_CASES:
         emit("check_bmm", **check_bmm_case(*case, forced, cgen))
@@ -2385,11 +2440,11 @@ def timing_bmm_phase(gen, peak_flops, peak_bw, smi) -> dict:
             ("bmm_fwd", lambda: gemm.bmm_fwd(x, w, plan=plan),
              lambda: gemm.bmm_fwd_plain(x, w), lambda: torch.bmm(x, w)),
             ("bmm_bwd_dx",
-             lambda: gemm.bmm_bwd_dx(dy, w, tile=dxt, splits=dxs),
+             lambda: gemm.bmm_bwd_dx(dy, w, plan=dxt, splits=dxs),
              lambda: gemm.bmm_bwd_dx_plain(dy, w),
              lambda: torch.bmm(dy, w.transpose(1, 2))),
             ("bmm_bwd_dw",
-             lambda: gemm.bmm_bwd_dw(x, dy, tile=dwt, splits=dws),
+             lambda: gemm.bmm_bwd_dw(x, dy, plan=dwt, splits=dws),
              lambda: gemm.bmm_bwd_dw_plain(x, dy),
              lambda: torch.bmm(x.transpose(1, 2), dy))):
         ms = cuda_ms(fn, reps=5, repeats=3)
@@ -2748,10 +2803,11 @@ def main() -> int:
     # --------------------------------------------------------- 6. check_bwd
     bwd_max_abs = {"gemm_bwd_dx": 0.0, "gemm_bwd_dw": 0.0}
     res_max_abs = 0.0
-    forced = [(t, s) for t in gemm.TILES for s in (1, 3)]
+    forced = [(p, s) for p in gemm.BWD_PLANS for s in (1, 3)]
     for m, k, n in MATMUL_CASES:
         emit("check_bwd", **check_res_shape(m, k, n, gemm.PLANS, cgen))
         emit("check_bwd", **check_bwd_shape(m, k, n, forced, forced, cgen))
+        emit("check_bwd_bits", **check_bwd_bits(m, k, n, cgen))
     for g in path_gemms(net, TRAIN_BATCH):
         m, k, n = g["m"], g["k"], g["n"]
         res = check_res_shape(m, k, n, (ops.default_tiles(m, k, n),), cgen)
@@ -2762,6 +2818,8 @@ def main() -> int:
             bwd_max_abs[key] = max(bwd_max_abs[key],
                                    res["max_abs_err_fp32"][key])
         emit("check_bwd", batch=TRAIN_BATCH, layer=g["layer"], **res)
+        emit("check_bwd_bits", batch=TRAIN_BATCH, layer=g["layer"],
+             **check_bwd_bits(m, k, n, cgen))
     torch.cuda.synchronize()
 
     # ------------------------------------------------------------- 7. train
@@ -2903,17 +2961,17 @@ def main() -> int:
         if i > 0:  # the first layer's input is the image: no dX
             record("gemm_bwd_dx", g["layer"], [m, n, k], 2.0 * m * k * n,
                    4.0 * (m * n + k * n + m * k),
-                   lambda: gemm.gemm_bwd_dx(dy, w, tile=dx_plan[0],
+                   lambda: gemm.gemm_bwd_dx(dy, w, plan=dx_plan[0],
                                             splits=dx_plan[1]),
                    lambda: gemm.gemm_bwd_dx_plain(dy, w),
-                   lambda: torch.matmul(dy, w.t()), tile=dx_plan[0],
+                   lambda: torch.matmul(dy, w.t()), plan=dx_plan[0],
                    splits=dx_plan[1])
         record("gemm_bwd_dw", g["layer"], [k, m, n], 2.0 * m * k * n,
                4.0 * (m * k + m * n + k * n),
-               lambda: gemm.gemm_bwd_dw(x, dy, tile=dw_plan[0],
+               lambda: gemm.gemm_bwd_dw(x, dy, plan=dw_plan[0],
                                         splits=dw_plan[1]),
                lambda: gemm.gemm_bwd_dw_plain(x, dy),
-               lambda: torch.matmul(x.t(), dy), tile=dw_plan[0],
+               lambda: torch.matmul(x.t(), dy), plan=dw_plan[0],
                splits=dw_plan[1])
     emit("timing_train_total", batch=TRAIN_BATCH, smi=smi, **tt)
     del x, w, dy

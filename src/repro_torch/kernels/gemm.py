@@ -39,9 +39,14 @@ count their launches by regime (`launches_a`, `launches_b`).
 The forward runs one of two regimes (``csrc/gemm.cu``'s header): A for
 up to 64 rows, bound by the weight bytes, and B for more rows, bound by
 the FFMA rate.  A `Plan` names the regime and its output tile; `PLANS`
-are the instantiated ones and `plan_for` picks one from the shape.  Every
-plan gives every output the same bits (one k-ordered fmaf chain), so the
-plan is a matter of speed only.
+are the instantiated ones and `plan_for` picks one from the shape.  The
+backward kernels (``csrc/gemm_bwd.cu``) run regime B's main loop; a
+`BwdPlan` is their output tile, `BWD_PLANS` the instantiated ones and
+`bwd_plan_for` picks one.  Their contraction split (``splits``, from
+``kernels/ops.py::default_bwd_tiles``) sets how each output is summed;
+the plan does not.  Every plan gives every output the same bits (one
+fmaf chain in contraction order per piece), so a plan is a matter of
+speed only.
 
 `GemmFused` is the ``torch.autograd.Function`` of ``jax.custom_vjp``
 ``_gemm``: its forward is the residual-emitting kernel, its backward the
@@ -64,8 +69,11 @@ from repro_torch.kernels.common import (ACTIVATIONS, act_deriv, apply_act,
                                        epilogue)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-TILES = (64, 32)  # the backward kernels' square output tiles
-BK = 16           # the backward's stage depth; split chunks are whole stages
+# The square tiles of the backward's pinned split rule
+# (`kernels.ops.default_bwd_tiles` counts the threads they would give); the
+# kernels' own tiles are `BWD_PLANS`.
+TILES = (64, 32)
+BK = 16  # split chunks are multiples of this
 
 
 class Plan(NamedTuple):
@@ -81,6 +89,18 @@ class Plan(NamedTuple):
 PLANS = (Plan("A", 8, 16), Plan("A", 64, 16), Plan("A", 64, 64),
          Plan("B", 128, 128), Plan("B", 64, 32))
 A_MAX_ROWS = 64    # plan_for takes regime A up to this many rows
+
+
+class BwdPlan(NamedTuple):
+    """A backward plan: the block's output tile, bm rows by bn columns
+    (8 x 8 accumulators a thread at 128 x 128, else 4 x 4)."""
+    bm: int
+    bn: int
+
+
+# The instantiated backward plans; a plan's index is its id in
+# csrc/gemm_bwd.cu.
+BWD_PLANS = (BwdPlan(128, 128), BwdPlan(64, 32), BwdPlan(32, 32))
 
 launches = 0         # gemm_fused_fwd, serving forward (no residuals)
 launches_res = 0     # gemm_fused_fwd with residuals (the training forward)
@@ -130,6 +150,40 @@ def plan_for(m: int, k: int, n: int) -> Plan:
     if k >= 2048 and -(-m // 128) * -(-n // 128) >= 128:
         return PLANS[3]
     return PLANS[4]
+
+
+def bwd_plan_for(variant: str, rows: int, kdim: int, cols: int,
+                 batch: int = 1) -> BwdPlan:
+    """The backward kernels' plan for a GEMM over its own (rows,
+    contraction, cols), as ``kernels.ops.default_bwd_tiles`` takes them
+    (("dx", M, N, K) or ("dw", K, M, N)), `batch` of them for the bmm op,
+    as measured fastest on an H100 (``kernels/time_gemm.py --bwd``,
+    ``PERF.md``).  128 x 128 tiles for 128 or more columns with 96 or
+    more such tiles, or for dW of 2048 or more rows over a contraction of
+    2048 or more.  Else 32 x 32 for a dW of at most 32768 outputs or over
+    a contraction shorter than one 32-deep stage, and for a dX whose
+    64 x 32 blocks would not fill one wave of the card (132 SMs x 4), and
+    64 x 32 otherwise.  For speed only: every plan gives the same bits."""
+    if variant not in ("dx", "dw"):
+        raise ValueError(f"unknown backward variant {variant!r}")
+    tiles = batch * -(-rows // 128) * -(-cols // 128)
+    if cols >= 128 and (tiles >= 96 or (variant == "dw" and rows >= 2048
+                                        and kdim >= 2048)):
+        return BWD_PLANS[0]
+    if variant == "dw":
+        small = batch * rows * cols <= 32768 or kdim < 32
+    else:
+        small = batch * -(-rows // 64) * -(-cols // 32) < 132 * 4
+    return BWD_PLANS[2] if small else BWD_PLANS[1]
+
+
+def _bwd_plan_id(plan) -> int:
+    """The kernel's id of the backward `plan` (a `BwdPlan` or its tuple);
+    ValueError when it is not instantiated."""
+    plan = tuple(plan)
+    if plan not in BWD_PLANS:
+        raise ValueError(f"plan must be one of {BWD_PLANS}, got {plan}")
+    return BWD_PLANS.index(plan)
 
 
 def _plan_id(plan) -> int:
@@ -222,15 +276,12 @@ def _check_dtypes(a, b, out_dtype):
                         f"{out_dtype}")
 
 
-def _check_cuda(name: str, tile: int | None, **tensors) -> None:
+def _check_cuda(name: str, **tensors) -> None:
     """What every kernel takes: CUDA tensors on one device, contiguous,
-    dimensions below 2**31, an instantiated backward tile (None for the
-    forward, whose plan `_plan_id` checks)."""
+    dimensions below 2**31."""
     first = next(iter(tensors.values()))
     if first.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {first.device}")
-    if tile is not None and tile not in TILES:
-        raise ValueError(f"tile must be one of {TILES}, got {tile}")
     for key, v in tensors.items():
         if v is None:
             continue
@@ -308,7 +359,7 @@ def gemm_fused_fwd(x, w, scale=None, shift=None, *, act: str = "linear",
         plain = gemm_fused_res_plain if residuals else gemm_fused_plain
         return plain(x, w, scale, shift, act=act, out_dtype=out_dtype)
     trans_w = is_transposed(w)
-    _check_cuda("gemm_fused_fwd", None, x=x, w=w.t() if trans_w else w,
+    _check_cuda("gemm_fused_fwd", x=x, w=w.t() if trans_w else w,
                 scale=scale, shift=shift)
     y = torch.empty((m, n), dtype=out_dtype, device=x.device)
     g = racc = None
@@ -344,7 +395,7 @@ def split_chunk(kdim: int, splits: int) -> tuple[int, int]:
     return chunk, max(1, -(-kdim // chunk))
 
 
-def _bwd(entry, a, b, dims, out_shape, kdim, out_dtype, tile, splits,
+def _bwd(entry, a, b, dims, out_shape, kdim, out_dtype, plan_id, splits,
          *flags):
     """Launch the backward GEMM `entry` on operands a, b, with `dims` the
     entry point's sizes ((M, N, K) for dX, (M, K, N) for dW, each led by
@@ -365,9 +416,9 @@ def _bwd(entry, a, b, dims, out_shape, kdim, out_dtype, tile, splits,
                          f"splits exceeds the grid's {MAX_GRID_Z}")
     target = out if splits == 1 else torch.empty(
         (splits, *out_shape), dtype=torch.float32, device=a.device)
-    what = f"sizes {dims}"
+    what = f"sizes {dims}, plan {plan_id}"
     _launch(entry, a.device, _ptr(a), _ptr(b), _ptr(target), *dims,
-            _DTYPES[a.dtype], _DTYPES[target.dtype], tile, chunk, *flags,
+            _DTYPES[a.dtype], _DTYPES[target.dtype], plan_id, chunk, *flags,
             what=what)
     if entry == "gemm_bwd_dx":
         launches_dx += 1
@@ -384,7 +435,7 @@ def _bwd(entry, a, b, dims, out_shape, kdim, out_dtype, tile, splits,
     return out
 
 
-def gemm_bwd_dx(dy, w, *, out_dtype=None, tile: int = 64,
+def gemm_bwd_dx(dy, w, *, out_dtype=None, plan=None,
                 splits: int = 1) -> torch.Tensor:
     """dX[m, k] = sum_n dY[m, n] W[k, n] for dy (M, N), w (K, N) -> (M, K).
 
@@ -395,42 +446,50 @@ def gemm_bwd_dx(dy, w, *, out_dtype=None, tile: int = 64,
     dy and w share float32 or bfloat16; fp32 accumulation; the result in
     `out_dtype` (default dy.dtype).  `splits` > 1 cuts the contraction
     into that many pieces (see `split_chunk`) whose fp32 partials a reduce
-    pass adds in a fixed order.  A CPU tensor runs `gemm_bwd_dx_plain`; a
-    CUDA tensor launches the kernel or raises.
+    pass adds in a fixed order; the pieces set the bits.  `plan` is one of
+    `BWD_PLANS` (default `bwd_plan_for` the shape); any plan gives the
+    same bits, and one that is not instantiated raises ValueError.  A CPU
+    tensor runs `gemm_bwd_dx_plain`; a CUDA tensor launches the kernel or
+    raises.
     """
     out_dtype = out_dtype or dy.dtype
     if dy.dim() != 2 or w.dim() != 2 or dy.shape[1] != w.shape[1]:
         raise ValueError(f"need dy (M, N) and w (K, N); got "
                          f"{tuple(dy.shape)} and {tuple(w.shape)}")
     _check_dtypes(dy, w, out_dtype)
+    (m, n), k = dy.shape, w.shape[0]
+    plan_id = _bwd_plan_id(bwd_plan_for("dx", m, n, k) if plan is None
+                           else plan)
     if dy.device.type == "cpu":
         return gemm_bwd_dx_plain(dy, w, out_dtype=out_dtype)
     trans_w = is_transposed(w)
-    _check_cuda("gemm_bwd_dx", tile, dy=dy, w=w.t() if trans_w else w)
-    (m, n), k = dy.shape, w.shape[0]
-    return _bwd("gemm_bwd_dx", dy, w, (m, n, k), (m, k), n, out_dtype, tile,
-                splits, int(trans_w))
+    _check_cuda("gemm_bwd_dx", dy=dy, w=w.t() if trans_w else w)
+    return _bwd("gemm_bwd_dx", dy, w, (m, n, k), (m, k), n, out_dtype,
+                plan_id, splits, int(trans_w))
 
 
-def gemm_bwd_dw(x, dy, *, out_dtype=None, tile: int = 64,
+def gemm_bwd_dw(x, dy, *, out_dtype=None, plan=None,
                 splits: int = 1) -> torch.Tensor:
     """dW[k, n] = sum_m X[m, k] dY[m, n] for x (M, K), dy (M, N) -> (K, N).
 
     As `gemm_bwd_dx`, with the contraction over M (the rows of the
-    forward), which `splits` cuts; default out_dtype x.dtype.  A CPU
-    tensor runs `gemm_bwd_dw_plain`.
+    forward), which `splits` cuts; default out_dtype x.dtype, default
+    plan `bwd_plan_for` ("dw", K, M, N).  A CPU tensor runs
+    `gemm_bwd_dw_plain`.
     """
     out_dtype = out_dtype or x.dtype
     if x.dim() != 2 or dy.dim() != 2 or x.shape[0] != dy.shape[0]:
         raise ValueError(f"need x (M, K) and dy (M, N); got "
                          f"{tuple(x.shape)} and {tuple(dy.shape)}")
     _check_dtypes(x, dy, out_dtype)
+    (m, k), n = x.shape, dy.shape[1]
+    plan_id = _bwd_plan_id(bwd_plan_for("dw", k, m, n) if plan is None
+                           else plan)
     if x.device.type == "cpu":
         return gemm_bwd_dw_plain(x, dy, out_dtype=out_dtype)
-    _check_cuda("gemm_bwd_dw", tile, x=x, dy=dy)
-    (m, k), n = x.shape, dy.shape[1]
-    return _bwd("gemm_bwd_dw", x, dy, (m, k, n), (k, n), m, out_dtype, tile,
-                splits)
+    _check_cuda("gemm_bwd_dw", x=x, dy=dy)
+    return _bwd("gemm_bwd_dw", x, dy, (m, k, n), (k, n), m, out_dtype,
+                plan_id, splits)
 
 
 class GemmFused(torch.autograd.Function):
@@ -438,9 +497,9 @@ class GemmFused(torch.autograd.Function):
 
     ``GemmFused.apply(x, w, scale, shift, act, out_dtype, plan, dx_plan,
     dw_plan)``: `plan` is the forward's (`Plan`), dx_plan and dw_plan
-    the ``(tile, splits)`` of the two backward GEMMs
-    (`kernels.ops.default_bwd_tiles`; for a transposed w, dw_plan is that
-    of the swapped product dE = dY^T . X).  The forward saves x, w, scale and
+    the ``(BwdPlan, splits)`` of the two backward GEMMs
+    (`kernels.ops.bwd_plan`; for a transposed w, dw_plan is that of the
+    swapped product dE = dY^T . X).  The forward saves x, w, scale and
     the residuals g and racc.  The backward, as ``_gemm_vjp_bwd``:
     dyg = dy * g; dshift = sum_rows dyg and dscale = sum_rows dyg * racc,
     in fp32 in PyTorch; dacc = dyg * scale cast to x's dtype; then dX and
@@ -464,7 +523,7 @@ class GemmFused(torch.autograd.Function):
     def backward(ctx, dy):
         x, w, scale, g, racc = ctx.saved_tensors
         need_x, need_w, need_scale, need_shift = ctx.needs_input_grad[:4]
-        (dx_tile, dx_splits), (dw_tile, dw_splits) = ctx.plans
+        (dx_plan, dx_splits), (dw_plan, dw_splits) = ctx.plans
         dyg = dy.float()                                   # dL/du
         if g is not None:
             dyg = dyg * g
@@ -474,13 +533,13 @@ class GemmFused(torch.autograd.Function):
         dacc = dacc.to(x.dtype).contiguous()
         dx = dw = None
         if need_x:
-            dx = gemm_bwd_dx(dacc, w, out_dtype=x.dtype, tile=dx_tile,
+            dx = gemm_bwd_dx(dacc, w, out_dtype=x.dtype, plan=dx_plan,
                              splits=dx_splits)
         if need_w and is_transposed(w):
-            dw = gemm_bwd_dw(dacc, x, out_dtype=w.dtype, tile=dw_tile,
+            dw = gemm_bwd_dw(dacc, x, out_dtype=w.dtype, plan=dw_plan,
                              splits=dw_splits).t()
         elif need_w:
-            dw = gemm_bwd_dw(x, dacc, out_dtype=w.dtype, tile=dw_tile,
+            dw = gemm_bwd_dw(x, dacc, out_dtype=w.dtype, plan=dw_plan,
                              splits=dw_splits)
         return dx, dw, dscale, dshift, None, None, None, None, None
 
@@ -515,7 +574,7 @@ def bmm_fwd(x, w, *, out_dtype=None, plan=None) -> torch.Tensor:
     plan_id = _plan_id(plan_for(m, k, n) if plan is None else plan)
     if x.device.type == "cpu":
         return bmm_fwd_plain(x, w, out_dtype=out_dtype)
-    _check_cuda("bmm_fwd", None, x=x, w=w)
+    _check_cuda("bmm_fwd", x=x, w=w)
     if bsz > MAX_GRID_Z:
         raise ValueError(f"bmm_fwd: batch {bsz} exceeds the grid's "
                          f"{MAX_GRID_Z}")
@@ -530,51 +589,55 @@ def bmm_fwd(x, w, *, out_dtype=None, plan=None) -> torch.Tensor:
     return y
 
 
-def bmm_bwd_dx(dy, w, *, out_dtype=None, tile: int = 64,
+def bmm_bwd_dx(dy, w, *, out_dtype=None, plan=None,
                splits: int = 1) -> torch.Tensor:
     """dX[b] = dY[b] . W[b]^T for dy (B, M, N), w (B, K, N) -> (B, M, K).
 
     As `gemm_bwd_dx` per batch slice (row-major w only), with the same
-    bits at the same (tile, splits); B times the split count is at most
-    65,535.  A CPU tensor runs `bmm_bwd_dx_plain`.
+    bits at the same splits under any plan (default `bwd_plan_for` with
+    the batch); B times the split count is at most 65,535.  A CPU tensor
+    runs `bmm_bwd_dx_plain`.
     """
     out_dtype = out_dtype or dy.dtype
     _check_bmm("bmm_bwd_dx", dy, w, "dy (B, M, N)", "w (B, K, N)", 2, 2,
                out_dtype)
+    (bsz, m, n), k = dy.shape, w.shape[1]
+    plan_id = _bwd_plan_id(bwd_plan_for("dx", m, n, k, bsz) if plan is None
+                           else plan)
     if dy.device.type == "cpu":
         return bmm_bwd_dx_plain(dy, w, out_dtype=out_dtype)
-    _check_cuda("bmm_bwd_dx", tile, dy=dy, w=w)
-    (bsz, m, n), k = dy.shape, w.shape[1]
+    _check_cuda("bmm_bwd_dx", dy=dy, w=w)
     return _bwd("bmm_bwd_dx", dy, w, (bsz, m, n, k), (bsz, m, k), n,
-                out_dtype, tile, splits)
+                out_dtype, plan_id, splits)
 
 
-def bmm_bwd_dw(x, dy, *, out_dtype=None, tile: int = 64,
+def bmm_bwd_dw(x, dy, *, out_dtype=None, plan=None,
                splits: int = 1) -> torch.Tensor:
     """dW[b] = X[b]^T . dY[b] for x (B, M, K), dy (B, M, N) -> (B, K, N).
 
     As `gemm_bwd_dw` per batch slice, with the same bits at the same
-    (tile, splits); default out_dtype x.dtype.  A CPU tensor runs
+    splits under any plan; default out_dtype x.dtype.  A CPU tensor runs
     `bmm_bwd_dw_plain`.
     """
     out_dtype = out_dtype or x.dtype
     _check_bmm("bmm_bwd_dw", x, dy, "x (B, M, K)", "dy (B, M, N)", 1, 1,
                out_dtype)
+    (bsz, m, k), n = x.shape, dy.shape[2]
+    plan_id = _bwd_plan_id(bwd_plan_for("dw", k, m, n, bsz) if plan is None
+                           else plan)
     if x.device.type == "cpu":
         return bmm_bwd_dw_plain(x, dy, out_dtype=out_dtype)
-    _check_cuda("bmm_bwd_dw", tile, x=x, dy=dy)
-    (bsz, m, k), n = x.shape, dy.shape[2]
+    _check_cuda("bmm_bwd_dw", x=x, dy=dy)
     return _bwd("bmm_bwd_dw", x, dy, (bsz, m, k, n), (bsz, k, n), m,
-                out_dtype, tile, splits)
+                out_dtype, plan_id, splits)
 
 
 class BmmFn(torch.autograd.Function):
     """The batched GEMM with its gradient (``repro``'s ``_bmm`` custom VJP).
 
     ``BmmFn.apply(x, w, out_dtype, plan, dx_plan, dw_plan)``: `plan` is
-    the forward's, dx_plan and dw_plan the ``(tile, splits)`` of the two
-    backward kernels
-    (`kernels.ops.default_bwd_tiles` with the batch).  The forward saves x
+    the forward's, dx_plan and dw_plan the ``(BwdPlan, splits)`` of the
+    two backward kernels (`kernels.ops.bwd_plan` with the batch).  The forward saves x
     and w.  The backward, as ``_bmm_vjp_bwd``: dy cast to x's dtype, then
     dX by `bmm_bwd_dx` in x's dtype and dW by `bmm_bwd_dw` in w's dtype,
     each only when its input needs a gradient.
@@ -589,13 +652,13 @@ class BmmFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
-        (dx_tile, dx_splits), (dw_tile, dw_splits) = ctx.plans
+        (dx_plan, dx_splits), (dw_plan, dw_splits) = ctx.plans
         dyc = dy.to(x.dtype).contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = bmm_bwd_dx(dyc, w, out_dtype=x.dtype, tile=dx_tile,
+            dx = bmm_bwd_dx(dyc, w, out_dtype=x.dtype, plan=dx_plan,
                             splits=dx_splits)
         if ctx.needs_input_grad[1]:
-            dw = bmm_bwd_dw(x, dyc, out_dtype=w.dtype, tile=dw_tile,
+            dw = bmm_bwd_dw(x, dyc, out_dtype=w.dtype, plan=dw_plan,
                             splits=dw_splits)
         return dx, dw, None, None, None, None

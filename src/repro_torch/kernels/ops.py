@@ -22,10 +22,10 @@ serving makes.  The split-KV decode formulation is inference only, as in
 the JAX package: `attention_decode` raises under grad.  So is `ssd`,
 the SSD chunk scan (its TPU kernel has no VJP).
 
-The forward's plan (regime and tile), the backward's tiles and its split
+The forward's plan (regime and tile), the backward's plan and its split
 count are fixed heuristics from the shape alone (`default_tiles`,
-`default_bwd_tiles`).  A measured autotuner, the
-counterpart of ``repro/core/autotune.py``, is later work.
+`bwd_plan`: `gemm.bwd_plan_for` and `default_bwd_tiles`).  A measured
+autotuner, the counterpart of ``repro/core/autotune.py``, is later work.
 """
 from __future__ import annotations
 
@@ -36,8 +36,9 @@ from repro_torch.kernels import flash_decode as decode_kernel
 from repro_torch.kernels import gemm as gemm_kernel
 from repro_torch.kernels import ssd as ssd_kernel
 
-# Below this many 64 x 64 output tiles the card's 132 SMs are not kept
-# busy, so the backward takes the 32 x 32 tile (four times as many blocks).
+# The backward's split rule (pinned: the split sets the bits) counts the
+# threads of square output tiles, 64 x 64 from this many on, else 32 x 32;
+# the kernels' own tiles are gemm.bwd_plan_for's.
 _MIN_BLOCKS_64 = 264
 # A backward GEMM whose output tiles give fewer threads than half of what
 # the card holds resident (132 SMs x 2048) splits its contraction until
@@ -55,7 +56,7 @@ def default_tiles(m: int, k: int, n: int) -> gemm_kernel.Plan:
 
 
 def _bwd_tile(rows: int, cols: int) -> int:
-    """The backward's square output tile for a (rows, cols) output: 64
+    """The split rule's square output tile for a (rows, cols) output: 64
     when there are enough 64 x 64 tiles to fill the card, else 32."""
     blocks = -(-rows // 64) * -(-cols // 64)
     return 64 if blocks >= _MIN_BLOCKS_64 and cols > 32 else 32
@@ -65,8 +66,10 @@ def default_bwd_tiles(variant: str, rows: int, kdim: int, cols: int,
                       batch: int = 1) -> tuple[int, int, int, int]:
     """(bm, bk, bn, splits) for a backward GEMM over its own (rows,
     contraction, cols): ("dx", M, N, K) or ("dw", K, M, N), `batch` of
-    them for the bmm op.  The tile is `_bwd_tile`'s for one matrix, the
-    stage `gemm.BK` deep.
+    them for the bmm op.  The tile is `_bwd_tile`'s for one matrix and
+    bk is `gemm.BK`: they are what the split is counted with, pinned as
+    the 16-deep square-tile kernels had them; the kernels' plan is
+    `gemm.bwd_plan_for`'s and never feeds the split (`bwd_plan`).
     When the output tiles' threads, counted over the whole batch, would
     fill less than half the card, the contraction is split into enough
     pieces to reach `_SPLIT_THREADS`, none shorter than `_MIN_SPLIT_DEPTH`,
@@ -83,6 +86,16 @@ def default_bwd_tiles(variant: str, rows: int, kdim: int, cols: int,
                         kdim // _MIN_SPLIT_DEPTH,
                         gemm_kernel.MAX_GRID_Z // max(1, batch)))
     return (t, bk, t, gemm_kernel.split_chunk(kdim, splits)[1])
+
+
+def bwd_plan(variant: str, rows: int, kdim: int, cols: int,
+             batch: int = 1) -> tuple[gemm_kernel.BwdPlan, int]:
+    """(plan, splits) that a backward GEMM over (rows, contraction, cols)
+    is launched with, as `default_bwd_tiles` takes them: the kernels' plan
+    from `gemm.bwd_plan_for` (speed only) and the split count from
+    `default_bwd_tiles` (which sets the bits)."""
+    return (gemm_kernel.bwd_plan_for(variant, rows, kdim, cols, batch),
+            default_bwd_tiles(variant, rows, kdim, cols, batch)[3])
 
 
 def needs_grad(*operands) -> bool:
@@ -103,9 +116,9 @@ def matmul(x, w, scale=None, shift=None, *, act: str = "linear",
     picks.  w is row-major, or the
     transpose of a row-major tensor (read in place, forward and backward).
     Differentiable: with grad enabled and an operand that requires it, the
-    call goes through `gemm.GemmFused`, whose backward uses
-    `default_bwd_tiles` (for a transposed w, dW is the (N, K) product
-    dY^T . X, planned as such).  On a CPU tensor the kernel wrappers run
+    call goes through `gemm.GemmFused`, whose backward uses `bwd_plan`
+    (for a transposed w, dW is the (N, K) product dY^T . X, planned as
+    such).  On a CPU tensor the kernel wrappers run
     their plain versions.
     """
     m, k = x.shape
@@ -120,12 +133,11 @@ def matmul(x, w, scale=None, shift=None, *, act: str = "linear",
     shift = None if shift is None else shift.float().contiguous()
     out_dtype = out_dtype or x.dtype
     if needs_grad(x, w, scale, shift):
-        dx_plan = default_bwd_tiles("dx", m, n, k)
-        dw_plan = (default_bwd_tiles("dw", n, m, k) if not w.is_contiguous()
-                   else default_bwd_tiles("dw", k, m, n))
+        dw_plan = (bwd_plan("dw", n, m, k) if not w.is_contiguous()
+                   else bwd_plan("dw", k, m, n))
         return gemm_kernel.GemmFused.apply(
             x, w, scale, shift, act, out_dtype, plan,
-            (dx_plan[0], dx_plan[3]), (dw_plan[0], dw_plan[3]))
+            bwd_plan("dx", m, n, k), dw_plan)
     return gemm_kernel.gemm_fused_fwd(x, w, scale, shift, act=act,
                                       out_dtype=out_dtype, plan=plan)
 
@@ -148,7 +160,7 @@ def bmm(x, w, *, out_dtype=None, tiles: tuple = ()) -> torch.Tensor:
     (the batch stays out of the pick, as out of the JAX key).  Both
     operands are made contiguous.  Differentiable: with grad enabled and
     an operand that requires it, the call goes through `gemm.BmmFn`, whose
-    backward plans count the batch (`default_bwd_tiles`).  On a CPU
+    backward plans count the batch (`bwd_plan`).  On a CPU
     tensor the kernel wrappers run their plain versions.
     """
     validate_bmm_shapes(x, w)
@@ -158,11 +170,9 @@ def bmm(x, w, *, out_dtype=None, tiles: tuple = ()) -> torch.Tensor:
     x, w = x.contiguous(), w.contiguous()
     out_dtype = out_dtype or x.dtype
     if needs_grad(x, w):
-        dx_plan = default_bwd_tiles("dx", m, n, k, batch=b)
-        dw_plan = default_bwd_tiles("dw", k, m, n, batch=b)
         return gemm_kernel.BmmFn.apply(x, w, out_dtype, plan,
-                                       (dx_plan[0], dx_plan[3]),
-                                       (dw_plan[0], dw_plan[3]))
+                                       bwd_plan("dx", m, n, k, b),
+                                       bwd_plan("dw", k, m, n, b))
     return gemm_kernel.bmm_fwd(x, w, out_dtype=out_dtype, plan=plan)
 
 

@@ -1,6 +1,6 @@
-"""Device time of every forward GEMM plan at the port's path shapes.
+"""Device time of every GEMM plan at the port's path shapes.
 
-    python3 src/repro_torch/kernels/time_gemm.py
+    python3 src/repro_torch/kernels/time_gemm.py [--bwd]
 
 Builds `gemm` and, for each (M, K, N) the paths dispatch, prints one JSON
 line: the median device ms of each plan of the shape's regime (regime A
@@ -11,7 +11,18 @@ cycles over 24 distinct weights (one per layer, as a dispatch does), so
 the weights come from device memory and not from the 50 MB L2.  The last
 line counts the shapes where the pick is the fastest plan and the worst
 ratio of the pick's time to the fastest.  These are the measurements the
-rule of `plan_for` was set from.  Needs an NVIDIA GPU.
+rule of `plan_for` was set from.
+
+With ``--bwd``, the backward kernels instead: for the dX and dW of each
+``SHAPES_B`` GEMM and of the CNN head (a tied head's dX = dY . E read in
+place and its dE = dY^T . X included) and the llama4-scout expert GEMMs'
+``bmm_bwd_dx`` / ``bmm_bwd_dw`` (16 experts), every plan of
+`gemm.BWD_PLANS` at the split count the path launches
+(`ops.default_bwd_tiles`) and torch.matmul / torch.bmm for the same
+product (TF32 off), each the median device ms over CUDA-graph replays,
+with the pick of `gemm.bwd_plan_for` and the fastest; the last line as
+above.  These are the measurements the rule of `bwd_plan_for` was set
+from.  Needs an NVIDIA GPU.
 """
 from __future__ import annotations
 
@@ -39,6 +50,8 @@ SHAPES_B = ([(401408, 27, 32, False), (100352, 288, 64, False),
             + [(4000, k, n, t) for k, n, t in SSM]
             + [(256, 5120, 8192, False), (2048, 4096, 16384, False)])
 LAYERS = 24
+# llama4-scout's expert up and down projections: (B, M, K, N)
+EXPERT_BMM = [(16, 256, 5120, 8192), (16, 256, 8192, 5120)]
 
 
 def graph_ms(fn, reps: int, repeats: int = 5) -> float:
@@ -65,17 +78,70 @@ def graph_ms(fn, reps: int, repeats: int = 5) -> float:
     return statistics.median(times)
 
 
+def bwd_main(torch, dev, gen) -> int:
+    """The ``--bwd`` mode: every backward plan at the path's dX and dW
+    shapes."""
+    from repro_torch.kernels import build, gemm, ops
+    build.build_all(("gemm_bwd",))
+    cases = []  # (variant, rows, kdim, cols, batch, trans)
+    for m, k, n, t in SHAPES_B + [(8, 512, 1000, False)]:
+        cases.append(("dx", m, n, k, 1, t))
+        cases.append(("dw", n, m, k, 1, t) if t else ("dw", k, m, n, 1, t))
+    for b, m, k, n in EXPERT_BMM:
+        cases += [("dx", m, n, k, b, False), ("dw", k, m, n, b, False)]
+    hits, worst = 0, 1.0
+    for variant, rows, kdim, cols, batch, trans in cases:
+        splits = ops.default_bwd_tiles(variant, rows, kdim, cols, batch)[3]
+        lead = (batch,) if batch > 1 else ()
+
+        def rand(*shape):
+            return torch.randn(*lead, *shape, generator=gen, device=dev)
+
+        if variant == "dx":  # dy (M, N) . w^T, w (K, N) or E^T
+            a = rand(rows, kdim)
+            b = rand(cols, kdim) if not trans else rand(kdim, cols).t()
+            fn = gemm.bmm_bwd_dx if batch > 1 else gemm.gemm_bwd_dx
+            lib = (a, b.transpose(-1, -2))
+        else:  # a^T . b, a (M, rows), b (M, cols): dW, or a tied head's dE
+            a, b = rand(kdim, rows), rand(kdim, cols)
+            fn = gemm.bmm_bwd_dw if batch > 1 else gemm.gemm_bwd_dw
+            lib = (a.transpose(-1, -2), b)
+        flops = 2.0 * batch * rows * kdim * cols
+        reps = max(1, min(20, round(2e10 / flops)))
+        ms = {f"{p.bm}x{p.bn}": graph_ms(
+            lambda p=p: fn(a, b, plan=p, splits=splits), reps)
+            for p in gemm.BWD_PLANS}
+        pick = "{}x{}".format(*gemm.bwd_plan_for(variant, rows, kdim, cols,
+                                                 batch))
+        best = min(ms, key=ms.get)
+        hits += pick == best
+        worst = max(worst, ms[pick] / ms[best])
+        print(json.dumps({"variant": variant, "shape": [rows, kdim, cols],
+                          "batch": batch, "trans_w": trans,
+                          "splits": splits, "ms": ms,
+                          "cublas_ms": graph_ms(
+                              lambda: torch.matmul(*lib), reps),
+                          "pick": pick, "best": best}), flush=True)
+        del a, b, lib
+    print(json.dumps({"shapes": len(cases), "pick_is_fastest": hits,
+                      "worst_pick_over_fastest": worst,
+                      "device": torch.cuda.get_device_name(0)}), flush=True)
+    return 0
+
+
 def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
     import torch
     if not torch.cuda.is_available():
         print("time_gemm: needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    from repro_torch.kernels import build, gemm
-    build.build_all(("gemm",))
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(3)
+    if "--bwd" in sys.argv[1:]:
+        return bwd_main(torch, dev, gen)
+    from repro_torch.kernels import build, gemm
+    build.build_all(("gemm",))
     shapes = [(m, k, n, t) for m in ROWS_A for k, n, t in LM + SSM]
     shapes += [(8, 512, 1000, False)] + SHAPES_B
     hits, worst = 0, 1.0

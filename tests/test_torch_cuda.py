@@ -226,11 +226,11 @@ def test_bwd_kernels_match_plain_versions(card, m, k, n, dtype, tol):
     dy = torch.randn(m, n, device=card).to(dtype)
     want_dx = gemm.gemm_bwd_dx_plain(dy, w)
     want_dw = gemm.gemm_bwd_dw_plain(x, dy)
-    for tile in gemm.TILES:
+    for plan in gemm.BWD_PLANS:
         for splits in (1, 2, 7):
             before = gemm.launch_counts()
-            dx = gemm.gemm_bwd_dx(dy, w, tile=tile, splits=splits)
-            dw = gemm.gemm_bwd_dw(x, dy, tile=tile, splits=splits)
+            dx = gemm.gemm_bwd_dx(dy, w, plan=plan, splits=splits)
+            dw = gemm.gemm_bwd_dw(x, dy, plan=plan, splits=splits)
             after = gemm.launch_counts()
             assert after["gemm_bwd_dx"] == before["gemm_bwd_dx"] + 1
             assert after["gemm_bwd_dw"] == before["gemm_bwd_dw"] + 1
@@ -240,17 +240,40 @@ def test_bwd_kernels_match_plain_versions(card, m, k, n, dtype, tol):
                 "gemm_bwd_reduce"] + reduces
             assert dx.dtype == dw.dtype == dtype
             assert tuple(dx.shape) == (m, k) and tuple(dw.shape) == (k, n)
-            assert _relmax(dx, want_dx) <= tol, (tile, splits)
-            assert _relmax(dw, want_dw) <= tol, (tile, splits)
+            assert _relmax(dx, want_dx) <= tol, (plan, splits)
+            assert _relmax(dw, want_dw) <= tol, (plan, splits)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", MATMUL_CASES + [(4096, 27, 32),
+                                                  (300, 896, 2000)])
+def test_every_backward_plan_gives_the_same_bits(card, m, k, n, dtype):
+    """The plan is for speed only: at the path's split every plan gives
+    the path plan's bits, and dX in one piece is the forward kernel's
+    dY @ W^T."""
+    x, w, _, _ = _operands(card, m, k, n, dtype, seed=4)
+    dy = torch.randn(m, n, device=card).to(dtype)
+    for fn, args, case in (
+            (gemm.gemm_bwd_dx, (dy, w), ("dx", m, n, k)),
+            (gemm.gemm_bwd_dx, (dy, w.t().contiguous().t()), ("dx", m, n, k)),
+            (gemm.gemm_bwd_dw, (x, dy), ("dw", k, m, n)),
+            (gemm.gemm_bwd_dw, (dy, x), ("dw", n, m, k))):
+        pick, splits = ops.bwd_plan(*case)
+        want = fn(*args, plan=pick, splits=splits)
+        for plan in gemm.BWD_PLANS:
+            assert torch.equal(fn(*args, plan=plan, splits=splits), want)
+    for plan in gemm.BWD_PLANS:
+        assert torch.equal(gemm.gemm_bwd_dx(dy, w, plan=plan),
+                           gemm.gemm_fused_fwd(dy, w.t()))
 
 
 def test_split_dw_gives_the_same_bits_twice(card):
     x, _, _, _ = _operands(card, 100352, 288, 64, seed=2)
     dy = torch.randn(100352, 64, device=card)
-    _, _, _, splits = ops.default_bwd_tiles("dw", 288, 100352, 64)
+    plan, splits = ops.bwd_plan("dw", 288, 100352, 64)
     assert splits > 1
-    first = gemm.gemm_bwd_dw(x, dy, tile=32, splits=splits)
-    assert torch.equal(first, gemm.gemm_bwd_dw(x, dy, tile=32,
+    first = gemm.gemm_bwd_dw(x, dy, plan=plan, splits=splits)
+    assert torch.equal(first, gemm.gemm_bwd_dw(x, dy, plan=plan,
                                                splits=splits))
 
 
@@ -261,8 +284,8 @@ def test_bwd_wrappers_refuse_what_the_kernels_do_not_take(card):
         gemm.gemm_bwd_dx(dy, torch.zeros(4, 10, device=card)[:, ::2])
     with pytest.raises(ValueError, match="contiguous"):
         gemm.gemm_bwd_dw(torch.zeros(4, 8, device=card).t(), dy)
-    with pytest.raises(ValueError, match="tile"):
-        gemm.gemm_bwd_dx(dy, w, tile=16)
+    with pytest.raises(ValueError, match="plan"):
+        gemm.gemm_bwd_dx(dy, w, plan=(16, 16))
     with pytest.raises(ValueError, match="on cpu"):
         gemm.gemm_bwd_dw(torch.zeros(8, 4, device=card), dy.cpu())
 
@@ -624,27 +647,27 @@ def test_bmm_kernels_match_plain_and_the_2d_kernels(card, b, m, k, n, dtype,
     w = (torch.randn(b, k, n, generator=gen, device=card) / k ** 0.5).to(
         dtype)
     dy = torch.randn(b, m, n, generator=gen, device=card).to(dtype)
-    for plan, tile in zip(gemm.PLANS, gemm.TILES * 3):
+    for plan, bplan in zip(gemm.PLANS, gemm.BWD_PLANS * 2):
         for splits in (1, 3):
             before = gemm.launch_counts()
             y = gemm.bmm_fwd(x, w, plan=plan)
-            dx = gemm.bmm_bwd_dx(dy, w, tile=tile, splits=splits)
-            dw = gemm.bmm_bwd_dw(x, dy, tile=tile, splits=splits)
+            dx = gemm.bmm_bwd_dx(dy, w, plan=bplan, splits=splits)
+            dw = gemm.bmm_bwd_dw(x, dy, plan=bplan, splits=splits)
             after = gemm.launch_counts()
             for name in ("bmm_fwd", "bmm_bwd_dx", "bmm_bwd_dw"):
                 assert after[name] == before[name] + 1, name
             assert _relmax(y, gemm.bmm_fwd_plain(x, w)) <= tol
             assert _relmax(dx, gemm.bmm_bwd_dx_plain(dy, w)) <= tol
             assert _relmax(dw, gemm.bmm_bwd_dw_plain(x, dy)) <= tol
-            assert torch.equal(dw, gemm.bmm_bwd_dw(x, dy, tile=tile,
+            assert torch.equal(dw, gemm.bmm_bwd_dw(x, dy, plan=bplan,
                                                    splits=splits))
             for i in range(b):
                 assert torch.equal(y[i], gemm.gemm_fused_fwd(x[i], w[i],
                                                              plan=plan))
                 assert torch.equal(dx[i], gemm.gemm_bwd_dx(
-                    dy[i], w[i], tile=tile, splits=splits))
+                    dy[i], w[i], plan=bplan, splits=splits))
                 assert torch.equal(dw[i], gemm.gemm_bwd_dw(
-                    x[i], dy[i], tile=tile, splits=splits))
+                    x[i], dy[i], plan=bplan, splits=splits))
 
 
 def test_engine_bmm_and_its_gradient_on_cuda_match_eager(card):

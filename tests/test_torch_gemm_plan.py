@@ -6,9 +6,11 @@ CPU.
 must be instantiated and its grid must fit the launch limits.  Every plan
 gives every output the same bits, which the card tests and chip_smoke.py
 check; here a CPU tensor runs the plain version under any plan.  The
-backward's (tile, splits) plans choose dW's contraction split and so its
-bits: they are pinned to the values they had before the forward's plans
-existed.
+backward's split rule (`ops.default_bwd_tiles`) chooses the contraction
+split and so the bits: it is pinned to the values it had before the
+forward's plans existed.  The backward kernels' own plan
+(`gemm.bwd_plan_for`, one of `gemm.BWD_PLANS`) is for speed only and never
+feeds the split.
 """
 import numpy as np
 import pytest
@@ -176,3 +178,115 @@ def test_regime_counts_are_counted_and_reset():
     assert {"gemm_fwd_regime_a", "gemm_fwd_regime_b"} <= set(counts)
     gemm.reset_launches()
     assert set(gemm.launch_counts().values()) == {0}
+
+
+def _bwd_cases(m, k, n, batch=1):
+    """The backward GEMMs of the forward (m, k, n) as (variant, rows,
+    contraction, cols): dX, dW, and a tied head's dE = dY^T . X."""
+    return [("dx", m, n, k), ("dw", k, m, n), ("dw", n, m, k)]
+
+
+def _check_bwd_plan(variant, rows, kdim, cols, batch=1):
+    plan, splits = ops.bwd_plan(variant, rows, kdim, cols, batch)
+    assert plan in gemm.BWD_PLANS
+    assert plan == gemm.bwd_plan_for(variant, rows, kdim, cols, batch)
+    assert splits == ops.default_bwd_tiles(variant, rows, kdim, cols,
+                                           batch)[3]
+    chunk, launched = gemm.split_chunk(kdim, splits)
+    assert launched == splits and chunk % gemm.BK == 0
+    assert -(-cols // plan.bn) <= 65535
+    assert batch * splits <= gemm.MAX_GRID_Z
+    return plan
+
+
+@pytest.mark.parametrize("m,k,n", PATH_SHAPES)
+def test_backward_plan_of_the_path_shapes(m, k, n):
+    """Every backward plan of the paths is instantiated, fits the grid and
+    is launched with the pinned split."""
+    batch = 16 if (m, k, n) in ((256, 5120, 8192), (256, 8192, 5120)) else 1
+    for case in _bwd_cases(m, k, n):
+        _check_bwd_plan(*case, batch=batch)
+    if m == 4096 and k * n >= 896 * 4864:  # the LM train step's big GEMMs
+        assert gemm.bwd_plan_for("dx", m, n, k) == gemm.BwdPlan(128, 128)
+        assert gemm.bwd_plan_for("dw", k, m, n) == gemm.BwdPlan(128, 128)
+
+
+def test_backward_plan_over_a_seeded_grid():
+    rng = np.random.default_rng(1)
+    dims = np.concatenate([rng.integers(1, 130, (300, 3)),
+                           np.exp(rng.uniform(0, 19, (300, 3))).astype(int)
+                           + 1])
+    for m, k, n in dims.tolist():
+        batch = int(rng.integers(1, 9))
+        for variant, rows, kdim, cols in _bwd_cases(m, k, n):
+            _check_bwd_plan(variant, rows, kdim, min(cols, 65535 * 32),
+                            batch)
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+def test_backward_is_launched_with_the_pinned_split(monkeypatch, transposed):
+    """`ops.matmul` and `ops.bmm` under grad hand the backward wrappers
+    `bwd_plan_for`'s plan and `default_bwd_tiles`' split (dW of a
+    transposed w as the swapped product dE = dY^T . X)."""
+    calls = []
+    for name in ("gemm_bwd_dx", "gemm_bwd_dw", "bmm_bwd_dx", "bmm_bwd_dw"):
+        real = getattr(gemm, name)
+        monkeypatch.setattr(gemm, name, lambda *a, _n=name, _r=real, **kw: (
+            calls.append((_n, kw["plan"], kw["splits"])) or _r(*a, **kw)))
+    rng = np.random.default_rng(5)
+    m, k, n = 2048, 40, 1536  # small outputs, long contractions: split
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((n, k) if transposed else (k, n))
+                         .astype(np.float32))
+    x.requires_grad_()
+    w.requires_grad_()
+    ops.matmul(x, w.t() if transposed else w).sum().backward()
+    dw_case = ("dw", n, m, k) if transposed else ("dw", k, m, n)
+    assert calls == [("gemm_bwd_dx", *ops.bwd_plan("dx", m, n, k)),
+                     ("gemm_bwd_dw", *ops.bwd_plan(*dw_case))]
+    assert calls[0][2] > 1 and calls[1][2] > 1
+    calls.clear()
+    xb = x.detach().reshape(4, 512, k).requires_grad_()
+    wb = torch.stack([w.detach().t() if transposed else w.detach()] * 4)
+    ops.bmm(xb, wb.requires_grad_()).sum().backward()
+    assert calls == [("bmm_bwd_dx", *ops.bwd_plan("dx", 512, n, k, 4)),
+                     ("bmm_bwd_dw", *ops.bwd_plan("dw", k, 512, n, 4))]
+
+
+@pytest.mark.parametrize("plan", gemm.BWD_PLANS)
+def test_every_backward_plan_runs_the_plain_version_on_the_cpu(plan):
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((33, 177)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((177, 99)).astype(np.float32))
+    dy = torch.from_numpy(rng.standard_normal((33, 99)).astype(np.float32))
+    before = gemm.launch_counts()
+    for splits in (1, 3):
+        assert torch.equal(gemm.gemm_bwd_dx(dy, w, plan=plan, splits=splits),
+                           gemm.gemm_bwd_dx_plain(dy, w))
+        assert torch.equal(gemm.gemm_bwd_dx(dy, w.t().contiguous().t(),
+                                            plan=tuple(plan), splits=splits),
+                           gemm.gemm_bwd_dx_plain(dy, w))
+        assert torch.equal(gemm.gemm_bwd_dw(x, dy, plan=plan, splits=splits),
+                           gemm.gemm_bwd_dw_plain(x, dy))
+        xb, dyb = x.reshape(3, 11, 177), dy.reshape(3, 11, 99)
+        wb = w.expand(3, 177, 99)
+        assert torch.equal(gemm.bmm_bwd_dx(dyb, wb, plan=plan,
+                                           splits=splits),
+                           gemm.bmm_bwd_dx_plain(dyb, wb))
+        assert torch.equal(gemm.bmm_bwd_dw(xb, dyb, plan=plan,
+                                           splits=splits),
+                           gemm.bmm_bwd_dw_plain(xb, dyb))
+    assert gemm.launch_counts() == before
+
+
+@pytest.mark.parametrize("plan", [(64, 64), (32, 16), (128, 128, 8),
+                                  ("B", 128, 128), (16, 16)])
+def test_a_backward_plan_that_is_not_instantiated_is_refused(plan):
+    x, dy, w = torch.zeros(6, 4), torch.zeros(6, 5), torch.zeros(4, 5)
+    for fn, args in ((gemm.gemm_bwd_dx, (dy, w)), (gemm.gemm_bwd_dw, (x, dy)),
+                     (gemm.bmm_bwd_dx, (dy[None], w[None])),
+                     (gemm.bmm_bwd_dw, (x[None], dy[None]))):
+        with pytest.raises(ValueError, match="plan"):
+            fn(*args, plan=plan)
+    with pytest.raises(ValueError, match="variant"):
+        gemm.bwd_plan_for("dy", 4, 6, 5)
