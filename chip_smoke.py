@@ -122,7 +122,10 @@ script exits non-zero.  Phases:
               then qwen2-0.5b's training shape (batch 8, 512 positions, 14 /
               2 heads of 64).  Bars as phase 2; the lse launch keeps the
               serving launch's o bitwise; rows and keys with no live pair
-              get exactly 0; two runs of each kernel give the same bits.
+              get exactly 0; two runs of each kernel give the same bits;
+              at every case dQ under every plan (flash_attention.BWD_PLANS:
+              16- and 64-row blocks, so two grids in two orders) gives the
+              bits of the path's plan (bwd_plan_for).
  17. lm_train the LM training main path: full-width, full-depth qwen2-0.5b
               through launch.train.train_loop (batch 8 x 512, ce_chunk 512,
               remat, 3 AdamW steps, lr 3e-4, warmup 1, SyntheticLM seed 0)
@@ -150,13 +153,17 @@ script exits non-zero.  Phases:
               `cuda` step (torch.profiler); the lse forward and the dQ and
               dK / dV kernels at the training shape: kernel, plain, bound
               (14 D FLOPs per live pair and head, 4 D / 6 D / 8 D for the
-              three kernels, at the FFMA rate) and library ms (SDPA with
-              enable_gqa, TF32 off: its forward, and its autograd backward,
+              three kernels, at the FFMA rate) and library ms (SDPA, TF32
+              off: its forward with enable_gqa, and its autograd backward,
               which computes dQ, dK and dV at once: compare `op_ms`, Delta
-              plus both kernels); each GEMM of the step at M = 4096 checked
-              against its plain version (the head reading the embedding
-              transposed, its dX bitwise a row-major copy's) and timed as
-              kernel, plain, torch.matmul and bound ms, summed per step.
+              plus both kernels; the faster of the boolean mask with
+              enable_gqa and is_causal on K / V repeated to the H heads,
+              the repeat and the group sum of dK / dV timed with it, both
+              kept); dQ under every plan; each GEMM of the step at
+              M = 4096 checked against its plain version (the head reading
+              the embedding transposed, its dX bitwise a row-major copy's)
+              and timed as kernel, plain, torch.matmul and bound ms, summed
+              per step.
  20. check_ssd  the SSD chunk-scan kernel against its plain version: the
               SSD_GRID cases (S a multiple of the chunk and ragged, G 1 / 2,
               P 32 / 64, N 16 / 128, chunk 64 / 256, batch 1 / 4), the
@@ -268,7 +275,7 @@ from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
 from repro_torch.kernels import build, gemm, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
-from repro_torch.kernels import conv_direct, ssd  # noqa: E402
+from repro_torch.kernels import conv_direct, ssd, time_attention  # noqa: E402
 from repro_torch.kernels.common import ACTIVATIONS, epilogue  # noqa: E402
 from repro_torch.kernels.ref import attention_mask  # noqa: E402
 from repro_torch.launch.fault import FailureInjected  # noqa: E402
@@ -1376,7 +1383,9 @@ def check_attn_bwd_case(q, k, v, kvl, causal, gen) -> tuple[dict, dict]:
     """The lse forward and both backward kernels vs their plain versions at
     one case: (max-relative errors, fp32 max-abs errors) by output.  The
     lse launch must keep the serving launch's o, dead rows and keys must
-    get exactly 0, and each kernel run twice the same bits."""
+    get exactly 0, each kernel run twice the same bits, and dQ under every
+    plan (fa.BWD_PLANS: 16- and 64-row blocks, so two grids in two
+    orders) the path plan's bits."""
     where = f"q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype} causal={causal}"
     args = dict(causal=causal)
     do = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
@@ -1409,6 +1418,10 @@ def check_attn_bwd_case(q, k, v, kvl, causal, gen) -> tuple[dict, dict]:
     check(torch.equal(dq, fa.flash_attention_bwd_dq(*bwd, **args))
           and torch.equal(dk, again[0]) and torch.equal(dv, again[1]),
           f"two runs of the backward kernels differ at {where}")
+    for plan in fa.BWD_PLANS:
+        check(torch.equal(dq, fa.flash_attention_bwd_dq(*bwd, plan=plan,
+                                                        **args)),
+              f"dQ plan {plan} changes the bits at {where}")
     max_abs = {key: float((got[key].float() - want[key].float()).abs().max())
                for key in got}
     return errs, max_abs
@@ -1436,7 +1449,8 @@ def attn_bwd_phase(cgen) -> dict:
                                               max(errs.values()))
                             cases += 1
     torch.cuda.synchronize()
-    emit("check_attn_bwd", grid_cases=cases, relmax=worst)
+    emit("check_attn_bwd", grid_cases=cases, relmax=worst,
+         plans_bitwise=[list(p) for p in fa.BWD_PLANS])
     cfg = get_arch(LM_ARCH)
     b, s = LM_TRAIN["batch"], LM_TRAIN["seq"]
     rows, path_abs = [], {}
@@ -1451,7 +1465,9 @@ def attn_bwd_phase(cgen) -> dict:
     torch.cuda.synchronize()
     emit("check_attn_bwd", arch=LM_ARCH, shape=[b, s, s, cfg.n_heads,
                                                 cfg.n_kv_heads, cfg.head_dim],
-         causal=True, cases=rows, bitwise_two_runs=True)
+         causal=True, cases=rows, bitwise_two_runs=True,
+         path_plan=list(fa.bwd_plan_for(b, s, cfg.n_heads, cfg.n_kv_heads)),
+         plans_bitwise=[list(p) for p in fa.BWD_PLANS])
     return path_abs
 
 
@@ -1677,7 +1693,10 @@ def attn_train_rows(cfg, cgen, peak_flops, peak_bw) -> dict:
     """The lse forward and the dQ and dK / dV kernels at the training
     shape: kernel, plain, bound and library ms (CUDA-graph replays;
     library: SDPA with enable_gqa, its forward, and its autograd
-    backward by CUDA events)."""
+    backward by CUDA events, the faster of the boolean mask and
+    is_causal on repeated K / V, `time_attention.sdpa_bwd_ms`, which
+    times the repeat and the group sum with it); dQ also
+    under every plan (`plans_ms`)."""
     b, s = LM_TRAIN["batch"], LM_TRAIN["seq"]
     h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = qkv(b, s, s, h, kv, d, torch.float32, cgen)
@@ -1694,14 +1713,8 @@ def attn_train_rows(cfg, cgen, peak_flops, peak_bw) -> dict:
                                        + rowb),
             "flash_attention_bwd_dkv": (8 * d * pairs, f4 + 4.0 * q.numel()
                                         + rowb + 8.0 * k.numel())}
-    mask = live_mask(q, k, None, True)[:, None]
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
-                  for t in (q, k, v))
-    out = torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, enable_gqa=True)
-    dot = do.transpose(1, 2)
-    sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(
-        out, (qt, kt, vt), dot, retain_graph=True), reps=5, repeats=3)
+    sdpa_bwd = time_attention.sdpa_bwd_ms(q, k, v, do,
+                                          live_mask(q, k, None, True))
     fns = {"flash_attention_lse": (
                lambda: fa.flash_attention_fwd(q, k, v, None, return_lse=True),
                lambda: fa.flash_attention_plain(q, k, v, None,
@@ -1709,10 +1722,12 @@ def attn_train_rows(cfg, cgen, peak_flops, peak_bw) -> dict:
                graph_ms(lambda: sdpa(q, k, v, None, True))),
            "flash_attention_bwd_dq": (
                lambda: fa.flash_attention_bwd_dq(*bwd),
-               lambda: fa.flash_attention_bwd_dq_plain(*bwd), sdpa_bwd),
+               lambda: fa.flash_attention_bwd_dq_plain(*bwd),
+               sdpa_bwd["library"]),
            "flash_attention_bwd_dkv": (
                lambda: fa.flash_attention_bwd_dkv(*bwd),
-               lambda: fa.flash_attention_bwd_dkv_plain(*bwd), sdpa_bwd)}
+               lambda: fa.flash_attention_bwd_dkv_plain(*bwd),
+               sdpa_bwd["library"])}
 
     def whole_bwd():
         dl = (do * o).sum(-1).transpose(1, 2).contiguous()
@@ -1732,7 +1747,13 @@ def attn_train_rows(cfg, cgen, peak_flops, peak_bw) -> dict:
                       "bytes_ms": nbytes / peak_bw * 1e3,
                       "gflop": flops / 1e9, "bound_share": bound_ms / ms}
         if name != "flash_attention_lse":
-            rows[name]["op_ms"] = op_ms
+            rows[name].update(op_ms=op_ms, sdpa_mask_ms=sdpa_bwd["mask"],
+                              sdpa_causal_ms=sdpa_bwd["causal"])
+    rows["flash_attention_bwd_dq"].update(
+        plan=list(fa.bwd_plan_for(b, s, h, kv)),
+        plans_ms={str(tuple(p)): graph_ms(
+            lambda p=p: fa.flash_attention_bwd_dq(*bwd, plan=p))
+            for p in fa.BWD_PLANS})
     return rows
 
 
@@ -2650,7 +2671,8 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for lib in libs
              for ln in lib.with_name(lib.name + ".log").read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "registers" in ln or "spill" in ln
+             or "Compiling entry" in ln]
     emit("build", seconds=build_s, libraries=[p.name for p in libs],
          ptxas=ptxas)
 

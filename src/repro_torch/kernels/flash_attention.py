@@ -30,10 +30,17 @@ a CUDA tensor; only for a CPU tensor does it run the plain version.  A
 failed build or launch raises; nothing falls back.  Each kernel has its
 own launch count (`launches`, `launches_lse`, `launches_dq`,
 `launches_dkv`), moved only where the kernel is launched.
+
+The dQ kernel launches under a `BwdPlan`, its query rows per block:
+`BWD_PLANS` are the instantiated plans and `bwd_plan_for` picks one from
+the shape.  Every plan gives every output the same bits (one fmaf chain
+per element in a fixed order, ``csrc/flash_attention_bwd.cu``), so a plan
+is a matter of speed only.  The dK / dV kernel has one launch shape.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -42,6 +49,17 @@ from repro_torch.kernels.ref import attention_mask, flash_attention_ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)  # the head dims the kernels are instantiated for
+SMS = 132  # streaming multiprocessors of an H100 SXM
+
+
+class BwdPlan(NamedTuple):
+    """A plan of the dQ kernel: its query rows per block (16 or 64)."""
+    rows: int
+
+
+# The instantiated backward plans; a plan's index is its id in
+# csrc/flash_attention_bwd.cu.
+BWD_PLANS = (BwdPlan(64), BwdPlan(16))
 
 launches = 0      # flash_attention_fwd, serving forward (no lse)
 launches_lse = 0  # flash_attention_fwd with the lse (the training forward)
@@ -56,7 +74,7 @@ _SIGNATURES = {  # entry point -> (library, argument types before the stream)
     "flash_attention_fwd_lse": ("flash_attention",
                                 [_P] * 6 + [_I] * 6 + [STRIDES, _I, _I]),
     "flash_attention_bwd_dq": ("flash_attention_bwd",
-                               [_P] * 8 + [_I] * 6 + [STRIDES, _I, _I]),
+                               [_P] * 8 + [_I] * 6 + [STRIDES, _I, _I, _I]),
     "flash_attention_bwd_dkv": ("flash_attention_bwd",
                                 [_P] * 9 + [_I] * 6 + [STRIDES, _I, _I]),
 }
@@ -251,6 +269,24 @@ def flash_attention_fwd(q, k, v, kv_len=None, *, causal: bool = True,
     return (o, lse) if return_lse else o
 
 
+def bwd_plan_for(b: int, sq: int, h: int, kv: int) -> BwdPlan:
+    """The backward's plan for b sequences of sq query rows, h query heads
+    over kv kv-heads: 64-row dQ blocks when those give every SM a block,
+    else 16-row blocks, four times as many (`time_attention.py --bwd`
+    times both: 16 rows were faster up to 112 64-row blocks, 64 rows from
+    140 on).  For speed only: every plan gives the same bits."""
+    return BwdPlan(64 if b * kv * -(-(h // kv) * sq // 64) >= SMS else 16)
+
+
+def _bwd_plan_id(plan) -> int:
+    """The kernels' id of `plan` (a `BwdPlan` or its tuple); ValueError
+    when it is not instantiated."""
+    plan = tuple(plan)
+    if plan not in BWD_PLANS:
+        raise ValueError(f"plan must be one of {BWD_PLANS}, got {plan}")
+    return BWD_PLANS.index(plan)
+
+
 def _check_bwd(q, do, lse, delta) -> None:
     b, sq, h, _ = q.shape
     if do.shape != q.shape or do.dtype != q.dtype:
@@ -282,13 +318,19 @@ def _bwd_args(q, k, v, do, lse, delta, kv_len) -> tuple:
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, kv_len=None, *,
-                           causal: bool = True):
+                           causal: bool = True, plan=None):
     """dQ (B, Sq, H, D) in q's dtype, for q already scaled: the forward's
     operands, dO (B, Sq, H, D), its lse and Delta = rowsum(dO o O), fp32
-    (B, H, Sq).  A CPU tensor runs `flash_attention_bwd_dq_plain`; a
-    CUDA tensor launches the kernel and raises RuntimeError if it fails."""
+    (B, H, Sq).  `plan` is one of `BWD_PLANS` (default `bwd_plan_for` the
+    shape); any plan gives the same bits, and one that is not
+    instantiated raises ValueError.  A CPU tensor runs
+    `flash_attention_bwd_dq_plain`; a CUDA tensor launches the kernel and
+    raises RuntimeError if it fails."""
     check_operands(q, k, v, kv_len)
     _check_bwd(q, do, lse, delta)
+    b, sq, h, _ = q.shape
+    plan_id = _bwd_plan_id(bwd_plan_for(b, sq, h, k.shape[2])
+                           if plan is None else plan)
     if not _on_card("flash_attention_bwd_dq", q):
         return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, kv_len,
                                             causal=causal)
@@ -299,8 +341,9 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, kv_len=None, *,
     if dq.numel():
         global launches_dq
         _launch("flash_attention_bwd_dq", q, *ptrs, dq.data_ptr(), *dims,
-                int(causal), DTYPES[q.dtype],
-                what=f"q {tuple(q.shape)}, k {tuple(k.shape)}")
+                int(causal), DTYPES[q.dtype], plan_id,
+                what=f"q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                     f"plan {BWD_PLANS[plan_id]}")
         launches_dq += 1
     return dq
 
@@ -336,8 +379,8 @@ class FlashAttention(torch.autograd.Function):
     The forward is the lse-emitting kernel and saves (q, k, v, kv_len, o,
     lse).  The backward computes Delta = rowsum(dO o O) in fp32 in PyTorch
     (as ``_flash_vjp_bwd``; a row with no live key has O = 0, so Delta = 0
-    there) and launches the dQ and dK / dV kernels.  kv_len and causal get
-    no gradient.
+    there) and launches the dQ kernel under `bwd_plan_for`'s plan and the
+    dK / dV kernel.  kv_len and causal get no gradient.
     """
 
     @staticmethod

@@ -1,20 +1,41 @@
-"""Device time of the two attention kernels at qwen2-0.5b's serving shapes.
+"""Device time of the attention kernels at qwen2-0.5b's shapes.
 
-    python3 src/repro_torch/kernels/time_attention.py [--src DIR] [--label L]
+    python3 src/repro_torch/kernels/time_attention.py [--bwd] [--src DIR]
+                                                      [--label L]
 
-Builds `flash_attention` and `flash_decode` from the package under `--src`
-(default: this checkout's ``src``) and prints one JSON line: the median
-device time in ms of each kernel over CUDA-graph replays, at a 64-token
-prefill chunk (batch 1 and 4), a 512-token prompt, and one decode row
-against 1024 keys at batch 1 and 8.  Pointing `--src` at the ``src`` of
-another checkout times that version's kernels on the same inputs, so two
-versions can be compared within one run on one card.  Needs an NVIDIA GPU.
+Builds the kernels from the package under `--src` (default: this
+checkout's ``src``) and prints one JSON line.  Pointing `--src` at the
+``src`` of another checkout times that version's kernels on the same
+inputs, so two versions can be compared within one run on one card.
+Needs an NVIDIA GPU.
+
+Without `--bwd`: the median device time in ms of `flash_attention` and
+`flash_decode` over CUDA-graph replays, at a 64-token prefill chunk (batch
+1 and 4), a 512-token prompt, and one decode row against 1024 keys at
+batch 1 and 8.
+
+With `--bwd`: the backward at the training shape (8 x 512, 14 query heads
+over 2 kv-heads of 64, causal) in fp32 and bf16, at one long causal
+sequence (2 x 2048) and at head dim 128, all with q already scaled: dK /
+dV, and dQ and the whole op (Delta and both kernels) under every dQ plan
+(`flash_attention.BWD_PLANS`; a version without plans is timed under its
+one launch), against torch's scaled_dot_product_attention backward
+(TF32 off; autograd's dQ, dK and dV at once, by CUDA events) twice: with
+the boolean mask of the live pairs and grouped heads, as the train step's
+kernels line times it, and with ``is_causal=True`` on K / V repeated to
+the H heads (the repeat and the group sum of dK / dV timed with it).  The
+faster is the library time.  Besides those four shapes it times the
+shapes at which `bwd_plan_for` picks 16-row dQ blocks, or just misses
+them (BWD_SHAPES).  Per shape it names the plan `bwd_plan_for` picks,
+the fastest plan and the pick's op time over the fastest's;
+`worst_ratio` is the largest of those.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import statistics
+import subprocess
 import sys
 from pathlib import Path
 
@@ -25,6 +46,26 @@ SHAPES = {"prefill_chunk": (1, 64, 1024, [576], True),
           "prompt_512": (1, 512, 512, [512], True),
           "decode_b1": (1, 1, 1024, [1024], False),
           "decode_b8": (8, 1, 1024, [1024] * 8, False)}
+# (batch, S, H, KV, D, dtype) of the causal self-attention backward
+# then chip_smoke.py's lm_train_restart step (reduced qwen2-0.5b: batch
+# 2 x 64, 4 / 2 heads of 32) and three of its check_attn_bwd cases (batch
+# 2), where the 64-row dQ grid has 8 to 32 blocks, and causal sequences
+# whose 64-row grids have 56, 70, 112, 140, 224 and 448 blocks, around
+# bwd_plan_for's threshold
+BWD_SHAPES = {"train_fp32": (8, 512, 14, 2, 64, "float32"),
+              "train_bf16": (8, 512, 14, 2, 64, "bfloat16"),
+              "long_2048_fp32": (2, 2048, 14, 2, 64, "float32"),
+              "d128_fp32": (8, 512, 14, 2, 128, "float32"),
+              "restart_2x64_fp32": (2, 64, 4, 2, 32, "float32"),
+              "grid_2x64_fp32": (2, 64, 14, 2, 64, "float32"),
+              "grid_2x100_g8_bf16": (2, 100, 8, 1, 64, "bfloat16"),
+              "grid_2x64_mha_d128_fp32": (2, 64, 16, 16, 128, "float32"),
+              "edge_1x256_fp32": (1, 256, 14, 2, 64, "float32"),
+              "edge_1x320_fp32": (1, 320, 14, 2, 64, "float32"),
+              "edge_1x512_fp32": (1, 512, 14, 2, 64, "float32"),
+              "edge_1x640_fp32": (1, 640, 14, 2, 64, "float32"),
+              "edge_2x512_fp32": (2, 512, 14, 2, 64, "float32"),
+              "edge_4x512_fp32": (4, 512, 14, 2, 64, "float32")}
 
 
 def graph_ms(fn, reps: int = 20, repeats: int = 5) -> float:
@@ -51,24 +92,66 @@ def graph_ms(fn, reps: int = 20, repeats: int = 5) -> float:
     return statistics.median(times)
 
 
-def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--src", default=str(Path(__file__).resolve()
-                                             .parents[2]))
-    parser.add_argument("--label", default="")
-    args = parser.parse_args()
-    sys.path.insert(0, str(Path(args.src).resolve()))
+def event_ms(fn, reps: int = 5, repeats: int = 3) -> float:
+    """Median over `repeats` of the mean ms of `reps` back-to-back calls
+    between CUDA events, after one warm-up call."""
     import torch
-    if not torch.cuda.is_available():
-        print("time_attention: needs an NVIDIA GPU", file=sys.stderr)
-        return 1
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def sdpa_bwd_ms(q, k, v, do, live) -> dict:
+    """ms of torch's scaled_dot_product_attention backward (dQ, dK and dV
+    at once) for q (B, Sq, H, D), k / v (B, Skv, KV, D), dO like q, q
+    already scaled: ``mask`` with the (B, Sq, Skv) bool `live` and grouped
+    heads, ``causal`` with ``is_causal=True`` on K / V repeated to the H
+    heads (Sq == Skv), the repeat and the sum of dK / dV over each group
+    of heads timed with it, so that both compute the same function;
+    ``library`` the faster."""
+    import torch
+    import torch.nn.functional as F
+    g = q.shape[2] // k.shape[2]
+    dot = do.transpose(1, 2)
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=live[:, None],
+                                         scale=1.0, enable_gqa=True)
+    res = {"mask": event_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True))}
+    del out
+    # autograd sums the repeated heads' dK / dV back to the kv-heads
+    out = F.scaled_dot_product_attention(
+        qt, kt.repeat_interleave(g, dim=1), vt.repeat_interleave(g, dim=1),
+        is_causal=True, scale=1.0)
+
+    def causal():
+        kt.repeat_interleave(g, dim=1), vt.repeat_interleave(g, dim=1)
+        return torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+
+    res["causal"] = event_ms(causal)
+    res["library"] = min(res["mask"], res["causal"])
+    return res
+
+
+def time_forward(gen, dev) -> dict:
+    """The forward and decode kernels at SHAPES."""
+    import torch
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
     build.build_all(("flash_attention", "flash_decode"))
-    dev = torch.device("cuda", 0)
-    gen = torch.Generator(device=dev).manual_seed(1)
-    out = {"label": args.label, "src": args.src}
+    out = {}
     for name, (b, sq, skv, lens, causal) in SHAPES.items():
         q = torch.randn(b, sq, 14, 64, generator=gen, device=dev) / 8
         k = torch.randn(b, skv, 2, 64, generator=gen, device=dev)
@@ -81,6 +164,85 @@ def main() -> int:
         else:
             out[name] = graph_ms(lambda: fa.flash_attention_fwd(
                 q, k, v, kvl, causal=causal))
+    return out
+
+
+def time_backward(gen, dev) -> dict:
+    """The backward kernels, dQ under every plan, at BWD_SHAPES."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    build.build_all(("flash_attention", "flash_attention_bwd"))
+    plans = getattr(fa, "BWD_PLANS", (None,))
+    out, worst = {}, 0.0
+    for name, (b, s, h, kv, d, dt) in BWD_SHAPES.items():
+        dtype = getattr(torch, dt)
+        q = (torch.randn(b, s, h, d, generator=gen, device=dev)
+             / d ** 0.5).to(dtype)
+        k = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
+        v = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
+        do = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
+        o, lse = fa.flash_attention_fwd(q, k, v, None, return_lse=True)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        by_plan = {}
+        dkv_ms = graph_ms(lambda: fa.flash_attention_bwd_dkv(
+            q, k, v, do, lse, delta))
+        for plan in plans:
+            kw = {} if plan is None else {"plan": plan}
+
+            def whole(kw=kw):
+                dl = (do.float() * o.float()).sum(-1).transpose(1, 2)
+                dl = dl.contiguous()
+                fa.flash_attention_bwd_dq(q, k, v, do, lse, dl, **kw)
+                fa.flash_attention_bwd_dkv(q, k, v, do, lse, dl)
+
+            by_plan["default" if plan is None else str(tuple(plan))] = {
+                "dq_ms": graph_ms(lambda kw=kw: fa.flash_attention_bwd_dq(
+                    q, k, v, do, lse, delta, **kw)),
+                "op_ms": graph_ms(whole)}
+        row = {"shape": [b, s, s, h, kv, d], "dtype": dt, "causal": True,
+               "dkv_ms": dkv_ms, "plans": by_plan}
+        if plans[0] is not None:
+            pick = str(tuple(fa.bwd_plan_for(b, s, h, kv)))
+            fastest = min(by_plan, key=lambda p: by_plan[p]["op_ms"])
+            ratio = by_plan[pick]["op_ms"] / by_plan[fastest]["op_ms"]
+            row.update(pick=pick, fastest=fastest, ratio=ratio)
+            worst = max(worst, ratio)
+        live = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+        sd = sdpa_bwd_ms(q, k, v, do, live.expand(b, s, s))
+        row.update(sdpa_mask_ms=sd["mask"], sdpa_causal_ms=sd["causal"],
+                   library_ms=sd["library"])
+        out[name] = row
+        del q, k, v, do, o, lse, delta
+    out["worst_ratio"] = worst
+    return out
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--src", default=str(Path(__file__).resolve()
+                                             .parents[2]))
+    parser.add_argument("--label", default="")
+    parser.add_argument("--bwd", action="store_true",
+                        help="time the backward kernels")
+    args = parser.parse_args()
+    sys.path.insert(0, str(Path(args.src).resolve()))
+    import torch
+    if not torch.cuda.is_available():
+        print("time_attention: needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    out = {"label": args.label, "src": args.src, "smi": smi,
+           "device": torch.cuda.get_device_name(0)}
+    out.update(time_backward(gen, dev) if args.bwd
+               else time_forward(gen, dev))
     print(json.dumps(out), flush=True)
     return 0
 

@@ -510,6 +510,9 @@ def test_attention_bwd_kernels_match_plain_versions(card, b, sq, skv, h, kv,
     again = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, kvl,
                                        causal=causal)
     assert torch.equal(dk, again[0]) and torch.equal(dv, again[1])
+    for plan in fa.BWD_PLANS:  # every plan gives the path plan's bits
+        assert torch.equal(dq, fa.flash_attention_bwd_dq(
+            q, k, v, do, lse, delta, kvl, causal=causal, plan=plan))
     if kv_len is not None and kv_len[-1] < skv:   # dead keys, dead rows
         assert bool((dk[-1, kv_len[-1]:] == 0).all())
     if kv_len == [50, 0]:
