@@ -70,8 +70,12 @@ script exits non-zero.  Phases:
               version: head ratios (16,16), (14,2), (8,1), Sq 1/4/16 against
               Skv 64/256, causal on and off, kv_len none / per batch with a 0,
               head dims 32/64/128, fp32 and bf16; then qwen2-0.5b's shapes
-              (prefill chunks, a 512-token prompt, shallow decode).  Rows
-              with no live key must be exactly 0.  Bars as phase 2.
+              (prefill chunks at batch 1 and 4, a 512-token prompt, the
+              training shape, shallow decode).  Rows with no live key must
+              be exactly 0.  Bars as phase 2.  At every case every forward
+              plan (flash_attention.PLANS), with and without lse, gives the
+              path plan's bits, and the lse launch's o the serving
+              launch's.
  10. check_decode  the split-KV decode kernel's partials and empty-span
               sentinels against its plain version over Sq 1/4/8 against
               Skv 256/1024 and qwen2-0.5b's decode shapes; at one split its
@@ -113,7 +117,8 @@ script exits non-zero.  Phases:
               (`graph_ms`), and the kernel's time when called back to back
               from Python (`enqueued_ms`, host enqueue included); for the
               decode kernel also `combine` and `op_ms`, partials plus
-              merge, the function SDPA computes; the paged step's
+              merge, the function SDPA computes; for the forward the plan
+              `plan_for` picks and every plan's ms; the paged step's
               prefill-chunk and decode dispatch ms, tokens/s, p50 and p99.
  16. check_attn_bwd  the lse forward and the dQ and dK / dV kernels against
               their plain versions: head ratios (16,16), (14,2), (8,1), head
@@ -235,9 +240,12 @@ script exits non-zero.  Phases:
               0 just before and read just after (11 launches); then fp32
               and bf16, each against its plain version and against the
               `cuda` engine's im2col conv2d (linear, no scale or shift),
-              bars as phase 25, reruns bitwise; then per layer kernel,
-              plain, im2col and cuDNN F.conv2d (TF32 off, set here) ms and
-              the bound.
+              bars as phase 25, reruns bitwise, every plan
+              (conv_direct.PLANS) bitwise the path plan's, also at a ragged
+              grid (CONV_RAGGED); then per layer the plan, kernel, plain,
+              im2col and cuDNN F.conv2d (TF32 off, set here) device ms over
+              CUDA-graph replays, the kernel's enqueued ms, and the
+              bound.
  29. check_regimes (run after phase 11) at every GEMM shape of qwen2-0.5b
               and mamba2-1.3b, M 1, 4, 8, 64 (regime A's) and 200 (B's),
               fp32 (with residuals) and bf16: every plan of both regimes
@@ -355,6 +363,11 @@ REPLACES_BMM_DW = "src/repro/kernels/gemm.py:336"  # bmm_bwd_dw's
 SOURCE_CONV = "src/repro_torch/kernels/csrc/conv_direct.cu"
 REPLACES_CONV = "src/repro/kernels/conv_direct.py:102"  # conv2d_direct's
 CONV_BATCH = 8
+# conv_direct's ragged grid: (batch, H = W - 3 (H odd) or W, Cin, Cout,
+# kernel size), padded outside: Cin 3, 5, 12, 40; Cout 32, 48; OW not a
+# multiple of any plan's tile
+CONV_RAGGED = ((2, 37, 3, 32, 3), (2, 21, 5, 48, 3), (3, 19, 12, 32, 3),
+               (2, 23, 12, 48, 1), (1, 30, 5, 32, 1), (2, 13, 40, 48, 3))
 MIXED_TOL = 5e-2  # the bf16 bar: mixed rounds activations to bf16
 MIXED_FLOOR_FACTOR = 1.5  # lm_mixed: times the drift of two mixed programs
 MIXED_PROMPT = (2, 256)
@@ -771,9 +784,27 @@ def attn_work(q, k, kv_len, causal, out_bytes) -> tuple[float, float]:
     return flops, nbytes + out_bytes
 
 
-def check_attn_case(q, k, v, kvl, causal) -> tuple[float, float]:
-    """Forward kernel vs plain at one case: (max-relative, max-abs) error;
-    rows with no live key must come out exactly 0."""
+def check_attn_plans(q, k, v, kvl, causal, got, where) -> int:
+    """Every forward plan, with and without lse, against the path plan's
+    outputs at one case, bit for bit; returns the outputs compared."""
+    o_lse, lse = fa.flash_attention_fwd(q, k, v, kvl, causal=causal,
+                                        return_lse=True)
+    check(torch.equal(o_lse, got), f"the lse launch's o differs at {where}")
+    for plan in fa.PLANS:
+        o = fa.flash_attention_fwd(q, k, v, kvl, causal=causal, plan=plan)
+        o2, lse2 = fa.flash_attention_fwd(q, k, v, kvl, causal=causal,
+                                          return_lse=True, plan=plan)
+        check(torch.equal(o, got) and torch.equal(o2, got)
+              and torch.equal(lse2, lse),
+              f"forward plan {plan} differs from the path plan's bits at "
+              f"{where}")
+    return 3 * len(fa.PLANS)
+
+
+def check_attn_case(q, k, v, kvl, causal) -> tuple[float, float, int]:
+    """Forward kernel vs plain at one case: (max-relative, max-abs error,
+    outputs compared bitwise across plans); rows with no live key must
+    come out exactly 0, every plan must give the path plan's bits."""
     got = fa.flash_attention_fwd(q, k, v, kvl, causal=causal)
     want = fa.flash_attention_plain(q, k, v, kvl, causal=causal)
     where = f"q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype} causal={causal}"
@@ -783,7 +814,8 @@ def check_attn_case(q, k, v, kvl, causal) -> tuple[float, float]:
     err = relmax(got, want)
     check(err <= (FP32_TOL if q.dtype == torch.float32 else BF16_TOL),
           f"flash_attention vs plain at {where}: {err:.3e}")
-    return err, float((got.float() - want.float()).abs().max())
+    bits = check_attn_plans(q, k, v, kvl, causal, got, where)
+    return err, float((got.float() - want.float()).abs().max()), bits
 
 
 def check_decode_case(q, k, v, kvl, causal) -> tuple[float, float, int]:
@@ -823,7 +855,7 @@ def attn_phases(cgen) -> dict:
              "decode": {"fp32": 0.0, "bf16": 0.0}}
     path_abs = {"attn": 0.0, "decode": 0.0}
     dev = cgen.device
-    cases = 0
+    cases = bits = 0
     for h, kv in HEAD_RATIOS:
         for d in (32, 64, 128):
             for dt in (torch.float32, torch.bfloat16):
@@ -835,8 +867,9 @@ def attn_phases(cgen) -> dict:
                                            dtype=torch.int32, device=dev)
                         for causal in (True, False):
                             for lens in (None, kvl):
-                                err, _ = check_attn_case(q, k, v, lens,
-                                                         causal)
+                                err, _, n = check_attn_case(q, k, v, lens,
+                                                            causal)
+                                bits += n
                                 worst["attn"][kind] = max(
                                     worst["attn"][kind], err)
                                 cases += 1
@@ -851,25 +884,32 @@ def attn_phases(cgen) -> dict:
                             worst["decode"][kind] = max(
                                 worst["decode"][kind], err)
     torch.cuda.synchronize()
-    emit("check_attn", grid_cases=cases, relmax=worst["attn"])
+    emit("check_attn", grid_cases=cases, relmax=worst["attn"],
+         plans=[list(p) for p in fa.PLANS], plan_outputs_bitwise=bits)
     cfg = get_arch(LM_ARCH)
     h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     rows = []
+    bits = 0
     for name, (b, sq, skv, lens, causal) in {
             "prefill_chunk": (1, 64, LM_CACHE, [576], True),
+            "prefill_chunk_b4": (4, 64, LM_CACHE, [576, 300, 900, 64], True),
             "prompt_512": (1, LM_PREFILL, LM_PREFILL, None, True),
+            "training": (LM_TRAIN["batch"], LM_TRAIN["seq"], LM_TRAIN["seq"],
+                         None, True),
             "shallow_decode": (8, 1, 128, [1, 17, 40, 64, 80, 100, 127, 128],
                                False)}.items():
         for dt in (torch.float32, torch.bfloat16):
             q, k, v = qkv(b, sq, skv, h, kv, d, dt, cgen)
             kvl = (None if lens is None else
                    torch.tensor(lens, dtype=torch.int32, device=dev))
-            err, mabs = check_attn_case(q, k, v, kvl, causal)
+            err, mabs, n = check_attn_case(q, k, v, kvl, causal)
+            bits += n
             if dt == torch.float32:
                 path_abs["attn"] = max(path_abs["attn"], mabs)
             rows.append({"shape": name, "dtype": str(dt), "relmax": err,
-                         "max_abs": mabs})
-    emit("check_attn", arch=LM_ARCH, cases=rows)
+                         "max_abs": mabs,
+                         "plan": list(fa.plan_for(b, sq, h, kv))})
+    emit("check_attn", arch=LM_ARCH, cases=rows, plan_outputs_bitwise=bits)
     rows = []
     for name, (b, sq, skv, lens, causal) in {
             "decode_b8": (8, 1, LM_CACHE, [1024, 700, 300, 256, 129, 65, 1,
@@ -1336,7 +1376,11 @@ def timing_lm_phase(cfg, params, dev, cgen, peak_flops, peak_bw,
                 lambda: fa.flash_attention_fwd(q, k, v, kvl, causal=causal)), (
                 lambda: fa.flash_attention_plain(q, k, v, kvl, causal=causal))
             out_bytes = 4.0 * q.numel()
-            extra = {}
+            extra = {"plan": list(fa.plan_for(b, sq, h, kv)),
+                     "plans_ms": {str(tuple(p)): graph_ms(
+                         lambda p=p: fa.flash_attention_fwd(
+                             q, k, v, kvl, causal=causal, plan=p))
+                         for p in fa.PLANS}}
         flops, nbytes = attn_work(q, k, kvl, causal, out_bytes)
         bound_ms, bound_by = bound(flops, nbytes, peak_flops, peak_bw)
         ms = graph_ms(fn)
@@ -1692,11 +1736,11 @@ def lm_restart_phase(dev) -> None:
 def attn_train_rows(cfg, cgen, peak_flops, peak_bw) -> dict:
     """The lse forward and the dQ and dK / dV kernels at the training
     shape: kernel, plain, bound and library ms (CUDA-graph replays;
-    library: SDPA with enable_gqa, its forward, and its autograd
-    backward by CUDA events, the faster of the boolean mask and
-    is_causal on repeated K / V, `time_attention.sdpa_bwd_ms`, which
-    times the repeat and the group sum with it); dQ also
-    under every plan (`plans_ms`)."""
+    library: SDPA's forward and its autograd backward by CUDA events, each
+    the faster of the boolean mask with enable_gqa and is_causal on
+    repeated K / V, `time_attention.sdpa_fwd_ms` / `sdpa_bwd_ms`, which
+    time the repeat, and the group sum of the backward, with it); the lse
+    forward and dQ also under every plan (`plans_ms`)."""
     b, s = LM_TRAIN["batch"], LM_TRAIN["seq"]
     h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = qkv(b, s, s, h, kv, d, torch.float32, cgen)
@@ -1715,11 +1759,13 @@ def attn_train_rows(cfg, cgen, peak_flops, peak_bw) -> dict:
                                         + rowb + 8.0 * k.numel())}
     sdpa_bwd = time_attention.sdpa_bwd_ms(q, k, v, do,
                                           live_mask(q, k, None, True))
+    sdpa_fwd = time_attention.sdpa_fwd_ms(q, k, v,
+                                          live_mask(q, k, None, True), True)
     fns = {"flash_attention_lse": (
                lambda: fa.flash_attention_fwd(q, k, v, None, return_lse=True),
                lambda: fa.flash_attention_plain(q, k, v, None,
                                                 return_lse=True),
-               graph_ms(lambda: sdpa(q, k, v, None, True))),
+               sdpa_fwd["library"]),
            "flash_attention_bwd_dq": (
                lambda: fa.flash_attention_bwd_dq(*bwd),
                lambda: fa.flash_attention_bwd_dq_plain(*bwd),
@@ -1749,6 +1795,13 @@ def attn_train_rows(cfg, cgen, peak_flops, peak_bw) -> dict:
         if name != "flash_attention_lse":
             rows[name].update(op_ms=op_ms, sdpa_mask_ms=sdpa_bwd["mask"],
                               sdpa_causal_ms=sdpa_bwd["causal"])
+    rows["flash_attention_lse"].update(
+        sdpa_mask_ms=sdpa_fwd["mask"], sdpa_causal_ms=sdpa_fwd["causal"],
+        plan=list(fa.plan_for(b, s, h, kv)),
+        plans_ms={str(tuple(p)): graph_ms(
+            lambda p=p: fa.flash_attention_fwd(q, k, v, None,
+                                               return_lse=True, plan=p))
+            for p in fa.PLANS})
     rows["flash_attention_bwd_dq"].update(
         plan=list(fa.bwd_plan_for(b, s, h, kv)),
         plans_ms={str(tuple(p)): graph_ms(
@@ -2512,14 +2565,29 @@ def conv_operands(c, dtype, gen):
     return x, torch.nn.functional.pad(x, (0, 0, p, p, p, p)), w
 
 
+def conv_plans_bits(xp, w, where) -> int:
+    """Every conv plan against the path plan's output at one case, bit for
+    bit, and a rerun of each; returns the outputs compared."""
+    want = conv_direct.conv2d_direct(xp, w)
+    for plan in conv_direct.PLANS:
+        got = conv_direct.conv2d_direct(xp, w, plan=plan)
+        check(torch.equal(got, want), f"{where}: plan {plan} differs from "
+              f"the path plan's bits")
+        check(torch.equal(got, conv_direct.conv2d_direct(xp, w, plan=plan)),
+              f"{where}: two runs of plan {plan} differ")
+    return len(conv_direct.PLANS)
+
+
 def conv_direct_phase(net, gen, peak_flops, peak_bw, smi) -> dict:
     """Phase conv_direct: the 11 DARKNET19_CFG convolutions at batch
     CONV_BATCH through `conv2d_direct` on inputs padded outside, the
     launch counts set to 0 just before and read just after; then, fp32
     and bf16, each against its plain version and against the `cuda`
-    engine's im2col conv2d (linear, no scale or shift), reruns bitwise;
-    then per layer (fp32) kernel, plain, im2col and cuDNN F.conv2d ms
-    (TF32 off) and the bound."""
+    engine's im2col conv2d (linear, no scale or shift), reruns bitwise,
+    every plan bitwise the path plan's (also at CONV_RAGGED); then per
+    layer (fp32) the kernel under `plan_for`'s plan, plain, im2col and
+    cuDNN F.conv2d device ms (TF32 off; CUDA-graph replays, and the
+    kernel's time with its enqueue) and the bound."""
     torch.backends.cudnn.allow_tf32 = False
     layers = path_convs(net, CONV_BATCH)
     check(len(layers) == 11 and all(c["stride"] == 1 for c in layers),
@@ -2538,6 +2606,7 @@ def conv_direct_phase(net, gen, peak_flops, peak_bw, smi) -> dict:
     worst = {"plain": {"fp32": 0.0, "bf16": 0.0},
              "im2col": {"fp32": 0.0, "bf16": 0.0}}
     max_abs = 0.0
+    plan_bits = 0
     for dt, engine in engines.items():
         kind = "fp32" if dt == torch.float32 else "bf16"
         for i, c in enumerate(layers):
@@ -2561,14 +2630,28 @@ def conv_direct_phase(net, gen, peak_flops, peak_bw, smi) -> dict:
                 worst[key][kind] = max(worst[key][kind], err)
             check(torch.equal(got, conv_direct.conv2d_direct(xp, w)),
                   f"two runs of {where} differ")
+            plan_bits += conv_plans_bits(xp, w, where)
             if kind == "fp32":
                 max_abs = max(max_abs, float((got - want_plain).abs().max()))
+        for b, h, cin, cout, size in CONV_RAGGED:
+            c = {"b": b, "h": h, "w": h + 3 * (h % 2), "cin": cin,
+                 "cout": cout, "size": size, "pad": size // 2}
+            _, xp, w = conv_operands(c, dt, gen)
+            got = conv_direct.conv2d_direct(xp, w)
+            where = f"conv2d_direct ragged {b, h, cin, cout, size} {dt}"
+            err = relmax(got, conv_direct.conv2d_direct_plain(xp, w))
+            check(err <= (FP32_TOL if kind == "fp32" else BF16_TOL),
+                  f"{where} vs plain: {err:.3e}")
+            plan_bits += conv_plans_bits(xp, w, where)
+    torch.cuda.synchronize()
     emit("conv_direct", cfg="DARKNET19_CFG", batch=CONV_BATCH,
          layers=[[c["layer"], c["h"], c["w"], c["cin"], c["cout"],
                   c["size"]] for c in layers], launches=launches,
-         relmax=worst, max_abs_err_fp32=max_abs)
-    keys = ("ms", "plain_ms", "im2col_ms", "library_ms", "bound_ms",
-            "ops_ms", "bytes_ms")
+         relmax=worst, max_abs_err_fp32=max_abs,
+         plans=[list(p) for p in conv_direct.PLANS],
+         plan_outputs_bitwise=plan_bits, ragged=CONV_RAGGED)
+    keys = ("ms", "enqueued_ms", "plain_ms", "im2col_ms", "library_ms",
+            "bound_ms", "ops_ms", "bytes_ms")
     total = dict.fromkeys(keys, 0.0)
     for c, (x, xp, w) in zip(layers, data):
         size, cout = c["size"], c["cout"]
@@ -2576,26 +2659,28 @@ def conv_direct_phase(net, gen, peak_flops, peak_bw, smi) -> dict:
         xn = xp.permute(0, 3, 1, 2)  # NCHW view of the NHWC storage
         wn = w.permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
-        ms = cuda_ms(lambda: conv_direct.conv2d_direct(xp, w))
-        plain_ms = cuda_ms(lambda: conv_direct.conv2d_direct_plain(xp, w))
-        im2col_ms = cuda_ms(lambda: engines[torch.float32].conv2d(
+        plan = conv_direct.plan_for(*xp.shape, size, size, cout)
+        ms = graph_ms(lambda: conv_direct.conv2d_direct(xp, w))
+        enqueued_ms = cuda_ms(lambda: conv_direct.conv2d_direct(xp, w))
+        plain_ms = graph_ms(lambda: conv_direct.conv2d_direct_plain(xp, w))
+        im2col_ms = graph_ms(lambda: engines[torch.float32].conv2d(
             x, w2, size=size, pad=c["pad"]))
-        library_ms = cuda_ms(lambda: torch.nn.functional.conv2d(xn, wn))
+        library_ms = graph_ms(lambda: torch.nn.functional.conv2d(xn, wn))
         lib_err = relmax(torch.nn.functional.conv2d(xn, wn).permute(
             0, 2, 3, 1), conv_direct.conv2d_direct_plain(xp, w))
         flops = 2.0 * c["b"] * c["h"] * c["w"] * size * size * c["cin"] * cout
         nbytes = 4.0 * (xp.numel() + w.numel() + c["b"] * c["h"] * c["w"]
                         * cout)
         bound_ms, bound_by = bound(flops, nbytes, peak_flops, peak_bw)
-        row = {"ms": ms, "plain_ms": plain_ms, "im2col_ms": im2col_ms,
-               "library_ms": library_ms, "bound_ms": bound_ms,
-               "ops_ms": flops / peak_flops * 1e3,
+        row = {"ms": ms, "enqueued_ms": enqueued_ms, "plain_ms": plain_ms,
+               "im2col_ms": im2col_ms, "library_ms": library_ms,
+               "bound_ms": bound_ms, "ops_ms": flops / peak_flops * 1e3,
                "bytes_ms": nbytes / peak_bw * 1e3}
         for key in keys:
             total[key] += row[key]
         emit("timing_conv_direct", layer=c["layer"], batch=CONV_BATCH,
-             shape=[c["h"], c["w"], c["cin"], cout, size], **row,
-             bound_by=bound_by, tflops=flops / ms / 1e9,
+             shape=[c["h"], c["w"], c["cin"], cout, size], plan=list(plan),
+             **row, bound_by=bound_by, tflops=flops / ms / 1e9,
              bound_share=bound_ms / ms, library_relmax=lib_err)
     emit("timing_conv_direct_total", smi=smi, batch=CONV_BATCH,
          layers=len(layers), **total, bound_share=total["bound_ms"]

@@ -31,11 +31,14 @@ failed build or launch raises; nothing falls back.  Each kernel has its
 own launch count (`launches`, `launches_lse`, `launches_dq`,
 `launches_dkv`), moved only where the kernel is launched.
 
-The dQ kernel launches under a `BwdPlan`, its query rows per block:
-`BWD_PLANS` are the instantiated plans and `bwd_plan_for` picks one from
-the shape.  Every plan gives every output the same bits (one fmaf chain
-per element in a fixed order, ``csrc/flash_attention_bwd.cu``), so a plan
-is a matter of speed only.  The dK / dV kernel has one launch shape.
+The forward launches under a `FwdPlan`, its query rows and threads per
+block and lanes per query row: `PLANS` are the instantiated plans and
+`plan_for` picks one from the shape.  The dQ kernel launches under a
+`BwdPlan`, its query rows per block: `BWD_PLANS` and `bwd_plan_for`.
+Every plan gives every output the same bits (one fmaf chain per element
+in a fixed order, ``csrc/flash_attention.cu`` and
+``csrc/flash_attention_bwd.cu``), so a plan is a matter of speed only.
+The dK / dV kernel has one launch shape.
 """
 from __future__ import annotations
 
@@ -50,6 +53,19 @@ from repro_torch.kernels.ref import attention_mask, flash_attention_ref
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)  # the head dims the kernels are instantiated for
 SMS = 132  # streaming multiprocessors of an H100 SXM
+
+
+class FwdPlan(NamedTuple):
+    """A plan of the forward kernel: its query rows and threads per block
+    and the lanes that hold one row (8, 16 or 32)."""
+    rows: int
+    threads: int
+    lanes: int
+
+
+# The instantiated forward plans; a plan's index is its id in
+# csrc/flash_attention.cu.
+PLANS = (FwdPlan(64, 256, 8), FwdPlan(128, 256, 8), FwdPlan(8, 256, 32))
 
 
 class BwdPlan(NamedTuple):
@@ -68,11 +84,11 @@ launches_dkv = 0  # flash_attention_bwd_dkv
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 STRIDES = ctypes.POINTER(ctypes.c_longlong)
-_ARGTYPES = [_P] * 5 + [_I] * 6 + [STRIDES, _I, _I]
 _SIGNATURES = {  # entry point -> (library, argument types before the stream)
-    "flash_attention_fwd": ("flash_attention", _ARGTYPES),
+    "flash_attention_fwd": ("flash_attention",
+                            [_P] * 5 + [_I] * 6 + [STRIDES, _I, _I, _I]),
     "flash_attention_fwd_lse": ("flash_attention",
-                                [_P] * 6 + [_I] * 6 + [STRIDES, _I, _I]),
+                                [_P] * 6 + [_I] * 6 + [STRIDES, _I, _I, _I]),
     "flash_attention_bwd_dq": ("flash_attention_bwd",
                                [_P] * 8 + [_I] * 6 + [STRIDES, _I, _I, _I]),
     "flash_attention_bwd_dkv": ("flash_attention_bwd",
@@ -231,8 +247,33 @@ def _on_card(name: str, q) -> bool:
     return q.device.type == "cuda"
 
 
+def plan_for(b: int, sq: int, h: int, kv: int) -> FwdPlan:
+    """The forward's plan for b sequences of sq query rows, h query heads
+    over kv kv-heads: 128-row blocks when those give every SM a block,
+    else 64-row blocks when those cover half the SMs, else 8-row blocks
+    with a row on a whole warp (`time_attention.py` times every plan:
+    8-row blocks were fastest at the 64-token serving chunk at batch 1 and
+    4, 64-row ones at a 512-token prompt, 128-row ones at the training
+    shapes).  For speed only: every plan gives the same bits."""
+    rows = (h // kv) * sq
+    if b * kv * -(-rows // 128) >= SMS:
+        return PLANS[1]
+    if 2 * b * kv * -(-rows // 64) >= SMS:
+        return PLANS[0]
+    return PLANS[2]
+
+
+def _plan_id(plan, plans) -> int:
+    """The kernels' id of `plan` (a plan or its tuple) in `plans`;
+    ValueError when it is not instantiated."""
+    plan = tuple(plan)
+    if plan not in plans:
+        raise ValueError(f"plan must be one of {plans}, got {plan}")
+    return plans.index(plan)
+
+
 def flash_attention_fwd(q, k, v, kv_len=None, *, causal: bool = True,
-                        return_lse: bool = False):
+                        return_lse: bool = False, plan=None):
     """softmax(q k^T) v for q (B, Sq, H, D) and k, v (B, Skv, KV, D), q
     already scaled; head h reads kv-head h // (H // KV).
 
@@ -242,10 +283,14 @@ def flash_attention_fwd(q, k, v, kv_len=None, *, causal: bool = True,
     softmax statistics.  With ``return_lse`` (the training launch) returns
     ``(o, lse)``, lse the fp32 (B, H, Sq) per-row m + log l in the scaled
     score space, 0 for a row with no live key; o has the bits of the
-    launch without it.  A CPU tensor runs `flash_attention_plain`; a CUDA
+    launch without it.  `plan` is one of `PLANS` (default `plan_for` the
+    shape); any plan gives the same bits, and one that is not instantiated
+    raises ValueError.  A CPU tensor runs `flash_attention_plain`; a CUDA
     tensor launches the kernel and raises RuntimeError if it fails.
     """
     check_operands(q, k, v, kv_len)
+    plan_id = _plan_id(plan_for(q.shape[0], q.shape[1], q.shape[2],
+                                k.shape[2]) if plan is None else plan, PLANS)
     if not _on_card("flash_attention_fwd", q):
         return flash_attention_plain(q, k, v, kv_len, causal=causal,
                                      return_lse=return_lse)
@@ -261,7 +306,8 @@ def flash_attention_fwd(q, k, v, kv_len=None, *, causal: bool = True,
         _launch(entry, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 _ptr(kv_len), *(t.data_ptr() for t in outs),
                 b, sq, skv, h, kvh, d, strides, int(causal), DTYPES[q.dtype],
-                what=f"q {tuple(q.shape)}, k {tuple(k.shape)}")
+                plan_id, what=f"q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                              f"plan {PLANS[plan_id]}")
         if return_lse:
             launches_lse += 1
         else:
@@ -276,15 +322,6 @@ def bwd_plan_for(b: int, sq: int, h: int, kv: int) -> BwdPlan:
     times both: 16 rows were faster up to 112 64-row blocks, 64 rows from
     140 on).  For speed only: every plan gives the same bits."""
     return BwdPlan(64 if b * kv * -(-(h // kv) * sq // 64) >= SMS else 16)
-
-
-def _bwd_plan_id(plan) -> int:
-    """The kernels' id of `plan` (a `BwdPlan` or its tuple); ValueError
-    when it is not instantiated."""
-    plan = tuple(plan)
-    if plan not in BWD_PLANS:
-        raise ValueError(f"plan must be one of {BWD_PLANS}, got {plan}")
-    return BWD_PLANS.index(plan)
 
 
 def _check_bwd(q, do, lse, delta) -> None:
@@ -329,8 +366,8 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, kv_len=None, *,
     check_operands(q, k, v, kv_len)
     _check_bwd(q, do, lse, delta)
     b, sq, h, _ = q.shape
-    plan_id = _bwd_plan_id(bwd_plan_for(b, sq, h, k.shape[2])
-                           if plan is None else plan)
+    plan_id = _plan_id(bwd_plan_for(b, sq, h, k.shape[2])
+                       if plan is None else plan, BWD_PLANS)
     if not _on_card("flash_attention_bwd_dq", q):
         return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, kv_len,
                                             causal=causal)

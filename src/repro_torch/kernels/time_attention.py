@@ -12,7 +12,16 @@ Needs an NVIDIA GPU.
 Without `--bwd`: the median device time in ms of `flash_attention` and
 `flash_decode` over CUDA-graph replays, at a 64-token prefill chunk (batch
 1 and 4), a 512-token prompt, and one decode row against 1024 keys at
-batch 1 and 8.
+batch 1 and 8; the forward under every plan (`flash_attention.PLANS`; a
+version without plans is timed under its one launch), also as the
+training launch (with lse) at `FWD_SHAPES` (the training shape in fp32
+and bf16, 2 x 2048, head dim 128, and two sequences around `plan_for`'s
+thresholds), against torch's scaled_dot_product_attention forward (TF32 off):
+with the boolean mask of the live pairs and grouped heads, and, where
+the mask is plain causal, with ``is_causal=True`` on K / V repeated to
+the H heads, the repeat timed with it; the faster is the library time.
+Per shape it names the plan `plan_for` picks, the fastest plan and the
+pick's time over the fastest's; `worst_ratio` is the largest of those.
 
 With `--bwd`: the backward at the training shape (8 x 512, 14 query heads
 over 2 kv-heads of 64, causal) in fp32 and bf16, at one long causal
@@ -66,6 +75,14 @@ BWD_SHAPES = {"train_fp32": (8, 512, 14, 2, 64, "float32"),
               "edge_1x640_fp32": (1, 640, 14, 2, 64, "float32"),
               "edge_2x512_fp32": (2, 512, 14, 2, 64, "float32"),
               "edge_4x512_fp32": (4, 512, 14, 2, 64, "float32")}
+
+
+# the forward's training launches: the backward's first four shapes, then
+# causal sequences whose 64-row grids have 140 and 224 blocks and whose
+# 128-row grids 70 and 112, around plan_for's thresholds
+FWD_SHAPES = {**dict(list(BWD_SHAPES.items())[:4]),
+              "edge_1x640_fp32": (1, 640, 14, 2, 64, "float32"),
+              "edge_1x1024_fp32": (1, 1024, 14, 2, 64, "float32")}
 
 
 def graph_ms(fn, reps: int = 20, repeats: int = 5) -> float:
@@ -144,14 +161,54 @@ def sdpa_bwd_ms(q, k, v, do, live) -> dict:
     return res
 
 
+def sdpa_fwd_ms(q, k, v, live, causal: bool) -> dict:
+    """ms of torch's scaled_dot_product_attention forward for q
+    (B, Sq, H, D), k / v (B, Skv, KV, D), q already scaled: ``mask`` with
+    the (B, Sq, Skv) bool `live` and grouped heads and, when `causal` says
+    that `live` is the plain causal mask (Sq == Skv, no kv_len),
+    ``causal`` with ``is_causal=True`` on K / V repeated to the H heads,
+    the repeat timed with it; ``library`` the faster."""
+    import torch.nn.functional as F
+    g = q.shape[2] // k.shape[2]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    res = {"mask": graph_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=live[:, None], scale=1.0, enable_gqa=True))}
+    if causal:
+        res["causal"] = graph_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt.repeat_interleave(g, dim=1),
+            vt.repeat_interleave(g, dim=1), is_causal=True, scale=1.0))
+    res["library"] = min(res.values())
+    return res
+
+
 def time_forward(gen, dev) -> dict:
-    """The forward and decode kernels at SHAPES."""
+    """The forward and decode kernels at SHAPES, the forward under every
+    plan, and the training launch at the first four BWD_SHAPES."""
     import torch
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels.ref import attention_mask
     build.build_all(("flash_attention", "flash_decode"))
-    out = {}
+    plans = getattr(fa, "PLANS", (None,))
+    out, worst = {}, 0.0
+
+    def by_plan(b, sq, h, kv, fn):
+        """Every plan's ms of fn(plan kwargs), and the pick's ratio."""
+        times = {}
+        for plan in plans:
+            kw = {} if plan is None else {"plan": plan}
+            times["default" if plan is None else str(tuple(plan))] = graph_ms(
+                lambda kw=kw: fn(**kw))
+        row = {"plans": times}
+        if plans[0] is not None:
+            pick = str(tuple(fa.plan_for(b, sq, h, kv)))
+            fastest = min(times, key=times.get)
+            row.update(pick=pick, fastest=fastest,
+                       ratio=times[pick] / times[fastest])
+        row["ms"] = times[row.get("pick", "default")]
+        return row
+
     for name, (b, sq, skv, lens, causal) in SHAPES.items():
         q = torch.randn(b, sq, 14, 64, generator=gen, device=dev) / 8
         k = torch.randn(b, skv, 2, 64, generator=gen, device=dev)
@@ -161,9 +218,32 @@ def time_forward(gen, dev) -> dict:
             ns, span = ops.decode_splits(skv, k.shape[2])
             out[name] = graph_ms(lambda: fd.flash_decode_partials(
                 q, k, v, kvl, causal=causal, n_splits=ns, span=span))
-        else:
-            out[name] = graph_ms(lambda: fa.flash_attention_fwd(
-                q, k, v, kvl, causal=causal))
+            continue
+        row = by_plan(b, sq, 14, 2, lambda **kw: fa.flash_attention_fwd(
+            q, k, v, kvl, causal=causal, **kw))
+        live = attention_mask(b, sq, skv, causal=causal, kv_len=kvl,
+                              device=dev).expand(b, sq, skv)
+        sd = sdpa_fwd_ms(q, k, v, live, False)
+        row.update(sdpa_mask_ms=sd["mask"], library_ms=sd["library"])
+        worst = max(worst, row.get("ratio", 0.0))
+        out[name] = row
+    for name, (b, s, h, kv, d, dt) in FWD_SHAPES.items():
+        dtype = getattr(torch, dt)
+        q = (torch.randn(b, s, h, d, generator=gen, device=dev)
+             / d ** 0.5).to(dtype)
+        k = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
+        v = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
+        row = by_plan(b, s, h, kv, lambda **kw: fa.flash_attention_fwd(
+            q, k, v, None, return_lse=True, **kw))
+        live = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+        sd = sdpa_fwd_ms(q, k, v, live.expand(b, s, s), True)
+        row.update(shape=[b, s, s, h, kv, d], dtype=dt, lse=True,
+                   sdpa_mask_ms=sd["mask"], sdpa_causal_ms=sd["causal"],
+                   library_ms=sd["library"])
+        worst = max(worst, row.get("ratio", 0.0))
+        out[f"fwd_{name}"] = row
+        del q, k, v
+    out["worst_ratio"] = worst
     return out
 
 

@@ -81,3 +81,63 @@ def test_a_backward_plan_that_is_not_instantiated_is_refused(plan):
     lse = delta = torch.zeros(1, 2, 4)
     with pytest.raises(ValueError, match="plan"):
         fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, plan=plan)
+
+
+# The forward's plans.  (b, sq, h, kv) -> the plan `plan_for` picks:
+# the 64-token serving chunk at batch 1 and 4, a 512-token prompt, the
+# training shape (head dim 64 and 128 alike), the long sequence, the
+# lm_train_restart step (reduced qwen2-0.5b, 4 / 2 heads), a decode row of
+# the grid (the forward at Sq 1) and a sequence whose 128-row grid falls
+# short of the SMs but whose 64-row grid does not.  The 512-token prompt's
+# 112 64-row blocks cover half the SMs; the batch-4 chunk's 56 do not.
+FWD_PLAN_OF = [((1, 64, 14, 2), fa.PLANS[2]), ((4, 64, 14, 2), fa.PLANS[2]),
+               ((1, 512, 14, 2), fa.PLANS[0]), ((8, 512, 14, 2), fa.PLANS[1]),
+               ((2, 2048, 14, 2), fa.PLANS[1]), ((2, 64, 4, 2), fa.PLANS[2]),
+               ((2, 1, 16, 16), fa.PLANS[2]), ((1, 1024, 14, 2), fa.PLANS[0])]
+
+
+def _fwd_blocks(plan, b, sq, h, kv):
+    """Forward blocks of a launch under `plan`, as the C launcher computes
+    them."""
+    return -(-(h // kv) * sq // plan.rows) * b * kv
+
+
+@pytest.mark.parametrize("shape,plan", FWD_PLAN_OF)
+def test_forward_plan_of_the_path_shapes(shape, plan):
+    got = fa.plan_for(*shape)
+    assert got == plan
+    assert got in fa.PLANS and isinstance(got, fa.FwdPlan)
+    assert 1 <= _fwd_blocks(got, *shape) <= GRID_X
+
+
+def test_forward_plans_split_rows_over_lanes():
+    assert len(set(fa.PLANS)) == len(fa.PLANS)
+    for plan in fa.PLANS:
+        groups = plan.threads // plan.lanes  # rows held at once
+        assert plan.lanes in (8, 16, 32) and plan.threads % 32 == 0
+        assert plan.rows % groups == 0
+
+
+@pytest.mark.parametrize("plan", fa.PLANS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_every_forward_plan_runs_the_plain_version_on_the_cpu(plan, dtype):
+    q, k, v, _ = _operands(9, 2, 12, 20, 4, 2, 32, dtype)
+    kvl = torch.tensor([20, 0], dtype=torch.int32)
+    before = fa.launch_counts()
+    for p in (plan, tuple(plan)):
+        assert torch.equal(fa.flash_attention_fwd(q, k, v, kvl, plan=p),
+                           fa.flash_attention_plain(q, k, v, kvl))
+        o, lse = fa.flash_attention_fwd(q, k, v, kvl, return_lse=True,
+                                        plan=p)
+        want_o, want_lse = fa.flash_attention_plain(q, k, v, kvl,
+                                                    return_lse=True)
+        assert torch.equal(o, want_o) and torch.equal(lse, want_lse)
+    assert fa.launch_counts() == before
+
+
+@pytest.mark.parametrize("plan", [(32, 128, 8), (64, 256, 16), (64, 256),
+                                  (16, 128, 8), ("rows", 128, 8)])
+def test_a_forward_plan_that_is_not_instantiated_is_refused(plan):
+    q, k, v, _ = _operands(10, 1, 4, 4, 2, 1, 32, torch.float32)
+    with pytest.raises(ValueError, match="plan"):
+        fa.flash_attention_fwd(q, k, v, plan=plan)

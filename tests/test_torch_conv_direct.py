@@ -116,7 +116,7 @@ def test_the_wrapper_refuses_what_the_kernel_does_not_take():
         conv_direct.conv2d_direct(big, torch.zeros(1, 1, 1, 1), th=65)
     assert conv_direct.conv2d_direct(big, torch.zeros(1, 1, 1, 1),
                                      th=64).shape == (1, 70, 3, 1)
-    assert conv_direct.smem_bytes(8, 3, 3) == (10 * 10 * 8 + 9 * 8 * 64) * 4
+    assert conv_direct.smem_bytes(8, 3, 3) == 2 * (10 * 34 * 8 + 9 * 8 * 64) * 4
 
 
 def test_no_built_in_backend_registers_it():

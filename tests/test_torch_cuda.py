@@ -28,8 +28,11 @@ the slot engine on `cuda` prefilling through the kernel.  For the engine
 `bmm` op: the batched forward, dX and dW kernels against their plain
 versions, every batch slice bit for bit the 2-D kernel's at the same plan,
 and `make_engine("cuda").bmm` with its gradient against `eager`.  For the
-direct convolution: the kernel against its plain version (ragged bands,
-1x1, asymmetric, th > OH, fp32 and bf16, two runs bitwise).
+direct convolution: the kernel against its plain version under every
+plan (ragged bands, 1x1, asymmetric, th > OH, fp32 and bf16, two runs
+bitwise), and every plan bit for bit the path plan's on a ragged grid; for
+the flash forward, every plan, with and without lse, bit for bit the path
+plan's.
 """
 import pytest
 import torch
@@ -698,12 +701,54 @@ def test_conv_direct_kernel_matches_plain_version(card, b, h, w_, cin, kh,
     x = torch.randn(b, h, w_, cin, generator=gen, device=card).to(dtype)
     w = (torch.randn(kh, kw, cin, cout, generator=gen, device=card)
          / (kh * kw * cin) ** 0.5).to(dtype)
-    before = conv_direct.launches
-    got = conv_direct.conv2d_direct(x, w, th=th)
-    again = conv_direct.conv2d_direct(x, w, th=th)
-    torch.cuda.synchronize()
-    assert conv_direct.launches == before + 2
-    assert got.dtype == dtype
-    assert got.shape == (b, h - kh + 1, w_ - kw + 1, cout)
-    assert _relmax(got, conv_direct.conv2d_direct_plain(x, w)) <= tol
-    assert torch.equal(got, again)
+    want = conv_direct.conv2d_direct_plain(x, w)
+    for plan in (None, *conv_direct.PLANS):
+        before = conv_direct.launches
+        got = conv_direct.conv2d_direct(x, w, th=th, plan=plan)
+        again = conv_direct.conv2d_direct(x, w, th=th, plan=plan)
+        torch.cuda.synchronize()
+        assert conv_direct.launches == before + 2
+        assert got.dtype == dtype
+        assert got.shape == (b, h - kh + 1, w_ - kw + 1, cout)
+        assert _relmax(got, want) <= tol, plan
+        assert torch.equal(got, again), plan
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w_,cin,k,cout", [
+    (2, 37, 40, 3, 3, 32), (1, 23, 26, 5, 3, 48), (3, 19, 22, 12, 3, 32),
+    (2, 23, 23, 12, 1, 48), (1, 16, 16, 64, 3, 128), (2, 9, 9, 40, 1, 256)])
+def test_every_conv_plan_gives_the_path_plans_bits(card, b, h, w_, cin, k,
+                                                   cout, dtype):
+    gen = torch.Generator(device=card).manual_seed(b * h + cin)
+    x = torch.randn(b, h, w_, cin, generator=gen, device=card).to(dtype)
+    w = (torch.randn(k, k, cin, cout, generator=gen, device=card)
+         / (k * k * cin) ** 0.5).to(dtype)
+    want = conv_direct.conv2d_direct(x, w)
+    for plan in conv_direct.PLANS:
+        assert torch.equal(conv_direct.conv2d_direct(x, w, plan=plan),
+                           want), plan
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,h,kv,d,causal,lens", [
+    (1, 64, 1024, 14, 2, 64, True, [576]),
+    (2, 100, 130, 8, 1, 32, True, [130, 0]),
+    (3, 5, 256, 16, 16, 128, False, [256, 100, 0]),
+    (2, 300, 300, 14, 2, 64, True, None)])
+def test_every_forward_plan_gives_the_path_plans_bits(card, b, sq, skv, h,
+                                                      kv, d, causal, lens,
+                                                      dtype):
+    q, k, v = _qkv(card, b, sq, skv, h, kv, d, dtype, seed=9)
+    kvl = (None if lens is None
+           else torch.tensor(lens, dtype=torch.int32, device=card))
+    want = fa.flash_attention_fwd(q, k, v, kvl, causal=causal)
+    want_o, want_lse = fa.flash_attention_fwd(q, k, v, kvl, causal=causal,
+                                              return_lse=True)
+    assert torch.equal(want_o, want)
+    for plan in fa.PLANS:
+        o = fa.flash_attention_fwd(q, k, v, kvl, causal=causal, plan=plan)
+        o2, lse = fa.flash_attention_fwd(q, k, v, kvl, causal=causal,
+                                         return_lse=True, plan=plan)
+        assert torch.equal(o, want) and torch.equal(o2, want), plan
+        assert torch.equal(lse, want_lse), plan
