@@ -78,8 +78,11 @@ script exits non-zero.  Phases:
               launch's.
  10. check_decode  the split-KV decode kernel's partials and empty-span
               sentinels against its plain version over Sq 1/4/8 against
-              Skv 256/1024 and qwen2-0.5b's decode shapes; at one split its
-              partial must equal the forward kernel's output bit for bit.
+              Skv 256/1024 and qwen2-0.5b's decode shapes; the launch that
+              also merges gives the partials-only launch's partials and
+              `combine`'s output (transposed and cast) bit for bit; at one
+              split its partial must equal the forward kernel's output bit
+              for bit.
  11. check_lm_gemm  the fused GEMM against its plain version at qwen2-0.5b's
               GEMMs (q, k, v with the bias as shift, o, the gate with silu,
               up, down, the tied head reading the (V, D) embedding layout
@@ -116,8 +119,9 @@ script exits non-zero.  Phases:
               baseline only) ms, each the device time of CUDA-graph replays
               (`graph_ms`), and the kernel's time when called back to back
               from Python (`enqueued_ms`, host enqueue included); for the
-              decode kernel also `combine` and `op_ms`, partials plus
-              merge, the function SDPA computes; for the forward the plan
+              decode kernel (its launch with the merge) also the
+              partials-only launch's and `combine`'s ms, and `op_ms`, the
+              whole function SDPA computes; for the forward the plan
               `plan_for` picks and every plan's ms; the paged step's
               prefill-chunk and decode dispatch ms, tokens/s, p50 and p99.
  16. check_attn_bwd  the lse forward and the dQ and dK / dV kernels against
@@ -176,7 +180,8 @@ script exits non-zero.  Phases:
               chunk 256) and every shape ssm_serve gives it (batch 1, S =
               each prompt less its last token), fp32 and bf16, with and
               without an initial state: y and the final state within the
-              bars of phase 2, two runs bitwise equal.
+              bars of phase 2, two runs bitwise equal, every plan
+              (ssd.PLANS) bitwise the path plan's.
  21. ssm      full-width, full-depth mamba2-1.3b (random weights from a
               seed, dt bias, A and D moved off their init), `cuda` against
               `eager` on the card: the prefill of 4 x 1000 tokens (logits
@@ -283,7 +288,8 @@ from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
 from repro_torch.kernels import build, gemm, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
-from repro_torch.kernels import conv_direct, ssd, time_attention  # noqa: E402
+from repro_torch.kernels import (conv_direct, ssd, time_attention,  # noqa: E402
+                                  time_ssd)
 from repro_torch.kernels.common import ACTIVATIONS, epilogue  # noqa: E402
 from repro_torch.kernels.ref import attention_mask  # noqa: E402
 from repro_torch.launch.fault import FailureInjected  # noqa: E402
@@ -818,10 +824,13 @@ def check_attn_case(q, k, v, kvl, causal) -> tuple[float, float, int]:
     return err, float((got.float() - want.float()).abs().max()), bits
 
 
-def check_decode_case(q, k, v, kvl, causal) -> tuple[float, float, int]:
-    """Decode partials vs plain at one case, the empty-span sentinels, and
-    at one split the forward kernel's bits: (max-relative, max-abs error,
-    splits)."""
+def check_decode_case(q, k, v, kvl, causal) -> tuple[float, float, int,
+                                                     int, float]:
+    """Decode partials vs plain at one case, the empty-span sentinels, the
+    launch with the merge (its partials bitwise the partials-only
+    launch's, its output bitwise `combine`'s), and at one split the
+    forward kernel's bits: (max-relative, max-abs error, splits, outputs
+    compared bitwise, the merge's max-abs difference from `combine`)."""
     skv = k.shape[1]
     n_splits, span = ops.decode_splits(skv, k.shape[2])
     got = fd.flash_decode_partials(q, k, v, kvl, causal=causal,
@@ -840,12 +849,21 @@ def check_decode_case(q, k, v, kvl, causal) -> tuple[float, float, int]:
     err = max(relmax(got[0], want[0]), relmax(got[1], want[1]))
     check(err <= (FP32_TOL if q.dtype == torch.float32 else BF16_TOL),
           f"flash_decode vs plain at {where}: {err:.3e}")
+    merged, o_part, lse_part = fd.flash_decode(q, k, v, kvl, causal=causal,
+                                               n_splits=n_splits, span=span)
+    check(torch.equal(o_part, got[0]) and torch.equal(lse_part, got[1]),
+          f"the merging launch's partials differ at {where}")
+    plain_merge = fd.merge_plain(*got, q.dtype)
+    check(torch.equal(merged, plain_merge),
+          f"the merge is not combine's bits at {where}")
+    merge_abs = float((merged.float() - plain_merge.float()).abs().max())
     one, _ = fd.flash_decode_partials(q, k, v, kvl, causal=causal,
                                       n_splits=1, span=-(-skv // 64) * 64)
     fwd = fa.flash_attention_fwd(q, k, v, kvl, causal=causal)
     check(torch.equal(one[:, :, 0].transpose(1, 2).to(q.dtype), fwd),
           f"one-split decode is not the forward kernel's bits at {where}")
-    return err, float((got[0] - want[0]).abs().max()), n_splits
+    return (err, float((got[0] - want[0]).abs().max()), n_splits, 3,
+            merge_abs)
 
 
 def attn_phases(cgen) -> dict:
@@ -853,9 +871,9 @@ def attn_phases(cgen) -> dict:
     at qwen2-0.5b's shapes."""
     worst = {"attn": {"fp32": 0.0, "bf16": 0.0},
              "decode": {"fp32": 0.0, "bf16": 0.0}}
-    path_abs = {"attn": 0.0, "decode": 0.0}
+    path_abs = {"attn": 0.0, "decode": 0.0, "merge": 0.0}
     dev = cgen.device
-    cases = bits = 0
+    cases = bits = dec_bits = 0
     for h, kv in HEAD_RATIOS:
         for d in (32, 64, 128):
             for dt in (torch.float32, torch.bfloat16):
@@ -879,8 +897,9 @@ def attn_phases(cgen) -> dict:
                         kvl = torch.tensor([skv, skv // 3, 0],
                                            dtype=torch.int32, device=dev)
                         for causal in (True, False):
-                            err, _, _ = check_decode_case(q, k, v, kvl,
-                                                          causal)
+                            err, _, _, n, _ = check_decode_case(q, k, v, kvl,
+                                                                causal)
+                            dec_bits += n
                             worst["decode"][kind] = max(
                                 worst["decode"][kind], err)
     torch.cuda.synchronize()
@@ -919,14 +938,18 @@ def attn_phases(cgen) -> dict:
         for dt in (torch.float32, torch.bfloat16):
             q, k, v = qkv(b, sq, skv, h, kv, d, dt, cgen)
             kvl = torch.tensor(lens, dtype=torch.int32, device=dev)
-            err, mabs, splits = check_decode_case(q, k, v, kvl, causal)
+            err, mabs, splits, n, merr = check_decode_case(q, k, v, kvl,
+                                                           causal)
+            dec_bits += n
             if dt == torch.float32:
                 path_abs["decode"] = max(path_abs["decode"], mabs)
+                path_abs["merge"] = max(path_abs["merge"], merr)
             rows.append({"shape": name, "dtype": str(dt), "splits": splits,
                          "relmax": err, "max_abs": mabs})
     torch.cuda.synchronize()
     emit("check_decode", relmax=worst["decode"], arch=LM_ARCH, cases=rows,
-         bitwise_one_split=True)
+         bitwise_one_split=True, merge_outputs_bitwise=dec_bits,
+         merge_max_abs=path_abs["merge"])
     return path_abs
 
 
@@ -1359,18 +1382,31 @@ def timing_lm_phase(cfg, params, dev, cgen, peak_flops, peak_bw,
                torch.tensor(lens, dtype=torch.int32, device=dev))
         if ops.use_decode_formulation(sq, skv):
             ns, span = ops.decode_splits(skv, kv)
-            kernel, fn, plain = "flash_decode", (
-                lambda: fd.flash_decode_partials(q, k, v, kvl, causal=causal,
-                                                 n_splits=ns, span=span)), (
-                lambda: fd.flash_decode_plain(q, k, v, kvl, causal=causal,
-                                              n_splits=ns, span=span))
-            out_bytes = 4.0 * b * h * ns * sq * (d + 1)
-            parts = fn()
-            # op_ms: the whole function on the path, partials and merge,
-            # which is what library_ms (one SDPA call) computes
+
+            def fn():  # the path's launch: partials and their merge
+                return fd.flash_decode(q, k, v, kvl, causal=causal,
+                                       n_splits=ns, span=span)
+
+            def plain():
+                return fd.merge_plain(*fd.flash_decode_plain(
+                    q, k, v, kvl, causal=causal, n_splits=ns, span=span),
+                    q.dtype)
+
+            kernel = "flash_decode"
+            # the merged output, written once; the fp32 partials are the
+            # split design's scratch, not the function's output
+            out_bytes = float(q.element_size() * q.numel())
+            parts = fd.flash_decode_partials(q, k, v, kvl, causal=causal,
+                                             n_splits=ns, span=span)
+            # op_ms: the whole function on the path, which is what
+            # library_ms (one SDPA call) computes: here one launch
             extra = {"splits": ns, "span": span,
-                     "combine_ms": graph_ms(lambda: fd.combine(*parts)),
-                     "op_ms": graph_ms(lambda: fd.combine(*fn()))}
+                     "partials_ms": graph_ms(
+                         lambda: fd.flash_decode_partials(
+                             q, k, v, kvl, causal=causal, n_splits=ns,
+                             span=span)),
+                     "combine_ms": graph_ms(
+                         lambda: fd.merge_plain(*parts, q.dtype))}
         else:
             kernel, fn, plain = "flash_attention", (
                 lambda: fa.flash_attention_fwd(q, k, v, kvl, causal=causal)), (
@@ -1384,6 +1420,8 @@ def timing_lm_phase(cfg, params, dev, cgen, peak_flops, peak_bw,
         flops, nbytes = attn_work(q, k, kvl, causal, out_bytes)
         bound_ms, bound_by = bound(flops, nbytes, peak_flops, peak_bw)
         ms = graph_ms(fn)
+        if kernel == "flash_decode":
+            extra["op_ms"] = ms
         row = {"kernel": kernel, "shape": [b, sq, skv, h, kv, d],
                "causal": causal, "ms": ms, "enqueued_ms": cuda_ms(fn),
                "plain_ms": graph_ms(plain),
@@ -1924,27 +1962,6 @@ def gemm_tol(kdim: int) -> float:
     return FP32_TOL * max(1.0, math.sqrt(kdim / 4096))
 
 
-def device_time_by_kernel(step_fn) -> dict:
-    """Device time of one call of `step_fn` by kernel name (the device's
-    own events, not the host ops that launched them), from torch.profiler;
-    {} when the profiler records no device time."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step_fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        if us > 0:
-            out[e.key] = {"ms": us / 1e3, "calls": e.count}
-    return dict(sorted(out.items(), key=lambda kv: -kv[1]["ms"]))
-
-
 def timing_lm_train_phase(cfg, dev, cgen, peak_flops, peak_bw, smi,
                           launches: dict) -> dict:
     """Phase timing_lm_train (see the module docstring); `launches` are
@@ -1965,7 +1982,7 @@ def timing_lm_train_phase(cfg, dev, cgen, peak_flops, peak_bw, smi,
                         "peak_gb": torch.cuda.max_memory_allocated(dev)
                         / 1e9}
         if label == "cuda":
-            by_kernel = device_time_by_kernel(
+            by_kernel = time_ssd.device_time_by_kernel(
                 lambda: step(params, state, batch))
         del params, state, step
         torch.cuda.empty_cache()
@@ -2003,28 +2020,6 @@ def ssd_operands(b, s, h, p, g, n, dtype, gen, init=False):
     return x, dt, a, bm, cm, init
 
 
-def ssd_work(x, bm, chunk) -> tuple[float, float]:
-    """(FLOPs, bytes) that one SSD scan on these inputs needs, 2 FLOPs a
-    multiply-add: per chunk of q live rows, the q(q+1)/2 causal (query,
-    key) pairs times N for C·Bᵀ once per (batch, group), since every head
-    of a group shares it; and per (batch, head) the pairs times P (the
-    scores times x̄) and q N P each for the carried state's term and the
-    state update.  x, dt, dA, B and C (per group, not per head) read once,
-    y and the final state written once."""
-    b, s, h, p = x.shape
-    g, n = bm.shape[2], bm.shape[3]
-    flops = 0.0
-    for c0 in range(0, s, chunk):
-        q = min(chunk, s - c0)
-        pairs = q * (q + 1) / 2
-        flops += 2.0 * (g * pairs * n + h * (pairs * p + 2 * q * n * p))
-    flops *= b
-    es = x.element_size()
-    nbytes = (2 * x.numel() * es + 2 * 4.0 * b * s * h
-              + 2 * bm.numel() * es + 4.0 * b * h * p * n)
-    return flops, nbytes
-
-
 def ssm_serve_requests(cfg) -> list:
     """Phase ssm_serve's requests, made anew from their seed."""
     return requests(cfg, SSM_SERVE["requests"], 10, SSM_SERVE["prompt"],
@@ -2048,13 +2043,15 @@ def check_ssd_phase(cfg, cgen) -> dict:
     """Phase check_ssd: the SSD kernel against its plain version over
     SSD_GRID, the ssm phase's prefill shape and every shape ssm_serve
     gives it, fp32 and bf16, with and without an initial state; y and the
-    final state within the bars, two runs bitwise equal.  Returns the
-    worst fp32 max-abs error of y and the state at the prefill shape and
-    over the serve shapes."""
+    final state within the bars, two runs bitwise equal, every plan
+    (ssd.PLANS) bitwise the path plan's.  Returns the worst fp32 max-abs
+    error of y and the state at the prefill shape and over the serve
+    shapes."""
     prefill = ssd_shape(cfg, *SSM_PREFILL)
     serve = sorted(set(ssm_serve_shapes(cfg)))
     rows, worst = [], {"fp32": 0.0, "bf16": 0.0}
     path_abs = {"prefill": 0.0, "serve": 0.0}
+    bits = 0
     for case in [*SSD_GRID, prefill, *serve]:
         b, s, h, p, g, n, chunk = case
         for dtype, kind in ((torch.float32, "fp32"), (torch.bfloat16,
@@ -2077,6 +2074,15 @@ def check_ssd_phase(cfg, cgen) -> dict:
                 check(torch.equal(got[0], again[0])
                       and torch.equal(got[1], again[1]),
                       f"two SSD runs differ at {where}")
+                da = (dt * a).contiguous()
+                for plan in ssd.PLANS:
+                    other = ssd.ssd_scan(x, dt, da, bm, cm, chunk=chunk,
+                                         init_state=st, plan=plan)
+                    check(torch.equal(other[0], got[0])
+                          and torch.equal(other[1], got[1]),
+                          f"SSD plan {plan} differs from the path plan's "
+                          f"bits at {where}")
+                    bits += 2
                 worst[kind] = max(worst[kind], err)
                 which = ("prefill" if case == prefill else
                          "serve" if case in serve else None)
@@ -2085,8 +2091,10 @@ def check_ssd_phase(cfg, cgen) -> dict:
                         (g.double() - w.double()).abs().max())
                         for g, w in zip(got, want)))
                 rows.append({"case": list(case), "dtype": kind,
-                             "init": init, "relmax": err})
+                             "init": init, "relmax": err,
+                             "plan": list(ssd.plan_for(*case))})
     emit("check_ssd", cases=len(rows), relmax=worst,
+         plans=[list(p) for p in ssd.PLANS], plan_outputs_bitwise=bits,
          prefill_shape=list(prefill), serve_shapes=[list(c) for c in serve],
          max_abs_err=path_abs, rows=rows)
     return path_abs
@@ -2269,7 +2277,7 @@ def timing_ssm_phase(cfg, params, dev, cgen, peak_flops, peak_bw,
                     * 1e3, "decode_step_ms": dec,
                     "decode_ms_per_token": dec / b}
                 if label == "cuda" and b == SSM_PREFILL[0]:
-                    decode_kernels = device_time_by_kernel(
+                    decode_kernels = time_ssd.device_time_by_kernel(
                         lambda: decode(params, caches, tok, s))
                     regimes = {
                         "prefill": regime_counts(lambda: prefill(params,
@@ -2280,7 +2288,7 @@ def timing_ssm_phase(cfg, params, dev, cgen, peak_flops, peak_bw,
         tokens = torch.from_numpy(rng.integers(
             0, cfg.vocab_size, SSM_PREFILL)).to(dev)
         prefill = make_prefill_step(cuda, cfg)
-        by_kernel = device_time_by_kernel(lambda: prefill(params, tokens))
+        by_kernel = time_ssd.device_time_by_kernel(lambda: prefill(params, tokens))
     device_ms = sum(r["ms"] for r in by_kernel.values())
     decode_ms = sum(r["ms"] for r in decode_kernels.values())
     cuda_b = steps[f"cuda_b{SSM_PREFILL[0]}"]
@@ -2320,7 +2328,7 @@ def timing_ssm_phase(cfg, params, dev, cgen, peak_flops, peak_bw,
         else:
             ms = cuda_ms(kernel, reps=5)
             plain_ms = cuda_ms(plain, reps=2, repeats=3)
-        flops, nbytes = ssd_work(x, bm, chunk)
+        flops, nbytes = time_ssd.ssd_work(x, bm, chunk)
         bound_ms, bound_by = bound(flops, nbytes, peak_flops, peak_bw)
         rows[f"{b}x{seq}"] = row = {
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,

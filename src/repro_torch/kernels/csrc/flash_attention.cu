@@ -50,7 +50,7 @@
 //
 // The invariant every plan keeps, so that each row has the bits of the
 // earlier one-warp-per-row kernel and of the decode kernel at one split
-// (attention_common.cuh::tile_step, which flash_decode.cu still runs):
+// (flash_decode.cu keeps the same per-tile arithmetic):
 //   * a score is one __fmaf_rn chain over d = 0 .. D-1 from 0, masked to
 //     -1e30 by row_end; the tile max is exact;
 //   * p = expf(s - m_new), zeroed where s <= -5e29;

@@ -1,26 +1,31 @@
 """Split-KV flash-decoding on Hopper.
 
 Replaces ``repro/kernels/flash_decode.py``'s ``_decode_kernel`` (launched by
-``flash_decode``) on the LM serving path: decode-shaped attention (Sq <= 8
-against 256 or more key rows, `ops.use_decode_formulation`).  The key
-extent is cut into ``n_splits`` spans of ``span`` keys; the kernel
-(``csrc/flash_decode.cu``, hand-written CUDA C++, built by ``build.py`` and
-called through ctypes) reduces each span to a partial (o, lse), and
-`combine` merges the partials in plain PyTorch, as the JAX package does.
-The source's header says what bounds it on the H100 and what its design
-does about that.
+``flash_decode``) and the plain merge that follows it there on the LM
+serving path: decode-shaped attention (Sq <= 8 against 256 or more key
+rows, `ops.use_decode_formulation`).  The key extent is cut into
+``n_splits`` spans of ``span`` keys; the kernel (``csrc/flash_decode.cu``,
+hand-written CUDA C++, built by ``build.py`` and called through ctypes)
+reduces each span to a partial (o, lse) and, in the same launch, merges
+the partials as `combine` does, bit for bit on the card.  The source's
+header says what bounds it on the H100 and what its design does about
+that.
 
-  flash_decode_partials   the kernel wrapper: (o_part, lse_part)
-  flash_decode_plain      its plain PyTorch version, the same partials
-  combine                 the log-sum-exp merge of the partials
+  flash_decode            the kernel wrapper: the merged output and the
+                          partials, one launch
+  flash_decode_partials   the kernel without the merge: (o_part, lse_part)
+  flash_decode_plain      the partials in plain PyTorch
+  combine                 the log-sum-exp merge of the partials, plain
+                          PyTorch (as in JAX)
+  merge_plain             `combine` in the output's layout and dtype
 
 An empty span reports the sentinel lse `EMPTY_SPAN_LSE` (-1e30) and a zero
 partial, which `combine` weighs to exactly 0; a row whose spans are all
 empty merges to exact 0, never NaN.  Partials, lse and the merge are fp32
-for every operand dtype.  The wrapper runs the plain version only for a
-CPU tensor; on a CUDA tensor it launches the kernel or raises.
-`launches` counts the kernel's launches and moves nowhere else.
-Inference only: decode is never differentiated.
+for every operand dtype.  The wrappers run the plain versions only for a
+CPU tensor; on a CUDA tensor they launch the kernel or raise.  `launches`
+counts the kernel's launches, with or without the merge, and moves
+nowhere else.  Inference only: decode is never differentiated.
 """
 from __future__ import annotations
 
@@ -37,17 +42,37 @@ from repro_torch.kernels.ref import attention_mask
 # partials to zero.
 EMPTY_SPAN_LSE = -1e30
 TILE = 64  # keys per tile of the kernel; a span is a whole number of tiles
+ROWS = 16  # query rows of a block of the kernel
+# The most splits the kernel's merge takes: up to here its sums take
+# PyTorch's order on the card (held bitwise against `combine` up to 48
+# splits on an H100); at 64 and more PyTorch's `sum` takes another, so
+# `ops.attention_decode` merges those with `combine`.
+MERGE_MAX_SPLITS = 48
 
 launches = 0
 
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [STRIDES]
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [STRIDES]
              + [ctypes.c_int] * 4)
+# per device, the merge's zeroed counters; a larger buffer replaces a
+# smaller one, which is kept, as a captured CUDA graph may still use it.
+# Launches share them, so they run one after another (one stream).
+_COUNTERS: dict = {}
 
 
 def reset_launches() -> None:
     """Set the launch count to 0."""
     global launches
     launches = 0
+
+
+def _counters(device, n: int) -> torch.Tensor:
+    """At least `n` zeroed int32 counters on `device`, which every launch
+    of the kernel leaves zeroed."""
+    held = _COUNTERS.setdefault(device, [])
+    if not held or held[-1].numel() < n:
+        held.append(torch.zeros(max(n, 4096), dtype=torch.int32,
+                                device=device))
+    return held[-1]
 
 
 def _check_split(skv: int, n_splits: int, span: int) -> None:
@@ -96,6 +121,45 @@ def flash_decode_plain(q, k, v, kv_len, *, causal: bool, n_splits: int,
     return o_part.contiguous(), lse_part.contiguous()
 
 
+def _launch(q, k, v, kv_len, causal, n_splits, span, merged):
+    """One launch of the kernel: the partials, and with `merged` their
+    merge into (B, Sq, H, D) in q's dtype.  Returns (out or None, o_part,
+    lse_part)."""
+    b, sq, skv, h, kvh, d, strides = cuda_args(q, k, v, kv_len)
+    _check_split(skv, n_splits, span)
+    o_part = torch.empty((b, h, n_splits, sq, d), dtype=torch.float32,
+                         device=q.device)
+    lse_part = torch.empty((b, h, n_splits, sq), dtype=torch.float32,
+                           device=q.device)
+    out = counters = None
+    if merged:
+        out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+        counters = _counters(q.device, b * kvh * -(-(h // kvh) * sq // ROWS))
+    if o_part.numel():
+        build.launch(
+            "flash_decode", "flash_decode_partials", _ARGTYPES,
+            torch.cuda.current_stream(q.device).cuda_stream,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
+            o_part.data_ptr(), lse_part.data_ptr(),
+            None if out is None else out.data_ptr(),
+            None if counters is None else counters.data_ptr(), b, sq, skv,
+            h, kvh, d, strides, int(causal), n_splits, span,
+            DTYPES[q.dtype],
+            what=f"q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                 f"{n_splits} x {span}")
+        global launches
+        launches += 1
+    return out, o_part, lse_part
+
+
+def _checked(q, k, v, kv_len, what):
+    if kv_len is None:
+        raise ValueError(f"{what} needs kv_len")
+    check_operands(q, k, v, kv_len)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cuda or cpu, not {q.device}")
+
+
 def flash_decode_partials(q, k, v, kv_len, *, causal: bool, n_splits: int,
                           span: int):
     """Split-KV partials of softmax(q k^T) v: q (B, Sq, H, D) already
@@ -103,36 +167,35 @@ def flash_decode_partials(q, k, v, kv_len, *, causal: bool, n_splits: int,
     tensor of live extents clamped to Skv (required: it also masks the key
     padding); causal queries right-align against kv_len.  ``span`` is a
     multiple of `TILE` and ``n_splits * span >= Skv`` (`ops.decode_splits`).
-    Returns (o_part (B, H, n_splits, Sq, D), lse_part (B, H, n_splits, Sq)),
-    both fp32.  A CPU tensor runs `flash_decode_plain`; a CUDA tensor
-    launches the kernel and raises RuntimeError if it fails."""
-    if kv_len is None:
-        raise ValueError("flash_decode_partials needs kv_len")
-    check_operands(q, k, v, kv_len)
+    Returns (o_part (B, H, n_splits, Sq, D), lse_part (B, H, n_splits,
+    Sq)), both fp32.  A CPU tensor runs `flash_decode_plain`; a CUDA tensor
+    launches the kernel (without its merge) and raises RuntimeError if it
+    fails."""
+    _checked(q, k, v, kv_len, "flash_decode_partials")
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, kv_len, causal=causal,
                                   n_splits=n_splits, span=span)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_decode_partials runs on cuda or cpu, not "
-                         f"{q.device}")
-    b, sq, skv, h, kvh, d, strides = cuda_args(q, k, v, kv_len)
-    _check_split(skv, n_splits, span)
-    o_part = torch.empty((b, h, n_splits, sq, d), dtype=torch.float32,
-                         device=q.device)
-    lse_part = torch.empty((b, h, n_splits, sq), dtype=torch.float32,
-                           device=q.device)
-    if o_part.numel():
-        build.launch(
-            "flash_decode", "flash_decode_partials", _ARGTYPES,
-            torch.cuda.current_stream(q.device).cuda_stream,
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-            o_part.data_ptr(), lse_part.data_ptr(), b, sq, skv, h, kvh, d,
-            strides, int(causal), n_splits, span, DTYPES[q.dtype],
-            what=f"q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                 f"{n_splits} x {span}")
-        global launches
-        launches += 1
-    return o_part, lse_part
+    return _launch(q, k, v, kv_len, causal, n_splits, span, False)[1:]
+
+
+def flash_decode(q, k, v, kv_len, *, causal: bool, n_splits: int,
+                 span: int):
+    """Split-KV decode attention in one launch, with
+    `flash_decode_partials`'s contract: returns (out (B, Sq, H, D) in q's
+    dtype, o_part, lse_part), out the partials merged as `merge_plain`
+    merges them, bit for bit.  A CPU tensor runs `flash_decode_plain` and
+    `merge_plain`; a CUDA tensor launches the kernel and raises
+    RuntimeError if it fails, or ValueError for more than
+    `MERGE_MAX_SPLITS` splits."""
+    _checked(q, k, v, kv_len, "flash_decode")
+    if q.device.type == "cpu":
+        o_part, lse_part = flash_decode_plain(q, k, v, kv_len, causal=causal,
+                                              n_splits=n_splits, span=span)
+        return merge_plain(o_part, lse_part, q.dtype), o_part, lse_part
+    if n_splits > MERGE_MAX_SPLITS:
+        raise ValueError(f"the kernel merges at most {MERGE_MAX_SPLITS} "
+                         f"splits, got {n_splits}")
+    return _launch(q, k, v, kv_len, causal, n_splits, span, True)
 
 
 def combine(o_part, lse_part):
@@ -147,3 +210,9 @@ def combine(o_part, lse_part):
     denom = alpha.sum(2)                                  # (B, H, Sq)
     num = (o_part * alpha[..., None]).sum(2)              # (B, H, Sq, D)
     return num / denom[..., None]
+
+
+def merge_plain(o_part, lse_part, dtype):
+    """The kernel's merge in plain PyTorch: `combine`, as (B, Sq, H, D) in
+    `dtype` (a transposed view for fp32)."""
+    return combine(o_part, lse_part).transpose(1, 2).to(dtype)

@@ -284,10 +284,12 @@ def attention(q, k, v, kv_len=None, sm_scale=None, *,
 
 def attention_decode(q, k, v, kv_len=None, sm_scale=None, *,
                      causal: bool = True) -> torch.Tensor:
-    """`attention`'s contract computed by the split-KV decode kernel and
-    the `combine` merge, over the spans of `decode_splits`.  Keys past Skv
-    are masked by kv_len (Skv when None).  Partials and the merge are
-    fp32; returns (B, Sq, H, D) in q's dtype.  Inference only, as in the
+    """`attention`'s contract computed by the split-KV decode kernel,
+    which merges its partials in the same launch with `combine`'s bits
+    (past `MERGE_MAX_SPLITS` splits, `combine` merges them), over the
+    spans of `decode_splits`.  Keys past Skv are masked by kv_len (Skv
+    when None).  Partials and the merge are fp32; returns (B, Sq, H, D) in
+    q's dtype.  Inference only, as in the
     JAX package: raises NotImplementedError under grad."""
     validate_attention_shapes(q, k, v)
     if needs_grad(q, k, v, sm_scale):
@@ -299,11 +301,13 @@ def attention_decode(q, k, v, kv_len=None, sm_scale=None, *,
     n_splits, span = decode_splits(skv, kvh)
     kvl = normalize_kv_len(skv if kv_len is None else kv_len, b, skv,
                            q.device)
+    qs = scale_queries(q, sm_scale)
+    if n_splits <= decode_kernel.MERGE_MAX_SPLITS:
+        return decode_kernel.flash_decode(qs, k, v, kvl, causal=causal,
+                                          n_splits=n_splits, span=span)[0]
     o_part, lse_part = decode_kernel.flash_decode_partials(
-        scale_queries(q, sm_scale), k, v, kvl, causal=causal,
-        n_splits=n_splits, span=span)
-    o = decode_kernel.combine(o_part, lse_part)           # (B, H, Sq, D)
-    return o.transpose(1, 2).to(q.dtype)
+        qs, k, v, kvl, causal=causal, n_splits=n_splits, span=span)
+    return decode_kernel.merge_plain(o_part, lse_part, q.dtype)
 
 
 # ------------------------------------------------------------------- SSD ---

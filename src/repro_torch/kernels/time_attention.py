@@ -12,7 +12,9 @@ Needs an NVIDIA GPU.
 Without `--bwd`: the median device time in ms of `flash_attention` and
 `flash_decode` over CUDA-graph replays, at a 64-token prefill chunk (batch
 1 and 4), a 512-token prompt, and one decode row against 1024 keys at
-batch 1 and 8; the forward under every plan (`flash_attention.PLANS`; a
+batch 1 and 8 (the decode kernel's partials alone, and the whole op:
+partials and merge, one launch where the kernel merges, else the
+partials and `combine`); the forward under every plan (`flash_attention.PLANS`; a
 version without plans is timed under its one launch), also as the
 training launch (with lse) at `FWD_SHAPES` (the training shape in fp32
 and bf16, 2 x 2048, head dim 128, and two sequences around `plan_for`'s
@@ -216,8 +218,17 @@ def time_forward(gen, dev) -> dict:
         kvl = torch.tensor(lens, dtype=torch.int32, device=dev)
         if ops.use_decode_formulation(sq, skv):
             ns, span = ops.decode_splits(skv, k.shape[2])
-            out[name] = graph_ms(lambda: fd.flash_decode_partials(
-                q, k, v, kvl, causal=causal, n_splits=ns, span=span))
+            kw = dict(causal=causal, n_splits=ns, span=span)
+
+            def op(kw=kw):  # partials and merge, as ops.attention_decode
+                if hasattr(fd, "flash_decode"):  # the merging launch
+                    return fd.flash_decode(q, k, v, kvl, **kw)[0]
+                return fd.combine(*fd.flash_decode_partials(q, k, v, kvl,
+                                                            **kw))
+
+            out[name] = {"partials_ms": graph_ms(
+                lambda: fd.flash_decode_partials(q, k, v, kvl, **kw)),
+                "op_ms": graph_ms(op)}
             continue
         row = by_plan(b, sq, 14, 2, lambda **kw: fa.flash_attention_fwd(
             q, k, v, kvl, causal=causal, **kw))

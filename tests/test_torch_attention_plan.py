@@ -6,13 +6,20 @@ The plan it picks at each shape below is the faster one as
 ``kernels/time_attention.py --bwd`` timed them on an H100, and its grid
 must fit the launch limits.  Every plan gives every output the same bits,
 which the card tests and chip_smoke.py check; here a CPU tensor runs the
-plain version under any plan, with no launch.
+plain version under any plan, with no launch.  The same holds for the
+forward's plans; the split-KV decode with its merge (`flash_decode.
+flash_decode`) runs the plain partials and `combine` on the CPU.
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flash_decode as fd
+from repro_torch.kernels import ops
 
 torch.set_num_threads(1)
 
@@ -141,3 +148,61 @@ def test_a_forward_plan_that_is_not_instantiated_is_refused(plan):
     q, k, v, _ = _operands(10, 1, 4, 4, 2, 1, 32, torch.float32)
     with pytest.raises(ValueError, match="plan"):
         fa.flash_attention_fwd(q, k, v, plan=plan)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_decode_with_its_merge_on_the_cpu_is_combine(dtype, causal):
+    q, k, v, _ = _operands(11, 2, 3, 256, 14, 2, 32, dtype)
+    kvl = torch.tensor([256, 70], dtype=torch.int32)
+    before = fd.launches
+    out, o_part, lse_part = fd.flash_decode(q, k, v, kvl, causal=causal,
+                                            n_splits=4, span=64)
+    assert fd.launches == before
+    want = fd.flash_decode_plain(q, k, v, kvl, causal=causal, n_splits=4,
+                                 span=64)
+    assert torch.equal(o_part, want[0]) and torch.equal(lse_part, want[1])
+    merged = fd.combine(*want).transpose(1, 2).to(dtype)
+    assert out.shape == (2, 3, 14, 32) and out.dtype == dtype
+    assert torch.equal(out, merged)
+    assert torch.equal(fd.merge_plain(*want, dtype), merged)
+
+
+def test_the_merge_keeps_combine_with_empty_spans():
+    rng = np.random.default_rng(13)
+    o = torch.from_numpy(rng.standard_normal((2, 4, 6, 3, 32), np.float32))
+    lse = torch.from_numpy(3 * rng.standard_normal((2, 4, 6, 3), np.float32))
+    lse[1, 2, 3:] = fd.EMPTY_SPAN_LSE
+    o[1, 2, 3:] = 0.0
+    lse[0, 1, :, 2] = fd.EMPTY_SPAN_LSE                 # a row with no key
+    o[0, 1, :, 2] = 0.0
+    got = fd.merge_plain(o, lse, torch.float32)
+    assert torch.equal(got, fd.combine(o, lse).transpose(1, 2))
+    assert bool((got[0, 2, 1] == 0).all())
+
+
+def test_the_kernels_merge_limit_is_the_wrappers():
+    """csrc/flash_decode.cu refuses to merge past the split count that
+    `flash_decode.MERGE_MAX_SPLITS` names, the count held against
+    `combine` on the card."""
+    src = (Path(fd.__file__).parent / "csrc" / "flash_decode.cu").read_text()
+    found = re.findall(r"constexpr int MERGE_MAX_SPLITS = (\d+);", src)
+    assert found == [str(fd.MERGE_MAX_SPLITS)]
+
+
+@pytest.mark.parametrize("skv,kv", [(3072, 1), (4096, 1), (4224, 2)])
+def test_decode_around_the_merges_split_limit_on_the_cpu(skv, kv):
+    """`ops.attention_decode` merges up to MERGE_MAX_SPLITS splits in the
+    kernel's launch and past them with `merge_plain`; on the CPU both are
+    the plain partials and `combine`, and agree with the plain attention."""
+    ns, span = ops.decode_splits(skv, kv)
+    assert (ns <= fd.MERGE_MAX_SPLITS) == (skv == 3072)
+    q, k, v, _ = _operands(17, 2, 1, skv, 2 * kv, kv, 32, torch.float32)
+    kvl = torch.tensor([skv, skv // 3], dtype=torch.int32)
+    got = ops.attention_decode(q, k, v, kvl, causal=False)
+    qs = ops.scale_queries(q)
+    want = fd.merge_plain(*fd.flash_decode_plain(
+        qs, k, v, kvl, causal=False, n_splits=ns, span=span), q.dtype)
+    assert torch.equal(got, want)
+    ref = fa.flash_attention_plain(qs, k, v, kvl, causal=False)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())

@@ -15,14 +15,16 @@ small train step on the `cuda` engine against `eager` on the same card.
 For the LM: the GEMM reading a transposed weight in place (the tied head),
 the flash-attention and split-KV decode kernels against their plain
 versions (and bit for bit against each other at one split, and across
-batch sizes and block heights), the reduced qwen2-0.5b on `cuda` against `eager`, and
+batch sizes and block heights; the decode launch's merge bit for bit
+`combine`), the reduced qwen2-0.5b on `cuda` against `eager`, and
 the paged engine on `cuda` launching both kernels.  For LM training: the
 tied head's `GemmFused` gradients through ``embed.t()`` against a
 row-major copy, the lse forward and the dQ / dK / dV kernels against
 their plain versions (exact-0 dead rows, two runs bitwise), and the
 reduced qwen2-0.5b's loss gradients and a train step on `cuda` against
 `eager`.  For the SSM: the SSD chunk-scan kernel against its plain version
-(ragged S, groups, an initial state, fp32 and bf16, two runs bitwise), the
+(ragged S, groups, an initial state, fp32 and bf16, two runs bitwise),
+every SSD plan bit for bit the path plan's, the
 reduced mamba2-1.3b's prefill and decode on `cuda` against `eager`, and
 the slot engine on `cuda` prefilling through the kernel.  For the engine
 `bmm` op: the batched forward, dX and dW kernels against their plain
@@ -371,6 +373,56 @@ def test_single_split_decode_is_the_forward_kernel_bit_for_bit(card, h, kv):
             assert torch.equal(o[:, :, 0].transpose(1, 2), fwd)
 
 
+@pytest.mark.parametrize("h,kv", [(16, 16), (14, 2), (8, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_the_merge_in_the_decode_launch_is_combines_bits(card, h, kv, dtype):
+    for sq, skv in ((1, 1024), (4, 256), (8, 512), (1, 3000)):
+        q, k, v = _qkv(card, 3, sq, skv, h, kv, 64, dtype, seed=sq + h)
+        kvl = torch.tensor([skv, skv // 3, 0], dtype=torch.int32,
+                           device=card)
+        ns, span = ops.decode_splits(skv, kv)
+        parts = fd.flash_decode_partials(q, k, v, kvl, causal=sq > 1,
+                                         n_splits=ns, span=span)
+        before = fd.launches
+        runs = [fd.flash_decode(q, k, v, kvl, causal=sq > 1, n_splits=ns,
+                                span=span) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert fd.launches == before + 2
+        for out, o_part, lse_part in runs:
+            assert torch.equal(o_part, parts[0])
+            assert torch.equal(lse_part, parts[1])
+            assert torch.equal(out, fd.merge_plain(*parts, dtype))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("sq,skv,kv", [(1, 3072, 1), (4, 3072, 1),
+                                       (1, 4096, 1), (4, 4096, 1),
+                                       (1, 4224, 2)])
+def test_decode_past_the_merges_split_limit(card, sq, skv, kv, dtype, tol):
+    """`ops.attention_decode` at MERGE_MAX_SPLITS splits merges in the
+    kernel's launch, past them through `merge_plain`; both agree with the
+    plain attention, and the launch refuses to merge past the limit."""
+    h = 8 * kv
+    q, k, v = _qkv(card, 2, sq, skv, h, kv, 64, dtype, seed=skv + sq)
+    kvl = torch.tensor([skv, skv // 3], dtype=torch.int32, device=card)
+    ns, span = ops.decode_splits(skv, kv)
+    assert (ns == fd.MERGE_MAX_SPLITS) == (skv == 3072)
+    before = fd.launches
+    got = ops.attention_decode(q, k, v, kvl, causal=sq > 1)
+    assert fd.launches == before + 1
+    qs = ops.scale_queries(q)
+    parts = fd.flash_decode_partials(qs, k, v, kvl, causal=sq > 1,
+                                     n_splits=ns, span=span)
+    assert torch.equal(got, fd.merge_plain(*parts, dtype))
+    want = fa.flash_attention_plain(qs, k, v, kvl, causal=sq > 1)
+    assert _relmax(got, want) <= tol
+    if ns > fd.MERGE_MAX_SPLITS:
+        with pytest.raises(ValueError, match="merges at most"):
+            fd.flash_decode(qs, k, v, kvl, causal=sq > 1, n_splits=ns,
+                            span=span)
+
+
 def test_attention_rows_do_not_depend_on_the_batch(card):
     """A sequence's output is bitwise the same alone and inside a batch of
     8, through both formulations and the merge."""
@@ -599,6 +651,29 @@ def test_ssd_kernel_matches_plain_version(card, b, s, h, p, g, n, chunk,
         assert _relmax(got[1], want[1]) <= tol
         assert torch.equal(got[0], again[0]) and torch.equal(got[1],
                                                              again[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_CASES + [
+    (1, 23, 64, 64, 1, 128, 256), (2, 300, 8, 64, 1, 128, 256)])
+def test_every_ssd_plan_gives_the_path_plans_bits(card, b, s, h, p, g, n,
+                                                  chunk, dtype):
+    gen = torch.Generator(device=card).manual_seed(s + h)
+    x = torch.randn(b, s, h, p, generator=gen, device=card).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, s, h, generator=gen, device=card) - 0.5)
+    a = -torch.exp(0.3 * torch.randn(h, generator=gen, device=card))
+    bm = torch.randn(b, s, g, n, generator=gen, device=card).to(dtype)
+    cm = torch.randn(b, s, g, n, generator=gen, device=card).to(dtype)
+    init = torch.randn(b, h, p, n, generator=gen, device=card)
+    da = (dt * a).contiguous()
+    for state in (None, init):
+        want = ssd.ssd_scan(x, dt, da, bm, cm, chunk=chunk, init_state=state)
+        for plan in ssd.PLANS:
+            got = ssd.ssd_scan(x, dt, da, bm, cm, chunk=chunk,
+                               init_state=state, plan=plan)
+            assert torch.equal(got[0], want[0]), plan
+            assert torch.equal(got[1], want[1]), plan
 
 
 def test_reduced_mamba_on_cuda_matches_eager(card):
