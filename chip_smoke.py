@@ -259,11 +259,59 @@ script exits non-zero.  Phases:
               K 4096, N 16384, fp32) against its plain version, then kernel,
               plain, torch.matmul (cuBLAS fp32, TF32 off) and bound ms,
               TFLOP/s and the bound share.
-Then the kernels line, and last the result line.  Every JSON line carries
-`t`, the seconds since the script started.
+ 31. check_moe  llama4-scout-17b-a16e's fused GEMMs (q, k, v, o, the router
+              at N 16 with fp32 out, the shared expert's gate / up / down,
+              the untied head) at the MoE phases' rows (2 and 4 decode rows,
+              the 256-token prefill; the head at the decode rows), each
+              against its plain version as phase 2 with the path's plan,
+              and the router under every plan (gemm.PLANS), each plan's bits
+              the path plan's; the expert bmm (16 experts, 5120 <-> 8192)
+              at 16 and 32 dispatch rows (2 and 4 decode rows x capacity 8,
+              the 2 x 128 prefill x capacity 16) against its plain version
+              (bars as phase 25), every forward plan's bits the path plan's,
+              every batch slice the 2-D kernel's, reruns bitwise; the
+              attention kernels at 40 / 8 heads of 128 (G = 5): the
+              flash forward at the 2 x 128 prefill, the decode kernel at 2
+              and 4 rows against 256 cache rows (checks of phases 9-10).
+ 32. moe      full-width llama4-scout-17b-a16e at MOE_LAYERS of its 48
+              layers (431 GB in fp32 at 48; random weights drawn on the card
+              from a seed): the prefill of 2 x 128 tokens and 3 decode steps
+              against a 256-row cache on `cuda` and on `eager`, one
+              parameter dict.  Routes first: a token that `cuda` routes to
+              other experts than `eager` is allowed only where eager's top-2
+              router probability margin is below 10 x the routers' max-abs
+              probability difference (each flip printed), and its batch row
+              leaves the comparison; the other rows' prefill and decode
+              logits and caches within 1e-4.  Exact launch counts with the
+              counts set to 0 just before each part (per layer and call 8
+              fused GEMMs, 3 expert bmm, 1 flash forward or decode launch;
+              the head 1 GEMM a call; the forward launches by regime),
+              every engine op on `cuda`, `eager` launching none; peak GB.
+ 33. moe_serve  the MoE main path: the slot ServingEngine on `cuda`, 4
+              slots, max_len 256, 8 requests (prompts 16-64 tokens,
+              max_new 4-16, numpy seed), the launch counts set to 0 just
+              before and read just after, exactly the decode step's launches
+              times the steps; every request completes; each stream equals
+              the slot engine's on `eager` on the card, or differs first
+              where eager's top-2 logit margin is below 10 x phase 32's
+              logits error; p50 / p99, tokens/s, peak GB.
+ 34. timing_moe  a moe_serve decode step: host ms on `cuda` and `eager`,
+              the device ms by kernel (torch.profiler) and the busy share;
+              the three expert bmm launches of one layer at 16, 32 and 80
+              dispatch rows (2 and 4 decode rows, the 2 x 128 prefill, a
+              1 x 1024 prefill), each kernel, plain, torch.bmm (TF32 off)
+              and bound ms (bytes at these rows: 2.68 GB a weight); the
+              fused GEMMs of one moe_serve decode dispatch over the
+              parameters' own weights: kernel, plain, torch.matmul and
+              bound ms; the flash forward at the 2 x 128 prefill and the
+              decode kernel at a moe_serve step (G = 5) as phase 15 times
+              them.
+Then the kernels line (20 entries), and last the result line.  Every JSON
+line carries `t`, the seconds since the script started.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import shutil
@@ -294,6 +342,7 @@ from repro_torch.kernels.common import ACTIVATIONS, epilogue  # noqa: E402
 from repro_torch.kernels.ref import attention_mask  # noqa: E402
 from repro_torch.launch.fault import FailureInjected  # noqa: E402
 from repro_torch.launch.train import train_loop  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.serve import kvcache, kvpool  # noqa: E402
 from repro_torch.serve.engine import Request, ServingEngine  # noqa: E402
@@ -380,6 +429,21 @@ MIXED_PROMPT = (2, 256)
 SSD_GRID = ((1, 512, 4, 64, 1, 128, 256), (4, 300, 8, 32, 2, 16, 64),
             (1, 1000, 8, 64, 2, 128, 256), (4, 130, 4, 32, 1, 128, 64),
             (1, 256, 4, 32, 2, 16, 256))
+# the MoE family: llama4-scout-17b-a16e (configs/llama4_scout_17b.py) at
+# full width and MOE_LAYERS of its 48 layers: the whole model holds 108e9
+# parameters, 431 GB in fp32, and the card holds 80 GB
+MOE_ARCH = "llama4-scout-17b-a16e"
+MOE_LAYERS = 4
+MOE_PREFILL = (2, 128)  # moe: batch x prompt tokens (capacity 16)
+MOE_DECODE_STEPS = 3
+MOE_CACHE = 256  # moe's cache rows: decode takes the split-KV kernel
+MOE_SERVE = dict(slots=4, requests=8, prompt=(16, 64), new=(4, 16),
+                 max_len=256)
+# timing_moe's expert bmm rows (B x capacity): a decode step of moe's 2
+# rows, of moe_serve's 4 slots (= moe's 2 x 128 prefill), a 1024-token
+# prefill of one row
+MOE_BMM_ROWS = {"decode_b2": 16, "decode_b4_or_prefill_2x128": 32,
+                "prefill_1x1024": 80}
 _T0 = time.perf_counter()
 
 
@@ -1343,7 +1407,7 @@ def lm_serve_phase(cfg, params, dev, abs_err) -> dict:
             continue
         j = next(i for i, (x, y) in enumerate(zip(a.out, b.out)) if x != y)
         with torch.inference_mode():
-            h = tfm.forward_hidden(eager, cfg, params, tokens=torch.tensor(
+            h, _ = tfm.forward_hidden(eager, cfg, params, tokens=torch.tensor(
                 [a.prompt + a.out[:j]], device=dev))
             top2 = torch.topk(h[0, -1] @ head, 2).values
         margin = float(top2[0] - top2[1])
@@ -1366,17 +1430,15 @@ def sdpa(q, k, v, kv_len, causal):
         attn_mask=mask, enable_gqa=True)
 
 
-def timing_lm_phase(cfg, params, dev, cgen, peak_flops, peak_bw,
-                    serve: dict, smi: str) -> dict:
-    """Phase timing_lm: the attention kernels at the path's shapes and the
-    paged step's dispatch times."""
+def attn_timing_rows(cfg, shapes, cgen, peak_flops, peak_bw, smi,
+                     phase) -> dict:
+    """Each attention kernel at `shapes` ({name: (b, sq, skv, kv_len list
+    or None, causal)}) at cfg's heads, fp32: kernel, plain, bound and
+    SDPA ms over CUDA-graph replays, emitted as `phase` lines."""
+    dev = cgen.device
     h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     rows = {}
-    for name, (b, sq, skv, lens, causal) in {
-            "prefill_chunk": (1, 64, LM_CACHE, [576], True),
-            "prompt_2048": (1, 2048, 2048, None, True),
-            "decode_b8": (8, 1, LM_CACHE, [LM_CACHE] * 8, False),
-            "decode_b1": (1, 1, LM_CACHE, [LM_CACHE], False)}.items():
+    for name, (b, sq, skv, lens, causal) in shapes.items():
         q, k, v = qkv(b, sq, skv, h, kv, d, torch.float32, cgen)
         kvl = (None if lens is None else
                torch.tensor(lens, dtype=torch.int32, device=dev))
@@ -1432,8 +1494,21 @@ def timing_lm_phase(cfg, params, dev, cgen, peak_flops, peak_bw,
                "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
                "bound_share": bound_ms / ms, **extra}
         rows[name] = row
-        emit("timing_lm", name=name, smi=smi, **row)
+        emit(phase, name=name, smi=smi, **row)
         del q, k, v
+    return rows
+
+
+def timing_lm_phase(cfg, params, dev, cgen, peak_flops, peak_bw,
+                    serve: dict, smi: str) -> dict:
+    """Phase timing_lm: the attention kernels at the path's shapes and the
+    paged step's dispatch times."""
+    rows = attn_timing_rows(cfg, {
+        "prefill_chunk": (1, 64, LM_CACHE, [576], True),
+        "prompt_2048": (1, 2048, 2048, None, True),
+        "decode_b8": (8, 1, LM_CACHE, [LM_CACHE] * 8, False),
+        "decode_b1": (1, 1, LM_CACHE, [LM_CACHE], False)}, cgen,
+        peak_flops, peak_bw, smi, "timing_lm")
     step = make_paged_step(make_engine("cuda"), cfg)
     cache = kvpool.PagedKVCache(cfg, SERVE["kv_blocks"], SERVE["block_size"],
                                 device=dev)
@@ -2213,7 +2288,7 @@ def ssm_serve_phase(cfg, params, dev, abs_err) -> dict:
             continue
         j = next(i for i, (x, y) in enumerate(zip(a.out, r.out)) if x != y)
         with torch.inference_mode():
-            h = tfm.forward_hidden(eager, cfg, params, tokens=torch.tensor(
+            h, _ = tfm.forward_hidden(eager, cfg, params, tokens=torch.tensor(
                 [a.prompt + a.out[:j]], device=dev))
             top2 = torch.topk(h[0, -1] @ head, 2).values
         mismatches.append({"rid": a.rid, "token": j,
@@ -2357,7 +2432,7 @@ def timing_ssm_phase(cfg, params, dev, cgen, peak_flops, peak_bw,
 def bmm_plans(b, m, k, n) -> tuple:
     """The plans `ops.bmm` gives (B, M, K, N): the forward's plan, and the
     (plan, splits) of dX and of dW (the backward plans count the batch)."""
-    return (ops.default_tiles(m, k, n), ops.bwd_plan("dx", m, n, k, b),
+    return (ops.bmm_plan_for(m, k, n), ops.bwd_plan("dx", m, n, k, b),
             ops.bwd_plan("dw", k, m, n, b))
 
 
@@ -2471,7 +2546,7 @@ def engine_bmm_phase(dev) -> dict:
         del xr, wr, y
     cu, ea = runs["cuda"], runs["eager"]
     _, (_, dx_splits), (_, dw_splits) = bmm_plans(b, m, k, n)
-    regime = f"gemm_fwd_regime_{ops.default_tiles(m, k, n).regime.lower()}"
+    regime = f"gemm_fwd_regime_{ops.bmm_plan_for(m, k, n).regime.lower()}"
     want = {**dict.fromkeys(cu["launches"], 0), "bmm_fwd": 1, regime: 1,
             "bmm_bwd_dx": 1, "bmm_bwd_dw": 1,
             "gemm_bwd_reduce": (dx_splits > 1) + (dw_splits > 1)}
@@ -2739,6 +2814,488 @@ def lm_mixed_phase(cfg, params, dev) -> dict:
         check(err[key] <= bar, f"{cfg.name} mixed prefill {key} "
               f"{err[key]:.3e} > {bar:.3e}")
     return err
+
+
+# ------------------------------------------------------------- the MoE ---
+
+def moe_cfg():
+    """llama4-scout-17b-a16e at full width and MOE_LAYERS of its layers."""
+    return dataclasses.replace(get_arch(MOE_ARCH), n_layers=MOE_LAYERS)
+
+
+def moe_gemms(cfg) -> list[dict]:
+    """The fused GEMMs one call of the MoE stack makes, as `lm_gemms`:
+    each layer's q, k, v and o projections, the router (fp32 out), the
+    shared expert's gate (silu), up and down, and the untied head; `leaf`
+    is the weight's path in a layer's parameters (the head's in the
+    parameters)."""
+    d, q = cfg.d_model, cfg.n_heads * cfg.head_dim
+    kv = cfg.n_kv_heads * cfg.head_dim
+    f = cfg.n_shared_experts * cfg.moe_d_ff
+    layer = [("q", d, q, "linear", ("attn", "wq")),
+             ("k", d, kv, "linear", ("attn", "wk")),
+             ("v", d, kv, "linear", ("attn", "wv")),
+             ("o", q, d, "linear", ("attn", "wo")),
+             ("router", d, cfg.n_routed_experts, "linear",
+              ("moe", "router")),
+             ("gate", d, f, "silu", ("moe", "shared", "wg")),
+             ("up", d, f, "linear", ("moe", "shared", "wu")),
+             ("down", f, d, "linear", ("moe", "shared", "wd"))]
+    out = [{"name": name, "k": k, "n": n, "act": act, "leaf": leaf,
+            "per_dispatch": cfg.n_layers,
+            "out_dtype": torch.float32 if name == "router" else None}
+           for name, k, n, act, leaf in layer]
+    return out + [{"name": "head", "k": d, "n": cfg.vocab_padded,
+                   "act": "linear", "leaf": ("lm_head", "w"),
+                   "per_dispatch": 1, "out_dtype": None}]
+
+
+def moe_weights(params, g) -> list[torch.Tensor]:
+    """The weights of GEMM `g` of `moe_gemms` in one call, layer by layer."""
+    trees = ([params] if g["name"] == "head"
+             else [lp for lp in params["layers"]])
+    out = []
+    for tree in trees:
+        for key in g["leaf"]:
+            tree = tree[key]
+        out.append(tree)
+    return out
+
+
+def expert_shapes(cfg, rows: int) -> list[tuple]:
+    """The three expert bmm launches of one layer at `rows` dispatch rows
+    (B x capacity): (E, M, K, N) of wg, wu and wd."""
+    e, d, f = cfg.n_routed_experts, cfg.d_model, cfg.moe_d_ff
+    return [(e, rows, d, f), (e, rows, d, f), (e, rows, f, d)]
+
+
+def moe_call_launches(cfg, b: int, s: int, attention: str) -> dict:
+    """The kernel launches of one prefill (`attention` "flash_attention")
+    or decode ("flash_decode") call of the MoE stack on b rows of s tokens:
+    per layer the eight fused GEMMs of `moe_gemms`, the three expert bmm
+    launches and one attention launch, then the head on one position a
+    row; with the forward launches by regime."""
+    want = dict.fromkeys(all_launches(), 0)
+    n = cfg.n_layers
+    want["gemm_fused_fwd"] = 8 * n + 1
+    want["bmm_fwd"] = 3 * n
+    want[attention] = n
+    plans = [(ops.default_tiles(b if g["name"] == "head" else b * s,
+                                g["k"], g["n"]), g["per_dispatch"])
+             for g in moe_gemms(cfg)]
+    plans += [(ops.bmm_plan_for(m, k, nn), n) for _, m, k, nn in
+              expert_shapes(cfg, b * moe.capacity(s, cfg))]
+    for plan, count in plans:
+        want[f"gemm_fwd_regime_{plan.regime.lower()}"] += count
+    return want
+
+
+class RouteLog:
+    """While active, records each MoE layer's routing as `moe_forward`
+    computes it (expert ids and fp32 probabilities, per call in layer
+    order), by wrapping `models.moe.route`."""
+
+    def __enter__(self):
+        self.calls = []
+        self._route = moe.route
+
+        def route(engine, p, x, cfg):
+            w, idx, probs = self._route(engine, p, x, cfg)
+            self.calls.append((idx.clone(), probs.clone()))
+            return w, idx, probs
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        moe.route = self._route
+
+
+def route_flips(cfg, cu_calls, ea_calls) -> tuple[list, list, float]:
+    """Where `cuda` routed a token to other experts than `eager`: (the
+    flips with eager's top-2 probability margin, the rows with no flip,
+    the routers' max-abs probability difference over those rows)."""
+    check(len(cu_calls) == len(ea_calls),
+          f"{len(cu_calls)} cuda routings, {len(ea_calls)} eager")
+    flips, flipped = [], set()
+    for i, ((ic, _), (ie, pe)) in enumerate(zip(cu_calls, ea_calls)):
+        for row, tok in (ic != ie).any(-1).nonzero().tolist():
+            top2 = torch.topk(pe[row, tok], 2).values
+            flips.append({"call": i // cfg.n_layers,
+                          "layer": i % cfg.n_layers, "row": row,
+                          "token": tok, "cuda": ic[row, tok].tolist(),
+                          "eager": ie[row, tok].tolist(),
+                          "eager_margin": float(top2[0] - top2[1])})
+            flipped.add(row)
+    rows = [r for r in range(cu_calls[0][0].shape[0]) if r not in flipped]
+    prob_err = max((float((pc[rows] - pe[rows]).abs().max())
+                    for (_, pc), (_, pe) in zip(cu_calls, ea_calls)),
+                   default=0.0)
+    return flips, rows, prob_err
+
+
+def check_moe_phase(cfg, cgen) -> dict:
+    """Phase check_moe: the path's fused GEMMs at the MoE phases' rows
+    (decode rows, moe_serve's slots, the prefill's tokens; the head at the
+    decode rows only) against their plain versions with the path's plan,
+    the router under every plan (each plan's bits the path plan's, fp32
+    and bf16 operands, fp32 out); the expert bmm at the dispatch rows of
+    the moe phases under every forward plan, each the path plan's bits,
+    its batch slices the 2-D kernel's, reruns bitwise; the attention
+    kernels at llama4's 40 / 8 heads of 128 (G = 5).  Returns the fp32
+    max-abs errors at the moe_serve shapes."""
+    b, s = MOE_PREFILL
+    slots = MOE_SERVE["slots"]
+    out = {"gemm": 0.0, "bmm": 0.0}
+    for m in sorted({b, slots, b * s}):
+        for g in moe_gemms(cfg):
+            if g["name"] == "head" and m == b * s:
+                continue  # the prefill's head reads its last position
+            k, n = g["k"], g["n"]
+            pick = ops.default_tiles(m, k, n)
+            router = g["name"] == "router"
+            res = check_shape(m, k, n, gemm.PLANS if router else (pick,),
+                              cgen)
+            if router:
+                for dt in (torch.float32, torch.bfloat16):
+                    x, w, _, _ = operands(m, k, n, dt, cgen)
+                    want = gemm.gemm_fused_fwd(x, w, out_dtype=torch.float32,
+                                               plan=pick)
+                    for plan in gemm.PLANS:
+                        check(torch.equal(gemm.gemm_fused_fwd(
+                            x, w, out_dtype=torch.float32, plan=plan), want),
+                            f"router {(m, k, n)} {dt}: plan {plan} differs "
+                            f"from {pick}")
+                res["plans_bitwise_path_plan"] = True
+            if m == slots:
+                out["gemm"] = max(out["gemm"], res["max_abs_err_fp32"])
+            emit("check_moe", gemm=g["name"], path_plan=list(pick), **res)
+    rows = sorted({b * 8, slots * 8, b * moe.capacity(s, cfg)})
+    for m in rows:
+        for e, _, k, n in expert_shapes(cfg, m)[1:]:
+            worst = {}
+            pick = ops.bmm_plan_for(m, k, n)
+            for dt in (torch.float32, torch.bfloat16):
+                x = torch.randn(e, m, k, generator=cgen, device=cgen.device
+                                ).to(dt)
+                w = (torch.randn(e, k, n, generator=cgen, device=cgen.device)
+                     / math.sqrt(k)).to(dt)
+                got = gemm.bmm_fwd(x, w, plan=pick)
+                plain = gemm.bmm_fwd_plain(x, w)
+                where = f"expert bmm {(e, m, k, n)} {dt}"
+                check(bool(torch.isfinite(got).all()), f"non-finite {where}")
+                err = relmax(got, plain)
+                tol = gemm_tol(k) if dt == torch.float32 else BF16_TOL
+                check(err <= tol, f"{where}: {err:.3e} > {tol:g}")
+                check(torch.equal(got, gemm.bmm_fwd(x, w, plan=pick)),
+                      f"two runs of {where} differ")
+                for plan in gemm.PLANS:
+                    check(torch.equal(gemm.bmm_fwd(x, w, plan=plan), got),
+                          f"{where}: plan {plan} differs from {pick}")
+                for i in range(e):
+                    check(torch.equal(got[i], gemm.gemm_fused_fwd(
+                        x[i], w[i], plan=pick)),
+                        f"{where}: slice {i} differs from the 2-D kernel")
+                worst[str(dt)] = err
+                if dt == torch.float32 and m == slots * 8:
+                    out["bmm"] = max(out["bmm"],
+                                     float((got - plain).abs().max()))
+                del x, w, got, plain
+            emit("check_moe", bmm=[e, m, k, n], path_plan=list(pick),
+                 plans=[list(p) for p in gemm.PLANS], relmax=worst,
+                 plans_bitwise_path_plan=True, slices_bitwise_2d=True)
+            torch.cuda.empty_cache()
+    h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dev = cgen.device
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = qkv(b, s, s, h, kv, d, dt, cgen)
+        err, mabs, n = check_attn_case(q, k, v, None, True)
+        cases.append({"kernel": "flash_attention", "shape": [b, s, s, h, kv,
+                                                             d],
+                      "dtype": str(dt), "relmax": err, "max_abs": mabs,
+                      "plan": list(fa.plan_for(b, s, h, kv)),
+                      "plan_outputs_bitwise": n})
+        for rows_, lens in ((b, [s + 1, s + 3]), (slots, [17, 40, 64, 80])):
+            q, k, v = qkv(rows_, 1, MOE_CACHE, h, kv, d, dt, cgen)
+            kvl = torch.tensor(lens, dtype=torch.int32, device=dev)
+            err, mabs, splits, n, _ = check_decode_case(q, k, v, kvl, False)
+            cases.append({"kernel": "flash_decode",
+                          "shape": [rows_, 1, MOE_CACHE, h, kv, d],
+                          "dtype": str(dt), "relmax": err, "max_abs": mabs,
+                          "splits": splits})
+        del q, k, v
+    torch.cuda.synchronize()
+    emit("check_moe", arch=cfg.name, attention=cases, group=h // kv)
+    return out
+
+
+def moe_params(cfg, dev):
+    """Full-width random parameters from a seed, drawn on the card."""
+    gen = torch.Generator(device=dev).manual_seed(23)
+    return tfm.init_params(cfg, generator=gen, device=dev)
+
+
+def moe_phase(cfg, params, dev) -> dict:
+    """Phase moe: the prefill of MOE_PREFILL and MOE_DECODE_STEPS decode
+    steps on `cuda` and on `eager` from one parameter dict, routes first;
+    returns the logits max-abs error over the rows with no route flip."""
+    b, s = MOE_PREFILL
+    rng = np.random.default_rng(24)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).to(dev)
+    feed = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (MOE_DECODE_STEPS, b, 1))).to(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = {}
+    with torch.inference_mode():
+        for label in ("cuda", "eager"):
+            eng = make_engine(label, device=dev)
+            prefill, decode = (make_prefill_step(eng, cfg),
+                               make_decode_step(eng, cfg))
+            torch.cuda.synchronize()
+            reset_all_launches()
+            with RouteLog() as routes:
+                logits, caches = prefill(params, tokens)
+                torch.cuda.synchronize()
+                pre = {"launches": all_launches(),
+                       "dispatch": backends.dispatch_counts()}
+                buf = kvcache.cache_init(cfg, b, MOE_CACHE, device=dev)
+                for name in ("k", "v"):
+                    buf[0][name][:, :, :s] = caches[0][name]
+                reset_all_launches()
+                dlogits = []
+                for t in range(MOE_DECODE_STEPS):
+                    lg, buf = decode(params, buf, feed[t],
+                                     torch.tensor(s + t, device=dev))
+                    dlogits.append(lg)
+                torch.cuda.synchronize()
+            out[label] = {"logits": logits, "caches": caches, "buf": buf,
+                          "dlogits": torch.stack(dlogits), "pre": pre,
+                          "dec": {"launches": all_launches(),
+                                  "dispatch": backends.dispatch_counts()},
+                          "routes": routes.calls}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    cu, ea = out["cuda"], out["eager"]
+    flips, rows, prob_err = route_flips(cfg, cu["routes"], ea["routes"])
+    allowed = MARGIN_FACTOR * prob_err
+    check(bool(rows), f"every row flipped a route: {flips}")
+    errs = {"prefill_logits": relmax(cu["logits"][rows], ea["logits"][rows]),
+            "decode_logits": relmax(cu["dlogits"][:, rows],
+                                    ea["dlogits"][:, rows])}
+    for name in ("k", "v"):
+        errs[f"prefill_{name}_cache"] = relmax(cu["caches"][0][name][:, rows],
+                                               ea["caches"][0][name][:, rows])
+        errs[f"decode_{name}_cache"] = relmax(cu["buf"][0][name][:, rows],
+                                              ea["buf"][0][name][:, rows])
+    abs_err = max(
+        float((cu["logits"][rows] - ea["logits"][rows]).abs().max()),
+        float((cu["dlogits"][:, rows] - ea["dlogits"][:, rows]).abs().max()))
+    want_pre = moe_call_launches(cfg, b, s, "flash_attention")
+    want_dec = {k: MOE_DECODE_STEPS * v for k, v in
+                moe_call_launches(cfg, b, 1, "flash_decode").items()}
+    einsums = 3 * cfg.n_layers
+    emit("moe", arch=cfg.name, layers=cfg.n_layers, of_layers=get_arch(
+        MOE_ARCH).n_layers, d_model=cfg.d_model, experts=cfg.n_routed_experts,
+         prefill=[b, s], decode_steps=MOE_DECODE_STEPS, cache_rows=MOE_CACHE,
+         capacity={"prefill": moe.capacity(s, cfg),
+                   "decode": moe.capacity(1, cfg)},
+         relmax=errs, logits_max_abs_err=abs_err,
+         logits_max_abs=float(ea["logits"].abs().max()),
+         route_flips=flips, rows_compared=rows,
+         router_prob_max_abs_err=prob_err,
+         flip_allowed_below=allowed, routings=len(cu["routes"]),
+         launches_prefill=cu["pre"]["launches"], want_prefill=want_pre,
+         launches_decode=cu["dec"]["launches"], want_decode=want_dec,
+         dispatch_prefill={f"{bk}.{o}": c for (bk, o), c
+                           in cu["pre"]["dispatch"].items()},
+         peak_gb=peak_gb,
+         param_gb=sum(t.numel() * t.element_size()
+                      for t in flatten(params).values()) / 1e9)
+    check(all(f["eager_margin"] < allowed for f in flips),
+          f"a route flipped at a clear margin (bar {allowed:.3e}): {flips}")
+    for key, err in errs.items():
+        check(math.isfinite(err) and err <= LOGIT_TOL,
+              f"moe {key} cuda vs eager {err:.3e} > {LOGIT_TOL:g}")
+    check(cu["pre"]["launches"] == want_pre,
+          f"moe prefill launches {cu['pre']['launches']}, want {want_pre}")
+    check(cu["dec"]["launches"] == want_dec,
+          f"moe decode launches {cu['dec']['launches']}, want {want_dec}")
+    for part, calls in (("pre", 1), ("dec", MOE_DECODE_STEPS)):
+        disp = cu[part]["dispatch"]
+        check(all(bk == "cuda" for bk, _ in disp)
+              and disp.get(("cuda", "einsum")) == calls * einsums,
+              f"moe {part} dispatches {disp}")
+        check(sum(ea[part]["launches"].values()) == 0,
+              "the eager engine launched a kernel of the port")
+    return {"abs_err": abs_err, "errs": errs, "peak_gb": peak_gb}
+
+
+def moe_serve_phase(cfg, params, dev, abs_err) -> dict:
+    """Phase moe_serve: the MoE main path, the slot engine on `cuda`, then
+    the same requests on `eager` on the card."""
+    kw = {"slots": MOE_SERVE["slots"], "max_len": MOE_SERVE["max_len"]}
+    reqs = requests(cfg, MOE_SERVE["requests"], 25, MOE_SERVE["prompt"],
+                    MOE_SERVE["new"])
+    server = ServingEngine(cfg, params, engine=make_engine("cuda"), **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_all_launches()
+    t0 = time.perf_counter()
+    server.run(reqs)  # ---- the MoE main path, driven once
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_launches()
+    dispatch = backends.dispatch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    st = server.stats()
+    want = {k: st["steps"] * v for k, v in moe_call_launches(
+        cfg, kw["slots"], 1, "flash_decode").items()}
+    ereqs = requests(cfg, MOE_SERVE["requests"], 25, MOE_SERVE["prompt"],
+                     MOE_SERVE["new"])
+    t1 = time.perf_counter()
+    ServingEngine(cfg, params, engine=make_engine("eager", device=dev),
+                  **kw).run(ereqs)
+    eager_wall = time.perf_counter() - t1
+    head = tfm.head_weight(params, cfg)
+    eager = make_engine("eager", device=dev)
+    mismatches = []
+    for a, e in zip(reqs, ereqs):
+        if a.out == e.out:
+            continue
+        j = next(i for i, (x, y) in enumerate(zip(a.out, e.out)) if x != y)
+        with torch.inference_mode():
+            h, _ = tfm.forward_hidden(eager, cfg, params, tokens=torch.tensor(
+                [e.prompt + e.out[:j]], device=dev))
+            top2 = torch.topk(h[0, -1] @ head, 2).values
+        mismatches.append({"rid": a.rid, "token": j,
+                           "eager_margin": float(top2[0] - top2[1]),
+                           "allowed_below": MARGIN_FACTOR * abs_err})
+    emit("moe_serve", arch=cfg.name, layers=cfg.n_layers,
+         requests=len(reqs), completed=st["requests"]["completed"],
+         rejected=st["requests"]["rejected"], tokens=st["tokens"],
+         prompt_tokens=sum(len(r.prompt) for r in reqs), steps=st["steps"],
+         wall_s=wall, eager_wall_s=eager_wall,
+         tokens_per_s=st["throughput"], p50_ms=st["latency_s"]["p50"] * 1e3,
+         p99_ms=st["latency_s"]["p99"] * 1e3, peak_gb=peak_gb,
+         launches=launches, want_launches=want,
+         engine_dispatch={f"{b}.{o}": c for (b, o), c in dispatch.items()},
+         op_counts={f"{b}.{o}": c for (b, o), c in st["op_counts"].items()},
+         mismatches=mismatches, n_mismatches=len(mismatches))
+    check(st["requests"]["completed"] == len(reqs)
+          and st["requests"]["rejected"] == 0
+          and all(r.done and len(r.out) == r.max_new for r in reqs),
+          f"{st['requests']['completed']} of {len(reqs)} completed")
+    check(launches == want, f"moe_serve launches {launches}, want {want}")
+    check(all(b == "cuda" for b, _ in dispatch),
+          f"an engine op left the cuda backend: {dispatch}")
+    check(all(e.done for e in ereqs), "an eager request did not complete")
+    check(all(m["eager_margin"] < m["allowed_below"] for m in mismatches),
+          f"moe cuda vs eager token mismatch at a clear margin: "
+          f"{mismatches}")
+    return {"launches": launches, "stats": st, "wall_s": wall,
+            "peak_gb": peak_gb}
+
+
+def timing_moe_phase(cfg, params, dev, cgen, peak_flops, peak_bw, smi,
+                     serve) -> dict:
+    """Phase timing_moe: a moe_serve decode step's host ms on `cuda` and
+    `eager`, its device ms by kernel (torch.profiler) and busy share; the
+    three expert bmm launches of one layer at MOE_BMM_ROWS rows, each
+    kernel, plain, torch.bmm (TF32 off) and bound ms; the fused GEMMs of
+    one moe_serve decode dispatch over the parameters' own weights; the
+    attention kernels at 40 / 8 heads of 128 (G = 5): the flash forward at
+    the moe prefill, the decode kernel at a moe_serve decode step."""
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off")
+    slots = MOE_SERVE["slots"]
+    caches = kvcache.cache_init(cfg, slots, MOE_SERVE["max_len"], device=dev)
+    tok = torch.ones((slots, 1), dtype=torch.int64, device=dev)
+    pos = torch.tensor([16, 40, 64, 90], device=dev)
+    step = {}
+    with torch.inference_mode():
+        for label in ("cuda", "eager"):
+            decode = make_decode_step(make_engine(label, device=dev), cfg)
+            step[f"{label}_host_ms"] = host_ms(
+                lambda: decode(params, caches, tok, pos))
+        decode = make_decode_step(make_engine("cuda"), cfg)
+        by_kernel = time_ssd.device_time_by_kernel(
+            lambda: decode(params, caches, tok, pos))
+    step["cuda_device_ms"] = sum(r["ms"] for r in by_kernel.values())
+    step["busy_share"] = step["cuda_device_ms"] / step["cuda_host_ms"]
+    emit("timing_moe_step", smi=smi, arch=cfg.name, slots=slots, **step,
+         top_kernels=dict(list(by_kernel.items())[:12]),
+         serve_tokens_per_s=serve["stats"]["throughput"])
+    del caches
+    lp = params["layers"][0]["moe"]
+    rows = {}
+    for name, m in MOE_BMM_ROWS.items():
+        row = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms",
+                             "ops_ms", "bytes_ms"), 0.0)
+        launches = []
+        for (e, _, k, n), w in zip(expert_shapes(cfg, m),
+                                   (lp["wg"], lp["wu"], lp["wd"])):
+            x = torch.randn(e, m, k, generator=cgen, device=dev)
+            plan = ops.bmm_plan_for(m, k, n)
+            flops = 2.0 * e * m * k * n
+            nbytes = 4.0 * (e * m * k + e * k * n + e * m * n)
+            one = {"ms": cuda_ms(lambda: gemm.bmm_fwd(x, w, plan=plan),
+                                 reps=5, repeats=3),
+                   "plain_ms": cuda_ms(lambda: gemm.bmm_fwd_plain(x, w),
+                                       reps=5, repeats=3),
+                   "library_ms": cuda_ms(lambda: torch.bmm(x, w), reps=5,
+                                         repeats=3),
+                   "bound_ms": bound(flops, nbytes, peak_flops, peak_bw)[0],
+                   "ops_ms": flops / peak_flops * 1e3,
+                   "bytes_ms": nbytes / peak_bw * 1e3}
+            for key, val in one.items():
+                row[key] += val
+            launches.append({"shape": [e, m, k, n], "plan": list(plan),
+                             **one, "bound_share": one["bound_ms"]
+                             / one["ms"]})
+            del x
+        row["bound_by"] = ("operations" if row["ops_ms"] >= row["bytes_ms"]
+                           else "bytes")
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        rows[name] = row
+        emit("timing_moe", kernel="bmm_fwd", smi=smi, rows_name=name,
+             dispatch_rows=m, launches=launches, **row)
+    gem = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms",
+                         "ops_ms", "bytes_ms"), 0.0)
+    per = {}
+    for g in moe_gemms(cfg):
+        k, n, act, odt = g["k"], g["n"], g["act"], g["out_dtype"]
+        ws = moe_weights(params, g)
+        x = torch.randn(slots, k, generator=cgen, device=dev)
+        plan = ops.default_tiles(slots, k, n)
+        flops = 2.0 * slots * k * n * len(ws)
+        nbytes = 4.0 * (slots * k + k * n + slots * n) * len(ws)
+
+        def run(fn):
+            return lambda: [fn(w) for w in ws]
+
+        one = {"ms": cuda_ms(run(lambda w: gemm.gemm_fused_fwd(
+                   x, w, act=act, out_dtype=odt, plan=plan)), reps=5),
+               "plain_ms": cuda_ms(run(lambda w: gemm.gemm_fused_plain(
+                   x, w, act=act, out_dtype=odt)), reps=5),
+               "library_ms": cuda_ms(run(lambda w: torch.matmul(x, w)),
+                                     reps=5),
+               "bound_ms": bound(flops, nbytes, peak_flops, peak_bw)[0],
+               "ops_ms": flops / peak_flops * 1e3,
+               "bytes_ms": nbytes / peak_bw * 1e3}
+        for key, val in one.items():
+            gem[key] += val
+        per[g["name"]] = {**one, "plan": list(plan), "launches": len(ws)}
+        del x
+    gem["bound_by"] = ("operations" if gem["ops_ms"] >= gem["bytes_ms"]
+                       else "bytes")
+    emit("timing_moe", kernel="gemm_fused_fwd", smi=smi, rows=slots,
+         dispatch=per, **gem)
+    b, s = MOE_PREFILL
+    attn = attn_timing_rows(cfg, {
+        "moe_prefill": (b, s, s, None, True),
+        "moe_serve_decode": (slots, 1, MOE_SERVE["max_len"], [16, 40, 64, 90],
+                             False)}, cgen, peak_flops, peak_bw, smi,
+        "timing_moe")
+    return {"bmm": rows, "gemm": gem, "step": step, "attention": attn}
 
 
 def main() -> int:
@@ -3165,6 +3722,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     conv = conv_direct_phase(net, cgen, peak_flops, peak_bw, smi)
 
+    # ----------------------------------------------------- 31-34. the MoE
+    torch.cuda.empty_cache()
+    mcfg = moe_cfg()
+    moe_abs = check_moe_phase(mcfg, cgen)
+    mparams = moe_params(mcfg, dev)
+    moe_run = moe_phase(mcfg, mparams, dev)
+    serve_moe = moe_serve_phase(mcfg, mparams, dev, moe_run["abs_err"])
+    moe_rows = timing_moe_phase(mcfg, mparams, dev, cgen, peak_flops,
+                                peak_bw, smi, serve_moe)
+    del mparams
+    torch.cuda.empty_cache()
+
     def kernel_entry(name, source, replaces, path, launches, max_abs_err,
                      row):
         entry = {"name": name, "route": "cuda", "source": source,
@@ -3239,6 +3808,12 @@ def main() -> int:
         kernel_entry("conv2d_direct", SOURCE_CONV, REPLACES_CONV,
                      "conv_direct", conv["launches"], conv["max_abs_err"],
                      conv["total"]),
+        kernel_entry("gemm_fused_fwd:moe", SOURCE, REPLACES, "moe_serve",
+                     serve_moe["launches"]["gemm_fused_fwd"],
+                     moe_abs["gemm"], moe_rows["gemm"]),
+        kernel_entry("bmm_fwd:moe", SOURCE, REPLACES_BMM, "moe_serve",
+                     serve_moe["launches"]["bmm_fwd"], moe_abs["bmm"],
+                     moe_rows["bmm"]["decode_b4_or_prefill_2x128"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

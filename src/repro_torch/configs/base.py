@@ -5,9 +5,9 @@ cache); ``reduced()`` gives the small same-family config of the CPU tests.
 The port carries its own copy because the JAX module imports jax.  The
 input specs and the ``SHAPES`` of the JAX dry run stay behind: the port has
 no dry run; `ShapeConfig` comes along for the trainer's data pipeline.
-`get_arch` knows the configs the port runs, the dense GQA ones and
-mamba2-1.3b (the SSM family); the other families come with their model
-code.
+`get_arch` knows the configs the port runs: the dense GQA ones,
+mamba2-1.3b (the SSM family) and llama4-scout-17b-a16e (the MoE family's
+GQA program); the other families come with their model code.
 """
 from __future__ import annotations
 
@@ -118,6 +118,7 @@ _MODULES = {
     "qwen2.5-3b": "qwen2p5_3b",
     "qwen2-0.5b": "qwen2_0p5b",
     "mamba2-1.3b": "mamba2_1p3b",
+    "llama4-scout-17b-a16e": "llama4_scout_17b",
 }
 ARCH_IDS = tuple(_MODULES)
 

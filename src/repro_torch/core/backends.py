@@ -17,8 +17,9 @@ Built-in backends:
            tensors only: given a CPU tensor it raises, it never falls back.
 
 Each backend registers every op of `OP_SET`: `matmul`, `bmm`, `conv2d`,
-`attention` and `ssd`.  Each backend declares which ops autograd may flow
-through (`differentiable`, as the JAX registry's autodiff capability):
+`attention`, `ssd` and `einsum`.  Each backend declares which ops
+autograd may flow through (`differentiable`, as the JAX registry's
+autodiff capability):
 `ref` and `eager` are plain differentiable PyTorch, and `cuda` carries
 `kernels/gemm.py::GemmFused`, whose backward runs the dX / dW kernels,
 `kernels/gemm.py::BmmFn`, whose backward runs the batched dX / dW
@@ -69,6 +70,14 @@ and the tile plan):
       `ref` runs `kernels/ssd.py::ssd_scan_plain`, `eager` the JAX
       `models/ssm.py::ssd_chunked` formulation, `cuda` the kernel.  The JAX
       engine has no such op: its model runs the einsum form everywhere.
+  einsum(spec, x, y, *, acc_dtype, out_dtype, ctx)
+      a two-operand contraction, fp32 products, the result rounded to
+      acc_dtype then cast to out_dtype (JAX's preferred_element_type).
+      `ref` and `eager` run torch.einsum; `cuda` runs a spec that is a
+      batched GEMM after a permutation (`bmm_spec`: the MoE expert GEMMs
+      becd,edf->becf and becf,efd->becd) on the bmm kernel, and raises
+      NotImplementedError naming any other spec.  The JAX engine's einsum
+      is not a registry op; the port counts its dispatches as the others.
 """
 from __future__ import annotations
 
@@ -84,7 +93,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import ssd as ssd_kernel
 from repro_torch.kernels.common import apply_act, im2col
 
-OP_SET = ("matmul", "bmm", "conv2d", "attention", "ssd")
+OP_SET = ("matmul", "bmm", "conv2d", "attention", "ssd", "einsum")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -308,6 +317,13 @@ def _ref_ssd(x, dt, A, B, C, *, chunk, init_state=None, ctx):
                                      init_state=init_state)
 
 
+def _torch_einsum(spec, x, y, *, acc_dtype, out_dtype, ctx):
+    # fp32 products and sums (bf16 operands widen exactly), rounded to
+    # acc_dtype as JAX's preferred_element_type, then cast to out_dtype.
+    return torch.einsum(spec, x.float(), y.float()).to(acc_dtype).to(
+        out_dtype)
+
+
 # --------------------------------------------------------- eager backend ---
 
 def _eager_matmul(x, w, scale, shift, *, act, out_dtype, ctx):
@@ -436,6 +452,59 @@ def _cuda_ssd(x, dt, A, B, C, *, chunk, init_state=None, ctx):
     return kernel_ops.ssd(x, dt, A, B, C, chunk=chunk, init_state=init_state)
 
 
+def bmm_spec(spec: str) -> tuple[str, str, str, str] | None:
+    """The batched GEMM an einsum spec is after a permutation, or None.
+
+    A spec ``x,y->z`` is one when y has three distinct indices (batch e,
+    contraction k, output column n), x holds e, k and its row indices
+    (none of them in y), and z is x with k replaced by n.  Returns
+    (x, y, z, the x order (e, rows..., k)); e.g. ``becd,edf->becf`` gives
+    x order ``ebcd``: (E, B·C, D) @ (E, D, F)."""
+    try:
+        lhs, z = spec.replace(" ", "").split("->")
+        x, y = lhs.split(",")
+    except ValueError:
+        return None
+    if len(y) != 3 or len(set(y)) != 3 or len(set(x)) != len(x):
+        return None
+    e, k, n = y
+    rows = [c for c in x if c not in (e, k)]
+    if (e not in x or k not in x or n in x or not rows
+            or z != x.replace(k, n)):
+        return None
+    return x, y, z, e + "".join(rows) + k
+
+
+def einsum_as_bmm(spec, x, y, *, acc_dtype, out_dtype):
+    """The `cuda` backend's einsum: a spec that is a batched GEMM after a
+    permutation (`bmm_spec`) as x permuted to (E, rows..., K) and folded
+    to (E, M, K), times y (E, K, N) on `kernels.ops.bmm` (the bmm kernel;
+    its plain version for CPU tensors), the rows unfolded and z's index
+    order restored (a view, no copy).  NotImplementedError names any
+    other spec: there is no kernel for it."""
+    form = bmm_spec(spec)
+    if form is None:
+        raise NotImplementedError(
+            f"backend 'cuda' runs einsum {spec!r} on no kernel: it runs "
+            f"only specs that are a batched GEMM after a permutation (the "
+            f"MoE expert GEMMs, e.g. 'becd,edf->becf')")
+    xs, ys, zs, order = form
+    xp = x.permute(*[xs.index(c) for c in order])
+    e, *rows, kdim = xp.shape
+    out = kernel_ops.bmm(xp.reshape(e, -1, kdim), y, out_dtype=acc_dtype)
+    out = out.reshape(e, *rows, y.shape[2])
+    zorder = order[:-1] + ys[2]
+    return out.permute(*[zorder.index(c) for c in zs]).to(out_dtype)
+
+
+def _cuda_einsum(spec, x, y, *, acc_dtype, out_dtype, ctx):
+    if x.device.type != "cuda":
+        raise ValueError(f"backend 'cuda' runs on CUDA tensors, got x on "
+                         f"{x.device}; use backend 'eager' on the CPU")
+    return einsum_as_bmm(spec, x, y, acc_dtype=acc_dtype,
+                         out_dtype=out_dtype)
+
+
 def _cuda_inference_only(op: str, operands: tuple) -> bool:
     """A decode-shaped attention dispatch takes the split-KV kernel, and
     every ssd dispatch the SSD kernel: neither has a backward."""
@@ -447,6 +516,8 @@ def _cuda_inference_only(op: str, operands: tuple) -> bool:
 
 def _cuda_tile_picker(op: str, shapes: tuple, dtype) -> tuple:
     dims = gemm_dims(op, shapes)
+    if op == "bmm":
+        return kernel_ops.bmm_plan_for(*dims)
     return () if dims is None else kernel_ops.default_tiles(*dims)
 
 
@@ -456,6 +527,7 @@ register_backend("ref", {
     "conv2d": im2col_conv2d(_ref_matmul),
     "attention": _ref_attention,
     "ssd": _ref_ssd,
+    "einsum": _torch_einsum,
 })
 
 register_backend("eager", {
@@ -464,6 +536,7 @@ register_backend("eager", {
     "conv2d": im2col_conv2d(_eager_matmul),
     "attention": _eager_attention,
     "ssd": _eager_ssd,
+    "einsum": _torch_einsum,
 })
 
 register_backend("cuda", {
@@ -472,4 +545,5 @@ register_backend("cuda", {
     "conv2d": im2col_conv2d(_cuda_matmul),
     "attention": _cuda_attention,
     "ssd": _cuda_ssd,
+    "einsum": _cuda_einsum,
 }, tile_picker=_cuda_tile_picker, inference_only=_cuda_inference_only)

@@ -4,8 +4,8 @@
 Every dense computation of the Darknet path (conv layers via im2col, the
 connected layers, the deconv GEMM), of the dense LM (every projection,
 the LM head, attention) and of the Mamba2 SSM (every projection, the head,
-the SSD scan) routes through this engine, and so does the batched GEMM
-(`bmm`).  The engine
+the SSD scan) routes through this engine, and so do the batched GEMM
+(`bmm`) and the MoE expert contractions (`einsum`).  The engine
 is a thin dispatcher: each op resolves through the backend/op registry
 (core/backends.py), so adding an execution target is `register_backend` and
 no engine change.  Built-in backends: `cuda` (the hand-written Hopper
@@ -209,6 +209,30 @@ class ComputeEngine:
                             xc.dtype)
         return self._op("ssd")(xc, dtf, af, bc, cc, chunk=chunk,
                                init_state=init, ctx=ctx)
+
+    def einsum(self, spec: str, x, y, *, out_dtype=None,
+               acc_dtype=torch.float32):
+        """Precision-policy einsum of two operands, as the JAX engine's:
+        both operands in the compute dtype, fp32 products, the result in
+        `acc_dtype` (fp32 by default; the MoE expert GEMMs pass the
+        policy's reduce_dtype), then `out_dtype` (default the compute
+        dtype).
+
+        On `ref` and `eager` any spec runs (torch.einsum).  On `cuda` a
+        spec that is a batched GEMM after a permutation
+        (`backends.bmm_spec`, e.g. ``becd,edf->becf``) runs on the bmm
+        kernel; any other spec raises NotImplementedError naming it.
+        Raises NotImplementedError, too, when it is differentiated on a
+        backend that does not declare it differentiable.
+        """
+        out_dtype = out_dtype or self.precision.compute_dtype
+        xc = x.to(self.precision.compute_dtype)
+        yc = y.to(self.precision.compute_dtype)
+        self._guard("einsum", xc, yc)
+        ctx = self._resolve("einsum", (spec, tuple(xc.shape),
+                                       tuple(yc.shape)), xc.dtype)
+        return self._op("einsum")(spec, xc, yc, acc_dtype=acc_dtype,
+                                  out_dtype=out_dtype, ctx=ctx)
 
 
 def synchronize(device: torch.device) -> None:

@@ -55,6 +55,27 @@ def default_tiles(m: int, k: int, n: int) -> gemm_kernel.Plan:
     return gemm_kernel.plan_for(m, k, n)
 
 
+def bmm_plan_for(m: int, k: int, n: int) -> gemm_kernel.Plan:
+    """The batched forward's plan for (B, M, K) @ (B, K, N), from one
+    matrix's shape (the batch stays out, as out of the dispatch key).
+
+    For a contraction of 2048 or more, as measured fastest at
+    llama4-scout's expert GEMMs (16 experts, 5120 <-> 8192, 8 to 160 rows;
+    ``kernels/time_gemm.py --bmm``, ``PERF.md``): 8-row blocks up to 8
+    rows; above, regime B's tiles at any row count (the batch fills the
+    card, and regime A's 64-row blocks compute every row of the tile one
+    output column a thread): 128 x 128 where its row blocks cover no more
+    rows than 64 x 32's, else 64 x 32.  A shorter contraction takes
+    `default_tiles`.  For speed only: every plan gives the same bits."""
+    if k < 2048:
+        return default_tiles(m, k, n)
+    if m <= 8:
+        return gemm_kernel.PLANS[0]
+    if -(-m // 128) * 128 <= -(-m // 64) * 64:
+        return gemm_kernel.PLANS[3]
+    return gemm_kernel.PLANS[4]
+
+
 def _bwd_tile(rows: int, cols: int) -> int:
     """The split rule's square output tile for a (rows, cols) output: 64
     when there are enough 64 x 64 tiles to fill the card, else 32."""
@@ -156,8 +177,8 @@ def bmm(x, w, *, out_dtype=None, tiles: tuple = ()) -> torch.Tensor:
     accumulation, the result in `out_dtype` (default x's dtype); any M, K
     and N (the kernels mask the ragged edges where the JAX wrapper pads).
 
-    `tiles` pins the forward's plan, else `default_tiles` of one matrix picks
-    (the batch stays out of the pick, as out of the JAX key).  Both
+    `tiles` pins the forward's plan, else `bmm_plan_for` of one matrix
+    picks (the batch stays out of the pick, as out of the JAX key).  Both
     operands are made contiguous.  Differentiable: with grad enabled and
     an operand that requires it, the call goes through `gemm.BmmFn`, whose
     backward plans count the batch (`bwd_plan`).  On a CPU
@@ -166,7 +187,7 @@ def bmm(x, w, *, out_dtype=None, tiles: tuple = ()) -> torch.Tensor:
     validate_bmm_shapes(x, w)
     b, m, k = x.shape
     n = w.shape[2]
-    plan = tiles or default_tiles(m, k, n)
+    plan = tiles or bmm_plan_for(m, k, n)
     x, w = x.contiguous(), w.contiguous()
     out_dtype = out_dtype or x.dtype
     if needs_grad(x, w):

@@ -1,6 +1,6 @@
 """Device time of every GEMM plan at the port's path shapes.
 
-    python3 src/repro_torch/kernels/time_gemm.py [--bwd]
+    python3 src/repro_torch/kernels/time_gemm.py [--bwd | --bmm]
 
 Builds `gemm` and, for each (M, K, N) the paths dispatch, prints one JSON
 line: the median device ms of each plan of the shape's regime (regime A
@@ -22,7 +22,16 @@ place and its dE = dY^T . X included) and the llama4-scout expert GEMMs'
 product (TF32 off), each the median device ms over CUDA-graph replays,
 with the pick of `gemm.bwd_plan_for` and the fastest; the last line as
 above.  These are the measurements the rule of `bwd_plan_for` was set
-from.  Needs an NVIDIA GPU.
+from.
+
+With ``--bmm``, the batched forward `bmm_fwd` at llama4-scout's expert
+GEMMs (16 experts, 5120 -> 8192 and 8192 -> 5120) over the dispatch rows
+the MoE path gives it (``EXPERT_ROWS``: B x capacity, e.g. 32 for a
+decode step of 4 slots or a 2 x 128 prefill): every plan of `gemm.PLANS`
+(a plan gives every output the same bits at any rows) and torch.bmm (TF32
+off), each the median device ms, with the pick of `ops.bmm_plan_for`
+and the fastest; the last line as above.  These are the measurements
+the rule of `bmm_plan_for` was set from.  Needs an NVIDIA GPU.
 """
 from __future__ import annotations
 
@@ -52,6 +61,10 @@ SHAPES_B = ([(401408, 27, 32, False), (100352, 288, 64, False),
 LAYERS = 24
 # llama4-scout's expert up and down projections: (B, M, K, N)
 EXPERT_BMM = [(16, 256, 5120, 8192), (16, 256, 8192, 5120)]
+# the MoE path's dispatch rows per expert (B x capacity): decode steps of
+# 1, 2, 4 and 8 slots (capacity 8), prefills of 2 x 128, 1 x 1024 and
+# 4 x 512 tokens (capacity 16, 80 and 40)
+EXPERT_ROWS = (8, 16, 32, 64, 80, 160)
 
 
 def graph_ms(fn, reps: int, repeats: int = 5) -> float:
@@ -129,6 +142,36 @@ def bwd_main(torch, dev, gen) -> int:
     return 0
 
 
+def bmm_main(torch, dev, gen) -> int:
+    """The ``--bmm`` mode: every forward plan of the batched GEMM at the
+    expert shapes of the MoE path."""
+    from repro_torch.kernels import build, gemm, ops
+    build.build_all(("gemm",))
+    hits, worst, n = 0, 1.0, 0
+    for b, _, k, nn in EXPERT_BMM:
+        w = torch.randn(b, k, nn, generator=gen, device=dev)
+        for m in EXPERT_ROWS:
+            x = torch.randn(b, m, k, generator=gen, device=dev)
+            ms = {"".join(map(str, p)): graph_ms(
+                lambda p=p: gemm.bmm_fwd(x, w, plan=p), 3)
+                for p in gemm.PLANS}
+            pick = "".join(map(str, ops.bmm_plan_for(m, k, nn)))
+            best = min(ms, key=ms.get)
+            hits += pick == best
+            worst = max(worst, ms[pick] / ms[best])
+            n += 1
+            print(json.dumps({"shape": [b, m, k, nn], "ms": ms,
+                              "torch_bmm_ms": graph_ms(
+                                  lambda: torch.bmm(x, w), 3),
+                              "pick": pick, "best": best}), flush=True)
+            del x
+        del w
+    print(json.dumps({"shapes": n, "pick_is_fastest": hits,
+                      "worst_pick_over_fastest": worst,
+                      "device": torch.cuda.get_device_name(0)}), flush=True)
+    return 0
+
+
 def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
     import torch
@@ -140,6 +183,8 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(3)
     if "--bwd" in sys.argv[1:]:
         return bwd_main(torch, dev, gen)
+    if "--bmm" in sys.argv[1:]:
+        return bmm_main(torch, dev, gen)
     from repro_torch.kernels import build, gemm
     build.build_all(("gemm",))
     shapes = [(m, k, n, t) for m in ROWS_A for k, n, t in LM + SSM]

@@ -1,9 +1,10 @@
-"""The LM assembled per ArchConfig, dense GQA and Mamba2 SSM families
-(PyTorch port of the dense and ``mamba`` paths of
+"""The LM assembled per ArchConfig: the dense GQA, Mamba2 SSM and GQA MoE
+families (PyTorch port of the ``dense``, ``mamba`` and ``gqa_moe`` paths of
 ``repro/models/transformer.py``).
 
 The layer program is static, from the config: ``[("dense", n_layers)]``
-for the dense family, ``[("mamba", n_layers)]`` for the SSM family.
+for the dense family, ``[("mamba", n_layers)]`` for the SSM family and
+``[("gqa_moe", n_layers)]`` for a MoE config without MLA (llama4-scout).
 The JAX package stacks each program entry's layers under one leading layer
 axis and scans over it; the port keeps one parameter dict per layer in
 ``params["layers"]`` and loops (PyTorch runs eagerly, so there is nothing
@@ -13,6 +14,7 @@ Parameters (plain dicts of tensors)::
 
     {"embed": {"tokens": (V_padded, D)}, "final_norm": {...},
      "layers": [{"norm1", "attn", "norm2", "mlp"}, ...],   # dense
+     "layers": [{"norm1", "attn", "norm2", "moe"}, ...],   # gqa_moe
      "layers": [{"norm", "mixer"}, ...],                   # mamba
      "lm_head": {"w": (D, V_padded)}}           # untied configs only
 
@@ -20,15 +22,17 @@ A tied head is the embedding's transpose, ``embed.t()``: a view that the
 GEMM kernel reads in place, so the head neither copies the table per call
 nor keeps a second copy of it (544 MB at qwen2-0.5b).  Caches are a list
 aligned with the layer program, as in JAX:
-``[{"k", "v": (n_layers, B, S, KV, hd)}]`` for a dense stack, and for a
-mamba stack ``[{"conv_x", "conv_B", "conv_C": (n_layers, B, conv - 1, C),
-"ssm": (n_layers, B, H, P, N)}]``, O(1) in the sequence length.
+``[{"k", "v": (n_layers, B, S, KV, hd)}]`` for a dense or gqa_moe
+stack, and for a mamba stack ``[{"conv_x", "conv_B", "conv_C":
+(n_layers, B, conv - 1, C), "ssm": (n_layers, B, H, P, N)}]``, O(1) in
+the sequence length.
 `loss_fn` is the training loss: the forward under autograd, each layer
 recomputed in the backward (``remat``, the JAX ``jax.checkpoint`` of the
-scanned layer body) and the chunked cross-entropy through the (tied)
-head.
-MoE, MLA, the hybrid (zamba2) program and the modality frontends come
-with their model code; their families raise NotImplementedError here.
+scanned layer body), the chunked cross-entropy through the (tied) head
+and, for a MoE stack, the mean of the layers' load-balance losses.
+MLA (the ``mla_dense`` / ``mla_moe`` programs), the hybrid (zamba2)
+program and the modality frontends come with their model code; they
+raise NotImplementedError here.
 """
 from __future__ import annotations
 
@@ -37,33 +41,47 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import ComputeEngine
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (chunked_cross_entropy, embed_init,
                                        embed_lookup, norm_apply, norm_init,
                                        rope_table)
 from repro_torch.models.mlp import mlp_forward, mlp_init
+from repro_torch.tree import flatten
 
 
 def stack_program(cfg) -> list[tuple[str, int]]:
-    """The static layer program; the dense and SSM families are ported."""
+    """The static layer program; the dense, SSM and GQA MoE programs are
+    ported."""
     if cfg.family == "dense":
         return [("dense", cfg.n_layers)]
     if cfg.family == "ssm":
         return [("mamba", cfg.n_layers)]
+    if cfg.family == "moe" and cfg.is_mla:
+        raise NotImplementedError(
+            f"{cfg.name} is a MLA MoE config (the 'mla_dense' / 'mla_moe' "
+            f"programs), which is not ported yet: the port runs the "
+            f"'gqa_moe' program only")
+    if cfg.family == "moe":
+        return [("gqa_moe", cfg.n_layers)]
     raise NotImplementedError(
         f"the {cfg.family!r} family ({cfg.name}) is not ported yet: the "
-        f"port runs dense GQA and mamba stacks only")
+        f"port runs dense GQA, GQA MoE and mamba stacks only")
 
 
 def _layer_init(kind: str, generator, cfg, device) -> dict:
     if kind == "mamba":
         return {"norm": norm_init(cfg.norm, cfg.d_model, device),
                 "mixer": ssm_mod.ssm_init(generator, cfg, device)}
-    return {"norm1": norm_init(cfg.norm, cfg.d_model, device),
-            "attn": attn.gqa_init(generator, cfg, device),
-            "norm2": norm_init(cfg.norm, cfg.d_model, device),
-            "mlp": mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.act,
-                            device)}
+    lp = {"norm1": norm_init(cfg.norm, cfg.d_model, device),
+          "attn": attn.gqa_init(generator, cfg, device),
+          "norm2": norm_init(cfg.norm, cfg.d_model, device)}
+    if kind == "gqa_moe":
+        lp["moe"] = moe_mod.moe_init(generator, cfg, device)
+    else:
+        lp["mlp"] = mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.act,
+                             device)
+    return lp
 
 
 def init_params(cfg, *, generator: torch.Generator, device=None) -> dict:
@@ -90,24 +108,43 @@ def head_weight(params: dict, cfg):
     return params["lm_head"]["w"]
 
 
+def param_counts(cfg) -> tuple[int, int]:
+    """(total, active) parameter counts.  The shapes come from
+    `init_params` on the ``meta`` device, so nothing is allocated at any
+    width; active leaves out the routed-expert weights a token does not
+    run (per token only top_k of the E experts), as in JAX."""
+    params = init_params(cfg, generator=None, device="meta")
+    total = sum(t.numel() for t in flatten(params).values())
+    active = total
+    if cfg.is_moe:
+        e, k, d, f = (cfg.n_routed_experts, cfg.top_k, cfg.d_model,
+                      cfg.moe_d_ff)
+        n_moe = cfg.n_layers - cfg.first_dense_layers
+        active -= n_moe * (e - k) * 3 * d * f
+    return total, active
+
+
 def _layer(kind, engine, cfg, lp, h, cos, sin, return_cache=False):
-    """One layer of the program: (h, its cache entry or None)."""
+    """One layer of the program: (h, its cache entry or None, its MoE
+    load-balance loss or None)."""
     if kind == "mamba":
         m = ssm_mod.ssm_forward(
             engine, lp["mixer"],
             norm_apply(cfg.norm, lp["norm"], h, cfg.norm_eps), cfg,
             return_cache=return_cache)
         m, cache = m if return_cache else (m, None)
-        return h + m, cache
+        return h + m, cache, None
     a = attn.gqa_forward(engine, lp["attn"],
                          norm_apply(cfg.norm, lp["norm1"], h, cfg.norm_eps),
                          cos, sin, cfg, return_kv=return_cache)
     a, kv = a if return_cache else (a, None)
     h = h + a
-    m = mlp_forward(engine, lp["mlp"],
-                    norm_apply(cfg.norm, lp["norm2"], h, cfg.norm_eps),
-                    cfg.act)
-    return h + m, kv
+    x = norm_apply(cfg.norm, lp["norm2"], h, cfg.norm_eps)
+    if kind == "gqa_moe":
+        m, aux = moe_mod.moe_forward(engine, lp["moe"], x, cfg)
+    else:
+        m, aux = mlp_forward(engine, lp["mlp"], x, cfg.act), None
+    return h + m, kv, aux
 
 
 def _embed(engine, params, tokens):
@@ -122,35 +159,52 @@ def _rope(kind, cfg, positions):
     return rope_table(positions, cfg.head_dim, cfg.rope_theta)
 
 
-def forward_hidden(engine: ComputeEngine, cfg, params: dict, *, tokens,
-                   remat: bool = False):
-    """Full-sequence forward to the final hidden states (B, S, D); tokens
-    (B, S) int.  With ``remat`` each layer runs under
-    ``torch.utils.checkpoint``: its activations are not kept for the
-    backward, which recomputes them (the same values, so the same
-    gradients; only the layer inputs stay alive)."""
-    if not remat:
-        return forward_prefill(engine, cfg, params, tokens=tokens,
-                               collect_caches=False)[0]
+def _forward(engine, cfg, params, tokens, *, collect_caches, remat):
+    """The full-sequence forward: (final hidden (B, S, D), the layers'
+    cache entries or None, the summed MoE aux loss, a 0-d fp32 tensor)."""
     (kind, _), = stack_program(cfg)
     h = _embed(engine, params, tokens)
     cos, sin = _rope(kind, cfg, torch.arange(h.shape[1], device=h.device))
+    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
+    entries = []
 
     def layer(lp, x):
-        return _layer(kind, engine, cfg, lp, x, cos, sin)[0]
+        return _layer(kind, engine, cfg, lp, x, cos, sin,
+                      return_cache=collect_caches)
 
     for lp in params["layers"]:
-        h = checkpoint(layer, lp, h, use_reentrant=False,
-                       preserve_rng_state=False)
-    return norm_apply(cfg.norm, params["final_norm"], h, cfg.norm_eps)
+        if remat:
+            h, entry, aux = checkpoint(layer, lp, h, use_reentrant=False,
+                                       preserve_rng_state=False)
+        else:
+            h, entry, aux = layer(lp, h)
+        entries.append(entry)
+        if aux is not None:
+            aux_total = aux_total + aux
+    h = norm_apply(cfg.norm, params["final_norm"], h, cfg.norm_eps)
+    return h, entries if collect_caches else None, aux_total
+
+
+def forward_hidden(engine: ComputeEngine, cfg, params: dict, *, tokens,
+                   remat: bool = False):
+    """Full-sequence forward to (final hidden states (B, S, D), the summed
+    MoE load-balance loss of the layers, a 0-d fp32 tensor: 0 for a stack
+    without MoE layers); tokens (B, S) int.  With ``remat`` each layer
+    runs under ``torch.utils.checkpoint``: its activations are not kept
+    for the backward, which recomputes them (the same values, so the same
+    gradients; only the layer inputs stay alive)."""
+    h, _, aux = _forward(engine, cfg, params, tokens, collect_caches=False,
+                         remat=remat)
+    return h, aux
 
 
 def loss_fn(engine: ComputeEngine, cfg, params: dict, batch: dict, *,
-            remat: bool = True, ce_chunk: int = 512):
+            aux_coef: float = 0.01, remat: bool = True, ce_chunk: int = 512):
     """Mean token cross-entropy of a training batch ``{"tokens",
-    "labels"}``, each (B, S) int.  A mamba stack differentiates on
-    `eager` and `ref` only: the `cuda` SSD kernel is inference only, and
-    `guard_grad` refuses it under grad.
+    "labels"}``, each (B, S) int, plus ``aux_coef`` times the mean MoE
+    load-balance loss over the MoE layers when the stack has any.  A
+    mamba stack differentiates on `eager` and `ref` only: the `cuda` SSD
+    kernel is inference only, and `guard_grad` refuses it under grad.
 
     The forward dispatches the same engine ops as serving (on `cuda` the
     GEMM and attention kernels, differentiable through `GemmFused` and
@@ -159,32 +213,27 @@ def loss_fn(engine: ComputeEngine, cfg, params: dict, batch: dict, *,
     in place).  ``remat`` recomputes each layer in the backward, the JAX
     ``jax.checkpoint`` of the layer body.  The JAX ``n_q_chunks`` and
     ``kernel_attention=False`` belong to its blockwise attention oracle,
-    which the port does not have yet, so they are left out; the port has
-    no MoE family, so there is no aux loss.
+    which the port does not have yet, so they are left out.
     """
-    h = forward_hidden(engine, cfg, params, tokens=batch["tokens"],
-                       remat=remat)
-    return chunked_cross_entropy(engine, h, head_weight(params, cfg),
-                                 batch["labels"], vocab_real=cfg.vocab_size,
-                                 chunk=ce_chunk)
+    h, aux = forward_hidden(engine, cfg, params, tokens=batch["tokens"],
+                            remat=remat)
+    ce = chunked_cross_entropy(engine, h, head_weight(params, cfg),
+                               batch["labels"], vocab_real=cfg.vocab_size,
+                               chunk=ce_chunk)
+    n_moe = sum(n for kind, n in stack_program(cfg) if "moe" in kind)
+    return ce + aux_coef * aux / n_moe if n_moe else ce
 
 
 def forward_prefill(engine: ComputeEngine, cfg, params: dict, *, tokens,
                     collect_caches: bool = True):
     """Full-sequence forward that also collects the caches: returns
     (hidden (B, S, D), caches), the caches a one-entry list of the layers'
-    entries stacked under a leading layer axis ({"k", "v"} for dense,
-    {"conv_x", "conv_B", "conv_C", "ssm"} for mamba), or (hidden, None)
-    without ``collect_caches``."""
-    (kind, _), = stack_program(cfg)
-    h = _embed(engine, params, tokens)
-    cos, sin = _rope(kind, cfg, torch.arange(h.shape[1], device=h.device))
-    entries = []
-    for lp in params["layers"]:
-        h, entry = _layer(kind, engine, cfg, lp, h, cos, sin,
-                          return_cache=collect_caches)
-        entries.append(entry)
-    h = norm_apply(cfg.norm, params["final_norm"], h, cfg.norm_eps)
+    entries stacked under a leading layer axis ({"k", "v"} for dense and
+    gqa_moe, {"conv_x", "conv_B", "conv_C", "ssm"} for mamba), or
+    (hidden, None) without ``collect_caches``.  A MoE layer's aux loss is
+    dropped, as in JAX."""
+    h, entries, _ = _forward(engine, cfg, params, tokens,
+                             collect_caches=collect_caches, remat=False)
     if not collect_caches:
         return h, None
     return h, [{name: torch.stack([e[name] for e in entries])
@@ -232,8 +281,11 @@ def decode_hidden(engine: ComputeEngine, cfg, params: dict, caches: list,
                                {"k": cache["k"][i], "v": cache["v"][i]},
                                start, cos, sin, cfg)
         h = h + a
-        h = h + mlp_forward(engine, lp["mlp"],
-                            norm_apply(cfg.norm, lp["norm2"], h,
-                                       cfg.norm_eps), cfg.act)
+        x = norm_apply(cfg.norm, lp["norm2"], h, cfg.norm_eps)
+        if kind == "gqa_moe":
+            # each row's C new tokens are one routing group, as in JAX
+            h = h + moe_mod.moe_forward(engine, lp["moe"], x, cfg)[0]
+        else:
+            h = h + mlp_forward(engine, lp["mlp"], x, cfg.act)
     h = norm_apply(cfg.norm, params["final_norm"], h, cfg.norm_eps)
     return h, caches

@@ -290,3 +290,34 @@ def test_a_backward_plan_that_is_not_instantiated_is_refused(plan):
             fn(*args, plan=plan)
     with pytest.raises(ValueError, match="variant"):
         gemm.bwd_plan_for("dy", 4, 6, 5)
+
+
+# llama4-scout's expert GEMMs (16 experts) at the MoE path's dispatch rows
+# (B x capacity): the batched forward's plan measured fastest on an H100
+# (`kernels/time_gemm.py --bmm`, PERF.md)
+EXPERT_PLANS = [(8, gemm.Plan("A", 8, 16)), (16, gemm.Plan("B", 64, 32)),
+                (32, gemm.Plan("B", 64, 32)), (64, gemm.Plan("B", 64, 32)),
+                (80, gemm.Plan("B", 128, 128)),
+                (160, gemm.Plan("B", 64, 32))]
+
+
+@pytest.mark.parametrize("k,n", [(5120, 8192), (8192, 5120)])
+@pytest.mark.parametrize("m,plan", EXPERT_PLANS)
+def test_bmm_plan_of_the_expert_shapes(m, plan, k, n):
+    assert ops.bmm_plan_for(m, k, n) == plan
+
+
+def test_bmm_plan_is_the_engines_and_short_contractions_keep_theirs():
+    """The engine's `bmm` dispatch and the `cuda` einsum (through
+    `ops.bmm`) take `bmm_plan_for`; below a 2048-deep contraction it is
+    the 2-D rule, `default_tiles`."""
+    from repro_torch.core import backends
+    for m, k, n in [(2, 32, 16), (17, 23, 9), (100, 70, 130),
+                    (256, 1024, 4096)]:
+        assert ops.bmm_plan_for(m, k, n) == ops.default_tiles(m, k, n)
+    for m, k, n in [(32, 5120, 8192), (256, 5120, 8192), (80, 8192, 5120)]:
+        assert backends.get_backend("cuda").tiles(
+            "bmm", (m, k, n), torch.float32) == tuple(
+                ops.bmm_plan_for(m, k, n))
+    assert ops.bmm_plan_for(256, 5120, 8192) == ops.default_tiles(
+        256, 5120, 8192)  # engine_bmm's shape keeps its plan

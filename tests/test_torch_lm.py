@@ -70,8 +70,8 @@ def test_configs_equal_the_jax_configs(name):
 
 
 def test_other_families_raise_naming_the_family():
-    cfg = dataclasses.replace(base.get_arch("qwen2-0.5b"), family="moe")
-    with pytest.raises(NotImplementedError, match="'moe'"):
+    cfg = dataclasses.replace(base.get_arch("qwen2-0.5b"), family="hybrid")
+    with pytest.raises(NotImplementedError, match="'hybrid'"):
         tfm.stack_program(cfg)
     with pytest.raises(ValueError, match="unported"):
         base.get_arch("zamba2-7b")
@@ -127,9 +127,10 @@ def test_forward_prefill_logits_and_caches_match_jax(lm):
     jh, _ = jax_tfm.forward_prefill(JAX_ENGINE, jcfg, jparams,
                                     tokens=jnp.asarray(tokens))
     with torch.inference_mode():
-        h = tfm.forward_hidden(ENGINE, cfg, params,
-                               tokens=torch.from_numpy(tokens).long())
+        h, aux = tfm.forward_hidden(ENGINE, cfg, params,
+                                    tokens=torch.from_numpy(tokens).long())
     assert _relmax(h, jh) <= TOL
+    assert float(aux) == 0.0  # no MoE layer
 
 
 def test_three_token_decode_with_per_sequence_positions_matches_jax(lm):
