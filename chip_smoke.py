@@ -69,7 +69,10 @@ script exits non-zero.  Phases:
   9. check_attn  the flash-attention forward kernel against its plain
               version: head ratios (16,16), (14,2), (8,1), Sq 1/4/16 against
               Skv 64/256, causal on and off, kv_len none / per batch with a 0,
-              head dims 32/64/128, fp32 and bf16; then qwen2-0.5b's shapes
+              head dims 32/64/80/128 (80: the two plans `plans_at(80)`
+              admits; the 32-lane plan, dQ, dK / dV and the decode kernel
+              must refuse 80 by name with no launch), fp32 and bf16; then
+              qwen2-0.5b's shapes
               (prefill chunks at batch 1 and 4, a 512-token prompt, the
               training shape, shallow decode).  Rows with no live key must
               be exactly 0.  Bars as phase 2.  At every case every forward
@@ -306,7 +309,46 @@ script exits non-zero.  Phases:
               bound ms; the flash forward at the 2 x 128 prefill and the
               decode kernel at a moe_serve step (G = 5) as phase 15 times
               them.
-Then the kernels line (20 entries), and last the result line.  Every JSON
+ 35. check_frontends  (twice: internvl2-2b, then hubert-xlarge) the
+              projector GEMMs (vision: LayerNorm's output @ w1 with b1 as the
+              shift and gelu, then @ w2 + b2, at 2 x 256 patch rows; audio:
+              @ w + b at 4 x 500 frames) and the untied head at the phases'
+              last-position rows, against their plain versions as phase 2
+              with the path's plan; the flash forward at the model's
+              attention (2 x 320, 16 / 8 heads of 128, causal; 4 x 500,
+              16 / 16 heads of 80, not causal) and the decode kernel at a
+              vlm decode step (2 rows, G = 2, against 336 rows), fp32 and
+              bf16, as phases 9-10, every plan bitwise the path plan's.
+ 36. vlm      internvl2-2b at full width and depth (24 layers, 1.9e9
+              parameters, random from a seed, projector biases and norms
+              moved off their init): a prefill of 2 requests x (256 patch
+              embeddings and 64 text tokens) through make_prefill_step on
+              the inputs dict of configs.base.input_tensors, then 16 greedy
+              decode steps through make_decode_step on caches from
+              kvcache.cache_init (336 rows: the split-KV kernel, G = 2), on
+              `cuda` and on `eager`, each from its own greedy tokens: the
+              tokens equal (a difference allowed only where eager's top-2
+              margin is below 10 x the logits error), prefill and decode
+              logits and caches within 1e-4, exact launch counts (with the
+              counts set to 0 just before each part) and regimes, every op
+              on `cuda`, `eager` launching none; host ms, peak GB.
+ 37. timing_frontends (internvl2-2b)  the prefill and a decode step: host
+              ms, device ms by kernel (torch.profiler), busy share; the
+              flash forward at the prefill and the decode kernel at a step
+              as phase 15 times them (SDPA as the library); the projector
+              GEMMs and the head over the parameters' own weights: kernel,
+              plain, torch.matmul and bound ms.  The model is then freed.
+ 38. check_frontends (hubert-xlarge), as phase 35.
+ 39. audio    hubert-xlarge at full width and depth (48 layers, 0.96e9
+              parameters): make_forward_step over frames (4, 500, 512), 10 s
+              of 16 kHz audio at 50 frames a second, on `cuda` and on
+              `eager`: logits within 1e-4, exact launch counts (with the
+              counts set to 0 just before), every attention launch at head
+              dim 80 and not causal; host ms, peak GB.
+ 40. timing_frontends (hubert-xlarge)  the forward as phase 37, the flash
+              forward at head dim 80 under both plans against SDPA and its
+              bound, the projection GEMM and the head.  The model is freed.
+Then the kernels line (25 entries), and last the result line.  Every JSON
 line carries `t`, the seconds since the script started.
 """
 from __future__ import annotations
@@ -327,7 +369,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs.base import (ShapeConfig, get_arch,  # noqa: E402
-                                       reduced)
+                                       input_tensors, reduced)
 from repro_torch.configs.darknet_ref import DARKNET19_CFG  # noqa: E402
 from repro_torch.core import backends, make_engine  # noqa: E402
 from repro_torch.core.darknet import cfg as darknet_cfg  # noqa: E402
@@ -347,8 +389,10 @@ from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.serve import kvcache, kvpool  # noqa: E402
 from repro_torch.serve.engine import Request, ServingEngine  # noqa: E402
 from repro_torch.serve.scheduler import PagedServingEngine  # noqa: E402
-from repro_torch.serve.serve_step import (make_decode_step,  # noqa: E402
-                                          make_paged_step, make_prefill_step)
+from repro_torch.serve.serve_step import (greedy_sample,  # noqa: E402
+                                          make_decode_step,
+                                          make_forward_step, make_paged_step,
+                                          make_prefill_step)
 from repro_torch.serve.frontend import (CNNServingEngine,  # noqa: E402
                                         ImageRequest)
 from repro_torch.train import optimizer as opt  # noqa: E402
@@ -444,6 +488,11 @@ MOE_SERVE = dict(slots=4, requests=8, prompt=(16, 64), new=(4, 16),
 # prefill of one row
 MOE_BMM_ROWS = {"decode_b2": 16, "decode_b4_or_prefill_2x128": 32,
                 "prefill_1x1024": 80}
+VLM_ARCH = "internvl2-2b"
+VLM_PREFILL = (2, 64)  # vlm: requests x text tokens, after 256 patches
+VLM_DECODE_STEPS = 16  # the caches hold 320 + 16 = 336 rows
+AUDIO_ARCH = "hubert-xlarge"
+AUDIO_FRAMES = (4, 500)  # audio: 10 s of 16 kHz audio at 50 frames a second
 _T0 = time.perf_counter()
 
 
@@ -855,12 +904,25 @@ def attn_work(q, k, kv_len, causal, out_bytes) -> tuple[float, float]:
 
 
 def check_attn_plans(q, k, v, kvl, causal, got, where) -> int:
-    """Every forward plan, with and without lse, against the path plan's
-    outputs at one case, bit for bit; returns the outputs compared."""
+    """Every forward plan the head dim admits (`fa.plans_at`), with and
+    without lse, against the path plan's outputs at one case, bit for bit;
+    a plan it does not admit must be refused with ValueError before any
+    launch.  Returns the outputs compared."""
     o_lse, lse = fa.flash_attention_fwd(q, k, v, kvl, causal=causal,
                                         return_lse=True)
     check(torch.equal(o_lse, got), f"the lse launch's o differs at {where}")
-    for plan in fa.PLANS:
+    plans = fa.plans_at(q.shape[-1])
+    for plan in set(fa.PLANS) - set(plans):
+        before = fa.launch_counts()
+        try:
+            fa.flash_attention_fwd(q, k, v, kvl, causal=causal, plan=plan)
+        except ValueError:
+            pass
+        else:
+            raise RuntimeError(f"plan {plan} was not refused at {where}")
+        check(fa.launch_counts() == before, f"a refused plan launched at "
+              f"{where}")
+    for plan in plans:
         o = fa.flash_attention_fwd(q, k, v, kvl, causal=causal, plan=plan)
         o2, lse2 = fa.flash_attention_fwd(q, k, v, kvl, causal=causal,
                                           return_lse=True, plan=plan)
@@ -868,7 +930,7 @@ def check_attn_plans(q, k, v, kvl, causal, got, where) -> int:
               and torch.equal(lse2, lse),
               f"forward plan {plan} differs from the path plan's bits at "
               f"{where}")
-    return 3 * len(fa.PLANS)
+    return 3 * len(plans)
 
 
 def check_attn_case(q, k, v, kvl, causal) -> tuple[float, float, int]:
@@ -930,6 +992,39 @@ def check_decode_case(q, k, v, kvl, causal) -> tuple[float, float, int,
             merge_abs)
 
 
+def refused_head_dims(cgen) -> list[str]:
+    """On the card, at head dim 80: the dQ, dK / dV and decode kernels and
+    the forward's 32-lane plan must each raise ValueError naming the head
+    dim, with no launch.  Returns the calls refused."""
+    q, k, v = qkv(2, 4, 256, 4, 2, 80, torch.float32, cgen)
+    kvl = torch.tensor([256, 100], dtype=torch.int32, device=cgen.device)
+    lse = torch.zeros(2, 4, 4, device=cgen.device)
+    calls = {
+        "flash_attention_fwd plan (8, 256, 32)": lambda: (
+            fa.flash_attention_fwd(q, k, v, kvl, plan=fa.PLANS[2])),
+        "flash_attention_bwd_dq": lambda: fa.flash_attention_bwd_dq(
+            q, k, v, q, lse, lse),
+        "flash_attention_bwd_dkv": lambda: fa.flash_attention_bwd_dkv(
+            q, k, v, q, lse, lse),
+        "flash_decode": lambda: fd.flash_decode(
+            q, k, v, kvl, causal=False, n_splits=4, span=64),
+        "flash_decode_partials": lambda: fd.flash_decode_partials(
+            q, k, v, kvl, causal=False, n_splits=4, span=64)}
+    before = all_launches()
+    refused = []
+    for name, call in calls.items():
+        try:
+            call()
+        except ValueError as e:
+            check("head dim 80" in str(e), f"{name} at head dim 80: {e}")
+            refused.append(name)
+        else:
+            raise RuntimeError(f"{name} took head dim 80")
+    torch.cuda.synchronize()
+    check(all_launches() == before, "a refused head dim launched a kernel")
+    return refused
+
+
 def attn_phases(cgen) -> dict:
     """Phases check_attn and check_decode; returns the fp32 max-abs errors
     at qwen2-0.5b's shapes."""
@@ -939,7 +1034,7 @@ def attn_phases(cgen) -> dict:
     dev = cgen.device
     cases = bits = dec_bits = 0
     for h, kv in HEAD_RATIOS:
-        for d in (32, 64, 128):
+        for d in fa.FWD_HEAD_DIMS:
             for dt in (torch.float32, torch.bfloat16):
                 kind = "fp32" if dt == torch.float32 else "bf16"
                 for sq in (1, 4, 16):
@@ -955,6 +1050,8 @@ def attn_phases(cgen) -> dict:
                                 worst["attn"][kind] = max(
                                     worst["attn"][kind], err)
                                 cases += 1
+                if d not in fa.HEAD_DIMS:  # the decode kernel: 32/64/128
+                    continue
                 for sq in (1, 4, 8):
                     for skv in (256, 1024):
                         q, k, v = qkv(3, sq, skv, h, kv, d, dt, cgen)
@@ -967,8 +1064,12 @@ def attn_phases(cgen) -> dict:
                             worst["decode"][kind] = max(
                                 worst["decode"][kind], err)
     torch.cuda.synchronize()
+    refused = refused_head_dims(cgen)
     emit("check_attn", grid_cases=cases, relmax=worst["attn"],
-         plans=[list(p) for p in fa.PLANS], plan_outputs_bitwise=bits)
+         head_dims=list(fa.FWD_HEAD_DIMS),
+         plans={d: [list(p) for p in fa.plans_at(d)]
+                for d in fa.FWD_HEAD_DIMS},
+         plan_outputs_bitwise=bits, refused_at_80=refused)
     cfg = get_arch(LM_ARCH)
     h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     rows = []
@@ -991,7 +1092,7 @@ def attn_phases(cgen) -> dict:
                 path_abs["attn"] = max(path_abs["attn"], mabs)
             rows.append({"shape": name, "dtype": str(dt), "relmax": err,
                          "max_abs": mabs,
-                         "plan": list(fa.plan_for(b, sq, h, kv))})
+                         "plan": list(fa.plan_for(b, sq, h, kv, d))})
     emit("check_attn", arch=LM_ARCH, cases=rows, plan_outputs_bitwise=bits)
     rows = []
     for name, (b, sq, skv, lens, causal) in {
@@ -1243,7 +1344,8 @@ def lm_phase(cfg, params, dev) -> dict:
     with torch.inference_mode():
         for label, eng in (("cuda", cuda), ("eager", eager)):
             before = (fa.launches, fd.launches)
-            logits, caches = make_prefill_step(eng, cfg)(params, tokens)
+            logits, caches = make_prefill_step(eng, cfg)(
+                params, {"tokens": tokens})
             buf = kvcache.cache_init(cfg, 1, LM_CACHE, device=dev)
             for name in ("k", "v"):
                 buf[0][name][:, :, :LM_PREFILL] = caches[0][name]
@@ -1474,11 +1576,11 @@ def attn_timing_rows(cfg, shapes, cgen, peak_flops, peak_bw, smi,
                 lambda: fa.flash_attention_fwd(q, k, v, kvl, causal=causal)), (
                 lambda: fa.flash_attention_plain(q, k, v, kvl, causal=causal))
             out_bytes = 4.0 * q.numel()
-            extra = {"plan": list(fa.plan_for(b, sq, h, kv)),
+            extra = {"plan": list(fa.plan_for(b, sq, h, kv, d)),
                      "plans_ms": {str(tuple(p)): graph_ms(
                          lambda p=p: fa.flash_attention_fwd(
                              q, k, v, kvl, causal=causal, plan=p))
-                         for p in fa.PLANS}}
+                         for p in fa.plans_at(d)}}
         flops, nbytes = attn_work(q, k, kvl, causal, out_bytes)
         bound_ms, bound_by = bound(flops, nbytes, peak_flops, peak_bw)
         ms = graph_ms(fn)
@@ -2202,7 +2304,8 @@ def ssm_phase(cfg, params, dev) -> float:
     with torch.inference_mode():
         for label, engine in (("cuda", cuda), ("eager", eager)):
             reset_all_launches()
-            out[label] = make_prefill_step(engine, cfg)(params, tokens)
+            out[label] = make_prefill_step(engine, cfg)(
+                params, {"tokens": tokens})
             torch.cuda.synchronize()
             launches[label] = {**all_launches(), "dispatch": {
                 f"{k[0]}.{k[1]}": v
@@ -2343,9 +2446,10 @@ def timing_ssm_phase(cfg, params, dev, cgen, peak_flops, peak_bw,
             for label, engine in (("cuda", cuda), ("eager", eager)):
                 prefill = make_prefill_step(engine, cfg)
                 decode = make_decode_step(engine, cfg)
-                _, caches = prefill(params, tokens)
+                _, caches = prefill(params, {"tokens": tokens})
                 tok = tokens[:, -1:]
-                pre = host_ms(lambda: prefill(params, tokens), reps=3)
+                pre = host_ms(lambda: prefill(params, {"tokens": tokens}),
+                              reps=3)
                 dec = host_ms(lambda: decode(params, caches, tok, s))
                 steps[f"{label}_b{b}"] = {
                     "prefill_ms": pre, "prefill_tokens_per_s": b * s / pre
@@ -2355,15 +2459,16 @@ def timing_ssm_phase(cfg, params, dev, cgen, peak_flops, peak_bw,
                     decode_kernels = time_ssd.device_time_by_kernel(
                         lambda: decode(params, caches, tok, s))
                     regimes = {
-                        "prefill": regime_counts(lambda: prefill(params,
-                                                                 tokens)),
+                        "prefill": regime_counts(lambda: prefill(
+                            params, {"tokens": tokens})),
                         "decode": regime_counts(lambda: decode(
                             params, caches, tok, s))}
                 del caches
         tokens = torch.from_numpy(rng.integers(
             0, cfg.vocab_size, SSM_PREFILL)).to(dev)
         prefill = make_prefill_step(cuda, cfg)
-        by_kernel = time_ssd.device_time_by_kernel(lambda: prefill(params, tokens))
+        by_kernel = time_ssd.device_time_by_kernel(
+            lambda: prefill(params, {"tokens": tokens}))
     device_ms = sum(r["ms"] for r in by_kernel.values())
     decode_ms = sum(r["ms"] for r in decode_kernels.values())
     cuda_b = steps[f"cuda_b{SSM_PREFILL[0]}"]
@@ -2794,7 +2899,8 @@ def lm_mixed_phase(cfg, params, dev) -> dict:
                                        ("ref", "ref", "mixed"),
                                        ("fp32", "eager", "fp32_strict")):
             engine = make_engine(backend, policy, device=dev)
-            out, _ = make_prefill_step(engine, cfg)(params, tokens)
+            out, _ = make_prefill_step(engine, cfg)(params,
+                                                    {"tokens": tokens})
             logits[label] = out[..., :cfg.vocab_size].float()
     torch.cuda.synchronize()
     err = {"cuda_eager": relmax(logits["cuda"], logits["eager"]),
@@ -3055,7 +3161,7 @@ def moe_phase(cfg, params, dev) -> dict:
             torch.cuda.synchronize()
             reset_all_launches()
             with RouteLog() as routes:
-                logits, caches = prefill(params, tokens)
+                logits, caches = prefill(params, {"tokens": tokens})
                 torch.cuda.synchronize()
                 pre = {"launches": all_launches(),
                        "dispatch": backends.dispatch_counts()}
@@ -3296,6 +3402,449 @@ def timing_moe_phase(cfg, params, dev, cgen, peak_flops, peak_bw, smi,
                              False)}, cgen, peak_flops, peak_bw, smi,
         "timing_moe")
     return {"bmm": rows, "gemm": gem, "step": step, "attention": attn}
+
+
+# ------------------------------------------------------- the frontends ---
+
+def frontend_gemms(cfg) -> list[dict]:
+    """The GEMMs one forward of a frontend config runs, as `lm_gemms`:
+    each layer's projections (SwiGLU's gate, up and down for silu, else
+    the plain MLP's up with its activation and down), the projector (the
+    vision MLP's two layers with their biases as the shift and gelu after
+    the first, or the audio Linear) and the untied head; `rows` names
+    which rows each runs on ("layer", "frontend", "head")."""
+    d, q = cfg.d_model, cfg.n_heads * cfg.head_dim
+    kv = cfg.n_kv_heads * cfg.head_dim
+    mlp = ([("gate", d, cfg.d_ff, "silu"), ("up", d, cfg.d_ff, "linear")]
+           if cfg.act == "silu" else [("up", d, cfg.d_ff, cfg.act)])
+    layer = [("q", d, q, "linear"), ("k", d, kv, "linear"),
+             ("v", d, kv, "linear"), ("o", q, d, "linear"), *mlp,
+             ("down", cfg.d_ff, d, "linear")]
+    out = [{"name": name, "k": k, "n": n, "act": act, "shift": False,
+            "per_dispatch": cfg.n_layers, "rows": "layer"}
+           for name, k, n, act in layer]
+    fd = cfg.frontend_dim
+    if cfg.frontend == "vision":
+        out += [{"name": "projector_1", "k": fd, "n": d, "act": "gelu",
+                 "shift": True, "per_dispatch": 1, "rows": "frontend",
+                 "param": "w1"},
+                {"name": "projector_2", "k": d, "n": d, "act": "linear",
+                 "shift": True, "per_dispatch": 1, "rows": "frontend",
+                 "param": "w2"}]
+    else:
+        out.append({"name": "projection", "k": fd, "n": d, "act": "linear",
+                    "shift": True, "per_dispatch": 1, "rows": "frontend",
+                    "param": "w"})
+    return out + [{"name": "head", "k": d, "n": cfg.vocab_padded,
+                   "act": "linear", "shift": False, "per_dispatch": 1,
+                   "rows": "head"}]
+
+
+def frontend_call_launches(cfg, rows: dict, attention: str) -> dict:
+    """The kernel launches of one prefill or forward (`rows` {"layer",
+    "frontend", "head"}: the rows each GEMM kind runs on, "frontend" None
+    for a decode step) of a frontend config: its GEMMs (`frontend_gemms`)
+    with the forward launches by regime, and one `attention` launch a
+    layer."""
+    want = dict.fromkeys(all_launches(), 0)
+    for g in frontend_gemms(cfg):
+        m = rows[g["rows"]]
+        if m is None:
+            continue
+        plan = ops.default_tiles(m, g["k"], g["n"])
+        want["gemm_fused_fwd"] += g["per_dispatch"]
+        want[f"gemm_fwd_regime_{plan.regime.lower()}"] += g["per_dispatch"]
+    want[attention] = cfg.n_layers
+    return want
+
+
+def frontend_params(cfg, dev, seed):
+    """Full-width, full-depth random parameters from a seed, drawn on the
+    card, with random projector biases and layer-norm parameters (the
+    init's zeros and ones would leave the shift epilogue untested)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = tfm.init_params(cfg, generator=gen, device=dev)
+    fe = params["frontend"]
+    with torch.no_grad():
+        for t in [fe["ln"]["scale"], fe["ln"]["bias"],
+                  *(fe[k] for k in ("b1", "b2", "b") if k in fe)]:
+            t.add_(torch.randn(t.shape, generator=gen, device=dev) * 0.1)
+    return params
+
+
+class AttnLog:
+    """While active, records the head dim and the causal flag of every
+    launch of the flash forward's wrapper (wrapping
+    `flash_attention.flash_attention_fwd`, which `ops.attention` calls)."""
+
+    def __enter__(self):
+        self.calls = []
+        self._fwd = fa.flash_attention_fwd
+
+        def fwd(q, k, v, kv_len=None, *, causal=True, **kw):
+            self.calls.append((q.shape[-1], causal))
+            return self._fwd(q, k, v, kv_len, causal=causal, **kw)
+
+        fa.flash_attention_fwd = fwd
+        return self
+
+    def __exit__(self, *exc):
+        fa.flash_attention_fwd = self._fwd
+
+
+def check_frontends_phase(cfg, cgen, rows: dict, attn_cases: dict,
+                          decode_cases: dict) -> dict:
+    """Phase check_frontends: a frontend config's projector GEMMs and head
+    at the rows its phases give them (`rows`), each against its plain
+    version as phase 2 with the path's plan; the attention kernels at its
+    heads (`attn_cases`, `decode_cases`: {name: (b, sq, skv, kv_len list
+    or None, causal)}), fp32 and bf16, as phases 9-10.  Returns the fp32
+    max-abs errors by kernel."""
+    dev = cgen.device
+    out = {"gemm": 0.0, "attn": 0.0, "decode": 0.0}
+    gemms = []
+    for g in frontend_gemms(cfg):
+        if g["rows"] == "layer":
+            continue
+        m = rows[g["rows"]]
+        res = check_shape(m, g["k"], g["n"],
+                          (ops.default_tiles(m, g["k"], g["n"]),), cgen)
+        out["gemm"] = max(out["gemm"], res["max_abs_err_fp32"])
+        gemms.append({"gemm": g["name"], **res})
+    h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cases = []
+    for kind, shapes in (("attn", attn_cases), ("decode", decode_cases)):
+        for name, (b, sq, skv, lens, causal) in shapes.items():
+            for dt in (torch.float32, torch.bfloat16):
+                q, k, v = qkv(b, sq, skv, h, kv, d, dt, cgen)
+                kvl = (None if lens is None else
+                       torch.tensor(lens, dtype=torch.int32, device=dev))
+                if kind == "attn":
+                    err, mabs, n = check_attn_case(q, k, v, kvl, causal)
+                    extra = {"plan": list(fa.plan_for(b, sq, h, kv, d)),
+                             "plan_outputs_bitwise": n}
+                else:
+                    err, mabs, splits, n, _ = check_decode_case(
+                        q, k, v, kvl, causal)
+                    extra = {"splits": splits, "merge_outputs_bitwise": n}
+                if dt == torch.float32:
+                    out[kind] = max(out[kind], mabs)
+                cases.append({"kernel": kind, "shape": name,
+                              "dims": [b, sq, skv, h, kv, d],
+                              "causal": causal, "dtype": str(dt),
+                              "relmax": err, "max_abs": mabs, **extra})
+                del q, k, v
+    torch.cuda.synchronize()
+    emit("check_frontends", arch=cfg.name, gemms=gemms, attention=cases,
+         max_abs_err=out)
+    return out
+
+
+def vlm_phase(cfg, params, dev) -> dict:
+    """Phase vlm: internvl2-2b at full width and depth, a prefill of
+    VLM_PREFILL requests (256 patch embeddings and the text tokens) through
+    `make_prefill_step`, then VLM_DECODE_STEPS greedy decode steps through
+    `make_decode_step` on caches from `kvcache.cache_init` (the prefill's
+    rows and the steps': the split-KV decode kernel), on `cuda` and on
+    `eager`, each from its own greedy tokens; the launch counts set to 0
+    just before each part.  Returns the errors and the `cuda` launches."""
+    b, text = VLM_PREFILL
+    s = cfg.frontend_tokens + text
+    rows = s + VLM_DECODE_STEPS
+    gen = torch.Generator(device=dev).manual_seed(31)
+    inputs = input_tensors(cfg, ShapeConfig("vlm", s, b, "prefill"),
+                           generator=gen, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = {}
+    with torch.inference_mode():
+        for label in ("cuda", "eager"):
+            eng = make_engine(label, device=dev)
+            prefill, decode = (make_prefill_step(eng, cfg),
+                               make_decode_step(eng, cfg))
+            torch.cuda.synchronize()
+            reset_all_launches()
+            t0 = time.perf_counter()
+            logits, caches = prefill(params, inputs)
+            torch.cuda.synchronize()
+            pre = {"launches": all_launches(),
+                   "dispatch": backends.dispatch_counts(),
+                   "host_ms": (time.perf_counter() - t0) * 1e3}
+            buf = kvcache.cache_init(cfg, b, rows, device=dev)
+            for name in ("k", "v"):
+                buf[0][name][:, :, :s] = caches[0][name]
+            reset_all_launches()
+            toks, dlogits = [greedy_sample(logits)], []
+            t0 = time.perf_counter()
+            for t in range(VLM_DECODE_STEPS):
+                lg, buf = decode(params, buf, toks[-1][:, None].long(),
+                                 torch.tensor(s + t, device=dev))
+                dlogits.append(lg)
+                toks.append(greedy_sample(lg))
+            torch.cuda.synchronize()
+            dec = {"launches": all_launches(),
+                   "dispatch": backends.dispatch_counts(),
+                   "host_ms": (time.perf_counter() - t0) * 1e3
+                   / VLM_DECODE_STEPS}
+            out[label] = {"logits": logits, "caches": caches, "buf": buf,
+                          "dlogits": torch.stack(dlogits),
+                          "tokens": torch.stack(toks, 1), "pre": pre,
+                          "dec": dec}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    cu, ea = out["cuda"], out["eager"]
+    check(tuple(cu["logits"].shape) == (b, 1, cfg.vocab_padded)
+          and tuple(cu["dlogits"].shape) == (VLM_DECODE_STEPS, b, 1,
+                                             cfg.vocab_padded),
+          f"vlm logits {tuple(cu['logits'].shape)}, "
+          f"{tuple(cu['dlogits'].shape)}")
+    for run in (cu, ea):  # the padded vocab columns hold -1e30: cut them
+        run["logits"] = run["logits"][..., :cfg.vocab_size]
+        run["dlogits"] = run["dlogits"][..., :cfg.vocab_size]
+    check(bool(torch.isfinite(cu["logits"]).all()
+               and torch.isfinite(cu["dlogits"]).all()),
+          "non-finite vlm logits")
+    same = (cu["tokens"] == ea["tokens"]).all(0)      # (steps + 1,)
+    j = int(same.logical_not().nonzero()[0]) if not bool(same.all()) \
+        else len(same)
+    # decode step t ran on the tokens 0..t: the same in both while t < j
+    errs = {"prefill_logits": relmax(cu["logits"], ea["logits"]),
+            "decode_logits": (relmax(cu["dlogits"][:j], ea["dlogits"][:j])
+                              if j else 0.0)}
+    for name in ("k", "v"):
+        errs[f"prefill_{name}_cache"] = relmax(cu["caches"][0][name],
+                                               ea["caches"][0][name])
+        errs[f"decode_{name}_cache"] = relmax(
+            cu["buf"][0][name][:, :, :s + j], ea["buf"][0][name][:, :, :s + j])
+    abs_err = max(float((cu["logits"] - ea["logits"]).abs().max()),
+                  float((cu["dlogits"][:j] - ea["dlogits"][:j]).abs().max())
+                  if j else 0.0)
+    mismatch = None
+    if j <= VLM_DECODE_STEPS:
+        lg = ea["logits"] if j == 0 else ea["dlogits"][j - 1]
+        top2 = torch.topk(lg[:, -1], 2).values
+        mismatch = {"token": j, "eager_margin": float(
+            (top2[:, 0] - top2[:, 1]).min()),
+            "allowed_below": MARGIN_FACTOR * abs_err}
+    m_layer, m_patch = b * s, b * cfg.frontend_tokens
+    want_pre = frontend_call_launches(
+        cfg, {"layer": m_layer, "frontend": m_patch, "head": b},
+        "flash_attention")
+    want_dec = {k: VLM_DECODE_STEPS * v for k, v in frontend_call_launches(
+        cfg, {"layer": b, "frontend": None, "head": b},
+        "flash_decode").items()}
+    emit("vlm", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+         heads=[cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+         patches=cfg.frontend_tokens, text_tokens=text, batch=b,
+         decode_steps=VLM_DECODE_STEPS, cache_rows=rows, relmax=errs,
+         logits_max_abs_err=abs_err,
+         logits_max_abs=float(ea["logits"].abs().max()),
+         tokens_equal=mismatch is None, mismatch=mismatch,
+         tokens=cu["tokens"].tolist(),
+         launches_prefill=cu["pre"]["launches"], want_prefill=want_pre,
+         launches_decode=cu["dec"]["launches"], want_decode=want_dec,
+         dispatch_prefill={f"{bk}.{o}": c for (bk, o), c
+                           in cu["pre"]["dispatch"].items()},
+         prefill_host_ms=cu["pre"]["host_ms"],
+         decode_step_host_ms=cu["dec"]["host_ms"],
+         eager_prefill_host_ms=ea["pre"]["host_ms"],
+         eager_decode_step_host_ms=ea["dec"]["host_ms"], peak_gb=peak_gb,
+         param_gb=sum(t.numel() * t.element_size()
+                      for t in flatten(params).values()) / 1e9)
+    check(mismatch is None or mismatch["eager_margin"]
+          < mismatch["allowed_below"],
+          f"vlm greedy tokens differ at a clear margin: {mismatch}")
+    for key, err in errs.items():
+        check(math.isfinite(err) and err <= LOGIT_TOL,
+              f"vlm {key} cuda vs eager {err:.3e} > {LOGIT_TOL:g}")
+    check(cu["pre"]["launches"] == want_pre,
+          f"vlm prefill launches {cu['pre']['launches']}, want {want_pre}")
+    check(cu["dec"]["launches"] == want_dec,
+          f"vlm decode launches {cu['dec']['launches']}, want {want_dec}")
+    for part in ("pre", "dec"):
+        check(all(bk == "cuda" for bk, _ in cu[part]["dispatch"]),
+              f"vlm {part} dispatches {cu[part]['dispatch']}")
+        check(sum(ea[part]["launches"].values()) == 0,
+              "the eager engine launched a kernel of the port")
+    launches = {k: cu["pre"]["launches"][k] + cu["dec"]["launches"][k]
+                for k in cu["pre"]["launches"]}
+    return {"abs_err": abs_err, "errs": errs, "launches": launches,
+            "peak_gb": peak_gb}
+
+
+def audio_phase(cfg, params, dev) -> dict:
+    """Phase audio: hubert-xlarge at full width and depth, `make_forward_step`
+    over frames AUDIO_FRAMES on `cuda` and on `eager`, the launch counts set
+    to 0 just before; every attention launch at head dim 80, not causal.
+    Returns the errors and the `cuda` launches."""
+    b, s = AUDIO_FRAMES
+    gen = torch.Generator(device=dev).manual_seed(41)
+    inputs = input_tensors(cfg, ShapeConfig("audio", s, b, "prefill"),
+                           generator=gen, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = {}
+    with torch.inference_mode():
+        for label in ("cuda", "eager"):
+            forward = make_forward_step(make_engine(label, device=dev), cfg)
+            torch.cuda.synchronize()
+            reset_all_launches()
+            with AttnLog() as attn_calls:
+                t0 = time.perf_counter()
+                logits = forward(params, inputs)
+                torch.cuda.synchronize()
+                host = (time.perf_counter() - t0) * 1e3
+            out[label] = {"logits": logits, "launches": all_launches(),
+                          "dispatch": backends.dispatch_counts(),
+                          "host_ms": host, "attn": attn_calls.calls}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    cu, ea = out["cuda"], out["eager"]
+    check(tuple(cu["logits"].shape) == (b, 1, cfg.vocab_padded),
+          f"audio logits {tuple(cu['logits'].shape)}")
+    for run in (cu, ea):  # the padded vocab columns hold -1e30: cut them
+        run["logits"] = run["logits"][..., :cfg.vocab_size]
+    err = relmax(cu["logits"], ea["logits"])
+    abs_err = float((cu["logits"] - ea["logits"]).abs().max())
+    want = frontend_call_launches(cfg, {"layer": b * s, "frontend": b * s,
+                                        "head": b}, "flash_attention")
+    emit("audio", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+         heads=[cfg.n_heads, cfg.n_kv_heads, cfg.head_dim], frames=[b, s],
+         causal=cfg.causal, logits_relmax=err, logits_max_abs_err=abs_err,
+         logits_max_abs=float(ea["logits"].abs().max()),
+         logits_shape=list(cu["logits"].shape),
+         launches=cu["launches"], want_launches=want,
+         attention_launches=sorted(set(cu["attn"])),
+         dispatch={f"{bk}.{o}": c for (bk, o), c in cu["dispatch"].items()},
+         host_ms=cu["host_ms"], eager_host_ms=ea["host_ms"], peak_gb=peak_gb,
+         param_gb=sum(t.numel() * t.element_size()
+                      for t in flatten(params).values()) / 1e9)
+    check(bool(torch.isfinite(cu["logits"]).all()), "non-finite audio logits")
+    check(math.isfinite(err) and err <= LOGIT_TOL,
+          f"audio logits cuda vs eager {err:.3e} > {LOGIT_TOL:g}")
+    check(cu["launches"] == want,
+          f"audio launches {cu['launches']}, want {want}")
+    check(cu["attn"] == [(cfg.head_dim, False)] * cfg.n_layers,
+          f"audio attention launches {cu['attn']}")
+    check(all(bk == "cuda" for bk, _ in cu["dispatch"]),
+          f"audio dispatches {cu['dispatch']}")
+    check(sum(ea["launches"].values()) == 0 and not ea["attn"],
+          "the eager engine launched a kernel of the port")
+    return {"abs_err": abs_err, "err": err, "launches": cu["launches"],
+            "peak_gb": peak_gb}
+
+
+def step_breakdown(name, fn, smi, cfg, **extra) -> dict:
+    """Host ms (median of 3 synchronised calls), device ms by kernel name
+    (torch.profiler) and the busy share of one call of `fn`, emitted as a
+    timing_frontends line."""
+    host = host_ms(fn, reps=3)
+    by_kernel = time_ssd.device_time_by_kernel(fn)
+    device = sum(r["ms"] for r in by_kernel.values())
+    row = {"host_ms": host, "device_ms": device, "busy_share": device / host,
+           "top_kernels": dict(list(by_kernel.items())[:10])}
+    emit("timing_frontends", part=name, arch=cfg.name, smi=smi, **extra,
+         **row)
+    return row
+
+
+def frontend_gemm_timing(cfg, params, rows, cgen, peak_flops, peak_bw,
+                         smi) -> dict:
+    """The projector GEMMs and the head over the parameters' own weights
+    at the rows the phases give them (`rows`), fp32 with their epilogues:
+    kernel, plain, torch.matmul and bound ms (CUDA-graph replays), summed
+    as the kernels line's row-1 entry of the config."""
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms",
+            "bytes_ms")
+    total = dict.fromkeys(keys, 0.0)
+    per = {}
+    for g in frontend_gemms(cfg):
+        if g["rows"] == "layer":
+            continue
+        m, k, n = rows[g["rows"]], g["k"], g["n"]
+        w = (tfm.head_weight(params, cfg) if g["rows"] == "head"
+             else params["frontend"][g["param"]])
+        sh = (params["frontend"]["b" + g["param"][1:]] if g["shift"]
+              else None)
+        x = torch.randn(m, k, generator=cgen, device=cgen.device)
+        plan = ops.default_tiles(m, k, n)
+        act = g["act"]
+        flops = 2.0 * m * k * n
+        nbytes = 4.0 * (m * k + k * n + m * n + (n if g["shift"] else 0))
+        row = {"ms": graph_ms(lambda: gemm.gemm_fused_fwd(
+                   x, w, None, sh, act=act, plan=plan)),
+               "plain_ms": graph_ms(lambda: gemm.gemm_fused_plain(
+                   x, w, None, sh, act=act)),
+               "library_ms": graph_ms(lambda: torch.matmul(x, w)),
+               "ops_ms": flops / peak_flops * 1e3,
+               "bytes_ms": nbytes / peak_bw * 1e3}
+        row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
+        per[g["name"]] = {**row, "shape": [m, k, n], "act": act,
+                          "shift": g["shift"], "plan": list(plan)}
+        for key in keys:
+            total[key] += row[key]
+        del x
+    total["bound_by"] = ("operations" if total["ops_ms"] >= total["bytes_ms"]
+                         else "bytes")
+    emit("timing_frontends", part="gemm", arch=cfg.name, smi=smi,
+         gemms=per, **total)
+    return total
+
+
+def timing_vlm_phase(cfg, params, dev, cgen, peak_flops, peak_bw,
+                     smi) -> dict:
+    """Phase timing_frontends for internvl2-2b: the prefill of vlm and a
+    decode step against its 336-row caches (host ms, device ms by kernel,
+    busy share); the flash forward at the prefill's attention (causal, 16 /
+    8 heads of 128) and the decode kernel at a decode step (G = 2), each
+    kernel, plain, bound and SDPA ms; the projector GEMMs and the head."""
+    b, text = VLM_PREFILL
+    s = cfg.frontend_tokens + text
+    gen = torch.Generator(device=dev).manual_seed(31)
+    inputs = input_tensors(cfg, ShapeConfig("vlm", s, b, "prefill"),
+                           generator=gen, device=dev)
+    cuda = make_engine("cuda")
+    prefill, decode = make_prefill_step(cuda, cfg), make_decode_step(cuda,
+                                                                     cfg)
+    caches = kvcache.cache_init(cfg, b, s + VLM_DECODE_STEPS, device=dev)
+    tok = torch.ones((b, 1), dtype=torch.int64, device=dev)
+    pos = torch.tensor(s, device=dev)
+    with torch.inference_mode():
+        steps = {"prefill": step_breakdown(
+                     "prefill", lambda: prefill(params, inputs), smi, cfg,
+                     batch=b, positions=s),
+                 "decode": step_breakdown(
+                     "decode_step", lambda: decode(params, caches, tok, pos),
+                     smi, cfg, batch=b, cache_rows=s + VLM_DECODE_STEPS)}
+    del caches
+    attn = attn_timing_rows(cfg, {
+        "vlm_prefill": (b, s, s, None, True),
+        "vlm_decode": (b, 1, s + VLM_DECODE_STEPS, [s + 1] * b, False)},
+        cgen, peak_flops, peak_bw, smi, "timing_frontends")
+    gem = frontend_gemm_timing(cfg, params, {"frontend": b
+                                             * cfg.frontend_tokens,
+                                             "head": b}, cgen, peak_flops,
+                               peak_bw, smi)
+    return {"steps": steps, "attention": attn, "gemm": gem}
+
+
+def timing_audio_phase(cfg, params, dev, cgen, peak_flops, peak_bw,
+                       smi) -> dict:
+    """Phase timing_frontends for hubert-xlarge: the forward of audio (host
+    ms, device ms by kernel, busy share); the flash forward at its
+    attention (head dim 80, not causal), kernel under each plan, plain,
+    bound and SDPA ms; the projection GEMM and the head."""
+    b, s = AUDIO_FRAMES
+    gen = torch.Generator(device=dev).manual_seed(41)
+    inputs = input_tensors(cfg, ShapeConfig("audio", s, b, "prefill"),
+                           generator=gen, device=dev)
+    forward = make_forward_step(make_engine("cuda"), cfg)
+    with torch.inference_mode():
+        steps = {"forward": step_breakdown(
+            "forward", lambda: forward(params, inputs), smi, cfg,
+            frames=[b, s])}
+    attn = attn_timing_rows(cfg, {"audio_forward": (b, s, s, None, False)},
+                            cgen, peak_flops, peak_bw, smi,
+                            "timing_frontends")
+    gem = frontend_gemm_timing(cfg, params, {"frontend": b * s, "head": b},
+                               cgen, peak_flops, peak_bw, smi)
+    return {"steps": steps, "attention": attn, "gemm": gem}
 
 
 def main() -> int:
@@ -3734,6 +4283,33 @@ def main() -> int:
     del mparams
     torch.cuda.empty_cache()
 
+    # ------------------------------------------------ 35-40. the frontends
+    vcfg = get_arch(VLM_ARCH)
+    b, text = VLM_PREFILL
+    s = vcfg.frontend_tokens + text
+    vchk = check_frontends_phase(
+        vcfg, cgen, {"frontend": b * vcfg.frontend_tokens, "head": b},
+        {"vlm_prefill": (b, s, s, None, True)},
+        {"vlm_decode": (b, 1, s + VLM_DECODE_STEPS, [s + 1, s - 20],
+                        False)})
+    vparams = frontend_params(vcfg, dev, 33)
+    vlm = vlm_phase(vcfg, vparams, dev)
+    vt = timing_vlm_phase(vcfg, vparams, dev, cgen, peak_flops, peak_bw,
+                          smi)
+    del vparams
+    torch.cuda.empty_cache()
+    acfg = get_arch(AUDIO_ARCH)
+    b, s = AUDIO_FRAMES
+    achk = check_frontends_phase(
+        acfg, cgen, {"frontend": b * s, "head": b},
+        {"audio_forward": (b, s, s, None, False)}, {})
+    aparams = frontend_params(acfg, dev, 43)
+    aud = audio_phase(acfg, aparams, dev)
+    at = timing_audio_phase(acfg, aparams, dev, cgen, peak_flops, peak_bw,
+                            smi)
+    del aparams
+    torch.cuda.empty_cache()
+
     def kernel_entry(name, source, replaces, path, launches, max_abs_err,
                      row):
         entry = {"name": name, "route": "cuda", "source": source,
@@ -3814,6 +4390,21 @@ def main() -> int:
         kernel_entry("bmm_fwd:moe", SOURCE, REPLACES_BMM, "moe_serve",
                      serve_moe["launches"]["bmm_fwd"], moe_abs["bmm"],
                      moe_rows["bmm"]["decode_b4_or_prefill_2x128"]),
+        kernel_entry("gemm_fused_fwd:vlm", SOURCE, REPLACES, "vlm",
+                     vlm["launches"]["gemm_fused_fwd"], vchk["gemm"],
+                     vt["gemm"]),
+        kernel_entry("flash_attention:vlm", SOURCE_ATTN, REPLACES_ATTN, "vlm",
+                     vlm["launches"]["flash_attention"], vchk["attn"],
+                     vt["attention"]["vlm_prefill"]),
+        kernel_entry("flash_decode:vlm", SOURCE_DECODE, REPLACES_DECODE,
+                     "vlm", vlm["launches"]["flash_decode"], vchk["decode"],
+                     vt["attention"]["vlm_decode"]),
+        kernel_entry("gemm_fused_fwd:audio", SOURCE, REPLACES, "audio",
+                     aud["launches"]["gemm_fused_fwd"], achk["gemm"],
+                     at["gemm"]),
+        kernel_entry("flash_attention:audio", SOURCE_ATTN, REPLACES_ATTN,
+                     "audio", aud["launches"]["flash_attention"],
+                     achk["attn"], at["attention"]["audio_forward"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

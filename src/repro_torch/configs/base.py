@@ -3,16 +3,21 @@
 Every architecture is a frozen ``ArchConfig`` (hashable, so it can key a
 cache); ``reduced()`` gives the small same-family config of the CPU tests.
 The port carries its own copy because the JAX module imports jax.  The
-input specs and the ``SHAPES`` of the JAX dry run stay behind: the port has
-no dry run; `ShapeConfig` comes along for the trainer's data pipeline.
+``SHAPES`` of the JAX dry run stay behind: the port has no dry run;
+`ShapeConfig` comes along for the trainer's data pipeline, and
+`input_tensors` gives the inputs of the JAX ``input_specs`` layout as
+seeded tensors rather than specs.
 `get_arch` knows the configs the port runs: the dense GQA ones,
-mamba2-1.3b (the SSM family) and llama4-scout-17b-a16e (the MoE family's
-GQA program); the other families come with their model code.
+mamba2-1.3b (the SSM family), llama4-scout-17b-a16e (the MoE family's
+GQA program), internvl2-2b (vlm) and hubert-xlarge (audio); the other
+families come with their model code.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
+
+import torch
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
@@ -119,6 +124,8 @@ _MODULES = {
     "qwen2-0.5b": "qwen2_0p5b",
     "mamba2-1.3b": "mamba2_1p3b",
     "llama4-scout-17b-a16e": "llama4_scout_17b",
+    "internvl2-2b": "internvl2_2b",
+    "hubert-xlarge": "hubert_xlarge",
 }
 ARCH_IDS = tuple(_MODULES)
 
@@ -159,3 +166,42 @@ def reduced(cfg: ArchConfig) -> ArchConfig:
     if cfg.n_kv_heads == cfg.n_heads:  # MHA archs stay MHA
         kw.update(n_kv_heads=4)
     return dataclasses.replace(cfg, **kw)
+
+
+def input_tensors(arch: ArchConfig, shape: ShapeConfig, *,
+                  generator: torch.Generator, device=None) -> dict:
+    """The model inputs of one (arch, shape) cell in the JAX
+    ``input_specs`` layout, as tensors drawn from `generator` (which lives
+    on `device`).
+
+    Train and prefill: ``tokens`` (B, S) int64, or for a vision frontend
+    (B, S - frontend_tokens) beside ``patch_embeds`` (B, frontend_tokens,
+    frontend_dim) fp32, or for an audio frontend ``frames`` (B, S,
+    frontend_dim) fp32 in place of tokens; train adds ``labels`` (B, S).
+    Decode: ``token`` (B, 1) and ``pos``, a 0-d int64 tensor (0).  Token
+    ids lie in [0, vocab_size); embeddings are standard normal.
+    """
+    b, s = shape.global_batch, shape.seq_len
+
+    def ids(*size):
+        return torch.randint(0, arch.vocab_size, size, generator=generator,
+                             device=device)
+
+    def normal(*size):
+        return torch.randn(size, generator=generator, device=device)
+
+    if shape.kind == "decode":
+        return {"token": ids(b, 1),
+                "pos": torch.zeros((), dtype=torch.int64, device=device)}
+    inputs: dict = {}
+    if arch.frontend == "audio":
+        inputs["frames"] = normal(b, s, arch.frontend_dim)
+    elif arch.frontend == "vision":
+        inputs["tokens"] = ids(b, s - arch.frontend_tokens)
+        inputs["patch_embeds"] = normal(b, arch.frontend_tokens,
+                                        arch.frontend_dim)
+    else:
+        inputs["tokens"] = ids(b, s)
+    if shape.kind == "train":
+        inputs["labels"] = ids(b, s)
+    return inputs

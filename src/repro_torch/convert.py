@@ -10,11 +10,12 @@ weights ``(Cin, kh*kw*Cout)``, connected weights ``(nin, nout)`` with the
 input flattened in (h, w, c) order, and the per-channel vectors.
 
 `lm_params_from_jax` does the same for the tree of ``repro``'s
-``models.transformer.init_params`` (dense GQA stacks): the JAX tree keeps
-each layer-program entry's layers stacked under a leading layer axis
-(``stacks[0]["attn"]["wq"]`` is (n_layers, D, H*hd)); the port keeps one
-dict per layer (``layers[i]["attn"]["wq"]``, (D, H*hd)).  Every other
-layout is kept.  `lm_params_to_numpy` is its inverse.
+``models.transformer.init_params`` (dense GQA, mamba and GQA MoE stacks,
+and the vision and audio frontends' projector under ``"frontend"``): the
+JAX tree keeps each layer-program entry's layers stacked under a leading
+layer axis (``stacks[0]["attn"]["wq"]`` is (n_layers, D, H*hd)); the port
+keeps one dict per layer (``layers[i]["attn"]["wq"]``, (D, H*hd)).  Every
+other layout is kept.  `lm_params_to_numpy` is its inverse.
 `opt_state_from_jax` / `opt_state_to_numpy` carry the JAX AdamW state
 (``{"mu": tree, "nu": tree, "step"}``) to and from the port's (moments
 keyed by the flat parameter names of `repro_torch.tree.flatten`), so a
@@ -53,6 +54,12 @@ def params_to_numpy(state_dict: Mapping[str, torch.Tensor]
     return tree
 
 
+# The top-level entries of an LM tree that the two layouts share as they
+# are (the stacked layers aside); a config without a frontend or with a
+# tied head lacks some of them.
+TOP_KEYS = ("embed", "final_norm", "frontend", "lm_head")
+
+
 def _tree_map(fn, tree):
     if isinstance(tree, Mapping):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
@@ -71,7 +78,7 @@ def lm_params_from_jax(tree: Mapping, cfg, device=None) -> dict:
         return torch.tensor(np.asarray(a, np.float32), device=device)
 
     params = {key: _tree_map(tensor, tree[key])
-              for key in ("embed", "final_norm", "lm_head") if key in tree}
+              for key in TOP_KEYS if key in tree}
     params["layers"] = [_tree_map(lambda a, i=i: tensor(np.asarray(a)[i]),
                                   stack) for i in range(n)]
     return params
@@ -84,7 +91,7 @@ def lm_params_to_numpy(params: Mapping) -> dict:
         return t.detach().float().cpu().numpy()
 
     tree = {key: _tree_map(array, params[key])
-            for key in ("embed", "final_norm", "lm_head") if key in params}
+            for key in TOP_KEYS if key in params}
     layers = [_tree_map(array, lp) for lp in params["layers"]]
 
     def stack(*leaves):

@@ -23,8 +23,11 @@
 //     K / V tile once from device memory;
 //   * each query row belongs to LPR lanes of one warp (8, 16 or 32), lane
 //     j holding the row's scores of keys j, j + LPR, ... of a 64-key tile:
-//     a lane keeps RT rows by 64 / LPR keys of scores and RT rows by D / LPR
-//     columns of the accumulator, reads operands as 16-byte vectors from
+//     a lane keeps RT rows by 64 / LPR keys of scores and RT rows by
+//     NC = D / LPR columns of the accumulator (runs of 4 columns, 4 LPR
+//     apart, then a tail of NC % 4 consecutive ones: at head dim 80 and 8
+//     lanes, 4 + 4 + 2; a plan whose lanes do not divide D is refused),
+//     reads operands as 16-byte vectors from
 //     rows padded by 16 bytes, and the row's max, sum and rescaling run in
 //     registers with shuffles among the row's lanes, so a tile needs no
 //     shared-memory round trip for its statistics and one barrier;
@@ -148,30 +151,34 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
   reinterpret_cast<__nv_bfloat162*>(p)[1] = hi;
 }
 
-// Column e of the NC a lane j holds of a D-wide row: runs of 4, 4 LPR
-// apart, when NC is a multiple of 4, else NC consecutive columns.
+// Column e of the NC a lane j holds of a D-wide row (D = NC * LPR): NC / 4
+// runs of 4 columns, 4 LPR apart, then a tail of NC % 4 consecutive
+// columns past the runs' 4 LPR (NC / 4) (NC <= 2: NC consecutive columns;
+// head dim 80 at 8 lanes: two runs over columns 0-63, a tail of 2 over
+// 64-79).  The mapping moves no bit: each column is one chain over the
+// keys whichever lane holds it.
 template <int NC, int LPR>
-__device__ __forceinline__ int col(int j, int e) {
-  if constexpr (NC % 4 == 0) return (e / 4) * 4 * LPR + 4 * j + e % 4;
-  return NC * j + e;
+__host__ __device__ constexpr int col(int j, int e) {
+  constexpr int RUNS = NC / 4, TAIL = NC % 4;
+  return e < 4 * RUNS ? (e / 4) * 4 * LPR + 4 * j + e % 4
+                      : 4 * RUNS * LPR + TAIL * j + (e - 4 * RUNS);
 }
 
-// out[e] = row[col<NC, LPR>(j, e)] as fp32.
+// out[e] = row[col<NC, LPR>(j, e)] as fp32: the runs as 16-byte (fp32) or
+// 8-byte (bf16) vectors, the tail element by element.
 template <int NC, int LPR, typename T>
 __device__ __forceinline__ void load_cols(const T* row, int j, float (&out)[NC]) {
-  if constexpr (NC % 4 == 0) {
 #pragma unroll
-    for (int c = 0; c < NC / 4; ++c) {
-      const float4 v = load4(row + 4 * LPR * c + 4 * j);
-      out[4 * c] = v.x;
-      out[4 * c + 1] = v.y;
-      out[4 * c + 2] = v.z;
-      out[4 * c + 3] = v.w;
-    }
-  } else {
-#pragma unroll
-    for (int e = 0; e < NC; ++e) out[e] = attn::to_f32(row[NC * j + e]);
+  for (int c = 0; c < NC / 4; ++c) {
+    const float4 v = load4(row + 4 * LPR * c + 4 * j);
+    out[4 * c] = v.x;
+    out[4 * c + 1] = v.y;
+    out[4 * c + 2] = v.z;
+    out[4 * c + 3] = v.w;
   }
+#pragma unroll
+  for (int e = NC / 4 * 4; e < NC; ++e)
+    out[e] = attn::to_f32(row[col<NC, LPR>(j, e)]);
 }
 
 // ROWS position-major query rows of one (batch, kv-head): row gr is position
@@ -196,7 +203,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int VEC = 16 / sizeof(T);
   constexpr int PIECES = D / VEC;  // 16-byte pieces of a row
   constexpr int NC = D / LPR;      // accumulator columns of a lane
-  static_assert(NC >= 1 && (NC % 4 == 0 || NC <= 2), "columns of a lane");
+  static_assert(NC >= 1 && NC * LPR == D && D % VEC == 0, "columns of a lane");
   extern __shared__ __align__(16) unsigned char smem[];
   T* qs = reinterpret_cast<T*>(smem) + S::Q;
   T* ks = reinterpret_cast<T*>(smem) + S::K;
@@ -363,20 +370,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int h = kvh * G + gr % G;
     const float lsafe = l[i] == 0.f ? 1.f : l[i];
     T* orow = o + ((static_cast<int64_t>(b) * Sq + gr / G) * H + h) * D;
-    if constexpr (NC % 4 == 0) {
 #pragma unroll
-      for (int c = 0; c < NC / 4; ++c) {
-        const float w[4] = {__fdiv_rn(acc[i][4 * c], lsafe),
-                            __fdiv_rn(acc[i][4 * c + 1], lsafe),
-                            __fdiv_rn(acc[i][4 * c + 2], lsafe),
-                            __fdiv_rn(acc[i][4 * c + 3], lsafe)};
-        store4(orow + col<NC, LPR>(j, 4 * c), w);
-      }
-    } else {
-#pragma unroll
-      for (int e = 0; e < NC; ++e)
-        attn::store(orow + col<NC, LPR>(j, e), __fdiv_rn(acc[i][e], lsafe));
+    for (int c = 0; c < NC / 4; ++c) {
+      const float w[4] = {__fdiv_rn(acc[i][4 * c], lsafe),
+                          __fdiv_rn(acc[i][4 * c + 1], lsafe),
+                          __fdiv_rn(acc[i][4 * c + 2], lsafe),
+                          __fdiv_rn(acc[i][4 * c + 3], lsafe)};
+      store4(orow + col<NC, LPR>(j, 4 * c), w);
     }
+#pragma unroll
+    for (int e = NC / 4 * 4; e < NC; ++e)
+      attn::store(orow + col<NC, LPR>(j, e), __fdiv_rn(acc[i][e], lsafe));
     if (lse != nullptr && j == 0)
       lse[(static_cast<int64_t>(b) * H + h) * Sq + gr / G] =
           l[i] > 0.f ? __fadd_rn(m[i], logf(l[i])) : 0.f;
@@ -413,12 +417,23 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
+// A plan whose lanes do not split D evenly is not instantiated at D (the
+// 32-lane plan at head dim 80); flash_attention.py refuses it first.
+template <typename T, int D, typename P>
+cudaError_t launch_if_split(const Args& a) {
+  if constexpr (D % P::LPR == 0) {
+    return launch<T, D, P>(a);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T, int D>
 cudaError_t run_plan(int plan, const Args& a) {
   switch (plan) {
-    case 0: return launch<T, D, P0>(a);
-    case 1: return launch<T, D, P1>(a);
-    case 2: return launch<T, D, P2>(a);
+    case 0: return launch_if_split<T, D, P0>(a);
+    case 1: return launch_if_split<T, D, P1>(a);
+    case 2: return launch_if_split<T, D, P2>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -430,6 +445,8 @@ cudaError_t run_d(int D, int plan, const Args& a) {
       return run_plan<T, 32>(plan, a);
     case 64:
       return run_plan<T, 64>(plan, a);
+    case 80:
+      return run_plan<T, 80>(plan, a);
     case 128:
       return run_plan<T, 128>(plan, a);
     default:

@@ -32,9 +32,15 @@ own launch count (`launches`, `launches_lse`, `launches_dq`,
 `launches_dkv`), moved only where the kernel is launched.
 
 The forward launches under a `FwdPlan`, its query rows and threads per
-block and lanes per query row: `PLANS` are the instantiated plans and
-`plan_for` picks one from the shape.  The dQ kernel launches under a
-`BwdPlan`, its query rows per block: `BWD_PLANS` and `bwd_plan_for`.
+block and lanes per query row: `PLANS` are the instantiated plans,
+`plans_at` those a head dim admits (a plan's lanes must split the head
+dim: at 80 the 32-lane plan is out) and `plan_for` picks one from the
+shape.  The forward is instantiated at head dims `FWD_HEAD_DIMS` (32, 64,
+80, 128), the backward kernels and the decode kernel
+(``flash_decode.py``) at `HEAD_DIMS` (32, 64, 128); each wrapper refuses
+another head dim by name, on the CPU as on the card.  The dQ kernel
+launches under a `BwdPlan`, its query rows per block: `BWD_PLANS` and
+`bwd_plan_for`.
 Every plan gives every output the same bits (one fmaf chain per element
 in a fixed order, ``csrc/flash_attention.cu`` and
 ``csrc/flash_attention_bwd.cu``), so a plan is a matter of speed only.
@@ -51,7 +57,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import attention_mask, flash_attention_ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)  # the head dims the kernels are instantiated for
+FWD_HEAD_DIMS = (32, 64, 80, 128)  # the forward kernel's head dims
+HEAD_DIMS = (32, 64, 128)  # the dQ, dK / dV and decode kernels' head dims
 SMS = 132  # streaming multiprocessors of an H100 SXM
 
 
@@ -208,16 +215,23 @@ def check_operands(q, k, v, kv_len) -> None:
                          f"{kv_len.dtype} {tuple(kv_len.shape)}")
 
 
+def check_head_dim(d: int, dims: tuple, kernel: str) -> None:
+    """ValueError naming `kernel` and head dim `d` unless the kernel is
+    instantiated at it (`dims`)."""
+    if d not in dims:
+        raise ValueError(f"{kernel} is instantiated for head dims {dims}, "
+                         f"not head dim {d}")
+
+
 def cuda_args(q, k, v, kv_len) -> tuple:
-    """The pointer, size and stride arguments both C entry points share,
+    """The pointer, size and stride arguments the C entry points share,
     after checking what the kernels need on the card: one CUDA device,
-    a head dim they are instantiated for, rows contiguous along D."""
+    rows contiguous along D (each wrapper checks its kernel's head dims
+    first, `check_head_dim`)."""
     for name, t in (("k", k), ("v", v), ("kv_len", kv_len)):
         if t is not None and t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
     b, sq, h, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} is not one of {HEAD_DIMS}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"{name} must be contiguous along the head dim")
@@ -247,18 +261,29 @@ def _on_card(name: str, q) -> bool:
     return q.device.type == "cuda"
 
 
-def plan_for(b: int, sq: int, h: int, kv: int) -> FwdPlan:
+def plans_at(d: int) -> tuple[FwdPlan, ...]:
+    """The forward plans instantiated at head dim `d`: those whose lanes
+    split it evenly (every plan at 32, 64 and 128; at 80 the two 8-lane
+    plans, 10 columns a lane)."""
+    return tuple(p for p in PLANS if d % p.lanes == 0)
+
+
+def plan_for(b: int, sq: int, h: int, kv: int, d: int | None = None
+             ) -> FwdPlan:
     """The forward's plan for b sequences of sq query rows, h query heads
-    over kv kv-heads: 128-row blocks when those give every SM a block,
-    else 64-row blocks when those cover half the SMs, else 8-row blocks
-    with a row on a whole warp (`time_attention.py` times every plan:
-    8-row blocks were fastest at the 64-token serving chunk at batch 1 and
-    4, 64-row ones at a 512-token prompt, 128-row ones at the training
-    shapes).  For speed only: every plan gives the same bits."""
+    over kv kv-heads (of head dim d, when given): 128-row blocks when those
+    give every SM a block, else 64-row blocks when those cover half the
+    SMs, else 8-row blocks with a row on a whole warp (`time_attention.py`
+    times every plan: 8-row blocks were fastest at the 64-token serving
+    chunk at batch 1 and 4, 64-row ones at a 512-token prompt, 128-row ones
+    at the training shapes), or 64-row blocks where d does not admit a
+    32-lane row (`plans_at`; head dim 80).  For speed only: every plan
+    gives the same bits."""
     rows = (h // kv) * sq
     if b * kv * -(-rows // 128) >= SMS:
         return PLANS[1]
-    if 2 * b * kv * -(-rows // 64) >= SMS:
+    if (2 * b * kv * -(-rows // 64) >= SMS
+            or (d is not None and PLANS[2] not in plans_at(d))):
         return PLANS[0]
     return PLANS[2]
 
@@ -286,11 +311,18 @@ def flash_attention_fwd(q, k, v, kv_len=None, *, causal: bool = True,
     launch without it.  `plan` is one of `PLANS` (default `plan_for` the
     shape); any plan gives the same bits, and one that is not instantiated
     raises ValueError.  A CPU tensor runs `flash_attention_plain`; a CUDA
-    tensor launches the kernel and raises RuntimeError if it fails.
+    tensor launches the kernel and raises RuntimeError if it fails.  Head
+    dims: `FWD_HEAD_DIMS`, under a plan of `plans_at` the head dim.
     """
     check_operands(q, k, v, kv_len)
-    plan_id = _plan_id(plan_for(q.shape[0], q.shape[1], q.shape[2],
-                                k.shape[2]) if plan is None else plan, PLANS)
+    b, sq, h, d = q.shape
+    check_head_dim(d, FWD_HEAD_DIMS, "flash_attention_fwd")
+    plan_id = _plan_id(plan_for(b, sq, h, k.shape[2], d)
+                       if plan is None else plan, PLANS)
+    if PLANS[plan_id] not in plans_at(d):
+        raise ValueError(f"plan {PLANS[plan_id]} is not instantiated at "
+                         f"head dim {d} (its {PLANS[plan_id].lanes} lanes "
+                         f"do not split a row); use one of {plans_at(d)}")
     if not _on_card("flash_attention_fwd", q):
         return flash_attention_plain(q, k, v, kv_len, causal=causal,
                                      return_lse=return_lse)
@@ -324,8 +356,9 @@ def bwd_plan_for(b: int, sq: int, h: int, kv: int) -> BwdPlan:
     return BwdPlan(64 if b * kv * -(-(h // kv) * sq // 64) >= SMS else 16)
 
 
-def _check_bwd(q, do, lse, delta) -> None:
-    b, sq, h, _ = q.shape
+def _check_bwd(q, do, lse, delta, kernel: str) -> None:
+    b, sq, h, d = q.shape
+    check_head_dim(d, HEAD_DIMS, kernel)
     if do.shape != q.shape or do.dtype != q.dtype:
         raise ValueError(f"dO must be {q.dtype} {tuple(q.shape)}; got "
                          f"{do.dtype} {tuple(do.shape)}")
@@ -364,7 +397,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, kv_len=None, *,
     `flash_attention_bwd_dq_plain`; a CUDA tensor launches the kernel and
     raises RuntimeError if it fails."""
     check_operands(q, k, v, kv_len)
-    _check_bwd(q, do, lse, delta)
+    _check_bwd(q, do, lse, delta, "flash_attention_bwd_dq")
     b, sq, h, _ = q.shape
     plan_id = _plan_id(bwd_plan_for(b, sq, h, k.shape[2])
                        if plan is None else plan, BWD_PLANS)
@@ -392,7 +425,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, kv_len=None, *,
     no atomics.  Operands as `flash_attention_bwd_dq`; a CPU tensor runs
     `flash_attention_bwd_dkv_plain`."""
     check_operands(q, k, v, kv_len)
-    _check_bwd(q, do, lse, delta)
+    _check_bwd(q, do, lse, delta, "flash_attention_bwd_dkv")
     if not _on_card("flash_attention_bwd_dkv", q):
         return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta,
                                              kv_len, causal=causal)
@@ -417,11 +450,13 @@ class FlashAttention(torch.autograd.Function):
     lse).  The backward computes Delta = rowsum(dO o O) in fp32 in PyTorch
     (as ``_flash_vjp_bwd``; a row with no live key has O = 0, so Delta = 0
     there) and launches the dQ kernel under `bwd_plan_for`'s plan and the
-    dK / dV kernel.  kv_len and causal get no gradient.
+    dK / dV kernel.  kv_len and causal get no gradient.  A head dim the
+    backward kernels lack (80) is refused here, before the forward runs.
     """
 
     @staticmethod
     def forward(ctx, q, k, v, kv_len, causal):
+        check_head_dim(q.shape[-1], HEAD_DIMS, "flash_attention_bwd")
         o, lse = flash_attention_fwd(q, k, v, kv_len, causal=causal,
                                      return_lse=True)
         ctx.save_for_backward(q, k, v, kv_len, o, lse)

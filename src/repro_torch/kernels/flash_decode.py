@@ -34,7 +34,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import (DTYPES, STRIDES,
+from repro_torch.kernels.flash_attention import (DTYPES, HEAD_DIMS, STRIDES,
+                                                 check_head_dim,
                                                  check_operands, cuda_args)
 from repro_torch.kernels.ref import attention_mask
 
@@ -156,6 +157,7 @@ def _checked(q, k, v, kv_len, what):
     if kv_len is None:
         raise ValueError(f"{what} needs kv_len")
     check_operands(q, k, v, kv_len)
+    check_head_dim(q.shape[-1], HEAD_DIMS, what)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what} runs on cuda or cpu, not {q.device}")
 

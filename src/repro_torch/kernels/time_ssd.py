@@ -177,19 +177,19 @@ def time_prefill(gen, dev) -> dict:
     build.build_all(("gemm", "ssd"))
     cfg = get_arch("mamba2-1.3b")
     params = tfm.init_params(cfg, generator=gen, device=dev)
-    tokens = torch.from_numpy(np.random.default_rng(11).integers(
-        0, cfg.vocab_size, PREFILL[0])).to(dev)
+    inputs = {"tokens": torch.from_numpy(np.random.default_rng(11).integers(
+        0, cfg.vocab_size, PREFILL[0])).to(dev)}
     prefill = make_prefill_step(make_engine("cuda"), cfg)
     with torch.inference_mode():
-        prefill(params, tokens)
+        prefill(params, inputs)
         torch.cuda.synchronize()
         host = []
         for _ in range(3):
             t0 = time.perf_counter()
-            prefill(params, tokens)
+            prefill(params, inputs)
             torch.cuda.synchronize()
             host.append((time.perf_counter() - t0) * 1e3)
-        runs = [device_time_by_kernel(lambda: prefill(params, tokens))
+        runs = [device_time_by_kernel(lambda: prefill(params, inputs))
                 for _ in range(2)]
 
     def share(runs, word):

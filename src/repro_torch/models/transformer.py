@@ -1,10 +1,16 @@
 """The LM assembled per ArchConfig: the dense GQA, Mamba2 SSM and GQA MoE
-families (PyTorch port of the ``dense``, ``mamba`` and ``gqa_moe`` paths of
-``repro/models/transformer.py``).
+families and the modality frontends (PyTorch port of the ``dense``,
+``mamba`` and ``gqa_moe`` paths of ``repro/models/transformer.py``, with
+its ``_embed_inputs``).
 
 The layer program is static, from the config: ``[("dense", n_layers)]``
-for the dense family, ``[("mamba", n_layers)]`` for the SSM family and
-``[("gqa_moe", n_layers)]`` for a MoE config without MLA (llama4-scout).
+for the dense, vision (``vlm``) and audio families, ``[("mamba",
+n_layers)]`` for the SSM family and ``[("gqa_moe", n_layers)]`` for a MoE
+config without MLA (llama4-scout).  A vision config prepends its
+projected patch embeddings to the text embeddings; an audio config
+projects its frame embeddings in place of a token lookup (it keeps the
+unused ``embed`` table, as JAX's ``init_params`` does) and, being
+encoder-only (``causal=False``), attends both ways with no decode step.
 The JAX package stacks each program entry's layers under one leading layer
 axis and scans over it; the port keeps one parameter dict per layer in
 ``params["layers"]`` and loops (PyTorch runs eagerly, so there is nothing
@@ -13,6 +19,7 @@ to trace).  `convert.lm_params_from_jax` turns a JAX tree into this form.
 Parameters (plain dicts of tensors)::
 
     {"embed": {"tokens": (V_padded, D)}, "final_norm": {...},
+     "frontend": {...},                          # vlm and audio only
      "layers": [{"norm1", "attn", "norm2", "mlp"}, ...],   # dense
      "layers": [{"norm1", "attn", "norm2", "moe"}, ...],   # gqa_moe
      "layers": [{"norm", "mixer"}, ...],                   # mamba
@@ -30,9 +37,8 @@ the sequence length.
 recomputed in the backward (``remat``, the JAX ``jax.checkpoint`` of the
 scanned layer body), the chunked cross-entropy through the (tied) head
 and, for a MoE stack, the mean of the layers' load-balance losses.
-MLA (the ``mla_dense`` / ``mla_moe`` programs), the hybrid (zamba2)
-program and the modality frontends come with their model code; they
-raise NotImplementedError here.
+MLA (the ``mla_dense`` / ``mla_moe`` programs) and the hybrid (zamba2)
+program come with their model code; they raise NotImplementedError here.
 """
 from __future__ import annotations
 
@@ -41,6 +47,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import ComputeEngine
 from repro_torch.models import attention as attn
+from repro_torch.models import frontend as fe
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (chunked_cross_entropy, embed_init,
@@ -51,9 +58,9 @@ from repro_torch.tree import flatten
 
 
 def stack_program(cfg) -> list[tuple[str, int]]:
-    """The static layer program; the dense, SSM and GQA MoE programs are
-    ported."""
-    if cfg.family == "dense":
+    """The static layer program; the dense (also under the vision and audio
+    frontends), SSM and GQA MoE programs are ported."""
+    if cfg.family in ("dense", "vlm", "audio"):
         return [("dense", cfg.n_layers)]
     if cfg.family == "ssm":
         return [("mamba", cfg.n_layers)]
@@ -66,7 +73,8 @@ def stack_program(cfg) -> list[tuple[str, int]]:
         return [("gqa_moe", cfg.n_layers)]
     raise NotImplementedError(
         f"the {cfg.family!r} family ({cfg.name}) is not ported yet: the "
-        f"port runs dense GQA, GQA MoE and mamba stacks only")
+        f"port runs dense GQA (with the vision and audio frontends), GQA "
+        f"MoE and mamba stacks only")
 
 
 def _layer_init(kind: str, generator, cfg, device) -> dict:
@@ -90,9 +98,11 @@ def init_params(cfg, *, generator: torch.Generator, device=None) -> dict:
     (kind, n), = stack_program(cfg)
     params = {"embed": embed_init(generator, cfg.vocab_padded, cfg.d_model,
                                   device),
-              "final_norm": norm_init(cfg.norm, cfg.d_model, device),
-              "layers": [_layer_init(kind, generator, cfg, device)
-                         for _ in range(n)]}
+              "final_norm": norm_init(cfg.norm, cfg.d_model, device)}
+    if cfg.frontend != "none":
+        params["frontend"] = fe.frontend_init(generator, cfg, device)
+    params["layers"] = [_layer_init(kind, generator, cfg, device)
+                        for _ in range(n)]
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": torch.randn(
             cfg.d_model, cfg.vocab_padded, generator=generator,
@@ -152,6 +162,23 @@ def _embed(engine, params, tokens):
                         engine.precision.compute_dtype)
 
 
+def _embed_inputs(engine, cfg, params, tokens=None, patch_embeds=None,
+                  frames=None):
+    """The (B, S, D) input of the layer stack: the projected frames of an
+    audio config; else the token embeddings, after the projected patch
+    embeddings for a vision config (S = patches + text tokens)."""
+    dt = engine.precision.compute_dtype
+    if cfg.frontend == "audio":
+        return fe.frontend_apply(engine, params["frontend"], frames.to(dt),
+                                 cfg)
+    h = _embed(engine, params, tokens)
+    if cfg.frontend == "vision":
+        v = fe.frontend_apply(engine, params["frontend"],
+                              patch_embeds.to(dt), cfg)
+        h = torch.cat([v, h], dim=1)
+    return h
+
+
 def _rope(kind, cfg, positions):
     """The RoPE tables of an attention program, (None, None) for mamba."""
     if kind == "mamba":
@@ -159,11 +186,11 @@ def _rope(kind, cfg, positions):
     return rope_table(positions, cfg.head_dim, cfg.rope_theta)
 
 
-def _forward(engine, cfg, params, tokens, *, collect_caches, remat):
-    """The full-sequence forward: (final hidden (B, S, D), the layers'
-    cache entries or None, the summed MoE aux loss, a 0-d fp32 tensor)."""
+def _forward(engine, cfg, params, h, *, collect_caches, remat):
+    """The full-sequence forward of the stack's input h (B, S, D),
+    `_embed_inputs`'s: (final hidden (B, S, D), the layers' cache entries
+    or None, the summed MoE aux loss, a 0-d fp32 tensor)."""
     (kind, _), = stack_program(cfg)
-    h = _embed(engine, params, tokens)
     cos, sin = _rope(kind, cfg, torch.arange(h.shape[1], device=h.device))
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     entries = []
@@ -185,15 +212,19 @@ def _forward(engine, cfg, params, tokens, *, collect_caches, remat):
     return h, entries if collect_caches else None, aux_total
 
 
-def forward_hidden(engine: ComputeEngine, cfg, params: dict, *, tokens,
+def forward_hidden(engine: ComputeEngine, cfg, params: dict, *,
+                   tokens=None, patch_embeds=None, frames=None,
                    remat: bool = False):
     """Full-sequence forward to (final hidden states (B, S, D), the summed
     MoE load-balance loss of the layers, a 0-d fp32 tensor: 0 for a stack
-    without MoE layers); tokens (B, S) int.  With ``remat`` each layer
+    without MoE layers); tokens (B, S_text) int, with patch_embeds (B, T,
+    frontend_dim) for a vision config, or frames (B, S, frontend_dim) in
+    their place for an audio config.  With ``remat`` each layer
     runs under ``torch.utils.checkpoint``: its activations are not kept
     for the backward, which recomputes them (the same values, so the same
     gradients; only the layer inputs stay alive)."""
-    h, _, aux = _forward(engine, cfg, params, tokens, collect_caches=False,
+    h = _embed_inputs(engine, cfg, params, tokens, patch_embeds, frames)
+    h, _, aux = _forward(engine, cfg, params, h, collect_caches=False,
                          remat=remat)
     return h, aux
 
@@ -201,7 +232,9 @@ def forward_hidden(engine: ComputeEngine, cfg, params: dict, *, tokens,
 def loss_fn(engine: ComputeEngine, cfg, params: dict, batch: dict, *,
             aux_coef: float = 0.01, remat: bool = True, ce_chunk: int = 512):
     """Mean token cross-entropy of a training batch ``{"tokens",
-    "labels"}``, each (B, S) int, plus ``aux_coef`` times the mean MoE
+    "labels"}``, each (B, S) int (with ``patch_embeds`` for a vision
+    config, whose text tokens are then S - T, or ``frames`` in place of
+    tokens for an audio config), plus ``aux_coef`` times the mean MoE
     load-balance loss over the MoE layers when the stack has any.  A
     mamba stack differentiates on `eager` and `ref` only: the `cuda` SSD
     kernel is inference only, and `guard_grad` refuses it under grad.
@@ -215,8 +248,9 @@ def loss_fn(engine: ComputeEngine, cfg, params: dict, batch: dict, *,
     ``kernel_attention=False`` belong to its blockwise attention oracle,
     which the port does not have yet, so they are left out.
     """
-    h, aux = forward_hidden(engine, cfg, params, tokens=batch["tokens"],
-                            remat=remat)
+    h, aux = forward_hidden(engine, cfg, params, tokens=batch.get("tokens"),
+                            patch_embeds=batch.get("patch_embeds"),
+                            frames=batch.get("frames"), remat=remat)
     ce = chunked_cross_entropy(engine, h, head_weight(params, cfg),
                                batch["labels"], vocab_real=cfg.vocab_size,
                                chunk=ce_chunk)
@@ -224,15 +258,17 @@ def loss_fn(engine: ComputeEngine, cfg, params: dict, batch: dict, *,
     return ce + aux_coef * aux / n_moe if n_moe else ce
 
 
-def forward_prefill(engine: ComputeEngine, cfg, params: dict, *, tokens,
+def forward_prefill(engine: ComputeEngine, cfg, params: dict, *,
+                    tokens=None, patch_embeds=None, frames=None,
                     collect_caches: bool = True):
-    """Full-sequence forward that also collects the caches: returns
-    (hidden (B, S, D), caches), the caches a one-entry list of the layers'
-    entries stacked under a leading layer axis ({"k", "v"} for dense and
-    gqa_moe, {"conv_x", "conv_B", "conv_C", "ssm"} for mamba), or
-    (hidden, None) without ``collect_caches``.  A MoE layer's aux loss is
-    dropped, as in JAX."""
-    h, entries, _ = _forward(engine, cfg, params, tokens,
+    """Full-sequence forward (inputs as `forward_hidden`'s) that also
+    collects the caches: returns (hidden (B, S, D), caches), the caches a
+    one-entry list of the layers' entries stacked under a leading layer
+    axis ({"k", "v"} for dense and gqa_moe, {"conv_x", "conv_B", "conv_C",
+    "ssm"} for mamba), or (hidden, None) without ``collect_caches``.  A
+    MoE layer's aux loss is dropped, as in JAX."""
+    h = _embed_inputs(engine, cfg, params, tokens, patch_embeds, frames)
+    h, entries, _ = _forward(engine, cfg, params, h,
                              collect_caches=collect_caches, remat=False)
     if not collect_caches:
         return h, None

@@ -23,7 +23,10 @@ the same stats schema as the CNN engine.  Prompts longer than the KV cache
 are rejected at `submit` with `frontend.RejectedRequest` (or truncated with
 `req.truncated` set, under ``on_overflow="truncate"``); so is an empty
 prompt, as the paged engine rejects it (the JAX slot engine accepts one
-and decodes the slot's stale last token).
+and decodes the slot's stale last token).  A vision config is served on
+its text alone (no patch embeddings reach a decode step), as the JAX
+engine serves it; an encoder-only config is refused at construction
+(`serve_step.require_decoder`; JAX's engine takes it).
 """
 from __future__ import annotations
 
@@ -38,7 +41,8 @@ from repro_torch.core import ComputeEngine, backends, make_engine
 from repro_torch.models.transformer import forward_prefill, stack_program
 from repro_torch.serve import frontend as fe
 from repro_torch.serve import kvcache
-from repro_torch.serve.serve_step import greedy_sample, make_decode_step
+from repro_torch.serve.serve_step import (greedy_sample, make_decode_step,
+                                          require_decoder)
 
 
 @dataclasses.dataclass
@@ -56,6 +60,7 @@ class ServingEngine(fe.ServingFrontend):
         if on_overflow not in ("reject", "truncate"):
             raise ValueError(f"on_overflow must be 'reject' or 'truncate', "
                              f"got {on_overflow!r}")
+        require_decoder(cfg, "ServingEngine")
         self.cfg, self.params = cfg, params
         self.slots, self.max_len, self.eos_id = slots, max_len, eos_id
         self.on_overflow = on_overflow

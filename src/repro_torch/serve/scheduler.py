@@ -43,7 +43,7 @@ from repro_torch.core import (ComputeEngine, StepCompileCache, backends,
 from repro_torch.serve import frontend as fe
 from repro_torch.serve import kvpool
 from repro_torch.serve.engine import Request
-from repro_torch.serve.serve_step import make_paged_step
+from repro_torch.serve.serve_step import make_paged_step, require_decoder
 
 
 @dataclasses.dataclass
@@ -66,7 +66,8 @@ class PagedServingEngine(fe.ServingFrontend):
     Same `ServingFrontend` protocol and stats schema as the slot engine;
     `kv_blocks * block_size` total KV rows replace `slots * max_len`.
     Greedy decoding, like the slot engine.  Defaults to the card
-    (`make_engine()`).
+    (`make_engine()`).  A vision config is served on its text alone; an
+    encoder-only config is refused (`serve_step.require_decoder`).
     """
 
     def __init__(self, cfg, params, *, engine: ComputeEngine | None = None,
@@ -75,6 +76,7 @@ class PagedServingEngine(fe.ServingFrontend):
                  chunk: int = 16, prefill_budget: int = 64,
                  batch_buckets=(1, 2, 4, 8), block_buckets=None,
                  max_wait_s: float | None = None):
+        require_decoder(cfg, "PagedServingEngine")
         self.cfg, self.params = cfg, params
         self.engine = engine = engine or make_engine()
         self.max_len, self.eos_id = max_len, eos_id

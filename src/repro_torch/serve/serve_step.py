@@ -1,5 +1,6 @@
 """Serving steps (PyTorch port of ``repro/serve/serve_step.py``): prefill
-(build the caches and the first logits), one-token decode against the slot
+(build the caches and the first logits), the encoder-only forward (an
+audio config's logits, no cache), one-token decode against the slot
 engine's cache buffers, and the block-table step of the paged scheduler.
 
 Each `make_*` returns a plain function over parameter and cache dicts; the
@@ -21,18 +22,53 @@ from repro_torch.models.common import lm_head_logits
 from repro_torch.serve import kvpool
 
 
+def _inputs(inputs: dict) -> dict:
+    """The model inputs of a JAX-layout inputs dict (`configs.base.
+    input_tensors`): tokens, patch_embeds and frames, each None if
+    absent."""
+    return {key: inputs.get(key)
+            for key in ("tokens", "patch_embeds", "frames")}
+
+
 def make_prefill_step(engine: ComputeEngine, cfg):
-    """prefill_step(params, tokens (B, S)) -> (last-position logits
-    (B, 1, V_padded) fp32, caches): [{"k", "v": (n_layers, B, S, KV, hd)}]
-    for a dense stack, the conv tails and final SSD states for a mamba
-    stack (`models.transformer.forward_prefill`)."""
-    def prefill_step(params, tokens):
-        h, caches = tfm.forward_prefill(engine, cfg, params, tokens=tokens)
+    """prefill_step(params, inputs) -> (last-position logits (B, 1,
+    V_padded) fp32, caches).  ``inputs`` is the JAX inputs dict: {"tokens"
+    (B, S)}, with "patch_embeds" (B, T, frontend_dim) for a vision config
+    (the visual tokens come first, so the caches hold T + S rows).  The
+    caches are [{"k", "v": (n_layers, B, S, KV, hd)}] for a dense stack,
+    the conv tails and final SSD states for a mamba stack
+    (`models.transformer.forward_prefill`)."""
+    def prefill_step(params, inputs):
+        h, caches = tfm.forward_prefill(engine, cfg, params,
+                                        **_inputs(inputs))
         logits = lm_head_logits(engine, h[:, -1:, :],
                                 tfm.head_weight(params, cfg),
                                 vocab_real=cfg.vocab_size)
         return logits, caches
     return prefill_step
+
+
+def make_forward_step(engine: ComputeEngine, cfg):
+    """forward_step(params, inputs) -> last-position logits (B, 1,
+    V_padded) fp32: the encoder-only 'prefill' over the full sequence,
+    with no cache (an audio config's {"frames" (B, S, frontend_dim)}; any
+    config's inputs dict as `make_prefill_step`'s)."""
+    def forward_step(params, inputs):
+        h, _ = tfm.forward_hidden(engine, cfg, params, **_inputs(inputs))
+        return lm_head_logits(engine, h[:, -1:, :],
+                              tfm.head_weight(params, cfg),
+                              vocab_real=cfg.vocab_size)
+    return forward_step
+
+
+def require_decoder(cfg, engine_name: str) -> None:
+    """ValueError for an encoder-only config (``cfg.is_encoder``): it has
+    no decode step, so a serving engine cannot take it."""
+    if cfg.is_encoder:
+        raise ValueError(
+            f"{engine_name} decodes token by token, but {cfg.name} is "
+            f"encoder-only (causal=False) and has no decode step; run it "
+            f"with serve_step.make_forward_step")
 
 
 def make_decode_step(engine: ComputeEngine, cfg):

@@ -34,14 +34,21 @@ direct convolution: the kernel against its plain version under every
 plan (ragged bands, 1x1, asymmetric, th > OH, fp32 and bf16, two runs
 bitwise), and every plan bit for bit the path plan's on a ragged grid; for
 the flash forward, every plan, with and without lse, bit for bit the path
-plan's.
+plan's.  For the modality frontends: the flash forward at head dim 80
+against its plain version under every plan it admits (the 32-lane plan
+refused), the backward and decode kernels refusing head dim 80, reduced
+internvl2-2b's prefill, decode and slot-engine streams and reduced
+hubert-xlarge's forward (at head dim 80) on `cuda` against `eager`.
 """
+import dataclasses
+
 import pytest
 import torch
 
 import numpy as np
 
-from repro_torch.configs.base import ShapeConfig, get_arch, reduced
+from repro_torch.configs.base import (ShapeConfig, get_arch, input_tensors,
+                                      reduced)
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.configs.darknet_ref import DARKNET_SMALL_CFG, SEGNET_SMALL_CFG
 from repro_torch.core import make_engine
@@ -53,7 +60,9 @@ from repro_torch.kernels import conv_direct, ssd
 from repro_torch.models import transformer as tfm
 from repro_torch.serve.engine import Request, ServingEngine
 from repro_torch.serve.scheduler import PagedServingEngine
-from repro_torch.serve.serve_step import make_decode_step, make_prefill_step
+from repro_torch.serve import kvcache
+from repro_torch.serve.serve_step import (make_decode_step, make_forward_step,
+                                          make_prefill_step)
 from repro_torch.kernels.common import ACTIVATIONS, epilogue
 from repro_torch.train import optimizer as opt
 from repro_torch.train.train_step import make_cnn_train_step, make_train_step
@@ -469,9 +478,10 @@ def test_reduced_lm_on_cuda_matches_eager(card):
     tokens = torch.randint(0, cfg.vocab_size, (2, 300),
                            generator=torch.Generator().manual_seed(1)).to(card)
     with torch.inference_mode():
-        got = make_prefill_step(make_engine("cuda"), cfg)(params, tokens)
+        got = make_prefill_step(make_engine("cuda"), cfg)(
+            params, {"tokens": tokens})
         want = make_prefill_step(make_engine("eager", device=card), cfg)(
-            params, tokens)
+            params, {"tokens": tokens})
     assert _relmax(got[0], want[0]) <= 1e-4
     assert _relmax(got[1][0]["k"], want[1][0]["k"]) <= 1e-4
 
@@ -685,7 +695,7 @@ def test_reduced_mamba_on_cuda_matches_eager(card):
     engines = (make_engine("cuda"), make_engine("eager", device=card))
     before = ssd.launches
     with torch.inference_mode():
-        got, want = (make_prefill_step(e, cfg)(params, tokens)
+        got, want = (make_prefill_step(e, cfg)(params, {"tokens": tokens})
                      for e in engines)
         assert ssd.launches == before + cfg.n_layers
         assert _relmax(got[0], want[0]) <= 1e-4
@@ -862,7 +872,8 @@ def test_reduced_llama4_on_cuda_matches_eager(card):
         for label in ("cuda", "eager"):
             eng = make_engine(label, device=card)
             before = gemm.launches_bmm
-            logits, caches = make_prefill_step(eng, cfg)(params, tokens)
+            logits, caches = make_prefill_step(eng, cfg)(
+                params, {"tokens": tokens})
             dlogits, _ = make_decode_step(eng, cfg)(
                 params, caches, tokens[:, -1:], torch.tensor(23, device=card))
             out[label] = (logits, dlogits, gemm.launches_bmm - before)
@@ -880,3 +891,136 @@ def test_reduced_llama4_on_cuda_matches_eager(card):
                       slots=2, max_len=64).run(reqs)
         streams.append([r.out for r in reqs])
     assert streams[0] == streams[1]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("b,sq,skv,h,kv,causal,lens", [
+    (4, 50, 50, 16, 16, False, None),
+    (2, 37, 100, 8, 2, True, [100, 0]),
+    (1, 1, 64, 4, 1, False, [40]),
+    (3, 130, 130, 4, 4, True, [130, 60, 1])])
+def test_forward_at_head_dim_80_matches_plain_under_every_plan(
+        card, b, sq, skv, h, kv, causal, lens, dtype, tol):
+    """The flash forward at head dim 80 (10 columns a lane: runs of 4, 4
+    and a tail of 2) against its plain version, dead rows exact 0, every
+    plan it admits (and the lse launch) bit for bit the path plan's; the
+    32-lane plan is refused by name, before any launch."""
+    q, k, v = _qkv(card, b, sq, skv, h, kv, 80, dtype, seed=21)
+    kvl = (None if lens is None
+           else torch.tensor(lens, dtype=torch.int32, device=card))
+    before = fa.launches
+    got = fa.flash_attention_fwd(q, k, v, kvl, causal=causal)
+    assert fa.launches == before + 1
+    want = fa.flash_attention_plain(q, k, v, kvl, causal=causal)
+    assert _relmax(got, want) <= tol
+    if lens is not None and 0 in lens:
+        assert bool((got[lens.index(0)] == 0).all())
+    o_lse, lse = fa.flash_attention_fwd(q, k, v, kvl, causal=causal,
+                                        return_lse=True)
+    assert torch.equal(o_lse, got)
+    for plan in fa.plans_at(80):
+        assert torch.equal(fa.flash_attention_fwd(
+            q, k, v, kvl, causal=causal, plan=plan), got), plan
+        o2, lse2 = fa.flash_attention_fwd(q, k, v, kvl, causal=causal,
+                                          return_lse=True, plan=plan)
+        assert torch.equal(o2, got) and torch.equal(lse2, lse), plan
+    before = fa.launch_counts()
+    with pytest.raises(ValueError, match="head dim 80"):
+        fa.flash_attention_fwd(q, k, v, kvl, causal=causal, plan=fa.PLANS[2])
+    assert fa.launch_counts() == before
+
+
+def test_backward_and_decode_kernels_refuse_head_dim_80_on_the_card(card):
+    q, k, v = _qkv(card, 2, 4, 256, 4, 2, 80, seed=22)
+    kvl = torch.tensor([256, 100], dtype=torch.int32, device=card)
+    lse = torch.zeros(2, 4, 4, device=card)
+    before = (fa.launch_counts(), fd.launches)
+    for call in (lambda: fa.flash_attention_bwd_dq(q, k, v, q, lse, lse),
+                 lambda: fa.flash_attention_bwd_dkv(q, k, v, q, lse, lse),
+                 lambda: fd.flash_decode(q, k, v, kvl, causal=False,
+                                         n_splits=4, span=64),
+                 lambda: fd.flash_decode_partials(q, k, v, kvl, causal=False,
+                                                  n_splits=4, span=64),
+                 lambda: ops.attention_decode(q, k, v, kvl)):
+        with pytest.raises(ValueError, match="head dim 80"):
+            call()
+    assert (fa.launch_counts(), fd.launches) == before
+
+
+def _frontend_params(cfg, card, seed):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    params = tfm.init_params(cfg, generator=gen, device=card)
+    with torch.no_grad():
+        for name, t in params["frontend"].items():
+            if name.startswith("b"):
+                t.copy_(torch.randn(t.shape, generator=gen, device=card))
+    return params, gen
+
+
+def test_reduced_internvl2_on_cuda_matches_eager(card):
+    """Reduced internvl2-2b (8 patch embeddings before 24 text tokens) on
+    `cuda` against `eager`: the prefill's logits and caches and a decode
+    step against 256 cache rows (the split-KV kernel) within 1e-4, with
+    the projector's two GEMMs launched; the slot engine's text-only
+    streams on `cuda` equal `eager`'s."""
+    cfg = reduced(get_arch("internvl2-2b"))
+    params, gen = _frontend_params(cfg, card, 34)
+    inputs = input_tensors(cfg, ShapeConfig("p", 32, 2, "prefill"),
+                           generator=gen, device=card)
+    out = {}
+    with torch.inference_mode():
+        for label in ("cuda", "eager"):
+            eng = make_engine(label, device=card)
+            before = (gemm.launches, fa.launches, fd.launches)
+            logits, caches = make_prefill_step(eng, cfg)(params, inputs)
+            buf = kvcache.cache_init(cfg, 2, 256, device=card)
+            for name in ("k", "v"):
+                buf[0][name][:, :, :32] = caches[0][name]
+            dlogits, _ = make_decode_step(eng, cfg)(
+                params, buf, inputs["tokens"][:, -1:],
+                torch.tensor(32, device=card))
+            after = (gemm.launches, fa.launches, fd.launches)
+            out[label] = (logits, caches, dlogits,
+                          tuple(a - b for a, b in zip(after, before)))
+    n = cfg.n_layers
+    assert out["cuda"][3] == (2 * 7 * n + 2 + 2, n, n)
+    assert out["eager"][3] == (0, 0, 0)
+    assert _relmax(out["cuda"][0], out["eager"][0]) <= 1e-4
+    assert _relmax(out["cuda"][1][0]["k"], out["eager"][1][0]["k"]) <= 1e-4
+    assert _relmax(out["cuda"][2], out["eager"][2]) <= 1e-4
+    streams = []
+    for label in ("cuda", "eager"):
+        rng = np.random.default_rng(35)
+        reqs = [Request(rid=i, prompt=rng.integers(
+            1, cfg.vocab_size, int(rng.integers(3, 12))).tolist(),
+            max_new=5) for i in range(5)]
+        ServingEngine(cfg, params, engine=make_engine(label, device=card),
+                      slots=2, max_len=64).run(reqs)
+        streams.append([r.out for r in reqs])
+    assert streams[0] == streams[1]
+
+
+def test_reduced_hubert_at_head_dim_80_on_cuda_matches_eager(card):
+    """Reduced hubert-xlarge with its head dim of 80 (4 MHA heads, frames
+    of 64) through `make_forward_step` on `cuda` against `eager`: logits
+    within 1e-4, one flash-forward launch a layer, not causal; the slot
+    engine refuses it."""
+    cfg = dataclasses.replace(reduced(get_arch("hubert-xlarge")),
+                              head_dim=80)
+    params, gen = _frontend_params(cfg, card, 36)
+    inputs = input_tensors(cfg, ShapeConfig("a", 75, 3, "prefill"),
+                           generator=gen, device=card)
+    out = {}
+    with torch.inference_mode():
+        for label in ("cuda", "eager"):
+            before = (gemm.launches, fa.launches)
+            logits = make_forward_step(make_engine(label, device=card), cfg)(
+                params, inputs)
+            out[label] = (logits, (gemm.launches - before[0],
+                                   fa.launches - before[1]))
+    assert out["cuda"][1] == (6 * cfg.n_layers + 2, cfg.n_layers)
+    assert out["eager"][1] == (0, 0)
+    assert _relmax(out["cuda"][0], out["eager"][0]) <= 1e-4
+    with pytest.raises(ValueError, match="encoder-only"):
+        ServingEngine(cfg, params, engine=make_engine("cuda"))

@@ -118,7 +118,7 @@ def test_forward_prefill_logits_and_caches_match_jax(lm):
         jparams, {"tokens": jnp.asarray(tokens)})
     with torch.inference_mode():
         logits, caches = serve_step.make_prefill_step(ENGINE, cfg)(
-            params, torch.from_numpy(tokens).long())
+            params, {"tokens": torch.from_numpy(tokens).long()})
     assert logits.shape == (2, 1, cfg.vocab_padded)
     assert _relmax(logits, jlogits) <= TOL
     for name in ("k", "v"):
@@ -185,8 +185,8 @@ def test_mixed_policy_runs_bf16_with_fp32_logits(lm):
     eng = make_engine("eager", "mixed", device="cpu")
     tokens = torch.arange(6).reshape(1, 6)
     with torch.inference_mode():
-        logits, caches = serve_step.make_prefill_step(eng, cfg)(params,
-                                                                tokens)
+        logits, caches = serve_step.make_prefill_step(eng, cfg)(
+            params, {"tokens": tokens})
     assert logits.dtype == torch.float32
     assert caches[0]["k"].dtype == torch.bfloat16
     assert torch.isfinite(logits).all()
@@ -206,7 +206,7 @@ def test_mixed_policy_matches_jax(lm):
         jparams, {"tokens": jnp.asarray(tokens)})
     with torch.inference_mode():
         logits, pre = serve_step.make_prefill_step(eng, cfg)(
-            params, torch.from_numpy(tokens).long())
+            params, {"tokens": torch.from_numpy(tokens).long()})
     assert logits.dtype == torch.float32
     assert pre[0]["k"].dtype == torch.bfloat16
     assert _relmax(logits, jlogits) <= MIXED_TOL

@@ -32,7 +32,7 @@ from repro_torch.core import make_engine
 from repro_torch.data.pipeline import Prefetcher, SyntheticLM
 from repro_torch.kernels import ops
 from repro_torch.launch import train as launch_train
-from repro_torch.launch.fault import FailureInjected
+from repro_torch.launch.fault import FailureInjected, StepWatchdog
 from repro_torch.models import common
 from repro_torch.models import transformer as tfm
 from repro_torch.train import compression
@@ -370,10 +370,28 @@ def test_checkpoint_is_atomic_and_retains_the_newest(tmp_path):
 
 # --------------------------------------------------------------- trainer ---
 
-def test_crash_restart_is_bit_identical(lm, tmp_path):
-    """Six steps straight vs a crash at step 3 and a restart from the
-    step-3 checkpoint: the same losses and bit-identical parameters."""
-    _, cfg, _ = lm
+class _StragglerAt(StepWatchdog):
+    """A watchdog that reads no clock: it flags exactly the steps in
+    `steps` as stragglers (so `train_loop` checkpoints after them) and no
+    other."""
+
+    def __init__(self, steps=()):
+        super().__init__(threshold=float("inf"))
+        self.steps = set(steps)
+
+    def start(self):
+        pass
+
+    def stop(self, step: int) -> dict:
+        flagged = step in self.steps
+        return {"step_time_s": 0.0, "ewma_s": 0.0, "straggler": flagged,
+                "checkpoint_now": flagged, "recommend_evict": False}
+
+
+def _crash_and_restart(cfg, tmp_path, resume_from):
+    """Six steps straight vs a crash at step 4 and a restart from the
+    newest checkpoint, which must be step `resume_from`; asserts the same
+    losses and bit-identical parameters and moments."""
     args = dict(steps=6, batch=2, seq=16, ckpt_every=3, log_every=100,
                 engine=ENGINE)
     m_ref: list = []
@@ -383,7 +401,7 @@ def test_crash_restart_is_bit_identical(lm, tmp_path):
     with pytest.raises(FailureInjected):
         launch_train.train_loop(cfg, ckpt_dir=str(tmp_path / "b"),
                                 fail_at_step=4, metrics_out=m_crash, **args)
-    assert ckpt.latest_step(str(tmp_path / "b")) == 3
+    assert ckpt.latest_step(str(tmp_path / "b")) == resume_from
     p_got, s_got = launch_train.train_loop(cfg, ckpt_dir=str(tmp_path / "b"),
                                            metrics_out=m_crash, **args)
     ref = {m["step"]: m["loss"] for m in m_ref}
@@ -394,6 +412,27 @@ def test_crash_restart_is_bit_identical(lm, tmp_path):
         assert torch.equal(flatten(p_got)[name], t), name
     assert s_got["step"] == s_ref["step"] == 6
     assert all(torch.equal(s_got["nu"][k], v) for k, v in s_ref["nu"].items())
+
+
+def test_crash_restart_is_bit_identical(lm, tmp_path, monkeypatch):
+    """Six steps straight vs a crash at step 3 and a restart from the
+    step-3 checkpoint: the same losses and bit-identical parameters.  The
+    watchdog reads no clock and never flags a step, so no straggler
+    checkpoint (step 4 under a slow step) can move the restart point."""
+    _, cfg, _ = lm
+    monkeypatch.setattr(launch_train, "StepWatchdog", _StragglerAt)
+    _crash_and_restart(cfg, tmp_path, resume_from=3)
+
+
+def test_crash_restart_from_a_straggler_checkpoint_is_bit_identical(
+        lm, tmp_path, monkeypatch):
+    """As above with step index 3 flagged as a straggler: `train_loop`
+    checkpoints after it (step 4) besides the every-3 checkpoint, the
+    restart resumes from step 4 and is still bit-identical."""
+    _, cfg, _ = lm
+    monkeypatch.setattr(launch_train, "StepWatchdog",
+                        lambda: _StragglerAt({3}))
+    _crash_and_restart(cfg, tmp_path, resume_from=4)
 
 
 def test_train_loop_defaults_to_the_card(lm, monkeypatch):

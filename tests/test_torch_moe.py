@@ -242,7 +242,7 @@ def test_prefill_logits_caches_and_hidden_match_jax(lm):
         jparams, {"tokens": jnp.asarray(tokens)})
     with torch.inference_mode():
         logits, caches = serve_step.make_prefill_step(ENGINE, cfg)(
-            params, torch.from_numpy(tokens).long())
+            params, {"tokens": torch.from_numpy(tokens).long()})
         h, aux = tfm.forward_hidden(ENGINE, cfg, params,
                                     tokens=torch.from_numpy(tokens).long())
     assert logits.shape == (2, 1, cfg.vocab_padded)
@@ -342,7 +342,7 @@ def test_mixed_policy_matches_jax(lm):
                             remat=False, ce_chunk=8)
     with torch.inference_mode():
         logits, pre = serve_step.make_prefill_step(eng, cfg)(
-            params, torch.from_numpy(tokens).long())
+            params, {"tokens": torch.from_numpy(tokens).long()})
         loss = tfm.loss_fn(eng, cfg, params,
                            {k: torch.from_numpy(v).long()
                             for k, v in batch.items()},

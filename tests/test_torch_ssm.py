@@ -303,7 +303,7 @@ def test_prefill_and_decode_steps_match_jax(lm):
         jparams, {"tokens": jnp.asarray(tokens)})
     with torch.inference_mode():
         logits, caches = serve_step.make_prefill_step(ENGINE, cfg)(
-            params, torch.from_numpy(tokens).long())
+            params, {"tokens": torch.from_numpy(tokens).long()})
     assert logits.shape == (2, 1, cfg.vocab_padded)
     assert _relmax(logits, jlogits) <= LM_TOL
     for name in ssm.CACHE_KEYS:
@@ -470,7 +470,7 @@ def test_mixed_policy_matches_jax(lm):
         jparams, {"tokens": jnp.asarray(tokens)})
     with torch.inference_mode():
         logits, caches = serve_step.make_prefill_step(eng, cfg)(
-            params, torch.from_numpy(tokens).long())
+            params, {"tokens": torch.from_numpy(tokens).long()})
     assert logits.dtype == torch.float32
     assert _relmax(logits, jlogits) <= MIXED_TOL
     nxt = np.array(jnp.argmax(jlogits[:, -1], -1), np.int32)[:, None]
