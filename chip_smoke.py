@@ -69,9 +69,11 @@ script exits non-zero.  Phases:
   9. check_attn  the flash-attention forward kernel against its plain
               version: head ratios (16,16), (14,2), (8,1), Sq 1/4/16 against
               Skv 64/256, causal on and off, kv_len none / per batch with a 0,
-              head dims 32/64/80/128 (80: the two plans `plans_at(80)`
-              admits; the 32-lane plan, dQ, dK / dV and the decode kernel
-              must refuse 80 by name with no launch), fp32 and bf16; then
+              head dims 32/64/80/112/128 (80 and 112: the two plans
+              `plans_at` admits; the 32-lane plan, dQ and dK / dV must
+              refuse both by name with no launch, the decode kernel 80; 112
+              draws from a generator of its own and reports its errors
+              apart), fp32 and bf16; then
               qwen2-0.5b's shapes
               (prefill chunks at batch 1 and 4, a 512-token prompt, the
               training shape, shallow decode).  Rows with no live key must
@@ -81,7 +83,8 @@ script exits non-zero.  Phases:
               launch's.
  10. check_decode  the split-KV decode kernel's partials and empty-span
               sentinels against its plain version over Sq 1/4/8 against
-              Skv 256/1024 and qwen2-0.5b's decode shapes; the launch that
+              Skv 256/1024 (head dims 32/64/112/128) and qwen2-0.5b's
+              decode shapes; the launch that
               also merges gives the partials-only launch's partials and
               `combine`'s output (transposed and cast) bit for bit; at one
               split its partial must equal the forward kernel's output bit
@@ -330,8 +333,10 @@ script exits non-zero.  Phases:
               tokens equal (a difference allowed only where eager's top-2
               margin is below 10 x the logits error), prefill and decode
               logits and caches within 1e-4, exact launch counts (with the
-              counts set to 0 just before each part) and regimes, every op
-              on `cuda`, `eager` launching none; host ms, peak GB.
+              counts set to 0 just before each part) and regimes, every
+              flash forward causal at head dim 128, every op on `cuda`,
+              `eager` launching none; host ms, peak GB.  Phases 36 and 42
+              share `prefill_decode_phase`.
  37. timing_frontends (internvl2-2b)  the prefill and a decode step: host
               ms, device ms by kernel (torch.profiler), busy share; the
               flash forward at the prefill and the decode kernel at a step
@@ -348,7 +353,50 @@ script exits non-zero.  Phases:
  40. timing_frontends (hubert-xlarge)  the forward as phase 37, the flash
               forward at head dim 80 under both plans against SDPA and its
               bound, the projection GEMM and the head.  The model is freed.
-Then the kernels line (25 entries), and last the result line.  Every JSON
+ 41. check_hybrid  zamba2-7b's GEMMs (each distinct (K, N) of the mamba
+              projections, the shared block's win, q, k, v, o, gelu up,
+              down and wout, the tied head) at every row count phases
+              42-43 give them: the decode rows (2), the prefill's (1024),
+              a hybrid_serve step's slots (4) and each hybrid_serve
+              admission's prompt but its last token (the head at 2 and 4);
+              the SSD kernel at the prefill shape (2 x 512, 112 heads of
+              64, N 64, chunk 256) and at each admission; the flash
+              forward at head dim 112 (32 / 32 heads, causal) at the 2 x
+              512 prefill and at each admission (1 x 15-63); the decode
+              kernel at G = 1 (2 rows against 528, 4 rows against 256);
+              fp32 and bf16, each against its plain version as phases 2,
+              9-10 and 20, every plan bitwise the path plan's.
+ 42. hybrid   zamba2-7b at full width and depth (81 mamba layers in 13
+              super entries of 6 and a tail of 3, the shared attention +
+              MLP block at every super entry, 6.6e9 parameters, 26.5 GB,
+              random from a seed, dt bias, A, D and the shared norms moved
+              off their init): a prefill of 2 x 512 tokens through
+              make_prefill_step, then 16 greedy decode steps through
+              make_decode_step on caches from kvcache.cache_init (528
+              rows: the split-KV kernel at head dim 112), on `cuda` and on
+              `eager`, each from its own greedy tokens: the 17 tokens
+              equal, logits, every layer's mamba caches and the shared K /
+              V within 1e-4, exact launch counts (with the counts set to 0
+              just before each part: per prefill 591 GEMMs, 13 flash
+              forwards at (112, causal), 81 SSD scans; per decode step 591
+              GEMMs and 13 split-KV launches) and regimes, every op on
+              `cuda`, `eager` launching none; host ms, peak GB.
+ 43. hybrid_serve  the slot ServingEngine on `cuda`, 4 slots, max_len 256,
+              8 requests (prompts 16-64 tokens, max_new 4-12, numpy seed),
+              the counts set to 0 just before and read just after: each
+              admission zeroes the slot's mamba rows and prefills the
+              prompt (SSD and flash forward), each step's shared block on
+              the split-KV kernel, launches exact; each reused-slot
+              request's stream equals its stream alone; every stream
+              equals the slot engine's on `eager` on the card.
+ 44. timing_hybrid  the prefill and a decode step: host ms, device ms by
+              kernel (torch.profiler), busy share; the flash forward at
+              the prefill and the decode kernel at a step (SDPA as the
+              library), the SSD kernel at the prefill shape, and a decode
+              dispatch's GEMMs over the parameters' own weights (each
+              kind's launches in one CUDA graph): kernel, plain, library
+              and bound ms.  The model is freed.
+Then the kernels line (29 entries), and last the result line.  Every JSON
 line carries `t`, the seconds since the script started.
 """
 from __future__ import annotations
@@ -493,6 +541,13 @@ VLM_PREFILL = (2, 64)  # vlm: requests x text tokens, after 256 patches
 VLM_DECODE_STEPS = 16  # the caches hold 320 + 16 = 336 rows
 AUDIO_ARCH = "hubert-xlarge"
 AUDIO_FRAMES = (4, 500)  # audio: 10 s of 16 kHz audio at 50 frames a second
+HYBRID_ARCH = "zamba2-7b"
+HYBRID_PREFILL = (2, 512)  # hybrid: batch x prompt tokens (two SSD chunks)
+HYBRID_DECODE_STEPS = 16  # the caches hold 512 + 16 = 528 rows
+# the slot engine's cache rows (256) give its decode steps the split-KV
+# kernel (ops.DECODE_MIN_SKV)
+HYBRID_SERVE = dict(slots=4, requests=8, prompt=(16, 64), new=(4, 12),
+                    max_len=256)
 _T0 = time.perf_counter()
 
 
@@ -1025,21 +1080,66 @@ def refused_head_dims(cgen) -> list[str]:
     return refused
 
 
+def refused_at_112() -> list[str]:
+    """On the card, at zamba2's head dim 112: dQ, dK / dV and the
+    forward's 32-lane plan must each raise ValueError naming the head dim,
+    with no launch (zeros: no draw from a generator).  Returns the calls
+    refused."""
+    dev = torch.device("cuda", 0)
+    q = torch.zeros(2, 4, 4, 112, device=dev)
+    k = torch.zeros(2, 64, 4, 112, device=dev)
+    lse = torch.zeros(2, 4, 4, device=dev)
+    calls = {
+        "flash_attention_fwd plan (8, 256, 32)": lambda: (
+            fa.flash_attention_fwd(q, k, k, plan=fa.PLANS[2])),
+        "flash_attention_bwd_dq": lambda: fa.flash_attention_bwd_dq(
+            q, k, k, q, lse, lse),
+        "flash_attention_bwd_dkv": lambda: fa.flash_attention_bwd_dkv(
+            q, k, k, q, lse, lse)}
+    before = all_launches()
+    refused = []
+    for name, call in calls.items():
+        try:
+            call()
+        except ValueError as e:
+            check("head dim 112" in str(e), f"{name} at head dim 112: {e}")
+            refused.append(name)
+        else:
+            raise RuntimeError(f"{name} took head dim 112")
+    torch.cuda.synchronize()
+    check(all_launches() == before, "a refused head dim launched a kernel")
+    return refused
+
+
+# Head dims added to check_attn's grid after 32 / 64 / 80 / 128 draw their
+# operands from a generator of their own (seeded with the head dim), so
+# the grid's other draws, and every error printed after them, stay those
+# of the runs before the addition.
+NEW_HEAD_DIMS = (112,)
+
+
 def attn_phases(cgen) -> dict:
     """Phases check_attn and check_decode; returns the fp32 max-abs errors
-    at qwen2-0.5b's shapes."""
+    at qwen2-0.5b's shapes.  The grid's worst errors are reported for the
+    head dims 32 / 64 / 80 / 128 and, apart, for each later one
+    (`NEW_HEAD_DIMS`)."""
     worst = {"attn": {"fp32": 0.0, "bf16": 0.0},
              "decode": {"fp32": 0.0, "bf16": 0.0}}
     path_abs = {"attn": 0.0, "decode": 0.0, "merge": 0.0}
     dev = cgen.device
+    new = {d: ({"attn": {"fp32": 0.0, "bf16": 0.0},
+                "decode": {"fp32": 0.0, "bf16": 0.0}},
+               torch.Generator(device=dev).manual_seed(d))
+           for d in NEW_HEAD_DIMS}
     cases = bits = dec_bits = 0
     for h, kv in HEAD_RATIOS:
         for d in fa.FWD_HEAD_DIMS:
+            dworst, gen = new.get(d, (worst, cgen))
             for dt in (torch.float32, torch.bfloat16):
                 kind = "fp32" if dt == torch.float32 else "bf16"
                 for sq in (1, 4, 16):
                     for skv in (64, 256):
-                        q, k, v = qkv(2, sq, skv, h, kv, d, dt, cgen)
+                        q, k, v = qkv(2, sq, skv, h, kv, d, dt, gen)
                         kvl = torch.tensor([skv // 2 + 3, 0],
                                            dtype=torch.int32, device=dev)
                         for causal in (True, False):
@@ -1047,29 +1147,33 @@ def attn_phases(cgen) -> dict:
                                 err, _, n = check_attn_case(q, k, v, lens,
                                                             causal)
                                 bits += n
-                                worst["attn"][kind] = max(
-                                    worst["attn"][kind], err)
+                                dworst["attn"][kind] = max(
+                                    dworst["attn"][kind], err)
                                 cases += 1
-                if d not in fa.HEAD_DIMS:  # the decode kernel: 32/64/128
+                if d not in fd.HEAD_DIMS:  # the decode kernel: 32/64/112/128
                     continue
                 for sq in (1, 4, 8):
                     for skv in (256, 1024):
-                        q, k, v = qkv(3, sq, skv, h, kv, d, dt, cgen)
+                        q, k, v = qkv(3, sq, skv, h, kv, d, dt, gen)
                         kvl = torch.tensor([skv, skv // 3, 0],
                                            dtype=torch.int32, device=dev)
                         for causal in (True, False):
                             err, _, _, n, _ = check_decode_case(q, k, v, kvl,
                                                                 causal)
                             dec_bits += n
-                            worst["decode"][kind] = max(
-                                worst["decode"][kind], err)
+                            dworst["decode"][kind] = max(
+                                dworst["decode"][kind], err)
     torch.cuda.synchronize()
     refused = refused_head_dims(cgen)
     emit("check_attn", grid_cases=cases, relmax=worst["attn"],
          head_dims=list(fa.FWD_HEAD_DIMS),
          plans={d: [list(p) for p in fa.plans_at(d)]
                 for d in fa.FWD_HEAD_DIMS},
-         plan_outputs_bitwise=bits, refused_at_80=refused)
+         plan_outputs_bitwise=bits, refused_at_80=refused,
+         refused_at_112=refused_at_112(),
+         relmax_new_head_dims={d: w["attn"] for d, (w, _) in new.items()},
+         decode_relmax_new_head_dims={d: w["decode"]
+                                      for d, (w, _) in new.items()})
     cfg = get_arch(LM_ARCH)
     h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     rows = []
@@ -1347,8 +1451,7 @@ def lm_phase(cfg, params, dev) -> dict:
             logits, caches = make_prefill_step(eng, cfg)(
                 params, {"tokens": tokens})
             buf = kvcache.cache_init(cfg, 1, LM_CACHE, device=dev)
-            for name in ("k", "v"):
-                buf[0][name][:, :, :LM_PREFILL] = caches[0][name]
+            kvcache.copy_prefill(cfg, buf, caches, LM_PREFILL)
             step = make_decode_step(eng, cfg)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(dev)
@@ -2216,6 +2319,41 @@ def ssm_serve_shapes(cfg) -> list:
             for r in ssm_serve_requests(cfg)]
 
 
+def check_ssd_case(case, dtype, init, cgen) -> tuple[float, float, int]:
+    """The SSD kernel against its plain version at one case (b, s, h, p,
+    g, n, chunk), with or without an initial state: y and the final state
+    within the bar of `dtype`, two runs bitwise equal, every plan
+    (ssd.PLANS) bitwise the path plan's.  Returns (max-relative error,
+    max-abs error, outputs compared bitwise)."""
+    b, s, h, p, g, n, chunk = case
+    x, dt, a, bm, cm, st = ssd_operands(b, s, h, p, g, n, dtype, cgen, init)
+    got = ops.ssd(x, dt, a, bm, cm, chunk=chunk, init_state=st)
+    again = ops.ssd(x, dt, a, bm, cm, chunk=chunk, init_state=st)
+    want = ssd.ssd_scan_plain(x, dt, (dt * a).contiguous(), bm, cm,
+                              chunk=chunk, init_state=st)
+    torch.cuda.synchronize()
+    where = f"{case} {dtype} init={init}"
+    check(all(bool(torch.isfinite(t).all()) for t in got),
+          f"non-finite SSD output at {where}")
+    err = max(relmax(got[0], want[0]), relmax(got[1], want[1]))
+    check(err <= (FP32_TOL if dtype == torch.float32 else BF16_TOL),
+          f"SSD kernel vs plain {err:.3e} at {where}")
+    check(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]),
+          f"two SSD runs differ at {where}")
+    da = (dt * a).contiguous()
+    bits = 0
+    for plan in ssd.PLANS:
+        other = ssd.ssd_scan(x, dt, da, bm, cm, chunk=chunk, init_state=st,
+                             plan=plan)
+        check(torch.equal(other[0], got[0]) and torch.equal(other[1], got[1]),
+              f"SSD plan {plan} differs from the path plan's bits at "
+              f"{where}")
+        bits += 2
+    mabs = max(float((g.double() - w.double()).abs().max())
+               for g, w in zip(got, want))
+    return err, mabs, bits
+
+
 def check_ssd_phase(cfg, cgen) -> dict:
     """Phase check_ssd: the SSD kernel against its plain version over
     SSD_GRID, the ssm phase's prefill shape and every shape ssm_serve
@@ -2230,43 +2368,16 @@ def check_ssd_phase(cfg, cgen) -> dict:
     path_abs = {"prefill": 0.0, "serve": 0.0}
     bits = 0
     for case in [*SSD_GRID, prefill, *serve]:
-        b, s, h, p, g, n, chunk = case
         for dtype, kind in ((torch.float32, "fp32"), (torch.bfloat16,
                                                       "bf16")):
             for init in (False, True):
-                x, dt, a, bm, cm, st = ssd_operands(b, s, h, p, g, n, dtype,
-                                                    cgen, init)
-                got = ops.ssd(x, dt, a, bm, cm, chunk=chunk, init_state=st)
-                again = ops.ssd(x, dt, a, bm, cm, chunk=chunk,
-                                init_state=st)
-                want = ssd.ssd_scan_plain(x, dt, (dt * a).contiguous(), bm,
-                                          cm, chunk=chunk, init_state=st)
-                torch.cuda.synchronize()
-                where = f"{case} {kind} init={init}"
-                check(all(bool(torch.isfinite(t).all()) for t in got),
-                      f"non-finite SSD output at {where}")
-                err = max(relmax(got[0], want[0]), relmax(got[1], want[1]))
-                check(err <= (FP32_TOL if kind == "fp32" else BF16_TOL),
-                      f"SSD kernel vs plain {err:.3e} at {where}")
-                check(torch.equal(got[0], again[0])
-                      and torch.equal(got[1], again[1]),
-                      f"two SSD runs differ at {where}")
-                da = (dt * a).contiguous()
-                for plan in ssd.PLANS:
-                    other = ssd.ssd_scan(x, dt, da, bm, cm, chunk=chunk,
-                                         init_state=st, plan=plan)
-                    check(torch.equal(other[0], got[0])
-                          and torch.equal(other[1], got[1]),
-                          f"SSD plan {plan} differs from the path plan's "
-                          f"bits at {where}")
-                    bits += 2
+                err, mabs, n = check_ssd_case(case, dtype, init, cgen)
+                bits += n
                 worst[kind] = max(worst[kind], err)
                 which = ("prefill" if case == prefill else
                          "serve" if case in serve else None)
                 if which and kind == "fp32":
-                    path_abs[which] = max(path_abs[which], *(float(
-                        (g.double() - w.double()).abs().max())
-                        for g, w in zip(got, want)))
+                    path_abs[which] = max(path_abs[which], mabs)
                 rows.append({"case": list(case), "dtype": kind,
                              "init": init, "relmax": err,
                              "plan": list(ssd.plan_for(*case))})
@@ -3166,8 +3277,7 @@ def moe_phase(cfg, params, dev) -> dict:
                 pre = {"launches": all_launches(),
                        "dispatch": backends.dispatch_counts()}
                 buf = kvcache.cache_init(cfg, b, MOE_CACHE, device=dev)
-                for name in ("k", "v"):
-                    buf[0][name][:, :, :s] = caches[0][name]
+                kvcache.copy_prefill(cfg, buf, caches, s)
                 reset_all_launches()
                 dlogits = []
                 for t in range(MOE_DECODE_STEPS):
@@ -3492,6 +3602,40 @@ class AttnLog:
         fa.flash_attention_fwd = self._fwd
 
 
+def check_attn_cases(cfg, cgen, cases) -> tuple[list, dict]:
+    """The flash forward ("attn") and the split-KV decode ("decode") at
+    the config's heads at `cases` [(kind, name, (b, sq, skv, kv_len list
+    or None, causal))], fp32 and bf16, as phases 9-10: every forward plan
+    bitwise the path plan's, the merged decode bitwise `combine`, the
+    one-split decode bitwise the forward.  Returns the rows and the fp32
+    max-abs errors by kind."""
+    dev = cgen.device
+    h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    rows, worst = [], {"attn": 0.0, "decode": 0.0}
+    for kind, name, (b, sq, skv, lens, causal) in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = qkv(b, sq, skv, h, kv, d, dt, cgen)
+            kvl = (None if lens is None else
+                   torch.tensor(lens, dtype=torch.int32, device=dev))
+            if kind == "attn":
+                err, mabs, n = check_attn_case(q, k, v, kvl, causal)
+                extra = {"plan": list(fa.plan_for(b, sq, h, kv, d)),
+                         "plan_outputs_bitwise": n}
+            else:
+                err, mabs, splits, n, _ = check_decode_case(q, k, v, kvl,
+                                                            causal)
+                extra = {"splits": splits, "merge_outputs_bitwise": n}
+            if dt == torch.float32:
+                worst[kind] = max(worst[kind], mabs)
+            rows.append({"kernel": kind, "shape": name,
+                         "dims": [b, sq, skv, h, kv, d], "causal": causal,
+                         "dtype": str(dt), "relmax": err, "max_abs": mabs,
+                         **extra})
+            del q, k, v
+    torch.cuda.synchronize()
+    return rows, worst
+
+
 def check_frontends_phase(cfg, cgen, rows: dict, attn_cases: dict,
                           decode_cases: dict) -> dict:
     """Phase check_frontends: a frontend config's projector GEMMs and head
@@ -3500,8 +3644,7 @@ def check_frontends_phase(cfg, cgen, rows: dict, attn_cases: dict,
     heads (`attn_cases`, `decode_cases`: {name: (b, sq, skv, kv_len list
     or None, causal)}), fp32 and bf16, as phases 9-10.  Returns the fp32
     max-abs errors by kernel."""
-    dev = cgen.device
-    out = {"gemm": 0.0, "attn": 0.0, "decode": 0.0}
+    out = {"gemm": 0.0}
     gemms = []
     for g in frontend_gemms(cfg):
         if g["rows"] == "layer":
@@ -3511,49 +3654,43 @@ def check_frontends_phase(cfg, cgen, rows: dict, attn_cases: dict,
                           (ops.default_tiles(m, g["k"], g["n"]),), cgen)
         out["gemm"] = max(out["gemm"], res["max_abs_err_fp32"])
         gemms.append({"gemm": g["name"], **res})
-    h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    cases = []
-    for kind, shapes in (("attn", attn_cases), ("decode", decode_cases)):
-        for name, (b, sq, skv, lens, causal) in shapes.items():
-            for dt in (torch.float32, torch.bfloat16):
-                q, k, v = qkv(b, sq, skv, h, kv, d, dt, cgen)
-                kvl = (None if lens is None else
-                       torch.tensor(lens, dtype=torch.int32, device=dev))
-                if kind == "attn":
-                    err, mabs, n = check_attn_case(q, k, v, kvl, causal)
-                    extra = {"plan": list(fa.plan_for(b, sq, h, kv, d)),
-                             "plan_outputs_bitwise": n}
-                else:
-                    err, mabs, splits, n, _ = check_decode_case(
-                        q, k, v, kvl, causal)
-                    extra = {"splits": splits, "merge_outputs_bitwise": n}
-                if dt == torch.float32:
-                    out[kind] = max(out[kind], mabs)
-                cases.append({"kernel": kind, "shape": name,
-                              "dims": [b, sq, skv, h, kv, d],
-                              "causal": causal, "dtype": str(dt),
-                              "relmax": err, "max_abs": mabs, **extra})
-                del q, k, v
-    torch.cuda.synchronize()
+    cases, worst = check_attn_cases(cfg, cgen, [
+        *(("attn", name, c) for name, c in attn_cases.items()),
+        *(("decode", name, c) for name, c in decode_cases.items())])
+    out.update(worst)
     emit("check_frontends", arch=cfg.name, gemms=gemms, attention=cases,
          max_abs_err=out)
     return out
 
 
-def vlm_phase(cfg, params, dev) -> dict:
-    """Phase vlm: internvl2-2b at full width and depth, a prefill of
-    VLM_PREFILL requests (256 patch embeddings and the text tokens) through
-    `make_prefill_step`, then VLM_DECODE_STEPS greedy decode steps through
-    `make_decode_step` on caches from `kvcache.cache_init` (the prefill's
-    rows and the steps': the split-KV decode kernel), on `cuda` and on
-    `eager`, each from its own greedy tokens; the launch counts set to 0
-    just before each part.  Returns the errors and the `cuda` launches."""
-    b, text = VLM_PREFILL
-    s = cfg.frontend_tokens + text
-    rows = s + VLM_DECODE_STEPS
-    gen = torch.Generator(device=dev).manual_seed(31)
-    inputs = input_tensors(cfg, ShapeConfig("vlm", s, b, "prefill"),
-                           generator=gen, device=dev)
+def kv_relmax(cfg, got, want, rows=None) -> dict:
+    """The max-relative error of a dense stack's K / V caches over all
+    its layers, rows [0, rows) when `rows` is given."""
+    return {f"{name}_cache": relmax(got[0][name][:, :, :rows],
+                                    want[0][name][:, :, :rows])
+            for name in ("k", "v")}
+
+
+def prefill_decode_phase(phase, cfg, params, dev, inputs, s, steps,
+                         want_pre, want_dec, cache_errs,
+                         strict_tokens=False, **fields) -> dict:
+    """Phase `phase` for a decoder at full width: a prefill of `inputs`
+    (`s` positions) through `make_prefill_step`, then `steps` greedy
+    decode steps through `make_decode_step` on caches from
+    `kvcache.cache_init` (s + steps rows, filled by
+    `kvcache.copy_prefill`), on `cuda` and on `eager`, each from its own
+    greedy tokens, the launch counts set to 0 just before each part.
+    Checks `cuda` against `eager`: logits over the real vocabulary and
+    the caches (`cache_errs(cfg, got, want, rows)`, {leaf: relmax}) within
+    LOGIT_TOL while the tokens agree; the tokens equal (`strict_tokens`),
+    or else differing first where eager's top-2 margin is below
+    MARGIN_FACTOR x the logits error; the launches of a prefill
+    (`want_pre`) and of a step (`want_dec`) exactly, every flash forward
+    at (head dim, causal); every op on `cuda`, `eager` launching none.
+    Emits the line with `fields`; returns the errors and the `cuda`
+    launches."""
+    b = inputs["tokens"].shape[0]
+    rows = s + steps
     torch.cuda.reset_peak_memory_stats(dev)
     out = {}
     with torch.inference_mode():
@@ -3563,19 +3700,20 @@ def vlm_phase(cfg, params, dev) -> dict:
                                make_decode_step(eng, cfg))
             torch.cuda.synchronize()
             reset_all_launches()
-            t0 = time.perf_counter()
-            logits, caches = prefill(params, inputs)
-            torch.cuda.synchronize()
+            with AttnLog() as attn_calls:
+                t0 = time.perf_counter()
+                logits, caches = prefill(params, inputs)
+                torch.cuda.synchronize()
+                host = (time.perf_counter() - t0) * 1e3
             pre = {"launches": all_launches(),
-                   "dispatch": backends.dispatch_counts(),
-                   "host_ms": (time.perf_counter() - t0) * 1e3}
+                   "dispatch": backends.dispatch_counts(), "host_ms": host,
+                   "attn": attn_calls.calls}
             buf = kvcache.cache_init(cfg, b, rows, device=dev)
-            for name in ("k", "v"):
-                buf[0][name][:, :, :s] = caches[0][name]
+            kvcache.copy_prefill(cfg, buf, caches, s)
             reset_all_launches()
             toks, dlogits = [greedy_sample(logits)], []
             t0 = time.perf_counter()
-            for t in range(VLM_DECODE_STEPS):
+            for t in range(steps):
                 lg, buf = decode(params, buf, toks[-1][:, None].long(),
                                  torch.tensor(s + t, device=dev))
                 dlogits.append(lg)
@@ -3583,8 +3721,7 @@ def vlm_phase(cfg, params, dev) -> dict:
             torch.cuda.synchronize()
             dec = {"launches": all_launches(),
                    "dispatch": backends.dispatch_counts(),
-                   "host_ms": (time.perf_counter() - t0) * 1e3
-                   / VLM_DECODE_STEPS}
+                   "host_ms": (time.perf_counter() - t0) * 1e3 / steps}
             out[label] = {"logits": logits, "caches": caches, "buf": buf,
                           "dlogits": torch.stack(dlogits),
                           "tokens": torch.stack(toks, 1), "pre": pre,
@@ -3592,16 +3729,15 @@ def vlm_phase(cfg, params, dev) -> dict:
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     cu, ea = out["cuda"], out["eager"]
     check(tuple(cu["logits"].shape) == (b, 1, cfg.vocab_padded)
-          and tuple(cu["dlogits"].shape) == (VLM_DECODE_STEPS, b, 1,
-                                             cfg.vocab_padded),
-          f"vlm logits {tuple(cu['logits'].shape)}, "
+          and tuple(cu["dlogits"].shape) == (steps, b, 1, cfg.vocab_padded),
+          f"{phase} logits {tuple(cu['logits'].shape)}, "
           f"{tuple(cu['dlogits'].shape)}")
     for run in (cu, ea):  # the padded vocab columns hold -1e30: cut them
         run["logits"] = run["logits"][..., :cfg.vocab_size]
         run["dlogits"] = run["dlogits"][..., :cfg.vocab_size]
     check(bool(torch.isfinite(cu["logits"]).all()
                and torch.isfinite(cu["dlogits"]).all()),
-          "non-finite vlm logits")
+          f"non-finite {phase} logits")
     same = (cu["tokens"] == ea["tokens"]).all(0)      # (steps + 1,)
     j = int(same.logical_not().nonzero()[0]) if not bool(same.all()) \
         else len(same)
@@ -3609,38 +3745,33 @@ def vlm_phase(cfg, params, dev) -> dict:
     errs = {"prefill_logits": relmax(cu["logits"], ea["logits"]),
             "decode_logits": (relmax(cu["dlogits"][:j], ea["dlogits"][:j])
                               if j else 0.0)}
-    for name in ("k", "v"):
-        errs[f"prefill_{name}_cache"] = relmax(cu["caches"][0][name],
-                                               ea["caches"][0][name])
-        errs[f"decode_{name}_cache"] = relmax(
-            cu["buf"][0][name][:, :, :s + j], ea["buf"][0][name][:, :, :s + j])
+    errs.update({f"prefill_{k}": v for k, v in
+                 cache_errs(cfg, cu["caches"], ea["caches"]).items()})
+    errs.update({f"decode_{k}": v for k, v in
+                 cache_errs(cfg, cu["buf"], ea["buf"], s + j).items()})
     abs_err = max(float((cu["logits"] - ea["logits"]).abs().max()),
                   float((cu["dlogits"][:j] - ea["dlogits"][:j]).abs().max())
                   if j else 0.0)
+    top2 = torch.topk(torch.cat([ea["logits"], *ea["dlogits"]], 1), 2).values
     mismatch = None
-    if j <= VLM_DECODE_STEPS:
+    if j <= steps:
         lg = ea["logits"] if j == 0 else ea["dlogits"][j - 1]
-        top2 = torch.topk(lg[:, -1], 2).values
+        top2_j = torch.topk(lg[:, -1], 2).values
         mismatch = {"token": j, "eager_margin": float(
-            (top2[:, 0] - top2[:, 1]).min()),
+            (top2_j[:, 0] - top2_j[:, 1]).min()),
             "allowed_below": MARGIN_FACTOR * abs_err}
-    m_layer, m_patch = b * s, b * cfg.frontend_tokens
-    want_pre = frontend_call_launches(
-        cfg, {"layer": m_layer, "frontend": m_patch, "head": b},
-        "flash_attention")
-    want_dec = {k: VLM_DECODE_STEPS * v for k, v in frontend_call_launches(
-        cfg, {"layer": b, "frontend": None, "head": b},
-        "flash_decode").items()}
-    emit("vlm", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
-         heads=[cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
-         patches=cfg.frontend_tokens, text_tokens=text, batch=b,
-         decode_steps=VLM_DECODE_STEPS, cache_rows=rows, relmax=errs,
+    want_dec = {k: steps * v for k, v in want_dec.items()}
+    emit(phase, arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+         heads=[cfg.n_heads, cfg.n_kv_heads, cfg.head_dim], batch=b,
+         **fields, decode_steps=steps, cache_rows=rows, relmax=errs,
          logits_max_abs_err=abs_err,
          logits_max_abs=float(ea["logits"].abs().max()),
          tokens_equal=mismatch is None, mismatch=mismatch,
          tokens=cu["tokens"].tolist(),
+         eager_min_top2_margin=float((top2[..., 0] - top2[..., 1]).min()),
          launches_prefill=cu["pre"]["launches"], want_prefill=want_pre,
          launches_decode=cu["dec"]["launches"], want_decode=want_dec,
+         attention_launches=sorted(set(cu["pre"]["attn"])),
          dispatch_prefill={f"{bk}.{o}": c for (bk, o), c
                            in cu["pre"]["dispatch"].items()},
          prefill_host_ms=cu["pre"]["host_ms"],
@@ -3649,25 +3780,54 @@ def vlm_phase(cfg, params, dev) -> dict:
          eager_decode_step_host_ms=ea["dec"]["host_ms"], peak_gb=peak_gb,
          param_gb=sum(t.numel() * t.element_size()
                       for t in flatten(params).values()) / 1e9)
+    if strict_tokens:
+        check(mismatch is None, f"{phase} greedy tokens differ: cuda "
+              f"{cu['tokens'].tolist()}, eager {ea['tokens'].tolist()}")
     check(mismatch is None or mismatch["eager_margin"]
           < mismatch["allowed_below"],
-          f"vlm greedy tokens differ at a clear margin: {mismatch}")
+          f"{phase} greedy tokens differ at a clear margin: {mismatch}")
     for key, err in errs.items():
         check(math.isfinite(err) and err <= LOGIT_TOL,
-              f"vlm {key} cuda vs eager {err:.3e} > {LOGIT_TOL:g}")
+              f"{phase} {key} cuda vs eager {err:.3e} > {LOGIT_TOL:g}")
     check(cu["pre"]["launches"] == want_pre,
-          f"vlm prefill launches {cu['pre']['launches']}, want {want_pre}")
+          f"{phase} prefill launches {cu['pre']['launches']}, want "
+          f"{want_pre}")
     check(cu["dec"]["launches"] == want_dec,
-          f"vlm decode launches {cu['dec']['launches']}, want {want_dec}")
+          f"{phase} decode launches {cu['dec']['launches']}, want "
+          f"{want_dec}")
+    check(cu["pre"]["attn"] == [(cfg.head_dim, True)]
+          * want_pre["flash_attention"],
+          f"{phase} prefill attention launches {cu['pre']['attn']}")
     for part in ("pre", "dec"):
         check(all(bk == "cuda" for bk, _ in cu[part]["dispatch"]),
-              f"vlm {part} dispatches {cu[part]['dispatch']}")
-        check(sum(ea[part]["launches"].values()) == 0,
+              f"{phase} {part} dispatches {cu[part]['dispatch']}")
+        check(sum(ea[part]["launches"].values()) == 0
+              and not ea["pre"]["attn"],
               "the eager engine launched a kernel of the port")
     launches = {k: cu["pre"]["launches"][k] + cu["dec"]["launches"][k]
                 for k in cu["pre"]["launches"]}
     return {"abs_err": abs_err, "errs": errs, "launches": launches,
             "peak_gb": peak_gb}
+
+
+def vlm_phase(cfg, params, dev) -> dict:
+    """Phase vlm: internvl2-2b at full width and depth, a prefill of
+    VLM_PREFILL requests (256 patch embeddings and the text tokens) and
+    VLM_DECODE_STEPS greedy decode steps against their caches (the
+    split-KV decode kernel), through `prefill_decode_phase`."""
+    b, text = VLM_PREFILL
+    s = cfg.frontend_tokens + text
+    gen = torch.Generator(device=dev).manual_seed(31)
+    inputs = input_tensors(cfg, ShapeConfig("vlm", s, b, "prefill"),
+                           generator=gen, device=dev)
+    want_pre = frontend_call_launches(
+        cfg, {"layer": b * s, "frontend": b * cfg.frontend_tokens,
+              "head": b}, "flash_attention")
+    want_dec = frontend_call_launches(
+        cfg, {"layer": b, "frontend": None, "head": b}, "flash_decode")
+    return prefill_decode_phase(
+        "vlm", cfg, params, dev, inputs, s, VLM_DECODE_STEPS, want_pre,
+        want_dec, kv_relmax, patches=cfg.frontend_tokens, text_tokens=text)
 
 
 def audio_phase(cfg, params, dev) -> dict:
@@ -3730,61 +3890,80 @@ def audio_phase(cfg, params, dev) -> dict:
             "peak_gb": peak_gb}
 
 
-def step_breakdown(name, fn, smi, cfg, **extra) -> dict:
+def step_breakdown(name, fn, smi, cfg, phase="timing_frontends",
+                   **extra) -> dict:
     """Host ms (median of 3 synchronised calls), device ms by kernel name
     (torch.profiler) and the busy share of one call of `fn`, emitted as a
-    timing_frontends line."""
+    `phase` line."""
     host = host_ms(fn, reps=3)
     by_kernel = time_ssd.device_time_by_kernel(fn)
     device = sum(r["ms"] for r in by_kernel.values())
     row = {"host_ms": host, "device_ms": device, "busy_share": device / host,
            "top_kernels": dict(list(by_kernel.items())[:10])}
-    emit("timing_frontends", part=name, arch=cfg.name, smi=smi, **extra,
-         **row)
+    emit(phase, part=name, arch=cfg.name, smi=smi, **extra, **row)
     return row
 
 
-def frontend_gemm_timing(cfg, params, rows, cgen, peak_flops, peak_bw,
-                         smi) -> dict:
-    """The projector GEMMs and the head over the parameters' own weights
-    at the rows the phases give them (`rows`), fp32 with their epilogues:
-    kernel, plain, torch.matmul and bound ms (CUDA-graph replays), summed
-    as the kernels line's row-1 entry of the config."""
+def gemm_timing(phase, cfg, gemms, rows_of, weights_of, cgen, peak_flops,
+                peak_bw, smi, reps: int = 20) -> dict:
+    """The fused GEMMs `gemms` over the parameters' own weights, fp32 with
+    their epilogues: each on an x of `rows_of(g)` rows drawn from `cgen`
+    (None: skipped), every (w, shift) of `weights_of(g)` launched in turn
+    within one CUDA graph: kernel, plain, torch.matmul and bound ms,
+    summed as the kernels line's row-1 entry of the config."""
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms",
             "bytes_ms")
     total = dict.fromkeys(keys, 0.0)
     per = {}
-    for g in frontend_gemms(cfg):
-        if g["rows"] == "layer":
+    for g in gemms:
+        m = rows_of(g)
+        if m is None:
             continue
-        m, k, n = rows[g["rows"]], g["k"], g["n"]
-        w = (tfm.head_weight(params, cfg) if g["rows"] == "head"
-             else params["frontend"][g["param"]])
-        sh = (params["frontend"]["b" + g["param"][1:]] if g["shift"]
-              else None)
+        k, n, act = g["k"], g["n"], g["act"]
+        ws = weights_of(g)
         x = torch.randn(m, k, generator=cgen, device=cgen.device)
         plan = ops.default_tiles(m, k, n)
-        act = g["act"]
-        flops = 2.0 * m * k * n
-        nbytes = 4.0 * (m * k + k * n + m * n + (n if g["shift"] else 0))
-        row = {"ms": graph_ms(lambda: gemm.gemm_fused_fwd(
-                   x, w, None, sh, act=act, plan=plan)),
-               "plain_ms": graph_ms(lambda: gemm.gemm_fused_plain(
-                   x, w, None, sh, act=act)),
-               "library_ms": graph_ms(lambda: torch.matmul(x, w)),
+        count = len(ws)
+        flops = 2.0 * m * k * n * count
+        nbytes = 4.0 * (m * k + k * n + m * n
+                        + (n if g["shift"] else 0)) * count
+        row = {"ms": graph_ms(lambda: [gemm.gemm_fused_fwd(
+                   x, w, None, sh, act=act, plan=plan) for w, sh in ws],
+                   reps=reps),
+               "plain_ms": graph_ms(lambda: [gemm.gemm_fused_plain(
+                   x, w, None, sh, act=act) for w, sh in ws], reps=reps),
+               "library_ms": graph_ms(lambda: [torch.matmul(x, w)
+                                               for w, _ in ws], reps=reps),
                "ops_ms": flops / peak_flops * 1e3,
                "bytes_ms": nbytes / peak_bw * 1e3}
         row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
         per[g["name"]] = {**row, "shape": [m, k, n], "act": act,
-                          "shift": g["shift"], "plan": list(plan)}
+                          "shift": g["shift"], "launches": count,
+                          "plan": list(plan)}
         for key in keys:
             total[key] += row[key]
-        del x
+        del x, ws
     total["bound_by"] = ("operations" if total["ops_ms"] >= total["bytes_ms"]
                          else "bytes")
-    emit("timing_frontends", part="gemm", arch=cfg.name, smi=smi,
-         gemms=per, **total)
+    emit(phase, part="gemm", arch=cfg.name, smi=smi, gemms=per, **total)
     return total
+
+
+def frontend_gemm_timing(cfg, params, rows, cgen, peak_flops, peak_bw,
+                         smi) -> dict:
+    """The projector GEMMs and the head at the rows the phases give them
+    (`rows`), one launch each, through `gemm_timing`."""
+    fe = params["frontend"]
+
+    def weights_of(g):
+        if g["rows"] == "head":
+            return [(tfm.head_weight(params, cfg), None)]
+        return [(fe[g["param"]],
+                 fe["b" + g["param"][1:]] if g["shift"] else None)]
+
+    return gemm_timing("timing_frontends", cfg, frontend_gemms(cfg),
+                       lambda g: rows.get(g["rows"]), weights_of, cgen,
+                       peak_flops, peak_bw, smi)
 
 
 def timing_vlm_phase(cfg, params, dev, cgen, peak_flops, peak_bw,
@@ -3845,6 +4024,326 @@ def timing_audio_phase(cfg, params, dev, cgen, peak_flops, peak_bw,
     gem = frontend_gemm_timing(cfg, params, {"frontend": b * s, "head": b},
                                cgen, peak_flops, peak_bw, smi)
     return {"steps": steps, "attention": attn, "gemm": gem}
+
+
+# ------------------------------------------------------------ the hybrid ---
+
+def hybrid_gemms(cfg) -> list[dict]:
+    """The GEMMs one dispatch of the hybrid runs, as `lm_gemms`: each
+    mamba layer's six projections (`ssm_gemms`), each super entry's shared
+    block (win over concat(h, embedding), q, k, v, o, the gelu MLP's up
+    and down, wout) and the tied head; `rows` names the rows each runs on
+    ("layer" or "head"), `param` where its weight lives."""
+    d, f = cfg.d_model, cfg.d_ff
+    q, kv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    n_super = tfm.stack_program(cfg)[0][1]
+    out = [{**g, "rows": "layer", "param": ("mixer", g["name"])}
+           for g in ssm_gemms(cfg) if g["name"] != "head"]
+    for name, k, n, act, path in (
+            ("win", 2 * d, d, "linear", ("win",)),
+            ("q", d, q, "linear", ("attn", "wq")),
+            ("k", d, kv, "linear", ("attn", "wk")),
+            ("v", d, kv, "linear", ("attn", "wv")),
+            ("o", q, d, "linear", ("attn", "wo")),
+            ("up", d, f, cfg.act, ("mlp", "wu")),
+            ("down", f, d, "linear", ("mlp", "wd")),
+            ("wout", d, d, "linear", ("wout",))):
+        out.append({"name": name, "k": k, "n": n, "act": act,
+                    "shift": False, "per_dispatch": n_super,
+                    "trans": False, "rows": "layer",
+                    "param": ("shared", *path)})
+    return out + [{"name": "head", "k": d, "n": cfg.vocab_padded,
+                   "act": "linear", "shift": False, "per_dispatch": 1,
+                   "trans": cfg.tie_embeddings, "rows": "head",
+                   "param": ("head",)}]
+
+
+def hybrid_call_launches(cfg, layer_rows: int, head_rows, kind: str) -> dict:
+    """The kernel launches of one hybrid call: a prefill (`kind`
+    "prefill": a flash forward a super entry, an SSD scan a mamba layer)
+    or a decode step ("decode": a split-KV launch a super entry), its
+    GEMMs (`hybrid_gemms`) on `layer_rows` rows and the head on
+    `head_rows` (None: no head, as the slot engine's prefill) with the
+    forward launches by regime."""
+    want = dict.fromkeys(all_launches(), 0)
+    for g in hybrid_gemms(cfg):
+        m = layer_rows if g["rows"] == "layer" else head_rows
+        if m is None:
+            continue
+        plan = ops.default_tiles(m, g["k"], g["n"])
+        want["gemm_fused_fwd"] += g["per_dispatch"]
+        want[f"gemm_fwd_regime_{plan.regime.lower()}"] += g["per_dispatch"]
+    n_super = tfm.stack_program(cfg)[0][1]
+    if kind == "prefill":
+        want["flash_attention"] = n_super
+        want["ssd_scan"] = cfg.n_layers
+    else:
+        want["flash_decode"] = n_super
+    return want
+
+
+def hybrid_params(cfg, dev):
+    """Full-width, full-depth random parameters from a seed, drawn on the
+    card: every mixer's dt bias, A and D moved off the init's constants
+    (as `ssm_params`) and the shared block's norm scales off 1."""
+    gen = torch.Generator(device=dev).manual_seed(51)
+    params = tfm.init_params(cfg, generator=gen, device=dev)
+    with torch.no_grad():
+        for lp in params["layers"]:
+            for name, scale in (("dt_bias", 0.5), ("A_log", 0.3),
+                                ("D", 0.5)):
+                t = lp["mixer"][name]
+                t.add_(torch.randn(t.shape, generator=gen, device=dev)
+                       * scale)
+        for name in ("norm_in", "norm1", "norm2"):
+            t = params["shared"][name]["scale"]
+            t.add_(torch.randn(t.shape, generator=gen, device=dev) * 0.1)
+    return params
+
+
+def hybrid_weight(params, cfg, g, i=0):
+    """The weight of GEMM `g` (`hybrid_gemms`) of mamba layer `i` (the
+    shared block's and the head's have one)."""
+    path = g["param"]
+    if path[0] == "head":
+        return tfm.head_weight(params, cfg)
+    t = (params["layers"][i] if path[0] == "mixer" else params)
+    for key in path:
+        t = t[key]
+    return t
+
+
+def check_hybrid_phase(cfg, cgen) -> dict:
+    """Phase check_hybrid: zamba2-7b's GEMMs (`hybrid_gemms`, each
+    distinct (K, N)) at every row count its phases give them (the decode
+    rows, the prefill's, the hybrid_serve step's slots and each
+    hybrid_serve admission's prompt but its last token; the head at the
+    decode rows and the slots), the SSD kernel at the prefill shape and
+    at each hybrid_serve admission, the flash forward at the prefill's
+    attention (32 / 32 heads of 112, causal) and at each hybrid_serve
+    admission's, and the split-KV decode at a decode step (G = 1, 528
+    rows) and at a hybrid_serve step, fp32 and bf16, each against its
+    plain version as phases 2, 9-10 and 20.  Returns the fp32 max-abs
+    errors by kernel."""
+    b, s = HYBRID_PREFILL
+    rows = s + HYBRID_DECODE_STEPS
+    slots, cache = HYBRID_SERVE["slots"], HYBRID_SERVE["max_len"]
+    admitted = sorted({len(r.prompt) - 1
+                       for r in hybrid_serve_requests(cfg)})
+    out = {"gemm": 0.0, "ssd": 0.0}
+    gemms, seen = [], set()
+    for g in hybrid_gemms(cfg):
+        for m in ((b, b * s, slots, *admitted) if g["rows"] == "layer"
+                  else (b, slots)):
+            key = (m, g["k"], g["n"], g["trans"])
+            if key in seen:
+                continue
+            seen.add(key)
+            res = check_shape(m, g["k"], g["n"],
+                              (ops.default_tiles(m, g["k"], g["n"]),), cgen,
+                              trans=g["trans"])
+            out["gemm"] = max(out["gemm"], res["max_abs_err_fp32"])
+            gemms.append({"gemm": g["name"], **res})
+    ssd_rows = []
+    for case in [ssd_shape(cfg, b, s)] + [ssd_shape(cfg, 1, n)
+                                          for n in admitted]:
+        for dtype in (torch.float32, torch.bfloat16):
+            for init in (False, True):
+                err, mabs, _ = check_ssd_case(case, dtype, init, cgen)
+                if dtype == torch.float32:
+                    out["ssd"] = max(out["ssd"], mabs)
+                ssd_rows.append({"case": list(case), "dtype": str(dtype),
+                                 "init": init, "relmax": err})
+    cases, worst = check_attn_cases(cfg, cgen, [
+        ("attn", "hybrid_prefill", (b, s, s, None, True)),
+        *(("attn", f"hybrid_serve_prefill_{n}", (1, n, n, None, True))
+          for n in admitted),
+        ("decode", "hybrid_decode", (b, 1, rows, [rows - 15, rows], False)),
+        ("decode", "hybrid_serve_step", (
+            slots, 1, cache, [cache, cache // 3, 1, 0][:slots], False))])
+    out.update(worst)
+    emit("check_hybrid", arch=cfg.name, gemms=gemms, ssd=ssd_rows,
+         attention=cases, max_abs_err=out)
+    return out
+
+
+def cache_relmax(cfg, got, want, s=None) -> dict:
+    """The worst per-layer max-relative error of each cache leaf (the
+    super entries' mamba leaves and shared K / V, the tail's mamba
+    leaves), K / V over rows [0, s) when `s` is given."""
+    errs = {}
+    for e, (kind, n) in enumerate(tfm.stack_program(cfg)):
+        if kind == "zamba_super":
+            for name, t in want[e]["mamba"].items():
+                errs[f"super.{name}"] = max(
+                    relmax(got[e]["mamba"][name][i, j], t[i, j])
+                    for i in range(n) for j in range(cfg.attn_every))
+            for name, t in want[e]["shared"].items():
+                errs[f"shared.{name}"] = max(
+                    relmax(got[e]["shared"][name][i, :, :s],
+                           t[i, :, :s]) for i in range(n))
+        else:
+            for name, t in want[e].items():
+                errs[f"tail.{name}"] = max(relmax(got[e][name][i], t[i])
+                                           for i in range(n))
+    return errs
+
+
+def hybrid_phase(cfg, params, dev) -> dict:
+    """Phase hybrid: zamba2-7b at full width and depth, a prefill of
+    HYBRID_PREFILL tokens (two SSD chunks a sequence) and
+    HYBRID_DECODE_STEPS greedy decode steps against their 528-row caches
+    (the shared block's decode on the split-KV kernel at head dim 112),
+    through `prefill_decode_phase`, the tokens equal."""
+    b, s = HYBRID_PREFILL
+    rng = np.random.default_rng(52)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (b, s))).to(dev)
+    return prefill_decode_phase(
+        "hybrid", cfg, params, dev, {"tokens": tokens}, s,
+        HYBRID_DECODE_STEPS, hybrid_call_launches(cfg, b * s, b, "prefill"),
+        hybrid_call_launches(cfg, b, b, "decode"), cache_relmax,
+        strict_tokens=True, program=tfm.stack_program(cfg),
+        ssd_heads=cfg.ssm_nheads, state=cfg.ssm_state, chunk=cfg.ssm_chunk,
+        prompt=s)
+
+
+def hybrid_serve_requests(cfg) -> list:
+    """Phase hybrid_serve's requests, made anew from their seed."""
+    return requests(cfg, HYBRID_SERVE["requests"], 53,
+                    HYBRID_SERVE["prompt"], HYBRID_SERVE["new"])
+
+
+def hybrid_serve_phase(cfg, params, dev) -> dict:
+    """Phase hybrid_serve: the slot engine on `cuda` serves
+    HYBRID_SERVE's requests through 4 slots, so slots are reused through
+    the zeroing route, with the launch counts set to 0 just before and
+    read just after: every prompt prefilled (an SSD launch a mamba layer,
+    a flash forward a super entry), every decode step's shared block on
+    the split-KV kernel, launches exact; each reused-slot request gives
+    its stream alone; every stream is token for token the slot engine's
+    on `eager` on the card."""
+    cuda, eager = make_engine("cuda"), make_engine("eager", device=dev)
+    n, slots = HYBRID_SERVE["requests"], HYBRID_SERVE["slots"]
+    kw = dict(engine=cuda, slots=slots, max_len=HYBRID_SERVE["max_len"])
+    server = ServingEngine(cfg, params, **kw)
+    reqs = hybrid_serve_requests(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    server.run(reqs)  # ---- the hybrid's serving path, driven once
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_launches()
+    dispatch = backends.dispatch_counts()
+    st = server.stats()
+    want = dict.fromkeys(launches, 0)
+    for r in reqs:  # each admission's prefill: all of a prompt but its last
+        for k, v in hybrid_call_launches(cfg, len(r.prompt) - 1, None,
+                                         "prefill").items():
+            want[k] += v
+    for k, v in hybrid_call_launches(cfg, slots, slots, "decode").items():
+        want[k] += st["steps"] * v
+    reused = reqs[slots:]
+    alone = hybrid_serve_requests(cfg)[slots:]
+    for r in alone:
+        ServingEngine(cfg, params, **kw).run([r])
+    same = [a.out == r.out for a, r in zip(alone, reused)]
+    plain = hybrid_serve_requests(cfg)
+    ServingEngine(cfg, params, **{**kw, "engine": eager}).run(plain)
+    equal = [a.out == r.out for a, r in zip(plain, reqs)]
+    emit("hybrid_serve", arch=cfg.name, slots=slots, requests=n,
+         max_len=HYBRID_SERVE["max_len"],
+         completed=st["requests"]["completed"], tokens=st["tokens"],
+         prompt_tokens=sum(len(r.prompt) for r in reqs), steps=st["steps"],
+         wall_s=wall, tokens_per_s=st["throughput"],
+         p50_ms=st["latency_s"]["p50"] * 1e3,
+         p99_ms=st["latency_s"]["p99"] * 1e3,
+         peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+         launches=launches, want_launches=want,
+         engine_dispatch={f"{b}.{o}": c for (b, o), c in dispatch.items()},
+         reused_slot_requests=len(reused), equal_to_alone=same,
+         equal_to_eager=equal, streams=[r.out for r in reqs])
+    check(st["requests"]["completed"] == n
+          and all(r.done and len(r.out) == r.max_new for r in reqs),
+          f"{st['requests']['completed']} of {n} completed")
+    check(launches == want, f"hybrid_serve launches {launches}, want {want}")
+    check(all(b == "cuda" for b, _ in dispatch),
+          f"an engine op left the cuda backend: {dispatch}")
+    check(all(same), f"a reused slot's stream differs from the request "
+          f"alone: {same}")
+    check(all(equal), f"cuda vs eager slot-engine streams differ: {equal}")
+    return {"launches": launches, "stats": st, "wall_s": wall}
+
+
+def hybrid_gemm_timing(cfg, params, cgen, peak_flops, peak_bw, smi) -> dict:
+    """The GEMMs of one hybrid decode dispatch at batch HYBRID_PREFILL[0]
+    through `gemm_timing`: each mamba projection over all 81 layers'
+    weights, each shared-block GEMM 13 times over its one weight, the
+    head once, each kind's launches of a dispatch in one CUDA graph."""
+    def weights_of(g):
+        if g["param"][0] == "mixer":
+            return [(hybrid_weight(params, cfg, g, i), None)
+                    for i in range(cfg.n_layers)]
+        return [(hybrid_weight(params, cfg, g), None)] * g["per_dispatch"]
+
+    return gemm_timing("timing_hybrid", cfg, hybrid_gemms(cfg),
+                       lambda g: HYBRID_PREFILL[0], weights_of, cgen,
+                       peak_flops, peak_bw, smi, reps=2)
+
+
+def timing_hybrid_phase(cfg, params, dev, cgen, peak_flops, peak_bw,
+                        smi) -> dict:
+    """Phase timing_hybrid: the prefill of hybrid and a decode step
+    against its 528-row caches (host ms, device ms by kernel, busy share);
+    the flash forward at the prefill's attention (2 x 512, 32 / 32 heads
+    of 112, causal) and the decode kernel at a decode step (G = 1, 528
+    rows), each kernel, plain, bound and SDPA ms; the SSD kernel at the
+    prefill shape (kernel, plain, bound; no library call); the GEMMs of a
+    decode dispatch (`hybrid_gemm_timing`)."""
+    b, s = HYBRID_PREFILL
+    rows = s + HYBRID_DECODE_STEPS
+    rng = np.random.default_rng(54)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (b, s))).to(dev)
+    cuda = make_engine("cuda")
+    prefill, decode = make_prefill_step(cuda, cfg), make_decode_step(cuda,
+                                                                     cfg)
+    caches = kvcache.cache_init(cfg, b, rows, device=dev)
+    tok = tokens[:, -1:]
+    pos = torch.tensor(s, device=dev)
+    with torch.inference_mode():
+        steps = {"prefill": step_breakdown(
+                     "prefill", lambda: prefill(params, {"tokens": tokens}),
+                     smi, cfg, phase="timing_hybrid", batch=b, positions=s),
+                 "decode": step_breakdown(
+                     "decode_step", lambda: decode(params, caches, tok, pos),
+                     smi, cfg, phase="timing_hybrid", batch=b,
+                     cache_rows=rows)}
+    del caches
+    attn = attn_timing_rows(cfg, {
+        "hybrid_prefill": (b, s, s, None, True),
+        "hybrid_decode": (b, 1, rows, [rows] * b, False)},
+        cgen, peak_flops, peak_bw, smi, "timing_hybrid")
+    case = ssd_shape(cfg, b, s)
+    x, dt, a, bm, cm, _ = ssd_operands(*case[:6], torch.float32, cgen)
+    da = (dt * a).contiguous()
+    flops, nbytes = time_ssd.ssd_work(x, bm, case[6])
+    bound_ms, bound_by = bound(flops, nbytes, peak_flops, peak_bw)
+    ms = graph_ms(lambda: ops.ssd(x, dt, a, bm, cm, chunk=case[6]))
+    ssd_row = {"ms": ms, "plain_ms": graph_ms(lambda: ssd.ssd_scan_plain(
+                   x, dt, da, bm, cm, chunk=case[6])),
+               "library_ms": None, "bound_ms": bound_ms,
+               "bound_by": bound_by, "ops_ms": flops / peak_flops * 1e3,
+               "bytes_ms": nbytes / peak_bw * 1e3,
+               "bound_share": bound_ms / ms,
+               "plan": list(ssd.plan_for(*case))}
+    emit("timing_hybrid", part="ssd_scan", arch=cfg.name, smi=smi,
+         shape=list(case), **ssd_row)
+    del x, dt, a, bm, cm, da
+    gem = hybrid_gemm_timing(cfg, params, cgen, peak_flops, peak_bw, smi)
+    return {"steps": steps, "attention": attn, "ssd": ssd_row, "gemm": gem}
 
 
 def main() -> int:
@@ -4310,6 +4809,17 @@ def main() -> int:
     del aparams
     torch.cuda.empty_cache()
 
+    # ---------------------------------------------------- 41-44. the hybrid
+    hcfg = get_arch(HYBRID_ARCH)
+    hchk = check_hybrid_phase(hcfg, cgen)
+    hparams = hybrid_params(hcfg, dev)
+    hyb = hybrid_phase(hcfg, hparams, dev)
+    hybrid_serve_phase(hcfg, hparams, dev)
+    ht = timing_hybrid_phase(hcfg, hparams, dev, cgen, peak_flops, peak_bw,
+                             smi)
+    del hparams
+    torch.cuda.empty_cache()
+
     def kernel_entry(name, source, replaces, path, launches, max_abs_err,
                      row):
         entry = {"name": name, "route": "cuda", "source": source,
@@ -4405,6 +4915,17 @@ def main() -> int:
         kernel_entry("flash_attention:audio", SOURCE_ATTN, REPLACES_ATTN,
                      "audio", aud["launches"]["flash_attention"],
                      achk["attn"], at["attention"]["audio_forward"]),
+        kernel_entry("gemm_fused_fwd:hybrid", SOURCE, REPLACES, "hybrid",
+                     hyb["launches"]["gemm_fused_fwd"], hchk["gemm"],
+                     ht["gemm"]),
+        kernel_entry("flash_attention:hybrid", SOURCE_ATTN, REPLACES_ATTN,
+                     "hybrid", hyb["launches"]["flash_attention"],
+                     hchk["attn"], ht["attention"]["hybrid_prefill"]),
+        kernel_entry("flash_decode:hybrid", SOURCE_DECODE, REPLACES_DECODE,
+                     "hybrid", hyb["launches"]["flash_decode"],
+                     hchk["decode"], ht["attention"]["hybrid_decode"]),
+        kernel_entry("ssd_scan:hybrid", SOURCE_SSD, REPLACES_SSD, "hybrid",
+                     hyb["launches"]["ssd_scan"], hchk["ssd"], ht["ssd"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -9,8 +9,8 @@ The port carries its own copy because the JAX module imports jax.  The
 seeded tensors rather than specs.
 `get_arch` knows the configs the port runs: the dense GQA ones,
 mamba2-1.3b (the SSM family), llama4-scout-17b-a16e (the MoE family's
-GQA program), internvl2-2b (vlm) and hubert-xlarge (audio); the other
-families come with their model code.
+GQA program), internvl2-2b (vlm), hubert-xlarge (audio) and zamba2-7b
+(the hybrid); MLA (deepseek-v2-lite-16b) comes with its model code.
 """
 from __future__ import annotations
 
@@ -126,6 +126,7 @@ _MODULES = {
     "llama4-scout-17b-a16e": "llama4_scout_17b",
     "internvl2-2b": "internvl2_2b",
     "hubert-xlarge": "hubert_xlarge",
+    "zamba2-7b": "zamba2_7b",
 }
 ARCH_IDS = tuple(_MODULES)
 

@@ -10,12 +10,15 @@ weights ``(Cin, kh*kw*Cout)``, connected weights ``(nin, nout)`` with the
 input flattened in (h, w, c) order, and the per-channel vectors.
 
 `lm_params_from_jax` does the same for the tree of ``repro``'s
-``models.transformer.init_params`` (dense GQA, mamba and GQA MoE stacks,
-and the vision and audio frontends' projector under ``"frontend"``): the
-JAX tree keeps each layer-program entry's layers stacked under a leading
-layer axis (``stacks[0]["attn"]["wq"]`` is (n_layers, D, H*hd)); the port
-keeps one dict per layer (``layers[i]["attn"]["wq"]``, (D, H*hd)).  Every
-other layout is kept.  `lm_params_to_numpy` is its inverse.
+``models.transformer.init_params`` (dense GQA, mamba, GQA MoE and hybrid
+stacks, the vision and audio frontends' projector under ``"frontend"``
+and the hybrid's shared block under ``"shared"``): the JAX tree keeps
+each layer-program entry's layers stacked under leading layer axes
+(``stacks[0]["attn"]["wq"]`` is (n_layers, D, H*hd); a hybrid super
+entry's leaves are (n_super, attn_every, ...)); the port keeps one dict
+per layer in program order (``layers[i]["attn"]["wq"]``, (D, H*hd); a
+super entry's layers row-major, then the next entry's).  Every other
+layout is kept.  `lm_params_to_numpy` is its inverse.
 `opt_state_from_jax` / `opt_state_to_numpy` carry the JAX AdamW state
 (``{"mu": tree, "nu": tree, "step"}``) to and from the port's (moments
 keyed by the flat parameter names of `repro_torch.tree.flatten`), so a
@@ -55,9 +58,9 @@ def params_to_numpy(state_dict: Mapping[str, torch.Tensor]
 
 
 # The top-level entries of an LM tree that the two layouts share as they
-# are (the stacked layers aside); a config without a frontend or with a
-# tied head lacks some of them.
-TOP_KEYS = ("embed", "final_norm", "frontend", "lm_head")
+# are (the stacked layers aside); a config without a frontend, with a tied
+# head or without a shared block lacks some of them.
+TOP_KEYS = ("embed", "final_norm", "frontend", "shared", "lm_head")
 
 
 def _tree_map(fn, tree):
@@ -69,41 +72,60 @@ def _tree_map(fn, tree):
 def lm_params_from_jax(tree: Mapping, cfg, device=None) -> dict:
     """The JAX LM tree (numpy-convertible leaves) -> the port's parameter
     dict (`repro_torch.models.transformer`), fp32 tensors on `device`, with
-    the stacked layers unstacked."""
+    the stacked layers unstacked in program order."""
     from repro_torch.models import transformer as tfm
-    (_, n), = tfm.stack_program(cfg)
-    (stack,) = tree["stacks"]
+    prog = tfm.stack_program(cfg)
+    if len(tree["stacks"]) != len(prog):
+        raise ValueError(f"{len(tree['stacks'])} stacks for the program "
+                         f"{prog}")
 
     def tensor(a):
         return torch.tensor(np.asarray(a, np.float32), device=device)
 
     params = {key: _tree_map(tensor, tree[key])
               for key in TOP_KEYS if key in tree}
-    params["layers"] = [_tree_map(lambda a, i=i: tensor(np.asarray(a)[i]),
-                                  stack) for i in range(n)]
+    params["layers"] = []
+    for (kind, n), stack in zip(prog, tree["stacks"]):
+        # the leading layer axes, (n_super, attn_every) for a super entry,
+        # flattened row-major: super entry i's layer j is layer
+        # i * attn_every + j of the entry
+        lead = 2 if kind == "zamba_super" else 1
+        flat = _tree_map(lambda a, lead=lead: np.asarray(a).reshape(
+            -1, *np.shape(a)[lead:]), stack)
+        count = tfm.entry_layers(kind, n, cfg)
+        params["layers"] += [_tree_map(lambda a, i=i: tensor(a[i]), flat)
+                             for i in range(count)]
     return params
 
 
-def lm_params_to_numpy(params: Mapping) -> dict:
-    """Inverse of `lm_params_from_jax`: the JAX tree layout (layers stacked
-    under ``stacks[0]``) as fp32 numpy arrays."""
+def lm_params_to_numpy(params: Mapping, cfg) -> dict:
+    """Inverse of `lm_params_from_jax`: the JAX tree layout (each program
+    entry's layers stacked under ``stacks[e]``, a super entry's under two
+    axes) as fp32 numpy arrays."""
+    from repro_torch.models import transformer as tfm
+
     def array(t):
         return t.detach().float().cpu().numpy()
 
     tree = {key: _tree_map(array, params[key])
             for key in TOP_KEYS if key in params}
-    layers = [_tree_map(array, lp) for lp in params["layers"]]
-
-    def stack(*leaves):
-        return np.stack(leaves)
 
     def stack_tree(trees):
         first = trees[0]
         if isinstance(first, Mapping):
             return {k: stack_tree([t[k] for t in trees]) for k in first}
-        return stack(*trees)
+        return np.stack(trees)
 
-    tree["stacks"] = [stack_tree(layers)]
+    tree["stacks"], first = [], 0
+    for kind, n in tfm.stack_program(cfg):
+        count = tfm.entry_layers(kind, n, cfg)
+        stack = stack_tree([_tree_map(array, lp) for lp in
+                            params["layers"][first:first + count]])
+        if kind == "zamba_super":
+            stack = _tree_map(lambda a: a.reshape(n, cfg.attn_every,
+                                                  *a.shape[1:]), stack)
+        tree["stacks"].append(stack)
+        first += count
     return tree
 
 
@@ -116,10 +138,11 @@ def opt_state_from_jax(state: Mapping, cfg, device=None) -> dict:
             "step": int(np.asarray(state["step"]))}
 
 
-def opt_state_to_numpy(state: Mapping, params: Mapping) -> dict:
+def opt_state_to_numpy(state: Mapping, params: Mapping, cfg) -> dict:
     """Inverse of `opt_state_from_jax`: the moments in the JAX tree layout
     as fp32 numpy arrays and the step as an int32 scalar; `params` (the
-    port's nested parameters) gives the nesting of the flat names."""
-    return {key: lm_params_to_numpy(unflatten_like(state[key], params))
+    port's nested parameters) gives the nesting of the flat names, `cfg`
+    the program (as `lm_params_to_numpy`'s)."""
+    return {key: lm_params_to_numpy(unflatten_like(state[key], params), cfg)
             for key in ("mu", "nu")} | {
         "step": np.asarray(state["step"], np.int32)}

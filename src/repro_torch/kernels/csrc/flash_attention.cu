@@ -26,7 +26,8 @@
 //     a lane keeps RT rows by 64 / LPR keys of scores and RT rows by
 //     NC = D / LPR columns of the accumulator (runs of 4 columns, 4 LPR
 //     apart, then a tail of NC % 4 consecutive ones: at head dim 80 and 8
-//     lanes, 4 + 4 + 2; a plan whose lanes do not divide D is refused),
+//     lanes, 4 + 4 + 2, at 112, 4 + 4 + 4 + 2; a plan whose lanes do not
+//     divide D is refused),
 //     reads operands as 16-byte vectors from
 //     rows padded by 16 bytes, and the row's max, sum and rescaling run in
 //     registers with shuffles among the row's lanes, so a tile needs no
@@ -155,8 +156,10 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
 // runs of 4 columns, 4 LPR apart, then a tail of NC % 4 consecutive
 // columns past the runs' 4 LPR (NC / 4) (NC <= 2: NC consecutive columns;
 // head dim 80 at 8 lanes: two runs over columns 0-63, a tail of 2 over
-// 64-79).  The mapping moves no bit: each column is one chain over the
-// keys whichever lane holds it.
+// 64-79; 112: three runs over 0-95, a tail of 2 over 96-111).  The mapping
+// moves no bit: each column is one chain over the keys whichever lane
+// holds it.  The tail is stored element by element, so its 2-column pieces
+// need no alignment beyond the element's (bf16 included).
 template <int NC, int LPR>
 __host__ __device__ constexpr int col(int j, int e) {
   constexpr int RUNS = NC / 4, TAIL = NC % 4;
@@ -418,7 +421,8 @@ cudaError_t launch(const Args& a) {
 }
 
 // A plan whose lanes do not split D evenly is not instantiated at D (the
-// 32-lane plan at head dim 80); flash_attention.py refuses it first.
+// 32-lane plan at head dims 80 and 112); flash_attention.py refuses it
+// first.
 template <typename T, int D, typename P>
 cudaError_t launch_if_split(const Args& a) {
   if constexpr (D % P::LPR == 0) {
@@ -447,6 +451,8 @@ cudaError_t run_d(int D, int plan, const Args& a) {
       return run_plan<T, 64>(plan, a);
     case 80:
       return run_plan<T, 80>(plan, a);
+    case 112:
+      return run_plan<T, 112>(plan, a);
     case 128:
       return run_plan<T, 128>(plan, a);
     default:

@@ -29,7 +29,9 @@
 //   * a block is shaped for decode's rows: one warp a row, so the rows'
 //     statistics run side by side; a lane holds keys j and j + 32 of the
 //     tile, so a row's max and sum run in registers with shuffles, and in
-//     P V a lane owns D / 32 columns and reads V as one vector per key;
+//     P V a lane owns D / 32 columns and reads V as one vector per key
+//     (PvCols: at head dim 112, which 32 lanes cannot split, 28 lanes own
+//     one 16-byte vector of 4 columns each and 4 lanes sit out P V);
 //   * a span's first K / V tile is put in flight by 16-byte cp.async
 //     (gemm_common.cuh) before anything else, kv_len and q (vector loads)
 //     included; K and V are two groups, so the scores run while V lands,
@@ -91,12 +93,23 @@ struct DecSmem {
   }
 };
 
-// The D / 32 columns lane `lane` owns in P V, as consecutive values
-// (D 32: 1, 64: 2, 128: 4) read at once.
+// The P V columns of a lane: NC consecutive columns, read at once, on each
+// of the first LANES lanes.  D / 32 on every lane where 32 lanes split D
+// (D 32: 1, 64: 2, 128: 4); at D 112 (3.5 a lane) one 16-byte vector of 4
+// on 28 lanes, the other 4 idle in P V, which keeps one vector read per
+// key (16 lanes of 7 columns would need three unaligned reads a key).
+// The mapping moves no bit: each column is one chain over the keys.
 template <int D>
+struct PvCols {
+  static constexpr int NC = D % 32 == 0 ? D / 32 : 4;
+  static constexpr int LANES = D / NC;
+  static_assert(NC * LANES == D && LANES <= 32, "columns of the P V lanes");
+};
+
+// The NC columns lane `lane` owns in P V, consecutive values read at once.
+template <int NC>
 __device__ __forceinline__ void load_cols(const float* row, int lane,
-                                          float (&v)[D / 32]) {
-  constexpr int NC = D / 32;
+                                          float (&v)[NC]) {
   if constexpr (NC == 4) {
     const float4 x = *reinterpret_cast<const float4*>(row + 4 * lane);
     v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
@@ -107,10 +120,9 @@ __device__ __forceinline__ void load_cols(const float* row, int lane,
     v[0] = row[lane];
   }
 }
-template <int D>
+template <int NC>
 __device__ __forceinline__ void load_cols(const __nv_bfloat16* row, int lane,
-                                          float (&v)[D / 32]) {
-  constexpr int NC = D / 32;
+                                          float (&v)[NC]) {
   if constexpr (NC == 4) {
     const float4 x = load4(row + 4 * lane);
     v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
@@ -139,11 +151,13 @@ __device__ __forceinline__ float dot4(float s, float4 a, float4 b) {
 // one thread's sum: four accumulators from 0, split s into accumulator
 // s % 4 in order, then ((a0 + a1) + a2) + a3.  `l` and `o` point at split
 // 0 of the row (split s at s * Sq and s * Sq * D); the partials are read
-// past L1, as other blocks wrote them.
+// past L1, as other blocks wrote them.  Lane `lane` merges columns lane +
+// 32 c (c < NC), those below D (at D 112 the last pass covers 96-111 on 16
+// lanes).
 template <typename T, int D>
 __device__ __forceinline__ void merge_row(const float* l, const float* o,
                                           T* dst, int NS, int Sq, int lane) {
-  constexpr int NC = D / 32;
+  constexpr int NC = (D + 31) / 32;
   const float none = __int_as_float(0xff800000);  // -inf: below every lse
   const float l0 = lane < NS ? __ldcg(l + static_cast<long long>(lane) * Sq)
                              : none;
@@ -179,7 +193,10 @@ __device__ __forceinline__ void merge_row(const float* l, const float* o,
       al[j] = __shfl_sync(FULL, s < 32 ? a0 : a1, s & 31);
       const float* os = o + static_cast<long long>(s) * Sq * D + lane;
 #pragma unroll
-      for (int c = 0; c < NC; ++c) ov[j][c] = s < NS ? __ldcg(os + 32 * c) : 0.f;
+      for (int c = 0; c < NC; ++c)
+        ov[j][c] = s < NS && (D % 32 == 0 || lane + 32 * c < D)
+                       ? __ldcg(os + 32 * c)
+                       : 0.f;
     }
 #pragma unroll
     for (int j = 0; j < MERGE_STEP; ++j) {
@@ -198,7 +215,8 @@ __device__ __forceinline__ void merge_row(const float* l, const float* o,
   for (int c = 0; c < NC; ++c) {
     const float num =
         __fadd_rn(__fadd_rn(__fadd_rn(acc[c][0], acc[c][1]), acc[c][2]), acc[c][3]);
-    attn::store(dst + lane + 32 * c, __fdiv_rn(num, den));
+    if (D % 32 == 0 || lane + 32 * c < D)
+      attn::store(dst + lane + 32 * c, __fdiv_rn(num, den));
   }
 }
 
@@ -214,7 +232,8 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     int n_splits, int span, int stages, bool kvec) {
   using S = DecSmem<T, D>;
   constexpr int VEC = S::VEC;
-  constexpr int NC = D / 32;
+  constexpr int NC = PvCols<D>::NC;
+  constexpr int PV_LANES = PvCols<D>::LANES;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int last_block;
   const int G = H / KV;
@@ -275,8 +294,10 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     *reinterpret_cast<float4*>(qs + r * S::QLD + d) = x;
   }
 
-  // this warp's row, live while warp < nrows
+  // this warp's row, live while warp < nrows; the lanes that own P V
+  // columns (all 32 but at D 112)
   const bool live = warp < nrows;
+  const bool pv_lane = PV_LANES == 32 || lane < PV_LANES;
   const int pos = (r0 + warp) / G;
   const int row_end = causal ? kvlen - Sq + pos + 1 : kvlen;
   float m = NEG, l = 0.f, acc[NC];
@@ -339,13 +360,15 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float pv[NC];
 #pragma unroll
       for (int j = 0; j < NC; ++j) pv[j] = 0.f;
+      if (pv_lane) {
 #pragma unroll 4
-      for (int c = 0; c < BKV; ++c) {
-        float vv[NC];
-        load_cols<D>(vs + c * S::LD, lane, vv);
-        const float p = ps[c];
+        for (int c = 0; c < BKV; ++c) {
+          float vv[NC];
+          load_cols<NC>(vs + c * S::LD, lane, vv);
+          const float p = ps[c];
 #pragma unroll
-        for (int j = 0; j < NC; ++j) pv[j] = __fmaf_rn(p, vv[j], pv[j]);
+          for (int j = 0; j < NC; ++j) pv[j] = __fmaf_rn(p, vv[j], pv[j]);
+        }
       }
 #pragma unroll
       for (int j = 0; j < NC; ++j)
@@ -362,8 +385,10 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float lsafe = l == 0.f ? 1.f : l;
     const int64_t row = row0 + static_cast<int64_t>(split) * Sq;
     float* o = o_part + row * D + NC * lane;
+    if (pv_lane) {
 #pragma unroll
-    for (int j = 0; j < NC; ++j) o[j] = __fdiv_rn(acc[j], lsafe);
+      for (int j = 0; j < NC; ++j) o[j] = __fdiv_rn(acc[j], lsafe);
+    }
     if (lane == 0) lse_part[row] = l > 0.f ? __fadd_rn(m, logf(lsafe)) : NEG;
   }
   if (out == nullptr) return;
@@ -424,6 +449,9 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
     case 64:
       return launch<T, 64>(q, k, v, kv_len, o_part, lse_part, out, counters, B, Sq,
                            Skv, H, KV, st, causal, n_splits, span, stream);
+    case 112:
+      return launch<T, 112>(q, k, v, kv_len, o_part, lse_part, out, counters, B,
+                            Sq, Skv, H, KV, st, causal, n_splits, span, stream);
     case 128:
       return launch<T, 128>(q, k, v, kv_len, o_part, lse_part, out, counters, B, Sq,
                             Skv, H, KV, st, causal, n_splits, span, stream);

@@ -34,11 +34,12 @@ own launch count (`launches`, `launches_lse`, `launches_dq`,
 The forward launches under a `FwdPlan`, its query rows and threads per
 block and lanes per query row: `PLANS` are the instantiated plans,
 `plans_at` those a head dim admits (a plan's lanes must split the head
-dim: at 80 the 32-lane plan is out) and `plan_for` picks one from the
-shape.  The forward is instantiated at head dims `FWD_HEAD_DIMS` (32, 64,
-80, 128), the backward kernels and the decode kernel
-(``flash_decode.py``) at `HEAD_DIMS` (32, 64, 128); each wrapper refuses
-another head dim by name, on the CPU as on the card.  The dQ kernel
+dim: at 80 and 112 the 32-lane plan is out) and `plan_for` picks one from
+the shape.  The forward is instantiated at head dims `FWD_HEAD_DIMS` (32,
+64, 80, 112, 128), the backward kernels at `BWD_HEAD_DIMS` (32, 64, 128)
+and the decode kernel at ``flash_decode.HEAD_DIMS`` (32, 64, 112, 128);
+each wrapper refuses another head dim by name, on the CPU as on the
+card.  The dQ kernel
 launches under a `BwdPlan`, its query rows per block: `BWD_PLANS` and
 `bwd_plan_for`.
 Every plan gives every output the same bits (one fmaf chain per element
@@ -57,8 +58,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import attention_mask, flash_attention_ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-FWD_HEAD_DIMS = (32, 64, 80, 128)  # the forward kernel's head dims
-HEAD_DIMS = (32, 64, 128)  # the dQ, dK / dV and decode kernels' head dims
+FWD_HEAD_DIMS = (32, 64, 80, 112, 128)  # the forward kernel's head dims
+BWD_HEAD_DIMS = (32, 64, 128)  # the dQ and dK / dV kernels' head dims
 SMS = 132  # streaming multiprocessors of an H100 SXM
 
 
@@ -263,8 +264,8 @@ def _on_card(name: str, q) -> bool:
 
 def plans_at(d: int) -> tuple[FwdPlan, ...]:
     """The forward plans instantiated at head dim `d`: those whose lanes
-    split it evenly (every plan at 32, 64 and 128; at 80 the two 8-lane
-    plans, 10 columns a lane)."""
+    split it evenly (every plan at 32, 64 and 128; at 80 and 112 the two
+    8-lane plans, 10 and 14 columns a lane)."""
     return tuple(p for p in PLANS if d % p.lanes == 0)
 
 
@@ -277,7 +278,7 @@ def plan_for(b: int, sq: int, h: int, kv: int, d: int | None = None
     times every plan: 8-row blocks were fastest at the 64-token serving
     chunk at batch 1 and 4, 64-row ones at a 512-token prompt, 128-row ones
     at the training shapes), or 64-row blocks where d does not admit a
-    32-lane row (`plans_at`; head dim 80).  For speed only: every plan
+    32-lane row (`plans_at`; head dims 80 and 112).  For speed only: every plan
     gives the same bits."""
     rows = (h // kv) * sq
     if b * kv * -(-rows // 128) >= SMS:
@@ -358,7 +359,7 @@ def bwd_plan_for(b: int, sq: int, h: int, kv: int) -> BwdPlan:
 
 def _check_bwd(q, do, lse, delta, kernel: str) -> None:
     b, sq, h, d = q.shape
-    check_head_dim(d, HEAD_DIMS, kernel)
+    check_head_dim(d, BWD_HEAD_DIMS, kernel)
     if do.shape != q.shape or do.dtype != q.dtype:
         raise ValueError(f"dO must be {q.dtype} {tuple(q.shape)}; got "
                          f"{do.dtype} {tuple(do.shape)}")
@@ -451,12 +452,13 @@ class FlashAttention(torch.autograd.Function):
     (as ``_flash_vjp_bwd``; a row with no live key has O = 0, so Delta = 0
     there) and launches the dQ kernel under `bwd_plan_for`'s plan and the
     dK / dV kernel.  kv_len and causal get no gradient.  A head dim the
-    backward kernels lack (80) is refused here, before the forward runs.
+    backward kernels lack (80, 112) is refused here, before the forward
+    runs.
     """
 
     @staticmethod
     def forward(ctx, q, k, v, kv_len, causal):
-        check_head_dim(q.shape[-1], HEAD_DIMS, "flash_attention_bwd")
+        check_head_dim(q.shape[-1], BWD_HEAD_DIMS, "flash_attention_bwd")
         o, lse = flash_attention_fwd(q, k, v, kv_len, causal=causal,
                                      return_lse=True)
         ctx.save_for_backward(q, k, v, kv_len, o, lse)

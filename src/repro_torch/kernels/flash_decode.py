@@ -22,10 +22,12 @@ that.
 An empty span reports the sentinel lse `EMPTY_SPAN_LSE` (-1e30) and a zero
 partial, which `combine` weighs to exactly 0; a row whose spans are all
 empty merges to exact 0, never NaN.  Partials, lse and the merge are fp32
-for every operand dtype.  The wrappers run the plain versions only for a
-CPU tensor; on a CUDA tensor they launch the kernel or raise.  `launches`
-counts the kernel's launches, with or without the merge, and moves
-nowhere else.  Inference only: decode is never differentiated.
+for every operand dtype.  The kernel is instantiated at head dims
+`HEAD_DIMS` (zamba2's shared block at 112 among them); another head dim is
+refused by name, on the CPU as on the card.  The wrappers run the plain
+versions only for a CPU tensor; on a CUDA tensor they launch the kernel or
+raise.  `launches` counts the kernel's launches, with or without the
+merge, and moves nowhere else.  Inference only: decode is never differentiated.
 """
 from __future__ import annotations
 
@@ -34,11 +36,12 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import (DTYPES, HEAD_DIMS, STRIDES,
+from repro_torch.kernels.flash_attention import (DTYPES, STRIDES,
                                                  check_head_dim,
                                                  check_operands, cuda_args)
 from repro_torch.kernels.ref import attention_mask
 
+HEAD_DIMS = (32, 64, 112, 128)  # the decode kernel's head dims
 # The lse an empty (fully-masked) key span reports; `combine` weighs such
 # partials to zero.
 EMPTY_SPAN_LSE = -1e30

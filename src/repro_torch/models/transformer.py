@@ -1,20 +1,30 @@
-"""The LM assembled per ArchConfig: the dense GQA, Mamba2 SSM and GQA MoE
-families and the modality frontends (PyTorch port of the ``dense``,
-``mamba`` and ``gqa_moe`` paths of ``repro/models/transformer.py``, with
-its ``_embed_inputs``).
+"""The LM assembled per ArchConfig: the dense GQA, Mamba2 SSM, GQA MoE and
+hybrid (zamba2) families and the modality frontends (PyTorch port of the
+``dense``, ``mamba``, ``gqa_moe`` and ``zamba_super`` paths of
+``repro/models/transformer.py``, with its ``_embed_inputs`` and
+``_shared_block``).
 
 The layer program is static, from the config: ``[("dense", n_layers)]``
 for the dense, vision (``vlm``) and audio families, ``[("mamba",
-n_layers)]`` for the SSM family and ``[("gqa_moe", n_layers)]`` for a MoE
-config without MLA (llama4-scout).  A vision config prepends its
-projected patch embeddings to the text embeddings; an audio config
-projects its frame embeddings in place of a token lookup (it keeps the
-unused ``embed`` table, as JAX's ``init_params`` does) and, being
-encoder-only (``causal=False``), attends both ways with no decode step.
-The JAX package stacks each program entry's layers under one leading layer
-axis and scans over it; the port keeps one parameter dict per layer in
-``params["layers"]`` and loops (PyTorch runs eagerly, so there is nothing
-to trace).  `convert.lm_params_from_jax` turns a JAX tree into this form.
+n_layers)]`` for the SSM family, ``[("gqa_moe", n_layers)]`` for a MoE
+config without MLA (llama4-scout), and for the hybrid ``[("zamba_super",
+n_super)]`` plus a ``("mamba", tail)`` entry when ``attn_every`` does not
+divide the layers (zamba2-7b: 13 super entries of 6 mamba layers, then 3
+mamba layers).  A super entry runs its ``attn_every`` mamba layers, then
+the ONE shared attention + MLP block (``params["shared"]``, the same
+weights at every entry), which reads concat(hidden, the embedding of the
+call's tokens) through an rms norm and a 2d -> d projection and adds its
+d -> d output back.  A vision config prepends its projected patch
+embeddings to the text embeddings; an audio config projects its frame
+embeddings in place of a token lookup (it keeps the unused ``embed``
+table, as JAX's ``init_params`` does) and, being encoder-only
+(``causal=False``), attends both ways with no decode step.  The JAX
+package stacks each program entry's layers under leading layer axes and
+scans over them; the port keeps one parameter dict per layer in
+``params["layers"]``, in program order (a super entry's layers row-major:
+entry i's layer j is ``layers[i * attn_every + j]``), and loops (PyTorch
+runs eagerly, so there is nothing to trace).
+`convert.lm_params_from_jax` turns a JAX tree into this form.
 
 Parameters (plain dicts of tensors)::
 
@@ -22,23 +32,26 @@ Parameters (plain dicts of tensors)::
      "frontend": {...},                          # vlm and audio only
      "layers": [{"norm1", "attn", "norm2", "mlp"}, ...],   # dense
      "layers": [{"norm1", "attn", "norm2", "moe"}, ...],   # gqa_moe
-     "layers": [{"norm", "mixer"}, ...],                   # mamba
+     "layers": [{"norm", "mixer"}, ...],                   # mamba, hybrid
+     "shared": {"norm_in", "win", "norm1", "attn", "norm2", "mlp",
+                "wout"},                                   # hybrid only
      "lm_head": {"w": (D, V_padded)}}           # untied configs only
 
 A tied head is the embedding's transpose, ``embed.t()``: a view that the
 GEMM kernel reads in place, so the head neither copies the table per call
 nor keeps a second copy of it (544 MB at qwen2-0.5b).  Caches are a list
 aligned with the layer program, as in JAX:
-``[{"k", "v": (n_layers, B, S, KV, hd)}]`` for a dense or gqa_moe
-stack, and for a mamba stack ``[{"conv_x", "conv_B", "conv_C":
-(n_layers, B, conv - 1, C), "ssm": (n_layers, B, H, P, N)}]``, O(1) in
-the sequence length.
+``{"k", "v": (n_layers, B, S, KV, hd)}`` for a dense or gqa_moe
+stack, ``{"conv_x", "conv_B", "conv_C": (n_layers, B, conv - 1, C),
+"ssm": (n_layers, B, H, P, N)}`` for a mamba stack, O(1) in the sequence
+length, and for a super entry ``{"mamba": {the mamba leaves, (n,
+attn_every, B, ...)}, "shared": {"k", "v": (n, B, S, KV, hd)}}``.
 `loss_fn` is the training loss: the forward under autograd, each layer
-recomputed in the backward (``remat``, the JAX ``jax.checkpoint`` of the
-scanned layer body), the chunked cross-entropy through the (tied) head
-and, for a MoE stack, the mean of the layers' load-balance losses.
-MLA (the ``mla_dense`` / ``mla_moe`` programs) and the hybrid (zamba2)
-program come with their model code; they raise NotImplementedError here.
+(each super entry, shared block included) recomputed in the backward
+(``remat``, the JAX ``jax.checkpoint`` of the scanned body), the chunked
+cross-entropy through the (tied) head and, for a MoE stack, the mean of
+the layers' load-balance losses.  MLA (the ``mla_dense`` / ``mla_moe``
+programs) comes with its model code; it raises NotImplementedError here.
 """
 from __future__ import annotations
 
@@ -52,14 +65,14 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (chunked_cross_entropy, embed_init,
                                        embed_lookup, norm_apply, norm_init,
-                                       rope_table)
+                                       rmsnorm, rope_table)
 from repro_torch.models.mlp import mlp_forward, mlp_init
 from repro_torch.tree import flatten
 
 
 def stack_program(cfg) -> list[tuple[str, int]]:
     """The static layer program; the dense (also under the vision and audio
-    frontends), SSM and GQA MoE programs are ported."""
+    frontends), SSM, GQA MoE and hybrid programs are ported."""
     if cfg.family in ("dense", "vlm", "audio"):
         return [("dense", cfg.n_layers)]
     if cfg.family == "ssm":
@@ -71,14 +84,36 @@ def stack_program(cfg) -> list[tuple[str, int]]:
             f"'gqa_moe' program only")
     if cfg.family == "moe":
         return [("gqa_moe", cfg.n_layers)]
+    if cfg.family == "hybrid":
+        n_super = cfg.n_layers // cfg.attn_every
+        tail = cfg.n_layers - n_super * cfg.attn_every
+        return [("zamba_super", n_super)] + ([("mamba", tail)] if tail
+                                             else [])
     raise NotImplementedError(
         f"the {cfg.family!r} family ({cfg.name}) is not ported yet: the "
         f"port runs dense GQA (with the vision and audio frontends), GQA "
-        f"MoE and mamba stacks only")
+        f"MoE, mamba and hybrid stacks only")
+
+
+def entry_layers(kind: str, n: int, cfg) -> int:
+    """The layer dicts of a program entry of `n`: a super entry holds
+    ``attn_every`` mamba layers each."""
+    return n * cfg.attn_every if kind == "zamba_super" else n
+
+
+def _program(cfg, params: dict) -> list[tuple[str, int, list]]:
+    """(kind, n, the entry's layer dicts) of each program entry, the dicts
+    cut from ``params["layers"]`` in program order."""
+    out, first = [], 0
+    for kind, n in stack_program(cfg):
+        count = entry_layers(kind, n, cfg)
+        out.append((kind, n, params["layers"][first:first + count]))
+        first += count
+    return out
 
 
 def _layer_init(kind: str, generator, cfg, device) -> dict:
-    if kind == "mamba":
+    if kind in ("mamba", "zamba_super"):
         return {"norm": norm_init(cfg.norm, cfg.d_model, device),
                 "mixer": ssm_mod.ssm_init(generator, cfg, device)}
     lp = {"norm1": norm_init(cfg.norm, cfg.d_model, device),
@@ -92,17 +127,34 @@ def _layer_init(kind: str, generator, cfg, device) -> dict:
     return lp
 
 
+def _shared_block_init(generator, cfg, device) -> dict:
+    """The hybrid's shared attention + MLP block (JAX's
+    ``_shared_block_init``)."""
+    d = cfg.d_model
+    return {"norm_in": norm_init("rms", 2 * d, device),
+            "win": torch.randn(2 * d, d, generator=generator,
+                               device=device) / (2 * d) ** 0.5,
+            "norm1": norm_init(cfg.norm, d, device),
+            "attn": attn.gqa_init(generator, cfg, device),
+            "norm2": norm_init(cfg.norm, d, device),
+            "mlp": mlp_init(generator, d, cfg.d_ff, cfg.act, device),
+            "wout": torch.randn(d, d, generator=generator,
+                                device=device) / d ** 0.5}
+
+
 def init_params(cfg, *, generator: torch.Generator, device=None) -> dict:
     """Random parameters with the JAX package's initialisation rules (its
     numbers differ: this draws from `generator`, which lives on `device`)."""
-    (kind, n), = stack_program(cfg)
     params = {"embed": embed_init(generator, cfg.vocab_padded, cfg.d_model,
                                   device),
               "final_norm": norm_init(cfg.norm, cfg.d_model, device)}
     if cfg.frontend != "none":
         params["frontend"] = fe.frontend_init(generator, cfg, device)
     params["layers"] = [_layer_init(kind, generator, cfg, device)
-                        for _ in range(n)]
+                        for kind, n in stack_program(cfg)
+                        for _ in range(entry_layers(kind, n, cfg))]
+    if cfg.family == "hybrid":
+        params["shared"] = _shared_block_init(generator, cfg, device)
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": torch.randn(
             cfg.d_model, cfg.vocab_padded, generator=generator,
@@ -179,37 +231,107 @@ def _embed_inputs(engine, cfg, params, tokens=None, patch_embeds=None,
     return h
 
 
-def _rope(kind, cfg, positions):
-    """The RoPE tables of an attention program, (None, None) for mamba."""
-    if kind == "mamba":
+def _rope(cfg, positions):
+    """The RoPE tables of a program that holds attention (for the hybrid,
+    the shared block's), (None, None) for a mamba stack."""
+    if all(kind == "mamba" for kind, _ in stack_program(cfg)):
         return None, None
     return rope_table(positions, cfg.head_dim, cfg.rope_theta)
 
 
+def _shared_block(engine, cfg, sp, h, emb0, attend):
+    """The hybrid's shared block (JAX's ``_shared_block``): h + wout(x)
+    with x = win(rmsnorm(concat(h, emb0))) through pre-norm attention and
+    the MLP, each added back.  ``attend(x)`` is the attention of the
+    normed x: (its output, its cache entry or None).  Returns (h, the
+    entry)."""
+    x = rmsnorm(torch.cat([h, emb0], dim=-1), sp["norm_in"]["scale"],
+                cfg.norm_eps)
+    x = engine.matmul(x, sp["win"])
+    a, kv = attend(norm_apply(cfg.norm, sp["norm1"], x, cfg.norm_eps))
+    x = x + a
+    x = x + mlp_forward(engine, sp["mlp"],
+                        norm_apply(cfg.norm, sp["norm2"], x, cfg.norm_eps),
+                        cfg.act)
+    return h + engine.matmul(x, sp["wout"]), kv
+
+
+def _stacked(entries: list):
+    """The layers' cache entries of one program entry stacked under a
+    leading layer axis, leaf by leaf (a nested entry stacks inside)."""
+    first = entries[0]
+    if isinstance(first, dict):
+        return {name: _stacked([e[name] for e in entries])
+                for name in first}
+    return torch.stack(entries)
+
+
+def _super_entry(engine, cfg, params, lps, h, emb0, cos, sin,
+                 collect_caches):
+    """One super entry of the hybrid: its mamba layers, then the shared
+    block.  Returns (h, its cache entry {"mamba": {leaf: (attn_every, B,
+    ...)}, "shared": {"k", "v"}} or None)."""
+    mamba = []
+    for lp in lps:
+        h, entry, _ = _layer("mamba", engine, cfg, lp, h, cos, sin,
+                             return_cache=collect_caches)
+        mamba.append(entry)
+
+    def attend(x):
+        a = attn.gqa_forward(engine, params["shared"]["attn"], x, cos, sin,
+                             cfg, return_kv=collect_caches)
+        return a if collect_caches else (a, None)
+
+    h, kv = _shared_block(engine, cfg, params["shared"], h, emb0, attend)
+    if not collect_caches:
+        return h, None
+    return h, {"mamba": _stacked(mamba), "shared": kv}
+
+
 def _forward(engine, cfg, params, h, *, collect_caches, remat):
     """The full-sequence forward of the stack's input h (B, S, D),
-    `_embed_inputs`'s: (final hidden (B, S, D), the layers' cache entries
-    or None, the summed MoE aux loss, a 0-d fp32 tensor)."""
-    (kind, _), = stack_program(cfg)
-    cos, sin = _rope(kind, cfg, torch.arange(h.shape[1], device=h.device))
+    `_embed_inputs`'s: (final hidden (B, S, D), the program entries' caches
+    (`forward_prefill`'s) or None, the summed MoE aux loss, a 0-d fp32
+    tensor).  With ``remat`` each layer, and each super entry as one
+    piece (JAX's ``jax.checkpoint(super_body)``), runs under
+    ``torch.utils.checkpoint``."""
+    cos, sin = _rope(cfg, torch.arange(h.shape[1], device=h.device))
+    emb0 = h
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
-    entries = []
+    caches = []
 
-    def layer(lp, x):
-        return _layer(kind, engine, cfg, lp, x, cos, sin,
-                      return_cache=collect_caches)
-
-    for lp in params["layers"]:
+    def run(fn, *args):
         if remat:
-            h, entry, aux = checkpoint(layer, lp, h, use_reentrant=False,
-                                       preserve_rng_state=False)
+            return checkpoint(fn, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        return fn(*args)
+
+    for kind, n, layers in _program(cfg, params):
+        entries = []
+        if kind == "zamba_super":
+            every = cfg.attn_every
+
+            def block(lps, x):
+                return _super_entry(engine, cfg, params, lps, x, emb0, cos,
+                                    sin, collect_caches)
+
+            for i in range(n):
+                h, entry = run(block, layers[i * every:(i + 1) * every], h)
+                entries.append(entry)
         else:
-            h, entry, aux = layer(lp, h)
-        entries.append(entry)
-        if aux is not None:
-            aux_total = aux_total + aux
+            def layer(lp, x, kind=kind):
+                return _layer(kind, engine, cfg, lp, x, cos, sin,
+                              return_cache=collect_caches)
+
+            for lp in layers:
+                h, entry, aux = run(layer, lp, h)
+                entries.append(entry)
+                if aux is not None:
+                    aux_total = aux_total + aux
+        if collect_caches:
+            caches.append(_stacked(entries))
     h = norm_apply(cfg.norm, params["final_norm"], h, cfg.norm_eps)
-    return h, entries if collect_caches else None, aux_total
+    return h, caches if collect_caches else None, aux_total
 
 
 def forward_hidden(engine: ComputeEngine, cfg, params: dict, *,
@@ -219,10 +341,11 @@ def forward_hidden(engine: ComputeEngine, cfg, params: dict, *,
     MoE load-balance loss of the layers, a 0-d fp32 tensor: 0 for a stack
     without MoE layers); tokens (B, S_text) int, with patch_embeds (B, T,
     frontend_dim) for a vision config, or frames (B, S, frontend_dim) in
-    their place for an audio config.  With ``remat`` each layer
-    runs under ``torch.utils.checkpoint``: its activations are not kept
-    for the backward, which recomputes them (the same values, so the same
-    gradients; only the layer inputs stay alive)."""
+    their place for an audio config.  With ``remat`` each layer (each
+    super entry of the hybrid) runs under ``torch.utils.checkpoint``: its
+    activations are not kept for the backward, which recomputes them (the
+    same values, so the same gradients; only the layer inputs stay
+    alive)."""
     h = _embed_inputs(engine, cfg, params, tokens, patch_embeds, frames)
     h, _, aux = _forward(engine, cfg, params, h, collect_caches=False,
                          remat=remat)
@@ -236,8 +359,9 @@ def loss_fn(engine: ComputeEngine, cfg, params: dict, batch: dict, *,
     config, whose text tokens are then S - T, or ``frames`` in place of
     tokens for an audio config), plus ``aux_coef`` times the mean MoE
     load-balance loss over the MoE layers when the stack has any.  A
-    mamba stack differentiates on `eager` and `ref` only: the `cuda` SSD
-    kernel is inference only, and `guard_grad` refuses it under grad.
+    mamba or hybrid stack differentiates on `eager` and `ref` only: the
+    `cuda` SSD kernel is inference only, and `guard_grad` refuses it under
+    grad.
 
     The forward dispatches the same engine ops as serving (on `cuda` the
     GEMM and attention kernels, differentiable through `GemmFused` and
@@ -263,17 +387,25 @@ def forward_prefill(engine: ComputeEngine, cfg, params: dict, *,
                     collect_caches: bool = True):
     """Full-sequence forward (inputs as `forward_hidden`'s) that also
     collects the caches: returns (hidden (B, S, D), caches), the caches a
-    one-entry list of the layers' entries stacked under a leading layer
-    axis ({"k", "v"} for dense and gqa_moe, {"conv_x", "conv_B", "conv_C",
-    "ssm"} for mamba), or (hidden, None) without ``collect_caches``.  A
-    MoE layer's aux loss is dropped, as in JAX."""
+    list aligned with the layer program, each entry's layers stacked under
+    leading layer axes ({"k", "v"} for dense and gqa_moe, {"conv_x",
+    "conv_B", "conv_C", "ssm"} for mamba, {"mamba", "shared"} for a super
+    entry; see the module docstring), or (hidden, None) without
+    ``collect_caches``.  A MoE layer's aux loss is dropped, as in JAX."""
     h = _embed_inputs(engine, cfg, params, tokens, patch_embeds, frames)
-    h, entries, _ = _forward(engine, cfg, params, h,
-                             collect_caches=collect_caches, remat=False)
-    if not collect_caches:
-        return h, None
-    return h, [{name: torch.stack([e[name] for e in entries])
-                for name in entries[0]}]
+    h, caches, _ = _forward(engine, cfg, params, h,
+                            collect_caches=collect_caches, remat=False)
+    return h, caches
+
+
+def _mamba_step(engine, cfg, lp, h, cache: dict):
+    """One mamba layer's one-token decode; `cache` holds views of the
+    layer's rows of the stacked caches, written in place."""
+    x = norm_apply(cfg.norm, lp["norm"], h, cfg.norm_eps)
+    m, new = ssm_mod.ssm_decode(engine, lp["mixer"], x, cache, cfg)
+    for name, t in new.items():
+        cache[name].copy_(t)
+    return h + m
 
 
 def decode_hidden(engine: ComputeEngine, cfg, params: dict, caches: list,
@@ -281,47 +413,62 @@ def decode_hidden(engine: ComputeEngine, cfg, params: dict, caches: list,
     """Decode a chunk of C new tokens against the caches.
 
     token: (B, C) int; C == 1 is one-token decode, C > 1 a chunked-prefill
-    step (attention stacks only: mamba decode is strictly one token).
-    pos: an int, a scalar, or a (B,) tensor of per-sequence START
-    positions; the chunk occupies rows [pos, pos + C) (a mamba stack has
-    no positions and ignores it).  The caches are written in place (each
-    layer's rows of the stacked tensors).
+    step (attention stacks only: a program that holds a mamba layer
+    decodes strictly one token).  pos: an int, a scalar, or a (B,) tensor
+    of per-sequence START positions; the chunk occupies rows [pos, pos +
+    C) of the attention caches (mamba layers have no positions and ignore
+    it; the hybrid's shared block writes its K / V at pos).  The caches
+    are written in place (each layer's rows of the stacked tensors).  The
+    hybrid's shared block reads the embedding of `token`, as JAX's
+    ``decode_hidden`` does.
     Returns (hidden (B, C, D), caches).
     """
-    (kind, n), = stack_program(cfg)
+    prog = _program(cfg, params)
     c = token.shape[1]
     h = _embed(engine, params, token)
-    cache = caches[0]
-    if kind == "mamba":
-        if c != 1:
-            raise ValueError(f"mamba decode takes one token per step, got "
-                             f"{c}")
-        for i, lp in enumerate(params["layers"][:n]):
-            x = norm_apply(cfg.norm, lp["norm"], h, cfg.norm_eps)
-            m, new = ssm_mod.ssm_decode(
-                engine, lp["mixer"], x,
-                {name: t[i] for name, t in cache.items()}, cfg)
-            for name, t in new.items():
-                cache[name][i].copy_(t)
-            h = h + m
-        h = norm_apply(cfg.norm, params["final_norm"], h, cfg.norm_eps)
-        return h, caches
-    start = torch.as_tensor(pos, device=h.device).to(torch.int64)
-    ar = torch.arange(c, device=h.device)
-    # (C,) positions for a shared start, (B, C) for per-sequence starts
-    positions = start + ar if start.dim() == 0 else start[:, None] + ar
-    cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta)
-    for i, lp in enumerate(params["layers"][:n]):
-        x = norm_apply(cfg.norm, lp["norm1"], h, cfg.norm_eps)
-        a, _ = attn.gqa_decode(engine, lp["attn"], x,
-                               {"k": cache["k"][i], "v": cache["v"][i]},
-                               start, cos, sin, cfg)
-        h = h + a
-        x = norm_apply(cfg.norm, lp["norm2"], h, cfg.norm_eps)
-        if kind == "gqa_moe":
-            # each row's C new tokens are one routing group, as in JAX
-            h = h + moe_mod.moe_forward(engine, lp["moe"], x, cfg)[0]
-        else:
-            h = h + mlp_forward(engine, lp["mlp"], x, cfg.act)
+    if c != 1 and any(kind in ("mamba", "zamba_super")
+                      for kind, _, _ in prog):
+        raise ValueError(f"mamba decode takes one token per step, got {c}")
+    emb0 = h
+    cos = sin = start = None
+    if any(kind != "mamba" for kind, _, _ in prog):
+        start = torch.as_tensor(pos, device=h.device).to(torch.int64)
+        ar = torch.arange(c, device=h.device)
+        # (C,) positions for a shared start, (B, C) for per-sequence starts
+        positions = start + ar if start.dim() == 0 else start[:, None] + ar
+        cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta)
+    for (kind, n, layers), cache in zip(prog, caches):
+        if kind == "mamba":
+            for i, lp in enumerate(layers):
+                h = _mamba_step(engine, cfg, lp, h,
+                                {name: t[i] for name, t in cache.items()})
+            continue
+        if kind == "zamba_super":
+            every, sp = cfg.attn_every, params["shared"]
+            for i in range(n):
+                for j, lp in enumerate(layers[i * every:(i + 1) * every]):
+                    h = _mamba_step(engine, cfg, lp, h,
+                                    {name: t[i, j] for name, t
+                                     in cache["mamba"].items()})
+                kv = {"k": cache["shared"]["k"][i],
+                      "v": cache["shared"]["v"][i]}
+                h, _ = _shared_block(
+                    engine, cfg, sp, h, emb0,
+                    lambda x, kv=kv: attn.gqa_decode(engine, sp["attn"], x,
+                                                     kv, start, cos, sin,
+                                                     cfg))
+            continue
+        for i, lp in enumerate(layers):
+            x = norm_apply(cfg.norm, lp["norm1"], h, cfg.norm_eps)
+            a, _ = attn.gqa_decode(engine, lp["attn"], x,
+                                   {"k": cache["k"][i], "v": cache["v"][i]},
+                                   start, cos, sin, cfg)
+            h = h + a
+            x = norm_apply(cfg.norm, lp["norm2"], h, cfg.norm_eps)
+            if kind == "gqa_moe":
+                # each row's C new tokens are one routing group, as in JAX
+                h = h + moe_mod.moe_forward(engine, lp["moe"], x, cfg)[0]
+            else:
+                h = h + mlp_forward(engine, lp["mlp"], x, cfg.act)
     h = norm_apply(cfg.norm, params["final_norm"], h, cfg.norm_eps)
     return h, caches

@@ -8,15 +8,18 @@ rows; finished slots (EOS / max_new / max_len) free at once.  The engine
 defaults to the card (`make_engine()`); only the sampled token ids come
 back to the host.
 
-A mamba stack is admitted differently: its slot rows (conv tails and
-state) are zeroed, then all of its prompt but the last token runs through
-the prefill (`models.transformer.forward_prefill`, the chunked SSD scan:
-on `cuda` the SSD kernel) into them, instead of one lockstep decode step
-per token; the last prompt token then decodes with the other slots and
-gives the first new token.  Without the prefill the SSD kernel would never
-run on this path (a decode step is the recurrence).  A dense stack keeps
-the replay, so its streams stay those of the JAX engine, which replays
-every prompt token through the decode program.
+A program that holds a mamba layer (a mamba stack, or the hybrid) is
+admitted differently: its slot's mamba rows (conv tails and state, of the
+super entries and the tail alike) are zeroed, then all of its prompt but
+the last token runs through the prefill (`models.transformer.
+forward_prefill`, the chunked SSD scan: on `cuda` the SSD kernel, and the
+hybrid's shared attention through the flash forward) into them and into
+the slot's shared-block KV rows [0, L - 1), instead of one lockstep decode
+step per token; the last prompt token then decodes with the other slots
+and gives the first new token.  Without the prefill the SSD kernel would
+never run on this path (a decode step is the recurrence).  A dense stack
+keeps the replay, so its streams stay those of the JAX engine, which
+replays every prompt token through the decode program.
 
 Implements the shared `ServingFrontend` protocol (serve/frontend.py) with
 the same stats schema as the CNN engine.  Prompts longer than the KV cache
@@ -69,7 +72,8 @@ class ServingEngine(fe.ServingFrontend):
                                          engine.precision.compute_dtype,
                                          engine.device)
         self._decode = make_decode_step(engine, cfg)
-        self._ssm = stack_program(cfg) == [("mamba", cfg.n_layers)]
+        self._ssm = any(kind in ("mamba", "zamba_super")
+                        for kind, _ in stack_program(cfg))
         self.pos = np.zeros(slots, np.int32)          # next write position
         self.active: list[Request | None] = [None] * slots
         self.pending: deque[Request] = deque()
@@ -131,26 +135,31 @@ class ServingEngine(fe.ServingFrontend):
         """Start slot `s` on `prompt`; returns how many prompt tokens that
         consumed.  A dense stack consumes none: its prompt replays through
         the lockstep decode step, and its stale cache rows lie past the new
-        position, masked by it.  A mamba stack's slot rows (conv tails and
-        SSM state) are zeroed, so the request does not start from the
-        previous occupant's history (the JAX engine resets only the
-        position, and there a reused slot carries the old state), and all
-        of the prompt but its last token runs through the prefill (on
-        `cuda` the SSD kernel) into them."""
+        position, masked by it.  A program with mamba layers has its slot's
+        mamba rows (conv tails and SSM state) zeroed, so the request does
+        not start from the previous occupant's history (the JAX engine
+        resets only the position, and there a reused slot carries the old
+        state), and all of the prompt but its last token runs through the
+        prefill (on `cuda` the SSD kernel) into them, and for the hybrid
+        into the slot's shared-block KV rows [0, L - 1) (rows past them
+        are masked by the position, as a dense slot's)."""
         if not self._ssm:
             return 0
-        for t in self.caches[0].values():
-            t[:, s].zero_()
-        if len(prompt) < 2:
+        for rows in kvcache.slot_rows(self.cfg, self.caches, s):
+            rows.zero_()
+        n = len(prompt) - 1
+        if n < 1:
             return 0
         toks = torch.tensor([prompt[:-1]], dtype=torch.int64,
                             device=self.engine.device)
         with torch.inference_mode():
             _, caches = forward_prefill(self.engine, self.cfg, self.params,
                                         tokens=toks)
-            for name, t in self.caches[0].items():
-                t[:, s].copy_(caches[0][name][:, 0])
-        return len(prompt) - 1
+            for dst, src in zip(
+                    kvcache.slot_rows(self.cfg, self.caches, s, n),
+                    kvcache.slot_rows(self.cfg, caches, 0, n)):
+                dst.copy_(src)
+        return n
 
     def step(self) -> int:
         """One lockstep decode across all slots (idle slots ride along)."""

@@ -7,8 +7,9 @@ Each `make_*` returns a plain function over parameter and cache dicts; the
 engines call it under ``torch.inference_mode()``.  Every projection, the
 LM head and attention dispatch the engine, so on the `cuda` backend the
 path runs the port's GEMM, flash-attention and split-KV decode kernels,
-and for a mamba stack the GEMM and the SSD chunk-scan kernels (the SSM
-decode step is plain PyTorch around the GEMMs).  The paged step serves
+for a mamba stack the GEMM and the SSD chunk-scan kernels (the SSM
+decode step is plain PyTorch around the GEMMs), and for the hybrid both
+(the shared block's attention at head dim 112).  The paged step serves
 dense stacks only (`kvpool.PagedKVCache` refuses the others).
 """
 from __future__ import annotations
@@ -36,8 +37,8 @@ def make_prefill_step(engine: ComputeEngine, cfg):
     (B, S)}, with "patch_embeds" (B, T, frontend_dim) for a vision config
     (the visual tokens come first, so the caches hold T + S rows).  The
     caches are [{"k", "v": (n_layers, B, S, KV, hd)}] for a dense stack,
-    the conv tails and final SSD states for a mamba stack
-    (`models.transformer.forward_prefill`)."""
+    the conv tails and final SSD states for a mamba stack, both for the
+    hybrid (`models.transformer.forward_prefill`)."""
     def prefill_step(params, inputs):
         h, caches = tfm.forward_prefill(engine, cfg, params,
                                         **_inputs(inputs))

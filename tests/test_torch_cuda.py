@@ -38,7 +38,13 @@ plan's.  For the modality frontends: the flash forward at head dim 80
 against its plain version under every plan it admits (the 32-lane plan
 refused), the backward and decode kernels refusing head dim 80, reduced
 internvl2-2b's prefill, decode and slot-engine streams and reduced
-hubert-xlarge's forward (at head dim 80) on `cuda` against `eager`.
+hubert-xlarge's forward (at head dim 80) on `cuda` against `eager`.  For
+the hybrid: the flash forward and the split-KV decode at zamba2's head dim
+112 against their plain versions (every forward plan bit for bit the path
+plan's, the one-split decode the forward's, the merge `combine`'s), dQ /
+dK / dV refusing 112, and reduced zamba2-7b (with a mamba tail, at head
+dim 112) through prefill, decode and the slot engine on `cuda` against
+`eager`.
 """
 import dataclasses
 
@@ -975,8 +981,7 @@ def test_reduced_internvl2_on_cuda_matches_eager(card):
             before = (gemm.launches, fa.launches, fd.launches)
             logits, caches = make_prefill_step(eng, cfg)(params, inputs)
             buf = kvcache.cache_init(cfg, 2, 256, device=card)
-            for name in ("k", "v"):
-                buf[0][name][:, :, :32] = caches[0][name]
+            kvcache.copy_prefill(cfg, buf, caches, 32)
             dlogits, _ = make_decode_step(eng, cfg)(
                 params, buf, inputs["tokens"][:, -1:],
                 torch.tensor(32, device=card))
@@ -1024,3 +1029,174 @@ def test_reduced_hubert_at_head_dim_80_on_cuda_matches_eager(card):
     assert _relmax(out["cuda"][0], out["eager"][0]) <= 1e-4
     with pytest.raises(ValueError, match="encoder-only"):
         ServingEngine(cfg, params, engine=make_engine("cuda"))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("b,sq,skv,h,kv,causal,lens", [
+    (2, 64, 64, 32, 32, True, None),
+    (2, 37, 100, 8, 2, True, [100, 0]),
+    (1, 1, 64, 4, 4, False, [40]),
+    (3, 130, 130, 4, 4, False, [130, 60, 1])])
+def test_forward_at_head_dim_112_matches_plain_under_every_plan(
+        card, b, sq, skv, h, kv, causal, lens, dtype, tol):
+    """The flash forward at zamba2's head dim 112 (14 columns a lane:
+    runs of 4, 4, 4 and a tail of 2) against its plain version, dead rows
+    exact 0, every plan it admits (and the lse launch) bit for bit the path
+    plan's; the 32-lane plan is refused by name, before any launch."""
+    q, k, v = _qkv(card, b, sq, skv, h, kv, 112, dtype, seed=31)
+    kvl = (None if lens is None
+           else torch.tensor(lens, dtype=torch.int32, device=card))
+    before = fa.launches
+    got = fa.flash_attention_fwd(q, k, v, kvl, causal=causal)
+    assert fa.launches == before + 1
+    assert _relmax(got, fa.flash_attention_plain(q, k, v, kvl,
+                                                 causal=causal)) <= tol
+    if lens is not None and 0 in lens:
+        assert bool((got[lens.index(0)] == 0).all())
+    o_lse, lse = fa.flash_attention_fwd(q, k, v, kvl, causal=causal,
+                                        return_lse=True)
+    assert torch.equal(o_lse, got)
+    for plan in fa.plans_at(112):
+        assert torch.equal(fa.flash_attention_fwd(
+            q, k, v, kvl, causal=causal, plan=plan), got), plan
+    before = fa.launch_counts()
+    with pytest.raises(ValueError, match="head dim 112"):
+        fa.flash_attention_fwd(q, k, v, kvl, causal=causal, plan=fa.PLANS[2])
+    assert fa.launch_counts() == before
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("b,sq,skv,h,kv,lens", [
+    (2, 1, 528, 32, 32, [513, 528]),
+    (4, 1, 256, 4, 4, [256, 85, 1, 0]),
+    (3, 4, 1024, 8, 2, [1024, 341, 0])])
+def test_decode_at_head_dim_112_matches_plain_and_the_forward(
+        card, b, sq, skv, h, kv, lens, dtype, tol):
+    """The split-KV decode at head dim 112 (28 lanes of one float4 in
+    P V): its partials against the plain version, the merged launch bit
+    for bit `combine`, and at one split the forward kernel's bits."""
+    q, k, v = _qkv(card, b, sq, skv, h, kv, 112, dtype, seed=32)
+    kvl = torch.tensor(lens, dtype=torch.int32, device=card)
+    causal = sq > 1
+    ns, span = ops.decode_splits(skv, kv)
+    parts = fd.flash_decode_partials(q, k, v, kvl, causal=causal,
+                                     n_splits=ns, span=span)
+    want = fd.flash_decode_plain(q, k, v, kvl, causal=causal, n_splits=ns,
+                                 span=span)
+    assert _relmax(parts[0], want[0]) <= tol
+    assert _relmax(parts[1], want[1]) <= tol
+    merged, o_part, lse_part = fd.flash_decode(q, k, v, kvl, causal=causal,
+                                               n_splits=ns, span=span)
+    assert torch.equal(o_part, parts[0]) and torch.equal(lse_part, parts[1])
+    assert torch.equal(merged, fd.merge_plain(*parts, q.dtype))
+    one, _ = fd.flash_decode_partials(q, k, v, kvl, causal=causal,
+                                      n_splits=1, span=-(-skv // 64) * 64)
+    assert torch.equal(one[:, :, 0].transpose(1, 2).to(q.dtype),
+                       fa.flash_attention_fwd(q, k, v, kvl, causal=causal))
+
+
+def test_backward_kernels_refuse_head_dim_112_on_the_card(card):
+    q, k, v = _qkv(card, 2, 4, 64, 4, 4, 112, seed=33)
+    lse = torch.zeros(2, 4, 4, device=card)
+    before = fa.launch_counts()
+    for call in (lambda: fa.flash_attention_bwd_dq(q, k, v, q, lse, lse),
+                 lambda: fa.flash_attention_bwd_dkv(q, k, v, q, lse, lse),
+                 lambda: fa.FlashAttention.apply(q.requires_grad_(), k, v,
+                                                 None, True)):
+        with pytest.raises(ValueError, match="head dim 112"):
+            call()
+    assert fa.launch_counts() == before
+
+
+def _zamba2_small(card):
+    """Reduced zamba2-7b with a one-layer mamba tail (2 super entries of 2
+    mamba layers and the shared block, then 1 mamba layer) at zamba2's
+    head dim 112, random from a seed with the mixers' dt bias, A and D
+    moved off their init."""
+    cfg = dataclasses.replace(reduced(get_arch("zamba2-7b")), n_layers=5,
+                              head_dim=112)
+    gen = torch.Generator(device=card).manual_seed(37)
+    params = tfm.init_params(cfg, generator=gen, device=card)
+    with torch.no_grad():
+        for lp in params["layers"]:
+            for name in ("dt_bias", "A_log", "D"):
+                t = lp["mixer"][name]
+                t.add_(torch.randn(t.shape, generator=gen, device=card) * 0.3)
+    return cfg, params
+
+
+def test_reduced_zamba2_on_cuda_matches_eager(card):
+    """Reduced zamba2-7b (a super entry's program and a tail) on `cuda`
+    against `eager`: the prefill's logits and every cache leaf, then three
+    decode steps against 256 cache rows (the shared block on the split-KV
+    kernel at head dim 112), within 1e-4; per prefill one SSD launch a
+    mamba layer and one flash forward a super entry, per step one
+    split-KV launch a super entry."""
+    cfg, params = _zamba2_small(card)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 75),
+                           generator=torch.Generator().manual_seed(38)
+                           ).to(card)
+    n_super = tfm.stack_program(cfg)[0][1]
+    out = {}
+    with torch.inference_mode():
+        for label in ("cuda", "eager"):
+            eng = make_engine(label, device=card)
+            before = (ssd.launches, fa.launches, fd.launches)
+            logits, caches = make_prefill_step(eng, cfg)(params,
+                                                         {"tokens": tokens})
+            buf = kvcache.cache_init(cfg, 2, 256, device=card)
+            kvcache.copy_prefill(cfg, buf, caches, 75)
+            dlogits = []
+            for i in range(3):  # both fed the same tokens
+                lg, buf = make_decode_step(eng, cfg)(
+                    params, buf, tokens[:, i:i + 1], 75 + i)
+                dlogits.append(lg)
+            after = (ssd.launches, fa.launches, fd.launches)
+            out[label] = (logits, caches, torch.stack(dlogits), buf,
+                          tuple(a - b for a, b in zip(after, before)))
+    assert out["cuda"][4] == (cfg.n_layers, n_super, 3 * n_super)
+    assert out["eager"][4] == (0, 0, 0)
+    assert _relmax(out["cuda"][0], out["eager"][0]) <= 1e-4
+    assert _relmax(out["cuda"][2], out["eager"][2]) <= 1e-4
+    for name, t in flatten(out["eager"][1]).items():
+        assert _relmax(flatten(out["cuda"][1])[name], t) <= 1e-4, name
+    for name, t in flatten(out["eager"][3]).items():
+        assert _relmax(flatten(out["cuda"][3])[name], t) <= 1e-4, name
+
+
+def test_slot_engine_on_cuda_serves_zamba2_through_the_kernels(card):
+    """The slot engine on `cuda` serves reduced zamba2-7b: every prompt is
+    prefilled through the SSD kernel and the flash forward, every step's
+    shared block runs the split-KV kernel (256 cache rows), a reused
+    slot's stream equals the request alone, and the streams equal the
+    slot engine's on `eager`."""
+    cfg, params = _zamba2_small(card)
+    n_super = tfm.stack_program(cfg)[0][1]
+
+    def reqs():
+        rng = np.random.default_rng(39)
+        return [Request(rid=i, prompt=rng.integers(
+            1, cfg.vocab_size, int(rng.integers(3, 40))).tolist(),
+            max_new=5) for i in range(5)]
+
+    streams = []
+    for label in ("cuda", "eager"):
+        rs = reqs()
+        before = (ssd.launches, fa.launches, fd.launches)
+        eng = ServingEngine(cfg, params, engine=make_engine(
+            label, device=card), slots=2, max_len=256)
+        eng.run(rs)
+        after = (ssd.launches, fa.launches, fd.launches)
+        assert all(r.done and len(r.out) == 5 for r in rs)
+        if label == "cuda":
+            steps = eng.stats()["steps"]
+            assert tuple(a - b for a, b in zip(after, before)) == (
+                5 * cfg.n_layers, 5 * n_super, steps * n_super)
+        streams.append([r.out for r in rs])
+    assert streams[0] == streams[1]
+    alone = reqs()[2]
+    ServingEngine(cfg, params, engine=make_engine("cuda"), slots=1,
+                  max_len=256).run([alone])
+    assert alone.out == streams[0][2]

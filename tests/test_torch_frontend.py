@@ -146,7 +146,7 @@ def test_input_tensors_follow_the_jax_input_specs(name, kind):
 
 def test_params_round_trip_through_the_jax_layout(model):
     jcfg, cfg, jparams, params = model
-    back = convert.lm_params_to_numpy(params)
+    back = convert.lm_params_to_numpy(params, cfg)
     flat_a, tree_a = jax.tree_util.tree_flatten(
         jax.tree_util.tree_map(np.asarray, jparams))
     flat_b, tree_b = jax.tree_util.tree_flatten(back)
@@ -156,7 +156,7 @@ def test_params_round_trip_through_the_jax_layout(model):
     fresh = tfm.init_params(cfg, generator=torch.Generator().manual_seed(0))
     assert (jax.tree_util.tree_structure(
         jax.tree_util.tree_map(np.asarray, jparams))
-        == jax.tree_util.tree_structure(convert.lm_params_to_numpy(fresh)))
+        == jax.tree_util.tree_structure(convert.lm_params_to_numpy(fresh, cfg)))
 
 
 # --------------------------------------------------------------- frontend ---

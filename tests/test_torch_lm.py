@@ -70,16 +70,21 @@ def test_configs_equal_the_jax_configs(name):
 
 
 def test_other_families_raise_naming_the_family():
-    cfg = dataclasses.replace(base.get_arch("qwen2-0.5b"), family="hybrid")
-    with pytest.raises(NotImplementedError, match="'hybrid'"):
+    """MLA (deepseek-v2-lite-16b) is the one family still to port: its
+    program is refused naming the config and the programs, and get_arch
+    does not know it."""
+    cfg = base.ArchConfig(**dataclasses.asdict(
+        jax_base.get_arch("deepseek-v2-lite-16b")))
+    assert cfg.family == "moe" and cfg.is_mla
+    with pytest.raises(NotImplementedError, match="'mla_dense' / 'mla_moe'"):
         tfm.stack_program(cfg)
     with pytest.raises(ValueError, match="unported"):
-        base.get_arch("zamba2-7b")
+        base.get_arch("deepseek-v2-lite-16b")
 
 
 def test_params_round_trip_through_the_jax_layout(lm):
     jcfg, cfg, jparams, params = lm
-    back = convert.lm_params_to_numpy(params)
+    back = convert.lm_params_to_numpy(params, cfg)
     flat_a, tree_a = jax.tree_util.tree_flatten(
         jax.tree_util.tree_map(np.asarray, jparams))
     flat_b, tree_b = jax.tree_util.tree_flatten(back)

@@ -168,8 +168,8 @@ def test_loss_fn_and_gradients_match_jax(lm, remat):
     grads = dict(zip(leaves, torch.autograd.grad(val, list(leaves.values()))))
     assert abs(val.item() - float(jval)) <= LOSS_TOL * abs(float(jval))
     want = convert.lm_params_to_numpy(
-        convert.lm_params_from_jax(_jax_numpy(jgrads), cfg))
-    got = convert.lm_params_to_numpy(unflatten_like(grads, params))
+        convert.lm_params_from_jax(_jax_numpy(jgrads), cfg), cfg)
+    got = convert.lm_params_to_numpy(unflatten_like(grads, params), cfg)
     _assert_trees_close(got, want, TOL, "gradient")
 
 
@@ -213,9 +213,9 @@ def test_three_train_steps_match_the_jax_step(lm):
             TOL * float(jm["grad_norm"])
         assert m["step"] == int(jm["step"]) == i + 1
         assert abs(m["lr"] - float(jm["lr"])) <= 1e-6 * float(jm["lr"])
-    _assert_trees_close(convert.lm_params_to_numpy(params), _jax_numpy(jp),
+    _assert_trees_close(convert.lm_params_to_numpy(params, cfg), _jax_numpy(jp),
                         TOL, "params")
-    back = convert.opt_state_to_numpy(state, params)
+    back = convert.opt_state_to_numpy(state, params, cfg)
     for key in ("mu", "nu"):
         _assert_trees_close(back[key], _jax_numpy(jst[key]), TOL, key)
     assert int(back["step"]) == int(jst["step"]) == 3

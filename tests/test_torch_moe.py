@@ -226,7 +226,7 @@ def test_params_round_trip_through_the_jax_layout(lm):
     assert set(lp["shared"]) == {"wg", "wu", "wd"}
     assert np.array_equal(lp["wg"].numpy(),
                           np.asarray(jparams["stacks"][0]["moe"]["wg"][1]))
-    back = convert.lm_params_to_numpy(params)
+    back = convert.lm_params_to_numpy(params, cfg)
     flat_a, tree_a = jax.tree_util.tree_flatten(
         jax.tree_util.tree_map(np.asarray, jparams))
     flat_b, tree_b = jax.tree_util.tree_flatten(back)

@@ -228,7 +228,7 @@ def test_config_equals_the_jax_config():
 
 def test_params_round_trip_through_the_jax_layout(lm):
     jcfg, cfg, jparams, params = lm
-    back = convert.lm_params_to_numpy(params)
+    back = convert.lm_params_to_numpy(params, cfg)
     flat_a, tree_a = jax.tree_util.tree_flatten(
         jax.tree_util.tree_map(np.asarray, jparams))
     flat_b, tree_b = jax.tree_util.tree_flatten(back)
@@ -241,7 +241,7 @@ def test_params_round_trip_through_the_jax_layout(lm):
 def test_port_init_has_the_jax_tree_shapes(lm):
     jcfg, cfg, jparams, _ = lm
     mine = convert.lm_params_to_numpy(tfm.init_params(
-        cfg, generator=torch.Generator().manual_seed(0)))
+        cfg, generator=torch.Generator().manual_seed(0)), cfg)
     want = jax.tree_util.tree_map(lambda t: t.shape, jparams)
     assert jax.tree_util.tree_map(lambda t: t.shape, mine) == want
 
