@@ -69,11 +69,12 @@ script exits non-zero.  Phases:
   9. check_attn  the flash-attention forward kernel against its plain
               version: head ratios (16,16), (14,2), (8,1), Sq 1/4/16 against
               Skv 64/256, causal on and off, kv_len none / per batch with a 0,
-              head dims 32/64/80/112/128 (80 and 112: the two plans
+              head dims 32/64/80/112/128/192 (80 and 112: the two plans
               `plans_at` admits; the 32-lane plan, dQ and dK / dV must
-              refuse both by name with no launch, the decode kernel 80; 112
-              draws from a generator of its own and reports its errors
-              apart), fp32 and bf16; then
+              refuse both by name with no launch, the decode kernel 80; 192:
+              the 32-lane plan alone; 112 and 192 each draw from a
+              generator of their own and report their errors apart), fp32
+              and bf16; then
               qwen2-0.5b's shapes
               (prefill chunks at batch 1 and 4, a 512-token prompt, the
               training shape, shallow decode).  Rows with no live key must
@@ -396,11 +397,68 @@ script exits non-zero.  Phases:
               dispatch's GEMMs over the parameters' own weights (each
               kind's launches in one CUDA graph): kernel, plain, library
               and bound ms.  The model is freed.
-Then the kernels line (29 entries), and last the result line.  Every JSON
+ 45. check_mla  deepseek-v2-lite-16b's fused GEMMs (wq N 3072, w_dkv N
+              576, w_uk / w_uv K 512 in the prefill, wo, the dense layer's
+              SwiGLU of 10944, the router N 64, the shared experts' 2816,
+              the head N 102400) at the rows phases 46-47 give them (2,
+              4, 1024; the head at 2 and 4), the expert bmm (64 experts,
+              2048 <-> 1408) at 16, 32 and 128 dispatch rows and the two
+              absorbed einsums on the bmm kernel at 2 and 4 rows (every
+              plan bitwise the path plan's, slices the 2-D kernel's); the
+              flash forward at head dim 192 (16 / 16 heads, the 32-lane
+              plan alone: B 1-2, S 16-512, causal and not, a kv_len with a
+              0) and the split-KV decode at 576 (16 heads over one latent
+              kv-head: Sq 1 / 4 / 8 against 256 / 1024 rows, 47 splits,
+              the mla and mla_serve steps), fp32 and bf16, as phases 9-10
+              (the merge bitwise `combine`, the sentinels exact); the
+              forward at 576 and dQ / dK / dV at 192 refused by name with
+              no launch.  The MLA phases draw from a generator of their
+              own (MLA_SEED), so every earlier phase's draws, and errors,
+              stay as they were.
+ 46. mla      deepseek-v2-lite-16b at full width and depth (27 layers: one
+              dense, 26 of 64 routed experts top-6 and 2 shared; 15.7e9
+              parameters, 62.8 GB, random from a seed, norms moved off
+              1): a prefill of 2 x 512 tokens through make_prefill_step
+              (the flash forward at head dim 192), then 16 greedy decode
+              steps through make_decode_step on latent caches from
+              kvcache.cache_init (528 rows: the absorbed decode, the
+              split-KV kernel at 576 and the einsums on the bmm kernel),
+              on `cuda` and on `eager`, through `prefill_decode_phase`:
+              routes first (`eager` runs `cuda`'s expert choices, so a
+              near tie that flips a route cannot move one engine's later
+              layers away from the other's; each route eager's own
+              routers chose otherwise must be a near tie, its margin
+              below MARGIN_FACTOR x the routers' probability error),
+              logits over the real vocabulary and the
+              c_kv / k_rope caches within 1e-4, the tokens equal, exact
+              launch counts (per prefill 243 GEMMs, 27 flash forwards at
+              (192, causal), 78 expert bmm; per step 189 GEMMs, 27
+              split-KV launches, 132 bmm) and regimes; host ms, peak GB.
+ 47. mla_serve  the slot ServingEngine on `cuda`, 4 slots, max_len 256, 8
+              requests (prompts 8-24 tokens, max_new 4-8, numpy seed) on
+              the replay route, the counts set to 0 just before and read
+              just after, launches exact; each reused-slot request's
+              stream equals its stream alone; every stream equals the
+              slot engine's on `eager` on the card (running `cuda`'s
+              expert choices, as in phase 46), or differs first where
+              eager's top-2 logit margin is below MARGIN_FACTOR x phase
+              46's logits error.
+ 48. timing_mla  the prefill and a decode step: host ms, device ms by
+              kernel (torch.profiler), busy share; the flash forward at
+              the prefill (2 x 512, D 192) and the decode kernel at a
+              step (D 576, 528 rows), kernel, plain, bound and SDPA ms;
+              a decode dispatch's GEMMs over the model's own weights
+              against torch.matmul; one MoE layer's expert bmm at the
+              decode's 16 rows against torch.bmm; the two absorbed
+              einsums: the whole einsum, the kernel on y in (E, K, N)
+              order, y's permuted copy alone, plain and torch.bmm.  The
+              model is freed.
+Then the kernels line (33 entries), and last the result line.  Every JSON
 line carries `t`, the seconds since the script started.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -548,6 +606,12 @@ HYBRID_DECODE_STEPS = 16  # the caches hold 512 + 16 = 528 rows
 # kernel (ops.DECODE_MIN_SKV)
 HYBRID_SERVE = dict(slots=4, requests=8, prompt=(16, 64), new=(4, 12),
                     max_len=256)
+MLA_ARCH = "deepseek-v2-lite-16b"
+MLA_PREFILL = (2, 512)  # mla: batch x prompt tokens (capacity 64)
+MLA_DECODE_STEPS = 16  # the latent caches hold 512 + 16 = 528 rows
+MLA_SERVE = dict(slots=4, requests=8, prompt=(8, 24), new=(4, 8),
+                 max_len=256)
+MLA_SEED = 61  # the MLA phases' own generator (check_mla, timing_mla)
 _T0 = time.perf_counter()
 
 
@@ -1038,6 +1102,9 @@ def check_decode_case(q, k, v, kvl, causal) -> tuple[float, float, int,
     check(torch.equal(merged, plain_merge),
           f"the merge is not combine's bits at {where}")
     merge_abs = float((merged.float() - plain_merge.float()).abs().max())
+    if q.shape[-1] not in fa.FWD_HEAD_DIMS:  # MLA's 576: no forward there
+        return (err, float((got[0] - want[0]).abs().max()), n_splits, 2,
+                merge_abs)
     one, _ = fd.flash_decode_partials(q, k, v, kvl, causal=causal,
                                       n_splits=1, span=-(-skv // 64) * 64)
     fwd = fa.flash_attention_fwd(q, k, v, kvl, causal=causal)
@@ -1115,7 +1182,7 @@ def refused_at_112() -> list[str]:
 # operands from a generator of their own (seeded with the head dim), so
 # the grid's other draws, and every error printed after them, stay those
 # of the runs before the addition.
-NEW_HEAD_DIMS = (112,)
+NEW_HEAD_DIMS = (112, 192)
 
 
 def attn_phases(cgen) -> dict:
@@ -1173,7 +1240,8 @@ def attn_phases(cgen) -> dict:
          refused_at_112=refused_at_112(),
          relmax_new_head_dims={d: w["attn"] for d, (w, _) in new.items()},
          decode_relmax_new_head_dims={d: w["decode"]
-                                      for d, (w, _) in new.items()})
+                                      for d, (w, _) in new.items()
+                                      if d in fd.HEAD_DIMS})
     cfg = get_arch(LM_ARCH)
     h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     rows = []
@@ -3128,27 +3196,98 @@ class RouteLog:
         moe.route = self._route
 
 
+class RouteReplay(RouteLog):
+    """While active, each MoE layer takes the expert choice recorded in
+    `calls` (a `RouteLog` of another engine's run, in call order): the
+    router computes its own probabilities, which are recorded as
+    `RouteLog` records them, with the engine's own top-k choice, and the
+    layer runs the recorded experts weighted by its own probabilities of
+    them, renormalised.  So an engine follows another's routes and the
+    two stay comparable where a near tie flips a route."""
+
+    def __init__(self, calls):
+        self.replay = calls
+
+    def __enter__(self):
+        self.calls = []
+        self._route = moe.route
+
+        def route(engine, p, x, cfg):
+            _, idx, probs = self._route(engine, p, x, cfg)
+            self.calls.append((idx.clone(), probs.clone()))
+            check(len(self.calls) <= len(self.replay),
+                  f"{len(self.calls)} routings, {len(self.replay)} recorded")
+            forced = self.replay[len(self.calls) - 1][0]
+            w = torch.gather(probs, -1, forced)
+            w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+            return w, forced, probs
+
+        moe.route = route
+        return self
+
+
 def route_flips(cfg, cu_calls, ea_calls) -> tuple[list, list, float]:
-    """Where `cuda` routed a token to other experts than `eager`: (the
-    flips with eager's top-2 probability margin, the rows with no flip,
-    the routers' max-abs probability difference over those rows)."""
+    """Where `cuda` routed a token to other experts than `eager` (another
+    set or another order of the top k): (the flips with eager's margin,
+    the least gap between neighbours of its k + 1 largest probabilities,
+    the rows with no flip, the routers' max-abs probability difference
+    over those rows)."""
     check(len(cu_calls) == len(ea_calls),
           f"{len(cu_calls)} cuda routings, {len(ea_calls)} eager")
+    n_moe = sum(n for kind, n in tfm.stack_program(cfg) if "moe" in kind)
     flips, flipped = [], set()
     for i, ((ic, _), (ie, pe)) in enumerate(zip(cu_calls, ea_calls)):
         for row, tok in (ic != ie).any(-1).nonzero().tolist():
-            top2 = torch.topk(pe[row, tok], 2).values
-            flips.append({"call": i // cfg.n_layers,
-                          "layer": i % cfg.n_layers, "row": row,
+            top = torch.topk(pe[row, tok], ic.shape[-1] + 1).values
+            flips.append({"call": i // n_moe,
+                          "layer": i % n_moe, "row": row,
                           "token": tok, "cuda": ic[row, tok].tolist(),
                           "eager": ie[row, tok].tolist(),
-                          "eager_margin": float(top2[0] - top2[1])})
+                          "eager_margin": float((top[:-1] - top[1:]).min())})
             flipped.add(row)
     rows = [r for r in range(cu_calls[0][0].shape[0]) if r not in flipped]
     prob_err = max((float((pc[rows] - pe[rows]).abs().max())
-                    for (_, pc), (_, pe) in zip(cu_calls, ea_calls)),
-                   default=0.0)
+                    for (_, pc), (_, pe) in zip(cu_calls, ea_calls)
+                    if rows), default=0.0)
     return flips, rows, prob_err
+
+
+def check_bmm_fwd(e, m, k, n, gen) -> dict:
+    """The batched forward at (E, M, K, N) against its plain version, fp32
+    (within gemm_tol) and bf16, under the path's plan (`ops.bmm_plan_for`):
+    every plan bitwise the path plan's, every batch slice the 2-D
+    kernel's, a rerun bitwise.  Returns the errors."""
+    dev = gen.device
+    pick = ops.bmm_plan_for(m, k, n)
+    worst, max_abs = {}, 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.randn(e, m, k, generator=gen, device=dev).to(dt)
+        w = (torch.randn(e, k, n, generator=gen, device=dev)
+             / math.sqrt(k)).to(dt)
+        got = gemm.bmm_fwd(x, w, plan=pick)
+        plain = gemm.bmm_fwd_plain(x, w)
+        where = f"bmm {(e, m, k, n)} {dt}"
+        check(bool(torch.isfinite(got).all()), f"non-finite {where}")
+        err = relmax(got, plain)
+        tol = gemm_tol(k) if dt == torch.float32 else BF16_TOL
+        check(err <= tol, f"{where}: {err:.3e} > {tol:g}")
+        check(torch.equal(got, gemm.bmm_fwd(x, w, plan=pick)),
+              f"two runs of {where} differ")
+        for plan in gemm.PLANS:
+            check(torch.equal(gemm.bmm_fwd(x, w, plan=plan), got),
+                  f"{where}: plan {plan} differs from {pick}")
+        for i in range(e):
+            check(torch.equal(got[i], gemm.gemm_fused_fwd(x[i], w[i],
+                                                          plan=pick)),
+                  f"{where}: slice {i} differs from the 2-D kernel")
+        worst[str(dt)] = err
+        if dt == torch.float32:
+            max_abs = float((got - plain).abs().max())
+        del x, w, got, plain
+    torch.cuda.empty_cache()
+    return {"bmm": [e, m, k, n], "path_plan": list(pick), "relmax": worst,
+            "max_abs_err_fp32": max_abs, "plans_bitwise_path_plan": True,
+            "slices_bitwise_2d": True}
 
 
 def check_moe_phase(cfg, cgen) -> dict:
@@ -3190,38 +3329,10 @@ def check_moe_phase(cfg, cgen) -> dict:
     rows = sorted({b * 8, slots * 8, b * moe.capacity(s, cfg)})
     for m in rows:
         for e, _, k, n in expert_shapes(cfg, m)[1:]:
-            worst = {}
-            pick = ops.bmm_plan_for(m, k, n)
-            for dt in (torch.float32, torch.bfloat16):
-                x = torch.randn(e, m, k, generator=cgen, device=cgen.device
-                                ).to(dt)
-                w = (torch.randn(e, k, n, generator=cgen, device=cgen.device)
-                     / math.sqrt(k)).to(dt)
-                got = gemm.bmm_fwd(x, w, plan=pick)
-                plain = gemm.bmm_fwd_plain(x, w)
-                where = f"expert bmm {(e, m, k, n)} {dt}"
-                check(bool(torch.isfinite(got).all()), f"non-finite {where}")
-                err = relmax(got, plain)
-                tol = gemm_tol(k) if dt == torch.float32 else BF16_TOL
-                check(err <= tol, f"{where}: {err:.3e} > {tol:g}")
-                check(torch.equal(got, gemm.bmm_fwd(x, w, plan=pick)),
-                      f"two runs of {where} differ")
-                for plan in gemm.PLANS:
-                    check(torch.equal(gemm.bmm_fwd(x, w, plan=plan), got),
-                          f"{where}: plan {plan} differs from {pick}")
-                for i in range(e):
-                    check(torch.equal(got[i], gemm.gemm_fused_fwd(
-                        x[i], w[i], plan=pick)),
-                        f"{where}: slice {i} differs from the 2-D kernel")
-                worst[str(dt)] = err
-                if dt == torch.float32 and m == slots * 8:
-                    out["bmm"] = max(out["bmm"],
-                                     float((got - plain).abs().max()))
-                del x, w, got, plain
-            emit("check_moe", bmm=[e, m, k, n], path_plan=list(pick),
-                 plans=[list(p) for p in gemm.PLANS], relmax=worst,
-                 plans_bitwise_path_plan=True, slices_bitwise_2d=True)
-            torch.cuda.empty_cache()
+            res = check_bmm_fwd(e, m, k, n, cgen)
+            if m == slots * 8:
+                out["bmm"] = max(out["bmm"], res["max_abs_err_fp32"])
+            emit("check_moe", plans=[list(p) for p in gemm.PLANS], **res)
     h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dev = cgen.device
     cases = []
@@ -3671,9 +3782,33 @@ def kv_relmax(cfg, got, want, rows=None) -> dict:
             for name in ("k", "v")}
 
 
+def replayed_routes(cfg, cu, ea, steps) -> dict:
+    """For a MoE stack in `prefill_decode_phase`, where `eager` ran
+    `cuda`'s expert choices (`RouteReplay`): the tokens whose routes
+    eager's own routers chose otherwise, over the prefill and the decode
+    steps both engines ran on the same tokens (`route_flips`), each
+    allowed only where eager's margin is below MARGIN_FACTOR x the
+    routers' max-abs probability difference over every row."""
+    same = (cu["tokens"] == ea["tokens"]).all(0)
+    j = int(same.logical_not().nonzero()[0]) if not bool(same.all()) \
+        else len(same)
+    n_moe = sum(n for kind, n in tfm.stack_program(cfg) if "moe" in kind)
+    calls = n_moe * (1 + min(j, steps))
+    flips, _, _ = route_flips(cfg, cu["routes"][:calls], ea["routes"][:calls])
+    prob_err = max(float((pc - pe).abs().max()) for (_, pc), (_, pe)
+                   in zip(cu["routes"][:calls], ea["routes"][:calls]))
+    allowed = MARGIN_FACTOR * prob_err
+    check(all(f["eager_margin"] < allowed for f in flips),
+          f"{len(flips)} route flips, some at a clear margin (bar "
+          f"{allowed:.3e}): {flips[:20]}")
+    return {"route_flips": flips, "router_prob_max_abs_err": prob_err,
+            "flip_allowed_below": allowed, "routes_compared": calls}
+
+
 def prefill_decode_phase(phase, cfg, params, dev, inputs, s, steps,
                          want_pre, want_dec, cache_errs,
-                         strict_tokens=False, **fields) -> dict:
+                         strict_tokens=False, routed=False,
+                         **fields) -> dict:
     """Phase `phase` for a decoder at full width: a prefill of `inputs`
     (`s` positions) through `make_prefill_step`, then `steps` greedy
     decode steps through `make_decode_step` on caches from
@@ -3687,6 +3822,9 @@ def prefill_decode_phase(phase, cfg, params, dev, inputs, s, steps,
     MARGIN_FACTOR x the logits error; the launches of a prefill
     (`want_pre`) and of a step (`want_dec`) exactly, every flash forward
     at (head dim, causal); every op on `cuda`, `eager` launching none.
+    With `routed` (a MoE stack) `cuda`'s routes are logged and `eager`
+    runs them (`RouteReplay`), each route its own router chose otherwise
+    checked to be a near tie (`replayed_routes`).
     Emits the line with `fields`; returns the errors and the `cuda`
     launches."""
     b = inputs["tokens"].shape[0]
@@ -3700,25 +3838,28 @@ def prefill_decode_phase(phase, cfg, params, dev, inputs, s, steps,
                                make_decode_step(eng, cfg))
             torch.cuda.synchronize()
             reset_all_launches()
-            with AttnLog() as attn_calls:
+            with (contextlib.nullcontext() if not routed else RouteLog()
+                  if label == "cuda" else
+                  RouteReplay(out["cuda"]["routes"])) as rl:
+                with AttnLog() as attn_calls:
+                    t0 = time.perf_counter()
+                    logits, caches = prefill(params, inputs)
+                    torch.cuda.synchronize()
+                    host = (time.perf_counter() - t0) * 1e3
+                pre = {"launches": all_launches(),
+                       "dispatch": backends.dispatch_counts(),
+                       "host_ms": host, "attn": attn_calls.calls}
+                buf = kvcache.cache_init(cfg, b, rows, device=dev)
+                kvcache.copy_prefill(cfg, buf, caches, s)
+                reset_all_launches()
+                toks, dlogits = [greedy_sample(logits)], []
                 t0 = time.perf_counter()
-                logits, caches = prefill(params, inputs)
+                for t in range(steps):
+                    lg, buf = decode(params, buf, toks[-1][:, None].long(),
+                                     torch.tensor(s + t, device=dev))
+                    dlogits.append(lg)
+                    toks.append(greedy_sample(lg))
                 torch.cuda.synchronize()
-                host = (time.perf_counter() - t0) * 1e3
-            pre = {"launches": all_launches(),
-                   "dispatch": backends.dispatch_counts(), "host_ms": host,
-                   "attn": attn_calls.calls}
-            buf = kvcache.cache_init(cfg, b, rows, device=dev)
-            kvcache.copy_prefill(cfg, buf, caches, s)
-            reset_all_launches()
-            toks, dlogits = [greedy_sample(logits)], []
-            t0 = time.perf_counter()
-            for t in range(steps):
-                lg, buf = decode(params, buf, toks[-1][:, None].long(),
-                                 torch.tensor(s + t, device=dev))
-                dlogits.append(lg)
-                toks.append(greedy_sample(lg))
-            torch.cuda.synchronize()
             dec = {"launches": all_launches(),
                    "dispatch": backends.dispatch_counts(),
                    "host_ms": (time.perf_counter() - t0) * 1e3 / steps}
@@ -3726,6 +3867,8 @@ def prefill_decode_phase(phase, cfg, params, dev, inputs, s, steps,
                           "dlogits": torch.stack(dlogits),
                           "tokens": torch.stack(toks, 1), "pre": pre,
                           "dec": dec}
+            if routed:
+                out[label]["routes"] = rl.calls
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     cu, ea = out["cuda"], out["eager"]
     check(tuple(cu["logits"].shape) == (b, 1, cfg.vocab_padded)
@@ -3738,6 +3881,8 @@ def prefill_decode_phase(phase, cfg, params, dev, inputs, s, steps,
     check(bool(torch.isfinite(cu["logits"]).all()
                and torch.isfinite(cu["dlogits"]).all()),
           f"non-finite {phase} logits")
+    if routed:
+        fields.update(replayed_routes(cfg, cu, ea, steps))
     same = (cu["tokens"] == ea["tokens"]).all(0)      # (steps + 1,)
     j = int(same.logical_not().nonzero()[0]) if not bool(same.all()) \
         else len(same)
@@ -4346,6 +4491,463 @@ def timing_hybrid_phase(cfg, params, dev, cgen, peak_flops, peak_bw,
     return {"steps": steps, "attention": attn, "ssd": ssd_row, "gemm": gem}
 
 
+# ------------------------------------------------------------------ MLA ---
+
+def mla_gemms(cfg) -> list[dict]:
+    """The fused GEMMs of one call of the MLA stack, as `moe_gemms`: each
+    layer's wq, w_dkv and wo (and w_uk / w_uv, which make the per-head K /
+    V, in the prefill only: the absorbed decode runs them as einsums), the
+    dense first layer's SwiGLU, each MoE layer's router (fp32 out) and
+    shared gate / up / down, and the untied head; `layers` names the
+    layers a GEMM runs in ("all", "dense", "moe")."""
+    d, h, f = cfg.d_model, cfg.n_heads, cfg.n_shared_experts * cfg.moe_d_ff
+    nope, rope = cfg.qk_nope_dim, cfg.qk_rope_dim
+    lora, vd = cfg.kv_lora_rank, cfg.v_head_dim
+    table = [
+        ("wq", d, h * (nope + rope), "linear", ("attn", "wq"), "all", False),
+        ("w_dkv", d, lora + rope, "linear", ("attn", "w_dkv"), "all", False),
+        ("w_uk", lora, h * nope, "linear", ("attn", "w_uk"), "all", True),
+        ("w_uv", lora, h * vd, "linear", ("attn", "w_uv"), "all", True),
+        ("wo", h * vd, d, "linear", ("attn", "wo"), "all", False),
+        ("gate", d, cfg.d_ff, "silu", ("mlp", "wg"), "dense", False),
+        ("up", d, cfg.d_ff, "linear", ("mlp", "wu"), "dense", False),
+        ("down", cfg.d_ff, d, "linear", ("mlp", "wd"), "dense", False),
+        ("router", d, cfg.n_routed_experts, "linear", ("moe", "router"),
+         "moe", False),
+        ("shared_gate", d, f, "silu", ("moe", "shared", "wg"), "moe", False),
+        ("shared_up", d, f, "linear", ("moe", "shared", "wu"), "moe", False),
+        ("shared_down", f, d, "linear", ("moe", "shared", "wd"), "moe",
+         False)]
+    dense = cfg.first_dense_layers
+    count = {"all": cfg.n_layers, "dense": dense,
+             "moe": cfg.n_layers - dense}
+    out = [{"name": name, "k": k, "n": n, "act": act, "leaf": leaf,
+            "layers": layers, "per_dispatch": count[layers],
+            "prefill_only": pre, "shift": False,
+            "out_dtype": torch.float32 if name == "router" else None}
+           for name, k, n, act, leaf, layers, pre in table]
+    return out + [{"name": "head", "k": d, "n": cfg.vocab_padded,
+                   "act": "linear", "leaf": ("lm_head", "w"),
+                   "layers": None, "per_dispatch": 1, "prefill_only": False,
+                   "shift": False, "out_dtype": None}]
+
+
+def mla_weights(params, cfg, g) -> list[torch.Tensor]:
+    """The weights of GEMM `g` of `mla_gemms` in one call, layer by
+    layer."""
+    if g["name"] == "head":
+        return [tfm.head_weight(params, cfg)]
+    dense = cfg.first_dense_layers
+    layers = {"all": params["layers"], "dense": params["layers"][:dense],
+              "moe": params["layers"][dense:]}[g["layers"]]
+    out = []
+    for tree in layers:
+        for key in g["leaf"]:
+            tree = tree[key]
+        out.append(tree)
+    return out
+
+
+def absorbed_shapes(cfg, rows: int) -> list[tuple]:
+    """The absorbed decode's two einsums of one layer on `rows` tokens as
+    bmm launches (E, M, K, N), one matrix a head: q_nope @ W_uk, then the
+    attention's latent output @ W_uv."""
+    h, nope = cfg.n_heads, cfg.qk_nope_dim
+    lora, vd = cfg.kv_lora_rank, cfg.v_head_dim
+    return [(h, rows, nope, lora), (h, rows, lora, vd)]
+
+
+def latent_cfg(cfg):
+    """The absorbed decode's attention as heads: cfg's query heads over one
+    latent kv-head of kv_lora_rank + qk_rope_dim (576)."""
+    return dataclasses.replace(cfg, n_kv_heads=1,
+                               head_dim=cfg.kv_lora_rank + cfg.qk_rope_dim)
+
+
+def mla_call_launches(cfg, b: int, s: int, kind: str) -> dict:
+    """The kernel launches of one MLA prefill (`kind` "prefill", b rows of
+    s tokens; the head on one position a row) or decode step ("decode", b
+    rows of s = 1): the fused GEMMs of `mla_gemms`, per MoE layer the
+    three expert bmm launches, per layer one flash forward (prefill) or
+    the two absorbed einsums on the bmm kernel and one split-KV launch
+    (decode); with the forward launches by regime."""
+    want = dict.fromkeys(all_launches(), 0)
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    plans = []
+    for g in mla_gemms(cfg):
+        if g["prefill_only"] and kind == "decode":
+            continue
+        m = b if g["name"] == "head" else b * s
+        want["gemm_fused_fwd"] += g["per_dispatch"]
+        plans.append((ops.default_tiles(m, g["k"], g["n"]),
+                      g["per_dispatch"]))
+    bmms = [(shape, n_moe) for shape in
+            expert_shapes(cfg, b * moe.capacity(s, cfg))]
+    if kind == "decode":
+        bmms += [(shape, cfg.n_layers) for shape in absorbed_shapes(cfg, b)]
+        want["flash_decode"] = cfg.n_layers
+    else:
+        want["flash_attention"] = cfg.n_layers
+    for (_, m, k, n), count in bmms:
+        want["bmm_fwd"] += count
+        plans.append((ops.bmm_plan_for(m, k, n), count))
+    for plan, count in plans:
+        want[f"gemm_fwd_regime_{plan.regime.lower()}"] += count
+    return want
+
+
+def refused_at_mla_dims() -> list[str]:
+    """On the card: the forward at the latent's 576 (a shallow-cache or
+    chunked MLA decode) and dQ / dK / dV at 192 (MLA training) raise
+    ValueError naming the head dim, with no launch (zeros: no draw from a
+    generator).  Returns the calls refused."""
+    dev = torch.device("cuda", 0)
+    q, k = torch.zeros(2, 4, 16, 576, device=dev), torch.zeros(
+        2, 300, 1, 576, device=dev)
+    q2, k2 = torch.zeros(2, 4, 4, 192, device=dev), torch.zeros(
+        2, 64, 4, 192, device=dev)
+    lse = torch.zeros(2, 4, 4, device=dev)
+    calls = {
+        "flash_attention_fwd at 576": (
+            lambda: fa.flash_attention_fwd(q, k, k), 576),
+        "flash_attention_bwd_dq at 192": (
+            lambda: fa.flash_attention_bwd_dq(q2, k2, k2, q2, lse, lse), 192),
+        "flash_attention_bwd_dkv at 192": (
+            lambda: fa.flash_attention_bwd_dkv(q2, k2, k2, q2, lse, lse),
+            192),
+        "FlashAttention at 192": (
+            lambda: fa.FlashAttention.apply(q2.requires_grad_(), k2, k2,
+                                            None, True), 192)}
+    before = all_launches()
+    refused = []
+    for name, (call, d) in calls.items():
+        try:
+            call()
+        except ValueError as e:
+            check(f"head dim {d}" in str(e), f"{name}: {e}")
+            refused.append(name)
+        else:
+            raise RuntimeError(f"{name} was not refused")
+    torch.cuda.synchronize()
+    check(all_launches() == before, "a refused head dim launched a kernel")
+    return refused
+
+
+def check_mla_phase(cfg, mgen) -> dict:
+    """Phase check_mla: deepseek-v2-lite-16b's fused GEMMs (`mla_gemms`,
+    each distinct (K, N)) at every row count the MLA phases give them (the
+    decode rows, mla_serve's slots, the prefill's tokens; w_uk / w_uv at
+    the prefill's only; the head at the decode rows and the slots), the
+    expert bmm (64 experts) at the prefill's, the decode's and mla_serve's
+    dispatch rows and the two absorbed einsums on the bmm kernel at the
+    decode rows and the slots, each against its plain version; the flash
+    forward at head dim 192 (16 / 16 heads: B 1-2, S 16-512, causal and
+    not, a kv_len with a 0) and the split-KV decode at 576 (16 heads over
+    one latent kv-head: Sq 1 / 4 / 8 against 256 / 1024 rows, up to 47
+    splits, and the mla and mla_serve steps), fp32 and bf16, as phases
+    9-10 (every forward plan bitwise the path plan's, the merge bitwise
+    `combine`, the sentinels exact); the refusals at 576 and 192.  Draws
+    from its own generator.  Returns the fp32 max-abs errors by kernel."""
+    b, s = MLA_PREFILL
+    rows = s + MLA_DECODE_STEPS
+    slots, cache = MLA_SERVE["slots"], MLA_SERVE["max_len"]
+    out = {"gemm": 0.0, "bmm": 0.0}
+    gemms, seen = [], set()
+    for g in mla_gemms(cfg):
+        ms = ((b, slots) if g["name"] == "head" else
+              (b * s,) if g["prefill_only"] else (b, slots, b * s))
+        for m in ms:
+            key = (m, g["k"], g["n"])
+            if key in seen:
+                continue
+            seen.add(key)
+            res = check_shape(m, g["k"], g["n"],
+                              (ops.default_tiles(m, g["k"], g["n"]),), mgen)
+            out["gemm"] = max(out["gemm"], res["max_abs_err_fp32"])
+            gemms.append({"gemm": g["name"], **res})
+    bmms = []
+    for m in sorted({b * moe.capacity(1, cfg), slots * moe.capacity(1, cfg),
+                     b * moe.capacity(s, cfg)}):
+        for e, _, k, n in expert_shapes(cfg, m)[1:]:
+            bmms.append({"kind": "expert", **check_bmm_fwd(e, m, k, n,
+                                                           mgen)})
+    for m in (b, slots):
+        for e, _, k, n in absorbed_shapes(cfg, m):
+            bmms.append({"kind": "absorbed", **check_bmm_fwd(e, m, k, n,
+                                                             mgen)})
+    out["bmm"] = max(r["max_abs_err_fp32"] for r in bmms)
+    fwd, worst = check_attn_cases(cfg, mgen, [
+        ("attn", "mla_prefill", (b, s, s, None, True)),
+        ("attn", "b1_s16", (1, 16, 16, None, True)),
+        ("attn", "kv_len_0", (2, 100, 130, [130, 0], True)),
+        ("attn", "not_causal", (2, 64, 200, [150, 64], False))])
+    out["attn"] = worst["attn"]
+    dec, worst = check_attn_cases(latent_cfg(cfg), mgen, [
+        *(("decode", f"sq{sq}_skv{skv}", (3, sq, skv,
+                                         [skv, skv // 3, 0], sq > 1))
+          for sq in (1, 4, 8) for skv in (256, 1024)),
+        ("decode", "splits_47", (2, 2, 3000, [3000, 2900], True)),
+        ("decode", "mla_decode", (b, 1, rows, [rows, rows - 15], False)),
+        ("decode", "mla_serve_step", (slots, 1, cache,
+                                      [cache, cache // 3, 1, 0][:slots],
+                                      False))])
+    out["decode"] = worst["decode"]
+    emit("check_mla", arch=cfg.name, gemms=gemms, bmm=bmms, attention=fwd,
+         decode=dec, plans_at_192=[list(p) for p in fa.plans_at(192)],
+         decode_smem_bytes={"fp32": fd.smem_bytes(576),
+                            "bf16": fd.smem_bytes(576, torch.bfloat16)},
+         refused=refused_at_mla_dims(), max_abs_err=out)
+    return out
+
+
+def mla_params(cfg, dev):
+    """Full-width, full-depth random parameters from a seed, drawn on the
+    card (62.8 GB in fp32), every norm's scale moved off 1 (the latent's
+    rms norm among them)."""
+    gen = torch.Generator(device=dev).manual_seed(62)
+    params = tfm.init_params(cfg, generator=gen, device=dev)
+    with torch.no_grad():
+        for name, t in flatten(params).items():
+            if name.endswith("scale"):
+                t.add_(torch.randn(t.shape, generator=gen, device=dev) * 0.1)
+    return params
+
+
+def latent_relmax(cfg, got, want, s=None) -> dict:
+    """The worst per-layer max-relative error of each latent cache leaf
+    (c_kv, k_rope) over the program's entries, rows [0, s) when `s` is
+    given."""
+    errs = {}
+    for g_entry, w_entry in zip(got, want):
+        for name, t in w_entry.items():
+            errs[name] = max([errs.get(name, 0.0)] + [
+                relmax(g_entry[name][i, :, :s], t[i, :, :s])
+                for i in range(t.shape[0])])
+    return errs
+
+
+def mla_phase(cfg, params, dev) -> dict:
+    """Phase mla: deepseek-v2-lite-16b at full width and depth, a prefill
+    of MLA_PREFILL tokens (the flash forward at head dim 192) and
+    MLA_DECODE_STEPS greedy decode steps against their 528-row latent
+    caches (the absorbed decode: the split-KV kernel at 576, the einsums
+    on the bmm kernel), through `prefill_decode_phase`, routes first, the
+    tokens equal."""
+    b, s = MLA_PREFILL
+    rng = np.random.default_rng(64)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (b, s))).to(dev)
+    return prefill_decode_phase(
+        "mla", cfg, params, dev, {"tokens": tokens}, s, MLA_DECODE_STEPS,
+        mla_call_launches(cfg, b, s, "prefill"),
+        mla_call_launches(cfg, b, 1, "decode"), latent_relmax,
+        strict_tokens=True, routed=True, program=tfm.stack_program(cfg),
+        latent=[cfg.kv_lora_rank, cfg.qk_rope_dim],
+        experts=[cfg.n_routed_experts, cfg.top_k, cfg.n_shared_experts],
+        capacity={"prefill": moe.capacity(s, cfg),
+                  "decode": moe.capacity(1, cfg)}, prompt=s)
+
+
+def mla_serve_requests(cfg) -> list:
+    """Phase mla_serve's requests, made anew from their seed."""
+    return requests(cfg, MLA_SERVE["requests"], 65, MLA_SERVE["prompt"],
+                    MLA_SERVE["new"])
+
+
+def mla_serve_phase(cfg, params, dev, abs_err) -> dict:
+    """Phase mla_serve: the slot engine on `cuda` serves MLA_SERVE's
+    requests through 4 slots on the replay route (every prompt token a
+    decode step: the split-KV kernel at 576 against the 256-row latent
+    caches), with the launch counts set to 0 just before and read just
+    after, launches exact; each reused-slot request gives its stream
+    alone; every stream equals the slot engine's on `eager` on the card,
+    or differs first where eager's top-2 logit margin is below
+    MARGIN_FACTOR x phase mla's logits error (a near tie).  The `eager`
+    engine runs `cuda`'s expert choices (`RouteReplay`); while the streams
+    agree, each route eager's own routers chose otherwise must be a near
+    tie, as in phase mla."""
+    cuda, eager = make_engine("cuda"), make_engine("eager", device=dev)
+    n, slots = MLA_SERVE["requests"], MLA_SERVE["slots"]
+    kw = dict(engine=cuda, slots=slots, max_len=MLA_SERVE["max_len"])
+    server = ServingEngine(cfg, params, **kw)
+    reqs = mla_serve_requests(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    with RouteLog() as routes:
+        server.run(reqs)  # ---- the MLA serving path, driven once
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_launches()
+    dispatch = backends.dispatch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    st = server.stats()
+    want = {k: st["steps"] * v for k, v in
+            mla_call_launches(cfg, slots, 1, "decode").items()}
+    reused = reqs[slots:]
+    alone = mla_serve_requests(cfg)[slots:]
+    for r in alone:
+        ServingEngine(cfg, params, **kw).run([r])
+    same = [a.out == r.out for a, r in zip(alone, reused)]
+    plain = mla_serve_requests(cfg)
+    with RouteReplay(routes.calls) as replayed:
+        ServingEngine(cfg, params, **{**kw, "engine": eager}).run(plain)
+    check(len(replayed.calls) == len(routes.calls),
+          f"eager routed {len(replayed.calls)} times, cuda "
+          f"{len(routes.calls)}")
+    flips, _, _ = route_flips(cfg, routes.calls, replayed.calls)
+    prob_err = max(float((pc - pe).abs().max()) for (_, pc), (_, pe)
+                   in zip(routes.calls, replayed.calls))
+    head = tfm.head_weight(params, cfg)
+    mismatches = []
+    for a, e in zip(reqs, plain):
+        if a.out == e.out:
+            continue
+        j = next(i for i, (x, y) in enumerate(zip(a.out, e.out)) if x != y)
+        with torch.inference_mode():
+            h, _ = tfm.forward_hidden(eager, cfg, params, tokens=torch.tensor(
+                [e.prompt + e.out[:j]], device=dev))
+            top2 = torch.topk(h[0, -1] @ head, 2).values
+        mismatches.append({"rid": a.rid, "token": j,
+                           "eager_margin": float(top2[0] - top2[1]),
+                           "allowed_below": MARGIN_FACTOR * abs_err})
+    emit("mla_serve", arch=cfg.name, slots=slots, requests=n,
+         max_len=MLA_SERVE["max_len"],
+         completed=st["requests"]["completed"], tokens=st["tokens"],
+         prompt_tokens=sum(len(r.prompt) for r in reqs), steps=st["steps"],
+         wall_s=wall, tokens_per_s=st["throughput"],
+         p50_ms=st["latency_s"]["p50"] * 1e3,
+         p99_ms=st["latency_s"]["p99"] * 1e3, peak_gb=peak_gb,
+         launches=launches, want_launches=want,
+         engine_dispatch={f"{b}.{o}": c for (b, o), c in dispatch.items()},
+         reused_slot_requests=len(reused), equal_to_alone=same,
+         equal_to_eager=[a.out == e.out for a, e in zip(reqs, plain)],
+         mismatches=mismatches, streams=[r.out for r in reqs],
+         route_flips=flips, router_prob_max_abs_err=prob_err,
+         flip_allowed_below=MARGIN_FACTOR * prob_err)
+    check(mismatches or all(f["eager_margin"] < MARGIN_FACTOR * prob_err
+                            for f in flips),
+          f"mla_serve: {len(flips)} route flips, some at a clear margin: "
+          f"{flips[:20]}")
+    check(st["requests"]["completed"] == n
+          and all(r.done and len(r.out) == r.max_new for r in reqs),
+          f"{st['requests']['completed']} of {n} completed")
+    check(launches == want, f"mla_serve launches {launches}, want {want}")
+    check(all(b == "cuda" for b, _ in dispatch),
+          f"an engine op left the cuda backend: {dispatch}")
+    check(all(same), f"a reused slot's stream differs from the request "
+          f"alone: {same}")
+    check(all(m["eager_margin"] < m["allowed_below"] for m in mismatches),
+          f"mla_serve cuda vs eager token mismatch at a clear margin: "
+          f"{mismatches}")
+    return {"launches": launches, "stats": st, "wall_s": wall}
+
+
+def timing_mla_phase(cfg, params, dev, mgen, peak_flops, peak_bw,
+                     smi) -> dict:
+    """Phase timing_mla: the prefill of mla and a decode step against its
+    528-row latent caches (host ms, device ms by kernel, busy share); the
+    flash forward at the prefill's attention (2 x 512, 16 / 16 heads of
+    192, causal) and the split-KV decode at a decode step (16 heads over
+    the 576-wide latent, 528 rows), each kernel, plain, bound and SDPA
+    ms; the GEMMs of a decode dispatch over the model's own weights (each
+    kind's launches in one CUDA graph) against torch.matmul; one MoE
+    layer's expert bmm at the decode's 16 dispatch rows against torch.bmm;
+    the two absorbed einsums at the decode's rows: the whole einsum, the
+    bmm kernel on y already in (E, K, N) order, y's permuted copy alone,
+    plain and torch.bmm."""
+    b, s = MLA_PREFILL
+    rows = s + MLA_DECODE_STEPS
+    rng = np.random.default_rng(66)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (b, s))).to(dev)
+    cuda = make_engine("cuda")
+    prefill, decode = make_prefill_step(cuda, cfg), make_decode_step(cuda,
+                                                                     cfg)
+    caches = kvcache.cache_init(cfg, b, rows, device=dev)
+    tok = tokens[:, -1:]
+    pos = torch.tensor(s, device=dev)
+    with torch.inference_mode():
+        steps = {"prefill": step_breakdown(
+                     "prefill", lambda: prefill(params, {"tokens": tokens}),
+                     smi, cfg, phase="timing_mla", batch=b, positions=s),
+                 "decode": step_breakdown(
+                     "decode_step", lambda: decode(params, caches, tok, pos),
+                     smi, cfg, phase="timing_mla", batch=b,
+                     cache_rows=rows)}
+    del caches
+    attn = attn_timing_rows(cfg, {"mla_prefill": (b, s, s, None, True)},
+                            mgen, peak_flops, peak_bw, smi, "timing_mla")
+    attn.update(attn_timing_rows(latent_cfg(cfg), {
+        "mla_decode": (b, 1, rows, [rows] * b, False)}, mgen, peak_flops,
+        peak_bw, smi, "timing_mla"))
+    gem = gemm_timing(
+        "timing_mla", cfg, [g for g in mla_gemms(cfg)
+                            if not g["prefill_only"]], lambda g: b,
+        lambda g: [(w, None) for w in mla_weights(params, cfg, g)], mgen,
+        peak_flops, peak_bw, smi, reps=2)
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms",
+            "bytes_ms")
+    lp = params["layers"][cfg.first_dense_layers]
+    expert = dict.fromkeys(keys, 0.0)
+    m = b * moe.capacity(1, cfg)
+    for (e, _, k, n), w in zip(expert_shapes(cfg, m), (
+            lp["moe"]["wg"], lp["moe"]["wu"], lp["moe"]["wd"])):
+        x = torch.randn(e, m, k, generator=mgen, device=dev)
+        flops, nbytes = 2.0 * e * m * k * n, 4.0 * (e * m * k + e * k * n
+                                                    + e * m * n)
+        one = {"ms": graph_ms(lambda: gemm.bmm_fwd(
+                   x, w, plan=ops.bmm_plan_for(m, k, n)), reps=5),
+               "plain_ms": graph_ms(lambda: gemm.bmm_fwd_plain(x, w),
+                                    reps=5),
+               "library_ms": graph_ms(lambda: torch.bmm(x, w), reps=5),
+               "ops_ms": flops / peak_flops * 1e3,
+               "bytes_ms": nbytes / peak_bw * 1e3}
+        one["bound_ms"] = max(one["ops_ms"], one["bytes_ms"])
+        for key in keys:
+            expert[key] += one[key]
+        del x
+    expert["bound_by"] = ("operations" if expert["ops_ms"]
+                          >= expert["bytes_ms"] else "bytes")
+    emit("timing_mla", part="expert_bmm", smi=smi, dispatch_rows=m,
+         shapes=[list(t) for t in expert_shapes(cfg, m)], **expert,
+         bound_share=expert["bound_ms"] / expert["ms"])
+    h, nope = cfg.n_heads, cfg.qk_nope_dim
+    lora, vd = cfg.kv_lora_rank, cfg.v_head_dim
+    absorbed = {}
+    for spec, w, width in (
+            ("bqhn,rhn->bqhr", lp["attn"]["w_uk"].reshape(lora, h, nope),
+             nope),
+            ("bqhr,rhv->bqhv", lp["attn"]["w_uv"].reshape(lora, h, vd),
+             lora)):
+        x = torch.randn(b, 1, h, width, generator=mgen, device=dev)
+        xs, ys, _, order, yorder = backends.bmm_spec(spec)
+        xp = x.permute(*[xs.index(c) for c in order]).reshape(
+            h, b, width).contiguous()
+        yp = w.permute(*[ys.index(c) for c in yorder]).contiguous()
+        e, k, n = yp.shape
+        flops, nbytes = 2.0 * e * b * k * n, 4.0 * (e * b * k + e * k * n
+                                                    + e * b * n)
+        row = {"ms": graph_ms(lambda: backends.einsum_as_bmm(
+                   spec, x, w, acc_dtype=torch.float32,
+                   out_dtype=torch.float32)),
+               "kernel_ms": graph_ms(lambda: gemm.bmm_fwd(xp, yp)),
+               "permute_ms": graph_ms(lambda: w.permute(
+                   *[ys.index(c) for c in yorder]).contiguous()),
+               "plain_ms": graph_ms(lambda: gemm.bmm_fwd_plain(xp, yp)),
+               "library_ms": graph_ms(lambda: torch.bmm(xp, yp)),
+               "ops_ms": flops / peak_flops * 1e3,
+               "bytes_ms": nbytes / peak_bw * 1e3, "bmm": [e, b, k, n]}
+        row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
+        absorbed[spec] = row
+        emit("timing_mla", part="absorbed_einsum", spec=spec, smi=smi,
+             **row)
+        del x, xp, yp
+    return {"steps": steps, "attention": attn, "gemm": gem,
+            "expert": expert, "absorbed": absorbed}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
@@ -4820,6 +5422,18 @@ def main() -> int:
     del hparams
     torch.cuda.empty_cache()
 
+    # ------------------------------------------------------- 45-48. MLA
+    lcfg = get_arch(MLA_ARCH)
+    mgen = torch.Generator(device=dev).manual_seed(MLA_SEED)
+    lchk = check_mla_phase(lcfg, mgen)
+    lparams = mla_params(lcfg, dev)
+    mla = mla_phase(lcfg, lparams, dev)
+    mla_serve_phase(lcfg, lparams, dev, mla["abs_err"])
+    lt = timing_mla_phase(lcfg, lparams, dev, mgen, peak_flops, peak_bw,
+                          smi)
+    del lparams
+    torch.cuda.empty_cache()
+
     def kernel_entry(name, source, replaces, path, launches, max_abs_err,
                      row):
         entry = {"name": name, "route": "cuda", "source": source,
@@ -4926,6 +5540,17 @@ def main() -> int:
                      hchk["decode"], ht["attention"]["hybrid_decode"]),
         kernel_entry("ssd_scan:hybrid", SOURCE_SSD, REPLACES_SSD, "hybrid",
                      hyb["launches"]["ssd_scan"], hchk["ssd"], ht["ssd"]),
+        kernel_entry("gemm_fused_fwd:mla", SOURCE, REPLACES, "mla",
+                     mla["launches"]["gemm_fused_fwd"], lchk["gemm"],
+                     lt["gemm"]),
+        kernel_entry("bmm_fwd:mla", SOURCE, REPLACES_BMM, "mla",
+                     mla["launches"]["bmm_fwd"], lchk["bmm"], lt["expert"]),
+        kernel_entry("flash_attention:mla", SOURCE_ATTN, REPLACES_ATTN, "mla",
+                     mla["launches"]["flash_attention"], lchk["attn"],
+                     lt["attention"]["mla_prefill"]),
+        kernel_entry("flash_decode:mla", SOURCE_DECODE, REPLACES_DECODE,
+                     "mla", mla["launches"]["flash_decode"], lchk["decode"],
+                     lt["attention"]["mla_decode"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -7,10 +7,10 @@ The port carries its own copy because the JAX module imports jax.  The
 `ShapeConfig` comes along for the trainer's data pipeline, and
 `input_tensors` gives the inputs of the JAX ``input_specs`` layout as
 seeded tensors rather than specs.
-`get_arch` knows the configs the port runs: the dense GQA ones,
+`get_arch` knows every config of the JAX package: the dense GQA ones,
 mamba2-1.3b (the SSM family), llama4-scout-17b-a16e (the MoE family's
-GQA program), internvl2-2b (vlm), hubert-xlarge (audio) and zamba2-7b
-(the hybrid); MLA (deepseek-v2-lite-16b) comes with its model code.
+GQA program), deepseek-v2-lite-16b (its MLA programs), internvl2-2b
+(vlm), hubert-xlarge (audio) and zamba2-7b (the hybrid).
 """
 from __future__ import annotations
 
@@ -124,6 +124,7 @@ _MODULES = {
     "qwen2-0.5b": "qwen2_0p5b",
     "mamba2-1.3b": "mamba2_1p3b",
     "llama4-scout-17b-a16e": "llama4_scout_17b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
     "internvl2-2b": "internvl2_2b",
     "hubert-xlarge": "hubert_xlarge",
     "zamba2-7b": "zamba2_7b",
@@ -134,8 +135,8 @@ ARCH_IDS = tuple(_MODULES)
 def get_arch(name: str) -> ArchConfig:
     """The ArchConfig of `name`; ValueError naming the known ones."""
     if name not in _MODULES:
-        raise ValueError(f"unknown or unported architecture {name!r}; the "
-                         f"port has {ARCH_IDS}")
+        raise ValueError(f"unknown architecture {name!r}; the port has "
+                         f"{ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     return mod.CONFIG
 

@@ -10,8 +10,10 @@ weights ``(Cin, kh*kw*Cout)``, connected weights ``(nin, nout)`` with the
 input flattened in (h, w, c) order, and the per-channel vectors.
 
 `lm_params_from_jax` does the same for the tree of ``repro``'s
-``models.transformer.init_params`` (dense GQA, mamba, GQA MoE and hybrid
-stacks, the vision and audio frontends' projector under ``"frontend"``
+``models.transformer.init_params`` (dense GQA, mamba, GQA MoE, MLA
+(``mla_dense`` / ``mla_moe``: ``attn.{wq, w_dkv, kv_norm, w_uk, w_uv,
+wo}`` beside ``mlp`` or ``moe``) and hybrid stacks, the vision and audio
+frontends' projector under ``"frontend"``
 and the hybrid's shared block under ``"shared"``): the JAX tree keeps
 each layer-program entry's layers stacked under leading layer axes
 (``stacks[0]["attn"]["wq"]`` is (n_layers, D, H*hd); a hybrid super

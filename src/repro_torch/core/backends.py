@@ -452,14 +452,18 @@ def _cuda_ssd(x, dt, A, B, C, *, chunk, init_state=None, ctx):
     return kernel_ops.ssd(x, dt, A, B, C, chunk=chunk, init_state=init_state)
 
 
-def bmm_spec(spec: str) -> tuple[str, str, str, str] | None:
+def bmm_spec(spec: str) -> tuple[str, str, str, str, str] | None:
     """The batched GEMM an einsum spec is after a permutation, or None.
 
-    A spec ``x,y->z`` is one when y has three distinct indices (batch e,
-    contraction k, output column n), x holds e, k and its row indices
-    (none of them in y), and z is x with k replaced by n.  Returns
-    (x, y, z, the x order (e, rows..., k)); e.g. ``becd,edf->becf`` gives
-    x order ``ebcd``: (E, B·C, D) @ (E, D, F)."""
+    A spec ``x,y->z`` is one when y has three distinct indices, in any
+    order: a batch index e (in x and z), a contraction index k (in x, not
+    in z) and an output column n (not in x); x holds e, k and its row
+    indices (none of them in y), and z is x with k replaced by n.  Returns
+    (x, y, z, the x order (e, rows..., k), the y order (e, k, n)); e.g.
+    ``becd,edf->becf`` gives x order ``ebcd`` and y order ``edf``: (E,
+    B·C, D) @ (E, D, F); MLA's absorbed ``bqhn,rhn->bqhr`` gives ``hbqn``
+    and ``hnr``: (H, B·Q, N) @ (H, N, R), y read from its (R, H, N)
+    layout."""
     try:
         lhs, z = spec.replace(" ", "").split("->")
         x, y = lhs.split(",")
@@ -467,33 +471,41 @@ def bmm_spec(spec: str) -> tuple[str, str, str, str] | None:
         return None
     if len(y) != 3 or len(set(y)) != 3 or len(set(x)) != len(x):
         return None
-    e, k, n = y
-    rows = [c for c in x if c not in (e, k)]
-    if (e not in x or k not in x or n in x or not rows
-            or z != x.replace(k, n)):
+    batch = [c for c in y if c in x and c in z]
+    contract = [c for c in y if c in x and c not in z]
+    col = [c for c in y if c not in x]
+    if not len(batch) == len(contract) == len(col) == 1:
         return None
-    return x, y, z, e + "".join(rows) + k
+    e, k, n = batch[0], contract[0], col[0]
+    rows = [c for c in x if c not in (e, k)]
+    if not rows or z != x.replace(k, n):
+        return None
+    return x, y, z, e + "".join(rows) + k, e + k + n
 
 
 def einsum_as_bmm(spec, x, y, *, acc_dtype, out_dtype):
     """The `cuda` backend's einsum: a spec that is a batched GEMM after a
     permutation (`bmm_spec`) as x permuted to (E, rows..., K) and folded
-    to (E, M, K), times y (E, K, N) on `kernels.ops.bmm` (the bmm kernel;
-    its plain version for CPU tensors), the rows unfolded and z's index
-    order restored (a view, no copy).  NotImplementedError names any
-    other spec: there is no kernel for it."""
+    to (E, M, K), times y permuted to (E, K, N) on `kernels.ops.bmm` (the
+    bmm kernel, which reads row-major operands: a y that is not in that
+    order already is copied, 4 MB a call at deepseek-v2-lite's absorbed
+    W_uk / W_uv; its plain version for CPU tensors), the rows unfolded
+    and z's index order restored (a view, no copy).  NotImplementedError
+    names any other spec: there is no kernel for it."""
     form = bmm_spec(spec)
     if form is None:
         raise NotImplementedError(
             f"backend 'cuda' runs einsum {spec!r} on no kernel: it runs "
             f"only specs that are a batched GEMM after a permutation (the "
-            f"MoE expert GEMMs, e.g. 'becd,edf->becf')")
-    xs, ys, zs, order = form
+            f"MoE expert GEMMs, e.g. 'becd,edf->becf', MLA's absorbed "
+            f"'bqhn,rhn->bqhr')")
+    xs, ys, zs, order, yorder = form
     xp = x.permute(*[xs.index(c) for c in order])
+    yp = y.permute(*[ys.index(c) for c in yorder])
     e, *rows, kdim = xp.shape
-    out = kernel_ops.bmm(xp.reshape(e, -1, kdim), y, out_dtype=acc_dtype)
-    out = out.reshape(e, *rows, y.shape[2])
-    zorder = order[:-1] + ys[2]
+    out = kernel_ops.bmm(xp.reshape(e, -1, kdim), yp, out_dtype=acc_dtype)
+    out = out.reshape(e, *rows, yp.shape[2])
+    zorder = order[:-1] + yorder[2]
     return out.permute(*[zorder.index(c) for c in zs]).to(out_dtype)
 
 

@@ -26,8 +26,10 @@
 //     a lane keeps RT rows by 64 / LPR keys of scores and RT rows by
 //     NC = D / LPR columns of the accumulator (runs of 4 columns, 4 LPR
 //     apart, then a tail of NC % 4 consecutive ones: at head dim 80 and 8
-//     lanes, 4 + 4 + 2, at 112, 4 + 4 + 4 + 2; a plan whose lanes do not
-//     divide D is refused),
+//     lanes, 4 + 4 + 2, at 112, 4 + 4 + 4 + 2, at 192 and 32 lanes, 4 +
+//     2; a plan whose lanes do not divide D is refused, and so is one
+//     whose fp32 block does not fit in shared memory: at 192, MLA's
+//     prefill head dim, only the 8-row plan of 32 lanes a row fits),
 //     reads operands as 16-byte vectors from
 //     rows padded by 16 bytes, and the row's max, sum and rescaling run in
 //     registers with shuffles among the row's lanes, so a tile needs no
@@ -420,12 +422,23 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
-// A plan whose lanes do not split D evenly is not instantiated at D (the
-// 32-lane plan at head dims 80 and 112); flash_attention.py refuses it
-// first.
+// Shared memory one block may use on an H100.
+constexpr size_t MAX_SMEM = 232448;
+
+// A plan is instantiated at D where its lanes split D evenly and its fp32
+// blocks fit in shared memory (one rule for both dtypes): not the 32-lane
+// plan at head dims 80 and 112, only the 32-lane plan at 192 (the 64- and
+// 128-row plans there need 250,880 and 301,056 bytes in fp32).
+// flash_attention.py::plans_at states the same rule and refuses the
+// others first.
+template <int D, typename P>
+constexpr bool admitted() {
+  return D % P::LPR == 0 && FwdSmem<float, D, P>::bytes <= MAX_SMEM;
+}
+
 template <typename T, int D, typename P>
-cudaError_t launch_if_split(const Args& a) {
-  if constexpr (D % P::LPR == 0) {
+cudaError_t launch_if_admitted(const Args& a) {
+  if constexpr (admitted<D, P>()) {
     return launch<T, D, P>(a);
   } else {
     return cudaErrorInvalidValue;
@@ -435,9 +448,9 @@ cudaError_t launch_if_split(const Args& a) {
 template <typename T, int D>
 cudaError_t run_plan(int plan, const Args& a) {
   switch (plan) {
-    case 0: return launch_if_split<T, D, P0>(a);
-    case 1: return launch_if_split<T, D, P1>(a);
-    case 2: return launch_if_split<T, D, P2>(a);
+    case 0: return launch_if_admitted<T, D, P0>(a);
+    case 1: return launch_if_admitted<T, D, P1>(a);
+    case 2: return launch_if_admitted<T, D, P2>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -455,6 +468,8 @@ cudaError_t run_d(int D, int plan, const Args& a) {
       return run_plan<T, 112>(plan, a);
     case 128:
       return run_plan<T, 128>(plan, a);
+    case 192:
+      return run_plan<T, 192>(plan, a);
     default:
       return cudaErrorInvalidValue;
   }

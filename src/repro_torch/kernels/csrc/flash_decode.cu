@@ -41,6 +41,17 @@
 //     on a per-group counter after a fence, and the last one reads the
 //     group's partials back (from L2) and merges them, one warp a row; it
 //     then zeroes the counter for the next launch;
+//   * at head dim 576 (MLA's absorbed decode: one latent kv-head of c_kv
+//     512 + k_rope 64 shared by G = 16 query heads, so one 16-row block
+//     serves them all and reads each tile once) one fp32 stage of a K and
+//     a V tile is 338 KB, past the 227 KB a block may use, so K and V
+//     stream through two 32-key half tiles (DecSmem::HALVES, 190 KB in
+//     fp32): one half lands while the block scores or multiplies the
+//     other, a lane scores key j from half 0 and key j + 32 from half 1,
+//     and P V runs one chain over keys 0-31 and on over 32-63, so the
+//     64-key tile's arithmetic, and its bits, are the whole-tile loop's;
+//     18 P V columns a lane (PvCols: four float4 runs and a float2 tail);
+//     the merge takes its columns 6 at a time;
 //   * the split count and span come from the shape alone, so a result has
 //     the same bits run to run and whatever the batch;
 //   * K and V are read in the engine layout (B, S, KV, D) through strides.
@@ -70,6 +81,7 @@ using gemm::cp_async_wait;
 using gemm::load4;
 
 constexpr int ROWS = 16;              // query rows of a block, a warp each
+constexpr size_t MAX_SMEM = 232448;   // shared memory one block may use
 // Splits the merge takes: its sums match PyTorch's up to here (held on an
 // H100); a warp reads two splits a lane, so 64 at most.  The same as
 // flash_decode.py's MERGE_MAX_SPLITS.
@@ -77,61 +89,83 @@ constexpr int MERGE_MAX_SPLITS = 48;
 constexpr int MERGE_STEP = 8;  // splits a warp of the merge loads at once
 static_assert(MERGE_STEP % 4 == 0, "a step feeds the four accumulators in turn");
 
-// Shared memory of a block: q rows (fp32, padded by 16 bytes), `stages`
-// K / V tiles (x's dtype, rows padded by 16 bytes) and each warp's
-// probabilities (64 keys).
+// Shared memory of a block: q rows (fp32, padded by 16 bytes), the K / V
+// staging (x's dtype, rows padded by 16 bytes) and each warp's
+// probabilities (64 keys).  The staging holds `stages` K and V tiles, or,
+// where one fp32 stage of a K and a V tile does not fit (HALVES: head dim
+// 576, 338 KB), two 32-key half tiles that K and V stream through (one
+// rule for both dtypes).  kernels/flash_decode.py::smem_bytes states the
+// same sizes.
 template <typename T, int D>
 struct DecSmem {
   static constexpr int VEC = 16 / static_cast<int>(sizeof(T));
   static constexpr int QLD = D + 4;
   static constexpr int LD = D + VEC;
   static constexpr int TILE = BKV * LD;  // elements of a K or V tile
-  static size_t bytes(int rows, int stages) {
-    return static_cast<size_t>(rows) * QLD * 4 +
-           static_cast<size_t>(stages) * 2 * TILE * sizeof(T) +
+  static constexpr int HK = BKV / 2;     // keys of a half tile
+  static constexpr int HALF_TILE = HK * LD;
+  static constexpr bool HALVES =
+      static_cast<size_t>(ROWS) * QLD * 4 + 2 * static_cast<size_t>(BKV) * QLD * 4 +
+          static_cast<size_t>(ROWS) * BKV * 4 >
+      MAX_SMEM;
+  __host__ __device__ static constexpr size_t kv_elems(int stages) {
+    return HALVES ? static_cast<size_t>(TILE) : static_cast<size_t>(stages) * 2 * TILE;
+  }
+  __host__ __device__ static constexpr size_t bytes(int rows, int stages) {
+    return static_cast<size_t>(rows) * QLD * 4 + kv_elems(stages) * sizeof(T) +
            static_cast<size_t>(rows) * BKV * 4;
   }
 };
 
-// The P V columns of a lane: NC consecutive columns, read at once, on each
-// of the first LANES lanes.  D / 32 on every lane where 32 lanes split D
-// (D 32: 1, 64: 2, 128: 4); at D 112 (3.5 a lane) one 16-byte vector of 4
-// on 28 lanes, the other 4 idle in P V, which keeps one vector read per
-// key (16 lanes of 7 columns would need three unaligned reads a key).
-// The mapping moves no bit: each column is one chain over the keys.
+// The P V columns of a lane: NC on each of the first LANES lanes, as RUNS
+// runs of 4 consecutive columns, 4 LANES apart, then a tail of TAIL
+// consecutive ones past them (flash_attention.cu's column rule), so every
+// read is one vector: D / 32 on every lane where 32 lanes split D (D 32:
+// 1, 64: 2, 128: 4 consecutive columns); at D 112 (3.5 a lane) one 16-byte
+// vector of 4 on 28 lanes, the other 4 idle in P V, which keeps one vector
+// read per key (16 lanes of 7 columns would need three unaligned reads a
+// key); at D 576 (MLA's latent, 18 a lane: 72 bytes, not a whole number of
+// 16-byte vectors) four float4 runs over columns 0-511 and a float2 tail
+// over 512-575, each read by the warp as consecutive vectors, so without
+// bank conflicts (18 consecutive columns a lane would start at 8-byte
+// offsets and take nine float2 reads a key).  The mapping moves no bit:
+// each column is one chain over the keys.
 template <int D>
 struct PvCols {
   static constexpr int NC = D % 32 == 0 ? D / 32 : 4;
   static constexpr int LANES = D / NC;
+  static constexpr int RUNS = NC / 4, TAIL = NC % 4;
   static_assert(NC * LANES == D && LANES <= 32, "columns of the P V lanes");
+  static_assert(TAIL <= 2, "a tail is one float2 or one float");
+  // column e (< NC) of lane `lane`
+  __host__ __device__ static constexpr int col(int lane, int e) {
+    return e < 4 * RUNS ? (e / 4) * 4 * LANES + 4 * lane + e % 4
+                        : 4 * RUNS * LANES + TAIL * lane + (e - 4 * RUNS);
+  }
 };
 
-// The NC columns lane `lane` owns in P V, consecutive values read at once.
-template <int NC>
-__device__ __forceinline__ void load_cols(const float* row, int lane,
-                                          float (&v)[NC]) {
-  if constexpr (NC == 4) {
-    const float4 x = *reinterpret_cast<const float4*>(row + 4 * lane);
-    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
-  } else if constexpr (NC == 2) {
-    const float2 x = *reinterpret_cast<const float2*>(row + 2 * lane);
-    v[0] = x.x; v[1] = x.y;
-  } else {
-    v[0] = row[lane];
-  }
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
 }
-template <int NC>
-__device__ __forceinline__ void load_cols(const __nv_bfloat16* row, int lane,
-                                          float (&v)[NC]) {
-  if constexpr (NC == 4) {
-    const float4 x = load4(row + 4 * lane);
-    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
-  } else if constexpr (NC == 2) {
-    const float2 x = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(row + 2 * lane));
-    v[0] = x.x; v[1] = x.y;
-  } else {
-    v[0] = __bfloat162float(row[lane]);
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// The NC columns lane `lane` owns in P V (PvCols), as fp32.
+template <typename C, typename T>
+__device__ __forceinline__ void load_cols(const T* row, int lane,
+                                          float (&v)[C::NC]) {
+#pragma unroll
+  for (int r = 0; r < C::RUNS; ++r) {
+    const float4 x = load4(row + C::col(lane, 4 * r));
+    v[4 * r] = x.x; v[4 * r + 1] = x.y; v[4 * r + 2] = x.z; v[4 * r + 3] = x.w;
+  }
+  constexpr int E = 4 * C::RUNS;
+  if constexpr (C::TAIL == 2) {
+    const float2 x = load2(row + C::col(lane, E));
+    v[E] = x.x; v[E + 1] = x.y;
+  } else if constexpr (C::TAIL == 1) {
+    v[E] = attn::to_f32(row[C::col(lane, E)]);
   }
 }
 
@@ -153,11 +187,16 @@ __device__ __forceinline__ float dot4(float s, float4 a, float4 b) {
 // 0 of the row (split s at s * Sq and s * Sq * D); the partials are read
 // past L1, as other blocks wrote them.  Lane `lane` merges columns lane +
 // 32 c (c < NC), those below D (at D 112 the last pass covers 96-111 on 16
-// lanes).
+// lanes), CH of them at a time (every column at once up to D 128; at D
+// 576, 18 a lane, three passes of 6, which keeps the loads of a step in
+// registers under the 128 a thread of a 512-thread block); each column's
+// sums are the same whichever pass takes it.
 template <typename T, int D>
 __device__ __forceinline__ void merge_row(const float* l, const float* o,
                                           T* dst, int NS, int Sq, int lane) {
   constexpr int NC = (D + 31) / 32;
+  constexpr int CH = NC < 6 ? NC : 6;
+  static_assert(NC % CH == 0, "passes of CH columns");
   const float none = __int_as_float(0xff800000);  // -inf: below every lse
   const float l0 = lane < NS ? __ldcg(l + static_cast<long long>(lane) * Sq)
                              : none;
@@ -175,48 +214,52 @@ __device__ __forceinline__ void merge_row(const float* l, const float* o,
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     v = __fadd_rn(v, __shfl_down_sync(FULL, v, off));
-  float acc[NC][4], dacc[4];
+  const float v0 = __shfl_sync(FULL, v, 0);
+#pragma unroll 1
+  for (int c0 = 0; c0 < NC; c0 += CH) {
+    float acc[CH][4], dacc[4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    dacc[j] = 0.f;
+    for (int j = 0; j < 4; ++j) {
+      dacc[j] = 0.f;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) acc[c][j] = 0.f;
-  }
-  // MERGE_STEP splits a step, split s into accumulator s % 4: static
-  // indices keep the accumulators in registers, and a step's loads are all
-  // issued before its sums
-  for (int s0 = 0; s0 < NS; s0 += MERGE_STEP) {
-    float al[MERGE_STEP], ov[MERGE_STEP][NC];
-#pragma unroll
-    for (int j = 0; j < MERGE_STEP; ++j) {
-      const int s = s0 + j;
-      al[j] = __shfl_sync(FULL, s < 32 ? a0 : a1, s & 31);
-      const float* os = o + static_cast<long long>(s) * Sq * D + lane;
-#pragma unroll
-      for (int c = 0; c < NC; ++c)
-        ov[j][c] = s < NS && (D % 32 == 0 || lane + 32 * c < D)
-                       ? __ldcg(os + 32 * c)
-                       : 0.f;
+      for (int c = 0; c < CH; ++c) acc[c][j] = 0.f;
     }
+    // MERGE_STEP splits a step, split s into accumulator s % 4: static
+    // indices keep the accumulators in registers, and a step's loads are
+    // all issued before its sums
+    for (int s0 = 0; s0 < NS; s0 += MERGE_STEP) {
+      float al[MERGE_STEP], ov[MERGE_STEP][CH];
 #pragma unroll
-    for (int j = 0; j < MERGE_STEP; ++j) {
-      if (s0 + j < NS) {
-        dacc[j % 4] = __fadd_rn(dacc[j % 4], al[j]);
+      for (int j = 0; j < MERGE_STEP; ++j) {
+        const int s = s0 + j;
+        al[j] = __shfl_sync(FULL, s < 32 ? a0 : a1, s & 31);
+        const float* os = o + static_cast<long long>(s) * Sq * D + lane + 32 * c0;
 #pragma unroll
-        for (int c = 0; c < NC; ++c)
-          acc[c][j % 4] = __fadd_rn(acc[c][j % 4], __fmul_rn(ov[j][c], al[j]));
+        for (int c = 0; c < CH; ++c)
+          ov[j][c] = s < NS && (D % 32 == 0 || lane + 32 * (c0 + c) < D)
+                         ? __ldcg(os + 32 * c)
+                         : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < MERGE_STEP; ++j) {
+        if (s0 + j < NS) {
+          dacc[j % 4] = __fadd_rn(dacc[j % 4], al[j]);
+#pragma unroll
+          for (int c = 0; c < CH; ++c)
+            acc[c][j % 4] = __fadd_rn(acc[c][j % 4], __fmul_rn(ov[j][c], al[j]));
+        }
       }
     }
-  }
-  const float den =
-      Sq == 1 ? __shfl_sync(FULL, v, 0)
-              : __fadd_rn(__fadd_rn(__fadd_rn(dacc[0], dacc[1]), dacc[2]), dacc[3]);
+    const float den =
+        Sq == 1 ? v0
+                : __fadd_rn(__fadd_rn(__fadd_rn(dacc[0], dacc[1]), dacc[2]), dacc[3]);
 #pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    const float num =
-        __fadd_rn(__fadd_rn(__fadd_rn(acc[c][0], acc[c][1]), acc[c][2]), acc[c][3]);
-    if (D % 32 == 0 || lane + 32 * c < D)
-      attn::store(dst + lane + 32 * c, __fdiv_rn(num, den));
+    for (int c = 0; c < CH; ++c) {
+      const float num =
+          __fadd_rn(__fadd_rn(__fadd_rn(acc[c][0], acc[c][1]), acc[c][2]), acc[c][3]);
+      if (D % 32 == 0 || lane + 32 * (c0 + c) < D)
+        attn::store(dst + lane + 32 * (c0 + c), __fdiv_rn(num, den));
+    }
   }
 }
 
@@ -234,6 +277,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int VEC = S::VEC;
   constexpr int NC = PvCols<D>::NC;
   constexpr int PV_LANES = PvCols<D>::LANES;
+  constexpr bool HALVES = S::HALVES;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int last_block;
   const int G = H / KV;
@@ -247,27 +291,40 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* kv = reinterpret_cast<T*>(smem + static_cast<size_t>(nrows) * S::QLD * 4);
   float* ps = reinterpret_cast<float*>(
                   reinterpret_cast<unsigned char*>(kv) +
-                  static_cast<size_t>(stages) * 2 * S::TILE * sizeof(T)) +
+                  S::kv_elems(stages) * sizeof(T)) +
               warp * BKV;
 
   const int lo = split * span;
   const T* kb = k + b * ksb + kvh * ksh;
   const T* vb = v + b * vsb + kvh * vsh;
-  // keys [t0, t0 + 64) of K or V into stage `st`; keys past Skv read 0
-  auto stage = [&](const T* src, int64_t rs, int t0, int st, int which) {
-    T* dst = kv + (st * 2 + which) * S::TILE;
+  // keys [t0, t0 + keys) of K or V into `dst`; keys past Skv read 0
+  auto stage = [&](const T* src, int64_t rs, int t0, T* dst, int keys) {
     constexpr int PC = D / VEC;
-    for (int i = tid; i < BKV * PC; i += nthreads) {
+    for (int i = tid; i < keys * PC; i += nthreads) {
       const int c = i / PC, pc = i % PC;
       copy_piece(dst + c * S::LD + pc * VEC, src + (t0 + c) * rs + pc * VEC,
                  kvec, t0 + c < Skv ? VEC : 0);
     }
   };
-  // the span's first tile goes in flight before kv_len is read
-  stage(kb, kss, lo, 0, 0);
-  cp_async_commit();
-  stage(vb, vss, lo, 0, 1);
-  cp_async_commit();
+  // HALVES: piece h of the span is tile h / 4's K keys 0-31, K keys 32-63,
+  // V keys 0-31 or V keys 32-63 (h % 4), staged into half buffer h % 2
+  auto stage_half = [&](int h) {
+    const int part = h & 3;
+    stage(part < 2 ? kb : vb, part < 2 ? kss : vss,
+          lo + (h >> 2) * BKV + (part & 1) * S::HK, kv + (h & 1) * S::HALF_TILE,
+          S::HK);
+  };
+  // the span's first tile (HALVES: its first half of K) goes in flight
+  // before kv_len is read
+  if constexpr (HALVES) {
+    stage_half(0);
+    cp_async_commit();
+  } else {
+    stage(kb, kss, lo, kv, BKV);
+    cp_async_commit();
+    stage(vb, vss, lo, kv + S::TILE, BKV);
+    cp_async_commit();
+  }
   const int kvlen = kv_len[b];
   // the block's largest key bound: its last row has the largest position
   const int last = (r0 + nrows - 1) / G;
@@ -304,6 +361,74 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int j = 0; j < NC; ++j) acc[j] = 0.f;
 
+  if constexpr (HALVES) {
+    // one half tile in flight while the block works on the other: the
+    // scores of keys lane (half 0) and lane + 32 (half 1), the tile's
+    // statistics, then P V as one chain over keys 0-31 (half 2) and on
+    // over 32-63 (half 3); one barrier a half, the arithmetic of the
+    // whole-tile loop below
+    float s0 = 0.f, al = 1.f, pv[NC];
+    const float* qr = qs + warp * S::QLD;
+    for (int h = 0; h < 4 * ntiles; ++h) {
+      cp_async_wait<0>();
+      __syncthreads();  // half h landed; half h - 1's reads are done
+      if (h + 1 < 4 * ntiles) stage_half(h + 1);
+      cp_async_commit();
+      const T* buf = kv + (h & 1) * S::HALF_TILE;
+      const int part = h & 3;
+      if (!live) continue;
+      if (part < 2) {
+        float sc = 0.f;
+#pragma unroll 4
+        for (int d = 0; d < D; d += 4)
+          sc = dot4(sc, *reinterpret_cast<const float4*>(qr + d),
+                    load4(buf + lane * S::LD + d));
+        if (part == 0) {
+          s0 = sc;
+          continue;
+        }
+        const int t0 = lo + (h >> 2) * BKV;
+        const float a0 = t0 + lane < row_end ? s0 : NEG;
+        const float a1 = t0 + lane + 32 < row_end ? sc : NEG;
+        float mc = fmaxf(a0, a1);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          mc = fmaxf(mc, __shfl_xor_sync(FULL, mc, off));
+        const float mn = fmaxf(m, mc);
+        const float p0 = a0 > NEG_HALF ? expf(__fadd_rn(a0, -mn)) : 0.f;
+        const float p1 = a1 > NEG_HALF ? expf(__fadd_rn(a1, -mn)) : 0.f;
+        ps[lane] = p0;
+        ps[lane + 32] = p1;
+        float sum = __fadd_rn(p0, p1);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          sum = __fadd_rn(sum, __shfl_xor_sync(FULL, sum, off));
+        al = expf(__fadd_rn(m, -mn));
+        l = __fadd_rn(__fmul_rn(l, al), sum);
+        m = mn;
+        continue;
+      }
+      if (part == 2) {
+#pragma unroll
+        for (int j = 0; j < NC; ++j) pv[j] = 0.f;
+      }
+      if (pv_lane) {
+        const float* pp = ps + (part - 2) * S::HK;
+#pragma unroll 4
+        for (int c = 0; c < S::HK; ++c) {
+          float vv[NC];
+          load_cols<PvCols<D>>(buf + c * S::LD, lane, vv);
+          const float p = pp[c];
+#pragma unroll
+          for (int j = 0; j < NC; ++j) pv[j] = __fmaf_rn(p, vv[j], pv[j]);
+        }
+      }
+      if (part == 3) {
+#pragma unroll
+        for (int j = 0; j < NC; ++j) acc[j] = __fadd_rn(__fmul_rn(acc[j], al), pv[j]);
+      }
+    }
+  } else {
   for (int t = 0; t < ntiles; ++t) {
     const int t0 = lo + t * BKV;
     const int st = stages > 1 ? t & 1 : 0;
@@ -311,9 +436,9 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     const bool more = t + 1 < ntiles;
     if (more) {  // the next tile into the other stage, read last at t - 1
-      stage(kb, kss, t0 + BKV, st ^ 1, 0);
+      stage(kb, kss, t0 + BKV, kv + ((st ^ 1) * 2) * S::TILE, BKV);
       cp_async_commit();
-      stage(vb, vss, t0 + BKV, st ^ 1, 1);
+      stage(vb, vss, t0 + BKV, kv + ((st ^ 1) * 2 + 1) * S::TILE, BKV);
       cp_async_commit();
     }
     const T* ks = kv + (st * 2) * S::TILE;
@@ -364,7 +489,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll 4
         for (int c = 0; c < BKV; ++c) {
           float vv[NC];
-          load_cols<NC>(vs + c * S::LD, lane, vv);
+          load_cols<PvCols<D>>(vs + c * S::LD, lane, vv);
           const float p = ps[c];
 #pragma unroll
           for (int j = 0; j < NC; ++j) pv[j] = __fmaf_rn(p, vv[j], pv[j]);
@@ -375,6 +500,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
         acc[j] = __fadd_rn(__fmul_rn(acc[j], al), pv[j]);
     }
   }
+  }
   cp_async_wait<0>();  // a span with no live key leaves its loads unread
 
   const int gr = r0 + warp;
@@ -384,10 +510,11 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (live) {
     const float lsafe = l == 0.f ? 1.f : l;
     const int64_t row = row0 + static_cast<int64_t>(split) * Sq;
-    float* o = o_part + row * D + NC * lane;
+    float* o = o_part + row * D;
     if (pv_lane) {
 #pragma unroll
-      for (int j = 0; j < NC; ++j) o[j] = __fdiv_rn(acc[j], lsafe);
+      for (int j = 0; j < NC; ++j)
+        o[PvCols<D>::col(lane, j)] = __fdiv_rn(acc[j], lsafe);
     }
     if (lane == 0) lse_part[row] = l > 0.f ? __fadd_rn(m, logf(lsafe)) : NEG;
   }
@@ -454,6 +581,9 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
                             Sq, Skv, H, KV, st, causal, n_splits, span, stream);
     case 128:
       return launch<T, 128>(q, k, v, kv_len, o_part, lse_part, out, counters, B, Sq,
+                            Skv, H, KV, st, causal, n_splits, span, stream);
+    case 576:
+      return launch<T, 576>(q, k, v, kv_len, o_part, lse_part, out, counters, B, Sq,
                             Skv, H, KV, st, causal, n_splits, span, stream);
     default:
       return cudaErrorInvalidValue;

@@ -34,10 +34,12 @@ own launch count (`launches`, `launches_lse`, `launches_dq`,
 The forward launches under a `FwdPlan`, its query rows and threads per
 block and lanes per query row: `PLANS` are the instantiated plans,
 `plans_at` those a head dim admits (a plan's lanes must split the head
-dim: at 80 and 112 the 32-lane plan is out) and `plan_for` picks one from
-the shape.  The forward is instantiated at head dims `FWD_HEAD_DIMS` (32,
-64, 80, 112, 128), the backward kernels at `BWD_HEAD_DIMS` (32, 64, 128)
-and the decode kernel at ``flash_decode.HEAD_DIMS`` (32, 64, 112, 128);
+dim and its fp32 block fit in shared memory: at 80 and 112 the 32-lane
+plan is out, at 192 it is the only one) and `plan_for` picks one from the
+shape.  The forward is instantiated at head dims `FWD_HEAD_DIMS` (32, 64,
+80, 112, 128 and MLA's prefill 192), the backward kernels at
+`BWD_HEAD_DIMS` (32, 64, 128) and the decode kernel at
+``flash_decode.HEAD_DIMS`` (32, 64, 112, 128 and MLA's latent 576);
 each wrapper refuses another head dim by name, on the CPU as on the
 card.  The dQ kernel
 launches under a `BwdPlan`, its query rows per block: `BWD_PLANS` and
@@ -58,9 +60,11 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import attention_mask, flash_attention_ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-FWD_HEAD_DIMS = (32, 64, 80, 112, 128)  # the forward kernel's head dims
+FWD_HEAD_DIMS = (32, 64, 80, 112, 128, 192)  # the forward kernel's
 BWD_HEAD_DIMS = (32, 64, 128)  # the dQ and dK / dV kernels' head dims
 SMS = 132  # streaming multiprocessors of an H100 SXM
+MAX_SMEM = 232448  # bytes of shared memory one block may use
+KEY_TILE = 64  # keys of a K / V tile of the kernels
 
 
 class FwdPlan(NamedTuple):
@@ -262,11 +266,24 @@ def _on_card(name: str, q) -> bool:
     return q.device.type == "cuda"
 
 
+def fwd_smem_bytes(d: int, plan: FwdPlan, dtype=torch.float32) -> int:
+    """Shared memory of one forward block (``FwdSmem`` in
+    csrc/flash_attention.cu): the plan's q rows and two stages of a K and
+    a V tile, rows of head dim `d` padded by 16 bytes."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    ld = d + 16 // size
+    return (plan.rows + 4 * KEY_TILE) * ld * size
+
+
 def plans_at(d: int) -> tuple[FwdPlan, ...]:
     """The forward plans instantiated at head dim `d`: those whose lanes
-    split it evenly (every plan at 32, 64 and 128; at 80 and 112 the two
-    8-lane plans, 10 and 14 columns a lane)."""
-    return tuple(p for p in PLANS if d % p.lanes == 0)
+    split it evenly and whose fp32 block fits in `MAX_SMEM` (one rule for
+    both dtypes; every plan at 32, 64 and 128; at 80 and 112 the two 8-lane
+    plans, 10 and 14 columns a lane; at 192 the 32-lane plan, 6 columns a
+    lane, alone: the 8-lane plans' fp32 blocks need 250,880 and 301,056
+    bytes)."""
+    return tuple(p for p in PLANS if d % p.lanes == 0
+                 and fwd_smem_bytes(d, p) <= MAX_SMEM)
 
 
 def plan_for(b: int, sq: int, h: int, kv: int, d: int | None = None
@@ -278,13 +295,15 @@ def plan_for(b: int, sq: int, h: int, kv: int, d: int | None = None
     times every plan: 8-row blocks were fastest at the 64-token serving
     chunk at batch 1 and 4, 64-row ones at a 512-token prompt, 128-row ones
     at the training shapes), or 64-row blocks where d does not admit a
-    32-lane row (`plans_at`; head dims 80 and 112).  For speed only: every plan
-    gives the same bits."""
+    32-lane row (`plans_at`; head dims 80 and 112), and always the 8-row
+    plan where d admits no other (192).  For speed only: every plan gives
+    the same bits."""
+    admitted = PLANS if d is None else plans_at(d)
     rows = (h // kv) * sq
-    if b * kv * -(-rows // 128) >= SMS:
+    if PLANS[1] in admitted and b * kv * -(-rows // 128) >= SMS:
         return PLANS[1]
-    if (2 * b * kv * -(-rows // 64) >= SMS
-            or (d is not None and PLANS[2] not in plans_at(d))):
+    if PLANS[0] in admitted and (2 * b * kv * -(-rows // 64) >= SMS
+                                 or PLANS[2] not in admitted):
         return PLANS[0]
     return PLANS[2]
 
@@ -323,7 +342,8 @@ def flash_attention_fwd(q, k, v, kv_len=None, *, causal: bool = True,
     if PLANS[plan_id] not in plans_at(d):
         raise ValueError(f"plan {PLANS[plan_id]} is not instantiated at "
                          f"head dim {d} (its {PLANS[plan_id].lanes} lanes "
-                         f"do not split a row); use one of {plans_at(d)}")
+                         f"do not split a row, or its block does not fit "
+                         f"in shared memory); use one of {plans_at(d)}")
     if not _on_card("flash_attention_fwd", q):
         return flash_attention_plain(q, k, v, kv_len, causal=causal,
                                      return_lse=return_lse)
@@ -452,7 +472,7 @@ class FlashAttention(torch.autograd.Function):
     (as ``_flash_vjp_bwd``; a row with no live key has O = 0, so Delta = 0
     there) and launches the dQ kernel under `bwd_plan_for`'s plan and the
     dK / dV kernel.  kv_len and causal get no gradient.  A head dim the
-    backward kernels lack (80, 112) is refused here, before the forward
+    backward kernels lack (80, 112, 192) is refused here, before the forward
     runs.
     """
 

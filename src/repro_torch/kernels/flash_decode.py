@@ -23,11 +23,14 @@ An empty span reports the sentinel lse `EMPTY_SPAN_LSE` (-1e30) and a zero
 partial, which `combine` weighs to exactly 0; a row whose spans are all
 empty merges to exact 0, never NaN.  Partials, lse and the merge are fp32
 for every operand dtype.  The kernel is instantiated at head dims
-`HEAD_DIMS` (zamba2's shared block at 112 among them); another head dim is
-refused by name, on the CPU as on the card.  The wrappers run the plain
-versions only for a CPU tensor; on a CUDA tensor they launch the kernel or
-raise.  `launches` counts the kernel's launches, with or without the
-merge, and moves nowhere else.  Inference only: decode is never differentiated.
+`HEAD_DIMS` (zamba2's shared block at 112 and MLA's absorbed decode at 576,
+the latent c_kv 512 + k_rope 64, among them); another head dim is refused
+by name, on the CPU as on the card.  `smem_bytes` is a block's shared
+memory (at 576 K and V stream through two 32-key half tiles).  The
+wrappers run the plain versions only for a CPU tensor; on a CUDA tensor
+they launch the kernel or raise.  `launches` counts the kernel's
+launches, with or without the merge, and moves nowhere else.  Inference
+only: decode is never differentiated.
 """
 from __future__ import annotations
 
@@ -41,7 +44,7 @@ from repro_torch.kernels.flash_attention import (DTYPES, STRIDES,
                                                  check_operands, cuda_args)
 from repro_torch.kernels.ref import attention_mask
 
-HEAD_DIMS = (32, 64, 112, 128)  # the decode kernel's head dims
+HEAD_DIMS = (32, 64, 112, 128, 576)  # the decode kernel's head dims
 # The lse an empty (fully-masked) key span reports; `combine` weighs such
 # partials to zero.
 EMPTY_SPAN_LSE = -1e30
@@ -52,6 +55,7 @@ ROWS = 16  # query rows of a block of the kernel
 # splits on an H100); at 64 and more PyTorch's `sum` takes another, so
 # `ops.attention_decode` merges those with `combine`.
 MERGE_MAX_SPLITS = 48
+MAX_SMEM = 232448  # bytes of shared memory one block may use
 
 launches = 0
 
@@ -77,6 +81,19 @@ def _counters(device, n: int) -> torch.Tensor:
         held.append(torch.zeros(max(n, 4096), dtype=torch.int32,
                                 device=device))
     return held[-1]
+
+
+def smem_bytes(d: int, dtype=torch.float32) -> int:
+    """Shared memory a 16-row block of the kernel at head dim `d` opts
+    into (``DecSmem`` in csrc/flash_decode.cu): the q rows in fp32, two
+    stages of a K and a V tile in `dtype` (rows padded by 16 bytes), or
+    two 32-key half tiles where one fp32 stage of a K and a V tile would
+    not fit in `MAX_SMEM` (head dim 576), and the rows' probabilities."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    q_rows = ROWS * (d + 4) * 4
+    halves = q_rows + 2 * TILE * (d + 4) * 4 + ROWS * TILE * 4 > MAX_SMEM
+    tiles = 1 if halves else 4
+    return q_rows + tiles * TILE * (d + 16 // size) * size + ROWS * TILE * 4
 
 
 def _check_split(skv: int, n_splits: int, span: int) -> None:

@@ -1,13 +1,14 @@
-"""The LM assembled per ArchConfig: the dense GQA, Mamba2 SSM, GQA MoE and
-hybrid (zamba2) families and the modality frontends (PyTorch port of the
-``dense``, ``mamba``, ``gqa_moe`` and ``zamba_super`` paths of
-``repro/models/transformer.py``, with its ``_embed_inputs`` and
+"""The LM assembled per ArchConfig: the dense GQA, Mamba2 SSM, MoE (GQA
+and MLA) and hybrid (zamba2) families and the modality frontends (PyTorch
+port of ``repro/models/transformer.py``, with its ``_embed_inputs`` and
 ``_shared_block``).
 
 The layer program is static, from the config: ``[("dense", n_layers)]``
 for the dense, vision (``vlm``) and audio families, ``[("mamba",
 n_layers)]`` for the SSM family, ``[("gqa_moe", n_layers)]`` for a MoE
-config without MLA (llama4-scout), and for the hybrid ``[("zamba_super",
+config without MLA (llama4-scout), ``[("mla_dense", first_dense_layers),
+("mla_moe", the rest)]`` for one with MLA (deepseek-v2-lite-16b: 1 and
+26; its RoPE tables are qk_rope_dim wide), and for the hybrid ``[("zamba_super",
 n_super)]`` plus a ``("mamba", tail)`` entry when ``attn_every`` does not
 divide the layers (zamba2-7b: 13 super entries of 6 mamba layers, then 3
 mamba layers).  A super entry runs its ``attn_every`` mamba layers, then
@@ -32,6 +33,7 @@ Parameters (plain dicts of tensors)::
      "frontend": {...},                          # vlm and audio only
      "layers": [{"norm1", "attn", "norm2", "mlp"}, ...],   # dense
      "layers": [{"norm1", "attn", "norm2", "moe"}, ...],   # gqa_moe
+     "layers": [{"norm1", "attn", "norm2", "mlp" or "moe"}, ...],  # mla_*
      "layers": [{"norm", "mixer"}, ...],                   # mamba, hybrid
      "shared": {"norm_in", "win", "norm1", "attn", "norm2", "mlp",
                 "wout"},                                   # hybrid only
@@ -42,7 +44,9 @@ GEMM kernel reads in place, so the head neither copies the table per call
 nor keeps a second copy of it (544 MB at qwen2-0.5b).  Caches are a list
 aligned with the layer program, as in JAX:
 ``{"k", "v": (n_layers, B, S, KV, hd)}`` for a dense or gqa_moe
-stack, ``{"conv_x", "conv_B", "conv_C": (n_layers, B, conv - 1, C),
+stack, ``{"c_kv": (n_layers, B, S, lora), "k_rope": (n_layers, B, S,
+rope)}`` for an MLA one (the latent, 576 values a token and layer at
+deepseek-v2-lite), ``{"conv_x", "conv_B", "conv_C": (n_layers, B, conv - 1, C),
 "ssm": (n_layers, B, H, P, N)}`` for a mamba stack, O(1) in the sequence
 length, and for a super entry ``{"mamba": {the mamba leaves, (n,
 attn_every, B, ...)}, "shared": {"k", "v": (n, B, S, KV, hd)}}``.
@@ -50,8 +54,10 @@ attn_every, B, ...)}, "shared": {"k", "v": (n, B, S, KV, hd)}}``.
 (each super entry, shared block included) recomputed in the backward
 (``remat``, the JAX ``jax.checkpoint`` of the scanned body), the chunked
 cross-entropy through the (tied) head and, for a MoE stack, the mean of
-the layers' load-balance losses.  MLA (the ``mla_dense`` / ``mla_moe``
-programs) comes with its model code; it raises NotImplementedError here.
+the layers' load-balance losses.  ``kernel_attention=False`` (in
+`forward_hidden`, `loss_fn`, `forward_prefill`) takes the blockwise
+attention oracle (`attention.blockwise_attention`, `n_q_chunks` query
+chunks, on `ref` and `eager`) in place of the attention op, as in JAX.
 """
 from __future__ import annotations
 
@@ -71,17 +77,17 @@ from repro_torch.tree import flatten
 
 
 def stack_program(cfg) -> list[tuple[str, int]]:
-    """The static layer program; the dense (also under the vision and audio
-    frontends), SSM, GQA MoE and hybrid programs are ported."""
+    """The static layer program of every family: dense (also under the
+    vision and audio frontends), SSM, MoE (GQA, or MLA with its first
+    dense layers) and hybrid."""
     if cfg.family in ("dense", "vlm", "audio"):
         return [("dense", cfg.n_layers)]
     if cfg.family == "ssm":
         return [("mamba", cfg.n_layers)]
     if cfg.family == "moe" and cfg.is_mla:
-        raise NotImplementedError(
-            f"{cfg.name} is a MLA MoE config (the 'mla_dense' / 'mla_moe' "
-            f"programs), which is not ported yet: the port runs the "
-            f"'gqa_moe' program only")
+        prog = ([("mla_dense", cfg.first_dense_layers)]
+                if cfg.first_dense_layers else [])
+        return prog + [("mla_moe", cfg.n_layers - cfg.first_dense_layers)]
     if cfg.family == "moe":
         return [("gqa_moe", cfg.n_layers)]
     if cfg.family == "hybrid":
@@ -116,10 +122,11 @@ def _layer_init(kind: str, generator, cfg, device) -> dict:
     if kind in ("mamba", "zamba_super"):
         return {"norm": norm_init(cfg.norm, cfg.d_model, device),
                 "mixer": ssm_mod.ssm_init(generator, cfg, device)}
+    init = attn.mla_init if kind.startswith("mla") else attn.gqa_init
     lp = {"norm1": norm_init(cfg.norm, cfg.d_model, device),
-          "attn": attn.gqa_init(generator, cfg, device),
+          "attn": init(generator, cfg, device),
           "norm2": norm_init(cfg.norm, cfg.d_model, device)}
-    if kind == "gqa_moe":
+    if kind in ("gqa_moe", "mla_moe"):
         lp["moe"] = moe_mod.moe_init(generator, cfg, device)
     else:
         lp["mlp"] = mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.act,
@@ -186,9 +193,11 @@ def param_counts(cfg) -> tuple[int, int]:
     return total, active
 
 
-def _layer(kind, engine, cfg, lp, h, cos, sin, return_cache=False):
+def _layer(kind, engine, cfg, lp, h, cos, sin, return_cache=False,
+           attn_kw=None):
     """One layer of the program: (h, its cache entry or None, its MoE
-    load-balance loss or None)."""
+    load-balance loss or None).  `attn_kw` ({"n_q_chunks",
+    "kernel_attention"}) goes to the attention layer."""
     if kind == "mamba":
         m = ssm_mod.ssm_forward(
             engine, lp["mixer"],
@@ -196,13 +205,17 @@ def _layer(kind, engine, cfg, lp, h, cos, sin, return_cache=False):
             return_cache=return_cache)
         m, cache = m if return_cache else (m, None)
         return h + m, cache, None
-    a = attn.gqa_forward(engine, lp["attn"],
-                         norm_apply(cfg.norm, lp["norm1"], h, cfg.norm_eps),
-                         cos, sin, cfg, return_kv=return_cache)
+    x = norm_apply(cfg.norm, lp["norm1"], h, cfg.norm_eps)
+    if kind.startswith("mla"):
+        a = attn.mla_forward(engine, lp["attn"], x, cos, sin, cfg,
+                             return_cache=return_cache, **(attn_kw or {}))
+    else:
+        a = attn.gqa_forward(engine, lp["attn"], x, cos, sin, cfg,
+                             return_kv=return_cache, **(attn_kw or {}))
     a, kv = a if return_cache else (a, None)
     h = h + a
     x = norm_apply(cfg.norm, lp["norm2"], h, cfg.norm_eps)
-    if kind == "gqa_moe":
+    if kind in ("gqa_moe", "mla_moe"):
         m, aux = moe_mod.moe_forward(engine, lp["moe"], x, cfg)
     else:
         m, aux = mlp_forward(engine, lp["mlp"], x, cfg.act), None
@@ -233,10 +246,12 @@ def _embed_inputs(engine, cfg, params, tokens=None, patch_embeds=None,
 
 def _rope(cfg, positions):
     """The RoPE tables of a program that holds attention (for the hybrid,
-    the shared block's), (None, None) for a mamba stack."""
+    the shared block's; for MLA qk_rope_dim wide), (None, None) for a
+    mamba stack."""
     if all(kind == "mamba" for kind, _ in stack_program(cfg)):
         return None, None
-    return rope_table(positions, cfg.head_dim, cfg.rope_theta)
+    dim = cfg.qk_rope_dim if cfg.is_mla else cfg.head_dim
+    return rope_table(positions, dim, cfg.rope_theta)
 
 
 def _shared_block(engine, cfg, sp, h, emb0, attend):
@@ -267,10 +282,11 @@ def _stacked(entries: list):
 
 
 def _super_entry(engine, cfg, params, lps, h, emb0, cos, sin,
-                 collect_caches):
+                 collect_caches, attn_kw):
     """One super entry of the hybrid: its mamba layers, then the shared
-    block.  Returns (h, its cache entry {"mamba": {leaf: (attn_every, B,
-    ...)}, "shared": {"k", "v"}} or None)."""
+    block (its attention with `attn_kw`, as `_layer`'s).  Returns (h, its
+    cache entry {"mamba": {leaf: (attn_every, B, ...)}, "shared": {"k",
+    "v"}} or None)."""
     mamba = []
     for lp in lps:
         h, entry, _ = _layer("mamba", engine, cfg, lp, h, cos, sin,
@@ -279,7 +295,7 @@ def _super_entry(engine, cfg, params, lps, h, emb0, cos, sin,
 
     def attend(x):
         a = attn.gqa_forward(engine, params["shared"]["attn"], x, cos, sin,
-                             cfg, return_kv=collect_caches)
+                             cfg, return_kv=collect_caches, **attn_kw)
         return a if collect_caches else (a, None)
 
     h, kv = _shared_block(engine, cfg, params["shared"], h, emb0, attend)
@@ -288,13 +304,17 @@ def _super_entry(engine, cfg, params, lps, h, emb0, cos, sin,
     return h, {"mamba": _stacked(mamba), "shared": kv}
 
 
-def _forward(engine, cfg, params, h, *, collect_caches, remat):
+def _forward(engine, cfg, params, h, *, collect_caches, remat,
+             n_q_chunks=8, kernel_attention=True):
     """The full-sequence forward of the stack's input h (B, S, D),
     `_embed_inputs`'s: (final hidden (B, S, D), the program entries' caches
     (`forward_prefill`'s) or None, the summed MoE aux loss, a 0-d fp32
     tensor).  With ``remat`` each layer, and each super entry as one
     piece (JAX's ``jax.checkpoint(super_body)``), runs under
-    ``torch.utils.checkpoint``."""
+    ``torch.utils.checkpoint``.  `n_q_chunks` and `kernel_attention` go
+    to every attention layer (`forward_hidden`)."""
+    attn_kw = {"n_q_chunks": n_q_chunks,
+               "kernel_attention": kernel_attention}
     cos, sin = _rope(cfg, torch.arange(h.shape[1], device=h.device))
     emb0 = h
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -313,7 +333,7 @@ def _forward(engine, cfg, params, h, *, collect_caches, remat):
 
             def block(lps, x):
                 return _super_entry(engine, cfg, params, lps, x, emb0, cos,
-                                    sin, collect_caches)
+                                    sin, collect_caches, attn_kw)
 
             for i in range(n):
                 h, entry = run(block, layers[i * every:(i + 1) * every], h)
@@ -321,7 +341,7 @@ def _forward(engine, cfg, params, h, *, collect_caches, remat):
         else:
             def layer(lp, x, kind=kind):
                 return _layer(kind, engine, cfg, lp, x, cos, sin,
-                              return_cache=collect_caches)
+                              return_cache=collect_caches, attn_kw=attn_kw)
 
             for lp in layers:
                 h, entry, aux = run(layer, lp, h)
@@ -336,7 +356,8 @@ def _forward(engine, cfg, params, h, *, collect_caches, remat):
 
 def forward_hidden(engine: ComputeEngine, cfg, params: dict, *,
                    tokens=None, patch_embeds=None, frames=None,
-                   remat: bool = False):
+                   remat: bool = False, n_q_chunks: int = 8,
+                   kernel_attention: bool = True):
     """Full-sequence forward to (final hidden states (B, S, D), the summed
     MoE load-balance loss of the layers, a 0-d fp32 tensor: 0 for a stack
     without MoE layers); tokens (B, S_text) int, with patch_embeds (B, T,
@@ -345,15 +366,18 @@ def forward_hidden(engine: ComputeEngine, cfg, params: dict, *,
     super entry of the hybrid) runs under ``torch.utils.checkpoint``: its
     activations are not kept for the backward, which recomputes them (the
     same values, so the same gradients; only the layer inputs stay
-    alive)."""
+    alive).  ``kernel_attention=False`` takes the blockwise attention
+    oracle in `n_q_chunks` query chunks (`ref` and `eager` only)."""
     h = _embed_inputs(engine, cfg, params, tokens, patch_embeds, frames)
     h, _, aux = _forward(engine, cfg, params, h, collect_caches=False,
-                         remat=remat)
+                         remat=remat, n_q_chunks=n_q_chunks,
+                         kernel_attention=kernel_attention)
     return h, aux
 
 
 def loss_fn(engine: ComputeEngine, cfg, params: dict, batch: dict, *,
-            aux_coef: float = 0.01, remat: bool = True, ce_chunk: int = 512):
+            aux_coef: float = 0.01, remat: bool = True, ce_chunk: int = 512,
+            n_q_chunks: int = 8, kernel_attention: bool = True):
     """Mean token cross-entropy of a training batch ``{"tokens",
     "labels"}``, each (B, S) int (with ``patch_embeds`` for a vision
     config, whose text tokens are then S - T, or ``frames`` in place of
@@ -361,20 +385,23 @@ def loss_fn(engine: ComputeEngine, cfg, params: dict, batch: dict, *,
     load-balance loss over the MoE layers when the stack has any.  A
     mamba or hybrid stack differentiates on `eager` and `ref` only: the
     `cuda` SSD kernel is inference only, and `guard_grad` refuses it under
-    grad.
+    grad.  So does an MLA stack: the attention backward kernels are not
+    instantiated at its head dim 192, and `FlashAttention` refuses it by
+    name.
 
     The forward dispatches the same engine ops as serving (on `cuda` the
     GEMM and attention kernels, differentiable through `GemmFused` and
     `FlashAttention`), so training and inference share one set of
     numerics; the head is `head_weight` (a tied head reads the embedding
     in place).  ``remat`` recomputes each layer in the backward, the JAX
-    ``jax.checkpoint`` of the layer body.  The JAX ``n_q_chunks`` and
-    ``kernel_attention=False`` belong to its blockwise attention oracle,
-    which the port does not have yet, so they are left out.
+    ``jax.checkpoint`` of the layer body.  ``kernel_attention=False``
+    takes the blockwise attention oracle (`forward_hidden`).
     """
     h, aux = forward_hidden(engine, cfg, params, tokens=batch.get("tokens"),
                             patch_embeds=batch.get("patch_embeds"),
-                            frames=batch.get("frames"), remat=remat)
+                            frames=batch.get("frames"), remat=remat,
+                            n_q_chunks=n_q_chunks,
+                            kernel_attention=kernel_attention)
     ce = chunked_cross_entropy(engine, h, head_weight(params, cfg),
                                batch["labels"], vocab_real=cfg.vocab_size,
                                chunk=ce_chunk)
@@ -384,17 +411,21 @@ def loss_fn(engine: ComputeEngine, cfg, params: dict, batch: dict, *,
 
 def forward_prefill(engine: ComputeEngine, cfg, params: dict, *,
                     tokens=None, patch_embeds=None, frames=None,
-                    collect_caches: bool = True):
+                    collect_caches: bool = True, n_q_chunks: int = 8,
+                    kernel_attention: bool = True):
     """Full-sequence forward (inputs as `forward_hidden`'s) that also
     collects the caches: returns (hidden (B, S, D), caches), the caches a
     list aligned with the layer program, each entry's layers stacked under
-    leading layer axes ({"k", "v"} for dense and gqa_moe, {"conv_x",
-    "conv_B", "conv_C", "ssm"} for mamba, {"mamba", "shared"} for a super
-    entry; see the module docstring), or (hidden, None) without
-    ``collect_caches``.  A MoE layer's aux loss is dropped, as in JAX."""
+    leading layer axes ({"k", "v"} for dense and gqa_moe, {"c_kv",
+    "k_rope"} for the MLA kinds, {"conv_x", "conv_B", "conv_C", "ssm"}
+    for mamba, {"mamba", "shared"} for a super entry; see the module
+    docstring), or (hidden, None) without ``collect_caches``.  A MoE
+    layer's aux loss is dropped, as in JAX."""
     h = _embed_inputs(engine, cfg, params, tokens, patch_embeds, frames)
     h, caches, _ = _forward(engine, cfg, params, h,
-                            collect_caches=collect_caches, remat=False)
+                            collect_caches=collect_caches, remat=False,
+                            n_q_chunks=n_q_chunks,
+                            kernel_attention=kernel_attention)
     return h, caches
 
 
@@ -436,7 +467,7 @@ def decode_hidden(engine: ComputeEngine, cfg, params: dict, caches: list,
         ar = torch.arange(c, device=h.device)
         # (C,) positions for a shared start, (B, C) for per-sequence starts
         positions = start + ar if start.dim() == 0 else start[:, None] + ar
-        cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta)
+        cos, sin = _rope(cfg, positions)
     for (kind, n, layers), cache in zip(prog, caches):
         if kind == "mamba":
             for i, lp in enumerate(layers):
@@ -458,14 +489,15 @@ def decode_hidden(engine: ComputeEngine, cfg, params: dict, caches: list,
                                                      kv, start, cos, sin,
                                                      cfg))
             continue
+        step = attn.mla_decode if kind.startswith("mla") else attn.gqa_decode
         for i, lp in enumerate(layers):
             x = norm_apply(cfg.norm, lp["norm1"], h, cfg.norm_eps)
-            a, _ = attn.gqa_decode(engine, lp["attn"], x,
-                                   {"k": cache["k"][i], "v": cache["v"][i]},
-                                   start, cos, sin, cfg)
+            a, _ = step(engine, lp["attn"], x,
+                        {name: t[i] for name, t in cache.items()}, start,
+                        cos, sin, cfg)
             h = h + a
             x = norm_apply(cfg.norm, lp["norm2"], h, cfg.norm_eps)
-            if kind == "gqa_moe":
+            if kind in ("gqa_moe", "mla_moe"):
                 # each row's C new tokens are one routing group, as in JAX
                 h = h + moe_mod.moe_forward(engine, lp["moe"], x, cfg)[0]
             else:

@@ -17,9 +17,10 @@ hybrid's shared attention through the flash forward) into them and into
 the slot's shared-block KV rows [0, L - 1), instead of one lockstep decode
 step per token; the last prompt token then decodes with the other slots
 and gives the first new token.  Without the prefill the SSD kernel would
-never run on this path (a decode step is the recurrence).  A dense stack
-keeps the replay, so its streams stay those of the JAX engine, which
-replays every prompt token through the decode program.
+never run on this path (a decode step is the recurrence).  A dense, GQA
+MoE or MLA stack keeps the replay, so its streams stay those of the JAX
+engine, which replays every prompt token through the decode program (an
+MLA slot's latent rows are written by the absorbed decode step).
 
 Implements the shared `ServingFrontend` protocol (serve/frontend.py) with
 the same stats schema as the CNN engine.  Prompts longer than the KV cache

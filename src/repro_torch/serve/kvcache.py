@@ -1,5 +1,4 @@
-"""Cache construction (PyTorch port of ``repro/serve/kvcache.py``, dense,
-mamba and hybrid parts).
+"""Cache construction (PyTorch port of ``repro/serve/kvcache.py``).
 
 Attention caches store the compact grouped layout (B, S, KV, hd), the
 engine `attention` op's native KV layout, consumed by prefill and decode
@@ -8,6 +7,9 @@ conv - 1 rows of the x, B and C projections and the (H, P, N) state.  One
 entry per layer-program entry, each layer's cache stacked under a leading
 layer axis:
 ``[{"k", "v": (n_layers, B, S_max, KV, hd)}]`` for a dense stack,
+``{"c_kv": (n_layers, B, S_max, kv_lora_rank), "k_rope": (n_layers, B,
+S_max, qk_rope_dim)}`` for each MLA entry (the latent, not per-head K /
+V),
 ``[{"conv_x": (n_layers, B, conv - 1, d_inner), "conv_B", "conv_C":
 (n_layers, B, conv - 1, G * N), "ssm": (n_layers, B, H, P, N)}]`` for a
 mamba stack, and for a hybrid super entry of n ``{"mamba": {the mamba
@@ -31,6 +33,13 @@ def _kv(lead: tuple, cfg, B: int, S_max: int, dtype, device) -> dict:
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def _latent(lead: tuple, cfg, B: int, S_max: int, dtype, device) -> dict:
+    return {"c_kv": torch.zeros((*lead, B, S_max, cfg.kv_lora_rank),
+                                dtype=dtype, device=device),
+            "k_rope": torch.zeros((*lead, B, S_max, cfg.qk_rope_dim),
+                                  dtype=dtype, device=device)}
+
+
 def _mamba(lead: tuple, cfg, B: int, dtype, device) -> dict:
     return {name: torch.zeros((*lead, *t.shape), dtype=dtype, device=device)
             for name, t in ssm_cache_init(B, cfg, dtype, device).items()}
@@ -47,6 +56,8 @@ def cache_init(cfg, B: int, S_max: int, dtype=torch.float32,
             out.append({"mamba": _mamba((n, cfg.attn_every), cfg, B, dtype,
                                         device),
                         "shared": _kv((n,), cfg, B, S_max, dtype, device)})
+        elif kind in ("mla_dense", "mla_moe"):
+            out.append(_latent((n,), cfg, B, S_max, dtype, device))
         else:
             out.append(_kv((n,), cfg, B, S_max, dtype, device))
     return out
@@ -56,8 +67,8 @@ def slot_rows(cfg, caches: list, s, kv_rows: int = 0) -> list:
     """Views of slot `s` (an index or a slice of the batch) of `caches`:
     every mamba leaf's rows (the super entries' and the tail's) and, given
     `kv_rows`, the first `kv_rows` rows of every K / V leaf (the super
-    entries' shared block's, a dense stack's), in one order for any caches
-    of the program."""
+    entries' shared block's, a dense stack's, an MLA entry's c_kv and
+    k_rope), in one order for any caches of the program."""
     rows = []
     for (kind, _), entry in zip(stack_program(cfg), caches):
         if kind == "mamba":

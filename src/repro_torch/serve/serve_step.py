@@ -9,8 +9,10 @@ LM head and attention dispatch the engine, so on the `cuda` backend the
 path runs the port's GEMM, flash-attention and split-KV decode kernels,
 for a mamba stack the GEMM and the SSD chunk-scan kernels (the SSM
 decode step is plain PyTorch around the GEMMs), and for the hybrid both
-(the shared block's attention at head dim 112).  The paged step serves
-dense stacks only (`kvpool.PagedKVCache` refuses the others).
+(the shared block's attention at head dim 112), and for an MLA stack
+the flash forward at head dim 192 in prefill and the split-KV kernel at
+576 in decode, beside the bmm kernel for the absorbed einsums.  The paged
+step serves dense stacks only (`kvpool.PagedKVCache` refuses the others).
 """
 from __future__ import annotations
 
@@ -31,17 +33,23 @@ def _inputs(inputs: dict) -> dict:
             for key in ("tokens", "patch_embeds", "frames")}
 
 
-def make_prefill_step(engine: ComputeEngine, cfg):
+def make_prefill_step(engine: ComputeEngine, cfg, *, n_q_chunks: int = 8,
+                      kernel_attention: bool = True):
     """prefill_step(params, inputs) -> (last-position logits (B, 1,
     V_padded) fp32, caches).  ``inputs`` is the JAX inputs dict: {"tokens"
     (B, S)}, with "patch_embeds" (B, T, frontend_dim) for a vision config
     (the visual tokens come first, so the caches hold T + S rows).  The
     caches are [{"k", "v": (n_layers, B, S, KV, hd)}] for a dense stack,
     the conv tails and final SSD states for a mamba stack, both for the
-    hybrid (`models.transformer.forward_prefill`)."""
+    hybrid, [{"c_kv", "k_rope"}] per MLA entry
+    (`models.transformer.forward_prefill`).  ``kernel_attention=False``
+    takes the blockwise attention oracle in `n_q_chunks` query chunks
+    (`ref` and `eager` only), as JAX's."""
     def prefill_step(params, inputs):
         h, caches = tfm.forward_prefill(engine, cfg, params,
-                                        **_inputs(inputs))
+                                        **_inputs(inputs),
+                                        n_q_chunks=n_q_chunks,
+                                        kernel_attention=kernel_attention)
         logits = lm_head_logits(engine, h[:, -1:, :],
                                 tfm.head_weight(params, cfg),
                                 vocab_real=cfg.vocab_size)

@@ -206,3 +206,15 @@ def test_decode_around_the_merges_split_limit_on_the_cpu(skv, kv):
     assert torch.equal(got, want)
     ref = fa.flash_attention_plain(qs, k, v, kvl, causal=False)
     assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+def test_reset_launches_sets_every_attention_count_to_0(monkeypatch):
+    """The launch counts a run reads just after driving a path start at 0
+    only if each wrapper module's `reset_launches` clears its counts."""
+    for name in ("launches", "launches_lse", "launches_dq", "launches_dkv"):
+        monkeypatch.setattr(fa, name, 7)
+    monkeypatch.setattr(fd, "launches", 7)
+    fa.reset_launches()
+    fd.reset_launches()
+    assert set(fa.launch_counts().values()) == {0}
+    assert fd.launches == 0

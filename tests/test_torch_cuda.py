@@ -44,7 +44,12 @@ the hybrid: the flash forward and the split-KV decode at zamba2's head dim
 plan's, the one-split decode the forward's, the merge `combine`'s), dQ /
 dK / dV refusing 112, and reduced zamba2-7b (with a mamba tail, at head
 dim 112) through prefill, decode and the slot engine on `cuda` against
-`eager`.
+`eager`.  For MLA: the flash forward at head dim 192 (the 32-lane plan
+alone) and the split-KV decode at 576 (G = 16 over one latent kv-head,
+K and V in half tiles) against their plain versions, the merge bit for
+bit `combine`, the forward at 576 and dQ / dK / dV at 192 refused with no
+launch, and reduced deepseek-v2-lite-16b at MLA's widths through prefill,
+decode and the slot engine on `cuda` against `eager`.
 """
 import dataclasses
 
@@ -1194,6 +1199,194 @@ def test_slot_engine_on_cuda_serves_zamba2_through_the_kernels(card):
             steps = eng.stats()["steps"]
             assert tuple(a - b for a, b in zip(after, before)) == (
                 5 * cfg.n_layers, 5 * n_super, steps * n_super)
+        streams.append([r.out for r in rs])
+    assert streams[0] == streams[1]
+    alone = reqs()[2]
+    ServingEngine(cfg, params, engine=make_engine("cuda"), slots=1,
+                  max_len=256).run([alone])
+    assert alone.out == streams[0][2]
+
+
+# -------------------------------------------------------------- MLA ---
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("b,sq,skv,causal,lens", [
+    (2, 512, 512, True, None),
+    (1, 16, 16, True, None),
+    (2, 100, 130, True, [130, 0]),
+    (2, 64, 200, False, [150, 64])])
+def test_forward_at_head_dim_192_matches_plain(card, b, sq, skv, causal,
+                                               lens, dtype, tol):
+    """The flash forward at MLA's prefill head dim 192 (16 / 16 heads; the
+    32-lane plan, 6 columns a lane) against its plain version, dead rows
+    exact 0, the lse launch's o and every admitted plan bit for bit the
+    path plan's; the 8-lane plans refused by name with no launch."""
+    q, k, v = _qkv(card, b, sq, skv, 16, 16, 192, dtype, seed=41)
+    kvl = (None if lens is None
+           else torch.tensor(lens, dtype=torch.int32, device=card))
+    before = fa.launches
+    got = fa.flash_attention_fwd(q, k, v, kvl, causal=causal)
+    assert fa.launches == before + 1
+    assert _relmax(got, fa.flash_attention_plain(q, k, v, kvl,
+                                                 causal=causal)) <= tol
+    if lens is not None and 0 in lens:
+        assert bool((got[lens.index(0)] == 0).all())
+    o_lse, _ = fa.flash_attention_fwd(q, k, v, kvl, causal=causal,
+                                      return_lse=True)
+    assert torch.equal(o_lse, got)
+    assert fa.plans_at(192) == (fa.PLANS[2],)
+    for plan in fa.plans_at(192):
+        assert torch.equal(fa.flash_attention_fwd(
+            q, k, v, kvl, causal=causal, plan=plan), got), plan
+    before = fa.launch_counts()
+    for plan in fa.PLANS[:2]:
+        with pytest.raises(ValueError, match="head dim 192"):
+            fa.flash_attention_fwd(q, k, v, kvl, causal=causal, plan=plan)
+    assert fa.launch_counts() == before
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("b,sq,skv,lens", [
+    (2, 1, 528, [528, 300]),
+    (4, 1, 256, [256, 85, 1, 0]),
+    (3, 4, 1024, [1024, 341, 0]),
+    (1, 8, 256, [256]),
+    (2, 1, 3000, [3000, 2900])])
+def test_decode_at_head_dim_576_matches_plain_and_combine(
+        card, b, sq, skv, lens, dtype, tol):
+    """The split-KV decode at MLA's latent head dim 576 (16 query heads
+    over one kv-head; K and V through 32-key half tiles): its partials
+    and the empty-span sentinels against the plain version, the merged
+    launch's partials the partials-only launch's and its output bit for
+    bit `combine`'s (up to 47 splits)."""
+    q, k, v = _qkv(card, b, sq, skv, 16, 1, 576, dtype, seed=42)
+    kvl = torch.tensor(lens, dtype=torch.int32, device=card)
+    causal = sq > 1
+    ns, span = ops.decode_splits(skv, 1)
+    assert ns <= fd.MERGE_MAX_SPLITS
+    parts = fd.flash_decode_partials(q, k, v, kvl, causal=causal,
+                                     n_splits=ns, span=span)
+    want = fd.flash_decode_plain(q, k, v, kvl, causal=causal, n_splits=ns,
+                                 span=span)
+    assert _relmax(parts[0], want[0]) <= tol
+    assert _relmax(parts[1], want[1]) <= tol
+    empty = parts[1] == fd.EMPTY_SPAN_LSE
+    assert torch.equal(empty, want[1] == fd.EMPTY_SPAN_LSE)
+    assert bool((parts[0][empty] == 0).all())
+    merged, o_part, lse_part = fd.flash_decode(q, k, v, kvl, causal=causal,
+                                               n_splits=ns, span=span)
+    assert torch.equal(o_part, parts[0]) and torch.equal(lse_part, parts[1])
+    assert torch.equal(merged, fd.merge_plain(*parts, q.dtype))
+
+
+def test_kernels_refuse_mla_head_dims_they_lack_on_the_card(card):
+    """The forward at 576 and dQ / dK / dV at 192 raise by name before
+    any launch."""
+    q, k, v = _qkv(card, 2, 4, 300, 16, 1, 576, seed=43)
+    q2, k2, v2 = _qkv(card, 2, 4, 64, 4, 4, 192, seed=44)
+    lse = torch.zeros(2, 4, 4, device=card)
+    before = fa.launch_counts()
+    with pytest.raises(ValueError, match="head dim 576"):
+        fa.flash_attention_fwd(q, k, v)
+    for call in (lambda: fa.flash_attention_bwd_dq(q2, k2, v2, q2, lse, lse),
+                 lambda: fa.flash_attention_bwd_dkv(q2, k2, v2, q2, lse,
+                                                    lse),
+                 lambda: fa.FlashAttention.apply(q2.requires_grad_(), k2, v2,
+                                                 None, True)):
+        with pytest.raises(ValueError, match="head dim 192"):
+            call()
+    assert fa.launch_counts() == before
+
+
+def _deepseek_small(card):
+    """Reduced deepseek-v2-lite-16b (a `mla_dense` and a `mla_moe` layer,
+    d 128, 4 heads, 4 experts) at MLA's own widths: nope 128 and rope 64
+    (the prefill at head dim 192), a latent of 512 (the decode at 576),
+    v 128; random from a seed, the latent norm's scale off 1."""
+    cfg = dataclasses.replace(reduced(get_arch("deepseek-v2-lite-16b")),
+                              qk_nope_dim=128, qk_rope_dim=64,
+                              kv_lora_rank=512, v_head_dim=128,
+                              head_dim=192)
+    gen = torch.Generator(device=card).manual_seed(45)
+    params = tfm.init_params(cfg, generator=gen, device=card)
+    with torch.no_grad():
+        for lp in params["layers"]:
+            t = lp["attn"]["kv_norm"]["scale"]
+            t.add_(torch.randn(t.shape, generator=gen, device=card) * 0.1)
+    return cfg, params
+
+
+def test_reduced_mla_on_cuda_matches_eager(card):
+    """Reduced deepseek-v2-lite-16b on `cuda` against `eager`: the
+    prefill's logits and latent caches, then three decode steps against
+    256 cache rows, within 1e-4; per prefill one flash forward a layer at
+    (192, causal), per step one split-KV launch a layer at 576 and the
+    two absorbed einsums a layer on the bmm kernel (with the expert
+    GEMMs)."""
+    cfg, params = _deepseek_small(card)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 75),
+                           generator=torch.Generator().manual_seed(46)
+                           ).to(card)
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    out = {}
+    with torch.inference_mode():
+        for label in ("cuda", "eager"):
+            eng = make_engine(label, device=card)
+            before = (fa.launches, fd.launches, gemm.launches_bmm)
+            logits, caches = make_prefill_step(eng, cfg)(params,
+                                                         {"tokens": tokens})
+            mid = (fa.launches, fd.launches, gemm.launches_bmm)
+            buf = kvcache.cache_init(cfg, 2, 256, device=card)
+            kvcache.copy_prefill(cfg, buf, caches, 75)
+            dlogits = []
+            for i in range(3):  # both fed the same tokens
+                lg, buf = make_decode_step(eng, cfg)(
+                    params, buf, tokens[:, i:i + 1], 75 + i)
+                dlogits.append(lg)
+            after = (fa.launches, fd.launches, gemm.launches_bmm)
+            out[label] = (logits, caches, torch.stack(dlogits), buf,
+                          tuple(a - b for a, b in zip(mid, before)),
+                          tuple(a - b for a, b in zip(after, mid)))
+    assert out["cuda"][4] == (cfg.n_layers, 0, 3 * n_moe)
+    assert out["cuda"][5] == (0, 3 * cfg.n_layers,
+                              3 * (2 * cfg.n_layers + 3 * n_moe))
+    assert out["eager"][4] == out["eager"][5] == (0, 0, 0)
+    assert _relmax(out["cuda"][0], out["eager"][0]) <= 1e-4
+    assert _relmax(out["cuda"][2], out["eager"][2]) <= 1e-4
+    for name, t in flatten(out["eager"][1]).items():
+        assert _relmax(flatten(out["cuda"][1])[name], t) <= 1e-4, name
+    for name, t in flatten(out["eager"][3]).items():
+        assert _relmax(flatten(out["cuda"][3])[name], t) <= 1e-4, name
+
+
+def test_slot_engine_on_cuda_serves_mla_through_the_kernels(card):
+    """The slot engine on `cuda` serves reduced deepseek-v2-lite-16b on
+    the replay route against 256 cache rows: every step's attention on
+    the split-KV kernel at 576, a reused slot's stream equal to the
+    request alone, the streams equal to the slot engine's on `eager`."""
+    cfg, params = _deepseek_small(card)
+
+    def reqs():
+        rng = np.random.default_rng(47)
+        return [Request(rid=i, prompt=rng.integers(
+            1, cfg.vocab_size, int(rng.integers(3, 12))).tolist(),
+            max_new=4) for i in range(5)]
+
+    streams = []
+    for label in ("cuda", "eager"):
+        rs = reqs()
+        before = (fa.launches, fd.launches)
+        eng = ServingEngine(cfg, params, engine=make_engine(
+            label, device=card), slots=2, max_len=256)
+        eng.run(rs)
+        after = (fa.launches, fd.launches)
+        assert all(r.done and len(r.out) == 4 for r in rs)
+        if label == "cuda":
+            steps = eng.stats()["steps"]
+            assert (after[0] - before[0], after[1] - before[1]) == (
+                0, steps * cfg.n_layers)
         streams.append([r.out for r in rs])
     assert streams[0] == streams[1]
     alone = reqs()[2]

@@ -70,16 +70,18 @@ def test_configs_equal_the_jax_configs(name):
 
 
 def test_other_families_raise_naming_the_family():
-    """MLA (deepseek-v2-lite-16b) is the one family still to port: its
-    program is refused naming the config and the programs, and get_arch
-    does not know it."""
-    cfg = base.ArchConfig(**dataclasses.asdict(
-        jax_base.get_arch("deepseek-v2-lite-16b")))
+    """Every family of the JAX package is ported, MLA
+    (deepseek-v2-lite-16b) last: get_arch knows its config, equal to
+    JAX's, and its program is JAX's, one `mla_dense` layer and 26
+    `mla_moe` ones; a name the port does not know is refused naming it."""
+    cfg = base.get_arch("deepseek-v2-lite-16b")
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(
+        jax_base.get_arch("deepseek-v2-lite-16b"))
     assert cfg.family == "moe" and cfg.is_mla
-    with pytest.raises(NotImplementedError, match="'mla_dense' / 'mla_moe'"):
-        tfm.stack_program(cfg)
-    with pytest.raises(ValueError, match="unported"):
-        base.get_arch("deepseek-v2-lite-16b")
+    assert tfm.stack_program(cfg) == [("mla_dense", 1), ("mla_moe", 26)]
+    assert sorted(base.ARCH_IDS) == sorted(jax_base.ARCH_IDS)
+    with pytest.raises(ValueError, match="'deepseek-v3'"):
+        base.get_arch("deepseek-v3")
 
 
 def test_params_round_trip_through_the_jax_layout(lm):

@@ -35,7 +35,7 @@ from repro_torch.core import ComputeEngine, backends, make_engine
 from repro_torch.core.precision import Precision
 from repro_torch.models import moe
 from repro_torch.models import transformer as tfm
-from repro_torch.serve import kvcache, serve_step
+from repro_torch.serve import kvcache, kvpool, serve_step
 from repro_torch.serve.engine import Request, ServingEngine
 from repro_torch.serve.scheduler import PagedServingEngine
 
@@ -81,9 +81,12 @@ def test_config_equals_the_jax_config():
 
 
 def test_mla_config_raises_by_name():
+    """A MoE config with a latent runs the MLA program (no dense first
+    layer here), which the paged KV pool refuses naming it."""
     cfg = dataclasses.replace(base.get_arch(ARCH), kv_lora_rank=32)
+    assert tfm.stack_program(cfg) == [("mla_moe", 48)]
     with pytest.raises(NotImplementedError, match="mla_moe"):
-        tfm.stack_program(cfg)
+        kvpool.PagedKVCache(cfg, n_blocks=2, block_size=4, device="meta")
 
 
 @pytest.mark.parametrize("factor", [0.5, 1.0, 1.25, 2.0])
@@ -158,8 +161,10 @@ def test_cuda_einsum_formulation_matches_jax(spec):
 def test_cuda_einsum_refuses_other_specs_and_cpu_tensors():
     assert backends.bmm_spec("becd,edf->becf")[3] == "ebcd"
     assert backends.bmm_spec("becf,efd->becd")[3] == "ebcf"
+    # y's indices may come in any order: (F, D, E) is permuted to (E, D, F)
+    assert backends.bmm_spec("becd,fde->becf")[3:] == ("ebcd", "edf")
     for spec in ("bqhd,bkhd->bhqk", "bcd,df->bcf", "becd,edf->bcef",
-                 "becd,fde->becf"):
+                 "becd,gdf->becf"):
         assert backends.bmm_spec(spec) is None
         with pytest.raises(NotImplementedError, match=re.escape(spec)):
             backends.einsum_as_bmm(spec, torch.zeros(2, 2, 2, 2),
