@@ -70,8 +70,8 @@ script exits non-zero.  Phases:
               version: head ratios (16,16), (14,2), (8,1), Sq 1/4/16 against
               Skv 64/256, causal on and off, kv_len none / per batch with a 0,
               head dims 32/64/80/112/128/192 (80 and 112: the two plans
-              `plans_at` admits; the 32-lane plan, dQ and dK / dV must
-              refuse both by name with no launch, the decode kernel 80; 192:
+              `plans_at` admits; the 32-lane plan must refuse both by name
+              with no launch, the decode kernel 80; 192:
               the 32-lane plan alone; 112 and 192 each draw from a
               generator of their own and report their errors apart), fp32
               and bf16; then
@@ -453,8 +453,53 @@ script exits non-zero.  Phases:
               einsums: the whole einsum, the kernel on y in (E, K, N)
               order, y's permuted copy alone, plain and torch.bmm.  The
               model is freed.
-Then the kernels line (33 entries), and last the result line.  Every JSON
-line carries `t`, the seconds since the script started.
+ 49. check_attn_bwd (80, 112; run after phase 16)  the lse forward, dQ
+              and dK / dV at hubert-xlarge's head dim 80 and zamba2-7b's
+              112 as phase 16: its grid, then the model's training shape
+              (4 x 500, 16 / 16 heads, not causal; 2 x 512, 32 / 32,
+              causal), fp32 and bf16, every dQ plan and reruns bitwise,
+              dead rows exact 0; dQ, dK / dV and FlashAttention refused at
+              192 with no launch.  Each head dim draws from a generator of
+              its own (TRAIN_SEED + the head dim).
+ 50. ssm_train (run after phase 24)  mamba2-1.3b at full width and depth
+              (48 layers), batch 4 x 1024 (4 SSD chunks a row): first each
+              distinct GEMM of its train step (M 4096; the tied head at a
+              CE chunk's 2048 rows, N 50288), dX and dW against their plain
+              versions (the fp32 bar of a contraction past 4096 terms
+              `gemm_tol`'s) and every backward plan bitwise the path's;
+              then as phase 17 on `cuda`, `eager` and `ref`: the step-1
+              loss (<= 1e-5) and every gradient (<= 1e-4, or 10 x the same
+              tensor's ref-eager gap), two `cuda` runs bitwise, 3 AdamW
+              steps through train_loop within the drift bars; exact
+              launches a step (580 residual forwards, all regime B, 290
+              dX, 290 dW, 144 reduces, 96 SSD dispatches in the einsum
+              form, no SSD launch), every op on `cuda`, peak GB; then a
+              `no_grad` prefill of the trained model: one SSD launch a
+              layer, within 1e-4 of `eager`'s.  Draws from TRAIN_SEED.
+ 51. timing_ssm_train  a train step's ms, tokens/s, peak GB and device
+              time by kernel, `cuda` and `eager`.
+ 52. audio_train (run after phase 40)  hubert-xlarge at full width and
+              depth, 4 x 500 frames, as phase 50 (GEMMs at M 2000, the
+              projection 512 -> 1280 once a step: it is outside remat; 96
+              lse forwards, 48 dQ, 48 dK / dV at head dim 80 a step) but
+              trained through make_train_step on standard-normal frames
+              (`audio_batch`: SyntheticLM's frames hold one value a frame,
+              which the layer norm turns into an all-zero forward whose
+              gradient overflows), the `ref` run in two microbatches (ref
+              computes eager's bits here).
+ 53. timing_audio_train  as phase 51, and the lse forward, dQ and dK / dV
+              at 4 x 500: kernel, plain, bound (6 D / 8 D FLOPs a live pair
+              and head at the FFMA rate) and SDPA (TF32 off) ms.
+ 54. hybrid_train (run after phase 44)  zamba2-7b at full width, 15 of
+              its 81 layers (two super entries of 6 with the shared block,
+              then a tail of 3: 1.48e9 parameters; 81 layers need 106 GB
+              with gradients and moments), 2 x 512, as phase 50 (4 lse, 2
+              dQ, 2 dK / dV at head dim 112 and 30 SSD einsum dispatches a
+              step; the prefill 15 SSD launches).
+ 55. timing_hybrid_train  as phase 53 at 2 x 512, head dim 112, causal.
+Then the kernels line (39 entries: the lse forward, dQ and dK / dV at 80
+and 112 added), and last the result line.  Every JSON line carries `t`,
+the seconds since the script started.
 """
 from __future__ import annotations
 
@@ -612,6 +657,20 @@ MLA_DECODE_STEPS = 16  # the latent caches hold 512 + 16 = 528 rows
 MLA_SERVE = dict(slots=4, requests=8, prompt=(8, 24), new=(4, 8),
                  max_len=256)
 MLA_SEED = 61  # the MLA phases' own generator (check_mla, timing_mla)
+# The training phases of the SSM, audio and hybrid families (train_loop's
+# seeds, batch x seq, AdamW steps); their GEMM checks and timings draw from
+# a generator of their own (TRAIN_SEED), check_attn_bwd at 80 / 112 from
+# TRAIN_SEED + the head dim.
+TRAIN_SEED = 81
+SSM_TRAIN = dict(batch=4, seq=1024, steps=3, seed=71)  # 4 SSD chunks a row
+AUDIO_TRAIN = dict(batch=4, seq=500, steps=3, seed=72)
+HYBRID_TRAIN = dict(batch=2, seq=512, steps=3, seed=73, layers=15,
+                    reduced=["n_layers 81 -> 15: two super entries of 6 and "
+                             "a tail of 3 (1.48e9 parameters, 23.6 GB with "
+                             "gradients and AdamW moments; 81 layers need "
+                             "106 GB)"])
+TRAIN_ATTN = {80: (AUDIO_ARCH, (4, 500), False),  # head dim: arch, (b, s),
+              112: (HYBRID_ARCH, (2, 512), True)}  # causal
 _T0 = time.perf_counter()
 
 
@@ -838,10 +897,13 @@ def check_res_shape(m, k, n, plans, gen) -> dict:
             "g_differs_at_kink": kink}
 
 
-def check_bwd_shape(m, k, n, dx_plans, dw_plans, gen) -> dict:
+def check_bwd_shape(m, k, n, dx_plans, dw_plans, gen,
+                    long_k: bool = False) -> dict:
     """dX = dY W^T and dW = X^T dY vs their plain versions at the forward
     shape (m, k, n), over in/out dtypes and (plan, splits) pairs; a dW run
-    twice must give the same bits."""
+    twice must give the same bits.  With `long_k` the fp32 bar of a
+    contraction past 4096 terms (dX's n, dW's m) grows with its square
+    root (`gemm_tol`), as `lm_train_gemm_rows` holds the LM head."""
     worst = {"gemm_bwd_dx": {"fp32": 0.0, "bf16": 0.0},
              "gemm_bwd_dw": {"fp32": 0.0, "bf16": 0.0}}
     max_abs = {"gemm_bwd_dx": 0.0, "gemm_bwd_dw": 0.0}
@@ -853,12 +915,13 @@ def check_bwd_shape(m, k, n, dx_plans, dw_plans, gen) -> dict:
         dy = torch.randn(m, n, generator=gen, device=dev).to(in_dt)
         for out_dt in (torch.float32, torch.bfloat16):
             kind = "fp32" if in_dt == out_dt == torch.float32 else "bf16"
-            tol = FP32_TOL if kind == "fp32" else BF16_TOL
-            for name, fn, plain, a, b, plans in (
+            for name, fn, plain, a, b, plans, kdim in (
                     ("gemm_bwd_dx", gemm.gemm_bwd_dx, gemm.gemm_bwd_dx_plain,
-                     dy, w, dx_plans),
+                     dy, w, dx_plans, n),
                     ("gemm_bwd_dw", gemm.gemm_bwd_dw, gemm.gemm_bwd_dw_plain,
-                     x, dy, dw_plans)):
+                     x, dy, dw_plans, m)):
+                tol = (BF16_TOL if kind == "bf16" else gemm_tol(kdim)
+                       if long_k else FP32_TOL)
                 want = plain(a, b, out_dtype=out_dt)
                 for plan, splits in plans:
                     got = fn(a, b, out_dtype=out_dt, plan=plan, splits=splits)
@@ -955,9 +1018,11 @@ def host_ms(fn, reps: int = 5) -> float:
 
 
 def all_launches() -> dict:
-    """Every kernel wrapper's launch count, by kernel name."""
+    """Every kernel wrapper's launch count, by kernel name, and the `cuda`
+    SSD dispatches that took the einsum form under grad."""
     return {**gemm.launch_counts(), **fa.launch_counts(),
             "flash_decode": fd.launches, "ssd_scan": ssd.launches,
+            "ssd_einsum_form": ssd.einsum_dispatches,
             "conv2d_direct": conv_direct.launches}
 
 
@@ -1114,68 +1179,68 @@ def check_decode_case(q, k, v, kvl, causal) -> tuple[float, float, int,
             merge_abs)
 
 
+def refused(calls: dict) -> list[str]:
+    """On the card: each of `calls` ({name: (call, head dim)}) must raise
+    ValueError naming its head dim, with no launch.  Returns the calls
+    refused."""
+    before = all_launches()
+    out = []
+    for name, (call, d) in calls.items():
+        try:
+            call()
+        except ValueError as e:
+            check(f"head dim {d}" in str(e), f"{name}: {e}")
+            out.append(name)
+        else:
+            raise RuntimeError(f"{name} was not refused at head dim {d}")
+    torch.cuda.synchronize()
+    check(all_launches() == before, "a refused head dim launched a kernel")
+    return out
+
+
+def zero_operands(d, sq=4, h=4, skv=64, kv=4):
+    """Zero q (2, sq, h, d), k (2, skv, kv, d) and an lse (2, h, sq) on the
+    card, for a call that must be refused (no draw from a generator)."""
+    dev = torch.device("cuda", 0)
+    return (torch.zeros(2, sq, h, d, device=dev),
+            torch.zeros(2, skv, kv, d, device=dev),
+            torch.zeros(2, h, sq, device=dev))
+
+
+def bwd_refusals(d) -> dict:
+    """dQ, dK / dV and `FlashAttention` at head dim `d`, for `refused`."""
+    q, k, lse = zero_operands(d)
+    return {f"flash_attention_bwd_dq at {d}": (
+                lambda: fa.flash_attention_bwd_dq(q, k, k, q, lse, lse), d),
+            f"flash_attention_bwd_dkv at {d}": (
+                lambda: fa.flash_attention_bwd_dkv(q, k, k, q, lse, lse), d),
+            f"FlashAttention at {d}": (
+                lambda: fa.FlashAttention.apply(q.requires_grad_(), k, k,
+                                                None, True), d)}
+
+
 def refused_head_dims(cgen) -> list[str]:
-    """On the card, at head dim 80: the dQ, dK / dV and decode kernels and
-    the forward's 32-lane plan must each raise ValueError naming the head
-    dim, with no launch.  Returns the calls refused."""
+    """On the card, at head dim 80: the decode kernel and the forward's
+    32-lane plan must each be refused (`refused`).  The operands are drawn
+    from `cgen` as before the backward took 80, so every later draw stays
+    as it was."""
     q, k, v = qkv(2, 4, 256, 4, 2, 80, torch.float32, cgen)
     kvl = torch.tensor([256, 100], dtype=torch.int32, device=cgen.device)
-    lse = torch.zeros(2, 4, 4, device=cgen.device)
-    calls = {
-        "flash_attention_fwd plan (8, 256, 32)": lambda: (
-            fa.flash_attention_fwd(q, k, v, kvl, plan=fa.PLANS[2])),
-        "flash_attention_bwd_dq": lambda: fa.flash_attention_bwd_dq(
-            q, k, v, q, lse, lse),
-        "flash_attention_bwd_dkv": lambda: fa.flash_attention_bwd_dkv(
-            q, k, v, q, lse, lse),
-        "flash_decode": lambda: fd.flash_decode(
-            q, k, v, kvl, causal=False, n_splits=4, span=64),
-        "flash_decode_partials": lambda: fd.flash_decode_partials(
-            q, k, v, kvl, causal=False, n_splits=4, span=64)}
-    before = all_launches()
-    refused = []
-    for name, call in calls.items():
-        try:
-            call()
-        except ValueError as e:
-            check("head dim 80" in str(e), f"{name} at head dim 80: {e}")
-            refused.append(name)
-        else:
-            raise RuntimeError(f"{name} took head dim 80")
-    torch.cuda.synchronize()
-    check(all_launches() == before, "a refused head dim launched a kernel")
-    return refused
+    return refused({
+        "flash_attention_fwd plan (8, 256, 32)": (lambda: (
+            fa.flash_attention_fwd(q, k, v, kvl, plan=fa.PLANS[2])), 80),
+        "flash_decode": (lambda: fd.flash_decode(
+            q, k, v, kvl, causal=False, n_splits=4, span=64), 80),
+        "flash_decode_partials": (lambda: fd.flash_decode_partials(
+            q, k, v, kvl, causal=False, n_splits=4, span=64), 80)})
 
 
-def refused_at_112() -> list[str]:
-    """On the card, at zamba2's head dim 112: dQ, dK / dV and the
-    forward's 32-lane plan must each raise ValueError naming the head dim,
-    with no launch (zeros: no draw from a generator).  Returns the calls
-    refused."""
-    dev = torch.device("cuda", 0)
-    q = torch.zeros(2, 4, 4, 112, device=dev)
-    k = torch.zeros(2, 64, 4, 112, device=dev)
-    lse = torch.zeros(2, 4, 4, device=dev)
-    calls = {
-        "flash_attention_fwd plan (8, 256, 32)": lambda: (
-            fa.flash_attention_fwd(q, k, k, plan=fa.PLANS[2])),
-        "flash_attention_bwd_dq": lambda: fa.flash_attention_bwd_dq(
-            q, k, k, q, lse, lse),
-        "flash_attention_bwd_dkv": lambda: fa.flash_attention_bwd_dkv(
-            q, k, k, q, lse, lse)}
-    before = all_launches()
-    refused = []
-    for name, call in calls.items():
-        try:
-            call()
-        except ValueError as e:
-            check("head dim 112" in str(e), f"{name} at head dim 112: {e}")
-            refused.append(name)
-        else:
-            raise RuntimeError(f"{name} took head dim 112")
-    torch.cuda.synchronize()
-    check(all_launches() == before, "a refused head dim launched a kernel")
-    return refused
+def refused_at_112() -> dict:
+    """At zamba2's head dim 112 the forward's 32-lane plan, for
+    `refused`."""
+    q, k, _ = zero_operands(112)
+    return {"flash_attention_fwd plan (8, 256, 32)": (
+        lambda: fa.flash_attention_fwd(q, k, k, plan=fa.PLANS[2]), 112)}
 
 
 # Head dims added to check_attn's grid after 32 / 64 / 80 / 128 draw their
@@ -1231,13 +1296,13 @@ def attn_phases(cgen) -> dict:
                             dworst["decode"][kind] = max(
                                 dworst["decode"][kind], err)
     torch.cuda.synchronize()
-    refused = refused_head_dims(cgen)
+    refused_80 = refused_head_dims(cgen)
     emit("check_attn", grid_cases=cases, relmax=worst["attn"],
          head_dims=list(fa.FWD_HEAD_DIMS),
          plans={d: [list(p) for p in fa.plans_at(d)]
                 for d in fa.FWD_HEAD_DIMS},
-         plan_outputs_bitwise=bits, refused_at_80=refused,
-         refused_at_112=refused_at_112(),
+         plan_outputs_bitwise=bits, refused_at_80=refused_80,
+         refused_at_112=refused(refused_at_112()),
          relmax_new_head_dims={d: w["attn"] for d, (w, _) in new.items()},
          decode_relmax_new_head_dims={d: w["decode"]
                                       for d, (w, _) in new.items()
@@ -1918,36 +1983,16 @@ def lm_train_batch(cfg, dev, step, batch, seq, seed):
 
 def lm_grads(engine, cfg, params, batch) -> tuple[torch.Tensor, dict]:
     """loss_fn (remat, ce_chunk as train_loop) and its gradient with
-    respect to every parameter, by flat name."""
+    respect to every parameter, by flat name (0 for a parameter the loss
+    does not read, as the train step: an audio config's token table)."""
     leaves = {k: p.detach().requires_grad_()
               for k, p in flatten(params).items()}
     loss = tfm.loss_fn(engine, cfg, unflatten_like(leaves, params), batch,
-                       remat=True, ce_chunk=min(512, batch["tokens"].shape[1]))
-    return loss.detach(), dict(zip(leaves, torch.autograd.grad(
-        loss, list(leaves.values()))))
-
-
-def lm_train_launches(cfg, m: int) -> dict:
-    """Exact kernel launches of one LM train step at M = batch x seq rows:
-    every GEMM's residual forward twice (the layer's and the CE chunk's
-    recompute in the backward), one dX and one dW each, the reduce passes
-    their plans split, and per layer two lse forwards, one dQ and one dK /
-    dV."""
-    want = {**dict.fromkeys(all_launches(), 0),
-            "flash_attention_lse": 2 * cfg.n_layers,
-            "flash_attention_bwd_dq": cfg.n_layers,
-            "flash_attention_bwd_dkv": cfg.n_layers}
-    for g in lm_gemms(cfg):
-        k, n, reps = g["k"], g["n"], g["per_dispatch"]
-        dx = ops.default_bwd_tiles("dx", m, n, k)
-        dw = (ops.default_bwd_tiles("dw", n, m, k) if g["trans"]
-              else ops.default_bwd_tiles("dw", k, m, n))
-        want["gemm_fused_fwd_res"] += 2 * reps
-        want["gemm_fwd_regime_b"] += 2 * reps  # every row count is > 64
-        want["gemm_bwd_dx"] += reps
-        want["gemm_bwd_dw"] += reps
-        want["gemm_bwd_reduce"] += reps * ((dx[3] > 1) + (dw[3] > 1))
-    return want
+                       remat=True, ce_chunk=min(512, batch["labels"].shape[1]))
+    grads = torch.autograd.grad(loss, list(leaves.values()),
+                                allow_unused=True)
+    return loss.detach(), {k: torch.zeros_like(p) if g is None else g
+                           for (k, p), g in zip(leaves.items(), grads)}
 
 
 def head_copy_check(cfg, params, dev) -> dict:
@@ -2016,7 +2061,7 @@ def lm_train_phase(cfg, dev) -> dict:
              / abs(loss_e.item())}
 
     runs = {}
-    want = lm_train_launches(cfg, b * s)
+    want = family_train_launches(cfg, b, s)
     for label in ("cuda", "eager", "floor"):
         metrics: list = []
         torch.cuda.synchronize()
@@ -2119,22 +2164,26 @@ def lm_restart_phase(dev) -> None:
     check(bitwise, "parameters or moments differ after the restart")
 
 
-def attn_train_rows(cfg, cgen, peak_flops, peak_bw) -> dict:
-    """The lse forward and the dQ and dK / dV kernels at the training
-    shape: kernel, plain, bound and library ms (CUDA-graph replays;
+def attn_train_rows(shape, cgen, peak_flops, peak_bw) -> dict:
+    """The lse forward and the dQ and dK / dV kernels at a training shape
+    (b, s, h, kv, d, causal), drawn from `cgen`: kernel, plain, bound and
+    library ms (CUDA-graph replays;
     library: SDPA's forward and its autograd backward by CUDA events, each
-    the faster of the boolean mask with enable_gqa and is_causal on
-    repeated K / V, `time_attention.sdpa_fwd_ms` / `sdpa_bwd_ms`, which
-    time the repeat, and the group sum of the backward, with it); the lse
-    forward and dQ also under every plan (`plans_ms`)."""
-    b, s = LM_TRAIN["batch"], LM_TRAIN["seq"]
-    h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    the fastest of the boolean mask with enable_gqa, is_causal on repeated
+    K / V where causal, and, for the backward, no mask where not,
+    `time_attention.sdpa_fwd_ms` / `sdpa_bwd_ms`, which time the repeat,
+    and the group sum of the backward, with it); the lse
+    forward and dQ also under every plan the head dim admits
+    (`plans_ms`)."""
+    b, s, h, kv, d, causal = shape
     q, k, v = qkv(b, s, s, h, kv, d, torch.float32, cgen)
     do = torch.randn(q.shape, generator=cgen, device=q.device)
-    o, lse = fa.flash_attention_fwd(q, k, v, None, return_lse=True)
+    o, lse = fa.flash_attention_fwd(q, k, v, None, causal=causal,
+                                    return_lse=True)
     delta = (do * o).sum(-1).transpose(1, 2).contiguous()
     bwd = (q, k, v, do, lse, delta, None)
-    pairs = float(live_mask(q, k, None, True).sum()) * h
+    live = live_mask(q, k, None, causal)
+    pairs = float(live.sum()) * h
     f4 = 4.0 * q.numel() + 2.0 * 4.0 * k.numel()       # q, k, v once
     rowb = 2 * 4.0 * b * h * s                         # lse and delta
     work = {"flash_attention_lse": (4 * d * pairs, f4 + 4.0 * q.numel()
@@ -2143,28 +2192,27 @@ def attn_train_rows(cfg, cgen, peak_flops, peak_bw) -> dict:
                                        + rowb),
             "flash_attention_bwd_dkv": (8 * d * pairs, f4 + 4.0 * q.numel()
                                         + rowb + 8.0 * k.numel())}
-    sdpa_bwd = time_attention.sdpa_bwd_ms(q, k, v, do,
-                                          live_mask(q, k, None, True))
-    sdpa_fwd = time_attention.sdpa_fwd_ms(q, k, v,
-                                          live_mask(q, k, None, True), True)
+    sdpa_bwd = time_attention.sdpa_bwd_ms(q, k, v, do, live, causal)
+    sdpa_fwd = time_attention.sdpa_fwd_ms(q, k, v, live, causal)
     fns = {"flash_attention_lse": (
-               lambda: fa.flash_attention_fwd(q, k, v, None, return_lse=True),
-               lambda: fa.flash_attention_plain(q, k, v, None,
+               lambda: fa.flash_attention_fwd(q, k, v, None, causal=causal,
+                                              return_lse=True),
+               lambda: fa.flash_attention_plain(q, k, v, None, causal=causal,
                                                 return_lse=True),
                sdpa_fwd["library"]),
            "flash_attention_bwd_dq": (
-               lambda: fa.flash_attention_bwd_dq(*bwd),
-               lambda: fa.flash_attention_bwd_dq_plain(*bwd),
+               lambda: fa.flash_attention_bwd_dq(*bwd, causal=causal),
+               lambda: fa.flash_attention_bwd_dq_plain(*bwd, causal=causal),
                sdpa_bwd["library"]),
            "flash_attention_bwd_dkv": (
-               lambda: fa.flash_attention_bwd_dkv(*bwd),
-               lambda: fa.flash_attention_bwd_dkv_plain(*bwd),
+               lambda: fa.flash_attention_bwd_dkv(*bwd, causal=causal),
+               lambda: fa.flash_attention_bwd_dkv_plain(*bwd, causal=causal),
                sdpa_bwd["library"])}
 
     def whole_bwd():
         dl = (do * o).sum(-1).transpose(1, 2).contiguous()
-        fa.flash_attention_bwd_dq(q, k, v, do, lse, dl)
-        fa.flash_attention_bwd_dkv(q, k, v, do, lse, dl)
+        fa.flash_attention_bwd_dq(q, k, v, do, lse, dl, causal=causal)
+        fa.flash_attention_bwd_dkv(q, k, v, do, lse, dl, causal=causal)
 
     op_ms = graph_ms(whole_bwd)
     rows = {}
@@ -2179,19 +2227,22 @@ def attn_train_rows(cfg, cgen, peak_flops, peak_bw) -> dict:
                       "bytes_ms": nbytes / peak_bw * 1e3,
                       "gflop": flops / 1e9, "bound_share": bound_ms / ms}
         if name != "flash_attention_lse":
-            rows[name].update(op_ms=op_ms, sdpa_mask_ms=sdpa_bwd["mask"],
-                              sdpa_causal_ms=sdpa_bwd["causal"])
+            rows[name].update(op_ms=op_ms, **{
+                f"sdpa_{key}_ms": ms for key, ms in sdpa_bwd.items()
+                if key != "library"})
     rows["flash_attention_lse"].update(
-        sdpa_mask_ms=sdpa_fwd["mask"], sdpa_causal_ms=sdpa_fwd["causal"],
-        plan=list(fa.plan_for(b, s, h, kv)),
+        **{f"sdpa_{key}_ms": ms for key, ms in sdpa_fwd.items()
+           if key != "library"},
+        plan=list(fa.plan_for(b, s, h, kv, d)),
         plans_ms={str(tuple(p)): graph_ms(
-            lambda p=p: fa.flash_attention_fwd(q, k, v, None,
+            lambda p=p: fa.flash_attention_fwd(q, k, v, None, causal=causal,
                                                return_lse=True, plan=p))
-            for p in fa.PLANS})
+            for p in fa.plans_at(d)})
     rows["flash_attention_bwd_dq"].update(
         plan=list(fa.bwd_plan_for(b, s, h, kv)),
         plans_ms={str(tuple(p)): graph_ms(
-            lambda p=p: fa.flash_attention_bwd_dq(*bwd, plan=p))
+            lambda p=p: fa.flash_attention_bwd_dq(*bwd, causal=causal,
+                                                  plan=p))
             for p in fa.BWD_PLANS})
     return rows
 
@@ -2310,14 +2361,19 @@ def gemm_tol(kdim: int) -> float:
     return FP32_TOL * max(1.0, math.sqrt(kdim / 4096))
 
 
-def timing_lm_train_phase(cfg, dev, cgen, peak_flops, peak_bw, smi,
-                          launches: dict) -> dict:
-    """Phase timing_lm_train (see the module docstring); `launches` are
-    phase lm_train's counts over its LM_TRAIN["steps"] steps."""
-    seed, b, s = LM_TRAIN["seed"], LM_TRAIN["batch"], LM_TRAIN["seq"]
-    ocfg = opt.AdamWConfig(warmup_steps=1, decay_steps=LM_TRAIN["steps"])
-    batch = lm_train_batch(cfg, dev, 0, b, s, seed)
-    steps = {}
+def train_step_timing(cfg, dev, run: dict, profiled=("cuda", "eager"),
+                      batch=None) -> tuple[dict, dict]:
+    """`make_train_step` (AdamW, remat, ce_chunk as train_loop) on `cuda`
+    and `eager` at run's batch x seq from its seed (on `batch`, default
+    train_loop's first): per engine the median host ms of a step
+    (`host_ms`, 3 steps after a warm one), tokens/s and peak GB, and for
+    the `profiled` engines one step's device time by kernel name
+    (torch.profiler)."""
+    seed, b, s = run["seed"], run["batch"], run["seq"]
+    ocfg = opt.AdamWConfig(warmup_steps=1, decay_steps=run["steps"])
+    if batch is None:
+        batch = lm_train_batch(cfg, dev, 0, b, s, seed)
+    steps, by_kernel = {}, {}
     for label in ("cuda", "eager"):
         params = lm_train_params(cfg, dev, seed)
         state = opt.adamw_init(flatten(params))
@@ -2329,17 +2385,27 @@ def timing_lm_train_phase(cfg, dev, cgen, peak_flops, peak_bw, smi,
         steps[label] = {"ms": ms, "tokens_per_s": b * s / ms * 1e3,
                         "peak_gb": torch.cuda.max_memory_allocated(dev)
                         / 1e9}
-        if label == "cuda":
-            by_kernel = time_ssd.device_time_by_kernel(
+        if label in profiled:
+            by_kernel[label] = time_ssd.device_time_by_kernel(
                 lambda: step(params, state, batch))
         del params, state, step
         torch.cuda.empty_cache()
-    device_ms = sum(r["ms"] for r in by_kernel.values())
+    return steps, by_kernel
+
+
+def timing_lm_train_phase(cfg, dev, cgen, peak_flops, peak_bw, smi,
+                          launches: dict) -> dict:
+    """Phase timing_lm_train (see the module docstring); `launches` are
+    phase lm_train's counts over its LM_TRAIN["steps"] steps."""
+    b, s = LM_TRAIN["batch"], LM_TRAIN["seq"]
+    steps, by_kernel = train_step_timing(cfg, dev, LM_TRAIN, ("cuda",))
+    device_ms = sum(r["ms"] for r in by_kernel["cuda"].values())
     emit("timing_lm_train_step", smi=smi, arch=LM_ARCH, batch=b, seq=s,
          steps=steps, device_ms=device_ms,
          device_busy_share=device_ms / steps["cuda"]["ms"],
-         top_kernels=dict(list(by_kernel.items())[:20]))
-    rows = attn_train_rows(cfg, cgen, peak_flops, peak_bw)
+         top_kernels=dict(list(by_kernel["cuda"].items())[:20]))
+    rows = attn_train_rows((b, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                            True), cgen, peak_flops, peak_bw)
     for name, row in rows.items():
         emit("timing_lm_train", kernel=name, smi=smi,
              launches_per_step=launches[name] // LM_TRAIN["steps"],
@@ -4596,41 +4662,12 @@ def mla_call_launches(cfg, b: int, s: int, kind: str) -> dict:
     return want
 
 
-def refused_at_mla_dims() -> list[str]:
-    """On the card: the forward at the latent's 576 (a shallow-cache or
-    chunked MLA decode) and dQ / dK / dV at 192 (MLA training) raise
-    ValueError naming the head dim, with no launch (zeros: no draw from a
-    generator).  Returns the calls refused."""
-    dev = torch.device("cuda", 0)
-    q, k = torch.zeros(2, 4, 16, 576, device=dev), torch.zeros(
-        2, 300, 1, 576, device=dev)
-    q2, k2 = torch.zeros(2, 4, 4, 192, device=dev), torch.zeros(
-        2, 64, 4, 192, device=dev)
-    lse = torch.zeros(2, 4, 4, device=dev)
-    calls = {
-        "flash_attention_fwd at 576": (
-            lambda: fa.flash_attention_fwd(q, k, k), 576),
-        "flash_attention_bwd_dq at 192": (
-            lambda: fa.flash_attention_bwd_dq(q2, k2, k2, q2, lse, lse), 192),
-        "flash_attention_bwd_dkv at 192": (
-            lambda: fa.flash_attention_bwd_dkv(q2, k2, k2, q2, lse, lse),
-            192),
-        "FlashAttention at 192": (
-            lambda: fa.FlashAttention.apply(q2.requires_grad_(), k2, k2,
-                                            None, True), 192)}
-    before = all_launches()
-    refused = []
-    for name, (call, d) in calls.items():
-        try:
-            call()
-        except ValueError as e:
-            check(f"head dim {d}" in str(e), f"{name}: {e}")
-            refused.append(name)
-        else:
-            raise RuntimeError(f"{name} was not refused")
-    torch.cuda.synchronize()
-    check(all_launches() == before, "a refused head dim launched a kernel")
-    return refused
+def refused_at_mla_dims() -> dict:
+    """The forward at the latent's 576 (a shallow-cache or chunked MLA
+    decode) and dQ / dK / dV at 192 (MLA training), for `refused`."""
+    q, k, _ = zero_operands(576, h=16, skv=300, kv=1)
+    return {"flash_attention_fwd at 576": (
+        lambda: fa.flash_attention_fwd(q, k, k), 576), **bwd_refusals(192)}
 
 
 def check_mla_phase(cfg, mgen) -> dict:
@@ -4696,7 +4733,7 @@ def check_mla_phase(cfg, mgen) -> dict:
          decode=dec, plans_at_192=[list(p) for p in fa.plans_at(192)],
          decode_smem_bytes={"fp32": fd.smem_bytes(576),
                             "bf16": fd.smem_bytes(576, torch.bfloat16)},
-         refused=refused_at_mla_dims(), max_abs_err=out)
+         refused=refused(refused_at_mla_dims()), max_abs_err=out)
     return out
 
 
@@ -4946,6 +4983,360 @@ def timing_mla_phase(cfg, params, dev, mgen, peak_flops, peak_bw,
         del x, xp, yp
     return {"steps": steps, "attention": attn, "gemm": gem,
             "expert": expert, "absorbed": absorbed}
+
+
+# ------------------------- training the SSM, audio and hybrid families ---
+
+def attn_bwd_dims_phase(dev) -> dict:
+    """Phase check_attn_bwd at head dims 80 and 112 (each drawn from a
+    generator of its own, TRAIN_SEED + the head dim): the lse forward, dQ
+    and dK / dV against their plain versions as `check_attn_bwd_case` over
+    the grid of phase 16 (HEAD_RATIOS, BWD_SHAPES, causal on and off,
+    kv_len with a 0, fp32 and bf16) and at the model's training shape
+    (hubert-xlarge's 4 x 500, 16 / 16 heads, not causal; zamba2-7b's 2 x
+    512, 32 / 32 heads, causal); then dQ, dK / dV and `FlashAttention`
+    refused at MLA's 192 with no launch.  Returns per head dim the fp32
+    max-abs errors at the model's shape by output."""
+    out = {}
+    for d, (arch, (b, s), causal) in TRAIN_ATTN.items():
+        gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED + d)
+        worst = {"fp32": 0.0, "bf16": 0.0}
+        cases = 0
+        for h, kv in HEAD_RATIOS:
+            for dt in (torch.float32, torch.bfloat16):
+                kind = "fp32" if dt == torch.float32 else "bf16"
+                for sq, skv in BWD_SHAPES:
+                    q, k, v = qkv(2, sq, skv, h, kv, d, dt, gen)
+                    kvl = torch.tensor([skv // 2 + 3, 0], dtype=torch.int32,
+                                       device=dev)
+                    for cz in (True, False):
+                        for lens in (None, kvl):
+                            errs, _ = check_attn_bwd_case(q, k, v, lens, cz,
+                                                          gen)
+                            worst[kind] = max(worst[kind],
+                                              max(errs.values()))
+                            cases += 1
+        torch.cuda.synchronize()
+        emit("check_attn_bwd", head_dim=d, grid_cases=cases, relmax=worst,
+             plans_bitwise=[list(p) for p in fa.BWD_PLANS])
+        cfg = get_arch(arch)
+        h = cfg.n_heads
+        rows = []
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = qkv(b, s, s, h, cfg.n_kv_heads, d, dt, gen)
+            errs, mabs = check_attn_bwd_case(q, k, v, None, causal, gen)
+            if dt == torch.float32:
+                out[d] = mabs
+            rows.append({"dtype": str(dt), "relmax": errs, "max_abs": mabs})
+            del q, k, v
+        torch.cuda.synchronize()
+        emit("check_attn_bwd", arch=arch, head_dim=d,
+             shape=[b, s, s, h, cfg.n_kv_heads, d], causal=causal,
+             cases=rows, bitwise_two_runs=True,
+             path_plan=list(fa.bwd_plan_for(b, s, h, cfg.n_kv_heads)),
+             plans_bitwise=[list(p) for p in fa.BWD_PLANS])
+    emit("check_attn_bwd", refused_at_192=refused(bwd_refusals(192)))
+    return out
+
+
+def train_gemms(cfg, b: int, s: int) -> list[dict]:
+    """The GEMMs of one train step of a dense, SSM, audio or hybrid config
+    (`lm_gemms`, `ssm_gemms`, `frontend_gemms`, `hybrid_gemms`), each with
+    `m`, its
+    rows (batch x seq, the head's a CE chunk's: batch x min(512, seq)),
+    `reps` a step (the head's once a chunk) and `remat` whether the
+    backward recomputes it (all but the audio projection, which embeds
+    the frames before the first layer)."""
+    chunk = min(512, s)
+    gemms = {"dense": lm_gemms, "ssm": ssm_gemms, "audio": frontend_gemms,
+             "hybrid": hybrid_gemms}[cfg.family](cfg)
+    out = []
+    for g in gemms:
+        head = g["name"] == "head"
+        out.append({**g, "m": b * (chunk if head else s),
+                    "reps": g["per_dispatch"] * (s // chunk if head else 1),
+                    "remat": g["name"] != "projection",
+                    "trans": g.get("trans", False)})
+    return out
+
+
+def family_train_launches(cfg, b: int, s: int) -> dict:
+    """Exact kernel launches of one train step (`loss_fn` and its gradient,
+    remat) of a dense, SSM, audio or hybrid config at b x s: each GEMM's
+    residual forward twice where the backward recomputes it, else once,
+    by regime, one dX and one dW a call and the reduce passes their splits
+    need; per attention layer two lse forwards, one dQ and one dK / dV;
+    per mamba layer two einsum-form SSD dispatches (the forward and its
+    recompute) and no SSD kernel launch."""
+    want = dict.fromkeys(all_launches(), 0)
+    for g in train_gemms(cfg, b, s):
+        m, k, n, reps = g["m"], g["k"], g["n"], g["reps"]
+        fwd = reps * (2 if g["remat"] else 1)
+        dx = ops.default_bwd_tiles("dx", m, n, k)
+        dw = (ops.default_bwd_tiles("dw", n, m, k) if g["trans"]
+              else ops.default_bwd_tiles("dw", k, m, n))
+        want["gemm_fused_fwd_res"] += fwd
+        want[f"gemm_fwd_regime_"
+             f"{ops.default_tiles(m, k, n).regime.lower()}"] += fwd
+        want["gemm_bwd_dx"] += reps
+        want["gemm_bwd_dw"] += reps
+        want["gemm_bwd_reduce"] += reps * ((dx[3] > 1) + (dw[3] > 1))
+    n_attn = {"dense": cfg.n_layers, "ssm": 0, "audio": cfg.n_layers,
+              "hybrid": tfm.stack_program(cfg)[0][1]}[cfg.family]
+    want["flash_attention_lse"] = 2 * n_attn
+    want["flash_attention_bwd_dq"] = want["flash_attention_bwd_dkv"] = n_attn
+    want["ssd_einsum_form"] = 2 * n_mamba(cfg)
+    return want
+
+
+def n_mamba(cfg) -> int:
+    """Mamba layers of a config (all its layers for ssm and hybrid)."""
+    return cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+
+
+def check_train_gemms(phase, cfg, b: int, s: int, gen) -> dict:
+    """dX and dW against their plain versions (`check_bwd_shape`, the
+    path's plan and split, fp32 and bf16; the fp32 bar of a contraction
+    past 4096 terms `gemm_tol`'s, as the LM head's: mamba2's tied head
+    contracts 50288 in dX) and every backward plan bitwise
+    the path plan's (`check_bwd_bits`) at each distinct shape of the
+    config's train step (`train_gemms`).  Returns the fp32 max-abs errors
+    by kernel."""
+    worst = {"gemm_bwd_dx": 0.0, "gemm_bwd_dw": 0.0}
+    seen = set()
+    for g in train_gemms(cfg, b, s):
+        shape = (g["m"], g["k"], g["n"])
+        if shape in seen:
+            continue
+        seen.add(shape)
+        res = check_bwd_shape(*shape, *bwd_plans(*shape), gen, long_k=True)
+        for key in worst:
+            worst[key] = max(worst[key], res["max_abs_err_fp32"][key])
+        bits = check_bwd_bits(*shape, gen)
+        emit("check_bwd", path=phase, gemm=g["name"], **res,
+             plans=bits["plans"], bitwise_cases=bits["bitwise_cases"])
+    torch.cuda.synchronize()
+    return worst
+
+
+def audio_batch(cfg, dev, run: dict, step: int) -> dict:
+    """Train step `step`'s frames (standard normal) and labels for an
+    audio config, drawn on the card from a generator seeded with run's
+    seed and the step (`configs.base.input_tensors`).  `SyntheticLM`'s
+    frames, as the JAX pipeline's, hold one value in all of a frame's
+    features: the layer norm in front of the projection makes them exact
+    zeros on the card, the whole forward with them, and the gradient
+    through 48 layer norms at zero (each a gain of 1 / sqrt(eps), 316)
+    overflows on every engine."""
+    gen = torch.Generator(device=dev).manual_seed(1000 * run["seed"] + step)
+    return input_tensors(cfg, ShapeConfig("train", run["seq"], run["batch"],
+                                          "train"), generator=gen,
+                         device=dev)
+
+
+def family_train_phase(phase, cfg, dev, run: dict, gen, data=None,
+                       floor_microbatches: int = 1) -> dict:
+    """Phases ssm_train, audio_train and hybrid_train (see the module
+    docstring): the config's training GEMMs checked, then the step-1 loss
+    and gradients of `loss_fn` on `cuda` (twice, bitwise) against `eager`
+    and `ref`, then run["steps"] AdamW steps on each engine (the counts set
+    to 0 just before each) through `train_loop` or, given `data` (step ->
+    batch), through `make_train_step` with train_loop's initial parameters
+    and optimizer settings, `eager`'s kept as the reference and each other
+    run freed after its drift is taken (the `ref` run in
+    `floor_microbatches` microbatches, on `data`), then a `no_grad`
+    prefill of the model `cuda` trained.  Step-1 gradients are held to TRAIN_TOL or
+    FLOOR_FACTOR x the same tensor's `ref`-`eager` gap, whichever is
+    larger: at mamba2's 48 layers two correct fp32 programs part by more
+    than TRAIN_TOL on a few small tensors (conv biases, A_log, dt_bias,
+    sums over all 4096 positions).  Returns the `cuda` run's launch counts
+    and the GEMM checks' errors."""
+    seed, b, s, steps = run["seed"], run["batch"], run["seq"], run["steps"]
+    gemm_abs = check_train_gemms(phase, cfg, b, s, gen)
+    engines = {"cuda": make_engine("cuda"),
+               "eager": make_engine("eager", device=dev),
+               "floor": make_engine(FLOOR_BACKEND, device=dev)}
+    want = family_train_launches(cfg, b, s)
+    params = lm_train_params(cfg, dev, seed)
+    n_leaves = len(flatten(params))
+    batch0 = (lm_train_batch(cfg, dev, 0, b, s, seed) if data is None
+              else data(0))
+    torch.cuda.synchronize()
+    reset_all_launches()
+    loss_c, grads_c = lm_grads(engines["cuda"], cfg, params, batch0)
+    torch.cuda.synchronize()
+    step_launches = all_launches()
+    loss_c2, grads_c2 = lm_grads(engines["cuda"], cfg, params, batch0)
+    bitwise = torch.equal(loss_c, loss_c2) and all(
+        torch.equal(g, grads_c2[k]) for k, g in grads_c.items())
+    del grads_c2
+    loss_e, grads_e = lm_grads(engines["eager"], cfg, params, batch0)
+    grad_err = {k: relmax(g, grads_e[k]) for k, g in grads_c.items()}
+    grad_abs = max(float((g - grads_e[k]).abs().max())
+                   for k, g in grads_c.items())
+    del grads_c
+    loss_f, grads_f = lm_grads(engines["floor"], cfg, params, batch0)
+    grad_floor = {k: relmax(g, grads_e[k]) for k, g in grads_f.items()}
+    del grads_f, grads_e, params
+    torch.cuda.empty_cache()
+    step1 = {"loss_rel_err": abs(loss_c.item() - loss_e.item())
+             / abs(loss_e.item()),
+             "loss_rel_floor": abs(loss_f.item() - loss_e.item())
+             / abs(loss_e.item())}
+
+    def train(label) -> dict:
+        metrics: list = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_all_launches()
+        t0 = time.perf_counter()
+        if data is None:
+            p, st = train_loop(cfg, steps=steps, batch=b, seq=s,
+                               ckpt_dir="", seed=seed, engine=engines[label],
+                               metrics_out=metrics, log_every=steps)
+        else:
+            p = lm_train_params(cfg, dev, seed)
+            st = opt.adamw_init(flatten(p))
+            step = make_train_step(engines[label], cfg, opt.AdamWConfig(
+                lr=3e-4, warmup_steps=min(100, steps // 10 + 1),
+                decay_steps=steps), ce_chunk=min(512, s),  # train_loop's
+                num_microbatches=floor_microbatches if label == "floor"
+                else 1)
+            for i in range(steps):
+                p, st, m = step(p, st, data(i))
+                metrics.append({"step": i, "loss": float(m["loss"])})
+        torch.cuda.synchronize()
+        return {"nested": p, "params": flatten(p), "state": st,
+                "losses": [m["loss"] for m in metrics],
+                "wall_s": time.perf_counter() - t0,
+                "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                "launches": all_launches(),
+                "dispatch": backends.dispatch_counts()}
+
+    ea = train("eager")
+    fl = train("floor")
+    floor = drift(fl, ea)
+    fl = {k: fl[k] for k in ("losses", "wall_s", "peak_gb", "launches")}
+    torch.cuda.empty_cache()
+    cu = train("cuda")  # the main path
+    err = drift(cu, ea)
+    worst = {key: max(err[key].values()) for key in ("params", "moments")}
+    worst_floor = {key: max(floor[key].values())
+                   for key in ("params", "moments")}
+    prefill = {}
+    if n_mamba(cfg):  # serving the trained model: the SSD kernel again
+        reset_all_launches()
+        with torch.no_grad():
+            h, _ = tfm.forward_prefill(engines["cuda"], cfg, cu["nested"],
+                                       tokens=batch0["tokens"],
+                                       collect_caches=False)
+            torch.cuda.synchronize()
+            prefill["launches"] = {k: v for k, v in all_launches().items()
+                                   if k.startswith("ssd")}
+            he, _ = tfm.forward_prefill(engines["eager"], cfg, cu["nested"],
+                                        tokens=batch0["tokens"],
+                                        collect_caches=False)
+        prefill["relmax"] = relmax(h, he)
+        prefill["finite"] = bool(torch.isfinite(h).all())
+        del h, he
+    want_total = {k: steps * v for k, v in want.items()}
+    dispatch = {f"{bk}.{o}": c for (bk, o), c in cu["dispatch"].items()}
+    emit(phase, arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+         batch=b, seq=s, steps=steps, floor_backend=FLOOR_BACKEND,
+         reduced=run.get("reduced", []),
+         losses_cuda=cu["losses"], losses_eager=ea["losses"],
+         losses_floor=fl["losses"], loss_rel_err=err["loss"],
+         loss_rel_floor=floor["loss"], step1=step1,
+         step1_grads_bitwise_two_runs=bitwise,
+         grad_relmax_worst=max(grad_err.values()),
+         grad_floor_worst=max(grad_floor.values()),
+         grad_max_abs_err=grad_abs,
+         grads_past_train_tol={k: [e, grad_floor[k]]
+                               for k, e in grad_err.items() if e > TRAIN_TOL},
+         param_relmax_worst=worst["params"],
+         param_floor_worst=worst_floor["params"],
+         moment_relmax_worst=worst["moments"],
+         moment_floor_worst=worst_floor["moments"],
+         floor_factor=FLOOR_FACTOR, step1_launches=step_launches,
+         data="train_loop" if data is None else "make_train_step",
+         floor_microbatches=floor_microbatches,
+         launches=cu["launches"], want_launches=want_total,
+         peak_gb={"cuda": cu["peak_gb"], "eager": ea["peak_gb"],
+                  "floor": fl["peak_gb"]},
+         wall_s={"cuda": cu["wall_s"], "eager": ea["wall_s"],
+                 "floor": fl["wall_s"]},
+         dispatch=dispatch, eager_launches=sum(ea["launches"].values()),
+         prefill_after_training=prefill, gemm_check_max_abs=gemm_abs,
+         grad_relmax=grad_err)
+    check(all(math.isfinite(x) for x in cu["losses"]), "non-finite loss")
+    check(bitwise, "two cuda runs of the step-1 gradients differ")
+    check(step1["loss_rel_err"] <= FP32_TOL,
+          f"step-1 loss cuda vs eager {step1['loss_rel_err']:.3e}")
+    check(err["loss"][0] <= FP32_TOL,
+          f"train_loop step-1 loss cuda vs eager {err['loss'][0]:.3e}")
+    check(len(grad_err) == n_leaves,
+          f"{len(grad_err)} gradients, want {n_leaves}")
+    over = {k: (e, grad_floor[k]) for k, e in grad_err.items()
+            if not e <= max(TRAIN_TOL, FLOOR_FACTOR * grad_floor[k])}
+    check(not over, f"step-1 gradients cuda vs eager (and {FLOOR_BACKEND} "
+                    f"vs eager) past the bar: {over}")
+    for i, (e, f) in enumerate(zip(err["loss"], floor["loss"])):
+        check(e <= max(FP32_TOL, FLOOR_FACTOR * f),
+              f"step-{i + 1} loss cuda vs eager {e:.3e}, "
+              f"{FLOOR_BACKEND} vs eager {f:.3e}")
+    for key in ("params", "moments"):
+        check(worst[key] <= max(TRAIN_TOL, FLOOR_FACTOR * worst_floor[key]),
+              f"{key} after {steps} steps: cuda vs eager {worst[key]:.3e}, "
+              f"{FLOOR_BACKEND} vs eager {worst_floor[key]:.3e}")
+    check(step_launches == want,
+          f"{phase} step-1 launches {step_launches}, want {want}")
+    check(cu["launches"] == want_total,
+          f"{phase} launches {cu['launches']}, want {want_total}")
+    ops_used = {("cuda", "matmul")} | ({("cuda", "ssd")} if n_mamba(cfg)
+                                       else set()) | (
+        {("cuda", "attention")} if want["flash_attention_lse"] else set())
+    check(set(cu["dispatch"]) == ops_used,
+          f"an engine op left the cuda backend: {cu['dispatch']}")
+    check(sum(ea["launches"].values()) + sum(fl["launches"].values()) == 0,
+          "the eager or floor engine launched a kernel of the port")
+    if prefill:
+        check(prefill["launches"] == {"ssd_scan": n_mamba(cfg),
+                                      "ssd_einsum_form": 0},
+              f"the prefill after training launched {prefill['launches']}")
+        check(prefill["finite"] and prefill["relmax"] <= TRAIN_TOL,
+              f"the trained model's prefill cuda vs eager "
+              f"{prefill['relmax']:.3e}")
+    return {"launches": cu["launches"], "gemm_abs": gemm_abs}
+
+
+def timing_family_train_phase(phase, cfg, dev, run: dict, gen, peak_flops,
+                              peak_bw, smi, launches: dict) -> dict:
+    """Phase timing_<phase>: a train step's ms, tokens/s and peak GB on
+    `cuda` and `eager` and each one's device time by kernel; for a config
+    with attention, the lse forward, dQ and dK / dV at its training shape
+    (`attn_train_rows`, drawn from `gen`) with their launches a step from
+    `launches`, phase <phase>'s counts over run["steps"] steps."""
+    b, s = run["batch"], run["seq"]
+    steps, by_kernel = train_step_timing(
+        cfg, dev, run, batch=audio_batch(cfg, dev, run, 0)
+        if cfg.frontend == "audio" else None)
+    device_ms = {k: sum(r["ms"] for r in v.values())
+                 for k, v in by_kernel.items()}
+    emit(f"timing_{phase}_step", smi=smi, arch=cfg.name, batch=b, seq=s,
+         steps=steps, device_ms=device_ms,
+         device_busy_share={k: device_ms[k] / steps[k]["ms"]
+                            for k in device_ms},
+         top_kernels={k: dict(list(v.items())[:12])
+                      for k, v in by_kernel.items()})
+    if not launches["flash_attention_lse"]:
+        return {}
+    shape = (b, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.causal)
+    rows = attn_train_rows(shape, gen, peak_flops, peak_bw)
+    for name, row in rows.items():
+        emit(f"timing_{phase}", kernel=name, smi=smi,
+             launches_per_step=launches[name] // run["steps"],
+             shape=list(shape[:5]), causal=cfg.causal, **row)
+    return rows
 
 
 def main() -> int:
@@ -5346,6 +5737,7 @@ def main() -> int:
 
     # --------------------------------------------------- 16-19. LM training
     bwd_abs = attn_bwd_phase(cgen)
+    bwd_dims_abs = attn_bwd_dims_phase(dev)
     tl = lm_train_phase(cfg, dev)
     lm_restart_phase(dev)
     train_rows = timing_lm_train_phase(cfg, dev, cgen, peak_flops, peak_bw,
@@ -5362,6 +5754,11 @@ def main() -> int:
                                 peak_bw, smi)
     lm_mixed_phase(scfg, sparams, dev)
     del sparams
+    torch.cuda.empty_cache()
+    tgen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+    ssm_tr = family_train_phase("ssm_train", scfg, dev, SSM_TRAIN, tgen)
+    timing_family_train_phase("ssm_train", scfg, dev, SSM_TRAIN, tgen,
+                              peak_flops, peak_bw, smi, ssm_tr["launches"])
     torch.cuda.empty_cache()
 
     # ------------------------------------ 24-28. the bmm op, the direct conv
@@ -5410,6 +5807,17 @@ def main() -> int:
                             smi)
     del aparams
     torch.cuda.empty_cache()
+    # `ref` computes `eager`'s bits for hubert (its attention oracle and
+    # eager's take the same ops at G = 1), so its floor run takes each
+    # batch in two microbatches: the same function, summed in another order
+    aud_tr = family_train_phase(
+        "audio_train", acfg, dev, AUDIO_TRAIN, tgen,
+        data=lambda i: audio_batch(acfg, dev, AUDIO_TRAIN, i),
+        floor_microbatches=2)
+    aud_tt = timing_family_train_phase("audio_train", acfg, dev, AUDIO_TRAIN,
+                                       tgen, peak_flops, peak_bw, smi,
+                                       aud_tr["launches"])
+    torch.cuda.empty_cache()
 
     # ---------------------------------------------------- 41-44. the hybrid
     hcfg = get_arch(HYBRID_ARCH)
@@ -5420,6 +5828,13 @@ def main() -> int:
     ht = timing_hybrid_phase(hcfg, hparams, dev, cgen, peak_flops, peak_bw,
                              smi)
     del hparams
+    torch.cuda.empty_cache()
+    tcfg = dataclasses.replace(hcfg, n_layers=HYBRID_TRAIN["layers"])
+    hyb_tr = family_train_phase("hybrid_train", tcfg, dev, HYBRID_TRAIN,
+                                tgen)
+    hyb_tt = timing_family_train_phase("hybrid_train", tcfg, dev,
+                                       HYBRID_TRAIN, tgen, peak_flops,
+                                       peak_bw, smi, hyb_tr["launches"])
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------- 45-48. MLA
@@ -5551,6 +5966,19 @@ def main() -> int:
         kernel_entry("flash_decode:mla", SOURCE_DECODE, REPLACES_DECODE,
                      "mla", mla["launches"]["flash_decode"], lchk["decode"],
                      lt["attention"]["mla_decode"]),
+        *(kernel_entry(f"{name}:{path}", source, replaces, path,
+                       tr["launches"][name], max(
+                           bwd_dims_abs[d][key] for key in keys),
+                       tt[name])
+          for d, path, tr, tt in ((80, "audio_train", aud_tr, aud_tt),
+                                  (112, "hybrid_train", hyb_tr, hyb_tt))
+          for name, source, replaces, keys in (
+              ("flash_attention_lse", SOURCE_ATTN, REPLACES_ATTN,
+               ("o", "lse")),
+              ("flash_attention_bwd_dq", SOURCE_ATTN_BWD, REPLACES_DQ,
+               ("dq",)),
+              ("flash_attention_bwd_dkv", SOURCE_ATTN_BWD, REPLACES_DKV,
+               ("dk", "dv")))),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -30,9 +30,12 @@ as in the JAX package; a backend that does must leave `conv2d` out of
 `differentiable`.  A backend may also name dispatches of a
 differentiable op that stay inference only (`inference_only`): on `cuda`
 a decode-shaped `attention` (`kernel_ops.use_decode_formulation`) takes
-the split-KV decode kernel, which has no backward, as in the JAX package,
-and every `ssd` dispatch takes the SSD chunk-scan kernel, which has none
-either (the JAX kernel has no VJP).
+the split-KV decode kernel, which has no backward, as in the JAX package.
+The SSD chunk-scan kernel has no backward either (the JAX kernel has no
+VJP), so an `ssd` dispatch on `cuda` under grad takes the einsum form
+the JAX package trains through (`models/ssm.py::ssd_chunked`, here
+`_eager_ssd`) and counts it in `kernels/ssd.py::einsum_dispatches`;
+every dispatch without grad (serving, prefill) launches the kernel.
 The engine calls `guard_grad` on every dispatch, so an op that a backend
 does not declare differentiable, or an inference-only dispatch, raises a
 clear NotImplementedError when it is dispatched with grad enabled on an
@@ -446,9 +449,16 @@ def _cuda_attention(q, k, v, *, causal, sm_scale, kv_len=None, ctx):
 
 
 def _cuda_ssd(x, dt, A, B, C, *, chunk, init_state=None, ctx):
+    # Under grad the JAX package's own training form, `_eager_ssd` (the
+    # `ssd_chunked` einsums, which autograd differentiates); without grad
+    # the SSD kernel.  The choice follows grad mode only, never a failure.
     if x.device.type != "cuda":
         raise ValueError(f"backend 'cuda' runs on CUDA tensors, got x on "
                          f"{x.device}; use backend 'eager' on the CPU")
+    if kernel_ops.needs_grad(x, dt, A, B, C, init_state):
+        ssd_kernel.einsum_dispatches += 1
+        return _eager_ssd(x, dt, A, B, C, chunk=chunk, init_state=init_state,
+                          ctx=ctx)
     return kernel_ops.ssd(x, dt, A, B, C, chunk=chunk, init_state=init_state)
 
 
@@ -518,10 +528,8 @@ def _cuda_einsum(spec, x, y, *, acc_dtype, out_dtype, ctx):
 
 
 def _cuda_inference_only(op: str, operands: tuple) -> bool:
-    """A decode-shaped attention dispatch takes the split-KV kernel, and
-    every ssd dispatch the SSD kernel: neither has a backward."""
-    if op == "ssd":
-        return True
+    """A decode-shaped attention dispatch takes the split-KV kernel, which
+    has no backward."""
     return op == "attention" and kernel_ops.use_decode_formulation(
         operands[0].shape[1], operands[1].shape[1])
 

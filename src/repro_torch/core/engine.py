@@ -194,9 +194,10 @@ class ComputeEngine:
 
         x, B and C run in the compute dtype, dt, A and the state in fp32.
         Returns (y (Bt, S, H, P) in the compute dtype, final state
-        (Bt, H, P, N) fp32).  Raises ValueError on mismatched shapes;
-        NotImplementedError when differentiated on `cuda`, whose SSD
-        kernel is inference only (as the JAX kernel).
+        (Bt, H, P, N) fp32).  Raises ValueError on mismatched shapes.
+        Differentiated on `cuda`, it takes the einsum form the JAX package
+        trains through, since the SSD kernel is inference only (as the JAX
+        kernel).
         """
         cdt = self.precision.compute_dtype
         xc, bc, cc = x.to(cdt), B.to(cdt), C.to(cdt)

@@ -41,12 +41,24 @@
 //     half's s or dp passed on through shared memory, so both halves run
 //     the same number of expf; the dK / dV update is split the same way
 //     (warps 0-3 dV = P^T dO, 4-7 dK = dS^T Q, 4 keys x D/16 columns a
-//     thread), the dQ update takes all 256 threads;
+//     thread: runs of 4 columns 64 apart, then a tail, as the forward's
+//     columns, so head dims 80 and 112 read 4 + 1 and 4 + 3 columns, the
+//     runs as 16-byte reads); the dQ update gives each thread 4 columns
+//     of ROWS / RG rows, D/16 warps across the columns and 8 / (D/16)
+//     down the rows, so every (row, column) has one owner: at head dims
+//     32, 64 and 128 all 256 threads, at 80 and 112 the first 5 and 7
+//     warps (8 row groups of 8 rows in the 64-row plan, of 2 in the
+//     16-row one);
 //   * operands are staged by 16-byte cp.async (gemm_common.cuh), the next
 //     tile or chunk while the current one computes, bf16 copied raw and
 //     widened as it is read, unaligned or ragged rows element by element
-//     with zeros past the edge; a thread steps through its q and dO rows
-//     with one division by G per chunk;
+//     with zeros past the edge, piece i of a tile to thread i % 256 as in
+//     the forward (a row of 80 or 112 columns is 20 or 28 pieces in fp32,
+//     which do not divide the 256 threads); a thread steps through its q
+//     and dO rows with one division by G per chunk;
+//   * head dims 32, 64, 80, 112 and 128 (run_d); shared memory of one
+//     fp32 block, dQ's 64-row plan / dK / dV: 147,456 / 126,976 bytes at
+//     80, 196,608 / 167,936 at 112, 221,184 / 188,416 at 128;
 //   * dK / dV: one block per (batch, kv-head) and 32-key tile, its loop
 //     walking the live chunks (128 rows up to head dim 64, 64 beyond) of
 //     the G Sq query rows of the group, so the group's reduction happens in
@@ -136,24 +148,28 @@ struct RowPair {
   const T* b;
 };
 
-// The rows one thread stages lie this far apart (stage_rows).
+// The rows one thread stages lie row_step() apart, or one more where a
+// row's 16-byte pieces do not divide the block's threads (head dims 80
+// and 112: 12.8 and 9.1 rows in fp32, 25.6 and 18.3 in bf16).
 template <typename T, int D>
 __host__ __device__ constexpr int row_step() {
-  return THREADS * (16 / static_cast<int>(sizeof(T))) / D;
+  return THREADS / (D / (16 / static_cast<int>(sizeof(T))));
 }
 
 // Copy ROWS rows of D elements of two operands into shared rows of
-// ld<T, D>() elements, in 16-byte pieces spread over the block: row r from
-// where(r), one call for both operands, each thread asking for its rows in
-// ascending order row_step() apart.  Asynchronous: visible after
-// cp_async_wait and a barrier.
+// ld<T, D>() elements, in 16-byte pieces spread over the block as the
+// forward stages (flash_attention.cu): piece i of the flat ROWS x PIECES
+// range to thread i % THREADS, row r from where(r), one call for both
+// operands, each thread asking for its rows in ascending order.
+// Asynchronous: visible after cp_async_wait and a barrier.
 template <typename T, int D, int ROWS, typename Where>
 __device__ __forceinline__ void stage_rows(T* dst_a, T* dst_b, Where where,
                                            bool vec_a, bool vec_b) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int PIECES = D / VEC;
-  const int e = threadIdx.x % PIECES * VEC;
-  for (int r = threadIdx.x / PIECES; r < ROWS; r += row_step<T, D>()) {
+  static_assert(D % VEC == 0, "a row is whole 16-byte pieces");
+  for (int i = threadIdx.x; i < ROWS * PIECES; i += THREADS) {
+    const int r = i / PIECES, e = i % PIECES * VEC;
     const RowPair<T> src = where(r);
     const int at = r * ld<T, D>() + e;
     copy_piece(dst_a + at, src.a ? src.a + e : src.a, vec_a, src.a ? VEC : 0);
@@ -165,15 +181,15 @@ __device__ __forceinline__ void stage_rows(T* dst_a, T* dst_b, Where where,
 // position-major row set: row gr is position gr / G of head kvh * G + gr % G,
 // `a` and `b` q and dO at (batch, head kvh * G, position 0).  A where() of
 // stage_rows: the first row costs a division by G, each next one, `step`
-// = step_pos * G + step_g rows on, an add.
+// = step_pos * G + step_g rows on (row_step()) or one row more, adds.
 template <typename T>
 struct GroupRows {
   const T *a, *b;
   Strides sa, sb;
-  int r0, nrows, G, step_pos, step_g;
-  int pos = -1, g = 0;
+  int r0, nrows, G, step, step_pos, step_g;
+  int prev = -1, pos = 0, g = 0;
   __device__ __forceinline__ RowPair<T> operator()(int r) {
-    if (pos < 0) {
+    if (prev < 0) {
       pos = (r0 + r) / G;
       g = r0 + r - pos * G;
     } else {
@@ -183,7 +199,12 @@ struct GroupRows {
         g -= G;
         ++pos;
       }
+      if (r - prev > step && ++g == G) {
+        g = 0;
+        ++pos;
+      }
     }
+    prev = r;
     if (r >= nrows) return {nullptr, nullptr};
     return {a + pos * sa.s + g * sa.h, b + pos * sb.s + g * sb.h};
   }
@@ -216,31 +237,36 @@ __device__ __forceinline__ void dot_tile(const T* a, const T* b, int ra,
   }
 }
 
-// Index of element j of the N values a thread holds in group g of a row:
-// runs of 4 consecutive elements, SPAN apart, when N is a multiple of 4
-// (so each run is one 16-byte read), else N consecutive elements.
-template <int N, int SPAN>
-__device__ __forceinline__ int elem(int g, int j) {
-  if constexpr (N % 4 == 0) return (j / 4) * SPAN + g * 4 + j % 4;
-  return g * N + j;
+// Index of element j of the N values a thread holds in group g of the
+// LANES groups of a row, the forward's column rule (flash_attention.cu
+// col): N / 4 runs of 4 consecutive elements, 4 LANES apart (each run one
+// 16-byte read), then a tail of N % 4 consecutive elements past the runs'
+// 4 LANES (N / 4).  dK / dV's columns (LANES 16): 4 at head dim 64, 4 + 4
+// at 128, a tail of 2 at 32, 4 + 1 at 80 (a run over columns 0-63, the
+// tail over 64-79), 4 + 3 at 112 (the tail over 64-111); dQ's rows of dS^T
+// (LANES the row groups) the same way.
+template <int N, int LANES>
+__host__ __device__ constexpr int elem(int g, int j) {
+  constexpr int RUNS = N / 4, TAIL = N % 4;
+  return j < 4 * RUNS ? (j / 4) * 4 * LANES + 4 * g + j % 4
+                      : 4 * RUNS * LANES + TAIL * g + (j - 4 * RUNS);
 }
 
-// out[j] = row[elem<N, SPAN>(g, j)] as fp32.
-template <int N, int SPAN, typename T>
+// out[j] = row[elem<N, LANES>(g, j)] as fp32: the runs as 16-byte (fp32)
+// or 8-byte (bf16) vectors, the tail element by element.
+template <int N, int LANES, typename T>
 __device__ __forceinline__ void load_n(const T* row, int g, float (&out)[N]) {
-  if constexpr (N % 4 == 0) {
 #pragma unroll
-    for (int q = 0; q < N / 4; ++q) {
-      const float4 v = load4(row + q * SPAN + g * 4);
-      out[4 * q] = v.x;
-      out[4 * q + 1] = v.y;
-      out[4 * q + 2] = v.z;
-      out[4 * q + 3] = v.w;
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < N; ++j) out[j] = attn::to_f32(row[g * N + j]);
+  for (int q = 0; q < N / 4; ++q) {
+    const float4 v = load4(row + q * 4 * LANES + g * 4);
+    out[4 * q] = v.x;
+    out[4 * q + 1] = v.y;
+    out[4 * q + 2] = v.z;
+    out[4 * q + 3] = v.w;
   }
+#pragma unroll
+  for (int j = N / 4 * 4; j < N; ++j)
+    out[j] = attn::to_f32(row[elem<N, LANES>(g, j)]);
 }
 
 // Store 4 consecutive fp32 values (p 16-byte aligned for fp32, 8 for bf16).
@@ -257,19 +283,19 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
   reinterpret_cast<__nv_bfloat162*>(p)[1] = hi;
 }
 
-// Store a thread's N values of one output row at the columns of load_n.
-template <int N, int SPAN, typename T>
+// Store a thread's N values of one output row at the columns of load_n:
+// the runs 4 at a time, the tail element by element (so its pieces need
+// no alignment beyond the element's, bf16 included).
+template <int N, int LANES, typename T>
 __device__ __forceinline__ void store_n(T* row, int g, const float (&v)[N]) {
-  if constexpr (N % 4 == 0) {
 #pragma unroll
-    for (int q = 0; q < N / 4; ++q) {
-      const float w[4] = {v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]};
-      store4(row + q * SPAN + g * 4, w);
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < N; ++j) attn::store(row + g * N + j, v[j]);
+  for (int q = 0; q < N / 4; ++q) {
+    const float w[4] = {v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]};
+    store4(row + q * 4 * LANES + g * 4, w);
   }
+#pragma unroll
+  for (int j = N / 4 * 4; j < N; ++j)
+    attn::store(row + elem<N, LANES>(g, j), v[j]);
 }
 
 // Shared memory of a dQ block, in bytes: q and dO rows (T), two stages of
@@ -304,10 +330,15 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   using S = DqSmem<T, D, ROWS>;
   constexpr int LD = S::LD;
   constexpr int TR = ROWS / 8;            // rows of s or dp a thread holds
-  constexpr int DG = D / 4;               // column groups of dQ
-  constexpr int RG = THREADS / DG < ROWS ? THREADS / DG : ROWS;
-  constexpr int RC = ROWS / RG;           // rows of dQ a thread holds
+  constexpr int DG = D / 4;               // column groups of dQ, 4 columns
   constexpr int WD = DG / 4;              // warps across the columns
+  constexpr int WR = THREADS / 32 / WD;   // warps down the rows
+  constexpr int RG = WR * 8 < ROWS ? WR * 8 : ROWS;  // row groups
+  constexpr int RC = ROWS / RG;           // rows of dQ a thread holds
+  static_assert(D % 16 == 0 && WD >= 1 && WD <= THREADS / 32,
+                "dQ's column groups fill whole warps of 4 groups");
+  static_assert(RG % 8 == 0 && RG * RC == ROWS,
+                "every dQ row has exactly one row group");
   extern __shared__ __align__(16) unsigned char smem[];
   T* qs = reinterpret_cast<T*>(smem + S::Q);
   T* dos = reinterpret_cast<T*>(smem + S::DO);
@@ -343,7 +374,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         qs, dos,
         GroupRows<T>{q + b * qst.b + kvh * G * qst.h,
                      dout + b * dst.b + kvh * G * dst.h, qst, dst, r0, nrows,
-                     G, STEP / G, STEP % G},
+                     G, STEP, STEP / G, STEP % G},
         rows_vec(q, qst), rows_vec(dout, dst));
     stage_tile(0);
   }
@@ -368,10 +399,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     row_delta[i] = in ? delta[at] : 0.f;
     row_end[i] = in ? (causal ? kvlen - Sq + pos + 1 : kvlen) : 0;
   }
-  // dQ: rows elem<RC, 4 RG>(rg, i), columns dg * 4 .. dg * 4 + 3
+  // dQ: rows elem<RC, RG>(rg, i), columns dg * 4 .. dg * 4 + 3, each
+  // (row, column) one thread's: the first WD * WR warps, WD across the
+  // columns (2 at head dim 32, 4 at 64, 5 at 80, 7 at 112, 8 at 128) and
+  // WR down the rows (4, 2, 1, 1, 1); at 80 and 112 the last 3 and 1
+  // warps hold no dQ
   const int dg = (warp % WD) * 4 + lane % 4;
   const int rg = (warp / WD) * 8 + lane / 4;
-  const bool owns = rg < RG;
+  const bool owns = warp < WD * WR && rg < RG;
   float acc[RC][4];
 #pragma unroll
   for (int i = 0; i < RC; ++i)
@@ -420,7 +455,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll 8
       for (int c = 0; c < BKV; ++c) {
         float dsv[RC];
-        load_n<RC, 4 * RG>(dst_s + c * S::DLD, rg, dsv);
+        load_n<RC, RG>(dst_s + c * S::DLD, rg, dsv);
         const float4 kk = load4(kt + c * LD + dg * 4);
 #pragma unroll
         for (int i = 0; i < RC; ++i)
@@ -433,7 +468,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (!owns) return;
 #pragma unroll
   for (int i = 0; i < RC; ++i) {
-    const int r = elem<RC, 4 * RG>(rg, i);
+    const int r = elem<RC, RG>(rg, i);
     if (r >= nrows) continue;
     const int gr = r0 + r;
     T* row = dq + ((static_cast<int64_t>(b) * Sq + gr / G) * H + kvh * G + gr % G) * D;
@@ -481,8 +516,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int QR = S::QR;
   constexpr int TR = QR / 16;  // rows of s or dp a thread holds
   constexpr int NC = D / 16;   // columns of an update a thread holds
-  constexpr int SPAN = NC % 4 == 0 ? 64 : NC;
   static_assert(KEYS == 32, "an update's warp spans 8 groups of 4 keys");
+  static_assert(NC >= 1 && NC * 16 == D,
+                "an update's 16 column groups split the head dim");
   extern __shared__ __align__(16) unsigned char smem[];
   T* ks = reinterpret_cast<T*>(smem + S::K);
   T* vs = reinterpret_cast<T*>(smem + S::V);
@@ -513,7 +549,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const size_t off = (n & 1) * static_cast<size_t>(QR) * LD;
     stage_rows<T, D, QR>(qs + off, dos + off,
                          GroupRows<T>{q_grp, do_grp, qst, dst, r0, nrows, G,
-                                      step_pos, step_g},
+                                      STEP, step_pos, step_g},
                          qvec, dvec);
     for (int i = threadIdx.x; i < 2 * QR; i += THREADS) {
       const int r = i % QR;
@@ -548,7 +584,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ra = (warp % 2) * 8 * TR + lane % 8;
   const int ka = (warp % 4 / 2) * 16 + lane / 8;
   // the update: warps 0-3 dV = P^T dO, warps 4-7 dK = dS^T Q; keys
-  // kg * 4 .. kg * 4 + 3, columns elem<NC, SPAN>(dg, j) (16 groups)
+  // kg * 4 .. kg * 4 + 3, columns elem<NC, 16>(dg, j) (16 groups)
   const int role = warp / 4, i0 = role * (TR / 2);
   const int kg = lane % 8, dg = warp % 4 * 4 + lane / 8;
   const float* upd_a = role ? dss : ps;
@@ -604,7 +640,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int r = 0; r < nrows; ++r) {
       const float4 a = *reinterpret_cast<const float4*>(upd_a + r * S::PLD + kg * 4);
       float col[NC];
-      load_n<NC, SPAN>(bm + r * LD, dg, col);
+      load_n<NC, 16>(bm + r * LD, dg, col);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -617,8 +653,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int key = t0 + kg * 4 + i;
     if (key < Skv)
-      store_n<NC, SPAN>(out + ((static_cast<int64_t>(b) * Skv + key) * KV + kvh) * D,
-                        dg, acc[i]);
+      store_n<NC, 16>(out + ((static_cast<int64_t>(b) * Skv + key) * KV + kvh) * D,
+                      dg, acc[i]);
   }
 }
 
@@ -684,6 +720,10 @@ cudaError_t run_d(int D, const Args& a, void* dq, void* dk, void* dv) {
       return run<T, 32>(a, dq, dk, dv);
     case 64:
       return run<T, 64>(a, dq, dk, dv);
+    case 80:
+      return run<T, 80>(a, dq, dk, dv);
+    case 112:
+      return run<T, 112>(a, dq, dk, dv);
     case 128:
       return run<T, 128>(a, dq, dk, dv);
     default:

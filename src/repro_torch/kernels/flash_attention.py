@@ -38,7 +38,9 @@ dim and its fp32 block fit in shared memory: at 80 and 112 the 32-lane
 plan is out, at 192 it is the only one) and `plan_for` picks one from the
 shape.  The forward is instantiated at head dims `FWD_HEAD_DIMS` (32, 64,
 80, 112, 128 and MLA's prefill 192), the backward kernels at
-`BWD_HEAD_DIMS` (32, 64, 128) and the decode kernel at
+`BWD_HEAD_DIMS` (32, 64, 80, 112, 128: hubert-xlarge's 80 and zamba2's
+112 included, MLA's 192 not, whose blocks do not fit in an SM's shared
+memory) and the decode kernel at
 ``flash_decode.HEAD_DIMS`` (32, 64, 112, 128 and MLA's latent 576);
 each wrapper refuses another head dim by name, on the CPU as on the
 card.  The dQ kernel
@@ -61,7 +63,7 @@ from repro_torch.kernels.ref import attention_mask, flash_attention_ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 FWD_HEAD_DIMS = (32, 64, 80, 112, 128, 192)  # the forward kernel's
-BWD_HEAD_DIMS = (32, 64, 128)  # the dQ and dK / dV kernels' head dims
+BWD_HEAD_DIMS = (32, 64, 80, 112, 128)  # dQ's and dK / dV's head dims
 SMS = 132  # streaming multiprocessors of an H100 SXM
 MAX_SMEM = 232448  # bytes of shared memory one block may use
 KEY_TILE = 64  # keys of a K / V tile of the kernels
@@ -472,7 +474,7 @@ class FlashAttention(torch.autograd.Function):
     (as ``_flash_vjp_bwd``; a row with no live key has O = 0, so Delta = 0
     there) and launches the dQ kernel under `bwd_plan_for`'s plan and the
     dK / dV kernel.  kv_len and causal get no gradient.  A head dim the
-    backward kernels lack (80, 112, 192) is refused here, before the forward
+    backward kernels lack (MLA's 192) is refused here, before the forward
     runs.
     """
 

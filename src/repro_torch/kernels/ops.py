@@ -342,9 +342,9 @@ def ssd(x, dt, A, B, C, *, chunk: int, init_state=None):
     and dt are formed here in fp32.  Returns (y (Bt, S, H, P) in x's dtype,
     final state (Bt, H, P, N) fp32).  The operands are checked by
     `ssd.check_operands` (at dispatch, by the engine, and again by the
-    kernel wrapper).  Inference only: the kernel has no backward, and the
-    `cuda` backend's `inference_only` hook refuses every ssd dispatch
-    under grad."""
+    kernel wrapper).  Inference only: the kernel has no backward, so the
+    `cuda` backend calls it only without grad and takes the einsum form
+    (`core/backends.py::_cuda_ssd`) under grad."""
     dtf = dt.float().contiguous()
     da = (dtf * A.float()).contiguous()
     x, B, C = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, B, C))

@@ -21,7 +21,8 @@ that write no y.  The wrapper runs the plain version only for a CPU
 tensor; on a CUDA tensor it launches the kernel or raises.  `launches`
 counts the kernel's calls (one a scan, whether the kernel runs as one
 launch or three) and moves nowhere else.  Inference only, as the JAX
-kernel (which has no VJP).
+kernel (which has no VJP): under grad the `cuda` backend takes the einsum
+form instead, and counts it in `einsum_dispatches`.
 
 The kernel runs under an `SsdPlan`: the heads one "y" block serves from
 its score tiles and the heads one "state" block walks.  `PLANS` are the
@@ -58,6 +59,9 @@ class SsdPlan(NamedTuple):
 PLANS = (SsdPlan(8, 4), SsdPlan(1, 1))
 
 launches = 0
+# the `cuda` backend's ssd dispatches under grad, which take the einsum
+# form (core/backends.py::_cuda_ssd) and launch no kernel
+einsum_dispatches = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = ([_P] * 10 + [_I] * 7
@@ -65,9 +69,9 @@ _ARGTYPES = ([_P] * 10 + [_I] * 7
 
 
 def reset_launches() -> None:
-    """Set the launch count to 0."""
-    global launches
-    launches = 0
+    """Set the launch count and the einsum-form count to 0."""
+    global launches, einsum_dispatches
+    launches = einsum_dispatches = 0
 
 
 def plan_for(b: int, s: int, h: int, p: int, g: int, n: int,
@@ -151,7 +155,10 @@ def ssd_scan_plain(x, dt, dA, B, C, *, chunk: int, init_state=None):
         bc, cc = B[:, c0:c1].float(), C[:, c0:c1].float()      # (Bt,q,G,N)
         causal = torch.ones(q, q, dtype=torch.bool, device=x.device).tril()
         diff = cs[:, :, None, :] - cs[:, None, :, :]           # (Bt,q,k,H)
-        seg = torch.where(causal[None, :, :, None], torch.exp(diff), 0.0)
+        # masked before exp: above the diagonal diff > 0 can overflow, and
+        # exp's inf there would make the gradient NaN (0 * inf)
+        seg = torch.exp(torch.where(causal[None, :, :, None], diff,
+                                    float("-inf")))
         seg = seg.permute(0, 3, 1, 2).reshape(bt, g, rep, q, q)
         scores = torch.einsum("bqgn,bkgn->bgqk", cc, bc)
         xg = xbar.reshape(bt, q, g, rep, p)

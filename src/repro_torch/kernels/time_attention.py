@@ -130,14 +130,16 @@ def event_ms(fn, reps: int = 5, repeats: int = 3) -> float:
     return statistics.median(times)
 
 
-def sdpa_bwd_ms(q, k, v, do, live) -> dict:
+def sdpa_bwd_ms(q, k, v, do, live, causal: bool = True) -> dict:
     """ms of torch's scaled_dot_product_attention backward (dQ, dK and dV
     at once) for q (B, Sq, H, D), k / v (B, Skv, KV, D), dO like q, q
     already scaled: ``mask`` with the (B, Sq, Skv) bool `live` and grouped
-    heads, ``causal`` with ``is_causal=True`` on K / V repeated to the H
-    heads (Sq == Skv), the repeat and the sum of dK / dV over each group
-    of heads timed with it, so that both compute the same function;
-    ``library`` the faster."""
+    heads; when `causal` says that `live` is the plain causal mask (Sq ==
+    Skv, no kv_len), ``causal`` with ``is_causal=True`` on K / V repeated
+    to the H heads, the repeat and the sum of dK / dV over each group of
+    heads timed with it, so that both compute the same function; when
+    every pair is live and not `causal`, ``unmasked`` with no mask and
+    grouped heads; ``library`` the fastest."""
     import torch
     import torch.nn.functional as F
     g = q.shape[2] // k.shape[2]
@@ -149,17 +151,24 @@ def sdpa_bwd_ms(q, k, v, do, live) -> dict:
     res = {"mask": event_ms(lambda: torch.autograd.grad(
         out, (qt, kt, vt), dot, retain_graph=True))}
     del out
-    # autograd sums the repeated heads' dK / dV back to the kv-heads
-    out = F.scaled_dot_product_attention(
-        qt, kt.repeat_interleave(g, dim=1), vt.repeat_interleave(g, dim=1),
-        is_causal=True, scale=1.0)
+    if causal:
+        # autograd sums the repeated heads' dK / dV back to the kv-heads
+        out = F.scaled_dot_product_attention(
+            qt, kt.repeat_interleave(g, dim=1),
+            vt.repeat_interleave(g, dim=1), is_causal=True, scale=1.0)
 
-    def causal():
-        kt.repeat_interleave(g, dim=1), vt.repeat_interleave(g, dim=1)
-        return torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+        def causal_bwd():
+            kt.repeat_interleave(g, dim=1), vt.repeat_interleave(g, dim=1)
+            return torch.autograd.grad(out, (qt, kt, vt), dot,
+                                       retain_graph=True)
 
-    res["causal"] = event_ms(causal)
-    res["library"] = min(res["mask"], res["causal"])
+        res["causal"] = event_ms(causal_bwd)
+    elif bool(live.all()):
+        out = F.scaled_dot_product_attention(qt, kt, vt, scale=1.0,
+                                             enable_gqa=True)
+        res["unmasked"] = event_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True))
+    res["library"] = min(res.values())
     return res
 
 

@@ -382,12 +382,12 @@ def loss_fn(engine: ComputeEngine, cfg, params: dict, batch: dict, *,
     "labels"}``, each (B, S) int (with ``patch_embeds`` for a vision
     config, whose text tokens are then S - T, or ``frames`` in place of
     tokens for an audio config), plus ``aux_coef`` times the mean MoE
-    load-balance loss over the MoE layers when the stack has any.  A
-    mamba or hybrid stack differentiates on `eager` and `ref` only: the
-    `cuda` SSD kernel is inference only, and `guard_grad` refuses it under
-    grad.  So does an MLA stack: the attention backward kernels are not
-    instantiated at its head dim 192, and `FlashAttention` refuses it by
-    name.
+    load-balance loss over the MoE layers when the stack has any.  On
+    `cuda` an MLA stack does not differentiate: the attention backward
+    kernels are not instantiated at its head dim 192, and `FlashAttention`
+    refuses it by name.  A mamba layer's SSD under grad takes there the
+    einsum form the JAX package trains through (the SSD kernel is
+    inference only).
 
     The forward dispatches the same engine ops as serving (on `cuda` the
     GEMM and attention kernels, differentiable through `GemmFused` and

@@ -29,7 +29,8 @@ def make_train_step(engine, cfg, ocfg: opt.AdamWConfig, *,
 
     params: the nested LM parameters (`tfm.init_params`), updated in place
     and returned; opt_state: ``opt.adamw_init(flatten(params))``; batch:
-    ``{"tokens", "labels"}``, (B, S) int tensors on the engine's device.
+    ``{"tokens", "labels"}``, (B, S) int tensors on the engine's device
+    (``frames`` in place of tokens for an audio config).
     The batch is cut into `num_microbatches` equal slices along B; their
     gradients are summed in fp32 and divided by the count, as their
     losses.  Returns ``(params, opt_state, metrics)``, or with
@@ -46,18 +47,23 @@ def make_train_step(engine, cfg, ocfg: opt.AdamWConfig, *,
 
     def value_and_grad(params, batch):
         # Fresh leaves that share the parameters' storage, so the caller's
-        # tensors are not marked as requiring grad.
+        # tensors are not marked as requiring grad.  A parameter the loss
+        # does not read (an audio config's token table) gets a zero
+        # gradient, as jax.value_and_grad gives it.
         leaves = {k: p.detach().requires_grad_()
                   for k, p in flatten(params).items()}
         lval = loss(unflatten_like(leaves, params), batch)
-        return lval.detach(), dict(zip(leaves, torch.autograd.grad(
-            lval, list(leaves.values()))))
+        grads = torch.autograd.grad(lval, list(leaves.values()),
+                                    allow_unused=True)
+        return lval.detach(), {
+            k: torch.zeros_like(p) if g is None else g
+            for (k, p), g in zip(leaves.items(), grads)}
 
     def grads_of(params, batch):
         m = num_microbatches
         if m == 1:
             return value_and_grad(params, batch)
-        b = batch["tokens"].shape[0]
+        b = batch["labels"].shape[0]
         if b % m:
             raise ValueError(f"batch {b} does not split into {m} "
                              f"microbatches")

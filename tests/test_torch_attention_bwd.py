@@ -8,7 +8,8 @@ versions (which the wrappers run for a CPU tensor), the forward's lse
 against ``flash_attention_with_lse``, and the engine's `attention` op
 differentiated on `eager` against the JAX `xla` engine.  Cases: head groups
 G = 1, 2, 7, causal and not, per-batch kv_len with a fully-masked row,
-ragged Sq / Skv, head dims 32 / 64 / 128.  Bars: fp32 1e-5 max-relative
+ragged Sq / Skv, head dims 32 / 64 / 128 and hubert-xlarge's 80 and
+zamba2-7b's 112; MLA's 192 refused by name.  Bars: fp32 1e-5 max-relative
 (the bar of ``tests/test_grad_conformance.py``), bf16 5e-2.  The kernels
 themselves run on the card (tests/test_torch_cuda.py, chip_smoke.py).
 """
@@ -38,6 +39,8 @@ CASES = [
     (2, 20, 20, 7, 1, 64, False, [13, 0]),         # G 7, a fully-masked row
     (2, 33, 50, 14, 2, 64, True, [50, 20]),        # G 7, rows before kv_len
     (1, 8, 8, 3, 1, 128, False, None),             # G 3, head dim 128
+    (2, 20, 20, 4, 4, 80, False, [13, 0]),         # hubert's head dim 80
+    (1, 24, 40, 4, 2, 112, True, [40]),            # zamba2's 112, G 2
 ]
 
 
@@ -205,3 +208,19 @@ def test_backward_wrappers_check_their_operands():
         fa.flash_attention_bwd_dkv(q, k, v, w, lse[:, :1], lse)
     with pytest.raises(ValueError, match="delta"):
         fa.flash_attention_bwd_dq(q, k, v, w, lse, lse.double())
+
+
+@pytest.mark.parametrize("kernel", ["dq", "dkv", "autograd"])
+def test_backward_refuses_head_dim_192_by_name(kernel):
+    """MLA's head dim 192 has no backward kernels (their blocks do not fit
+    in an SM's shared memory): each entry point refuses it by name, on a
+    CPU tensor as on the card, before any work."""
+    q = torch.zeros(1, 4, 2, 192)
+    lse = torch.zeros(1, 2, 4)
+    calls = {
+        "dq": lambda: fa.flash_attention_bwd_dq(q, q, q, q, lse, lse),
+        "dkv": lambda: fa.flash_attention_bwd_dkv(q, q, q, q, lse, lse),
+        "autograd": lambda: fa.FlashAttention.apply(
+            q.clone().requires_grad_(), q, q, None, True)}
+    with pytest.raises(ValueError, match="head dim 192"):
+        calls[kernel]()

@@ -36,20 +36,27 @@ bitwise), and every plan bit for bit the path plan's on a ragged grid; for
 the flash forward, every plan, with and without lse, bit for bit the path
 plan's.  For the modality frontends: the flash forward at head dim 80
 against its plain version under every plan it admits (the 32-lane plan
-refused), the backward and decode kernels refusing head dim 80, reduced
+refused), dQ and dK / dV at hubert's training shape against their plain
+versions, the decode kernel refusing head dim 80, reduced
 internvl2-2b's prefill, decode and slot-engine streams and reduced
 hubert-xlarge's forward (at head dim 80) on `cuda` against `eager`.  For
 the hybrid: the flash forward and the split-KV decode at zamba2's head dim
 112 against their plain versions (every forward plan bit for bit the path
 plan's, the one-split decode the forward's, the merge `combine`'s), dQ /
-dK / dV refusing 112, and reduced zamba2-7b (with a mamba tail, at head
+dK / dV at zamba2's training shape against their plain versions, and
+reduced zamba2-7b (with a mamba tail, at head
 dim 112) through prefill, decode and the slot engine on `cuda` against
 `eager`.  For MLA: the flash forward at head dim 192 (the 32-lane plan
 alone) and the split-KV decode at 576 (G = 16 over one latent kv-head,
 K and V in half tiles) against their plain versions, the merge bit for
 bit `combine`, the forward at 576 and dQ / dK / dV at 192 refused with no
 launch, and reduced deepseek-v2-lite-16b at MLA's widths through prefill,
-decode and the slot engine on `cuda` against `eager`.
+decode and the slot engine on `cuda` against `eager`.  For training the
+SSM, audio and hybrid families: reduced mamba2-1.3b, hubert-xlarge at 80
+and zamba2-7b at 112 through `loss_fn` on `cuda` against `eager` (exact
+attention and SSD counts: the einsum form under grad, the kernel in a
+prefill after), and the `cuda` ssd dispatch following grad mode with and
+without remat.
 """
 import dataclasses
 
@@ -77,7 +84,7 @@ from repro_torch.serve.serve_step import (make_decode_step, make_forward_step,
 from repro_torch.kernels.common import ACTIVATIONS, epilogue
 from repro_torch.train import optimizer as opt
 from repro_torch.train.train_step import make_cnn_train_step, make_train_step
-from repro_torch.tree import flatten
+from repro_torch.tree import flatten, unflatten_like
 
 pytestmark = pytest.mark.cuda
 
@@ -548,6 +555,10 @@ ATTN_BWD_CASES = [  # b, sq, skv, h, kv, d, causal, kv_len
     (2, 70, 70, 14, 2, 64, False, [50, 0]),
     (2, 33, 130, 14, 2, 64, True, [130, 20]),
     (1, 16, 16, 3, 1, 128, False, None),
+    (2, 70, 70, 16, 16, 80, False, [50, 0]),
+    (2, 33, 130, 8, 2, 80, True, [130, 20]),
+    (2, 100, 100, 4, 4, 112, True, None),
+    (1, 40, 130, 8, 1, 112, False, [77]),
 ]
 
 
@@ -942,14 +953,36 @@ def test_forward_at_head_dim_80_matches_plain_under_every_plan(
     assert fa.launch_counts() == before
 
 
-def test_backward_and_decode_kernels_refuse_head_dim_80_on_the_card(card):
+def _bwd_at_model_shape(card, b, s, h, d, causal, seed):
+    """dQ and dK / dV against their plain versions at a model's training
+    shape (MHA, G = 1), fp32, and every dQ plan bit for bit the path's."""
+    q, k, v = _qkv(card, b, s, s, h, h, d, seed=seed)
+    do = torch.randn(q.shape, device=card)
+    o, lse = fa.flash_attention_fwd(q, k, v, None, causal=causal,
+                                    return_lse=True)
+    delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta, None)
+    dq = fa.flash_attention_bwd_dq(*args, causal=causal)
+    dk, dv = fa.flash_attention_bwd_dkv(*args, causal=causal)
+    want = (fa.flash_attention_bwd_dq_plain(*args, causal=causal),
+            *fa.flash_attention_bwd_dkv_plain(*args, causal=causal))
+    for got, w in zip((dq, dk, dv), want):
+        assert _relmax(got, w) <= 1e-5
+    for plan in fa.BWD_PLANS:
+        assert torch.equal(dq, fa.flash_attention_bwd_dq(
+            *args, causal=causal, plan=plan))
+
+
+def test_head_dim_80_on_the_card_backward_and_decode(card):
+    """hubert-xlarge's training shape (4 x 500, 16 / 16 heads of 80, not
+    causal): dQ and dK / dV against their plain versions, every dQ plan
+    bitwise; the split-KV decode kernel, not instantiated at 80, refuses
+    it by name with no launch."""
+    _bwd_at_model_shape(card, 4, 500, 16, 80, False, seed=22)
     q, k, v = _qkv(card, 2, 4, 256, 4, 2, 80, seed=22)
     kvl = torch.tensor([256, 100], dtype=torch.int32, device=card)
-    lse = torch.zeros(2, 4, 4, device=card)
     before = (fa.launch_counts(), fd.launches)
-    for call in (lambda: fa.flash_attention_bwd_dq(q, k, v, q, lse, lse),
-                 lambda: fa.flash_attention_bwd_dkv(q, k, v, q, lse, lse),
-                 lambda: fd.flash_decode(q, k, v, kvl, causal=False,
+    for call in (lambda: fd.flash_decode(q, k, v, kvl, causal=False,
                                          n_splits=4, span=64),
                  lambda: fd.flash_decode_partials(q, k, v, kvl, causal=False,
                                                   n_splits=4, span=64),
@@ -1102,15 +1135,19 @@ def test_decode_at_head_dim_112_matches_plain_and_the_forward(
                        fa.flash_attention_fwd(q, k, v, kvl, causal=causal))
 
 
-def test_backward_kernels_refuse_head_dim_112_on_the_card(card):
-    q, k, v = _qkv(card, 2, 4, 64, 4, 4, 112, seed=33)
+def test_head_dim_112_on_the_card_backward_and_192_refused(card):
+    """zamba2-7b's training shape (2 x 512, 32 / 32 heads of 112, causal):
+    dQ and dK / dV against their plain versions, every dQ plan bitwise;
+    MLA's 192 refused by dQ, dK / dV and `FlashAttention` with no launch."""
+    _bwd_at_model_shape(card, 2, 512, 32, 112, True, seed=33)
+    q, k, v = _qkv(card, 2, 4, 64, 4, 4, 192, seed=33)
     lse = torch.zeros(2, 4, 4, device=card)
     before = fa.launch_counts()
     for call in (lambda: fa.flash_attention_bwd_dq(q, k, v, q, lse, lse),
                  lambda: fa.flash_attention_bwd_dkv(q, k, v, q, lse, lse),
                  lambda: fa.FlashAttention.apply(q.requires_grad_(), k, v,
                                                  None, True)):
-        with pytest.raises(ValueError, match="head dim 112"):
+        with pytest.raises(ValueError, match="head dim 192"):
             call()
     assert fa.launch_counts() == before
 
@@ -1393,3 +1430,92 @@ def test_slot_engine_on_cuda_serves_mla_through_the_kernels(card):
     ServingEngine(cfg, params, engine=make_engine("cuda"), slots=1,
                   max_len=256).run([alone])
     assert alone.out == streams[0][2]
+
+
+def _family_small(card, name):
+    """(cfg, params, batch) of a reduced training config on the card:
+    mamba2-1.3b (2 layers, 80 tokens: three SSD chunks of 32, the last
+    ragged), hubert-xlarge at head dim 80 (normal frames) or zamba2-7b at
+    head dim 112 with a mamba tail (`_zamba2_small`)."""
+    if name == "zamba2_112_tail":
+        cfg, params = _zamba2_small(card)
+    else:
+        cfg = reduced(get_arch("mamba2-1.3b" if name == "mamba2"
+                               else "hubert-xlarge"))
+        if name == "hubert_80":
+            cfg = dataclasses.replace(cfg, head_dim=80)
+        params = tfm.init_params(cfg, generator=torch.Generator(
+            device=card).manual_seed(47), device=card)
+    shape = ShapeConfig("t", 80 if name == "mamba2" else 48, 2, "train")
+    batch = input_tensors(cfg, shape, generator=torch.Generator(
+        device=card).manual_seed(48), device=card)
+    return cfg, params, batch
+
+
+@pytest.mark.parametrize("name", ["mamba2", "hubert_80", "zamba2_112_tail"])
+def test_reduced_family_loss_gradients_on_cuda_match_eager(card, name):
+    """`loss_fn` (remat) and every gradient on `cuda` against `eager`: the
+    loss within 1e-5, gradients within 1e-4; per mamba layer two SSD
+    dispatches in the einsum form (the forward and its recompute) and no
+    SSD launch, per attention layer two lse forwards, one dQ and one dK /
+    dV; a `no_grad` prefill afterwards launches the SSD kernel once a mamba
+    layer."""
+    cfg, params, batch = _family_small(card, name)
+    out = {}
+    for label in ("cuda", "eager"):
+        leaves = {k: p.detach().clone().requires_grad_()
+                  for k, p in flatten(params).items()}
+        fa.reset_launches()
+        ssd.reset_launches()
+        loss = tfm.loss_fn(make_engine(label, device=card), cfg,
+                           unflatten_like(leaves, params), batch,
+                           ce_chunk=16)
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    allow_unused=True)
+        out[label] = (loss, grads, fa.launch_counts(),
+                      (ssd.launches, ssd.einsum_dispatches))
+    assert abs(out["cuda"][0].item() - out["eager"][0].item()) <= \
+        1e-5 * abs(out["eager"][0].item())
+    for a, b in zip(out["cuda"][1], out["eager"][1]):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert _relmax(a, b) <= 1e-4
+    mamba = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    attn = {"ssm": 0, "audio": cfg.n_layers,
+            "hybrid": tfm.stack_program(cfg)[0][1]}[cfg.family]
+    assert out["cuda"][2] == {"flash_attention": 0,
+                              "flash_attention_lse": 2 * attn,
+                              "flash_attention_bwd_dq": attn,
+                              "flash_attention_bwd_dkv": attn}
+    assert out["cuda"][3] == (0, 2 * mamba)
+    assert out["eager"][3] == (0, 0)
+    if mamba:
+        ssd.reset_launches()
+        with torch.no_grad():
+            tfm.forward_prefill(make_engine("cuda"), cfg, params,
+                                tokens=batch["tokens"], collect_caches=False)
+        assert (ssd.launches, ssd.einsum_dispatches) == (mamba, 0)
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_cuda_ssd_form_follows_grad_mode_on_the_card(card, remat):
+    """Under grad every `cuda` ssd dispatch takes the einsum form, the
+    forward and (with remat, `use_reentrant=False`) its recompute alike,
+    and launches no SSD kernel; without grad, and under inference_mode,
+    every dispatch launches the kernel."""
+    cfg, params, batch = _family_small(card, "mamba2")
+    eng = make_engine("cuda")
+    leaves = {k: p.detach().clone().requires_grad_()
+              for k, p in flatten(params).items()}
+    ssd.reset_launches()
+    loss = tfm.loss_fn(eng, cfg, unflatten_like(leaves, params), batch,
+                       remat=remat, ce_chunk=16)
+    assert (ssd.launches, ssd.einsum_dispatches) == (0, cfg.n_layers)
+    torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    assert (ssd.launches, ssd.einsum_dispatches) == (
+        0, (2 if remat else 1) * cfg.n_layers)
+    for ctx in (torch.no_grad, torch.inference_mode):
+        ssd.reset_launches()
+        with ctx():
+            tfm.loss_fn(eng, cfg, params, batch, remat=remat, ce_chunk=16)
+        assert (ssd.launches, ssd.einsum_dispatches) == (cfg.n_layers, 0)

@@ -495,19 +495,38 @@ def test_plans_at_head_dim_112_leave_the_32_lane_plan_out():
 
 
 @pytest.mark.parametrize("kernel", ["dq", "dkv", "autograd"])
-def test_backward_kernels_refuse_head_dim_112(kernel):
-    """zamba2's training on `cuda` needs dQ and dK / dV at 112, which
-    are not instantiated: each refuses it by name before any work."""
+def test_backward_kernels_at_head_dim_112_match_jax_grad(kernel):
+    """zamba2 trains its shared block at head dim 112: dQ, dK / dV (their
+    plain versions, which the wrappers run on a CPU tensor) and
+    `FlashAttention`, causal, G = 1, against jax.grad of the JAX attention
+    oracle at 1e-5."""
     rng = np.random.default_rng(23)
-    q, do = (torch.from_numpy(rng.standard_normal((2, 4, 4, 112)).astype(
-        np.float32)) for _ in range(2))
-    k, v = (torch.from_numpy(rng.standard_normal((2, 16, 4, 112)).astype(
-        np.float32)) for _ in range(2))
-    lse = delta = torch.zeros(2, 4, 4)
-    calls = {
-        "dq": lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta),
-        "dkv": lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
-        "autograd": lambda: fa.FlashAttention.apply(
-            q.requires_grad_(), k, v, None, True)}
-    with pytest.raises(ValueError, match="head dim 112"):
-        calls[kernel]()
+    q, w = (rng.standard_normal((2, 4, 4, 112)).astype(np.float32)
+            for _ in range(2))
+    k, v = (rng.standard_normal((2, 16, 4, 112)).astype(np.float32)
+            for _ in range(2))
+    q = q / 112 ** 0.5
+    kvl = np.array([16, 9], np.int32)
+
+    def jloss(q, k, v):
+        return jnp.sum(jax_attention_ref(q, k, v, causal=True, sm_scale=1.0,
+                                         kv_len=jnp.asarray(kvl)) * w)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv, tw = map(torch.from_numpy, (q, k, v, w))
+    tkvl = torch.from_numpy(kvl)
+    if kernel == "autograd":
+        leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+        o = fa.FlashAttention.apply(*leaves, tkvl, True)
+        got = torch.autograd.grad((o * tw).sum(), leaves)
+    else:
+        o, lse = fa.flash_attention_fwd(tq, tk, tv, tkvl, return_lse=True)
+        delta = (tw * o).sum(-1).transpose(1, 2).contiguous()
+        args = (tq, tk, tv, tw, lse, delta, tkvl)
+        if kernel == "dq":
+            got, want = [fa.flash_attention_bwd_dq(*args)], want[:1]
+        else:
+            got, want = fa.flash_attention_bwd_dkv(*args), want[1:]
+    for g, x in zip(got, want):
+        assert g.shape == x.shape
+        assert _relmax(g.detach(), x) <= ATTN_TOL

@@ -12,8 +12,9 @@ final state, ragged S and G = 2 included.  Bar: 1e-5 max-relative.  Then
 at 1e-5, the prefill step's logits and caches and a 3-token decode at
 1e-4, the slot engine's greedy streams (the port resets a reused slot's
 SSM state, the JAX engine does not), the config, the parameter round
-trip, and the refusals: the paged engine, an empty prompt, and the
-`cuda` `ssd` op under grad; under `mixed` the prefill logits, a decode
+trip, the refusals (the paged engine, an empty prompt, the `cuda` `ssd`
+op on a CPU tensor) and the `cuda` `ssd` op passing the grad guard (it
+takes the einsum form under grad); under `mixed` the prefill logits, a decode
 step and the loss at 5e-2.  Inputs come from numpy seeds.
 """
 import dataclasses
@@ -180,23 +181,55 @@ def test_ssd_wrappers_refuse_what_they_do_not_take():
     assert ssd_kernel.launches == before
 
 
-def test_cuda_ssd_is_refused_under_grad_and_on_the_cpu():
-    """The SSD kernel has no backward (the JAX kernel has no VJP): the
-    `cuda` backend marks every ssd dispatch inference only, so the engine
-    raises under grad; given a CPU tensor the op raises, never falls
-    back.  `eager` differentiates it."""
+def test_ref_ssd_gradient_is_finite_where_the_decay_overflows():
+    """The `ref` op (the kernel's plain chunk scan) under grad at a chunk
+    whose cumulative decay leaves fp32's exp range above the diagonal
+    (cs spans about 190): its gradients are finite and equal the `eager`
+    einsum form's within 1e-5, as the forward does."""
+    x, dt, a, bm, cm, st = _ssd_inputs(2, 64, 4, 8, 1, 8, seed=9, init=True)
+    a = a * 5
+    w = np.random.default_rng(10).standard_normal(x.shape).astype(
+        np.float32)
+    out = {}
+    for name, eng in (("ref", REF), ("eager", ENGINE)):
+        leaves = [_t(t).requires_grad_() for t in (x, dt, bm, cm, st)]
+        xt, dtt, bt, ct, stt = leaves
+        y, fin = eng.ssd(xt, dtt, _t(a), bt, ct, chunk=64, init_state=stt)
+        loss = (y * _t(w)).sum() + fin.sum()
+        out[name] = (y, torch.autograd.grad(loss, leaves))
+    assert _relmax(out["ref"][0].detach(), out["eager"][0].detach()) <= TOL
+    for g, want in zip(out["ref"][1], out["eager"][1]):
+        assert bool(torch.isfinite(g).all())
+        assert _relmax(g, want) <= TOL
+
+
+def test_cuda_ssd_passes_the_grad_guard_and_refuses_the_cpu():
+    """The SSD kernel has no backward (the JAX kernel has no VJP): under
+    grad the `cuda` backend's ssd takes the einsum form the JAX package
+    trains through, so `guard_grad` lets every ssd dispatch pass; given a
+    CPU tensor the op raises, with grad or without, never falls back and
+    counts nothing; `reset_launches` zeroes the kernel's count and the
+    einsum form's.  `eager` differentiates it.  The einsum form itself
+    runs on the card (tests/test_torch_cuda.py)."""
     x, dt, a, bm, cm, _ = map(_t, _ssd_inputs(1, 8, 4, 8, 1, 8, seed=1))
     cuda = ComputeEngine(backend="cuda", device=torch.device("cpu"))
     xg = x.clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="inference only"):
-        cuda.ssd(xg, dt, a, bm, cm, chunk=4)
-    with pytest.raises(NotImplementedError, match="inference only"):
-        backends.guard_grad(backends.get_backend("cuda"), "ssd", xg, dt)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        cuda.ssd(x, dt, a, bm, cm, chunk=4)
+    backends.guard_grad(backends.get_backend("cuda"), "ssd", xg, dt)
+    before = (ssd_kernel.launches, ssd_kernel.einsum_dispatches)
+    for t in (xg, x):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            cuda.ssd(t, dt, a, bm, cm, chunk=4)
+    assert (ssd_kernel.launches, ssd_kernel.einsum_dispatches) == before
     y, _ = ENGINE.ssd(xg, dt, a, bm, cm, chunk=4)
     (gx,) = torch.autograd.grad(y.sum(), (xg,))
     assert bool(torch.isfinite(gx).all())
+    saved = (ssd_kernel.launches, ssd_kernel.einsum_dispatches)
+    try:
+        ssd_kernel.launches, ssd_kernel.einsum_dispatches = 2, 3
+        ssd_kernel.reset_launches()
+        assert (ssd_kernel.launches, ssd_kernel.einsum_dispatches) == (0, 0)
+    finally:
+        ssd_kernel.launches, ssd_kernel.einsum_dispatches = saved
 
 
 # ---------------------------------------------------------- the mixer / LM ---
