@@ -411,8 +411,8 @@ script exits non-zero.  Phases:
               kv-head: Sq 1 / 4 / 8 against 256 / 1024 rows, 47 splits,
               the mla and mla_serve steps), fp32 and bf16, as phases 9-10
               (the merge bitwise `combine`, the sentinels exact); the
-              forward at 576 and dQ / dK / dV at 192 refused by name with
-              no launch.  The MLA phases draw from a generator of their
+              forward and dQ / dK / dV at 576 refused by name with no
+              launch.  The MLA phases draw from a generator of their
               own (MLA_SEED), so every earlier phase's draws, and errors,
               stay as they were.
  46. mla      deepseek-v2-lite-16b at full width and depth (27 layers: one
@@ -453,14 +453,16 @@ script exits non-zero.  Phases:
               einsums: the whole einsum, the kernel on y in (E, K, N)
               order, y's permuted copy alone, plain and torch.bmm.  The
               model is freed.
- 49. check_attn_bwd (80, 112; run after phase 16)  the lse forward, dQ
-              and dK / dV at hubert-xlarge's head dim 80 and zamba2-7b's
-              112 as phase 16: its grid, then the model's training shape
-              (4 x 500, 16 / 16 heads, not causal; 2 x 512, 32 / 32,
-              causal), fp32 and bf16, every dQ plan and reruns bitwise,
-              dead rows exact 0; dQ, dK / dV and FlashAttention refused at
-              192 with no launch.  Each head dim draws from a generator of
-              its own (TRAIN_SEED + the head dim).
+ 49. check_attn_bwd (80, 112, 192; run after phase 16)  the lse
+              forward, dQ and dK / dV at hubert-xlarge's head dim 80,
+              zamba2-7b's 112 and deepseek-v2-lite-16b's 192 as phase 16:
+              its grid, then the model's training shape (4 x 500, 16 / 16
+              heads, not causal; 2 x 512, 32 / 32, causal; 2 x 512, 16 /
+              16, causal), fp32 and bf16, every dQ plan the head dim admits
+              (at 192 the 16-row plan alone) and reruns bitwise, dead rows
+              exact 0; dQ, dK / dV and FlashAttention refused at 576 with
+              no launch.  Each head dim draws from a generator of its own
+              (TRAIN_SEED + the head dim).
  50. ssm_train (run after phase 24)  mamba2-1.3b at full width and depth
               (48 layers), batch 4 x 1024 (4 SSD chunks a row): first each
               distinct GEMM of its train step (M 4096; the tied head at a
@@ -470,7 +472,9 @@ script exits non-zero.  Phases:
               then as phase 17 on `cuda`, `eager` and `ref`: the step-1
               loss (<= 1e-5) and every gradient (<= 1e-4, or 10 x the same
               tensor's ref-eager gap), two `cuda` runs bitwise, 3 AdamW
-              steps through train_loop within the drift bars; exact
+              steps through train_loop (`cuda`, then `eager`, then `ref`)
+              within the drift bars, the parameters' drift also taken
+              over the elements of a sharp step-1 gradient apart; exact
               launches a step (580 residual forwards, all regime B, 290
               dX, 290 dW, 144 reduces, 96 SSD dispatches in the einsum
               form, no SSD launch), every op on `cuda`, peak GB; then a
@@ -497,9 +501,49 @@ script exits non-zero.  Phases:
               dQ, 2 dK / dV at head dim 112 and 30 SSD einsum dispatches a
               step; the prefill 15 SSD launches).
  55. timing_hybrid_train  as phase 53 at 2 x 512, head dim 112, causal.
-Then the kernels line (39 entries: the lse forward, dQ and dK / dV at 80
-and 112 added), and last the result line.  Every JSON line carries `t`,
-the seconds since the script started.
+ 56. mla_train (run after phase 48)  deepseek-v2-lite-16b at full width,
+              3 of its 27 layers (the dense first layer and two MoE
+              layers: 1.67e9 parameters, 26.7 GB with gradients and AdamW
+              moments; 27 layers need 251 GB), 2 x 512, as phase 50, its
+              own generator (MLA_TRAIN["gen"]): the GEMMs' dX / dW and the
+              expert bmm's (64 experts, 128 dispatch rows, 2048 <-> 1408:
+              every kernel against its plain version, every backward plan
+              and batch slice bitwise) checked; step 1 on `cuda` (twice,
+              bitwise, routes too), `eager` and `ref`, the two running
+              `cuda`'s expert choices per layer (`RouteLog` / `RouteReplay`
+              by layer: the remat recompute takes its layer's recorded
+              route), each route they would have chosen otherwise a near
+              tie; 3 AdamW steps through make_train_step on train_loop's
+              parameters, batches and optimizer, `cuda` first, the others
+              replaying its routes (`ref` computes `eager`'s bits here, so
+              its trajectory takes the CE in chunks of 256: the same loss
+              summed in another order), the parameters after 3 steps held
+              to 1e-4 or 10 x ref's drift, per tensor, over the elements
+              whose step-1 gradient clears 10 x its tensor's cuda-eager
+              error on both engines (the others may take opposite +-lr
+              AdamW steps); exact launches a step (54
+              residual forwards, 27 dX, 27 dW, 30 reduces, 12 expert bmm
+              forwards, 6 bmm_bwd_dx, 6 bmm_bwd_dw, 6 lse forwards, 3 dQ
+              and 3 dK / dV at head dim 192), every op on `cuda`; a
+              `no_grad` prefill of the trained model (3 flash forwards, 6
+              expert bmm) against `eager` on `cuda`'s routes.
+ 57. timing_mla_train  as phase 53 at 2 x 512, head dim 192, causal (the
+              16-row dQ plan), and the expert bmm's dX and dW at each
+              expert shape: kernel, plain, torch.bmm and bound ms, summed
+              over a MoE layer's three launches.
+ 58. moe_train  llama4-scout-17b-a16e at full width, 1 of 48 layers
+              (4.27e9 parameters, 17.1 GB; with AdamW moments one engine
+              needs 68 GB, so no trajectory), 2 x 512: its GEMMs and expert
+              bmm (16 experts, 80 rows: capacity 40, 5120 <-> 8192) checked
+              as phase 56, then step 1 only, as there (G = 5 attention at
+              128, top-1 routing with a shared expert), each gradient set
+              freed once its errors are taken: the peak held to
+              MOE_TRAIN's bound; then its expert bmm's dX and dW timed as
+              phase 57.
+Then the kernels line (46 entries: the lse forward, dQ and dK / dV at 80,
+112 and 192, the expert bmm's dX and dW on mla_train and moe_train
+added), and last the result line.  Every JSON line carries `t`, the
+seconds since the script started.
 """
 from __future__ import annotations
 
@@ -670,7 +714,24 @@ HYBRID_TRAIN = dict(batch=2, seq=512, steps=3, seed=73, layers=15,
                              "gradients and AdamW moments; 81 layers need "
                              "106 GB)"])
 TRAIN_ATTN = {80: (AUDIO_ARCH, (4, 500), False),  # head dim: arch, (b, s),
-              112: (HYBRID_ARCH, (2, 512), True)}  # causal
+              112: (HYBRID_ARCH, (2, 512), True),  # causal
+              192: (MLA_ARCH, (2, 512), True)}
+# Training the MoE programs: deepseek-v2-lite-16b (MLA) at full width, cut
+# to its dense first layer and two MoE layers, and llama4-scout-17b-a16e at
+# full width, one layer, step 1 only (steps 0: no AdamW trajectory).  Each
+# draws its checks and timings from a generator of its own (`gen`).
+MLA_TRAIN = dict(batch=2, seq=512, steps=3, seed=76, gen=77, layers=3,
+                 sharp_tol=TRAIN_TOL,
+                 reduced=["n_layers 27 -> 3: the dense first layer and two "
+                          "MoE layers, so dense -> MoE and MoE -> MoE both "
+                          "run (1.67e9 parameters, 26.7 GB with gradients "
+                          "and AdamW moments; 27 layers hold 1.57e10, 251 "
+                          "GB to train)"])
+MOE_TRAIN = dict(batch=2, seq=512, steps=0, seed=78, gen=79, layers=1,
+                 peak_gb_bound=60.0,
+                 reduced=["n_layers 48 -> 1 (4.27e9 parameters, 17.1 GB "
+                          "in fp32; with AdamW moments one engine's state "
+                          "is 68 GB, so step 1 only, no trajectory)"])
 _T0 = time.perf_counter()
 
 
@@ -684,9 +745,34 @@ def check(ok: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
-def relmax(a: torch.Tensor, b: torch.Tensor) -> float:
-    a, b = a.detach().double(), b.detach().to(a.device).double()
-    return float((a - b).abs().max() / (b.abs().max() + 1e-12))
+def relmax(a: torch.Tensor, b: torch.Tensor, mask=None) -> float:
+    """max |a - b| / (max |b| + 1e-12) in fp64, over pieces of 2**24
+    elements, so that a gradient the size of llama4-scout's embedding
+    (1.03e9 elements) takes no fp64 copy of its whole (each max is exact,
+    so the pieces give the bits of one pass); with `mask` the numerator
+    over its True elements alone."""
+    diff, peak = pieces_max(a, b, torch.float64, mask)
+    return float(diff / (peak + 1e-12))
+
+
+def pieces_max(a: torch.Tensor, b: torch.Tensor, dtype, mask=None):
+    """(max |a - b|, max |b|) as 0-d tensors, each piece of 2**24
+    elements taken in `dtype` (None: a's), b broadcast against a; with
+    `mask` (bool, a's shape) the first max over its True elements."""
+    a, b = a.detach(), b.detach().to(a.device)
+    if a.shape != b.shape:
+        a, b = torch.broadcast_tensors(a, b)
+    a, b = a.reshape(-1), b.reshape(-1)
+    dtype = dtype or a.dtype
+    diff = peak = torch.zeros((), dtype=dtype, device=a.device)
+    for i in range(0, a.numel(), 1 << 24):
+        x, y = a[i:i + (1 << 24)].to(dtype), b[i:i + (1 << 24)].to(dtype)
+        d = (x - y).abs()
+        if mask is not None:
+            d = torch.where(mask.reshape(-1)[i:i + (1 << 24)], d, 0)
+        diff = torch.maximum(diff, d.max())
+        peak = torch.maximum(peak, y.abs().max())
+    return diff, peak
 
 
 def card_peaks(name: str) -> tuple[float, float]:
@@ -1879,8 +1965,9 @@ def check_attn_bwd_case(q, k, v, kvl, causal, gen) -> tuple[dict, dict]:
     one case: (max-relative errors, fp32 max-abs errors) by output.  The
     lse launch must keep the serving launch's o, dead rows and keys must
     get exactly 0, each kernel run twice the same bits, and dQ under every
-    plan (fa.BWD_PLANS: 16- and 64-row blocks, so two grids in two
-    orders) the path plan's bits."""
+    plan the head dim admits (fa.bwd_plans_at: 16- and 64-row blocks, so
+    two grids in two orders; at 192 the 16-row plan alone) the path plan's
+    bits."""
     where = f"q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype} causal={causal}"
     args = dict(causal=causal)
     do = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
@@ -1913,7 +2000,7 @@ def check_attn_bwd_case(q, k, v, kvl, causal, gen) -> tuple[dict, dict]:
     check(torch.equal(dq, fa.flash_attention_bwd_dq(*bwd, **args))
           and torch.equal(dk, again[0]) and torch.equal(dv, again[1]),
           f"two runs of the backward kernels differ at {where}")
-    for plan in fa.BWD_PLANS:
+    for plan in fa.bwd_plans_at(q.shape[-1]):
         check(torch.equal(dq, fa.flash_attention_bwd_dq(*bwd, plan=plan,
                                                         **args)),
               f"dQ plan {plan} changes the bits at {where}")
@@ -1961,8 +2048,9 @@ def attn_bwd_phase(cgen) -> dict:
     emit("check_attn_bwd", arch=LM_ARCH, shape=[b, s, s, cfg.n_heads,
                                                 cfg.n_kv_heads, cfg.head_dim],
          causal=True, cases=rows, bitwise_two_runs=True,
-         path_plan=list(fa.bwd_plan_for(b, s, cfg.n_heads, cfg.n_kv_heads)),
-         plans_bitwise=[list(p) for p in fa.BWD_PLANS])
+         path_plan=list(fa.bwd_plan_for(b, s, cfg.n_heads, cfg.n_kv_heads,
+                                        cfg.head_dim)),
+         plans_bitwise=[list(p) for p in fa.bwd_plans_at(cfg.head_dim)])
     return path_abs
 
 
@@ -2174,7 +2262,7 @@ def attn_train_rows(shape, cgen, peak_flops, peak_bw) -> dict:
     `time_attention.sdpa_fwd_ms` / `sdpa_bwd_ms`, which time the repeat,
     and the group sum of the backward, with it); the lse
     forward and dQ also under every plan the head dim admits
-    (`plans_ms`)."""
+    (`plans_ms`: `plans_at`, `bwd_plans_at`)."""
     b, s, h, kv, d, causal = shape
     q, k, v = qkv(b, s, s, h, kv, d, torch.float32, cgen)
     do = torch.randn(q.shape, generator=cgen, device=q.device)
@@ -2239,11 +2327,11 @@ def attn_train_rows(shape, cgen, peak_flops, peak_bw) -> dict:
                                                return_lse=True, plan=p))
             for p in fa.plans_at(d)})
     rows["flash_attention_bwd_dq"].update(
-        plan=list(fa.bwd_plan_for(b, s, h, kv)),
+        plan=list(fa.bwd_plan_for(b, s, h, kv, d)),
         plans_ms={str(tuple(p)): graph_ms(
             lambda p=p: fa.flash_attention_bwd_dq(*bwd, causal=causal,
                                                   plan=p))
-            for p in fa.BWD_PLANS})
+            for p in fa.bwd_plans_at(d)})
     return rows
 
 
@@ -2930,11 +3018,21 @@ def engine_bmm_phase(dev) -> dict:
 
 def timing_bmm_phase(gen, peak_flops, peak_bw, smi) -> dict:
     """Phase timing_bmm: each bmm kernel at the engine_bmm shape with the
-    path's plan: kernel, plain, torch.bmm (TF32 off, a baseline only) and
-    bound ms (2 B M K N FFMA-rate operations; each operand read once, the
-    output written once)."""
+    path's plan (`bmm_rows`)."""
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off")
-    b, m, k, n = EXPERT_BMM[0]
+    rows = bmm_rows(EXPERT_BMM[0], gen, peak_flops, peak_bw)
+    for name, row in rows.items():
+        emit("timing_bmm", kernel=name, smi=smi, **row)
+    return rows
+
+
+def bmm_rows(shape, gen, peak_flops, peak_bw, kernels=BMM_KERNELS) -> dict:
+    """Each bmm kernel of `kernels` at (B, M, K, N) with the path's plan
+    and split (`bmm_plans`), operands drawn from `gen`: kernel, plain,
+    torch.bmm (TF32 off, a baseline only) and bound ms (2 B M K N
+    FFMA-rate operations; each operand read once, the output written
+    once), by CUDA events."""
+    b, m, k, n = shape
     dev = gen.device
     x = torch.randn(b, m, k, generator=gen, device=dev)
     w = torch.randn(b, k, n, generator=gen, device=dev) / math.sqrt(k)
@@ -2942,33 +3040,58 @@ def timing_bmm_phase(gen, peak_flops, peak_bw, smi) -> dict:
     plan, (dxt, dxs), (dwt, dws) = bmm_plans(b, m, k, n)
     nbytes = 4.0 * (b * m * k + b * k * n + b * m * n)
     flops = 2.0 * b * m * k * n
+    calls = {
+        "bmm_fwd": (lambda: gemm.bmm_fwd(x, w, plan=plan),
+                    lambda: gemm.bmm_fwd_plain(x, w), lambda: torch.bmm(x, w)),
+        "bmm_bwd_dx": (lambda: gemm.bmm_bwd_dx(dy, w, plan=dxt, splits=dxs),
+                       lambda: gemm.bmm_bwd_dx_plain(dy, w),
+                       lambda: torch.bmm(dy, w.transpose(1, 2))),
+        "bmm_bwd_dw": (lambda: gemm.bmm_bwd_dw(x, dy, plan=dwt, splits=dws),
+                       lambda: gemm.bmm_bwd_dw_plain(x, dy),
+                       lambda: torch.bmm(x.transpose(1, 2), dy))}
     rows = {}
-    for name, fn, plain, library in (
-            ("bmm_fwd", lambda: gemm.bmm_fwd(x, w, plan=plan),
-             lambda: gemm.bmm_fwd_plain(x, w), lambda: torch.bmm(x, w)),
-            ("bmm_bwd_dx",
-             lambda: gemm.bmm_bwd_dx(dy, w, plan=dxt, splits=dxs),
-             lambda: gemm.bmm_bwd_dx_plain(dy, w),
-             lambda: torch.bmm(dy, w.transpose(1, 2))),
-            ("bmm_bwd_dw",
-             lambda: gemm.bmm_bwd_dw(x, dy, plan=dwt, splits=dws),
-             lambda: gemm.bmm_bwd_dw_plain(x, dy),
-             lambda: torch.bmm(x.transpose(1, 2), dy))):
+    for name in kernels:
+        fn, plain, library = calls[name]
         ms = cuda_ms(fn, reps=5, repeats=3)
         plain_ms = cuda_ms(plain, reps=5, repeats=3)
         library_ms = cuda_ms(library, reps=5, repeats=3)
         bound_ms, bound_by = bound(flops, nbytes, peak_flops, peak_bw)
-        rows[name] = row = {
+        rows[name] = {
+            "shape": [b, m, k, n],
+            "plans": {"forward": list(plan), "dx": [dxt, dxs],
+                      "dw": [dwt, dws]},
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "ops_ms": flops / peak_flops * 1e3,
             "bytes_ms": nbytes / peak_bw * 1e3,
             "tflops": flops / ms / 1e9, "bound_share": bound_ms / ms}
-        emit("timing_bmm", kernel=name, smi=smi, shape=[b, m, k, n],
-             plans={"forward": list(plan), "dx": [dxt, dxs],
-                    "dw": [dwt, dws]},
-             **row)
+    del x, w, dy
     return rows
+
+
+def train_bmm_rows(phase, cfg, run: dict, gen, peak_flops, peak_bw, smi,
+                   launches: dict) -> dict:
+    """Phase timing_<phase>'s expert rows: `bmm_bwd_dx` and `bmm_bwd_dw`
+    at each distinct expert shape of the config's train step
+    (`train_bmms`, `bmm_rows`), each emitted with its launches a step from
+    `launches` (a step's counts); returns per kernel the ms, plain,
+    library, bound, ops and bytes ms summed over one MoE layer's three
+    expert GEMMs."""
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "bytes_ms")
+    tot = {name: dict.fromkeys(keys, 0.0) for name in BMM_KERNELS[1:]}
+    shapes = train_bmms(cfg, run["batch"], run["seq"])
+    for shape in dict.fromkeys(shapes):
+        rows = bmm_rows(shape, gen, peak_flops, peak_bw, BMM_KERNELS[1:])
+        for name, row in rows.items():
+            emit(f"timing_{phase}", kernel=name, smi=smi,
+                 per_layer=shapes.count(shape),
+                 launches_per_step=launches[name], **row)
+            for key in keys:
+                tot[name][key] += shapes.count(shape) * row[key]
+        torch.cuda.empty_cache()
+    for name, row in tot.items():
+        emit(f"timing_{phase}_expert_layer", kernel=name, smi=smi, **row)
+    return tot
 
 
 def path_convs(net: Network, batch: int) -> list[dict]:
@@ -3243,17 +3366,24 @@ def moe_call_launches(cfg, b: int, s: int, attention: str) -> dict:
 
 class RouteLog:
     """While active, records each MoE layer's routing as `moe_forward`
-    computes it (expert ids and fp32 probabilities, per call in layer
-    order), by wrapping `models.moe.route`."""
+    computes it (expert ids and fp32 probabilities), by wrapping
+    `models.moe.route`: one record per call in call order, or with
+    `by_layer` one per layer, keyed by the layer's router tensor (the
+    object, held here, so a train step's fresh leaves are new layers), in
+    the order the layers first route.  Under remat a layer routes again
+    when `torch.utils.checkpoint` recomputes it in the backward, in
+    reverse layer order: by layer, that recompute is the same record,
+    counted in `recomputed`, and must give the recorded expert ids."""
+
+    def __init__(self, by_layer: bool = False):
+        self.by_layer = by_layer
 
     def __enter__(self):
-        self.calls = []
+        self.calls, self.routers, self.recomputed = [], [], 0
         self._route = moe.route
 
         def route(engine, p, x, cfg):
-            w, idx, probs = self._route(engine, p, x, cfg)
-            self.calls.append((idx.clone(), probs.clone()))
-            return w, idx, probs
+            return self.take(p["router"], *self._route(engine, p, x, cfg))
 
         moe.route = route
         return self
@@ -3261,35 +3391,63 @@ class RouteLog:
     def __exit__(self, *exc):
         moe.route = self._route
 
+    def slot(self, router, idx, probs) -> tuple[int, bool]:
+        """(the record of this routing, whether it is a recompute), adding
+        the record of a new call or layer."""
+        for i, r in enumerate(self.routers):
+            if r is router:
+                self.recomputed += 1
+                return i, True
+        self.calls.append((idx.clone(), probs.detach().clone()))
+        if self.by_layer:
+            self.routers.append(router)
+        return len(self.calls) - 1, False
+
+    def take(self, router, w, idx, probs):
+        i, again = self.slot(router, idx, probs)
+        check(not again or torch.equal(idx, self.calls[i][0]),
+              f"layer {i} routed otherwise when recomputed")
+        return w, idx, probs
+
 
 class RouteReplay(RouteLog):
     """While active, each MoE layer takes the expert choice recorded in
-    `calls` (a `RouteLog` of another engine's run, in call order): the
-    router computes its own probabilities, which are recorded as
-    `RouteLog` records them, with the engine's own top-k choice, and the
-    layer runs the recorded experts weighted by its own probabilities of
-    them, renormalised.  So an engine follows another's routes and the
-    two stay comparable where a near tie flips a route."""
+    `calls` (a `RouteLog` of another engine's run, per call or per layer
+    as `by_layer`, which must match): the router computes its own
+    probabilities, which are recorded as `RouteLog` records them, with the
+    engine's own top-k choice, and the layer runs the recorded experts
+    weighted by its own probabilities of them, renormalised; by layer, a
+    recompute takes its layer's recorded choice again.  So an engine
+    follows another's routes and the two stay comparable where a near tie
+    flips a route."""
 
-    def __init__(self, calls):
+    def __init__(self, calls, by_layer: bool = False):
+        super().__init__(by_layer)
         self.replay = calls
 
-    def __enter__(self):
-        self.calls = []
-        self._route = moe.route
+    def take(self, router, w, idx, probs):
+        i, _ = self.slot(router, idx, probs)
+        check(len(self.calls) <= len(self.replay),
+              f"{len(self.calls)} routings, {len(self.replay)} recorded")
+        forced = self.replay[i][0]
+        w = torch.gather(probs, -1, forced)
+        w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+        return w, forced, probs
 
-        def route(engine, p, x, cfg):
-            _, idx, probs = self._route(engine, p, x, cfg)
-            self.calls.append((idx.clone(), probs.clone()))
-            check(len(self.calls) <= len(self.replay),
-                  f"{len(self.calls)} routings, {len(self.replay)} recorded")
-            forced = self.replay[len(self.calls) - 1][0]
-            w = torch.gather(probs, -1, forced)
-            w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
-            return w, forced, probs
 
-        moe.route = route
-        return self
+def routing(cfg, replay=None):
+    """The route recorder of a training run of `cfg` (by layer): a
+    `RouteLog`, or with `replay` (another run's records) a `RouteReplay`;
+    for a stack without MoE layers a context that records nothing."""
+    if not n_moe_layers(cfg):
+        return contextlib.nullcontext()
+    return (RouteLog(by_layer=True) if replay is None
+            else RouteReplay(replay, by_layer=True))
+
+
+def n_moe_layers(cfg) -> int:
+    """The MoE layers of a config's layer program."""
+    return sum(n for kind, n in tfm.stack_program(cfg) if "moe" in kind)
 
 
 def route_flips(cfg, cu_calls, ea_calls) -> tuple[list, list, float]:
@@ -3300,7 +3458,7 @@ def route_flips(cfg, cu_calls, ea_calls) -> tuple[list, list, float]:
     over those rows)."""
     check(len(cu_calls) == len(ea_calls),
           f"{len(cu_calls)} cuda routings, {len(ea_calls)} eager")
-    n_moe = sum(n for kind, n in tfm.stack_program(cfg) if "moe" in kind)
+    n_moe = n_moe_layers(cfg)
     flips, flipped = [], set()
     for i, ((ic, _), (ie, pe)) in enumerate(zip(cu_calls, ea_calls)):
         for row, tok in (ic != ie).any(-1).nonzero().tolist():
@@ -3316,6 +3474,22 @@ def route_flips(cfg, cu_calls, ea_calls) -> tuple[list, list, float]:
                     for (_, pc), (_, pe) in zip(cu_calls, ea_calls)
                     if rows), default=0.0)
     return flips, rows, prob_err
+
+
+def route_ties(cfg, cu_calls, other_calls) -> dict:
+    """Where another engine that ran `cuda`'s expert choices
+    (`RouteReplay`) would itself have routed otherwise (`route_flips`),
+    each flip allowed only where its margin is below MARGIN_FACTOR x the
+    routers' max-abs probability difference over every row."""
+    flips, _, _ = route_flips(cfg, cu_calls, other_calls)
+    prob_err = max(float((pc - pe).abs().max()) for (_, pc), (_, pe)
+                   in zip(cu_calls, other_calls))
+    allowed = MARGIN_FACTOR * prob_err
+    check(all(f["eager_margin"] < allowed for f in flips),
+          f"{len(flips)} route flips, some at a clear margin (bar "
+          f"{allowed:.3e}): {flips[:20]}")
+    return {"route_flips": flips, "router_prob_max_abs_err": prob_err,
+            "flip_allowed_below": allowed, "routes_compared": len(cu_calls)}
 
 
 def check_bmm_fwd(e, m, k, n, gen) -> dict:
@@ -3840,39 +4014,56 @@ def check_frontends_phase(cfg, cgen, rows: dict, attn_cases: dict,
     return out
 
 
-def kv_relmax(cfg, got, want, rows=None) -> dict:
-    """The max-relative error of a dense stack's K / V caches over all
-    its layers, rows [0, rows) when `rows` is given."""
-    return {f"{name}_cache": relmax(got[0][name][:, :, :rows],
-                                    want[0][name][:, :, :rows])
-            for name in ("k", "v")}
+def cache_relmax(cfg, got, want, s=None) -> dict:
+    """The max-relative error of each cache leaf, in one walk over
+    `kvcache.cache_init`'s layout (the program's entries): a dense entry's
+    K / V as one relmax over its stacked layers (`k_cache`, `v_cache`);
+    every other leaf the worst per-layer relmax: a super entry's mamba
+    leaves (`super.<leaf>`) and shared K / V (`shared.<leaf>`), a mamba
+    tail's leaves (`tail.<leaf>`), the MLA entries' latent (`c_kv`,
+    `k_rope`, worst over the entries).  K / V and latent rows over [0, s)
+    when `s` is given."""
+    errs = {}
+
+    def worst(name, pairs):
+        errs[name] = max([errs.get(name, 0.0)] + [relmax(g, w)
+                                                  for g, w in pairs])
+
+    for (kind, n), g, w in zip(tfm.stack_program(cfg), got, want):
+        if kind == "zamba_super":
+            for name, t in w["mamba"].items():
+                worst(f"super.{name}", ((g["mamba"][name][i, j], t[i, j])
+                                        for i in range(n)
+                                        for j in range(cfg.attn_every)))
+            for name, t in w["shared"].items():
+                worst(f"shared.{name}", ((g["shared"][name][i, :, :s],
+                                          t[i, :, :s]) for i in range(n)))
+        elif kind == "mamba":
+            for name, t in w.items():
+                worst(f"tail.{name}", ((g[name][i], t[i]) for i in range(n)))
+        elif kind in ("mla_dense", "mla_moe"):
+            for name, t in w.items():
+                worst(name, ((g[name][i, :, :s], t[i, :, :s])
+                             for i in range(n)))
+        else:
+            for name, t in w.items():
+                worst(f"{name}_cache", [(g[name][:, :, :s], t[:, :, :s])])
+    return errs
 
 
 def replayed_routes(cfg, cu, ea, steps) -> dict:
     """For a MoE stack in `prefill_decode_phase`, where `eager` ran
-    `cuda`'s expert choices (`RouteReplay`): the tokens whose routes
-    eager's own routers chose otherwise, over the prefill and the decode
-    steps both engines ran on the same tokens (`route_flips`), each
-    allowed only where eager's margin is below MARGIN_FACTOR x the
-    routers' max-abs probability difference over every row."""
+    `cuda`'s expert choices (`RouteReplay`): `route_ties` over the prefill
+    and the decode steps both engines ran on the same tokens."""
     same = (cu["tokens"] == ea["tokens"]).all(0)
     j = int(same.logical_not().nonzero()[0]) if not bool(same.all()) \
         else len(same)
-    n_moe = sum(n for kind, n in tfm.stack_program(cfg) if "moe" in kind)
-    calls = n_moe * (1 + min(j, steps))
-    flips, _, _ = route_flips(cfg, cu["routes"][:calls], ea["routes"][:calls])
-    prob_err = max(float((pc - pe).abs().max()) for (_, pc), (_, pe)
-                   in zip(cu["routes"][:calls], ea["routes"][:calls]))
-    allowed = MARGIN_FACTOR * prob_err
-    check(all(f["eager_margin"] < allowed for f in flips),
-          f"{len(flips)} route flips, some at a clear margin (bar "
-          f"{allowed:.3e}): {flips[:20]}")
-    return {"route_flips": flips, "router_prob_max_abs_err": prob_err,
-            "flip_allowed_below": allowed, "routes_compared": calls}
+    calls = n_moe_layers(cfg) * (1 + min(j, steps))
+    return route_ties(cfg, cu["routes"][:calls], ea["routes"][:calls])
 
 
 def prefill_decode_phase(phase, cfg, params, dev, inputs, s, steps,
-                         want_pre, want_dec, cache_errs,
+                         want_pre, want_dec,
                          strict_tokens=False, routed=False,
                          **fields) -> dict:
     """Phase `phase` for a decoder at full width: a prefill of `inputs`
@@ -3882,7 +4073,7 @@ def prefill_decode_phase(phase, cfg, params, dev, inputs, s, steps,
     `kvcache.copy_prefill`), on `cuda` and on `eager`, each from its own
     greedy tokens, the launch counts set to 0 just before each part.
     Checks `cuda` against `eager`: logits over the real vocabulary and
-    the caches (`cache_errs(cfg, got, want, rows)`, {leaf: relmax}) within
+    the caches (`cache_relmax(cfg, got, want, rows)`, {leaf: relmax}) within
     LOGIT_TOL while the tokens agree; the tokens equal (`strict_tokens`),
     or else differing first where eager's top-2 margin is below
     MARGIN_FACTOR x the logits error; the launches of a prefill
@@ -3957,9 +4148,9 @@ def prefill_decode_phase(phase, cfg, params, dev, inputs, s, steps,
             "decode_logits": (relmax(cu["dlogits"][:j], ea["dlogits"][:j])
                               if j else 0.0)}
     errs.update({f"prefill_{k}": v for k, v in
-                 cache_errs(cfg, cu["caches"], ea["caches"]).items()})
+                 cache_relmax(cfg, cu["caches"], ea["caches"]).items()})
     errs.update({f"decode_{k}": v for k, v in
-                 cache_errs(cfg, cu["buf"], ea["buf"], s + j).items()})
+                 cache_relmax(cfg, cu["buf"], ea["buf"], s + j).items()})
     abs_err = max(float((cu["logits"] - ea["logits"]).abs().max()),
                   float((cu["dlogits"][:j] - ea["dlogits"][:j]).abs().max())
                   if j else 0.0)
@@ -4038,7 +4229,7 @@ def vlm_phase(cfg, params, dev) -> dict:
         cfg, {"layer": b, "frontend": None, "head": b}, "flash_decode")
     return prefill_decode_phase(
         "vlm", cfg, params, dev, inputs, s, VLM_DECODE_STEPS, want_pre,
-        want_dec, kv_relmax, patches=cfg.frontend_tokens, text_tokens=text)
+        want_dec, patches=cfg.frontend_tokens, text_tokens=text)
 
 
 def audio_phase(cfg, params, dev) -> dict:
@@ -4378,28 +4569,6 @@ def check_hybrid_phase(cfg, cgen) -> dict:
     return out
 
 
-def cache_relmax(cfg, got, want, s=None) -> dict:
-    """The worst per-layer max-relative error of each cache leaf (the
-    super entries' mamba leaves and shared K / V, the tail's mamba
-    leaves), K / V over rows [0, s) when `s` is given."""
-    errs = {}
-    for e, (kind, n) in enumerate(tfm.stack_program(cfg)):
-        if kind == "zamba_super":
-            for name, t in want[e]["mamba"].items():
-                errs[f"super.{name}"] = max(
-                    relmax(got[e]["mamba"][name][i, j], t[i, j])
-                    for i in range(n) for j in range(cfg.attn_every))
-            for name, t in want[e]["shared"].items():
-                errs[f"shared.{name}"] = max(
-                    relmax(got[e]["shared"][name][i, :, :s],
-                           t[i, :, :s]) for i in range(n))
-        else:
-            for name, t in want[e].items():
-                errs[f"tail.{name}"] = max(relmax(got[e][name][i], t[i])
-                                           for i in range(n))
-    return errs
-
-
 def hybrid_phase(cfg, params, dev) -> dict:
     """Phase hybrid: zamba2-7b at full width and depth, a prefill of
     HYBRID_PREFILL tokens (two SSD chunks a sequence) and
@@ -4413,7 +4582,7 @@ def hybrid_phase(cfg, params, dev) -> dict:
     return prefill_decode_phase(
         "hybrid", cfg, params, dev, {"tokens": tokens}, s,
         HYBRID_DECODE_STEPS, hybrid_call_launches(cfg, b * s, b, "prefill"),
-        hybrid_call_launches(cfg, b, b, "decode"), cache_relmax,
+        hybrid_call_launches(cfg, b, b, "decode"),
         strict_tokens=True, program=tfm.stack_program(cfg),
         ssd_heads=cfg.ssm_nheads, state=cfg.ssm_state, chunk=cfg.ssm_chunk,
         prompt=s)
@@ -4663,11 +4832,11 @@ def mla_call_launches(cfg, b: int, s: int, kind: str) -> dict:
 
 
 def refused_at_mla_dims() -> dict:
-    """The forward at the latent's 576 (a shallow-cache or chunked MLA
-    decode) and dQ / dK / dV at 192 (MLA training), for `refused`."""
+    """The forward and dQ / dK / dV at the latent's 576 (a shallow-cache or
+    chunked MLA decode; never trained), for `refused`."""
     q, k, _ = zero_operands(576, h=16, skv=300, kv=1)
     return {"flash_attention_fwd at 576": (
-        lambda: fa.flash_attention_fwd(q, k, k), 576), **bwd_refusals(192)}
+        lambda: fa.flash_attention_fwd(q, k, k), 576), **bwd_refusals(576)}
 
 
 def check_mla_phase(cfg, mgen) -> dict:
@@ -4750,19 +4919,6 @@ def mla_params(cfg, dev):
     return params
 
 
-def latent_relmax(cfg, got, want, s=None) -> dict:
-    """The worst per-layer max-relative error of each latent cache leaf
-    (c_kv, k_rope) over the program's entries, rows [0, s) when `s` is
-    given."""
-    errs = {}
-    for g_entry, w_entry in zip(got, want):
-        for name, t in w_entry.items():
-            errs[name] = max([errs.get(name, 0.0)] + [
-                relmax(g_entry[name][i, :, :s], t[i, :, :s])
-                for i in range(t.shape[0])])
-    return errs
-
-
 def mla_phase(cfg, params, dev) -> dict:
     """Phase mla: deepseek-v2-lite-16b at full width and depth, a prefill
     of MLA_PREFILL tokens (the flash forward at head dim 192) and
@@ -4777,7 +4933,7 @@ def mla_phase(cfg, params, dev) -> dict:
     return prefill_decode_phase(
         "mla", cfg, params, dev, {"tokens": tokens}, s, MLA_DECODE_STEPS,
         mla_call_launches(cfg, b, s, "prefill"),
-        mla_call_launches(cfg, b, 1, "decode"), latent_relmax,
+        mla_call_launches(cfg, b, 1, "decode"),
         strict_tokens=True, routed=True, program=tfm.stack_program(cfg),
         latent=[cfg.kv_lora_rank, cfg.qk_rope_dim],
         experts=[cfg.n_routed_experts, cfg.top_k, cfg.n_shared_experts],
@@ -4988,14 +5144,15 @@ def timing_mla_phase(cfg, params, dev, mgen, peak_flops, peak_bw,
 # ------------------------- training the SSM, audio and hybrid families ---
 
 def attn_bwd_dims_phase(dev) -> dict:
-    """Phase check_attn_bwd at head dims 80 and 112 (each drawn from a
+    """Phase check_attn_bwd at head dims 80, 112 and 192 (each drawn from a
     generator of its own, TRAIN_SEED + the head dim): the lse forward, dQ
     and dK / dV against their plain versions as `check_attn_bwd_case` over
     the grid of phase 16 (HEAD_RATIOS, BWD_SHAPES, causal on and off,
     kv_len with a 0, fp32 and bf16) and at the model's training shape
     (hubert-xlarge's 4 x 500, 16 / 16 heads, not causal; zamba2-7b's 2 x
-    512, 32 / 32 heads, causal); then dQ, dK / dV and `FlashAttention`
-    refused at MLA's 192 with no launch.  Returns per head dim the fp32
+    512, 32 / 32 heads, causal; deepseek-v2-lite-16b's 2 x 512, 16 / 16
+    heads of 192, causal); then dQ, dK / dV and `FlashAttention` refused
+    at the latent's 576 with no launch.  Returns per head dim the fp32
     max-abs errors at the model's shape by output."""
     out = {}
     for d, (arch, (b, s), causal) in TRAIN_ATTN.items():
@@ -5018,7 +5175,7 @@ def attn_bwd_dims_phase(dev) -> dict:
                             cases += 1
         torch.cuda.synchronize()
         emit("check_attn_bwd", head_dim=d, grid_cases=cases, relmax=worst,
-             plans_bitwise=[list(p) for p in fa.BWD_PLANS])
+             plans_bitwise=[list(p) for p in fa.bwd_plans_at(d)])
         cfg = get_arch(arch)
         h = cfg.n_heads
         rows = []
@@ -5033,23 +5190,26 @@ def attn_bwd_dims_phase(dev) -> dict:
         emit("check_attn_bwd", arch=arch, head_dim=d,
              shape=[b, s, s, h, cfg.n_kv_heads, d], causal=causal,
              cases=rows, bitwise_two_runs=True,
-             path_plan=list(fa.bwd_plan_for(b, s, h, cfg.n_kv_heads)),
-             plans_bitwise=[list(p) for p in fa.BWD_PLANS])
-    emit("check_attn_bwd", refused_at_192=refused(bwd_refusals(192)))
+             path_plan=list(fa.bwd_plan_for(b, s, h, cfg.n_kv_heads, d)),
+             plans_bitwise=[list(p) for p in fa.bwd_plans_at(d)])
+    emit("check_attn_bwd", refused_at_576=refused(bwd_refusals(576)))
     return out
 
 
 def train_gemms(cfg, b: int, s: int) -> list[dict]:
-    """The GEMMs of one train step of a dense, SSM, audio or hybrid config
-    (`lm_gemms`, `ssm_gemms`, `frontend_gemms`, `hybrid_gemms`), each with
-    `m`, its
+    """The GEMMs of one train step of a dense, SSM, audio, hybrid or MoE
+    config (`lm_gemms`, `ssm_gemms`, `frontend_gemms`, `hybrid_gemms`,
+    `moe_gemms`, `mla_gemms`: the MLA prefill's w_uk / w_uv run in
+    training), each with `m`, its
     rows (batch x seq, the head's a CE chunk's: batch x min(512, seq)),
     `reps` a step (the head's once a chunk) and `remat` whether the
     backward recomputes it (all but the audio projection, which embeds
     the frames before the first layer)."""
     chunk = min(512, s)
+    family = "mla" if cfg.is_mla else cfg.family
     gemms = {"dense": lm_gemms, "ssm": ssm_gemms, "audio": frontend_gemms,
-             "hybrid": hybrid_gemms}[cfg.family](cfg)
+             "hybrid": hybrid_gemms, "moe": moe_gemms,
+             "mla": mla_gemms}[family](cfg)
     out = []
     for g in gemms:
         head = g["name"] == "head"
@@ -5060,14 +5220,25 @@ def train_gemms(cfg, b: int, s: int) -> list[dict]:
     return out
 
 
+def train_bmms(cfg, b: int, s: int) -> list[tuple]:
+    """The expert bmm launches of one MoE layer in a train step at b x s
+    (`expert_shapes` at b x capacity rows), (E, M, K, N) each; none for a
+    stack without MoE layers."""
+    if not n_moe_layers(cfg):
+        return []
+    return expert_shapes(cfg, b * moe.capacity(s, cfg))
+
+
 def family_train_launches(cfg, b: int, s: int) -> dict:
     """Exact kernel launches of one train step (`loss_fn` and its gradient,
-    remat) of a dense, SSM, audio or hybrid config at b x s: each GEMM's
-    residual forward twice where the backward recomputes it, else once,
-    by regime, one dX and one dW a call and the reduce passes their splits
-    need; per attention layer two lse forwards, one dQ and one dK / dV;
-    per mamba layer two einsum-form SSD dispatches (the forward and its
-    recompute) and no SSD kernel launch."""
+    remat) of a dense, SSM, audio, hybrid or MoE config at b x s: each
+    GEMM's residual forward twice where the backward recomputes it, else
+    once, by regime, one dX and one dW a call and the reduce passes their
+    splits need; per MoE layer each of its three expert bmm the same way
+    (forward and recompute by regime, `bmm_bwd_dx`, `bmm_bwd_dw` and their
+    reduce passes); per attention layer two lse forwards, one dQ and one
+    dK / dV; per mamba layer two einsum-form SSD dispatches (the forward
+    and its recompute) and no SSD kernel launch."""
     want = dict.fromkeys(all_launches(), 0)
     for g in train_gemms(cfg, b, s):
         m, k, n, reps = g["m"], g["k"], g["n"], g["reps"]
@@ -5081,8 +5252,19 @@ def family_train_launches(cfg, b: int, s: int) -> dict:
         want["gemm_bwd_dx"] += reps
         want["gemm_bwd_dw"] += reps
         want["gemm_bwd_reduce"] += reps * ((dx[3] > 1) + (dw[3] > 1))
+    n_moe = n_moe_layers(cfg)
+    for e, m, k, n in train_bmms(cfg, b, s):
+        dx = ops.default_bwd_tiles("dx", m, n, k, e)
+        dw = ops.default_bwd_tiles("dw", k, m, n, e)
+        want["bmm_fwd"] += 2 * n_moe
+        want[f"gemm_fwd_regime_"
+             f"{ops.bmm_plan_for(m, k, n).regime.lower()}"] += 2 * n_moe
+        want["bmm_bwd_dx"] += n_moe
+        want["bmm_bwd_dw"] += n_moe
+        want["gemm_bwd_reduce"] += n_moe * ((dx[3] > 1) + (dw[3] > 1))
     n_attn = {"dense": cfg.n_layers, "ssm": 0, "audio": cfg.n_layers,
-              "hybrid": tfm.stack_program(cfg)[0][1]}[cfg.family]
+              "hybrid": tfm.stack_program(cfg)[0][1],
+              "moe": cfg.n_layers}[cfg.family]
     want["flash_attention_lse"] = 2 * n_attn
     want["flash_attention_bwd_dq"] = want["flash_attention_bwd_dkv"] = n_attn
     want["ssd_einsum_form"] = 2 * n_mamba(cfg)
@@ -5100,8 +5282,12 @@ def check_train_gemms(phase, cfg, b: int, s: int, gen) -> dict:
     past 4096 terms `gemm_tol`'s, as the LM head's: mamba2's tied head
     contracts 50288 in dX) and every backward plan bitwise
     the path plan's (`check_bwd_bits`) at each distinct shape of the
-    config's train step (`train_gemms`).  Returns the fp32 max-abs errors
-    by kernel."""
+    config's train step (`train_gemms`); for a MoE config also the expert
+    bmm at each distinct shape of `train_bmms` (`check_bmm_case` at the
+    path's forward plan and the dX and dW plans and splits: each kernel
+    against its plain version, every batch slice the 2-D kernel's, every
+    backward plan bitwise).  Returns the fp32 max-abs errors by
+    kernel."""
     worst = {"gemm_bwd_dx": 0.0, "gemm_bwd_dw": 0.0}
     seen = set()
     for g in train_gemms(cfg, b, s):
@@ -5110,11 +5296,20 @@ def check_train_gemms(phase, cfg, b: int, s: int, gen) -> dict:
             continue
         seen.add(shape)
         res = check_bwd_shape(*shape, *bwd_plans(*shape), gen, long_k=True)
-        for key in worst:
+        for key in ("gemm_bwd_dx", "gemm_bwd_dw"):
             worst[key] = max(worst[key], res["max_abs_err_fp32"][key])
         bits = check_bwd_bits(*shape, gen)
         emit("check_bwd", path=phase, gemm=g["name"], **res,
              plans=bits["plans"], bitwise_cases=bits["bitwise_cases"])
+    for shape in dict.fromkeys(train_bmms(cfg, b, s)):
+        plan, dx_plan, dw_plan = bmm_plans(*shape)
+        res = check_bmm_case(*shape, [(plan, *dx_plan), (plan, *dw_plan)],
+                             gen)
+        for key in ("bmm_bwd_dx", "bmm_bwd_dw"):
+            worst[key] = max(worst.get(key, 0.0),
+                             res["max_abs_err_fp32"][key])
+        emit("check_bmm", path=phase, **res)
+        torch.cuda.empty_cache()
     torch.cuda.synchronize()
     return worst
 
@@ -5134,152 +5329,260 @@ def audio_batch(cfg, dev, run: dict, step: int) -> dict:
                          device=dev)
 
 
+def prefill_launches(cfg) -> dict:
+    """The launches a `no_grad` prefill of a trained `cfg` (no head) must
+    show: per mamba layer one SSD launch and no einsum-form dispatch; per
+    layer of a MoE stack one flash forward and per MoE layer its three
+    expert bmm."""
+    want = {}
+    if n_mamba(cfg):
+        want.update(ssd_scan=n_mamba(cfg), ssd_einsum_form=0)
+    if n_moe_layers(cfg):
+        want.update(flash_attention=cfg.n_layers,
+                    bmm_fwd=3 * n_moe_layers(cfg))
+    return want
+
+
 def family_train_phase(phase, cfg, dev, run: dict, gen, data=None,
-                       floor_microbatches: int = 1) -> dict:
-    """Phases ssm_train, audio_train and hybrid_train (see the module
-    docstring): the config's training GEMMs checked, then the step-1 loss
-    and gradients of `loss_fn` on `cuda` (twice, bitwise) against `eager`
-    and `ref`, then run["steps"] AdamW steps on each engine (the counts set
+                       floor_step=None) -> dict:
+    """Phases ssm_train, audio_train, hybrid_train, mla_train and moe_train
+    (see the module docstring): the config's training GEMMs (and expert
+    bmm) checked, then the step-1 loss and gradients of `loss_fn` on
+    `cuda` (twice, bitwise) against `eager` and `ref`, then run["steps"]
+    AdamW steps on `cuda`, `eager` and `ref` in that order (the counts set
     to 0 just before each) through `train_loop` or, given `data` (step ->
     batch), through `make_train_step` with train_loop's initial parameters
     and optimizer settings, `eager`'s kept as the reference and each other
-    run freed after its drift is taken (the `ref` run in
-    `floor_microbatches` microbatches, on `data`), then a `no_grad`
-    prefill of the model `cuda` trained.  Step-1 gradients are held to TRAIN_TOL or
-    FLOOR_FACTOR x the same tensor's `ref`-`eager` gap, whichever is
-    larger: at mamba2's 48 layers two correct fp32 programs part by more
-    than TRAIN_TOL on a few small tensors (conv biases, A_log, dt_bias,
-    sums over all 4096 positions).  Returns the `cuda` run's launch counts
-    and the GEMM checks' errors."""
+    run's state freed after its drift is taken (the `ref` run, on `data`,
+    with `make_train_step`'s arguments `floor_step` where `ref` would
+    compute `eager`'s bits: two microbatches, or another CE chunk, the
+    same function summed in another order), then a `no_grad` prefill of
+    the model `cuda` trained (for a stack with mamba or MoE layers).
+    Step-1 gradients are held to TRAIN_TOL or FLOOR_FACTOR x the same
+    tensor's `ref`-`eager` gap, whichever is larger: at mamba2's 48 layers
+    two correct fp32 programs part by more than TRAIN_TOL on a few small
+    tensors (conv biases, A_log, dt_bias, sums over all 4096 positions).
+    The parameters' drift is also taken apart (`sharp_params_farthest`:
+    per tensor cuda and `ref` against `eager` over the elements whose
+    step-1 gradient clears FLOOR_FACTOR x the tensor's cuda-eager error on
+    both engines, cuda over the others, and their count), and held over
+    the former, where run["sharp_tol"] is given, to it or FLOOR_FACTOR x
+    `ref`'s, whichever is larger.  A MoE stack's runs
+    record their routes by layer (`routing`): `cuda` its own, which
+    `eager` and `ref` then run (`RouteReplay`), each route they would have
+    chosen otherwise a near tie (`route_ties`); the prefill replays
+    `cuda`'s routes per call.  run["steps"] 0 stops after step 1, whose
+    peak memory is then held to run["peak_gb_bound"].  Returns the `cuda`
+    run's launch counts (step 1's with no trajectory), step 1's and the
+    GEMM checks' errors."""
     seed, b, s, steps = run["seed"], run["batch"], run["seq"], run["steps"]
     gemm_abs = check_train_gemms(phase, cfg, b, s, gen)
     engines = {"cuda": make_engine("cuda"),
                "eager": make_engine("eager", device=dev),
                "floor": make_engine(FLOOR_BACKEND, device=dev)}
     want = family_train_launches(cfg, b, s)
+    routed = bool(n_moe_layers(cfg))
     params = lm_train_params(cfg, dev, seed)
     n_leaves = len(flatten(params))
     batch0 = (lm_train_batch(cfg, dev, 0, b, s, seed) if data is None
               else data(0))
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     reset_all_launches()
-    loss_c, grads_c = lm_grads(engines["cuda"], cfg, params, batch0)
+    with routing(cfg) as rc:
+        loss_c, grads_c = lm_grads(engines["cuda"], cfg, params, batch0)
     torch.cuda.synchronize()
     step_launches = all_launches()
-    loss_c2, grads_c2 = lm_grads(engines["cuda"], cfg, params, batch0)
+    step_dispatch = backends.dispatch_counts()
+    routes = rc.calls if routed else None
+    with routing(cfg) as rc2:
+        loss_c2, grads_c2 = lm_grads(engines["cuda"], cfg, params, batch0)
     bitwise = torch.equal(loss_c, loss_c2) and all(
         torch.equal(g, grads_c2[k]) for k, g in grads_c.items())
+    if routed:
+        bitwise = bitwise and len(rc2.calls) == len(routes) and all(
+            torch.equal(a[0], c[0]) for a, c in zip(routes, rc2.calls))
     del grads_c2
-    loss_e, grads_e = lm_grads(engines["eager"], cfg, params, batch0)
+    with routing(cfg, routes) as re_:
+        loss_e, grads_e = lm_grads(engines["eager"], cfg, params, batch0)
     grad_err = {k: relmax(g, grads_e[k]) for k, g in grads_c.items()}
-    grad_abs = max(float((g - grads_e[k]).abs().max())
-                   for k, g in grads_c.items())
+    grad_abs_of = {k: pieces_max(g, grads_e[k], None)[0]
+                   for k, g in grads_c.items()}
+    grad_abs = max(float(e) for e in grad_abs_of.values())
+    # The elements whose step-1 gradient clears FLOOR_FACTOR x its tensor's
+    # cuda-eager error on both engines, so that AdamW steps them the same
+    # way; an element nearer 0 may take opposite +-lr steps
+    sharp = {k: torch.minimum(g.abs(), grads_e[k].abs())
+             > FLOOR_FACTOR * grad_abs_of[k]
+             for k, g in grads_c.items()} if steps else {}
     del grads_c
-    loss_f, grads_f = lm_grads(engines["floor"], cfg, params, batch0)
+    with routing(cfg, routes):
+        loss_f, grads_f = lm_grads(engines["floor"], cfg, params, batch0)
     grad_floor = {k: relmax(g, grads_e[k]) for k, g in grads_f.items()}
+    torch.cuda.synchronize()
+    step1_peak = torch.cuda.max_memory_allocated(dev) / 1e9
     del grads_f, grads_e, params
     torch.cuda.empty_cache()
     step1 = {"loss_rel_err": abs(loss_c.item() - loss_e.item())
              / abs(loss_e.item()),
              "loss_rel_floor": abs(loss_f.item() - loss_e.item())
-             / abs(loss_e.item())}
+             / abs(loss_e.item()),
+             "peak_gb": step1_peak}
+    if routed:
+        step1["routes"] = {**route_ties(cfg, routes, re_.calls),
+                           "recomputed": rc.recomputed}
+    fields = dict(arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+                  batch=b, seq=s, steps=steps, floor_backend=FLOOR_BACKEND,
+                  reduced=run.get("reduced", []), step1=step1,
+                  step1_grads_bitwise_two_runs=bitwise,
+                  grad_relmax_worst=max(grad_err.values()),
+                  grad_floor_worst=max(grad_floor.values()),
+                  grad_max_abs_err=grad_abs,
+                  grads_past_train_tol={k: [e, grad_floor[k]]
+                                        for k, e in grad_err.items()
+                                        if e > TRAIN_TOL},
+                  floor_factor=FLOOR_FACTOR, step1_launches=step_launches,
+                  want_step1_launches=want, floor_step=floor_step or {},
+                  gemm_check_max_abs=gemm_abs)
 
-    def train(label) -> dict:
+    def train(label, replay=None) -> dict:
         metrics: list = []
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         reset_all_launches()
         t0 = time.perf_counter()
-        if data is None:
-            p, st = train_loop(cfg, steps=steps, batch=b, seq=s,
-                               ckpt_dir="", seed=seed, engine=engines[label],
-                               metrics_out=metrics, log_every=steps)
-        else:
-            p = lm_train_params(cfg, dev, seed)
-            st = opt.adamw_init(flatten(p))
-            step = make_train_step(engines[label], cfg, opt.AdamWConfig(
-                lr=3e-4, warmup_steps=min(100, steps // 10 + 1),
-                decay_steps=steps), ce_chunk=min(512, s),  # train_loop's
-                num_microbatches=floor_microbatches if label == "floor"
-                else 1)
-            for i in range(steps):
-                p, st, m = step(p, st, data(i))
-                metrics.append({"step": i, "loss": float(m["loss"])})
-        torch.cuda.synchronize()
+        with routing(cfg, replay) as rl:
+            if data is None:
+                p, st = train_loop(cfg, steps=steps, batch=b, seq=s,
+                                   ckpt_dir="", seed=seed,
+                                   engine=engines[label],
+                                   metrics_out=metrics, log_every=steps)
+            else:
+                p = lm_train_params(cfg, dev, seed)
+                st = opt.adamw_init(flatten(p))
+                kw = {"ce_chunk": min(512, s)}  # train_loop's
+                if label == "floor":
+                    kw.update(floor_step or {})
+                step = make_train_step(engines[label], cfg, opt.AdamWConfig(
+                    lr=3e-4, warmup_steps=min(100, steps // 10 + 1),
+                    decay_steps=steps), **kw)
+                for i in range(steps):
+                    p, st, m = step(p, st, data(i))
+                    metrics.append({"step": i, "loss": float(m["loss"])})
+            torch.cuda.synchronize()
         return {"nested": p, "params": flatten(p), "state": st,
                 "losses": [m["loss"] for m in metrics],
                 "wall_s": time.perf_counter() - t0,
                 "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
                 "launches": all_launches(),
-                "dispatch": backends.dispatch_counts()}
+                "dispatch": backends.dispatch_counts(),
+                "routes": rl.calls if routed else None}
 
-    ea = train("eager")
-    fl = train("floor")
-    floor = drift(fl, ea)
-    fl = {k: fl[k] for k in ("losses", "wall_s", "peak_gb", "launches")}
-    torch.cuda.empty_cache()
-    cu = train("cuda")  # the main path
-    err = drift(cu, ea)
-    worst = {key: max(err[key].values()) for key in ("params", "moments")}
-    worst_floor = {key: max(floor[key].values())
-                   for key in ("params", "moments")}
-    prefill = {}
-    if n_mamba(cfg):  # serving the trained model: the SSD kernel again
-        reset_all_launches()
-        with torch.no_grad():
-            h, _ = tfm.forward_prefill(engines["cuda"], cfg, cu["nested"],
-                                       tokens=batch0["tokens"],
-                                       collect_caches=False)
-            torch.cuda.synchronize()
-            prefill["launches"] = {k: v for k, v in all_launches().items()
-                                   if k.startswith("ssd")}
-            he, _ = tfm.forward_prefill(engines["eager"], cfg, cu["nested"],
-                                        tokens=batch0["tokens"],
-                                        collect_caches=False)
-        prefill["relmax"] = relmax(h, he)
-        prefill["finite"] = bool(torch.isfinite(h).all())
-        del h, he
-    want_total = {k: steps * v for k, v in want.items()}
-    dispatch = {f"{bk}.{o}": c for (bk, o), c in cu["dispatch"].items()}
-    emit(phase, arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
-         batch=b, seq=s, steps=steps, floor_backend=FLOOR_BACKEND,
-         reduced=run.get("reduced", []),
-         losses_cuda=cu["losses"], losses_eager=ea["losses"],
-         losses_floor=fl["losses"], loss_rel_err=err["loss"],
-         loss_rel_floor=floor["loss"], step1=step1,
-         step1_grads_bitwise_two_runs=bitwise,
-         grad_relmax_worst=max(grad_err.values()),
-         grad_floor_worst=max(grad_floor.values()),
-         grad_max_abs_err=grad_abs,
-         grads_past_train_tol={k: [e, grad_floor[k]]
-                               for k, e in grad_err.items() if e > TRAIN_TOL},
-         param_relmax_worst=worst["params"],
-         param_floor_worst=worst_floor["params"],
-         moment_relmax_worst=worst["moments"],
-         moment_floor_worst=worst_floor["moments"],
-         floor_factor=FLOOR_FACTOR, step1_launches=step_launches,
-         data="train_loop" if data is None else "make_train_step",
-         floor_microbatches=floor_microbatches,
-         launches=cu["launches"], want_launches=want_total,
-         peak_gb={"cuda": cu["peak_gb"], "eager": ea["peak_gb"],
-                  "floor": fl["peak_gb"]},
-         wall_s={"cuda": cu["wall_s"], "eager": ea["wall_s"],
-                 "floor": fl["wall_s"]},
-         dispatch=dispatch, eager_launches=sum(ea["launches"].values()),
-         prefill_after_training=prefill, gemm_check_max_abs=gemm_abs,
-         grad_relmax=grad_err)
-    check(all(math.isfinite(x) for x in cu["losses"]), "non-finite loss")
-    check(bitwise, "two cuda runs of the step-1 gradients differ")
+    kept = ("nested", "losses", "wall_s", "peak_gb", "launches", "dispatch",
+            "routes")
+    if steps:  # cuda first: in a MoE stack eager and ref follow its routes
+        cu = train("cuda")  # the main path
+        ea = train("eager", cu["routes"])
+        err = drift(cu, ea)
+        sharp_err = {k: [relmax(cu["params"][k], p, sharp[k]),
+                         relmax(cu["params"][k], p, ~sharp[k]),
+                         int(sharp[k].numel() - sharp[k].sum())]
+                     for k, p in ea["params"].items()}
+        if routed:
+            fields["train_routes"] = route_ties(cfg, cu["routes"],
+                                                ea["routes"])
+        cu = {k: cu[k] for k in kept}
+        torch.cuda.empty_cache()
+        fl = train("floor", cu["routes"])
+        floor = drift(fl, ea)
+        for k, p in ea["params"].items():
+            sharp_err[k].insert(1, relmax(fl["params"][k], p, sharp[k]))
+        fl = {k: fl[k] for k in kept if k != "nested"}
+        del sharp
+    ops_used = {("cuda", "matmul")} | ({("cuda", "ssd")} if n_mamba(cfg)
+                                       else set()) | (
+        {("cuda", "attention")} if want["flash_attention_lse"] else set()) | (
+        {("cuda", "einsum")} if routed else set())
+    if steps:
+        worst = {key: max(err[key].values()) for key in ("params", "moments")}
+        worst_floor = {key: max(floor[key].values())
+                       for key in ("params", "moments")}
+        want_total = {k: steps * v for k, v in want.items()}
+        fields.update(
+            losses_cuda=cu["losses"], losses_eager=ea["losses"],
+            losses_floor=fl["losses"], loss_rel_err=err["loss"],
+            loss_rel_floor=floor["loss"],
+            param_relmax_worst=worst["params"],
+            param_floor_worst=worst_floor["params"],
+            params_farthest={k: [e, floor["params"][k]] for k, e in sorted(
+                err["params"].items(), key=lambda kv: -kv[1])[:6]},
+            sharp_param_relmax_worst=max(e[0] for e in sharp_err.values()),
+            sharp_param_floor_worst=max(e[1] for e in sharp_err.values()),
+            sharp_params_farthest=dict(sorted(
+                sharp_err.items(), key=lambda kv: -kv[1][0])[:6]),
+            near_zero_params_farthest=dict(sorted(
+                sharp_err.items(), key=lambda kv: -kv[1][2])[:6]),
+            moment_relmax_worst=worst["moments"],
+            moment_floor_worst=worst_floor["moments"],
+            data="train_loop" if data is None else "make_train_step",
+            launches=cu["launches"], want_launches=want_total,
+            peak_gb={"cuda": cu["peak_gb"], "eager": ea["peak_gb"],
+                     "floor": fl["peak_gb"]},
+            wall_s={"cuda": cu["wall_s"], "eager": ea["wall_s"],
+                    "floor": fl["wall_s"]},
+            dispatch={f"{bk}.{o}": c for (bk, o), c in cu["dispatch"].items()},
+            eager_launches=sum(ea["launches"].values()))
+        prefill = {}
+        want_prefill = prefill_launches(cfg)
+        if want_prefill:  # serving the trained model: the kernels again
+            reset_all_launches()
+            with torch.no_grad():
+                with (RouteLog() if routed else
+                      contextlib.nullcontext()) as pl:
+                    h, _ = tfm.forward_prefill(
+                        engines["cuda"], cfg, cu["nested"],
+                        tokens=batch0["tokens"], collect_caches=False)
+                torch.cuda.synchronize()
+                prefill["launches"] = {k: all_launches()[k]
+                                       for k in want_prefill}
+                with (RouteReplay(pl.calls) if routed else
+                      contextlib.nullcontext()) as pr:
+                    he, _ = tfm.forward_prefill(
+                        engines["eager"], cfg, cu["nested"],
+                        tokens=batch0["tokens"], collect_caches=False)
+            prefill["relmax"] = relmax(h, he)
+            prefill["finite"] = bool(torch.isfinite(h).all())
+            if routed:
+                prefill["routes"] = route_ties(cfg, pl.calls, pr.calls)
+            del h, he
+        fields["prefill_after_training"] = prefill
+    emit(phase, **fields, grad_relmax=grad_err)
     check(step1["loss_rel_err"] <= FP32_TOL,
           f"step-1 loss cuda vs eager {step1['loss_rel_err']:.3e}")
-    check(err["loss"][0] <= FP32_TOL,
-          f"train_loop step-1 loss cuda vs eager {err['loss'][0]:.3e}")
+    check(bitwise, "two cuda runs of the step-1 gradients differ")
     check(len(grad_err) == n_leaves,
           f"{len(grad_err)} gradients, want {n_leaves}")
     over = {k: (e, grad_floor[k]) for k, e in grad_err.items()
             if not e <= max(TRAIN_TOL, FLOOR_FACTOR * grad_floor[k])}
     check(not over, f"step-1 gradients cuda vs eager (and {FLOOR_BACKEND} "
                     f"vs eager) past the bar: {over}")
+    check(step_launches == want,
+          f"{phase} step-1 launches {step_launches}, want {want}")
+    check(set(step_dispatch) == ops_used,
+          f"an engine op left the cuda backend at step 1: {step_dispatch}")
+    if routed:
+        check(rc.recomputed == len(routes) == n_moe_layers(cfg),
+              f"{len(routes)} MoE layers routed, {rc.recomputed} recomputed")
+    if "peak_gb_bound" in run:
+        check(step1_peak <= run["peak_gb_bound"],
+              f"{phase} step-1 peak {step1_peak:.1f} GB past the "
+              f"{run['peak_gb_bound']} GB predicted")
+    if not steps:
+        return {"launches": step_launches, "step_launches": step_launches,
+                "gemm_abs": gemm_abs, "grad_abs": grad_abs}
+    check(all(math.isfinite(x) for x in cu["losses"]), "non-finite loss")
+    check(err["loss"][0] <= FP32_TOL,
+          f"train_loop step-1 loss cuda vs eager {err['loss'][0]:.3e}")
     for i, (e, f) in enumerate(zip(err["loss"], floor["loss"])):
         check(e <= max(FP32_TOL, FLOOR_FACTOR * f),
               f"step-{i + 1} loss cuda vs eager {e:.3e}, "
@@ -5288,25 +5591,26 @@ def family_train_phase(phase, cfg, dev, run: dict, gen, data=None,
         check(worst[key] <= max(TRAIN_TOL, FLOOR_FACTOR * worst_floor[key]),
               f"{key} after {steps} steps: cuda vs eager {worst[key]:.3e}, "
               f"{FLOOR_BACKEND} vs eager {worst_floor[key]:.3e}")
-    check(step_launches == want,
-          f"{phase} step-1 launches {step_launches}, want {want}")
+    if "sharp_tol" in run:
+        over = {k: e[:2] for k, e in sharp_err.items()
+                if not e[0] <= max(run["sharp_tol"], FLOOR_FACTOR * e[1])}
+        check(not over, f"parameters after {steps} steps over the elements "
+                        f"of a sharp step-1 gradient, cuda vs eager (and "
+                        f"{FLOOR_BACKEND} vs eager) past the bar: {over}")
     check(cu["launches"] == want_total,
           f"{phase} launches {cu['launches']}, want {want_total}")
-    ops_used = {("cuda", "matmul")} | ({("cuda", "ssd")} if n_mamba(cfg)
-                                       else set()) | (
-        {("cuda", "attention")} if want["flash_attention_lse"] else set())
     check(set(cu["dispatch"]) == ops_used,
           f"an engine op left the cuda backend: {cu['dispatch']}")
     check(sum(ea["launches"].values()) + sum(fl["launches"].values()) == 0,
           "the eager or floor engine launched a kernel of the port")
     if prefill:
-        check(prefill["launches"] == {"ssd_scan": n_mamba(cfg),
-                                      "ssd_einsum_form": 0},
+        check(prefill["launches"] == want_prefill,
               f"the prefill after training launched {prefill['launches']}")
         check(prefill["finite"] and prefill["relmax"] <= TRAIN_TOL,
               f"the trained model's prefill cuda vs eager "
               f"{prefill['relmax']:.3e}")
-    return {"launches": cu["launches"], "gemm_abs": gemm_abs}
+    return {"launches": cu["launches"], "step_launches": step_launches,
+            "gemm_abs": gemm_abs, "grad_abs": grad_abs}
 
 
 def timing_family_train_phase(phase, cfg, dev, run: dict, gen, peak_flops,
@@ -5315,7 +5619,8 @@ def timing_family_train_phase(phase, cfg, dev, run: dict, gen, peak_flops,
     `cuda` and `eager` and each one's device time by kernel; for a config
     with attention, the lse forward, dQ and dK / dV at its training shape
     (`attn_train_rows`, drawn from `gen`) with their launches a step from
-    `launches`, phase <phase>'s counts over run["steps"] steps."""
+    `launches`, phase <phase>'s counts over run["steps"] steps; for a MoE
+    config also the expert bmm's dX and dW (`train_bmm_rows`)."""
     b, s = run["batch"], run["seq"]
     steps, by_kernel = train_step_timing(
         cfg, dev, run, batch=audio_batch(cfg, dev, run, 0)
@@ -5336,6 +5641,10 @@ def timing_family_train_phase(phase, cfg, dev, run: dict, gen, peak_flops,
         emit(f"timing_{phase}", kernel=name, smi=smi,
              launches_per_step=launches[name] // run["steps"],
              shape=list(shape[:5]), causal=cfg.causal, **row)
+    if n_moe_layers(cfg):
+        rows.update(train_bmm_rows(
+            phase, cfg, run, gen, peak_flops, peak_bw, smi,
+            {k: v // run["steps"] for k, v in launches.items()}))
     return rows
 
 
@@ -5813,7 +6122,7 @@ def main() -> int:
     aud_tr = family_train_phase(
         "audio_train", acfg, dev, AUDIO_TRAIN, tgen,
         data=lambda i: audio_batch(acfg, dev, AUDIO_TRAIN, i),
-        floor_microbatches=2)
+        floor_step={"num_microbatches": 2})
     aud_tt = timing_family_train_phase("audio_train", acfg, dev, AUDIO_TRAIN,
                                        tgen, peak_flops, peak_bw, smi,
                                        aud_tr["launches"])
@@ -5847,6 +6156,30 @@ def main() -> int:
     lt = timing_mla_phase(lcfg, lparams, dev, mgen, peak_flops, peak_bw,
                           smi)
     del lparams
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------- 56-58. training the MoE programs
+    tcfg = dataclasses.replace(lcfg, n_layers=MLA_TRAIN["layers"])
+    ggen = torch.Generator(device=dev).manual_seed(MLA_TRAIN["gen"])
+    # `ref` computes `eager`'s bits here too, so its trajectory takes the CE
+    # in chunks of 256 (make_train_step on train_loop's batches): the same
+    # loss summed in another order; microbatches would split the routing
+    # groups' load-balance loss, another function
+    mla_tr = family_train_phase(
+        "mla_train", tcfg, dev, MLA_TRAIN, ggen,
+        data=lambda i: lm_train_batch(tcfg, dev, i, MLA_TRAIN["batch"],
+                                      MLA_TRAIN["seq"], MLA_TRAIN["seed"]),
+        floor_step={"ce_chunk": 256})
+    mla_tt = timing_family_train_phase("mla_train", tcfg, dev, MLA_TRAIN,
+                                       ggen, peak_flops, peak_bw, smi,
+                                       mla_tr["launches"])
+    torch.cuda.empty_cache()
+    tcfg = dataclasses.replace(get_arch(MOE_ARCH),
+                               n_layers=MOE_TRAIN["layers"])
+    ggen = torch.Generator(device=dev).manual_seed(MOE_TRAIN["gen"])
+    moe_tr = family_train_phase("moe_train", tcfg, dev, MOE_TRAIN, ggen)
+    moe_tt = train_bmm_rows("moe_train", tcfg, MOE_TRAIN, ggen, peak_flops,
+                            peak_bw, smi, moe_tr["step_launches"])
     torch.cuda.empty_cache()
 
     def kernel_entry(name, source, replaces, path, launches, max_abs_err,
@@ -5971,7 +6304,8 @@ def main() -> int:
                            bwd_dims_abs[d][key] for key in keys),
                        tt[name])
           for d, path, tr, tt in ((80, "audio_train", aud_tr, aud_tt),
-                                  (112, "hybrid_train", hyb_tr, hyb_tt))
+                                  (112, "hybrid_train", hyb_tr, hyb_tt),
+                                  (192, "mla_train", mla_tr, mla_tt))
           for name, source, replaces, keys in (
               ("flash_attention_lse", SOURCE_ATTN, REPLACES_ATTN,
                ("o", "lse")),
@@ -5979,6 +6313,12 @@ def main() -> int:
                ("dq",)),
               ("flash_attention_bwd_dkv", SOURCE_ATTN_BWD, REPLACES_DKV,
                ("dk", "dv")))),
+        *(kernel_entry(f"{name}:{path}", SOURCE_BWD, replaces, path,
+                       tr["launches"][name], tr["gemm_abs"][name], tt[name])
+          for path, tr, tt in (("mla_train", mla_tr, mla_tt),
+                               ("moe_train", moe_tr, moe_tt))
+          for name, replaces in (("bmm_bwd_dx", REPLACES_BMM_DX),
+                                 ("bmm_bwd_dw", REPLACES_BMM_DW))),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

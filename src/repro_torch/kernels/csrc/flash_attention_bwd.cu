@@ -42,13 +42,16 @@
 //     the same number of expf; the dK / dV update is split the same way
 //     (warps 0-3 dV = P^T dO, 4-7 dK = dS^T Q, 4 keys x D/16 columns a
 //     thread: runs of 4 columns 64 apart, then a tail, as the forward's
-//     columns, so head dims 80 and 112 read 4 + 1 and 4 + 3 columns, the
-//     runs as 16-byte reads); the dQ update gives each thread 4 columns
-//     of ROWS / RG rows, D/16 warps across the columns and 8 / (D/16)
-//     down the rows, so every (row, column) has one owner: at head dims
-//     32, 64 and 128 all 256 threads, at 80 and 112 the first 5 and 7
-//     warps (8 row groups of 8 rows in the 64-row plan, of 2 in the
-//     16-row one);
+//     columns, so head dims 80, 112 and 192 read 4 + 1, 4 + 3 and
+//     4 + 4 + 4 columns, the runs as 16-byte reads); the dQ update gives
+//     each thread CN columns of ROWS / RG rows over CL column lanes: up to
+//     head dim 128 one run of 4 columns (CL = D/4, D/16 warps across the
+//     columns and 8 / (D/16) down the rows), at 192 three runs of 4
+//     columns 64 apart (CL = 16: 4 warps across, 2 down), so every (row,
+//     column) has one owner: at head dims 32, 64, 128 and 192 all 256
+//     threads, at 80 and 112 the first 5 and 7 warps (8 row groups of 8
+//     rows in the 64-row plan, of 2 in the 16-row one; 16 groups of one
+//     row at 192);
 //   * operands are staged by 16-byte cp.async (gemm_common.cuh), the next
 //     tile or chunk while the current one computes, bf16 copied raw and
 //     widened as it is read, unaligned or ragged rows element by element
@@ -56,11 +59,16 @@
 //     the forward (a row of 80 or 112 columns is 20 or 28 pieces in fp32,
 //     which do not divide the 256 threads); a thread steps through its q
 //     and dO rows with one division by G per chunk;
-//   * head dims 32, 64, 80, 112 and 128 (run_d); shared memory of one
-//     fp32 block, dQ's 64-row plan / dK / dV: 147,456 / 126,976 bytes at
-//     80, 196,608 / 167,936 at 112, 221,184 / 188,416 at 128;
+//   * head dims 32, 64, 80, 112, 128 and 192 (run_d); shared memory of
+//     one fp32 block, dQ's 64-row plan / dK / dV: 147,456 / 126,976 bytes
+//     at 80, 196,608 / 167,936 at 112, 221,184 / 188,416 at 128; at 192
+//     (MLA's prefill) the 64-row dQ block would need 319,488 bytes, so
+//     only the 16-row plan is instantiated there (231,936 bytes), in both
+//     dtypes (`admitted`, one rule as the forward's), and dK / dV take
+//     32-row chunks (160,256 bytes; 64 rows would need 270,336);
 //   * dK / dV: one block per (batch, kv-head) and 32-key tile, its loop
-//     walking the live chunks (128 rows up to head dim 64, 64 beyond) of
+//     walking the live chunks (128 rows up to head dim 64, 64 up to 128,
+//     32 beyond) of
 //     the G Sq query rows of the group, so the group's reduction happens in
 //     the block with no atomics: 256 blocks at the training shape;
 //   * dQ: one block per (batch, kv-head) and 16 or 64 query rows of the
@@ -330,13 +338,16 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   using S = DqSmem<T, D, ROWS>;
   constexpr int LD = S::LD;
   constexpr int TR = ROWS / 8;            // rows of s or dp a thread holds
-  constexpr int DG = D / 4;               // column groups of dQ, 4 columns
-  constexpr int WD = DG / 4;              // warps across the columns
+  constexpr int CL = D / 4 <= 32 ? D / 4 : 16;  // column lanes of dQ
+  constexpr int CN = D / CL;              // columns of dQ a thread holds
+  constexpr int WD = CL / 4;              // warps across the columns
   constexpr int WR = THREADS / 32 / WD;   // warps down the rows
   constexpr int RG = WR * 8 < ROWS ? WR * 8 : ROWS;  // row groups
   constexpr int RC = ROWS / RG;           // rows of dQ a thread holds
-  static_assert(D % 16 == 0 && WD >= 1 && WD <= THREADS / 32,
-                "dQ's column groups fill whole warps of 4 groups");
+  static_assert(D % 16 == 0 && CN % 4 == 0 && CN * CL == D && WD >= 1 &&
+                WD <= THREADS / 32,
+                "dQ's column lanes fill whole warps of 4 lanes, each lane "
+                "whole runs of 4 columns");
   static_assert(RG % 8 == 0 && RG * RC == ROWS,
                 "every dQ row has exactly one row group");
   extern __shared__ __align__(16) unsigned char smem[];
@@ -399,19 +410,19 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     row_delta[i] = in ? delta[at] : 0.f;
     row_end[i] = in ? (causal ? kvlen - Sq + pos + 1 : kvlen) : 0;
   }
-  // dQ: rows elem<RC, RG>(rg, i), columns dg * 4 .. dg * 4 + 3, each
+  // dQ: rows elem<RC, RG>(rg, i), columns elem<CN, CL>(dg, j), each
   // (row, column) one thread's: the first WD * WR warps, WD across the
-  // columns (2 at head dim 32, 4 at 64, 5 at 80, 7 at 112, 8 at 128) and
-  // WR down the rows (4, 2, 1, 1, 1); at 80 and 112 the last 3 and 1
-  // warps hold no dQ
+  // columns (2 at head dim 32, 4 at 64, 5 at 80, 7 at 112, 8 at 128, 4 at
+  // 192) and WR down the rows (4, 2, 1, 1, 1, 2); at 80 and 112 the last
+  // 3 and 1 warps hold no dQ
   const int dg = (warp % WD) * 4 + lane % 4;
   const int rg = (warp / WD) * 8 + lane / 4;
   const bool owns = warp < WD * WR && rg < RG;
-  float acc[RC][4];
+  float acc[RC][CN];
 #pragma unroll
   for (int i = 0; i < RC; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < CN; ++j) acc[i][j] = 0.f;
 
   for (int t = 0; t < ntiles; ++t) {
     cp_async_wait<0>();
@@ -454,14 +465,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       // dQ += dS K, one fmaf chain over the tile's keys in order
 #pragma unroll 8
       for (int c = 0; c < BKV; ++c) {
-        float dsv[RC];
+        float dsv[RC], kk[CN];
         load_n<RC, RG>(dst_s + c * S::DLD, rg, dsv);
-        const float4 kk = load4(kt + c * LD + dg * 4);
+        load_n<CN, CL>(kt + c * LD, dg, kk);
 #pragma unroll
         for (int i = 0; i < RC; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
-            acc[i][j] = __fmaf_rn(dsv[i], lane4(kk, j), acc[i][j]);
+          for (int j = 0; j < CN; ++j)
+            acc[i][j] = __fmaf_rn(dsv[i], kk[j], acc[i][j]);
       }
     }
   }
@@ -472,17 +483,17 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (r >= nrows) continue;
     const int gr = r0 + r;
     T* row = dq + ((static_cast<int64_t>(b) * Sq + gr / G) * H + kvh * G + gr % G) * D;
-    store4(row + dg * 4, acc[i]);
+    store_n<CN, CL>(row, dg, acc[i]);
   }
 }
 
 // Shared memory of a dK / dV block, in bytes: the k and v tile (T), two
 // stages of a chunk's q and dO rows (T) and of its lse and Delta (fp32),
 // and P and dS (fp32, rows by keys).  A chunk has 128 query rows up to
-// head dim 64 and 64 beyond, within the SM's shared memory.
+// head dim 64, 64 up to 128 and 32 beyond, within the SM's shared memory.
 template <typename T, int D>
 struct DkvSmem {
-  static constexpr int QR = D <= 64 ? 128 : 64;
+  static constexpr int QR = D <= 64 ? 128 : D <= 128 ? 64 : 32;
   static constexpr int LD = ld<T, D>();
   static constexpr int PLD = KEYS + 4;  // P / dS row stride: aligned, no conflict
   static constexpr size_t CHUNK = static_cast<size_t>(QR) * LD * sizeof(T);
@@ -706,11 +717,34 @@ cudaError_t launch_dkv(const Args& a, void* dk, void* dv) {
   return cudaGetLastError();
 }
 
+// Shared memory one block may use on an H100.
+constexpr size_t MAX_SMEM = 232448;
+
+// A dQ plan is instantiated at D where its fp32 block fits in shared
+// memory (one rule for both dtypes): both plans up to head dim 128, the
+// 16-row plan alone at 192.  flash_attention.py::bwd_plans_at states the
+// same rule and refuses the others first.
+template <int D, int ROWS>
+constexpr bool admitted() {
+  return DqSmem<float, D, ROWS>::bytes <= MAX_SMEM;
+}
+
+template <typename T, int D, int ROWS>
+cudaError_t launch_dq_if_admitted(const Args& a, void* dq) {
+  if constexpr (admitted<D, ROWS>()) {
+    return launch_dq<T, D, ROWS>(a, dq);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T, int D>
 cudaError_t run(const Args& a, void* dq, void* dk, void* dv) {
+  static_assert(DkvSmem<float, D>::bytes <= MAX_SMEM,
+                "the dK / dV block fits in shared memory");
   if (dq == nullptr) return launch_dkv<T, D>(a, dk, dv);
-  return a.rows == 64 ? launch_dq<T, D, 64>(a, dq)
-                      : launch_dq<T, D, 16>(a, dq);
+  return a.rows == 64 ? launch_dq_if_admitted<T, D, 64>(a, dq)
+                      : launch_dq_if_admitted<T, D, 16>(a, dq);
 }
 
 template <typename T>
@@ -726,6 +760,8 @@ cudaError_t run_d(int D, const Args& a, void* dq, void* dk, void* dv) {
       return run<T, 112>(a, dq, dk, dv);
     case 128:
       return run<T, 128>(a, dq, dk, dv);
+    case 192:
+      return run<T, 192>(a, dq, dk, dv);
     default:
       return cudaErrorInvalidValue;
   }

@@ -38,14 +38,15 @@ dim and its fp32 block fit in shared memory: at 80 and 112 the 32-lane
 plan is out, at 192 it is the only one) and `plan_for` picks one from the
 shape.  The forward is instantiated at head dims `FWD_HEAD_DIMS` (32, 64,
 80, 112, 128 and MLA's prefill 192), the backward kernels at
-`BWD_HEAD_DIMS` (32, 64, 80, 112, 128: hubert-xlarge's 80 and zamba2's
-112 included, MLA's 192 not, whose blocks do not fit in an SM's shared
-memory) and the decode kernel at
+`BWD_HEAD_DIMS` (32, 64, 80, 112, 128 and 192: hubert-xlarge's 80,
+zamba2's 112 and MLA's prefill 192 included) and the decode kernel at
 ``flash_decode.HEAD_DIMS`` (32, 64, 112, 128 and MLA's latent 576);
 each wrapper refuses another head dim by name, on the CPU as on the
 card.  The dQ kernel
-launches under a `BwdPlan`, its query rows per block: `BWD_PLANS` and
-`bwd_plan_for`.
+launches under a `BwdPlan`, its query rows per block: `BWD_PLANS` are
+the instantiated plans, `bwd_plans_at` those a head dim admits (a plan's
+fp32 block must fit in shared memory: at 192 the 16-row plan alone) and
+`bwd_plan_for` picks one from the shape.
 Every plan gives every output the same bits (one fmaf chain per element
 in a fixed order, ``csrc/flash_attention.cu`` and
 ``csrc/flash_attention_bwd.cu``), so a plan is a matter of speed only.
@@ -54,6 +55,7 @@ The dK / dV kernel has one launch shape.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -63,7 +65,7 @@ from repro_torch.kernels.ref import attention_mask, flash_attention_ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 FWD_HEAD_DIMS = (32, 64, 80, 112, 128, 192)  # the forward kernel's
-BWD_HEAD_DIMS = (32, 64, 80, 112, 128)  # dQ's and dK / dV's head dims
+BWD_HEAD_DIMS = (32, 64, 80, 112, 128, 192)  # dQ's and dK / dV's
 SMS = 132  # streaming multiprocessors of an H100 SXM
 MAX_SMEM = 232448  # bytes of shared memory one block may use
 KEY_TILE = 64  # keys of a K / V tile of the kernels
@@ -268,12 +270,18 @@ def _on_card(name: str, q) -> bool:
     return q.device.type == "cuda"
 
 
+def _smem_ld(d: int, dtype) -> tuple[int, int]:
+    """(element size, row stride in elements) of a staged operand row of
+    head dim `d`: the row padded by 16 bytes, as ``ld`` in the kernels."""
+    size = dtype.itemsize
+    return size, d + 16 // size
+
+
 def fwd_smem_bytes(d: int, plan: FwdPlan, dtype=torch.float32) -> int:
     """Shared memory of one forward block (``FwdSmem`` in
     csrc/flash_attention.cu): the plan's q rows and two stages of a K and
     a V tile, rows of head dim `d` padded by 16 bytes."""
-    size = torch.tensor([], dtype=dtype).element_size()
-    ld = d + 16 // size
+    size, ld = _smem_ld(d, dtype)
     return (plan.rows + 4 * KEY_TILE) * ld * size
 
 
@@ -370,13 +378,36 @@ def flash_attention_fwd(q, k, v, kv_len=None, *, causal: bool = True,
     return (o, lse) if return_lse else o
 
 
-def bwd_plan_for(b: int, sq: int, h: int, kv: int) -> BwdPlan:
+def bwd_smem_bytes(d: int, plan: BwdPlan, dtype=torch.float32) -> int:
+    """Shared memory of one dQ block (``DqSmem`` in
+    csrc/flash_attention_bwd.cu): the plan's q and dO rows, two stages of a
+    K and a V tile of `KEY_TILE` keys, and dS transposed in fp32."""
+    size, ld = _smem_ld(d, dtype)
+    return ((2 * plan.rows + 4 * KEY_TILE) * ld * size
+            + KEY_TILE * (plan.rows + 8) * 4)
+
+
+@functools.cache
+def bwd_plans_at(d: int) -> tuple[BwdPlan, ...]:
+    """The dQ plans instantiated at head dim `d`: those whose fp32 block
+    fits in `MAX_SMEM` (one rule for both dtypes; both plans up to 128, at
+    192 the 16-row plan alone: the 64-row plan's fp32 block needs 319,488
+    bytes)."""
+    return tuple(p for p in BWD_PLANS if bwd_smem_bytes(d, p) <= MAX_SMEM)
+
+
+def bwd_plan_for(b: int, sq: int, h: int, kv: int, d: int) -> BwdPlan:
     """The backward's plan for b sequences of sq query rows, h query heads
-    over kv kv-heads: 64-row dQ blocks when those give every SM a block,
-    else 16-row blocks, four times as many (`time_attention.py --bwd`
-    times both: 16 rows were faster up to 112 64-row blocks, 64 rows from
-    140 on).  For speed only: every plan gives the same bits."""
-    return BwdPlan(64 if b * kv * -(-(h // kv) * sq // 64) >= SMS else 16)
+    over kv kv-heads of head dim d: 64-row dQ blocks when those give every
+    SM a block, else 16-row blocks, four times as many (`time_attention.py
+    --bwd` times both: 16 rows were faster up to 112 64-row blocks, 64 rows
+    from 140 on), and always 16-row blocks where d admits no other
+    (`bwd_plans_at`; 192).  For speed only: every plan gives the same
+    bits."""
+    blocks = b * kv * -(-(h // kv) * sq // 64)
+    if BWD_PLANS[0] in bwd_plans_at(d) and blocks >= SMS:
+        return BWD_PLANS[0]
+    return BWD_PLANS[1]
 
 
 def _check_bwd(q, do, lse, delta, kernel: str) -> None:
@@ -416,14 +447,19 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, kv_len=None, *,
     operands, dO (B, Sq, H, D), its lse and Delta = rowsum(dO o O), fp32
     (B, H, Sq).  `plan` is one of `BWD_PLANS` (default `bwd_plan_for` the
     shape); any plan gives the same bits, and one that is not
-    instantiated raises ValueError.  A CPU tensor runs
-    `flash_attention_bwd_dq_plain`; a CUDA tensor launches the kernel and
-    raises RuntimeError if it fails."""
+    instantiated, or not at this head dim (`bwd_plans_at`), raises
+    ValueError.  A CPU tensor runs `flash_attention_bwd_dq_plain`; a CUDA
+    tensor launches the kernel and raises RuntimeError if it fails."""
     check_operands(q, k, v, kv_len)
     _check_bwd(q, do, lse, delta, "flash_attention_bwd_dq")
-    b, sq, h, _ = q.shape
-    plan_id = _plan_id(bwd_plan_for(b, sq, h, k.shape[2])
+    b, sq, h, d = q.shape
+    plan_id = _plan_id(bwd_plan_for(b, sq, h, k.shape[2], d)
                        if plan is None else plan, BWD_PLANS)
+    admitted = bwd_plans_at(d)
+    if BWD_PLANS[plan_id] not in admitted:
+        raise ValueError(f"dQ plan {BWD_PLANS[plan_id]} is not instantiated "
+                         f"at head dim {d} (its block does not fit in "
+                         f"shared memory); use one of {admitted}")
     if not _on_card("flash_attention_bwd_dq", q):
         return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, kv_len,
                                             causal=causal)
@@ -474,8 +510,8 @@ class FlashAttention(torch.autograd.Function):
     (as ``_flash_vjp_bwd``; a row with no live key has O = 0, so Delta = 0
     there) and launches the dQ kernel under `bwd_plan_for`'s plan and the
     dK / dV kernel.  kv_len and causal get no gradient.  A head dim the
-    backward kernels lack (MLA's 192) is refused here, before the forward
-    runs.
+    backward kernels lack (MLA's latent 576, which is never trained) is
+    refused here, before the forward runs.
     """
 
     @staticmethod

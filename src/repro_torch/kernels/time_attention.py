@@ -303,7 +303,7 @@ def time_backward(gen, dev) -> dict:
         row = {"shape": [b, s, s, h, kv, d], "dtype": dt, "causal": True,
                "dkv_ms": dkv_ms, "plans": by_plan}
         if plans[0] is not None:
-            pick = str(tuple(fa.bwd_plan_for(b, s, h, kv)))
+            pick = str(tuple(fa.bwd_plan_for(b, s, h, kv, d)))
             fastest = min(by_plan, key=lambda p: by_plan[p]["op_ms"])
             ratio = by_plan[pick]["op_ms"] / by_plan[fastest]["op_ms"]
             row.update(pick=pick, fastest=fastest, ratio=ratio)

@@ -383,11 +383,8 @@ def loss_fn(engine: ComputeEngine, cfg, params: dict, batch: dict, *,
     config, whose text tokens are then S - T, or ``frames`` in place of
     tokens for an audio config), plus ``aux_coef`` times the mean MoE
     load-balance loss over the MoE layers when the stack has any.  On
-    `cuda` an MLA stack does not differentiate: the attention backward
-    kernels are not instantiated at its head dim 192, and `FlashAttention`
-    refuses it by name.  A mamba layer's SSD under grad takes there the
-    einsum form the JAX package trains through (the SSD kernel is
-    inference only).
+    `cuda` a mamba layer's SSD under grad takes the einsum form the JAX
+    package trains through (the SSD kernel is inference only).
 
     The forward dispatches the same engine ops as serving (on `cuda` the
     GEMM and attention kernels, differentiable through `GemmFused` and

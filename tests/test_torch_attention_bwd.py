@@ -8,8 +8,9 @@ versions (which the wrappers run for a CPU tensor), the forward's lse
 against ``flash_attention_with_lse``, and the engine's `attention` op
 differentiated on `eager` against the JAX `xla` engine.  Cases: head groups
 G = 1, 2, 7, causal and not, per-batch kv_len with a fully-masked row,
-ragged Sq / Skv, head dims 32 / 64 / 128 and hubert-xlarge's 80 and
-zamba2-7b's 112; MLA's 192 refused by name.  Bars: fp32 1e-5 max-relative
+ragged Sq / Skv, head dims 32 / 64 / 128, hubert-xlarge's 80,
+zamba2-7b's 112 and MLA's prefill 192 (under its one dQ plan, 16 rows);
+the latent's 576 refused by name.  Bars: fp32 1e-5 max-relative
 (the bar of ``tests/test_grad_conformance.py``), bf16 5e-2.  The kernels
 themselves run on the card (tests/test_torch_cuda.py, chip_smoke.py).
 """
@@ -41,6 +42,8 @@ CASES = [
     (1, 8, 8, 3, 1, 128, False, None),             # G 3, head dim 128
     (2, 20, 20, 4, 4, 80, False, [13, 0]),         # hubert's head dim 80
     (1, 24, 40, 4, 2, 112, True, [40]),            # zamba2's 112, G 2
+    (2, 16, 48, 4, 4, 192, True, [48, 20]),        # MLA's 192, G 1
+    (1, 24, 40, 4, 2, 192, False, [17]),           # 192, G 2, not causal
 ]
 
 
@@ -212,15 +215,26 @@ def test_backward_wrappers_check_their_operands():
 
 @pytest.mark.parametrize("kernel", ["dq", "dkv", "autograd"])
 def test_backward_refuses_head_dim_192_by_name(kernel):
-    """MLA's head dim 192 has no backward kernels (their blocks do not fit
-    in an SM's shared memory): each entry point refuses it by name, on a
-    CPU tensor as on the card, before any work."""
-    q = torch.zeros(1, 4, 2, 192)
+    """The refusals that remain now that the backward takes MLA's 192 (the
+    test keeps the name it had when 192 was refused whole): at 192 the dQ
+    kernel refuses the 64-row plan, whose fp32 block does not fit in an
+    SM's shared memory; and every entry point refuses a head dim it has
+    no kernel for, the latent's 576 (never trained), by name, on a CPU
+    tensor as on the card, before any work."""
+    q = torch.zeros(1, 4, 2, 576)
     lse = torch.zeros(1, 2, 4)
     calls = {
         "dq": lambda: fa.flash_attention_bwd_dq(q, q, q, q, lse, lse),
         "dkv": lambda: fa.flash_attention_bwd_dkv(q, q, q, q, lse, lse),
         "autograd": lambda: fa.FlashAttention.apply(
             q.clone().requires_grad_(), q, q, None, True)}
-    with pytest.raises(ValueError, match="head dim 192"):
+    with pytest.raises(ValueError, match="head dim 576"):
         calls[kernel]()
+    if kernel == "dq":
+        q192 = torch.zeros(1, 4, 2, 192)
+        with pytest.raises(ValueError, match="head dim 192"):
+            fa.flash_attention_bwd_dq(q192, q192, q192, q192, lse, lse,
+                                      plan=fa.BWD_PLANS[0])
+        got = fa.flash_attention_bwd_dq(q192, q192, q192, q192, lse, lse,
+                                        plan=fa.BWD_PLANS[1])
+        assert got.shape == q192.shape

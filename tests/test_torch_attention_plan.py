@@ -46,14 +46,15 @@ def _blocks(rows, b, sq, h, kv):
 
 @pytest.mark.parametrize("shape,rows", PLAN_OF)
 def test_backward_plan_of_the_path_shapes(shape, rows):
-    plan = fa.bwd_plan_for(*shape)
-    assert plan == fa.BwdPlan(rows)
-    assert plan in fa.BWD_PLANS and isinstance(plan, fa.BwdPlan)
-    assert 1 <= _blocks(plan.rows, *shape) <= GRID_X
+    for d in (32, 64, 80, 112, 128):  # the head dims that admit both plans
+        plan = fa.bwd_plan_for(*shape, d)
+        assert plan == fa.BwdPlan(rows)
+        assert plan in fa.BWD_PLANS and isinstance(plan, fa.BwdPlan)
+        assert 1 <= _blocks(plan.rows, *shape) <= GRID_X
 
 
 def test_backward_plan_of_the_training_shape_fills_the_card():
-    plan = fa.bwd_plan_for(8, 512, 14, 2)
+    plan = fa.bwd_plan_for(8, 512, 14, 2, 64)
     assert plan == fa.BwdPlan(64)
     assert _blocks(plan.rows, 8, 512, 14, 2) >= fa.SMS
 

@@ -49,14 +49,19 @@ dim 112) through prefill, decode and the slot engine on `cuda` against
 `eager`.  For MLA: the flash forward at head dim 192 (the 32-lane plan
 alone) and the split-KV decode at 576 (G = 16 over one latent kv-head,
 K and V in half tiles) against their plain versions, the merge bit for
-bit `combine`, the forward at 576 and dQ / dK / dV at 192 refused with no
-launch, and reduced deepseek-v2-lite-16b at MLA's widths through prefill,
-decode and the slot engine on `cuda` against `eager`.  For training the
-SSM, audio and hybrid families: reduced mamba2-1.3b, hubert-xlarge at 80
-and zamba2-7b at 112 through `loss_fn` on `cuda` against `eager` (exact
-attention and SSD counts: the einsum form under grad, the kernel in a
-prefill after), and the `cuda` ssd dispatch following grad mode with and
-without remat.
+bit `combine`, the forward and dQ / dK / dV at 576 (and the 64-row dQ
+plan at 192) refused with no launch, and reduced deepseek-v2-lite-16b at
+MLA's widths through prefill, decode and the slot engine on `cuda`
+against `eager`.  For training the SSM, audio and hybrid families:
+reduced mamba2-1.3b, hubert-xlarge at 80 and zamba2-7b at 112 through
+`loss_fn` on `cuda` against `eager` (exact attention and SSD counts: the
+einsum form under grad, the kernel in a prefill after), and the `cuda` ssd
+dispatch following grad mode with and without remat.  For training the
+MoE programs: dQ / dK / dV at MLA's 192 (the grid rows, deepseek's 2 x
+512 training shape, `FlashAttention` through autograd) and the expert
+bmm's dX and dW at deepseek-v2-lite's and llama4-scout's training shapes
+against their plain versions, every backward plan and batch slice
+bitwise.
 """
 import dataclasses
 
@@ -559,6 +564,9 @@ ATTN_BWD_CASES = [  # b, sq, skv, h, kv, d, causal, kv_len
     (2, 33, 130, 8, 2, 80, True, [130, 20]),
     (2, 100, 100, 4, 4, 112, True, None),
     (1, 40, 130, 8, 1, 112, False, [77]),
+    (2, 70, 70, 16, 16, 192, True, [50, 0]),
+    (1, 40, 130, 8, 2, 192, False, [77]),
+    (2, 128, 128, 4, 4, 192, True, None),
 ]
 
 
@@ -597,7 +605,7 @@ def test_attention_bwd_kernels_match_plain_versions(card, b, sq, skv, h, kv,
     again = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, kvl,
                                        causal=causal)
     assert torch.equal(dk, again[0]) and torch.equal(dv, again[1])
-    for plan in fa.BWD_PLANS:  # every plan gives the path plan's bits
+    for plan in fa.bwd_plans_at(d):  # every plan gives the path plan's bits
         assert torch.equal(dq, fa.flash_attention_bwd_dq(
             q, k, v, do, lse, delta, kvl, causal=causal, plan=plan))
     if kv_len is not None and kv_len[-1] < skv:   # dead keys, dead rows
@@ -781,6 +789,51 @@ def test_bmm_kernels_match_plain_and_the_2d_kernels(card, b, m, k, n, dtype,
                     dy[i], w[i], plan=bplan, splits=splits))
                 assert torch.equal(dw[i], gemm.gemm_bwd_dw(
                     x[i], dy[i], plan=bplan, splits=splits))
+
+
+# The expert bmm of the MoE training paths, (E, B x capacity, K, N):
+# deepseek-v2-lite-16b's at 2 x 512 (64 experts, 2048 <-> 1408, capacity
+# 64) and llama4-scout-17b-a16e's at 2 x 512 (16 experts, 5120 <-> 8192,
+# capacity 40)
+EXPERT_BWD_CASES = [(64, 128, 2048, 1408), (64, 128, 1408, 2048),
+                    (16, 80, 5120, 8192), (16, 80, 8192, 5120)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("b,m,k,n", EXPERT_BWD_CASES)
+def test_expert_bmm_backward_at_the_training_shapes(card, b, m, k, n, dtype,
+                                                    tol):
+    """dX and dW of the expert bmm at the path's plan and split
+    (`ops.bwd_plan` with the batch) against their plain versions (the fp32
+    bar grows with the square root of a contraction past 4096 terms, as
+    chip_smoke.py's `gemm_tol`), every backward plan bitwise, every batch
+    slice the 2-D kernel's, reruns bitwise."""
+    gen = torch.Generator(device=card).manual_seed(b + m + k + n)
+    x = torch.randn(b, m, k, generator=gen, device=card).to(dtype)
+    w = (torch.randn(b, k, n, generator=gen, device=card) / k ** 0.5).to(
+        dtype)
+    dy = torch.randn(b, m, n, generator=gen, device=card).to(dtype)
+    (tx, sx), (tw, sw) = ops.bwd_plan("dx", m, n, k, b), ops.bwd_plan(
+        "dw", k, m, n, b)
+    dx = gemm.bmm_bwd_dx(dy, w, plan=tx, splits=sx)
+    dw = gemm.bmm_bwd_dw(x, dy, plan=tw, splits=sw)
+    for got, want, kdim in ((dx, gemm.bmm_bwd_dx_plain(dy, w), n),
+                            (dw, gemm.bmm_bwd_dw_plain(x, dy), m)):
+        bar = tol * (max(1.0, (kdim / 4096) ** 0.5) if dtype ==
+                     torch.float32 else 1.0)
+        assert bool(torch.isfinite(got).all())
+        assert _relmax(got, want) <= bar
+    assert torch.equal(dx, gemm.bmm_bwd_dx(dy, w, plan=tx, splits=sx))
+    assert torch.equal(dw, gemm.bmm_bwd_dw(x, dy, plan=tw, splits=sw))
+    for plan in gemm.BWD_PLANS:
+        assert torch.equal(dx, gemm.bmm_bwd_dx(dy, w, plan=plan, splits=sx))
+        assert torch.equal(dw, gemm.bmm_bwd_dw(x, dy, plan=plan, splits=sw))
+    for i in range(b):
+        assert torch.equal(dx[i], gemm.gemm_bwd_dx(dy[i], w[i], plan=tx,
+                                                   splits=sx))
+        assert torch.equal(dw[i], gemm.gemm_bwd_dw(x[i], dy[i], plan=tw,
+                                                   splits=sw))
 
 
 def test_engine_bmm_and_its_gradient_on_cuda_match_eager(card):
@@ -968,7 +1021,7 @@ def _bwd_at_model_shape(card, b, s, h, d, causal, seed):
             *fa.flash_attention_bwd_dkv_plain(*args, causal=causal))
     for got, w in zip((dq, dk, dv), want):
         assert _relmax(got, w) <= 1e-5
-    for plan in fa.BWD_PLANS:
+    for plan in fa.bwd_plans_at(d):
         assert torch.equal(dq, fa.flash_attention_bwd_dq(
             *args, causal=causal, plan=plan))
 
@@ -1138,18 +1191,40 @@ def test_decode_at_head_dim_112_matches_plain_and_the_forward(
 def test_head_dim_112_on_the_card_backward_and_192_refused(card):
     """zamba2-7b's training shape (2 x 512, 32 / 32 heads of 112, causal):
     dQ and dK / dV against their plain versions, every dQ plan bitwise;
-    MLA's 192 refused by dQ, dK / dV and `FlashAttention` with no launch."""
+    then what the backward still refuses, with no launch: the 64-row dQ
+    plan at MLA's 192 (the test's name is from when 192 was refused
+    whole) and dQ, dK / dV and `FlashAttention` at the latent's 576."""
     _bwd_at_model_shape(card, 2, 512, 32, 112, True, seed=33)
-    q, k, v = _qkv(card, 2, 4, 64, 4, 4, 192, seed=33)
+    q, k, v = _qkv(card, 2, 4, 64, 4, 4, 576, seed=33)
+    q2, k2, v2 = _qkv(card, 2, 4, 64, 4, 4, 192, seed=33)
     lse = torch.zeros(2, 4, 4, device=card)
     before = fa.launch_counts()
     for call in (lambda: fa.flash_attention_bwd_dq(q, k, v, q, lse, lse),
                  lambda: fa.flash_attention_bwd_dkv(q, k, v, q, lse, lse),
                  lambda: fa.FlashAttention.apply(q.requires_grad_(), k, v,
                                                  None, True)):
-        with pytest.raises(ValueError, match="head dim 192"):
+        with pytest.raises(ValueError, match="head dim 576"):
             call()
+    with pytest.raises(ValueError, match="head dim 192"):
+        fa.flash_attention_bwd_dq(q2, k2, v2, q2, lse, lse,
+                                  plan=fa.BWD_PLANS[0])
     assert fa.launch_counts() == before
+
+
+def test_head_dim_192_on_the_card_backward(card):
+    """deepseek-v2-lite-16b's training shape (2 x 512, 16 / 16 heads of
+    192, causal): dQ and dK / dV against their plain versions under the
+    one dQ plan at 192, and `FlashAttention` through autograd against the
+    plain forward's autograd."""
+    _bwd_at_model_shape(card, 2, 512, 16, 192, True, seed=34)
+    q, k, v = (t.requires_grad_() for t in _qkv(card, 1, 64, 64, 4, 4, 192,
+                                                seed=35))
+    o = fa.FlashAttention.apply(q, k, v, None, True)
+    got = torch.autograd.grad(o.square().sum(), (q, k, v))
+    ref = fa.flash_attention_plain(q, k, v, causal=True)
+    want = torch.autograd.grad(ref.square().sum(), (q, k, v))
+    for g, w in zip(got, want):
+        assert _relmax(g, w) <= 1e-5
 
 
 def _zamba2_small(card):
@@ -1319,21 +1394,23 @@ def test_decode_at_head_dim_576_matches_plain_and_combine(
 
 
 def test_kernels_refuse_mla_head_dims_they_lack_on_the_card(card):
-    """The forward at 576 and dQ / dK / dV at 192 raise by name before
-    any launch."""
+    """The forward and dQ / dK / dV at 576, and the 64-row dQ plan at 192,
+    raise by name before any launch."""
     q, k, v = _qkv(card, 2, 4, 300, 16, 1, 576, seed=43)
     q2, k2, v2 = _qkv(card, 2, 4, 64, 4, 4, 192, seed=44)
-    lse = torch.zeros(2, 4, 4, device=card)
+    lse = torch.zeros(2, 16, 4, device=card)
+    lse2 = torch.zeros(2, 4, 4, device=card)
     before = fa.launch_counts()
-    with pytest.raises(ValueError, match="head dim 576"):
-        fa.flash_attention_fwd(q, k, v)
-    for call in (lambda: fa.flash_attention_bwd_dq(q2, k2, v2, q2, lse, lse),
-                 lambda: fa.flash_attention_bwd_dkv(q2, k2, v2, q2, lse,
-                                                    lse),
-                 lambda: fa.FlashAttention.apply(q2.requires_grad_(), k2, v2,
+    for call in (lambda: fa.flash_attention_fwd(q, k, v),
+                 lambda: fa.flash_attention_bwd_dq(q, k, v, q, lse, lse),
+                 lambda: fa.flash_attention_bwd_dkv(q, k, v, q, lse, lse),
+                 lambda: fa.FlashAttention.apply(q.requires_grad_(), k, v,
                                                  None, True)):
-        with pytest.raises(ValueError, match="head dim 192"):
+        with pytest.raises(ValueError, match="head dim 576"):
             call()
+    with pytest.raises(ValueError, match="head dim 192"):
+        fa.flash_attention_bwd_dq(q2, k2, v2, q2, lse2, lse2,
+                                  plan=fa.BWD_PLANS[0])
     assert fa.launch_counts() == before
 
 

@@ -1,4 +1,5 @@
-"""The port's training of the SSM, audio and hybrid families against JAX.
+"""The port's training of the SSM, audio, hybrid and MoE families against
+JAX.
 
 `loss_fn` and its gradient with respect to every parameter, on the
 `eager` backend, against ``jax.value_and_grad`` of the JAX `loss_fn` on
@@ -7,7 +8,12 @@ three chunks of a 80-token sequence, the last ragged), reduced
 hubert-xlarge at its head dim of 80 (4 MHA heads, not causal, frames of
 64) and reduced zamba2-7b at its head dim of 112 with a one-layer mamba
 tail (two super entries of 2 mamba layers and the shared block, then 1
-mamba layer), remat on and off.  The JAX parameters are carried across
+mamba layer), reduced deepseek-v2-lite-16b at MLA's head dim of 192
+(qk_nope 128 + qk_rope 64: a `mla_dense` and a `mla_moe` layer, so the
+attention's backward wrappers run at 192) and reduced llama4-scout (two
+`gqa_moe` layers, top-1 and a shared expert), remat on and off; the MoE
+layers' expert einsums run their gradients through the engine as on the
+card's `BmmFn`.  The JAX parameters are carried across
 by `convert.lm_params_from_jax` (the mixers' dt bias, A and D and the
 frontend's biases moved off their init, so every parameter reaches the
 loss; hubert reads no token table, whose gradient is then 0 on both
@@ -53,6 +59,10 @@ MODELS = {
     "hubert_80": ("hubert-xlarge", {"head_dim": 80}, 2, 32),
     "zamba2_112_tail": ("zamba2-7b", {"n_layers": 5, "head_dim": 112}, 2,
                         48),
+    "deepseek_192": ("deepseek-v2-lite-16b", {"qk_nope_dim": 128,
+                                              "qk_rope_dim": 64,
+                                              "head_dim": 192}, 2, 32),
+    "llama4": ("llama4-scout-17b-a16e", {}, 2, 32),
 }
 
 

@@ -574,9 +574,12 @@ def test_plans_at_mla_head_dims_fit_in_shared_memory():
 @pytest.mark.parametrize("kernel", ["forward_576", "dq_192", "dkv_192",
                                     "autograd_192"])
 def test_kernels_refuse_the_head_dims_they_lack(kernel):
-    """The forward at 576 (a shallow-cache or chunked MLA decode) and
-    dQ / dK / dV at 192 (MLA training on `cuda`) are not instantiated:
-    each refuses by name, on the CPU as on the card."""
+    """The forward at 576 (a shallow-cache or chunked MLA decode) is not
+    instantiated, nor are dQ / dK / dV at 576, a head dim that is never
+    trained (the `*_192` cases keep the ids they had when the backward
+    refused MLA's 192, which it now takes; `dq_192` also holds the dQ
+    kernel's refusal of its 64-row plan at 192): each refuses by name, on
+    the CPU as on the card."""
     rng = np.random.default_rng(10)
     q576 = torch.from_numpy(rng.standard_normal((2, 4, 16, 576)).astype(
         np.float32))
@@ -587,15 +590,43 @@ def test_kernels_refuse_the_head_dims_they_lack(kernel):
     k = torch.from_numpy(rng.standard_normal((2, 16, 4, 192)).astype(
         np.float32))
     lse = delta = torch.zeros(2, 4, 4)
+    lse16 = torch.zeros(2, 16, 4)
     calls = {
         "forward_576": (lambda: fa.flash_attention_fwd(q576, k576, k576),
                         576),
-        "dq_192": (lambda: fa.flash_attention_bwd_dq(q, k, k, do, lse,
-                                                     delta), 192),
-        "dkv_192": (lambda: fa.flash_attention_bwd_dkv(q, k, k, do, lse,
-                                                       delta), 192),
+        "dq_192": (lambda: fa.flash_attention_bwd_dq(
+            q576, q576, q576, q576, lse16, lse16), 576),
+        "dkv_192": (lambda: fa.flash_attention_bwd_dkv(
+            q576, q576, q576, q576, lse16, lse16), 576),
         "autograd_192": (lambda: fa.FlashAttention.apply(
-            q.requires_grad_(), k, k, None, True), 192)}
+            q576.requires_grad_(), k576, k576, None, True), 576)}
     call, d = calls[kernel]
     with pytest.raises(ValueError, match=f"head dim {d}"):
         call()
+    if kernel == "dq_192":
+        with pytest.raises(ValueError, match="head dim 192"):
+            fa.flash_attention_bwd_dq(q, k, k, do, lse, delta,
+                                      plan=fa.BWD_PLANS[0])
+
+
+def test_backward_plans_at_192_fit_in_shared_memory():
+    """The backward at MLA's 192 admits the 16-row dQ plan alone (the
+    64-row plan's fp32 block needs 319,488 bytes, past MAX_SMEM), picks it
+    at every shape, including those where 128 and below take 64 rows;
+    every admitted dQ plan fits at every backward head dim, fp32 and bf16,
+    and the rule refuses exactly the plans whose fp32 block does not
+    fit."""
+    assert fa.bwd_plans_at(192) == (fa.BWD_PLANS[1],)
+    assert fa.bwd_smem_bytes(192, fa.BWD_PLANS[0]) == 319_488
+    assert fa.bwd_smem_bytes(192, fa.BWD_PLANS[1]) == 231_936
+    for d in fa.BWD_HEAD_DIMS:
+        for plan in fa.BWD_PLANS:
+            fits = fa.bwd_smem_bytes(d, plan) <= fa.MAX_SMEM
+            assert fits == (plan in fa.bwd_plans_at(d)), (d, plan)
+            for dt in (torch.float32, torch.bfloat16):
+                if plan in fa.bwd_plans_at(d):
+                    assert fa.bwd_smem_bytes(d, plan, dt) <= fa.MAX_SMEM
+    assert fa.bwd_plans_at(128) == fa.BWD_PLANS
+    for shape in ((1, 16, 16, 16), (2, 512, 16, 16), (8, 4096, 16, 16)):
+        assert fa.bwd_plan_for(*shape, 192) == fa.BWD_PLANS[1]
+    assert fa.bwd_plan_for(8, 4096, 16, 16, 128) == fa.BWD_PLANS[0]
