@@ -410,11 +410,19 @@ script exits non-zero.  Phases:
               0) and the split-KV decode at 576 (16 heads over one latent
               kv-head: Sq 1 / 4 / 8 against 256 / 1024 rows, 47 splits,
               the mla and mla_serve steps), fp32 and bf16, as phases 9-10
-              (the merge bitwise `combine`, the sentinels exact); the
-              forward and dQ / dK / dV at 576 refused by name with no
+              (the merge bitwise `combine`, the sentinels exact, the
+              one-split decode bitwise the forward); the forward's 8-lane
+              plans and dQ / dK / dV at 576 refused by name with no
               launch.  The MLA phases draw from a generator of their
               own (MLA_SEED), so every earlier phase's draws, and errors,
-              stay as they were.
+              stay as they were.  Then, on a generator of their own
+              (MLA_FWD_SEED): the flash forward at 576 (K and V in 32-key
+              half tiles, the 32-lane plan alone) at mla_short_serve's
+              step (4 x 1 against 128 rows, kv_len [128, 42, 1, 0], not
+              causal), a 2 x 64 chunk against 128 rows and mla_chunk's
+              second chunk (2 x 64 against 256 rows, kv_len 128, causal),
+              fp32 and bf16, the lse launch and every plan bitwise; the
+              chunk's GEMMs and absorbed einsums at its 128 rows.
  46. mla      deepseek-v2-lite-16b at full width and depth (27 layers: one
               dense, 26 of 64 routed experts top-6 and 2 shared; 15.7e9
               parameters, 62.8 GB, random from a seed, norms moved off
@@ -443,6 +451,20 @@ script exits non-zero.  Phases:
               expert choices, as in phase 46), or differs first where
               eager's top-2 logit margin is below MARGIN_FACTOR x phase
               46's logits error.
+ 59. mla_short_serve (run after phase 47)  as phase 47, on the slot
+              engine at its defaults (4 slots of 128 rows): every step's
+              absorbed attention is the flash forward at (576, not
+              causal), launches exact (per step 27 flash forwards, no
+              split-KV launch).
+ 60. mla_chunk (run after phase 59)  make_decode_step on `cuda` and
+              `eager` at batch 2 on zeroed 256-row latent caches, fed two
+              64-token chunks at positions 0 and 64 (past DECODE_MAX_SQ:
+              the flash forward at (576, causal) against kv_len = pos +
+              64), the counts set to 0 just before each chunk: launches
+              exact (per chunk 189 GEMMs, 27 flash forwards, 132 bmm, no
+              split-KV launch), routes first (`eager` runs `cuda`'s expert
+              choices), logits over the real vocabulary and the caches
+              within 1e-4, greedy tokens equal up to a near tie.
  48. timing_mla  the prefill and a decode step: host ms, device ms by
               kernel (torch.profiler), busy share; the flash forward at
               the prefill (2 x 512, D 192) and the decode kernel at a
@@ -451,8 +473,10 @@ script exits non-zero.  Phases:
               against torch.matmul; one MoE layer's expert bmm at the
               decode's 16 rows against torch.bmm; the two absorbed
               einsums: the whole einsum, the kernel on y in (E, K, N)
-              order, y's permuted copy alone, plain and torch.bmm.  The
-              model is freed.
+              order, y's permuted copy alone, plain and torch.bmm; the
+              flash forward at 576 at phase 59's step and phase 60's
+              second chunk, kernel, plain, bound and SDPA ms (its own
+              generator).  The model is freed.
  49. check_attn_bwd (80, 112, 192; run after phase 16)  the lse
               forward, dQ and dK / dV at hubert-xlarge's head dim 80,
               zamba2-7b's 112 and deepseek-v2-lite-16b's 192 as phase 16:
@@ -540,9 +564,10 @@ script exits non-zero.  Phases:
               freed once its errors are taken: the peak held to
               MOE_TRAIN's bound; then its expert bmm's dX and dW timed as
               phase 57.
-Then the kernels line (46 entries: the lse forward, dQ and dK / dV at 80,
-112 and 192, the expert bmm's dX and dW on mla_train and moe_train
-added), and last the result line.  Every JSON line carries `t`, the
+Then the kernels line (48 entries: the lse forward, dQ and dK / dV at 80,
+112 and 192, the expert bmm's dX and dW on mla_train and moe_train, the
+flash forward at 576 on mla_short_serve and mla_chunk added), and last
+the result line.  Every JSON line carries `t`, the
 seconds since the script started.
 """
 from __future__ import annotations
@@ -701,6 +726,16 @@ MLA_DECODE_STEPS = 16  # the latent caches hold 512 + 16 = 528 rows
 MLA_SERVE = dict(slots=4, requests=8, prompt=(8, 24), new=(4, 8),
                  max_len=256)
 MLA_SEED = 61  # the MLA phases' own generator (check_mla, timing_mla)
+# The absorbed attention where it takes the flash forward at 576: a slot
+# step of mla_short_serve (4 slots against the engine's default 128 rows)
+# and mla_chunk's second chunk (2 x 64 tokens at position 64 of 256 rows);
+# (b, sq, skv, kv_len list, causal).  Their checks and timings draw from a
+# generator of their own (MLA_FWD_SEED), so every MLA error field before
+# them repeats.
+MLA_SHORT_STEP = (4, 1, 128, [128, 42, 1, 0], False)
+MLA_CHUNK = dict(batch=2, chunk=64, chunks=2, cache_rows=256, seed=68)
+MLA_CHUNK_STEP = (2, 64, 256, [128, 128], True)
+MLA_FWD_SEED = 67
 # The training phases of the SSM, audio and hybrid families (train_loop's
 # seeds, batch x seq, AdamW steps); their GEMM checks and timings draw from
 # a generator of their own (TRAIN_SEED), check_attn_bwd at 80 / 112 from
@@ -1253,9 +1288,6 @@ def check_decode_case(q, k, v, kvl, causal) -> tuple[float, float, int,
     check(torch.equal(merged, plain_merge),
           f"the merge is not combine's bits at {where}")
     merge_abs = float((merged.float() - plain_merge.float()).abs().max())
-    if q.shape[-1] not in fa.FWD_HEAD_DIMS:  # MLA's 576: no forward there
-        return (err, float((got[0] - want[0]).abs().max()), n_splits, 2,
-                merge_abs)
     one, _ = fd.flash_decode_partials(q, k, v, kvl, causal=causal,
                                       n_splits=1, span=-(-skv // 64) * 64)
     fwd = fa.flash_attention_fwd(q, k, v, kvl, causal=causal)
@@ -1333,7 +1365,7 @@ def refused_at_112() -> dict:
 # operands from a generator of their own (seeded with the head dim), so
 # the grid's other draws, and every error printed after them, stay those
 # of the runs before the addition.
-NEW_HEAD_DIMS = (112, 192)
+NEW_HEAD_DIMS = (112, 192, 576)
 
 
 def attn_phases(cgen) -> dict:
@@ -4799,28 +4831,34 @@ def latent_cfg(cfg):
                                head_dim=cfg.kv_lora_rank + cfg.qk_rope_dim)
 
 
-def mla_call_launches(cfg, b: int, s: int, kind: str) -> dict:
+def mla_call_launches(cfg, b: int, s: int, kind: str,
+                      cache_rows: int = 0) -> dict:
     """The kernel launches of one MLA prefill (`kind` "prefill", b rows of
     s tokens; the head on one position a row) or decode step ("decode", b
-    rows of s = 1): the fused GEMMs of `mla_gemms`, per MoE layer the
+    rows of a chunk of s tokens against `cache_rows` latent rows; the head
+    on every position): the fused GEMMs of `mla_gemms`, per MoE layer the
     three expert bmm launches, per layer one flash forward (prefill) or
-    the two absorbed einsums on the bmm kernel and one split-KV launch
-    (decode); with the forward launches by regime."""
+    the two absorbed einsums on the bmm kernel and one attention launch
+    (decode: the split-KV kernel where the dispatch is decode-shaped,
+    `ops.use_decode_formulation`, else the flash forward at 576); with the
+    forward launches by regime."""
     want = dict.fromkeys(all_launches(), 0)
     n_moe = cfg.n_layers - cfg.first_dense_layers
     plans = []
     for g in mla_gemms(cfg):
         if g["prefill_only"] and kind == "decode":
             continue
-        m = b if g["name"] == "head" else b * s
+        m = b if g["name"] == "head" and kind == "prefill" else b * s
         want["gemm_fused_fwd"] += g["per_dispatch"]
         plans.append((ops.default_tiles(m, g["k"], g["n"]),
                       g["per_dispatch"]))
     bmms = [(shape, n_moe) for shape in
             expert_shapes(cfg, b * moe.capacity(s, cfg))]
     if kind == "decode":
-        bmms += [(shape, cfg.n_layers) for shape in absorbed_shapes(cfg, b)]
-        want["flash_decode"] = cfg.n_layers
+        bmms += [(shape, cfg.n_layers) for shape in absorbed_shapes(cfg,
+                                                                    b * s)]
+        split = ops.use_decode_formulation(s, cache_rows)
+        want["flash_decode" if split else "flash_attention"] = cfg.n_layers
     else:
         want["flash_attention"] = cfg.n_layers
     for (_, m, k, n), count in bmms:
@@ -4832,11 +4870,14 @@ def mla_call_launches(cfg, b: int, s: int, kind: str) -> dict:
 
 
 def refused_at_mla_dims() -> dict:
-    """The forward and dQ / dK / dV at the latent's 576 (a shallow-cache or
-    chunked MLA decode; never trained), for `refused`."""
+    """At the latent's 576 the forward's 8-lane plans (their blocks do not
+    fit in shared memory) and dQ / dK / dV (never trained), for
+    `refused`."""
     q, k, _ = zero_operands(576, h=16, skv=300, kv=1)
-    return {"flash_attention_fwd at 576": (
-        lambda: fa.flash_attention_fwd(q, k, k), 576), **bwd_refusals(576)}
+    return {f"flash_attention_fwd plan {tuple(plan)} at 576": (
+                lambda plan=plan: fa.flash_attention_fwd(q, k, k, plan=plan),
+                576)
+            for plan in fa.PLANS[:2]} | bwd_refusals(576)
 
 
 def check_mla_phase(cfg, mgen) -> dict:
@@ -4898,10 +4939,41 @@ def check_mla_phase(cfg, mgen) -> dict:
                                       [cache, cache // 3, 1, 0][:slots],
                                       False))])
     out["decode"] = worst["decode"]
+    # the paths of the forward at 576 (mla_short_serve, mla_chunk), on a
+    # generator of their own: the forward at their shapes, and the chunk's
+    # GEMMs and absorbed einsums at its 128 rows (its expert bmm rows are
+    # the decode's)
+    fgen = torch.Generator(device=mgen.device).manual_seed(MLA_FWD_SEED)
+    fwd576, worst = check_attn_cases(latent_cfg(cfg), fgen, [
+        ("attn", "mla_short_step", MLA_SHORT_STEP),
+        ("attn", "chunk_against_128", (2, 64, 128, [128, 64], True)),
+        ("attn", "mla_chunk", MLA_CHUNK_STEP)])
+    out["attn_576"] = worst["attn"]
+    m = MLA_CHUNK["batch"] * MLA_CHUNK["chunk"]
+    chunk_gemms, seen = [], set()
+    for g in mla_gemms(cfg):
+        if g["prefill_only"] or (g["k"], g["n"]) in seen:
+            continue
+        seen.add((g["k"], g["n"]))
+        chunk_gemms.append({"gemm": g["name"], **check_shape(
+            m, g["k"], g["n"], (ops.default_tiles(m, g["k"], g["n"]),),
+            fgen)})
+    chunk_bmm = [{"kind": "absorbed", **check_bmm_fwd(e, m, k, n, fgen)}
+                 for e, _, k, n in absorbed_shapes(cfg, m)]
+    check(MLA_CHUNK["batch"] * moe.capacity(MLA_CHUNK["chunk"], cfg)
+          == b * moe.capacity(1, cfg), "the chunk's expert rows are new")
+    out["gemm_chunk"] = max(r["max_abs_err_fp32"] for r in chunk_gemms)
+    out["bmm_chunk"] = max(r["max_abs_err_fp32"] for r in chunk_bmm)
     emit("check_mla", arch=cfg.name, gemms=gemms, bmm=bmms, attention=fwd,
          decode=dec, plans_at_192=[list(p) for p in fa.plans_at(192)],
          decode_smem_bytes={"fp32": fd.smem_bytes(576),
                             "bf16": fd.smem_bytes(576, torch.bfloat16)},
+         attention_576=fwd576,
+         plans_at_576=[list(p) for p in fa.plans_at(576)],
+         fwd_smem_bytes_576={
+             "fp32": fa.fwd_smem_bytes(576, fa.PLANS[2]),
+             "bf16": fa.fwd_smem_bytes(576, fa.PLANS[2], torch.bfloat16)},
+         chunk_rows=m, chunk_gemms=chunk_gemms, chunk_bmm=chunk_bmm,
          refused=refused(refused_at_mla_dims()), max_abs_err=out)
     return out
 
@@ -4933,7 +5005,7 @@ def mla_phase(cfg, params, dev) -> dict:
     return prefill_decode_phase(
         "mla", cfg, params, dev, {"tokens": tokens}, s, MLA_DECODE_STEPS,
         mla_call_launches(cfg, b, s, "prefill"),
-        mla_call_launches(cfg, b, 1, "decode"),
+        mla_call_launches(cfg, b, 1, "decode", s + MLA_DECODE_STEPS),
         strict_tokens=True, routed=True, program=tfm.stack_program(cfg),
         latent=[cfg.kv_lora_rank, cfg.qk_rope_dim],
         experts=[cfg.n_routed_experts, cfg.top_k, cfg.n_shared_experts],
@@ -4947,7 +5019,8 @@ def mla_serve_requests(cfg) -> list:
                     MLA_SERVE["new"])
 
 
-def mla_serve_phase(cfg, params, dev, abs_err) -> dict:
+def mla_serve_phase(cfg, params, dev, abs_err, phase="mla_serve",
+                    max_len=MLA_SERVE["max_len"]) -> dict:
     """Phase mla_serve: the slot engine on `cuda` serves MLA_SERVE's
     requests through 4 slots on the replay route (every prompt token a
     decode step: the split-KV kernel at 576 against the 256-row latent
@@ -4958,17 +5031,22 @@ def mla_serve_phase(cfg, params, dev, abs_err) -> dict:
     MARGIN_FACTOR x phase mla's logits error (a near tie).  The `eager`
     engine runs `cuda`'s expert choices (`RouteReplay`); while the streams
     agree, each route eager's own routers chose otherwise must be a near
-    tie, as in phase mla."""
+    tie, as in phase mla.  Phase mla_short_serve (`max_len` None) is the
+    same with the engine's defaults, 4 slots of 128 rows: every step's
+    attention the flash forward at (576, not causal), none split-KV."""
     cuda, eager = make_engine("cuda"), make_engine("eager", device=dev)
-    n, slots = MLA_SERVE["requests"], MLA_SERVE["slots"]
-    kw = dict(engine=cuda, slots=slots, max_len=MLA_SERVE["max_len"])
+    n = MLA_SERVE["requests"]
+    kw = ({"engine": cuda} if max_len is None else  # the engine's defaults
+          {"engine": cuda, "slots": MLA_SERVE["slots"], "max_len": max_len})
     server = ServingEngine(cfg, params, **kw)
+    slots, rows = server.slots, server.max_len
+    check(slots == MLA_SERVE["slots"], f"{phase}: {slots} slots")
     reqs = mla_serve_requests(cfg)
     torch.cuda.reset_peak_memory_stats(dev)
     torch.cuda.synchronize()
     reset_all_launches()
     t0 = time.perf_counter()
-    with RouteLog() as routes:
+    with RouteLog() as routes, AttnLog() as attn_calls:
         server.run(reqs)  # ---- the MLA serving path, driven once
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -4977,7 +5055,7 @@ def mla_serve_phase(cfg, params, dev, abs_err) -> dict:
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     st = server.stats()
     want = {k: st["steps"] * v for k, v in
-            mla_call_launches(cfg, slots, 1, "decode").items()}
+            mla_call_launches(cfg, slots, 1, "decode", rows).items()}
     reused = reqs[slots:]
     alone = mla_serve_requests(cfg)[slots:]
     for r in alone:
@@ -5005,14 +5083,14 @@ def mla_serve_phase(cfg, params, dev, abs_err) -> dict:
         mismatches.append({"rid": a.rid, "token": j,
                            "eager_margin": float(top2[0] - top2[1]),
                            "allowed_below": MARGIN_FACTOR * abs_err})
-    emit("mla_serve", arch=cfg.name, slots=slots, requests=n,
-         max_len=MLA_SERVE["max_len"],
+    emit(phase, arch=cfg.name, slots=slots, requests=n, max_len=rows,
          completed=st["requests"]["completed"], tokens=st["tokens"],
          prompt_tokens=sum(len(r.prompt) for r in reqs), steps=st["steps"],
          wall_s=wall, tokens_per_s=st["throughput"],
          p50_ms=st["latency_s"]["p50"] * 1e3,
          p99_ms=st["latency_s"]["p99"] * 1e3, peak_gb=peak_gb,
          launches=launches, want_launches=want,
+         attention_launches=sorted(set(attn_calls.calls)),
          engine_dispatch={f"{b}.{o}": c for (b, o), c in dispatch.items()},
          reused_slot_requests=len(reused), equal_to_alone=same,
          equal_to_eager=[a.out == e.out for a, e in zip(reqs, plain)],
@@ -5021,20 +5099,125 @@ def mla_serve_phase(cfg, params, dev, abs_err) -> dict:
          flip_allowed_below=MARGIN_FACTOR * prob_err)
     check(mismatches or all(f["eager_margin"] < MARGIN_FACTOR * prob_err
                             for f in flips),
-          f"mla_serve: {len(flips)} route flips, some at a clear margin: "
+          f"{phase}: {len(flips)} route flips, some at a clear margin: "
           f"{flips[:20]}")
     check(st["requests"]["completed"] == n
           and all(r.done and len(r.out) == r.max_new for r in reqs),
           f"{st['requests']['completed']} of {n} completed")
-    check(launches == want, f"mla_serve launches {launches}, want {want}")
+    check(launches == want, f"{phase} launches {launches}, want {want}")
+    check(attn_calls.calls == [(cfg.kv_lora_rank + cfg.qk_rope_dim, False)]
+          * want["flash_attention"],
+          f"{phase} attention launches {sorted(set(attn_calls.calls))}")
     check(all(b == "cuda" for b, _ in dispatch),
           f"an engine op left the cuda backend: {dispatch}")
     check(all(same), f"a reused slot's stream differs from the request "
           f"alone: {same}")
     check(all(m["eager_margin"] < m["allowed_below"] for m in mismatches),
-          f"mla_serve cuda vs eager token mismatch at a clear margin: "
+          f"{phase} cuda vs eager token mismatch at a clear margin: "
           f"{mismatches}")
     return {"launches": launches, "stats": st, "wall_s": wall}
+
+
+def mla_chunk_phase(cfg, params, dev) -> dict:
+    """Phase mla_chunk: `make_decode_step` on `cuda` and on `eager` at
+    MLA_CHUNK's batch on zeroed latent caches of its `cache_rows`, fed the
+    same MLA_CHUNK["chunks"] chunks of 64 tokens at positions 0 and 64
+    (past ops.DECODE_MAX_SQ: each layer's absorbed attention is the flash
+    forward at 576, causal, `kv_len = pos + C`), the launch counts set to
+    0 just before each chunk: launches exact and every forward at (576,
+    causal), no split-KV launch, every op on `cuda`, `eager` launching
+    none.  `eager` runs `cuda`'s expert choices (`RouteReplay`), each
+    route its own routers chose otherwise a near tie; the logits over the
+    real vocabulary and the caches within LOGIT_TOL of `eager`'s; the
+    greedy tokens equal, or differing only where eager's top-2 margin is
+    below MARGIN_FACTOR x the logits error (each position apart: the
+    chunks are fed, not sampled)."""
+    b, c, n = MLA_CHUNK["batch"], MLA_CHUNK["chunk"], MLA_CHUNK["chunks"]
+    rows = MLA_CHUNK["cache_rows"]
+    rng = np.random.default_rng(MLA_CHUNK["seed"])
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (b, c * n))).to(dev)
+    want = mla_call_launches(cfg, b, c, "decode", rows)
+    out = {}
+    with torch.inference_mode():
+        for label in ("cuda", "eager"):
+            step = make_decode_step(make_engine(label, device=dev), cfg)
+            buf = kvcache.cache_init(cfg, b, rows, device=dev)
+            run = {"logits": [], "launches": [], "attn": [], "dispatch": [],
+                   "host_ms": []}
+            with (RouteLog() if label == "cuda"
+                  else RouteReplay(out["cuda"]["routes"])) as rl:
+                for i in range(n):
+                    torch.cuda.synchronize()
+                    reset_all_launches()
+                    with AttnLog() as attn_calls:
+                        t0 = time.perf_counter()
+                        lg, buf = step(params, buf,
+                                       tokens[:, i * c:(i + 1) * c],
+                                       torch.tensor(i * c, device=dev))
+                        torch.cuda.synchronize()
+                        run["host_ms"].append(
+                            (time.perf_counter() - t0) * 1e3)
+                    run["launches"].append(all_launches())
+                    run["dispatch"].append(backends.dispatch_counts())
+                    run["attn"].append(attn_calls.calls)
+                    run["logits"].append(lg[..., :cfg.vocab_size])
+            out[label] = {**run, "logits": torch.stack(run["logits"]),
+                          "buf": buf, "routes": rl.calls}
+    cu, ea = out["cuda"], out["eager"]
+    check(bool(torch.isfinite(cu["logits"]).all()),
+          "non-finite mla_chunk logits")
+    ties = route_ties(cfg, cu["routes"], ea["routes"])
+    errs = {"logits": relmax(cu["logits"], ea["logits"]),
+            **cache_relmax(cfg, cu["buf"], ea["buf"], c * n)}
+    abs_err = float((cu["logits"] - ea["logits"]).abs().max())
+    top2 = torch.topk(ea["logits"], 2).values
+    margin = top2[..., 0] - top2[..., 1]
+    differ = cu["logits"].argmax(-1) != ea["logits"].argmax(-1)
+    mismatches = [{"chunk": i, "row": r, "position": j,
+                   "eager_margin": float(margin[i, r, j]),
+                   "allowed_below": MARGIN_FACTOR * abs_err}
+                  for i, r, j in differ.nonzero().tolist()]
+    emit("mla_chunk", arch=cfg.name, layers=cfg.n_layers, batch=b,
+         chunk=c, chunks=n, cache_rows=rows, relmax=errs,
+         logits_max_abs_err=abs_err,
+         logits_max_abs=float(ea["logits"].abs().max()),
+         tokens_equal=not mismatches, mismatches=mismatches,
+         eager_min_top2_margin=float(margin.min()),
+         launches=cu["launches"], want_launches=want,
+         attention_launches=sorted({a for calls in cu["attn"]
+                                    for a in calls}),
+         host_ms=cu["host_ms"], eager_host_ms=ea["host_ms"], **ties)
+    for key, err in errs.items():
+        check(math.isfinite(err) and err <= LOGIT_TOL,
+              f"mla_chunk {key} cuda vs eager {err:.3e} > {LOGIT_TOL:g}")
+    check(all(m["eager_margin"] < m["allowed_below"] for m in mismatches),
+          f"mla_chunk greedy tokens differ at a clear margin: {mismatches}")
+    for i in range(n):
+        check(cu["launches"][i] == want,
+              f"mla_chunk chunk {i} launches {cu['launches'][i]}, want "
+              f"{want}")
+        check(cu["attn"][i] == [(cfg.kv_lora_rank + cfg.qk_rope_dim, True)]
+              * cfg.n_layers,
+              f"mla_chunk chunk {i} attention launches {cu['attn'][i]}")
+        check(all(bk == "cuda" for bk, _ in cu["dispatch"][i]),
+              f"mla_chunk dispatches {cu['dispatch'][i]}")
+        check(sum(ea["launches"][i].values()) == 0 and not ea["attn"][i],
+              "the eager engine launched a kernel of the port")
+    return {"launches": {k: sum(run[k] for run in cu["launches"])
+                         for k in want},
+            "errs": errs, "abs_err": abs_err}
+
+
+def timing_mla_576(cfg, dev, peak_flops, peak_bw, smi) -> dict:
+    """The flash forward at 576 at the shapes its paths give it, a slot
+    step of mla_short_serve (MLA_SHORT_STEP) and mla_chunk's second chunk
+    (MLA_CHUNK_STEP): kernel, plain, bound and SDPA (boolean mask, TF32
+    off) ms, emitted as timing_mla lines, on a generator of its own."""
+    fgen = torch.Generator(device=dev).manual_seed(MLA_FWD_SEED + 1)
+    return attn_timing_rows(latent_cfg(cfg), {
+        "mla_short_step": MLA_SHORT_STEP, "mla_chunk": MLA_CHUNK_STEP},
+        fgen, peak_flops, peak_bw, smi, "timing_mla")
 
 
 def timing_mla_phase(cfg, params, dev, mgen, peak_flops, peak_bw,
@@ -6153,8 +6336,12 @@ def main() -> int:
     lparams = mla_params(lcfg, dev)
     mla = mla_phase(lcfg, lparams, dev)
     mla_serve_phase(lcfg, lparams, dev, mla["abs_err"])
+    short = mla_serve_phase(lcfg, lparams, dev, mla["abs_err"],
+                            phase="mla_short_serve", max_len=None)
+    chunk = mla_chunk_phase(lcfg, lparams, dev)
     lt = timing_mla_phase(lcfg, lparams, dev, mgen, peak_flops, peak_bw,
                           smi)
+    lt576 = timing_mla_576(lcfg, dev, peak_flops, peak_bw, smi)
     del lparams
     torch.cuda.empty_cache()
 
@@ -6299,6 +6486,13 @@ def main() -> int:
         kernel_entry("flash_decode:mla", SOURCE_DECODE, REPLACES_DECODE,
                      "mla", mla["launches"]["flash_decode"], lchk["decode"],
                      lt["attention"]["mla_decode"]),
+        kernel_entry("flash_attention:mla_short_serve", SOURCE_ATTN,
+                     REPLACES_ATTN, "mla_short_serve",
+                     short["launches"]["flash_attention"], lchk["attn_576"],
+                     lt576["mla_short_step"]),
+        kernel_entry("flash_attention:mla_chunk", SOURCE_ATTN, REPLACES_ATTN,
+                     "mla_chunk", chunk["launches"]["flash_attention"],
+                     lchk["attn_576"], lt576["mla_chunk"]),
         *(kernel_entry(f"{name}:{path}", source, replaces, path,
                        tr["launches"][name], max(
                            bwd_dims_abs[d][key] for key in keys),

@@ -27,9 +27,10 @@
 //     NC = D / LPR columns of the accumulator (runs of 4 columns, 4 LPR
 //     apart, then a tail of NC % 4 consecutive ones: at head dim 80 and 8
 //     lanes, 4 + 4 + 2, at 112, 4 + 4 + 4 + 2, at 192 and 32 lanes, 4 +
-//     2; a plan whose lanes do not divide D is refused, and so is one
-//     whose fp32 block does not fit in shared memory: at 192, MLA's
-//     prefill head dim, only the 8-row plan of 32 lanes a row fits),
+//     2, at 576 and 32 lanes, 4 + 4 + 4 + 4 + 2; a plan whose lanes do not
+//     divide D is refused, and so is one whose fp32 block does not fit in
+//     shared memory: at 192, MLA's prefill head dim, and at 576, its
+//     latent, only the 8-row plan of 32 lanes a row fits),
 //     reads operands as 16-byte vectors from
 //     rows padded by 16 bytes, and the row's max, sum and rescaling run in
 //     registers with shuffles among the row's lanes, so a tile needs no
@@ -39,6 +40,17 @@
 //   * K / V tiles are staged by 16-byte cp.async (gemm_common.cuh) a tile
 //     ahead, q rows once, bf16 copied raw and widened as it is read, an
 //     unaligned row element by element;
+//   * at head dim 576 (MLA's absorbed attention over its latent: G = 16
+//     query heads over one kv-head of c_kv 512 + k_rope 64, where a decode
+//     is too shallow or a chunk too long for the split-KV kernel) one fp32
+//     stage of a K and a V tile is 315 KB, past the 227 KB a block may
+//     use, so K and V stream through two 32-key half tiles (FwdSmem::HALVES,
+//     flash_decode.cu's layout; 167 KB in fp32): one half lands while the
+//     block scores or multiplies the other, lane j scores key j from K's
+//     first half and key j + 32 from its second, and P V runs its chains
+//     over V's first half and on over the second, so the 64-key tile's
+//     arithmetic, and its bits, are those of the whole-tile loop; four
+//     barriers a tile;
 //   * the plan, rows and threads a block and lanes a row, is picked from
 //     the shape in Python (flash_attention.py::plan_for): few rows a block,
 //     and many lanes a row, where the grid would leave SMs idle (a 64-token
@@ -128,16 +140,28 @@ __device__ __forceinline__ bool rows_vec(const T* p, Strides st) {
          st.s % VEC == 0 && st.h % VEC == 0;
 }
 
+// Shared memory one block may use on an H100.
+constexpr size_t MAX_SMEM = 232448;
+
 // Shared memory of a block, in elements of T: the q rows and two stages of
-// the k and v tile.
+// the k and v tile, or, where one fp32 stage of a k and a v tile does not
+// fit (HALVES: head dim 576, (8 + 128) x 580 x 4 = 315,520 bytes), two
+// 32-key half tiles that k and v stream through (flash_decode.cu's
+// DecSmem rule, one rule for both dtypes).  flash_attention.py's
+// fwd_smem_bytes states the same sizes.
 template <typename T, int D, typename P>
 struct FwdSmem {
   static constexpr int LD = ld<T, D>();
   static constexpr int TILE = BKV * LD;
+  static constexpr int HK = BKV / 2;  // keys of a half tile
+  static constexpr int HALF_TILE = HK * LD;
+  static constexpr bool HALVES =
+      static_cast<size_t>(P::ROWS + 2 * BKV) * ld<float, D>() * 4 > MAX_SMEM;
   static constexpr int Q = 0;
   static constexpr int K = Q + P::ROWS * LD;
-  static constexpr int V = K + 2 * TILE;
-  static constexpr size_t bytes = static_cast<size_t>(V + 2 * TILE) * sizeof(T);
+  static constexpr int V = K + 2 * TILE;  // the whole-tile layout's
+  static constexpr size_t bytes =
+      static_cast<size_t>(HALVES ? K + TILE : V + 2 * TILE) * sizeof(T);
 };
 
 // Store 4 consecutive fp32 values (p 16-byte aligned for fp32, 8 for bf16).
@@ -184,6 +208,100 @@ __device__ __forceinline__ void load_cols(const T* row, int j, float (&out)[NC])
 #pragma unroll
   for (int e = NC / 4 * 4; e < NC; ++e)
     out[e] = attn::to_f32(row[col<NC, LPR>(j, e)]);
+}
+
+// Scores of a lane's keys j + LPR n, N0 <= n < N1, with key row r staged
+// at kt + (r - koff) LD: s[i][n] = q . k, one chain over d in order.
+template <typename P, int D, int N0, int N1, typename T>
+__device__ __forceinline__ void score_keys(float (&s)[P::RT][P::KPL],
+                                           const T* qrow, const T* kt,
+                                           int koff, int j) {
+  constexpr int LD = ld<T, D>();
+#pragma unroll 2
+  for (int d = 0; d < D; d += 4) {
+    float4 qf[P::RT];
+#pragma unroll
+    for (int i = 0; i < P::RT; ++i) qf[i] = load4(qrow + P::RPW * i * LD + d);
+#pragma unroll
+    for (int n = N0; n < N1; ++n) {  // one k vector live at a time
+      const float4 kf = load4(kt + (j + P::LPR * n - koff) * LD + d);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int i = 0; i < P::RT; ++i)
+          s[i][n] = __fmaf_rn(lane4(qf[i], e), lane4(kf, e), s[i][n]);
+    }
+  }
+}
+
+// The row statistics of the 64-key tile at t0 in the row's lanes: keys at
+// or past a row's bound masked, the exact max, p replacing s, the sum's
+// tree, then m, l and the rescaling alpha of each row.
+template <typename P>
+__device__ __forceinline__ void tile_stats(float (&s)[P::RT][P::KPL],
+                                           float (&m)[P::RT], float (&l)[P::RT],
+                                           float (&alpha)[P::RT],
+                                           const int (&row_end)[P::RT], int t0,
+                                           int j) {
+  constexpr int LPR = P::LPR, KPL = P::KPL;
+#pragma unroll
+  for (int i = 0; i < P::RT; ++i) {
+    float mc = NEG;
+#pragma unroll
+    for (int n = 0; n < KPL; ++n) {
+      if (t0 + j + LPR * n >= row_end[i]) s[i][n] = NEG;
+      mc = fmaxf(mc, s[i][n]);
+    }
+#pragma unroll
+    for (int off = LPR / 2; off > 0; off >>= 1)
+      mc = fmaxf(mc, __shfl_xor_sync(FULL, mc, off));
+    const float mn = fmaxf(m[i], mc);
+    float a[KPL / 2];
+#pragma unroll
+    for (int n = 0; n < KPL; ++n)
+      s[i][n] = s[i][n] > NEG_HALF ? expf(__fadd_rn(s[i][n], -mn)) : 0.f;
+    // keys j + LPR n: n and n + KPL / 2 are 32 apart, then each halving
+    // 16, 8, ... down to LPR apart, then lanes LPR / 2, ..., 1 apart
+#pragma unroll
+    for (int n = 0; n < KPL / 2; ++n) a[n] = __fadd_rn(s[i][n], s[i][n + KPL / 2]);
+#pragma unroll
+    for (int half = KPL / 4; half > 0; half >>= 1)
+#pragma unroll
+      for (int n = 0; n < half; ++n) a[n] = __fadd_rn(a[n], a[n + half]);
+    float sum = a[0];
+#pragma unroll
+    for (int off = LPR / 2; off > 0; off >>= 1)
+      sum = __fadd_rn(sum, __shfl_xor_sync(FULL, sum, off));
+    alpha[i] = expf(__fadd_rn(m[i], -mn));
+    l[i] = __fadd_rn(__fmul_rn(l[i], alpha[i]), sum);
+    m[i] = mn;
+  }
+}
+
+// pv += P V over the keys LPR n + jj (jj < LPR), N0 <= n < N1, in order,
+// with key row r staged at vt + (r - koff) LD; each key's p comes by
+// shuffle from the lane that holds it (lane base | jj of the row's group).
+template <typename P, int D, int N0, int N1, typename T>
+__device__ __forceinline__ void pv_keys(const float (&s)[P::RT][P::KPL],
+                                        float (&pv)[P::RT][D / P::LPR],
+                                        const T* vt, int koff, int j,
+                                        int base) {
+  constexpr int LD = ld<T, D>(), LPR = P::LPR, NC = D / LPR;
+#pragma unroll
+  for (int n = N0; n < N1; ++n) {
+#pragma unroll
+    for (int jj = 0; jj < LPR; ++jj) {
+      float pc[P::RT], vv[NC];
+#pragma unroll
+      for (int i = 0; i < P::RT; ++i) pc[i] = __shfl_sync(FULL, s[i][n], base | jj);
+      load_cols<NC, LPR>(vt + (LPR * n + jj - koff) * LD, j, vv);
+#pragma unroll
+      for (int e = 0; e < NC; ++e)
+#pragma unroll
+        for (int i = 0; i < P::RT; ++i)
+          pv[i][e] = __fmaf_rn(pc[i], vv[e], pv[i][e]);
+    }
+  }
 }
 
 // ROWS position-major query rows of one (batch, kv-head): row gr is position
@@ -242,6 +360,22 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  in ? VEC : 0);
     }
   };
+  // HALVES: piece h of the key extent is tile h / 4's k keys 0-31, k keys
+  // 32-63, v keys 0-31 or v keys 32-63 (h % 4), into half buffer h % 2
+  auto stage_half = [&](int h) {
+    const bool isk = (h & 3) < 2;
+    const T* src = isk ? kb : vb;
+    const int64_t rs = isk ? kst.s : vst.s;
+    const bool vec = isk ? kvec : vvec;
+    const int t0 = (h >> 2) * BKV + (h & 1) * S::HK;
+    T* dst = ks + (h & 1) * S::HALF_TILE;
+    for (int i = tid; i < S::HK * PIECES; i += THREADS) {
+      const int c = i / PIECES, e = i % PIECES * VEC;
+      const bool in = t0 + c < Skv;
+      copy_piece(dst + c * LD + e, in ? src + (t0 + c) * rs + e : src, vec,
+                 in ? VEC : 0);
+    }
+  };
   if (ntiles > 0) {
     const T* qb = q + b * qst.b + kvh * G * qst.h;
     const bool qvec = rows_vec(q, qst);
@@ -253,7 +387,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  in ? qb + (gr / G) * qst.s + (gr % G) * qst.h + e : q, qvec,
                  in ? VEC : 0);
     }
-    stage_tile(0);
+    if constexpr (S::HALVES)
+      stage_half(0);
+    else
+      stage_tile(0);
   }
   cp_async_commit();
 
@@ -274,91 +411,42 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* qrow = qs + row0 * LD;
 
   for (int t = 0; t < ntiles; ++t) {
-    cp_async_wait<0>();
-    __syncthreads();  // tile t landed; tile t-1's reads are done
-    if (t + 1 < ntiles) stage_tile(t + 1);
-    cp_async_commit();
-    const T* kt = ks + (t & 1) * S::TILE;
-    const T* vt = vs + (t & 1) * S::TILE;
-    const int t0 = t * BKV;
-
-    // scores s = q . k, one chain over d in order
-    float s[RT][KPL];
-#pragma unroll
-    for (int i = 0; i < RT; ++i)
-#pragma unroll
-      for (int n = 0; n < KPL; ++n) s[i][n] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < D; d += 4) {
-      float4 qf[RT];
-#pragma unroll
-      for (int i = 0; i < RT; ++i) qf[i] = load4(qrow + RPW * i * LD + d);
-#pragma unroll
-      for (int n = 0; n < KPL; ++n) {  // one k vector live at a time
-        const float4 kf = load4(kt + (j + LPR * n) * LD + d);
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-#pragma unroll
-          for (int i = 0; i < RT; ++i)
-            s[i][n] = __fmaf_rn(lane4(qf[i], e), lane4(kf, e), s[i][n]);
-      }
-    }
-
-    // row statistics in the row's lanes; p replaces s
-    float alpha[RT];
+    float s[RT][KPL], alpha[RT], pv[RT][NC];
 #pragma unroll
     for (int i = 0; i < RT; ++i) {
-      float mc = NEG;
 #pragma unroll
-      for (int n = 0; n < KPL; ++n) {
-        if (t0 + j + LPR * n >= row_end[i]) s[i][n] = NEG;
-        mc = fmaxf(mc, s[i][n]);
-      }
-#pragma unroll
-      for (int off = LPR / 2; off > 0; off >>= 1)
-        mc = fmaxf(mc, __shfl_xor_sync(FULL, mc, off));
-      const float mn = fmaxf(m[i], mc);
-      float a[KPL / 2];
-#pragma unroll
-      for (int n = 0; n < KPL; ++n)
-        s[i][n] = s[i][n] > NEG_HALF ? expf(__fadd_rn(s[i][n], -mn)) : 0.f;
-      // keys j + LPR n: n and n + KPL / 2 are 32 apart, then each halving
-      // 16, 8, ... down to LPR apart, then lanes LPR / 2, ..., 1 apart
-#pragma unroll
-      for (int n = 0; n < KPL / 2; ++n) a[n] = __fadd_rn(s[i][n], s[i][n + KPL / 2]);
-#pragma unroll
-      for (int half = KPL / 4; half > 0; half >>= 1)
-#pragma unroll
-        for (int n = 0; n < half; ++n) a[n] = __fadd_rn(a[n], a[n + half]);
-      float sum = a[0];
-#pragma unroll
-      for (int off = LPR / 2; off > 0; off >>= 1)
-        sum = __fadd_rn(sum, __shfl_xor_sync(FULL, sum, off));
-      alpha[i] = expf(__fadd_rn(m[i], -mn));
-      l[i] = __fadd_rn(__fmul_rn(l[i], alpha[i]), sum);
-      m[i] = mn;
-    }
-
-    // acc = acc * alpha + P V, one chain over the tile's keys in order
-    float pv[RT][NC];
-#pragma unroll
-    for (int i = 0; i < RT; ++i)
+      for (int n = 0; n < KPL; ++n) s[i][n] = 0.f;
 #pragma unroll
       for (int e = 0; e < NC; ++e) pv[i][e] = 0.f;
-#pragma unroll
-    for (int n = 0; n < KPL; ++n) {
-#pragma unroll
-      for (int jj = 0; jj < LPR; ++jj) {
-        float pc[RT], vv[NC];
-#pragma unroll
-        for (int i = 0; i < RT; ++i) pc[i] = __shfl_sync(FULL, s[i][n], base | jj);
-        load_cols<NC, LPR>(vt + (LPR * n + jj) * LD, j, vv);
-#pragma unroll
-        for (int e = 0; e < NC; ++e)
-#pragma unroll
-          for (int i = 0; i < RT; ++i)
-            pv[i][e] = __fmaf_rn(pc[i], vv[e], pv[i][e]);
-      }
+    }
+    if constexpr (S::HALVES) {
+      // one half tile in flight while the block works on the other, one
+      // barrier a half: the scores of keys j + LPR n from k's half 0 (n <
+      // KPL / 2) and half 1, the tile's statistics, then P V's chains over
+      // v's half 0 and on over half 1, so the arithmetic of the whole-tile
+      // loop below, key for key
+      auto next = [&](int h) {  // half h landed; half h + 1 in flight
+        cp_async_wait<0>();
+        __syncthreads();  // and half h - 1's reads are done
+        if (h + 1 < 4 * ntiles) stage_half(h + 1);
+        cp_async_commit();
+        return ks + (h & 1) * S::HALF_TILE;
+      };
+      score_keys<P, D, 0, KPL / 2>(s, qrow, next(4 * t), 0, j);
+      score_keys<P, D, KPL / 2, KPL>(s, qrow, next(4 * t + 1), S::HK, j);
+      tile_stats<P>(s, m, l, alpha, row_end, t * BKV, j);
+      pv_keys<P, D, 0, KPL / 2>(s, pv, next(4 * t + 2), 0, j, base);
+      pv_keys<P, D, KPL / 2, KPL>(s, pv, next(4 * t + 3), S::HK, j, base);
+    } else {
+      cp_async_wait<0>();
+      __syncthreads();  // tile t landed; tile t-1's reads are done
+      if (t + 1 < ntiles) stage_tile(t + 1);
+      cp_async_commit();
+      // scores s = q . k, the row statistics (p replaces s), then
+      // acc = acc * alpha + P V, one chain over the tile's keys in order
+      score_keys<P, D, 0, KPL>(s, qrow, ks + (t & 1) * S::TILE, 0, j);
+      tile_stats<P>(s, m, l, alpha, row_end, t * BKV, j);
+      pv_keys<P, D, 0, KPL>(s, pv, vs + (t & 1) * S::TILE, 0, j, base);
     }
 #pragma unroll
     for (int i = 0; i < RT; ++i)
@@ -422,13 +510,12 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
-// Shared memory one block may use on an H100.
-constexpr size_t MAX_SMEM = 232448;
-
 // A plan is instantiated at D where its lanes split D evenly and its fp32
 // blocks fit in shared memory (one rule for both dtypes): not the 32-lane
 // plan at head dims 80 and 112, only the 32-lane plan at 192 (the 64- and
-// 128-row plans there need 250,880 and 301,056 bytes in fp32).
+// 128-row plans there need 250,880 and 301,056 bytes in fp32) and at 576
+// (167,040 bytes in half tiles; the 64- and 128-row plans' half-tile
+// blocks need 296,960 and 445,440).
 // flash_attention.py::plans_at states the same rule and refuses the
 // others first.
 template <int D, typename P>
@@ -470,6 +557,8 @@ cudaError_t run_d(int D, int plan, const Args& a) {
       return run_plan<T, 128>(plan, a);
     case 192:
       return run_plan<T, 192>(plan, a);
+    case 576:
+      return run_plan<T, 576>(plan, a);
     default:
       return cudaErrorInvalidValue;
   }

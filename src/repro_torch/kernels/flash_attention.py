@@ -35,9 +35,10 @@ The forward launches under a `FwdPlan`, its query rows and threads per
 block and lanes per query row: `PLANS` are the instantiated plans,
 `plans_at` those a head dim admits (a plan's lanes must split the head
 dim and its fp32 block fit in shared memory: at 80 and 112 the 32-lane
-plan is out, at 192 it is the only one) and `plan_for` picks one from the
-shape.  The forward is instantiated at head dims `FWD_HEAD_DIMS` (32, 64,
-80, 112, 128 and MLA's prefill 192), the backward kernels at
+plan is out, at 192 and 576 it is the only one) and `plan_for` picks one
+from the shape.  The forward is instantiated at head dims `FWD_HEAD_DIMS`
+(32, 64, 80, 112, 128, MLA's prefill 192 and its latent 576, where K and
+V stream through 32-key half tiles), the backward kernels at
 `BWD_HEAD_DIMS` (32, 64, 80, 112, 128 and 192: hubert-xlarge's 80,
 zamba2's 112 and MLA's prefill 192 included) and the decode kernel at
 ``flash_decode.HEAD_DIMS`` (32, 64, 112, 128 and MLA's latent 576);
@@ -64,7 +65,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import attention_mask, flash_attention_ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-FWD_HEAD_DIMS = (32, 64, 80, 112, 128, 192)  # the forward kernel's
+FWD_HEAD_DIMS = (32, 64, 80, 112, 128, 192, 576)  # the forward kernel's
 BWD_HEAD_DIMS = (32, 64, 80, 112, 128, 192)  # dQ's and dK / dV's
 SMS = 132  # streaming multiprocessors of an H100 SXM
 MAX_SMEM = 232448  # bytes of shared memory one block may use
@@ -280,9 +281,14 @@ def _smem_ld(d: int, dtype) -> tuple[int, int]:
 def fwd_smem_bytes(d: int, plan: FwdPlan, dtype=torch.float32) -> int:
     """Shared memory of one forward block (``FwdSmem`` in
     csrc/flash_attention.cu): the plan's q rows and two stages of a K and
-    a V tile, rows of head dim `d` padded by 16 bytes."""
+    a V tile, or, where one fp32 stage of a K and a V tile would not fit
+    in `MAX_SMEM` (head dim 576), two 32-key half tiles that K and V
+    stream through (one rule for both dtypes); rows of head dim `d`
+    padded by 16 bytes."""
     size, ld = _smem_ld(d, dtype)
-    return (plan.rows + 4 * KEY_TILE) * ld * size
+    _, ld32 = _smem_ld(d, torch.float32)
+    halves = (plan.rows + 2 * KEY_TILE) * ld32 * 4 > MAX_SMEM
+    return (plan.rows + (1 if halves else 4) * KEY_TILE) * ld * size
 
 
 def plans_at(d: int) -> tuple[FwdPlan, ...]:
@@ -291,7 +297,8 @@ def plans_at(d: int) -> tuple[FwdPlan, ...]:
     both dtypes; every plan at 32, 64 and 128; at 80 and 112 the two 8-lane
     plans, 10 and 14 columns a lane; at 192 the 32-lane plan, 6 columns a
     lane, alone: the 8-lane plans' fp32 blocks need 250,880 and 301,056
-    bytes)."""
+    bytes; at 576 the 32-lane plan, 18 columns a lane, alone: 167,040
+    bytes in half tiles, the 8-lane plans' 296,960 and 445,440)."""
     return tuple(p for p in PLANS if d % p.lanes == 0
                  and fwd_smem_bytes(d, p) <= MAX_SMEM)
 
@@ -306,8 +313,8 @@ def plan_for(b: int, sq: int, h: int, kv: int, d: int | None = None
     chunk at batch 1 and 4, 64-row ones at a 512-token prompt, 128-row ones
     at the training shapes), or 64-row blocks where d does not admit a
     32-lane row (`plans_at`; head dims 80 and 112), and always the 8-row
-    plan where d admits no other (192).  For speed only: every plan gives
-    the same bits."""
+    plan where d admits no other (192 and 576).  For speed only: every
+    plan gives the same bits."""
     admitted = PLANS if d is None else plans_at(d)
     rows = (h // kv) * sq
     if PLANS[1] in admitted and b * kv * -(-rows // 128) >= SMS:

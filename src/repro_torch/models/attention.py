@@ -272,7 +272,13 @@ def mla_decode(engine: ComputeEngine, p: dict, x, cache: dict, pos, cos,
     multi-query over the latent: q_cat (B, C, H, lora + rope) against
     kv_cat = [c_kv, k_rope] (B, S_max, 1, lora + rope) and v_pad = [c_kv,
     0], ``kv_len = pos + C``, the scale 1/sqrt(nope + rope), not the op's
-    default 1/sqrt(lora + rope).  Returns (y (B, C, D), cache)."""
+    default 1/sqrt(lora + rope).  On `cuda` that dispatch takes the
+    split-KV decode kernel at head dim lora + rope (576) when it is
+    decode-shaped (C <= 8 against a cache of 256 rows or more,
+    `kernels.ops.use_decode_formulation`), else the flash forward at 576:
+    a step against a shorter cache (the slot engine's default 128 rows),
+    causal or not, and every chunk of more than 8 tokens.  Returns
+    (y (B, C, D), cache)."""
     b, c, _ = x.shape
     nope, rope_d, lora, vd, h = _mla_split(cfg)
     q_nope, q_rope, c_kv, k_rope = _mla_latent(engine, p, x, cos, sin, cfg)

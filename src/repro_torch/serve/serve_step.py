@@ -84,7 +84,9 @@ def make_decode_step(engine: ComputeEngine, cfg):
     """decode_step(params, caches, token (B, C), pos) -> (logits
     (B, C, V_padded) fp32, caches written in place).  On `cuda` a
     decode-shaped dispatch (C <= 8 against a cache buffer of 256 rows or
-    more) takes the split-KV decode kernel."""
+    more) takes the split-KV decode kernel, every other one the flash
+    forward (MLA's absorbed attention at head dim 576 included: a step
+    against fewer than 256 rows, a chunk of more than 8 tokens)."""
     def decode_step(params, caches, token, pos):
         h, caches = tfm.decode_hidden(engine, cfg, params, caches, token, pos)
         logits = lm_head_logits(engine, h, tfm.head_weight(params, cfg),

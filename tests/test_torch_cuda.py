@@ -49,10 +49,12 @@ dim 112) through prefill, decode and the slot engine on `cuda` against
 `eager`.  For MLA: the flash forward at head dim 192 (the 32-lane plan
 alone) and the split-KV decode at 576 (G = 16 over one latent kv-head,
 K and V in half tiles) against their plain versions, the merge bit for
-bit `combine`, the forward and dQ / dK / dV at 576 (and the 64-row dQ
-plan at 192) refused with no launch, and reduced deepseek-v2-lite-16b at
-MLA's widths through prefill, decode and the slot engine on `cuda`
-against `eager`.  For training the SSM, audio and hybrid families:
+bit `combine`, the flash forward at 576 (K and V in half tiles) against
+its plain version and bit for bit the one-split decode, the forward's
+8-lane plans and dQ / dK / dV at 576 (and the 64-row dQ plan at 192)
+refused with no launch, and reduced deepseek-v2-lite-16b at MLA's widths
+through prefill, decode, a 12-token decode chunk and the slot engine
+(against 256 and 24 cache rows) on `cuda` against `eager`.  For training the SSM, audio and hybrid families:
 reduced mamba2-1.3b, hubert-xlarge at 80 and zamba2-7b at 112 through
 `loss_fn` on `cuda` against `eager` (exact attention and SSD counts: the
 einsum form under grad, the kernel in a prefill after), and the `cuda` ssd
@@ -1393,15 +1395,68 @@ def test_decode_at_head_dim_576_matches_plain_and_combine(
     assert torch.equal(merged, fd.merge_plain(*parts, q.dtype))
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("b,sq,skv,causal,lens", [
+    (4, 1, 128, False, [128, 42, 1, 0]),
+    (2, 64, 128, True, [128, 64]),
+    (2, 12, 100, True, [100, 0]),
+    (3, 5, 70, False, None)])
+def test_forward_at_head_dim_576_matches_plain_and_the_decode(
+        card, b, sq, skv, causal, lens, dtype, tol):
+    """The flash forward at MLA's latent head dim 576 (16 query heads
+    over one kv-head; K and V through 32-key half tiles, the 32-lane plan,
+    18 columns a lane) against its plain version, dead rows exact 0, the
+    lse launch's o and every admitted plan bit for bit the path plan's,
+    the 8-lane plans refused by name with no launch; and the split-KV
+    decode at one split bit for bit the forward."""
+    q, k, v = _qkv(card, b, sq, skv, 16, 1, 576, dtype, seed=48)
+    kvl = (None if lens is None
+           else torch.tensor(lens, dtype=torch.int32, device=card))
+    before = fa.launches
+    got = fa.flash_attention_fwd(q, k, v, kvl, causal=causal)
+    assert fa.launches == before + 1
+    assert _relmax(got, fa.flash_attention_plain(q, k, v, kvl,
+                                                 causal=causal)) <= tol
+    if lens is not None and 0 in lens:
+        assert bool((got[lens.index(0)] == 0).all())
+    o_lse, lse = fa.flash_attention_fwd(q, k, v, kvl, causal=causal,
+                                        return_lse=True)
+    assert torch.equal(o_lse, got)
+    _, want_lse = fa.flash_attention_plain(q, k, v, kvl, causal=causal,
+                                           return_lse=True)
+    assert _relmax(lse, want_lse) <= tol
+    assert fa.plans_at(576) == (fa.PLANS[2],)
+    for plan in fa.plans_at(576):
+        o2, lse2 = fa.flash_attention_fwd(q, k, v, kvl, causal=causal,
+                                          return_lse=True, plan=plan)
+        assert torch.equal(fa.flash_attention_fwd(
+            q, k, v, kvl, causal=causal, plan=plan), got), plan
+        assert torch.equal(o2, got) and torch.equal(lse2, lse), plan
+    before = fa.launch_counts()
+    for plan in fa.PLANS[:2]:
+        with pytest.raises(ValueError, match="head dim 576"):
+            fa.flash_attention_fwd(q, k, v, kvl, causal=causal, plan=plan)
+    assert fa.launch_counts() == before
+    dkvl = (torch.full((b,), skv, dtype=torch.int32, device=card)
+            if kvl is None else kvl)
+    one, _ = fd.flash_decode_partials(q, k, v, dkvl, causal=causal,
+                                      n_splits=1, span=-(-skv // 64) * 64)
+    assert torch.equal(one[:, :, 0].transpose(1, 2).to(q.dtype), got)
+
+
 def test_kernels_refuse_mla_head_dims_they_lack_on_the_card(card):
-    """The forward and dQ / dK / dV at 576, and the 64-row dQ plan at 192,
-    raise by name before any launch."""
+    """The forward's 8-lane plans at 576 (their blocks do not fit; the
+    test's name is from when the forward refused 576 whole), dQ / dK / dV
+    at 576, and the 64-row dQ plan at 192, raise by name before any
+    launch."""
     q, k, v = _qkv(card, 2, 4, 300, 16, 1, 576, seed=43)
     q2, k2, v2 = _qkv(card, 2, 4, 64, 4, 4, 192, seed=44)
     lse = torch.zeros(2, 16, 4, device=card)
     lse2 = torch.zeros(2, 4, 4, device=card)
     before = fa.launch_counts()
-    for call in (lambda: fa.flash_attention_fwd(q, k, v),
+    for call in (lambda: fa.flash_attention_fwd(q, k, v, plan=fa.PLANS[0]),
+                 lambda: fa.flash_attention_fwd(q, k, v, plan=fa.PLANS[1]),
                  lambda: fa.flash_attention_bwd_dq(q, k, v, q, lse, lse),
                  lambda: fa.flash_attention_bwd_dkv(q, k, v, q, lse, lse),
                  lambda: fa.FlashAttention.apply(q.requires_grad_(), k, v,
@@ -1507,6 +1562,72 @@ def test_slot_engine_on_cuda_serves_mla_through_the_kernels(card):
     ServingEngine(cfg, params, engine=make_engine("cuda"), slots=1,
                   max_len=256).run([alone])
     assert alone.out == streams[0][2]
+
+
+def test_slot_engine_on_cuda_serves_mla_on_short_caches(card):
+    """The slot engine on `cuda` serves reduced deepseek-v2-lite-16b at
+    MLA's widths against 24 cache rows (under the split-KV kernel's 256):
+    every step's attention is the flash forward at 576, one launch a
+    layer, no split-KV launch; a reused slot's stream equals the request
+    alone and the streams equal the slot engine's on `eager`."""
+    cfg, params = _deepseek_small(card)
+
+    def reqs():
+        rng = np.random.default_rng(49)
+        return [Request(rid=i, prompt=rng.integers(
+            1, cfg.vocab_size, int(rng.integers(3, 12))).tolist(),
+            max_new=4) for i in range(5)]
+
+    streams = []
+    for label in ("cuda", "eager"):
+        rs = reqs()
+        before = (fa.launches, fd.launches)
+        eng = ServingEngine(cfg, params, engine=make_engine(
+            label, device=card), slots=2, max_len=24)
+        eng.run(rs)
+        after = (fa.launches, fd.launches)
+        assert all(r.done and len(r.out) == 4 for r in rs)
+        if label == "cuda":
+            steps = eng.stats()["steps"]
+            assert (after[0] - before[0], after[1] - before[1]) == (
+                steps * cfg.n_layers, 0)
+        streams.append([r.out for r in rs])
+    assert streams[0] == streams[1]
+    alone = reqs()[2]
+    ServingEngine(cfg, params, engine=make_engine("cuda"), slots=1,
+                  max_len=24).run([alone])
+    assert alone.out == streams[0][2]
+
+
+def test_mla_decode_chunk_on_cuda_matches_eager(card):
+    """A 12-token chunk of the absorbed decode (past `ops.DECODE_MAX_SQ`)
+    of reduced deepseek-v2-lite-16b at MLA's widths on `cuda` against
+    `eager`, at positions 0 and 12 of 256-row latent caches: one causal
+    flash forward a layer at 576 and no split-KV launch a chunk; logits
+    and caches within 1e-4."""
+    cfg, params = _deepseek_small(card)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 24),
+                           generator=torch.Generator().manual_seed(50)
+                           ).to(card)
+    out = {}
+    with torch.inference_mode():
+        for label in ("cuda", "eager"):
+            eng = make_engine(label, device=card)
+            step = make_decode_step(eng, cfg)
+            buf = kvcache.cache_init(cfg, 2, 256, device=card)
+            before = (fa.launches, fd.launches)
+            logits = []
+            for pos in (0, 12):
+                lg, buf = step(params, buf, tokens[:, pos:pos + 12], pos)
+                logits.append(lg[..., :cfg.vocab_size])
+            after = (fa.launches, fd.launches)
+            out[label] = (torch.stack(logits), buf,
+                          tuple(a - b for a, b in zip(after, before)))
+    assert out["cuda"][2] == (2 * cfg.n_layers, 0)
+    assert out["eager"][2] == (0, 0)
+    assert _relmax(out["cuda"][0], out["eager"][0]) <= 1e-4
+    for name, t in flatten(out["eager"][1]).items():
+        assert _relmax(flatten(out["cuda"][1])[name], t) <= 1e-4, name
 
 
 def _family_small(card, name):

@@ -13,8 +13,8 @@ each MoE call's expert ids, the JAX router on the port's layer input,
 with a top-k margin no rounding can cross.  The `cuda` einsum's
 formulation (`backends.einsum_as_bmm`, y permuted to (E, K, N)) runs here
 through the bmm wrapper's plain version; the attention kernels' wrappers
-at MLA's head dims (the forward at 192, the decode at 576) run their plain
-versions, against the JAX Pallas kernels in interpret mode.
+at MLA's head dims (the forward at 192 and 576, the decode at 576) run
+their plain versions, against the JAX Pallas kernels in interpret mode.
 """
 import dataclasses
 import re
@@ -28,6 +28,7 @@ import torch
 from repro.configs import base as jax_base
 from repro.core import make_engine as jax_make_engine
 from repro.kernels import ops as jax_ops
+from repro.kernels.flash_attention import flash_attention_with_lse
 from repro.models import attention as jax_attn
 from repro.models import transformer as jax_tfm
 from repro.models.common import rope_table as jax_rope_table
@@ -233,10 +234,12 @@ def _decode_case(c, engine=ENGINE, lora=32):
     return (y, tc), (jy, jc)
 
 
-@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("c", [1, 3, 12])
 def test_mla_decode_matches_jax(c):
     """The absorbed decode (W_uk into the query, W_uv after, multi-query
-    attention over the latent) and the cache it writes, at 1e-5."""
+    attention over the latent) and the cache it writes, at 1e-5; a chunk
+    of 12 is past `ops.DECODE_MAX_SQ`, so on `cuda` it takes the flash
+    forward at the latent's head dim."""
     (y, tc), (jy, jc) = _decode_case(c)
     assert y.shape == (2, c, 128)
     assert _relmax(y, jy) <= OP_TOL
@@ -522,6 +525,56 @@ def test_forward_at_head_dim_192_matches_the_jax_pallas_kernel(kv_len):
     assert fa.plan_for(2, 16, 4, 4, 192) == fa.PLANS[2]
 
 
+def _latent_operands(seed, sq, skv=48):
+    """The absorbed attention's operands at deepseek's widths: q (2, sq,
+    16, 576), one latent kv-head kv (2, skv, 1, 576) and V = [c_kv, 0]."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((2, sq, 16, 576)).astype(np.float32)
+    kv = rng.standard_normal((2, skv, 1, 576)).astype(np.float32)
+    v = np.concatenate([kv[..., :512], np.zeros_like(kv[..., 512:])], -1)
+    return q, kv, v
+
+
+@pytest.mark.parametrize("sq", [1, 12])
+@pytest.mark.parametrize("case", ["causal_kv_len", "not_causal",
+                                  "return_lse"])
+def test_forward_at_head_dim_576_matches_the_jax_pallas_kernel(case, sq):
+    """The absorbed attention where the split-KV kernel does not take it
+    (a slot step against a cache under 256 rows, a chunk of more than 8
+    tokens): G = 16 query heads over one latent kv-head of 576, V = [c_kv,
+    0], the scale 1/sqrt(192), Sq 1 and 12 against 48 keys, through
+    `ops.attention` (the forward wrapper's plain version on CPU tensors)
+    against the JAX flash kernel in interpret mode; causal with a kv_len
+    of 0, not causal, and the lse launch against JAX's lse forward."""
+    q, kv, v = _latent_operands(11, sq)
+    scale = 1.0 / 192 ** 0.5
+    causal = case != "not_causal"
+    kvl = np.array({"causal_kv_len": [48, 0], "not_causal": [48, 20],
+                    "return_lse": [48, 20]}[case], np.int32)
+    tq, tkv, tv, tkvl = map(torch.from_numpy, (q, kv, v, kvl))
+    if case == "return_lse":
+        qs = (q * np.float32(scale)).astype(np.float32)
+        jo, jlse = flash_attention_with_lse(
+            *(jnp.asarray(x).transpose(0, 2, 1, 3) for x in (qs, kv, v)),
+            causal=True, sm_scale=1.0, bq=sq, bk=16,
+            kv_len=jnp.asarray(kvl), interpret=True)
+        o, lse = fa.flash_attention_fwd(torch.from_numpy(qs), tkv, tv, tkvl,
+                                        causal=True, return_lse=True)
+        assert lse.shape == (2, 16, sq) and lse.dtype == torch.float32
+        assert _relmax(lse, jlse) <= OP_TOL
+        assert _relmax(o, np.asarray(jo).transpose(0, 2, 1, 3)) <= OP_TOL
+        return
+    want = jax_ops.attention(*map(jnp.asarray, (q, kv, v, kvl)),
+                             sm_scale=scale, causal=causal, interpret=True)
+    got = ops.attention(tq, tkv, tv, tkvl, scale, causal=causal)
+    assert got.shape == (2, sq, 16, 576)
+    assert float(got[..., 512:].abs().max()) == 0.0
+    assert _relmax(got, want) <= OP_TOL
+    if case == "causal_kv_len":
+        assert bool((got[1] == 0).all())
+    assert fa.plan_for(2, sq, 16, 1, 576) == fa.PLANS[2]
+
+
 @pytest.mark.parametrize("sq", [1, 4])
 def test_decode_at_head_dim_576_matches_the_jax_pallas_kernel(sq):
     """The absorbed decode's attention: G = 16 query heads over one
@@ -546,14 +599,22 @@ def test_decode_at_head_dim_576_matches_the_jax_pallas_kernel(sq):
 
 
 def test_plans_at_mla_head_dims_fit_in_shared_memory():
-    """At 192 the forward admits the 32-lane plan alone (the 8-lane plans'
-    fp32 blocks are past MAX_SMEM), picks it at every shape and refuses
-    the others by name; every decode block at 576 (K and V in 32-key half
-    tiles) fits, fp32 and bf16, as at every other head dim."""
-    assert fa.plans_at(192) == (fa.PLANS[2],)
-    for plan in fa.PLANS:
-        need = fa.fwd_smem_bytes(192, plan)
-        assert (need <= fa.MAX_SMEM) == (plan in fa.plans_at(192)), plan
+    """At 192 and at 576 the forward admits the 32-lane plan alone (the
+    8-lane plans' fp32 blocks are past MAX_SMEM; at 576 K and V stream
+    through 32-key half tiles), picks it at every shape and refuses the
+    others by name; the plans of every earlier head dim are as they were;
+    every decode block at 576 (K and V in 32-key half tiles) fits, fp32
+    and bf16, as at every other head dim."""
+    for d in (192, 576):
+        assert fa.plans_at(d) == (fa.PLANS[2],)
+        for plan in fa.PLANS:
+            need = fa.fwd_smem_bytes(d, plan)
+            assert (need <= fa.MAX_SMEM) == (plan in fa.plans_at(d)), plan
+    assert fa.fwd_smem_bytes(576, fa.PLANS[2]) == 167_040
+    assert fa.fwd_smem_bytes(576, fa.PLANS[2], torch.bfloat16) == 84_096
+    assert {d: fa.plans_at(d) for d in (32, 64, 80, 112, 128)} == {
+        32: fa.PLANS, 64: fa.PLANS, 80: fa.PLANS[:2], 112: fa.PLANS[:2],
+        128: fa.PLANS}
     for d in fa.FWD_HEAD_DIMS:
         for plan in fa.plans_at(d):
             for dt in (torch.float32, torch.bfloat16):
@@ -561,10 +622,14 @@ def test_plans_at_mla_head_dims_fit_in_shared_memory():
     for shape in ((1, 1, 16, 16), (2, 512, 16, 16), (1, 64, 16, 16),
                   (8, 4096, 16, 16)):
         assert fa.plan_for(*shape, 192) == fa.PLANS[2]
-    q = torch.zeros(1, 4, 2, 192)
-    for plan in fa.PLANS[:2]:
-        with pytest.raises(ValueError, match="head dim 192"):
-            fa.flash_attention_fwd(q, q, q, plan=plan)
+    for shape in ((4, 1, 16, 1), (2, 64, 16, 1), (1, 1, 16, 1),
+                  (8, 4096, 16, 1), (64, 512, 16, 1)):
+        assert fa.plan_for(*shape, 576) == fa.PLANS[2]
+    for d in (192, 576):
+        q = torch.zeros(1, 4, 2, d)
+        for plan in fa.PLANS[:2]:
+            with pytest.raises(ValueError, match=f"head dim {d}"):
+                fa.flash_attention_fwd(q, q, q, plan=plan)
     for d in fd.HEAD_DIMS:
         for dt in (torch.float32, torch.bfloat16):
             assert fd.smem_bytes(d, dt) <= fd.MAX_SMEM
@@ -574,12 +639,13 @@ def test_plans_at_mla_head_dims_fit_in_shared_memory():
 @pytest.mark.parametrize("kernel", ["forward_576", "dq_192", "dkv_192",
                                     "autograd_192"])
 def test_kernels_refuse_the_head_dims_they_lack(kernel):
-    """The forward at 576 (a shallow-cache or chunked MLA decode) is not
-    instantiated, nor are dQ / dK / dV at 576, a head dim that is never
-    trained (the `*_192` cases keep the ids they had when the backward
-    refused MLA's 192, which it now takes; `dq_192` also holds the dQ
-    kernel's refusal of its 64-row plan at 192): each refuses by name, on
-    the CPU as on the card."""
+    """The forward at 576 refuses the plans its block does not fit (the
+    8-lane ones; the case keeps the id it had when the forward refused
+    576 whole), and dQ / dK / dV at 576, a head dim that is never trained,
+    are not instantiated (the `*_192` cases keep the ids they had when the
+    backward refused MLA's 192, which it now takes; `dq_192` also holds
+    the dQ kernel's refusal of its 64-row plan at 192): each refuses by
+    name, on the CPU as on the card."""
     rng = np.random.default_rng(10)
     q576 = torch.from_numpy(rng.standard_normal((2, 4, 16, 576)).astype(
         np.float32))
@@ -592,8 +658,8 @@ def test_kernels_refuse_the_head_dims_they_lack(kernel):
     lse = delta = torch.zeros(2, 4, 4)
     lse16 = torch.zeros(2, 16, 4)
     calls = {
-        "forward_576": (lambda: fa.flash_attention_fwd(q576, k576, k576),
-                        576),
+        "forward_576": (lambda: fa.flash_attention_fwd(
+            q576, k576, k576, plan=fa.PLANS[0]), 576),
         "dq_192": (lambda: fa.flash_attention_bwd_dq(
             q576, q576, q576, q576, lse16, lse16), 576),
         "dkv_192": (lambda: fa.flash_attention_bwd_dkv(
@@ -603,6 +669,9 @@ def test_kernels_refuse_the_head_dims_they_lack(kernel):
     call, d = calls[kernel]
     with pytest.raises(ValueError, match=f"head dim {d}"):
         call()
+    if kernel == "forward_576":
+        with pytest.raises(ValueError, match="head dim 576"):
+            fa.flash_attention_fwd(q576, k576, k576, plan=fa.PLANS[1])
     if kernel == "dq_192":
         with pytest.raises(ValueError, match="head dim 192"):
             fa.flash_attention_bwd_dq(q, k, k, do, lse, delta,
