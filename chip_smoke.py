@@ -564,6 +564,35 @@ script exits non-zero.  Phases:
               freed once its errors are taken: the peak held to
               MOE_TRAIN's bound; then its expert bmm's dX and dW timed as
               phase 57.
+ 61. autotune (run after phase 19)  the measured autotuner
+              (core/autotune.py, the registry's plan cache) with its table
+              in a fresh temporary directory (REPRO_AUTOTUNE_CACHE), on
+              data of its own generators: full-width DARKNET19_CFG serving
+              a batch of 8 through compile_cache(autotune=...) and
+              CNNServingEngine, one make_cnn_train_step step at batch 8
+              (the gemm_bwd keys), and one full-width, full-depth
+              qwen2-0.5b make_train_step step at 2 x 512 (attention and
+              attention_bwd at head dim 64, gemm_bwd at LM shapes).  Each
+              path runs under `heuristic` and then, the cache cleared,
+              under `measure`: outputs, gradients, parameters and AdamW
+              moments bitwise equal, the same keys; then a simulated
+              fresh process (`clear_tile_cache()`, `autotune.reset()`)
+              runs it again: bitwise equal, nothing measured, every
+              measured key persisted, the heuristic run's launches but
+              the forward's regimes (the split counts are the shape's).
+              One line per measured key (heuristic and measured pick,
+              both times, the ratio), one per path (a forward / step
+              under both picks by CUDA events, in turns: the rules',
+              the measured, the measured, the rules'; the card's name and
+              power limit).  The cache is cleared and the policy restored at
+              the end.
+ 62. autotune_mla (run after phase 48, while the model is held)  as phase
+              61 for deepseek-v2-lite-16b at full width and depth: 4
+              decode steps of the slot engine (2 slots of 256 latent rows:
+              regime-A GEMMs at M 2, the expert bmm and the absorbed
+              einsums through `einsum`, the split-KV decode at 576), the
+              tokens and the latent caches bitwise equal; every
+              attention_decode key stays `decode_splits`', untimed.
 Then the kernels line (48 entries: the lse forward, dQ and dK / dV at 80,
 112 and 192, the expert bmm's dX and dW on mla_train and moe_train, the
 flash forward at 576 on mla_short_serve and mla_chunk added), and last
@@ -572,14 +601,17 @@ seconds since the script started.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -591,7 +623,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs.base import (ShapeConfig, get_arch,  # noqa: E402
                                        input_tensors, reduced)
 from repro_torch.configs.darknet_ref import DARKNET19_CFG  # noqa: E402
-from repro_torch.core import backends, make_engine  # noqa: E402
+from repro_torch.core import autotune, backends, make_engine  # noqa: E402
 from repro_torch.core.darknet import cfg as darknet_cfg  # noqa: E402
 from repro_torch.core.darknet.network import Network  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
@@ -755,6 +787,10 @@ TRAIN_ATTN = {80: (AUDIO_ARCH, (4, 500), False),  # head dim: arch, (b, s),
 # to its dense first layer and two MoE layers, and llama4-scout-17b-a16e at
 # full width, one layer, step 1 only (steps 0: no AdamW trajectory).  Each
 # draws its checks and timings from a generator of its own (`gen`).
+# Phase autotune's paths, each on data of its own generator.
+AUTOTUNE_CNN = dict(batch=8, seed=91)  # DARKNET19 serving and a train step
+AUTOTUNE_LM = dict(batch=2, seq=512, seed=92)  # one qwen2-0.5b train step
+AUTOTUNE_MLA = dict(slots=2, max_len=256, new=4, seed=93)  # 4 decode steps
 MLA_TRAIN = dict(batch=2, seq=512, steps=3, seed=76, gen=77, layers=3,
                  sharp_tol=TRAIN_TOL,
                  reduced=["n_layers 27 -> 3: the dense first layer and two "
@@ -5831,6 +5867,243 @@ def timing_family_train_phase(phase, cfg, dev, run: dict, gen, peak_flops,
     return rows
 
 
+def clones(obj) -> list[torch.Tensor]:
+    """Detached copies of every tensor of a nested dict / list / tuple, in
+    `flatten`'s order."""
+    return [t.detach().clone() for t in flatten(obj).values()
+            if isinstance(t, torch.Tensor)]
+
+
+def same_bits(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)
+        for x, y in zip(a, b))
+
+
+def cnn_serve_path(dev):
+    """Phase autotune's DARKNET19 serving path: `run(policy)` serves
+    AUTOTUNE_CNN's batch through a CNNServingEngine over
+    compile_cache(buckets=(8,), autotune=policy) and returns the served
+    rows and a timer of the batch-8 forward."""
+    a = AUTOTUNE_CNN
+    gen = torch.Generator().manual_seed(a["seed"])
+    net = Network(DARKNET19_CFG, make_engine("cuda"), generator=gen)
+    randomize_bn(net, gen)
+    images = np.random.default_rng(a["seed"]).standard_normal(
+        (a["batch"], *net.in_shape)).astype(np.float32)
+
+    def run(policy):
+        cache = net.compile_cache(buckets=(a["batch"],), autotune=policy)
+        reqs = [ImageRequest(rid=i, image=im) for i, im in enumerate(images)]
+        CNNServingEngine(cache).run(reqs)  # ---- the CNN serving path
+        check(all(r.done for r in reqs), "autotune: a CNN request is open")
+        out = [torch.from_numpy(np.asarray(r.result)) for r in reqs]
+        cn, x = cache.get(a["batch"]), torch.from_numpy(images).to(dev)
+        return out, lambda: cuda_ms(lambda: cn(x), reps=10, repeats=3)
+    return run
+
+
+def cnn_train_path(dev):
+    """Phase autotune's DARKNET19 training path: `run(policy)` takes one
+    make_cnn_train_step step at AUTOTUNE_CNN's batch from a seeded network
+    and returns its loss, parameters and AdamW state, and a step timer."""
+    a = AUTOTUNE_CNN
+    rng = np.random.default_rng(a["seed"] + 1)
+    images = torch.from_numpy(rng.standard_normal(
+        (a["batch"], 224, 224, 3)).astype(np.float32)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, 1000, a["batch"])).to(dev)
+    ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=1)
+
+    def run(policy):
+        gen = torch.Generator().manual_seed(a["seed"])
+        net = Network(DARKNET19_CFG, make_engine("cuda"), generator=gen)
+        randomize_bn(net, gen)
+        step = make_cnn_train_step(net, ocfg)
+        state = opt.adamw_init(dict(net.named_parameters()))
+        with backends.autotune_policy(policy):
+            state, metrics = step(state, (images, labels))  # ---- the path
+        out = clones([metrics["loss"], dict(net.named_parameters()), state])
+        return out, lambda: cuda_ms(lambda: step(state, (images, labels)),
+                                    reps=1, repeats=3)
+    return run
+
+
+def lm_train_path(cfg, dev):
+    """Phase autotune's qwen2-0.5b training path: `run(policy)` takes one
+    make_train_step step at AUTOTUNE_LM's 2 x 512 from parameters of its
+    own generator and returns the loss, parameters and AdamW state, and a
+    step timer."""
+    a = AUTOTUNE_LM
+    batch = lm_train_batch(cfg, dev, 0, a["batch"], a["seq"], a["seed"])
+    step = make_train_step(make_engine("cuda"), cfg,
+                           opt.AdamWConfig(lr=3e-4, warmup_steps=1),
+                           ce_chunk=min(512, a["seq"]))
+
+    def run(policy):
+        params = lm_train_params(cfg, dev, a["seed"])
+        state = opt.adamw_init(flatten(params))
+        with backends.autotune_policy(policy):
+            params, state, metrics = step(params, state, batch)  # ---- path
+        out = clones([metrics["loss"], params, state])
+        return out, lambda: cuda_ms(lambda: step(params, state, batch),
+                                    reps=1, repeats=3)
+    return run
+
+
+def mla_decode_path(cfg, params, dev):
+    """Phase autotune_mla's path: `run(policy)` serves AUTOTUNE_MLA's
+    one-token prompts through the slot engine on `cuda` for its 4 decode
+    steps and returns the tokens and the latent caches, and a timer of one
+    decode step."""
+    a = AUTOTUNE_MLA
+    prompts = np.random.default_rng(a["seed"]).integers(
+        1, cfg.vocab_size, a["slots"])
+    engine = make_engine("cuda")
+    decode = make_decode_step(engine, cfg)
+
+    def run(policy):
+        server = ServingEngine(cfg, params, engine=engine, slots=a["slots"],
+                               max_len=a["max_len"])
+        reqs = [Request(rid=i, prompt=[int(t)], max_new=a["new"])
+                for i, t in enumerate(prompts)]
+        with backends.autotune_policy(policy):
+            server.run(reqs)  # ---- the MLA decode path
+        check(server.stats()["steps"] == a["new"]
+              and all(len(r.out) == a["new"] for r in reqs),
+              f"autotune_mla: {server.stats()['steps']} steps")
+        out = [torch.tensor([r.out for r in reqs])] + clones(server.caches)
+        toks = torch.tensor(prompts[:, None], dtype=torch.int64, device=dev)
+        pos = torch.tensor(server.pos, dtype=torch.int64, device=dev)
+
+        def step():
+            with torch.inference_mode():
+                decode(params, server.caches, toks, pos)
+        return out, lambda: cuda_ms(step, reps=2, repeats=3)
+    return run
+
+
+def autotune_path(phase, name, run, smi) -> dict:
+    """Run one path of phase autotune (see the module docstring) and check
+    it; returns its per-path record."""
+    runs = {}
+    for label, policy in (("heuristic", "heuristic"), ("measured", "measure")):
+        backends.clear_tile_cache()
+        reset_all_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, timer = run(policy)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[label] = {"out": out, "report": backends.autotune_report(),
+                       "launches": all_launches(), "wall_s": wall}
+        del timer
+    heur, meas = runs["heuristic"]["report"], runs["measured"]["report"]
+    # A key an earlier path of the phase measured is served from the table
+    measured = {k: r for k, r in meas.items() if r["source"] == "measured"}
+    tuned = {k: r for k, r in meas.items() if r["source"] != "heuristic"}
+    backends.clear_tile_cache()  # ---- a fresh process on the same device
+    autotune.reset()
+    reset_all_launches()
+    out, timer = run("measure")
+    torch.cuda.synchronize()
+    # the measured run's counts include the candidates' timed launches
+    fresh_launches = all_launches()
+    fresh, stats = backends.autotune_report(), backends.cache_stats()
+    # The path in turns on one card: "off" runs every rule's pick, and
+    # "heuristic" serves the memoized (persisted, measured) picks.
+    turns = {"off": [], "heuristic": []}
+    for policy in ("off", "heuristic", "heuristic", "off"):
+        with backends.autotune_policy(policy):
+            turns[policy].append(timer())
+    del timer
+    backends.clear_tile_cache()
+    heur_ms = statistics.mean(turns["off"])
+    meas_ms = statistics.mean(turns["heuristic"])
+    for key, rec in measured.items():
+        hp = heur[key]["pick"]
+        hms = next(ms for c, ms in rec["candidates_timed"] if c == hp)
+        emit(phase + "_key", path=name, key=key, heuristic=hp,
+             measured=rec["pick"], heuristic_ms=hms,
+             measured_ms=rec["est_ms"], ratio=hms / rec["est_ms"],
+             candidates_timed=rec["candidates_timed"])
+    unregimed = [{k: v for k, v in launches.items()
+                  if not k.startswith("gemm_fwd_regime")}
+                 for launches in (runs["heuristic"]["launches"],
+                                  fresh_launches)]
+    decode = {k: r for k, r in meas.items()
+              if k.startswith('["attention_decode"')}
+    sources = collections.Counter(r["source"] for r in meas.values())
+    rec = {"path": name, "keys": len(meas), "measured_keys": len(measured),
+           "sources": dict(sources),
+           "ops": dict(collections.Counter(json.loads(k)[0] for k in meas)),
+           "heuristic_ms": heur_ms, "measured_ms": meas_ms,
+           "ratio": heur_ms / meas_ms,
+           "turns_ms": {"heuristic": turns["off"],
+                        "measured": turns["heuristic"]},
+           "changed_picks": sum(r["pick"] != heur[k]["pick"]
+                                for k, r in tuned.items()),
+           "fresh_stats": stats, "decode_keys": len(decode),
+           "wall_s": {k: r["wall_s"] for k, r in runs.items()},
+           "launches": fresh_launches, "smi": smi}
+    emit(phase + "_path", **rec)
+    check(same_bits(runs["heuristic"]["out"], runs["measured"]["out"]),
+          f"{phase} {name}: the measured picks change the output bits")
+    check(same_bits(runs["heuristic"]["out"], out),
+          f"{phase} {name}: the persisted picks change the output bits")
+    check(set(heur) == set(meas) == set(fresh),
+          f"{phase} {name}: the keys differ between the runs")
+    check(all(r["source"] == "heuristic" for r in heur.values()),
+          f"{phase} {name}: a heuristic run measured or read the table")
+    check(len(measured) > 0, f"{phase} {name}: no key was measured")
+    check(stats["measured"] == 0 and stats["persisted"] == len(tuned)
+          and all(fresh[k]["source"] == "persisted"
+                  and fresh[k]["pick"] == r["pick"]
+                  for k, r in tuned.items()),
+          f"{phase} {name}: the fresh process {stats}, "
+          f"{len(tuned)} keys measured or persisted")
+    check(unregimed[0] == unregimed[1],
+          f"{phase} {name}: launches differ beyond the regimes: "
+          f"{unregimed}")
+    check(all(r["source"] == "heuristic" and tuple(r["pick"])
+              == ops.decode_splits(json.loads(k)[1][1][1],
+                                   json.loads(k)[1][1][2])
+              for k, r in decode.items()),
+          f"{phase} {name}: a decode split moved: {decode}")
+    return rec
+
+
+def autotune_phase(phase, paths, smi) -> dict:
+    """Phase autotune / autotune_mla: each (name, run) of `paths` through
+    `autotune_path`, with the table in a fresh temporary directory; the
+    cache cleared and the policy and environment restored after."""
+    prev_env = os.environ.get("REPRO_AUTOTUNE_CACHE")
+    prev = backends.get_autotune_policy()
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory(prefix="autotune-") as table_dir:
+            os.environ["REPRO_AUTOTUNE_CACHE"] = table_dir
+            autotune.reset()
+            recs = {name: autotune_path(phase, name, run, smi)
+                    for name, run in paths}
+            table = autotune.table_path()
+            with open(table) as f:
+                entries = len(json.load(f)["entries"])
+    finally:
+        if prev_env is None:
+            os.environ.pop("REPRO_AUTOTUNE_CACHE", None)
+        else:
+            os.environ["REPRO_AUTOTUNE_CACHE"] = prev_env
+        backends.set_autotune_policy(prev)
+        backends.clear_tile_cache()
+        autotune.reset()
+    emit(phase, seconds=time.perf_counter() - t0,
+         fingerprint=autotune.device_fingerprint(), table_entries=entries,
+         paths=list(recs), smi=smi)
+    check(entries == sum(r["measured_keys"] for r in recs.values()),
+          f"{phase}: {entries} table entries")
+    return recs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
@@ -6235,6 +6508,10 @@ def main() -> int:
     train_rows = timing_lm_train_phase(cfg, dev, cgen, peak_flops, peak_bw,
                                        smi, tl)
     torch.cuda.empty_cache()
+    autotune_phase("autotune", (("cnn_serve", cnn_serve_path(dev)),
+                                ("cnn_train", cnn_train_path(dev)),
+                                ("lm_train", lm_train_path(cfg, dev))), smi)
+    torch.cuda.empty_cache()
 
     # ------------------------------------------------------ 20-23. the SSM
     scfg = get_arch(SSM_ARCH)
@@ -6342,6 +6619,9 @@ def main() -> int:
     lt = timing_mla_phase(lcfg, lparams, dev, mgen, peak_flops, peak_bw,
                           smi)
     lt576 = timing_mla_576(lcfg, dev, peak_flops, peak_bw, smi)
+    autotune_phase("autotune_mla",
+                   (("mla_decode", mla_decode_path(lcfg, lparams, dev)),),
+                   smi)
     del lparams
     torch.cuda.empty_cache()
 

@@ -5,7 +5,13 @@ The paper's claim is that ONE full-precision compute engine serves every
 dense layer of a CNN (conv-as-im2col, FC, deconv).  This module is the
 software form of that claim: a fixed op set (`OP_SET`), a
 `register_backend` / `get_backend` API so execution targets plug in without
-touching `ComputeEngine`, and dispatch counters plus a bounded dispatch log.
+touching `ComputeEngine`, a per-process autotune cache so plan picks are
+made once per (op, shapes, dtype, backend) and reused, and dispatch
+counters plus a bounded dispatch log.  The cache resolves picks under a
+policy (`off | heuristic | measure`, see `set_autotune_policy`): "measure"
+times a candidate set on the card on first sight of a key and persists
+the winner to a per-device table (core/autotune.py), so a second process
+on the same device measures nothing.
 
 Built-in backends:
 
@@ -40,9 +46,13 @@ The engine calls `guard_grad` on every dispatch, so an op that a backend
 does not declare differentiable, or an inference-only dispatch, raises a
 clear NotImplementedError when it is dispatched with grad enabled on an
 operand that requires it.  The
-measured autotune policy of the JAX registry is later work: the `cuda`
-backend picks its tiles with fixed heuristics
-(`kernels/ops.py::default_tiles`, `default_bwd_tiles`, `decode_splits`).
+`cuda` backend resolves every GEMM and attention plan through the autotune
+cache (`tile_plan`): its picker is the shape rules
+(`kernels/ops.py::default_tiles`, `bmm_plan_for`, `gemm.bwd_plan_for`,
+`flash_attention.plan_for` / `bwd_plan_for`, `decode_splits`), its
+candidates the instantiated plans and its bench one launch of a kernel
+(`kernels/ops.py`'s autotune surface).  The split counts of the backward
+GEMMs and of the decode set the bits, so no policy changes them.
 
 Op contract (`ctx` is an `OpContext` carrying the engine's precision policy
 and the tile plan):
@@ -85,12 +95,18 @@ and the tile plan):
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import os
+import warnings
 from typing import Any, Callable, Mapping
 
 import torch
 
+from repro_torch.core import autotune
 from repro_torch.core.precision import Precision
+from repro_torch.kernels import flash_attention as flash_kernel
+from repro_torch.kernels import gemm as gemm_kernel
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd as ssd_kernel
@@ -103,20 +119,31 @@ OP_SET = ("matmul", "bmm", "conv2d", "attention", "ssd", "einsum")
 class OpContext:
     """Per-dispatch context handed to backend op implementations."""
     precision: Precision
-    # (bm, bk, bn) for GEMM-shaped ops on tiled backends, () otherwise.
+    # The plan resolved from the autotune cache on tiled backends (a
+    # `gemm.Plan` for GEMM-shaped ops, a `flash_attention.FwdPlan` for
+    # attention), () otherwise.
     tiles: tuple = ()
 
 
 @dataclasses.dataclass(frozen=True)
 class Backend:
-    """A registered execution target: op impls, an optional
-    `tile_picker(op, shapes, dtype) -> tuple` for tiled backends,
+    """A registered execution target: op impls, optional autotune hooks,
     `differentiable`, the ops autograd may flow through, and an optional
     `inference_only(op, operands) -> bool` naming the dispatches of those
-    ops that have no backward."""
+    ops that have no backward.
+
+    `tile_picker(op, shapes, dtype) -> tuple` is the instant heuristic
+    pick; `tile_candidates(op, shapes, dtype) -> [tuple, ...]` enumerates
+    the plans the measure policy times, and `tile_bench(op, shapes, dtype,
+    tiles) -> thunk | None` builds a zero-argument callable running one
+    launch with those tiles.  A backend with only a picker autotunes
+    heuristically; one with all three takes part in ``measure``.  The
+    hooks get the dtype by its JAX name (``"float32"``)."""
     name: str
     ops: Mapping[str, Callable]
     tile_picker: Callable[[str, tuple, Any], tuple] | None = None
+    tile_candidates: Callable[[str, tuple, Any], list] | None = None
+    tile_bench: Callable[..., Callable | None] | None = None
     differentiable: frozenset = frozenset(OP_SET)
     inference_only: Callable[[str, tuple], bool] | None = None
 
@@ -135,20 +162,28 @@ class Backend:
                 f"(has: {sorted(self.ops)})") from None
 
     def tiles(self, op: str, shapes: tuple, dtype) -> tuple:
-        """Tile plan for one dispatch, () for an untiled backend."""
-        if self.tile_picker is None:
+        """Plan for one dispatch, resolved through the autotune cache under
+        the active policy (see `tile_plan`); () for an untiled backend."""
+        if self.tile_picker is None:  # untiled backend: skip the cache
             return ()
-        return tuple(self.tile_picker(op, shapes, dtype))
+        return tile_plan(op, shapes, dtype, self.name, self.tile_picker,
+                         candidates=self.tile_candidates,
+                         bench=self.tile_bench)
 
 
 _REGISTRY: dict[str, Backend] = {}
 
 
 def register_backend(name: str, ops: Mapping[str, Callable], *,
-                     tile_picker=None, differentiable=None,
-                     inference_only=None, overwrite: bool = False) -> Backend:
+                     tile_picker=None, tile_candidates=None, tile_bench=None,
+                     differentiable=None, inference_only=None,
+                     overwrite: bool = False) -> Backend:
     """Register a backend implementing (a subset of) OP_SET.
 
+    `tile_picker` is the optional heuristic `(op, shapes, dtype) -> tuple`
+    whose picks the process-wide autotune cache memoizes;
+    `tile_candidates` / `tile_bench` are the optional measure-policy hooks
+    (see `Backend`), ignored unless the policy is "measure".
     `differentiable` names the ops autograd may flow through; None means
     every registered op (right for backends of plain PyTorch ops).  A
     kernel backend names only the ops whose kernels have a backward, and
@@ -171,6 +206,7 @@ def register_backend(name: str, ops: Mapping[str, Callable], *,
                          f"{sorted(diff - set(ops))}; registered: "
                          f"{sorted(ops)}")
     be = Backend(name=name, ops=dict(ops), tile_picker=tile_picker,
+                 tile_candidates=tile_candidates, tile_bench=tile_bench,
                  differentiable=diff, inference_only=inference_only)
     _REGISTRY[name] = be
     return be
@@ -216,6 +252,236 @@ def guard_grad(backend: Backend, op: str, *operands) -> None:
             f"{op!r}.  Use a backend that supports grad for {op!r} (the "
             f"'eager' backend differentiates every registered op), or "
             f"register the backend with a differentiable {op!r}.")
+
+
+# ------------------------------------------------------- autotune cache ---
+# Plan picks are memoized process-wide, keyed on (op, shapes, dtype,
+# backend), the dtype by its JAX name.  Under the default "heuristic"
+# policy a miss runs the backend's picker; under "measure" a miss of a key
+# that has two or more candidates first consults the per-device persisted
+# table (core/autotune.py), and only when that also misses times the
+# candidates and persists the winner.  A memoized pick serves every later
+# lookup of its key whatever the policy, as in the JAX registry.  Stats and
+# per-key records are observable so tests and the smoke run can assert the
+# cache's behaviour and report heuristic against measured picks.
+
+AUTOTUNE_POLICIES = ("off", "heuristic", "measure")
+
+_TILE_CACHE: dict[tuple, tuple] = {}
+_TILE_RECORDS: dict[tuple, dict] = {}
+_TILE_STATS = collections.Counter()
+
+
+def _policy_from_env(value: str | None) -> str:
+    """Default policy from `REPRO_AUTOTUNE`.  A typo'd value must not
+    silently degrade to heuristic behaviour (the persisted table would
+    never be consulted), so it warns loudly before falling back."""
+    if value is None or value in AUTOTUNE_POLICIES:
+        return value or "heuristic"
+    warnings.warn(f"ignoring invalid REPRO_AUTOTUNE={value!r}; "
+                  f"choose from {AUTOTUNE_POLICIES}", stacklevel=2)
+    return "heuristic"
+
+
+_POLICY = _policy_from_env(os.environ.get("REPRO_AUTOTUNE"))
+
+
+def set_autotune_policy(policy: str) -> str:
+    """Set the process-wide autotune policy; returns the previous one.
+
+      off       : call the backend picker every time, no cache, no disk.
+      heuristic : memoized picker (the default).
+      measure   : memoized; first sight of a key loads the per-device
+                  persisted pick or times the candidate set and persists
+                  the winner.
+
+    Raises ValueError for a policy outside AUTOTUNE_POLICIES.
+    """
+    global _POLICY
+    if policy not in AUTOTUNE_POLICIES:
+        raise ValueError(f"unknown autotune policy {policy!r}; "
+                         f"choose from {AUTOTUNE_POLICIES}")
+    prev, _POLICY = _POLICY, policy
+    return prev
+
+
+def get_autotune_policy() -> str:
+    """The active policy (env default: `REPRO_AUTOTUNE` or "heuristic")."""
+    return _POLICY
+
+
+@contextlib.contextmanager
+def autotune_policy(policy: str):
+    """Context manager scoping a policy change (used by
+    `Network.compile(..., autotune=...)` for its build pass)."""
+    prev = set_autotune_policy(policy)
+    try:
+        yield
+    finally:
+        set_autotune_policy(prev)
+
+
+def dtype_name(dtype) -> str:
+    """The JAX name of a dtype, as the keys carry it: ``torch.float32``
+    -> ``"float32"``; a string passes through."""
+    return str(dtype).removeprefix("torch.")
+
+
+def _measure_plan(key: tuple, picker, candidates, bench) -> tuple | None:
+    """Measured resolution of a cache miss: the persisted pick if the
+    per-device table has one, else time the candidates and persist the
+    winner.  None when the key has fewer than two candidates (nothing to
+    choose: the decode's split count, a decode-shaped attention
+    dispatch, a head dim with one plan) or nothing could be timed (no
+    card); the key then takes the heuristic pick and never reads the
+    table.  Raises RuntimeError, naming the key, when it would time inside
+    an active CUDA graph capture."""
+    op, shapes, dtype_str, backend = key
+    cands = [tuple(c) for c in candidates(op, shapes, dtype_str)]
+    if len(cands) < 2:
+        return None
+    ks = autotune.key_str(op, shapes, dtype_str, backend)
+    rec = autotune.lookup(ks)
+    if rec is not None and rec.get("pick"):
+        _TILE_STATS["persisted"] += 1
+        _TILE_RECORDS[key] = dict(rec, source="persisted")
+        return tuple(rec["pick"])
+    if autotune.capturing():
+        raise RuntimeError(
+            f"autotune would measure {ks} inside an active CUDA graph "
+            f"capture; resolve the key before capturing (one uncaptured "
+            f"run under the measure policy, or a persisted table)")
+    base = tuple(picker(op, shapes, dtype_str))
+    if base and base not in cands:
+        cands.insert(0, base)
+    timed = []
+    for cand in cands:
+        thunk = bench(op, shapes, dtype_str, cand)
+        if thunk is None:
+            continue
+        timed.append((cand, autotune.time_thunk(thunk)))
+    if not timed:
+        return None
+    plan, est_ms = min(timed, key=lambda t: t[1])
+    _TILE_STATS["measured"] += 1
+    record = {"pick": list(plan), "est_ms": est_ms,
+              "candidates_timed": [[list(c), ms] for c, ms in timed],
+              "source": "measured"}
+    _TILE_RECORDS[key] = record
+    autotune.store(ks, record)
+    return plan
+
+
+def tile_plan(op: str, shapes: tuple, dtype, backend: str,
+              picker: Callable[[str, tuple, Any], tuple], *,
+              candidates=None, bench=None) -> tuple:
+    """Plan pick keyed on (op, shapes, dtype, backend), resolved under
+    the active autotune policy (see `set_autotune_policy`).
+
+    A persisted or measured pick is checked by `validate_tiles` before it
+    is ever launched: one that is not an instantiated plan, or does not
+    fit at the shape (a stale table, another version's), warns, naming
+    the key, the pick and the problem, and the key takes the heuristic
+    pick.  (The JAX registry launches such a pick and only warns; here a
+    launcher refuses an uninstantiated plan, so a stale table would stop
+    dispatch.)"""
+    dtype_str = dtype_name(dtype)
+    if _POLICY == "off":
+        return tuple(picker(op, shapes, dtype_str))
+    key = (op, shapes, dtype_str, backend)
+    hit = _TILE_CACHE.get(key)
+    if hit is not None:
+        _TILE_STATS["hits"] += 1
+        return hit
+    _TILE_STATS["misses"] += 1
+    plan = None
+    if _POLICY == "measure" and candidates is not None and bench is not None:
+        plan = _measure_plan(key, picker, candidates, bench)
+    if plan is not None:
+        problems = validate_tiles(op, shapes, dtype_str, plan)
+        if problems:
+            src = _TILE_RECORDS[key]["source"]
+            warnings.warn(
+                f"autotune pick {plan} for {autotune.key_str(*key)} ({src}) "
+                f"fails kernel legality: {'; '.join(problems)}; taking the "
+                f"heuristic pick", stacklevel=2)
+            plan = None
+    if plan is None:
+        plan = tuple(picker(op, shapes, dtype_str))
+        _TILE_RECORDS[key] = {"pick": list(plan), "est_ms": None,
+                              "candidates_timed": [], "source": "heuristic"}
+    _TILE_CACHE[key] = plan
+    return plan
+
+
+def validate_tiles(op: str, shapes: tuple, dtype, tiles: tuple) -> list[str]:
+    """Static legality of a resolved plan for one dispatch problem.
+
+    Args:
+      op: registry op name, or the "gemm_bwd" / "attention_bwd" backward
+        keys and the "attention_decode" formulation key.
+      shapes: the op's key shapes (see `gemm_dims`,
+        `kernel_ops.gemm_bwd_dims` and `kernel_ops.attention_dims`).
+      dtype: operand dtype (a torch dtype or its JAX name).
+      tiles: the resolved plan: a `gemm.Plan` for GEMM-shaped ops, a
+        `gemm.BwdPlan` for "gemm_bwd", a `flash_attention.FwdPlan` /
+        `BwdPlan` for attention, (n_splits, span) for the decode.  An
+        empty plan is vacuously legal (untiled backend).
+
+    Returns a list of human-readable problems (empty = legal): the plan is
+    instantiated (`gemm.PLANS`, `gemm.BWD_PLANS`) and fits at the head dim
+    (`flash_attention.plans_at` / `bwd_plans_at`, with their shared-memory
+    sizes); the decode's split is `decode_splits`'.  Malformed shapes or
+    plans (a corrupt persisted table) come back as a problem string, never
+    an exception.
+    """
+    if not tiles:
+        return []
+    try:
+        if op == "attention_decode":
+            _, _, skv, _, kv, _ = kernel_ops.attention_dims(shapes)
+            return kernel_ops.validate_attention_decode_tiles(
+                skv, kv, tuple(tiles))
+        if op in ("attention", "attention_bwd"):
+            _, sq, skv, _, _, d = kernel_ops.attention_dims(shapes)
+            return kernel_ops.validate_attention_tiles(
+                sq, skv, d, dtype, tuple(tiles),
+                bwd=(op == "attention_bwd"))
+        if op == "gemm_bwd":
+            _, rows, kdim, cols, _ = kernel_ops.gemm_bwd_dims(shapes)
+            return kernel_ops.validate_gemm_tiles(rows, kdim, cols, dtype,
+                                                  tuple(tiles), bwd=True)
+        dims = gemm_dims(op, shapes)
+        if dims is None:
+            return []
+        return kernel_ops.validate_gemm_tiles(*dims, dtype, tuple(tiles))
+    except Exception as e:
+        return [f"unparseable shapes/plan for op {op!r}: {e!r}"]
+
+
+def cache_stats() -> dict[str, int]:
+    """Counters for the plan cache: `hits`/`misses` are lookups,
+    `measured`/`persisted` split the misses resolved by timing vs by the
+    per-device disk table, `entries` is the resident cache size."""
+    return {"hits": _TILE_STATS["hits"], "misses": _TILE_STATS["misses"],
+            "measured": _TILE_STATS["measured"],
+            "persisted": _TILE_STATS["persisted"],
+            "entries": len(_TILE_CACHE)}
+
+
+def autotune_report() -> dict[str, dict]:
+    """Per-key autotune records resolved by this process, keyed by the
+    canonical JSON key string: `{key: {pick, est_ms, candidates_timed,
+    source}}` with source one of heuristic|measured|persisted."""
+    return {autotune.key_str(*k): dict(rec)
+            for k, rec in _TILE_RECORDS.items()}
+
+
+def clear_tile_cache() -> None:
+    """Reset the in-process cache, records and stats (not the disk table)."""
+    _TILE_CACHE.clear()
+    _TILE_RECORDS.clear()
+    _TILE_STATS.clear()
 
 
 # ------------------------------------------------------ dispatch counts ---
@@ -288,7 +554,10 @@ def im2col_conv2d(matmul_impl: Callable) -> Callable:
 
 def gemm_dims(op: str, shapes: tuple) -> tuple[int, int, int] | None:
     """The (m, k, n) GEMM an op's shapes run: conv2d maps to its im2col
-    GEMM; None for ops without a GEMM-shaped tiling."""
+    GEMM, bmm's (B, M, K, N) tile key or (M, K, N) dispatch key to one
+    matrix's; None for ops without a GEMM-shaped tiling (attention plans
+    by sequence: `kernel_ops.attention_dims`; "gemm_bwd":
+    `kernel_ops.gemm_bwd_dims`)."""
     if op in ("matmul", "bmm"):
         return tuple(shapes[-3:])
     if op == "conv2d":
@@ -439,13 +708,17 @@ def _cuda_bmm(x, w, *, out_dtype, ctx):
 
 
 def _cuda_attention(q, k, v, *, causal, sm_scale, kv_len=None, ctx):
+    # A decode-shaped dispatch takes the split-KV kernel, whose split count
+    # resolves under its own "attention_decode" key inside the wrapper;
+    # ctx.tiles is the forward's plan, () for such a dispatch.
     if q.device.type != "cuda":
         raise ValueError(f"backend 'cuda' runs on CUDA tensors, got q on "
                          f"{q.device}; use backend 'eager' on the CPU")
     if kernel_ops.use_decode_formulation(q.shape[1], k.shape[1]):
         return kernel_ops.attention_decode(q, k, v, kv_len, sm_scale,
                                            causal=causal)
-    return kernel_ops.attention(q, k, v, kv_len, sm_scale, causal=causal)
+    return kernel_ops.attention(q, k, v, kv_len, sm_scale, causal=causal,
+                                plan=ctx.tiles)
 
 
 def _cuda_ssd(x, dt, A, B, C, *, chunk, init_state=None, ctx):
@@ -535,10 +808,63 @@ def _cuda_inference_only(op: str, operands: tuple) -> bool:
 
 
 def _cuda_tile_picker(op: str, shapes: tuple, dtype) -> tuple:
+    """The `cuda` backend's heuristic pick: the shape rules of today's
+    kernels (the JAX `_pallas_tile_picker`'s counterpart)."""
+    if op in ("attention", "attention_bwd", "attention_decode"):
+        b, sq, skv, h, kv, d = kernel_ops.attention_dims(shapes)
+        if op == "attention_decode":
+            return kernel_ops.decode_splits(skv, kv)
+        if op == "attention_bwd":
+            return flash_kernel.bwd_plan_for(b, sq, h, kv, d)
+        if kernel_ops.use_decode_formulation(sq, skv):
+            return ()  # the split-KV kernel: see "attention_decode"
+        return flash_kernel.plan_for(b, sq, h, kv, d)
+    if op == "gemm_bwd":
+        variant, rows, kdim, cols, batch = kernel_ops.gemm_bwd_dims(shapes)
+        return gemm_kernel.bwd_plan_for(variant, rows, kdim, cols, batch)
     dims = gemm_dims(op, shapes)
     if op == "bmm":
         return kernel_ops.bmm_plan_for(*dims)
     return () if dims is None else kernel_ops.default_tiles(*dims)
+
+
+def _cuda_tile_candidates(op: str, shapes: tuple, dtype) -> list:
+    """Every instantiated plan the key's kernel admits, the heuristic pick
+    first; none for the decode's split count and for ops without plans."""
+    if op == "attention":
+        return kernel_ops.candidate_attention_blocks(
+            *kernel_ops.attention_dims(shapes), dtype)
+    if op == "attention_bwd":
+        return kernel_ops.candidate_attention_bwd_blocks(
+            *kernel_ops.attention_dims(shapes), dtype)
+    if op == "gemm_bwd":
+        variant, rows, kdim, cols, batch = kernel_ops.gemm_bwd_dims(shapes)
+        return kernel_ops.candidate_gemm_bwd_blocks(variant, rows, kdim,
+                                                    cols, dtype, batch)
+    dims = gemm_dims(op, shapes)
+    if dims is None:
+        return []
+    return kernel_ops.candidate_blocks(op, *dims, dtype)
+
+
+def _cuda_tile_bench(op: str, shapes: tuple, dtype, tiles: tuple):
+    """One launch of the key's kernel under `tiles` on zero operands of
+    the key's shape on the current CUDA device (None without a card)."""
+    if op == "attention":
+        return kernel_ops.attention_bench_thunk(
+            *kernel_ops.attention_dims(shapes), dtype, tiles)
+    if op == "attention_bwd":
+        return kernel_ops.attention_bwd_bench_thunk(
+            *kernel_ops.attention_dims(shapes), dtype, tiles)
+    if op == "gemm_bwd":
+        _, rows, kdim, cols, batch = kernel_ops.gemm_bwd_dims(shapes)
+        return kernel_ops.gemm_bwd_bench_thunk(shapes[0], rows, kdim, cols,
+                                               dtype, tiles, batch)
+    dims = gemm_dims(op, shapes)
+    if dims is None:
+        return None
+    batch = shapes[0] if op == "bmm" and len(shapes) == 4 else 1
+    return kernel_ops.bench_thunk(op, *dims, dtype, tiles, batch)
 
 
 register_backend("ref", {
@@ -566,4 +892,5 @@ register_backend("cuda", {
     "attention": _cuda_attention,
     "ssd": _cuda_ssd,
     "einsum": _cuda_einsum,
-}, tile_picker=_cuda_tile_picker, inference_only=_cuda_inference_only)
+}, tile_picker=_cuda_tile_picker, tile_candidates=_cuda_tile_candidates,
+    tile_bench=_cuda_tile_bench, inference_only=_cuda_inference_only)

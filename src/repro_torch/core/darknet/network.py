@@ -25,6 +25,7 @@ zeros; CUDA-graph capture per bucket is later work.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import time
 from typing import Any, Iterable
@@ -199,21 +200,32 @@ class Network(nn.Module):
 
     # -------------------------------------------------------------- compile
     def compile(self, batch_size: int = 1, *,
-                dtype: torch.dtype = torch.float32) -> "CompiledNetwork":
+                dtype: torch.dtype = torch.float32,
+                autotune: str | None = None) -> "CompiledNetwork":
         """Build the artifact for a fixed (batch_size, H, W, C) input of
         `dtype`: one forward on zeros, with the engine op plan of that
         build captured (see `CompiledNetwork`).  This replaces
-        ``nn.Module.compile``: the port never runs ``torch.compile``."""
-        return CompiledNetwork(self, batch_size, dtype=dtype)
+        ``nn.Module.compile``: the port never runs ``torch.compile``.
+
+        `autotune` is an optional policy ("off" | "heuristic" | "measure")
+        scoped to the build pass; "measure" is the opt-in measured pass:
+        keys first seen there are timed on the card and persisted to the
+        per-device table, and their picks serve every later call (the
+        cache is memoized whatever the policy).  None inherits the
+        process policy.  Raises ValueError for an unknown policy."""
+        return CompiledNetwork(self, batch_size, dtype=dtype,
+                               autotune=autotune)
 
     def compile_cache(self, buckets: Iterable[int] = (1, 2, 4, 8), *,
-                      dtype: torch.dtype = torch.float32) -> "CompileCache":
+                      dtype: torch.dtype = torch.float32,
+                      autotune: str | None = None) -> "CompileCache":
         """Bucketed cache of `CompiledNetwork`s for ragged serving traffic:
         `CompileCache.run(x)` pads a ragged batch up to the smallest bucket
         that fits and slices the real rows back out.  The serving frontend
         (`repro_torch.serve.frontend.CNNServingEngine`) dispatches through
-        this."""
-        return CompileCache(self, buckets, dtype=dtype)
+        this.  `autotune` is forwarded to every bucket's build (see
+        `compile`)."""
+        return CompileCache(self, buckets, dtype=dtype, autotune=autotune)
 
 
 class CompiledNetwork:
@@ -223,12 +235,14 @@ class CompiledNetwork:
     every call.  The one build (a forward on zeros) captures the engine's
     op plan from the registry's dispatch counters (`op_counts`, e.g.
     ``{('cuda', 'conv2d'): 11, ('cuda', 'matmul'): 1}``) and its dispatch
-    records (`op_log`); `trace_count` counts builds and stays 1.  Exposes
-    `__call__`, `warmup()` and `profile()`.
+    records (`op_log`), and the autotune keys first resolved there
+    (`autotune_keys`, `autotune_report()`); `trace_count` counts builds and
+    stays 1.  Exposes `__call__`, `warmup()` and `profile()`.
     """
 
     def __init__(self, net: Network, batch_size: int, *,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 autotune: str | None = None):
         self.net = net
         self.batch_size = batch_size
         self.device = net.engine.device
@@ -236,12 +250,19 @@ class CompiledNetwork:
         self.dtype = dtype
         self._builds = 0
         before = backends.dispatch_counts()
+        before_tuned = set(backends.autotune_report())
         log_mark = backends.dispatch_log_size()
-        with torch.inference_mode():
+        policy = (backends.autotune_policy(autotune) if autotune
+                  else contextlib.nullcontext())
+        with policy, torch.inference_mode():
             net(self._zeros())
         self._builds += 1
         self.op_counts = backends.counts_since(before)
         self.op_log = tuple(backends.dispatch_log()[log_mark:])
+        # The autotune records this build resolved first (heuristic,
+        # measured, or served from the persisted table).
+        self.autotune_keys = tuple(
+            k for k in backends.autotune_report() if k not in before_tuned)
 
     def _zeros(self) -> torch.Tensor:
         return torch.zeros(self.in_shape, dtype=self.dtype,
@@ -275,11 +296,20 @@ class CompiledNetwork:
         synchronize(self.device)
         return self
 
+    def autotune_report(self) -> dict[str, dict]:
+        """Plan records first resolved during this artifact's build:
+        `{key: {pick, est_ms, candidates_timed, source}}` with source one
+        of heuristic|measured|persisted."""
+        full = backends.autotune_report()
+        return {k: full[k] for k in self.autotune_keys if k in full}
+
     def profile(self, x: torch.Tensor | None = None, reps: int = 3) -> dict:
         """Timed execution: host wall time per call (each call ends in a
-        device synchronise) plus the op plan captured at build.
+        device synchronise) plus the op plan and autotune records captured
+        at build.
 
-        Returns `{per_call_s, reps, batch_size, trace_count, op_counts}`.
+        Returns `{per_call_s, reps, batch_size, trace_count, op_counts,
+        autotune}`.
         """
         if x is None:
             x = self._zeros()
@@ -293,7 +323,8 @@ class CompiledNetwork:
         return {"per_call_s": dt, "reps": reps,
                 "batch_size": self.batch_size,
                 "trace_count": self._builds,
-                "op_counts": dict(self.op_counts)}
+                "op_counts": dict(self.op_counts),
+                "autotune": self.autotune_report()}
 
 
 class CompileCache:
@@ -313,18 +344,21 @@ class CompileCache:
     pick its kernel by M, so there they agree to rounding.
 
     Observability: `hits`/`misses` count bucket lookups; `stats()` reports
-    builds, the per-bucket dispatch histogram and the pad-waste fraction
-    (padded rows / total dispatched rows).
+    builds, the per-bucket dispatch histogram, the pad-waste fraction
+    (padded rows / total dispatched rows) and the autotune keys its builds
+    resolved, by source.
     """
 
     def __init__(self, net: Network, buckets: Iterable[int] = (1, 2, 4, 8),
-                 *, dtype: torch.dtype = torch.float32):
+                 *, dtype: torch.dtype = torch.float32,
+                 autotune: str | None = None):
         bs = tuple(sorted({int(b) for b in buckets}))
         if not bs or bs[0] < 1:
             raise ValueError(f"buckets must be positive ints, got {buckets}")
         self.net = net
         self.buckets = bs
         self.dtype = dtype
+        self.autotune = autotune
         self._compiled: dict[int, CompiledNetwork] = {}
         self.hits = 0
         self.misses = 0
@@ -349,7 +383,8 @@ class CompileCache:
         cn = self._compiled.get(bucket)
         if cn is None:
             self.misses += 1
-            cn = self.net.compile(bucket, dtype=self.dtype)
+            cn = self.net.compile(bucket, dtype=self.dtype,
+                                  autotune=self.autotune)
             self._compiled[bucket] = cn
         else:
             self.hits += 1
@@ -395,8 +430,18 @@ class CompileCache:
             self.get(b).warmup()
         return self
 
+    def autotune_report(self) -> dict[str, dict]:
+        """Union of the plan records resolved by the bucket builds (see
+        `CompiledNetwork.autotune_report`)."""
+        out: dict[str, dict] = {}
+        for cn in self._compiled.values():
+            out.update(cn.autotune_report())
+        return out
+
     def stats(self) -> dict:
         total = self._rows_real + self._rows_pad
+        tuned = self.autotune_report()
+        sources = collections.Counter(r["source"] for r in tuned.values())
         return {
             "buckets": self.buckets,
             "compiled": tuple(sorted(self._compiled)),
@@ -407,4 +452,5 @@ class CompileCache:
             "rows_real": self._rows_real,
             "rows_padded": self._rows_pad,
             "pad_waste": (self._rows_pad / total) if total else 0.0,
+            "autotune": {"keys": len(tuned), "sources": dict(sources)},
         }

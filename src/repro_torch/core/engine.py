@@ -47,10 +47,14 @@ class ComputeEngine:
         object.__setattr__(self, "device", dev)
 
     # ---------------------------------------------------------- dispatch ---
-    def _resolve(self, op: str, shapes: tuple, dtype) -> backends.OpContext:
-        """Look up the backend's tile plan and count the dispatch (with its
-        shapes, dtype and tiles in the dispatch log)."""
-        tiles = backends.get_backend(self.backend).tiles(op, shapes, dtype)
+    def _resolve(self, op: str, shapes: tuple, dtype,
+                 tile_shapes: tuple | None = None) -> backends.OpContext:
+        """Look up the backend's plan through the autotune cache (under
+        `tile_shapes` where the plan's key differs from the dispatch's:
+        bmm's carries the batch) and count the dispatch (with its shapes,
+        dtype and plan in the dispatch log)."""
+        tiles = backends.get_backend(self.backend).tiles(
+            op, shapes if tile_shapes is None else tile_shapes, dtype)
         backends.record_dispatch(self.backend, op, shapes=shapes,
                                  dtype=dtype, tiles=tiles)
         return backends.OpContext(precision=self.precision, tiles=tiles)
@@ -105,13 +109,14 @@ class ComputeEngine:
         does not declare it differentiable.
         """
         kernel_ops.validate_bmm_shapes(x, w)
-        _, m, k = x.shape
+        b, m, k = x.shape
         n = w.shape[-1]
         out_dtype = out_dtype or x.dtype
         xc = x.to(self.precision.compute_dtype)
         wc = w.to(self.precision.compute_dtype)
         self._guard("bmm", xc, wc)
-        ctx = self._resolve("bmm", (m, k, n), xc.dtype)
+        ctx = self._resolve("bmm", (m, k, n), xc.dtype,
+                            tile_shapes=(b, m, k, n))
         return self._op("bmm")(xc, wc, out_dtype=out_dtype, ctx=ctx)
 
     def conv2d(self, x, w, *, scale=None, shift=None, size: int,

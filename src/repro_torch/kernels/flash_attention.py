@@ -511,23 +511,26 @@ class FlashAttention(torch.autograd.Function):
     """Grouped flash attention with its gradient (``repro``'s ``_flash``
     custom VJP).
 
-    ``FlashAttention.apply(q, k, v, kv_len, causal)``, q already scaled.
+    ``FlashAttention.apply(q, k, v, kv_len, causal[, plan, bwd_plan])``,
+    q already scaled; `plan` is the forward's and `bwd_plan` the dQ
+    kernel's (each None: `plan_for` / `bwd_plan_for` the shape;
+    ``kernels/ops.py::attention`` passes the registry's picks).
     The forward is the lse-emitting kernel and saves (q, k, v, kv_len, o,
     lse).  The backward computes Delta = rowsum(dO o O) in fp32 in PyTorch
     (as ``_flash_vjp_bwd``; a row with no live key has O = 0, so Delta = 0
-    there) and launches the dQ kernel under `bwd_plan_for`'s plan and the
-    dK / dV kernel.  kv_len and causal get no gradient.  A head dim the
+    there) and launches the dQ kernel under `bwd_plan` and the dK / dV
+    kernel.  kv_len, causal and the plans get no gradient.  A head dim the
     backward kernels lack (MLA's latent 576, which is never trained) is
     refused here, before the forward runs.
     """
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_len, causal):
+    def forward(ctx, q, k, v, kv_len, causal, plan=None, bwd_plan=None):
         check_head_dim(q.shape[-1], BWD_HEAD_DIMS, "flash_attention_bwd")
         o, lse = flash_attention_fwd(q, k, v, kv_len, causal=causal,
-                                     return_lse=True)
+                                     return_lse=True, plan=plan or None)
         ctx.save_for_backward(q, k, v, kv_len, o, lse)
-        ctx.causal = causal
+        ctx.causal, ctx.bwd_plan = causal, bwd_plan or None
         return o
 
     @staticmethod
@@ -539,8 +542,8 @@ class FlashAttention(torch.autograd.Function):
         dq = dk = dv = None
         if ctx.needs_input_grad[0]:
             dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, kv_len,
-                                        causal=ctx.causal)
+                                        causal=ctx.causal, plan=ctx.bwd_plan)
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
             dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, kv_len,
                                              causal=ctx.causal)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None, None

@@ -498,9 +498,9 @@ class GemmFused(torch.autograd.Function):
     ``GemmFused.apply(x, w, scale, shift, act, out_dtype, plan, dx_plan,
     dw_plan)``: `plan` is the forward's (`Plan`), dx_plan and dw_plan
     the ``(BwdPlan, splits)`` of the two backward GEMMs
-    (`kernels.ops.bwd_plan`; for a transposed w, dw_plan is that of the
-    swapped product dE = dY^T . X).  The forward saves x, w, scale and
-    the residuals g and racc.  The backward, as ``_gemm_vjp_bwd``:
+    (`kernels.ops.cached_bwd_plan`; for a transposed w, dw_plan is that
+    of the swapped product dE = dY^T . X).  The forward saves x, w, scale
+    and the residuals g and racc.  The backward, as ``_gemm_vjp_bwd``:
     dyg = dy * g; dshift = sum_rows dyg and dscale = sum_rows dyg * racc,
     in fp32 in PyTorch; dacc = dyg * scale cast to x's dtype; then dX and
     dW by the kernels.  dX is not computed when x needs no gradient (the
@@ -637,10 +637,10 @@ class BmmFn(torch.autograd.Function):
 
     ``BmmFn.apply(x, w, out_dtype, plan, dx_plan, dw_plan)``: `plan` is
     the forward's, dx_plan and dw_plan the ``(BwdPlan, splits)`` of the
-    two backward kernels (`kernels.ops.bwd_plan` with the batch).  The forward saves x
-    and w.  The backward, as ``_bmm_vjp_bwd``: dy cast to x's dtype, then
-    dX by `bmm_bwd_dx` in x's dtype and dW by `bmm_bwd_dw` in w's dtype,
-    each only when its input needs a gradient.
+    two backward kernels (`kernels.ops.cached_bwd_plan` with the batch).
+    The forward saves x and w.  The backward, as ``_bmm_vjp_bwd``: dy
+    cast to x's dtype, then dX by `bmm_bwd_dx` in x's dtype and dW by
+    `bmm_bwd_dw` in w's dtype, each only when its input needs a gradient.
     """
 
     @staticmethod

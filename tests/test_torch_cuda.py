@@ -63,9 +63,14 @@ MoE programs: dQ / dK / dV at MLA's 192 (the grid rows, deepseek's 2 x
 512 training shape, `FlashAttention` through autograd) and the expert
 bmm's dX and dW at deepseek-v2-lite's and llama4-scout's training shapes
 against their plain versions, every backward plan and batch slice
-bitwise.
+bitwise.  For the measured autotuner: per op, the measured pick's
+output bit for bit the heuristic pick's (matmul, bmm at its batch, the
+backward GEMMs dx / dw / bdx / bdw, attention and its backward), a
+positive device time per call for a kernel of a few microseconds, and a
+second resolution in a simulated fresh process that times nothing.
 """
 import dataclasses
+import json
 
 import pytest
 import torch
@@ -76,7 +81,7 @@ from repro_torch.configs.base import (ShapeConfig, get_arch, input_tensors,
                                       reduced)
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.configs.darknet_ref import DARKNET_SMALL_CFG, SEGNET_SMALL_CFG
-from repro_torch.core import make_engine
+from repro_torch.core import autotune, backends, make_engine
 from repro_torch.core.darknet.network import Network
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
@@ -1717,3 +1722,130 @@ def test_cuda_ssd_form_follows_grad_mode_on_the_card(card, remat):
         with ctx():
             tfm.loss_fn(eng, cfg, params, batch, remat=remat, ce_chunk=16)
         assert (ssd.launches, ssd.einsum_dispatches) == (cfg.n_layers, 0)
+
+
+# ------------------------------------------------------ measured autotuner ---
+
+@pytest.fixture
+def tuned(card, tmp_path, monkeypatch):
+    """A fresh persisted table in a scratch dir and an empty plan cache;
+    the cache and the policy restored afterwards."""
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path))
+    backends.clear_tile_cache()
+    autotune.reset()
+    prev = backends.get_autotune_policy()
+    yield card
+    backends.set_autotune_policy(prev)
+    backends.clear_tile_cache()
+    autotune.reset()
+
+
+def _under(policy, fn):
+    """fn() under `policy` with an empty plan cache; its outputs and the
+    keys it resolved with their sources."""
+    backends.clear_tile_cache()
+    with backends.autotune_policy(policy):
+        out = fn()
+    torch.cuda.synchronize()
+    return out, {k: r["source"] for k, r in backends.autotune_report().items()}
+
+
+def _gemm_case(card, grad):
+    g = torch.Generator(device=card).manual_seed(5)
+    x = torch.randn(1024, 896, generator=g, device=card)
+    w = torch.randn(896, 4864, generator=g, device=card) / 30
+    shift = torch.randn(4864, generator=g, device=card)
+
+    def run():
+        xs, ws = x.clone().requires_grad_(grad), w.clone().requires_grad_(grad)
+        y = ops.matmul(xs, ws, None, shift, act="leaky")
+        if not grad:
+            return (y,)
+        y.square().sum().backward()
+        return y, xs.grad, ws.grad
+    return run
+
+
+def _bmm_case(card, grad):
+    g = torch.Generator(device=card).manual_seed(6)
+    shape = ((8, 64, 512), (8, 512, 256)) if grad else \
+        ((64, 16, 2048), (64, 2048, 1408))   # deepseek's expert GEMM
+    x = torch.randn(*shape[0], generator=g, device=card)
+    w = torch.randn(*shape[1], generator=g, device=card) / 30
+
+    def run():
+        xs, ws = x.clone().requires_grad_(grad), w.clone().requires_grad_(grad)
+        y = ops.bmm(xs, ws)
+        if not grad:
+            return (y,)
+        y.square().sum().backward()
+        return y, xs.grad, ws.grad
+    return run
+
+
+def _attn_case(card, grad):
+    g = torch.Generator(device=card).manual_seed(7)
+    q = torch.randn(2, 512, 14, 64, generator=g, device=card)
+    k = torch.randn(2, 512, 2, 64, generator=g, device=card)
+    v = torch.randn(2, 512, 2, 64, generator=g, device=card)
+
+    def run():
+        qs = q.clone().requires_grad_(grad)
+        o = ops.attention(qs, k, v, causal=True)
+        if not grad:
+            return (o,)
+        o.square().sum().backward()
+        return o, qs.grad
+    return run
+
+
+@pytest.mark.parametrize("case,grad,ops_measured", [
+    (_gemm_case, False, {"matmul"}),
+    (_gemm_case, True, {"matmul", "gemm_bwd"}),
+    (_bmm_case, False, {"bmm"}),
+    (_bmm_case, True, {"bmm", "gemm_bwd"}),
+    (_attn_case, False, {"attention"}),
+    (_attn_case, True, {"attention", "attention_bwd"}),
+])
+def test_measured_pick_gives_the_heuristic_bits(tuned, case, grad,
+                                                ops_measured):
+    run = case(tuned, grad)
+    want, heur = _under("heuristic", run)
+    got, meas = _under("measure", run)
+    assert set(heur) == set(meas)
+    assert all(s == "heuristic" for s in heur.values())
+    assert {json.loads(k)[0] for k, s in meas.items()
+            if s == "measured"} == ops_measured
+    if grad and case is not _attn_case:     # dx / dw, or bdx / bdw
+        variants = {json.loads(k)[1][0] for k in meas
+                    if k.startswith('["gemm_bwd"')}
+        assert variants == ({"bdx", "bdw"} if case is _bmm_case
+                            else {"dx", "dw"})
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_time_thunk_times_a_microsecond_kernel_on_the_device(tuned):
+    x = torch.zeros(8, 64, device=tuned)
+    w = torch.zeros(64, 64, device=tuned)
+    ms = autotune.time_thunk(lambda: gemm.gemm_fused_fwd(
+        x, w, plan=gemm.PLANS[0]))
+    assert 0 < ms < 0.05, ms               # a launch alone takes longer
+
+
+def test_fresh_process_resolution_times_nothing(tuned, monkeypatch):
+    with backends.autotune_policy("measure"):
+        plan = backends.get_backend("cuda").tiles("bmm", (64, 16, 2048, 1408),
+                                                   torch.float32)
+        assert backends.cache_stats()["measured"] == 1
+        backends.clear_tile_cache()
+        autotune.reset()
+
+        def no_timing(*a, **kw):
+            raise AssertionError("re-timed a persisted pick")
+        monkeypatch.setattr(autotune, "time_thunk", no_timing)
+        again = backends.get_backend("cuda").tiles(
+            "bmm", (64, 16, 2048, 1408), torch.float32)
+    st = backends.cache_stats()
+    assert (st["measured"], st["persisted"]) == (0, 1)
+    assert tuple(again) == tuple(plan)
