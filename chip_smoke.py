@@ -593,9 +593,49 @@ script exits non-zero.  Phases:
               einsums through `einsum`, the split-KV decode at 576), the
               tokens and the latent caches bitwise equal; every
               attention_decode key stays `decode_splits`', untimed.
-Then the kernels line (48 entries: the lse forward, dQ and dK / dV at 80,
+ 63. check_sharded (run after phase 15, the parent's cache emptied)
+              two ranks on cuda:0 over gloo (`launch.mesh.spawn`, each
+              rank drawing from SHARD_SEED's generator, never `cgen`),
+              `launch.mesh_checks.check_ops` at `sharded_cases`: every
+              sharded op of the `sharded_cuda` backend against its local
+              launch of the `cuda` wrapper on the same operands and
+              against its plain version (the wrapper on host copies), at
+              qwen2-0.5b's decode (4 slots) and prefill (a 64-token chunk)
+              shapes and a DARKNET19 conv layer at batch 2: row-sharded
+              GEMMs, the bmm, the im2col conv and batch-sharded attention
+              bit for bit, head-sharded attention (("model",), KV 2) and
+              the sequence split (3 rows against 512 keys, Sq 1 and 4)
+              within 1e-5 max-relative, the split bit for bit a
+              one-process loop of the spans' partials and `combine`;
+              `ops.attention_partial` (the lse forward at relative
+              extents above Skv and <= 0, Sq 1 / 4 / 8) within 1e-5 of
+              its plain version, every sentinel row exact; every case's
+              kernel launched on the card, every gather staged through
+              the host; both ranks' results equal.
+ 64. sharded_serve  full-width, full-depth qwen2-0.5b on both ranks
+              (`lm_params`' seed-4 card generator in every rank, the
+              ranks' parameter checksums all-gathered and equal),
+              `launch.mesh_checks.serve_streams` at SHARDED_SERVE's
+              requests: the slot engine on ("data",) with 4 slots of 256
+              rows (batch and rows), on ("data",) with 3 slots of 512 rows
+              (the sequence split) and on ("model",) under "tp" (heads),
+              the paged engine on ("data",); counts set to 0 just before
+              each run and read just after.  Streams equal on both ranks
+              and equal to rank 0's unsharded `cuda` engine on the same
+              parameters, a differing token allowed only at a near tie
+              (the rule of phase 14); every dispatch on `sharded_cuda`;
+              per rank the launches, the collectives per step and the
+              host-staged copies, and ms per step sharded and unsharded
+              (the ranks share one card: no measure of distribution).
+ 65. timing_sharded  the kernels at the shards' shapes, as phase 12 and
+              `timing_lm`: the decode step's GEMMs at M 2 (4 slots over 2
+              ranks), the split-KV decode at 2 rows against 256, the lse
+              forward of both ranks' spans (3 rows against 256 keys each
+              at the relative extents of kv_len 3 / 300 / 512).
+Then the kernels line (51 entries: the lse forward, dQ and dK / dV at 80,
 112 and 192, the expert bmm's dX and dW on mla_train and moe_train, the
-flash forward at 576 on mla_short_serve and mla_chunk added), and last
+flash forward at 576 on mla_short_serve and mla_chunk, and the GEMM, the
+split-KV decode and the lse forward on the sharded paths added), and last
 the result line.  Every JSON line carries `t`, the
 seconds since the script started.
 """
@@ -634,6 +674,7 @@ from repro_torch.kernels import (conv_direct, ssd, time_attention,  # noqa: E402
                                   time_ssd)
 from repro_torch.kernels.common import ACTIVATIONS, epilogue  # noqa: E402
 from repro_torch.kernels.ref import attention_mask  # noqa: E402
+from repro_torch.launch import mesh, mesh_checks  # noqa: E402
 from repro_torch.launch.fault import FailureInjected  # noqa: E402
 from repro_torch.launch.train import train_loop  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
@@ -788,6 +829,10 @@ TRAIN_ATTN = {80: (AUDIO_ARCH, (4, 500), False),  # head dim: arch, (b, s),
 # full width, one layer, step 1 only (steps 0: no AdamW trajectory).  Each
 # draws its checks and timings from a generator of its own (`gen`).
 # Phase autotune's paths, each on data of its own generator.
+SHARD_SEED = 301  # check_sharded's ranks' generator and timing_sharded's
+# sharded_serve's stream: each request's prompt and max_new from this seed
+SHARDED_SERVE = dict(requests=6, prompt=(4, 24), new=(8, 12), seed=302)
+SHARD_WORLD = 2  # ranks, all on cuda:0
 AUTOTUNE_CNN = dict(batch=8, seed=91)  # DARKNET19 serving and a train step
 AUTOTUNE_LM = dict(batch=2, seq=512, seed=92)  # one qwen2-0.5b train step
 AUTOTUNE_MLA = dict(slots=2, max_len=256, new=4, seed=93)  # 4 decode steps
@@ -1653,9 +1698,10 @@ def lm_gemm_check(cfg, cgen) -> float:
     return max_abs
 
 
-def lm_gemm_timing(cfg, cgen, peak_flops, peak_bw, smi) -> dict:
-    """Phase timing_lm_gemm: each LM GEMM at M 1, 8 and 64, fp32 with its
-    epilogue: the kernel, its plain version and torch.matmul (cuBLAS fp32,
+def lm_gemm_timing(cfg, cgen, peak_flops, peak_bw, smi,
+                   rows=LM_GEMM_ROWS, phase="timing_lm_gemm") -> dict:
+    """Phase timing_lm_gemm: each LM GEMM at M 1, 8 and 64 (`rows`), fp32
+    with its epilogue: the kernel, its plain version and torch.matmul (cuBLAS fp32,
     TF32 off, no epilogue), each the device time of CUDA-graph replays,
     and the bound.  As on the path, each timed call runs the GEMM once
     per layer over that many distinct weights, so the weights come from
@@ -1665,7 +1711,7 @@ def lm_gemm_timing(cfg, cgen, peak_flops, peak_bw, smi) -> dict:
             "bytes_ms")
     total = dict.fromkeys(keys, 0.0)
     per_m = {}
-    for m in LM_GEMM_ROWS:
+    for m in rows:
         disp = dict.fromkeys(keys, 0.0)
         for g in lm_gemms(cfg):
             k, n, reps = g["k"], g["n"], g["per_dispatch"]
@@ -1690,7 +1736,7 @@ def lm_gemm_timing(cfg, cgen, peak_flops, peak_bw, smi) -> dict:
                    "ops_ms": flops / peak_flops * 1e3,
                    "bytes_ms": nbytes / peak_bw * 1e3}
             row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
-            emit("timing_lm_gemm", m=m, gemm=g["name"], shape=[m, k, n],
+            emit(phase, m=m, gemm=g["name"], shape=[m, k, n],
                  act=act, shift=g["shift"], trans_w=g["trans"],
                  plan=list(plan),
                  per_dispatch=reps, **row,
@@ -1703,23 +1749,17 @@ def lm_gemm_timing(cfg, cgen, peak_flops, peak_bw, smi) -> dict:
         per_m[str(m)] = disp
         for key in keys:
             total[key] += disp[key]
-    emit("timing_lm_gemm_total", smi=smi, per_dispatch=per_m,
+    emit(f"{phase}_total", smi=smi, per_dispatch=per_m,
          launches_per_dispatch=sum(g["per_dispatch"] for g in lm_gemms(cfg)),
          **total)
     return total
 
 
 def lm_params(cfg, dev):
-    """Full-width random parameters from a seed, with random QKV biases
-    (the init's zeros would leave the bias epilogue untested)."""
-    gen = torch.Generator(device=dev).manual_seed(4)
-    params = tfm.init_params(cfg, generator=gen, device=dev)
-    with torch.no_grad():
-        for lp in params["layers"]:
-            for name in ("bq", "bk", "bv"):
-                b = lp["attn"][name]
-                b.copy_(torch.randn(b.shape, generator=gen, device=dev) * 0.1)
-    return params
+    """Full-width random parameters from seed 4, with random QKV biases
+    (the init's zeros would leave the bias epilogue untested); the ranks of
+    phase 64 make the same (`mesh_checks.random_lm_params`)."""
+    return mesh_checks.random_lm_params(cfg, dev, 4)
 
 
 def lm_phase(cfg, params, dev) -> dict:
@@ -2024,6 +2064,261 @@ def timing_lm_phase(cfg, params, dev, cgen, peak_flops, peak_bw,
          p50_ms=st["latency_s"]["p50"] * 1e3,
          p99_ms=st["latency_s"]["p99"] * 1e3)
     return rows
+
+
+# ------------------------------------------------------ serving on a mesh ---
+
+def sharded_cases(cfg) -> list[dict]:
+    """Phase 63's cases (`mesh_checks.check_ops`) at cfg's widths: the
+    decode step's GEMMs at 4 slots and a 64-token prefill chunk's, the
+    tied head read transposed, a bmm of 4, DARKNET19's 3 x 3 conv of 64 to
+    128 channels at 56 x 56 and batch 2, attention batch-sharded (decode
+    at 4 slots, a prefill chunk at 2), head-sharded on ("model",) and
+    sequence-split (3 rows against 512 keys), and the partials at
+    relative extents.  `bits`: held bit for bit to the local launch."""
+    d, dq, ff = cfg.d_model, cfg.n_heads * cfg.head_dim, cfg.d_ff
+    dkv = cfg.n_kv_heads * cfg.head_dim
+    heads = dict(h=cfg.n_heads, kv=cfg.n_kv_heads, d=cfg.head_dim)
+    data, model = ((SHARD_WORLD,), ("data",)), ((SHARD_WORLD,), ("model",))
+    cases = [dict(name=f"{name}_{m}", op="matmul", m=m, k=k, n=n, act=act,
+                  shift=shift, mesh=data, bits=True)
+             for m in (4, 64)
+             for name, k, n, act, shift in (("q", d, dq, "linear", True),
+                                             ("k", d, dkv, "linear", True),
+                                             ("gate", d, ff, "silu", False),
+                                             ("down", ff, d, "linear", False))]
+    cases += [
+        dict(name="head_4", op="matmul", m=4, k=d, n=cfg.vocab_padded,
+             trans=True, mesh=data, bits=True),
+        dict(name="bmm", op="bmm", b=4, m=16, k=d, n=dkv, mesh=data,
+             bits=True),
+        dict(name="darknet19_conv", op="conv2d", b=2, h=56, w=56, cin=64,
+             cout=128, size=3, pad=1, act="leaky", scale=True, shift=True,
+             mesh=data, bits=True),
+        dict(name="attn_decode_batch", op="attention", b=4, sq=1, skv=256,
+             causal=True, kv_len=[256, 100, 1, 37], mesh=data, bits=True,
+             **heads),
+        dict(name="attn_prefill_batch", op="attention", b=2, sq=64, skv=128,
+             causal=True, kv_len=[128, 64], mesh=data, bits=True, **heads),
+        dict(name="attn_decode_heads", op="attention", b=4, sq=1, skv=512,
+             causal=True, kv_len=[512, 300, 2, 77], mesh=model, **heads),
+        dict(name="attn_prefill_heads", op="attention", b=1, sq=64, skv=128,
+             causal=True, kv_len=[128], mesh=model, **heads)]
+    cases += [dict(name=f"attn_seq_sq{sq}_{'none' if lens is None else 'lens'}",
+                   op="attention", b=3, sq=sq, skv=512, causal=True,
+                   kv_len=lens, mesh=data, **heads)
+              for sq in (1, 4) for lens in (None, [3, 300, 512])]
+    cases += [dict(name=f"partial_sq{sq}", op="partial", b=3, sq=sq,
+                   skv=256, causal=causal, kv_len=lens, mesh=None, **heads)
+              for sq, causal, lens in ((1, True, [300, -5, 256]),
+                                       (4, True, [259, 2, 0]),
+                                       (8, False, [3, 0, 400]),
+                                       (8, True, [260, 5, -300]))]
+    return cases
+
+
+def sharded_kernel(case: dict) -> str:
+    """The kernel a case's shards launch."""
+    if case["op"] in ("matmul", "conv2d"):
+        return "gemm_fused_fwd"
+    if case["op"] == "bmm":
+        return "bmm_fwd"
+    if case["op"] == "partial" or case["name"].startswith("attn_seq"):
+        return "flash_attention_lse"
+    return ("flash_decode" if ops.use_decode_formulation(
+        case["sq"], case["skv"]) else "flash_attention")
+
+
+def check_sharded_phase(cfg) -> dict:
+    """Phase check_sharded (63): see the module docstring.  Returns the
+    largest kernel vs plain errors of the GEMM, the split-KV decode and
+    the lse forward cases, for the kernels line."""
+    torch.cuda.empty_cache()
+    cases = sharded_cases(cfg)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = mesh.spawn(mesh_checks.check_ops, SHARD_WORLD, "cuda", cases,
+                           SHARD_SEED, device_type="cuda",
+                           store_path=Path(tmp) / "store", timeout=600)
+    wall = time.perf_counter() - t0
+    want_path = {"matmul": "matmul_rows", "conv2d": "matmul_rows",
+                 "bmm": "bmm_batch"}
+    errs = collections.defaultdict(float)
+    for case, res in zip(cases, ranks[0]):
+        emit("check_sharded", **{k: v for k, v in res.items() if k != "keys"},
+             plan_keys=res["keys"], kernel=sharded_kernel(case))
+        kernel, path = sharded_kernel(case), None
+        check(res["launches"].get(kernel, 0) >= 1,
+              f"check_sharded {case['name']}: {kernel} not launched: "
+              f"{res['launches']}")
+        if case["op"] == "partial":
+            check(res["sentinel_exact"] and res["sentinel_rows"] > 0,
+                  f"check_sharded {case['name']}: sentinel rows differ")
+        else:
+            path = want_path.get(case["op"]) or (
+                "attention_seq" if case["name"].startswith("attn_seq") else
+                "attention_heads" if case["mesh"][1] == ("model",) else
+                "attention_batch")
+            col = res["collectives"]
+            check(list(res["paths"]) == [path],
+                  f"check_sharded {case['name']}: paths {res['paths']}")
+            check(col["all_gather"] == col["to_host"] == col["to_device"]
+                  == 1, f"check_sharded {case['name']}: collectives {col}")
+        if path == "attention_seq":
+            check(res["loop_bitwise"], f"check_sharded {case['name']}: the "
+                  f"split differs from the loop of partials and combine")
+        kdim = (case["size"] ** 2 * case["cin"] if case["op"] == "conv2d"
+                else case.get("k"))
+        tol = gemm_tol(kdim) if kdim else FP32_TOL
+        if case.get("bits"):
+            check(res["bitwise"], f"check_sharded {case['name']}: not "
+                  f"bitwise the local launch ({res['max_abs_err']:.3e})")
+        check(res["relmax"] <= FP32_TOL, f"check_sharded {case['name']}: "
+              f"{res['relmax']:.3e} from the local launch")
+        check(res["plain_relmax"] <= tol, f"check_sharded {case['name']}: "
+              f"{res['plain_relmax']:.3e} from the plain version")
+        errs[kernel] = max(errs[kernel], res["plain_max_abs_err"])
+    check(ranks[0] == ranks[1], "check_sharded: the ranks' results differ")
+    emit("check_sharded_total", ranks=SHARD_WORLD, cases=len(cases),
+         wall_s=wall, max_abs_err=dict(errs))
+    return dict(errs)
+
+
+def sharded_serve_runs(cfg) -> list[dict]:
+    """Phase 64's runs, each on the same SHARDED_SERVE stream."""
+    rng = np.random.default_rng(SHARDED_SERVE["seed"])
+    lo, hi = SHARDED_SERVE["prompt"]
+    reqs = [(rng.integers(1, cfg.vocab_size, int(rng.integers(lo, hi + 1))
+                          ).tolist(),
+             int(rng.integers(SHARDED_SERVE["new"][0],
+                              SHARDED_SERVE["new"][1] + 1)))
+            for _ in range(SHARDED_SERVE["requests"])]
+    data, model = ((SHARD_WORLD,), ("data",)), ((SHARD_WORLD,), ("model",))
+    return [
+        dict(name="slot_batch", engine="slot", mesh=data,
+             kwargs=dict(slots=4, max_len=256), requests=reqs,
+             paths=("matmul_rows", "attention_batch"),
+             kernels=("gemm_fused_fwd", "flash_decode")),
+        dict(name="slot_seq", engine="slot", mesh=data,
+             kwargs=dict(slots=3, max_len=512), requests=reqs,
+             paths=("attention_seq",),
+             kernels=("gemm_fused_fwd", "flash_attention_lse")),
+        dict(name="slot_heads", engine="slot", mesh=model, strategy="tp",
+             kwargs=dict(slots=4, max_len=256), requests=reqs,
+             paths=("attention_heads",),
+             kernels=("gemm_fused_fwd", "flash_decode")),
+        dict(name="paged", engine="paged", mesh=data,
+             kwargs=dict(kv_blocks=128, block_size=16, max_len=512,
+                         chunk=64, prefill_budget=256), requests=reqs,
+             paths=("matmul_rows", "attention_batch"),
+             kernels=("gemm_fused_fwd", "flash_attention"))]
+
+
+def sharded_serve_phase(cfg, abs_err, smi) -> dict:
+    """Phase sharded_serve (64): see the module docstring.  Returns rank
+    0's runs by name."""
+    torch.cuda.empty_cache()
+    runs = sharded_serve_runs(cfg)
+    spec = dict(arch=cfg.name, seed=4, reference="cuda",
+                runs=[{k: v for k, v in r.items()
+                       if k not in ("paths", "kernels")} for r in runs])
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = mesh.spawn(mesh_checks.serve_streams, SHARD_WORLD, "cuda",
+                           spec, device_type="cuda",
+                           store_path=Path(tmp) / "store", timeout=900)
+    wall = time.perf_counter() - t0
+    sums = ranks[0]["checksums"]
+    check(len(set(sums)) == 1 and ranks[1]["checksums"] == sums,
+          f"sharded_serve: the ranks' parameter checksums differ: {sums}")
+    refs = {r["name"]: r for r in ranks[0]["reference"]}
+    for run in runs:
+        name = run["name"]
+        got = [{r["name"]: r for r in rank["runs"]}[name] for rank in ranks]
+        ref = refs[name]
+        for rank, g in enumerate(got):
+            col = g["collectives"]
+            emit("sharded_serve", run=name, rank=rank, engine=run["engine"],
+                 mesh=g["mesh"], steps=g["steps"], wall_s=g["wall_s"],
+                 ms_per_step=g["ms_per_step"],
+                 unsharded_ms_per_step=ref["ms_per_step"],
+                 note="both ranks share one card", launches=g["launches"],
+                 paths=g["paths"], collectives=col,
+                 collectives_per_step=col["all_gather"] / max(1, g["steps"]),
+                 host_staged_copies=col["to_host"] + col["to_device"],
+                 dispatch=g["dispatch"],
+                 equal_to_unsharded=[a == b for a, b in zip(
+                     g["streams"], ref["streams"])],
+                 mismatches=ref["mismatches"] if rank == 0 else [],
+                 allowed_below=MARGIN_FACTOR * abs_err, smi=smi)
+            check(g["done"], f"sharded_serve {name}: a request did not "
+                  f"complete on rank {rank}")
+            check(g["streams"] == got[0]["streams"],
+                  f"sharded_serve {name}: the ranks' streams differ")
+            check(all(k.startswith("sharded_cuda.") for k in g["dispatch"]),
+                  f"sharded_serve {name}: a dispatch left sharded_cuda: "
+                  f"{g['dispatch']}")
+            check(all(g["paths"].get(p, 0) > 0 for p in run["paths"]),
+                  f"sharded_serve {name}: paths {g['paths']}")
+            check(all(g["launches"].get(k, 0) > 0 for k in run["kernels"]),
+                  f"sharded_serve {name}: a kernel of the path did not "
+                  f"launch: {g['launches']}")
+            check(col["to_host"] == col["to_device"] == col["all_gather"],
+                  f"sharded_serve {name}: a gather was not staged: {col}")
+            check(g["mesh"] == [[run["mesh"][1][0], SHARD_WORLD]],
+                  f"sharded_serve {name}: mesh {g['mesh']}")
+        check(all(m["margin"] < MARGIN_FACTOR * abs_err
+                  for m in ref["mismatches"]),
+              f"sharded_serve {name}: a stream differs from the unsharded "
+              f"engine at a clear margin: {ref['mismatches']}")
+    emit("sharded_serve_total", runs=len(runs), wall_s=wall, smi=smi)
+    return {r["name"]: r for r in ranks[0]["runs"]}
+
+
+def timing_sharded_phase(cfg, dev, peak_flops, peak_bw, smi) -> dict:
+    """Phase timing_sharded (65): the kernels at the shards' shapes on
+    SHARD_SEED's generator: the decode GEMMs at M 2 (`lm_gemm_timing`),
+    the split-KV decode of 2 rows against 256 (`attn_timing_rows`) and
+    the lse forward of both ranks' spans of 3 rows against 512 keys at
+    kv_len 3 / 300 / 512 (no single PyTorch call gives the lse)."""
+    sgen = torch.Generator(device=dev).manual_seed(SHARD_SEED)
+    gemm_row = lm_gemm_timing(cfg, sgen, peak_flops, peak_bw, smi,
+                              rows=(4 // SHARD_WORLD,),
+                              phase="timing_sharded_gemm")
+    decode_row = attn_timing_rows(
+        cfg, {"sharded_decode": (4 // SHARD_WORLD, 1, 256, [256, 101],
+                                 True)},
+        sgen, peak_flops, peak_bw, smi, "timing_sharded")["sharded_decode"]
+    h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = qkv(3, 1, 512, h, kv, d, torch.float32, sgen)
+    qs = ops.scale_queries(q)
+    lens = torch.tensor([3, 300, 512], dtype=torch.int32, device=dev)
+    spans = [(k[:, i * 256:(i + 1) * 256], v[:, i * 256:(i + 1) * 256],
+              (lens - i * 256).contiguous()) for i in range(SHARD_WORLD)]
+    plan = fa.plan_for(3, 1, h, kv, d)
+    flops = nbytes = 0.0
+    for ks, vs, kvl in spans:
+        live = attention_mask(3, 1, 256, causal=True, kv_len=kvl,
+                              device=dev, relative=True).expand(3, 1, 256)
+        flops += 4.0 * d * h * float(live.sum())
+        nbytes += 4.0 * (2 * q.numel() + 2.0 * float(live.any(1).sum()) * kv
+                         * d + 3 * h)
+    bound_ms, bound_by = bound(flops, nbytes, peak_flops, peak_bw)
+    lse_row = {
+        "ms": graph_ms(lambda: [fa.flash_attention_fwd(
+            qs, ks, vs, kvl, causal=True, return_lse=True, plan=plan,
+            relative=True) for ks, vs, kvl in spans]),
+        "plain_ms": graph_ms(lambda: [fa.flash_attention_plain(
+            qs, ks, vs, kvl, causal=True, return_lse=True, relative=True)
+            for ks, vs, kvl in spans]),
+        "library_ms": None, "bound_ms": bound_ms,
+        "ops_ms": flops / peak_flops * 1e3,
+        "bytes_ms": nbytes / peak_bw * 1e3}
+    emit("timing_sharded", name="sharded_seq_partials", kernel=
+         "flash_attention_lse", shape=[3, 1, 256, h, kv, d], spans=2,
+         kv_len=[3, 300, 512], plan=list(plan), bound_by=bound_by,
+         bound_share=bound_ms / lse_row["ms"], smi=smi, **lse_row)
+    return {"gemm": gemm_row, "decode": decode_row, "lse": lse_row}
 
 
 # ---------------------------------------------------------- LM training ---
@@ -6500,6 +6795,11 @@ def main() -> int:
     del params, serve_lm
     torch.cuda.empty_cache()
 
+    # --------------------------------------------- 63-65. serving on a mesh
+    sh_abs = check_sharded_phase(cfg)
+    sh_serve = sharded_serve_phase(cfg, lm["abs_err"], smi)
+    sh_rows = timing_sharded_phase(cfg, dev, peak_flops, peak_bw, smi)
+
     # --------------------------------------------------- 16-19. LM training
     bwd_abs = attn_bwd_phase(cgen)
     bwd_dims_abs = attn_bwd_dims_phase(dev)
@@ -6793,6 +7093,17 @@ def main() -> int:
                                ("moe_train", moe_tr, moe_tt))
           for name, replaces in (("bmm_bwd_dx", REPLACES_BMM_DX),
                                  ("bmm_bwd_dw", REPLACES_BMM_DW))),
+        kernel_entry("gemm:sharded_serve", SOURCE, REPLACES, "sharded_serve",
+                     sh_serve["slot_batch"]["launches"]["gemm_fused_fwd"],
+                     sh_abs["gemm_fused_fwd"], sh_rows["gemm"]),
+        kernel_entry("flash_decode:sharded_serve", SOURCE_DECODE,
+                     REPLACES_DECODE, "sharded_serve",
+                     sh_serve["slot_batch"]["launches"]["flash_decode"],
+                     sh_abs["flash_decode"], sh_rows["decode"]),
+        kernel_entry("flash_attention_lse:sharded_seq", SOURCE_ATTN,
+                     REPLACES_ATTN, "sharded_serve",
+                     sh_serve["slot_seq"]["launches"]["flash_attention_lse"],
+                     sh_abs["flash_attention_lse"], sh_rows["lse"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -7,7 +7,8 @@ registry (`backends.py`) and the non-quantization precision contract
     from repro_torch.core import ComputeEngine, make_engine, register_backend
 
 Importing this package registers the built-in backends `ref`, `eager` and
-`cuda` (core/backends.py at module load).  It builds no kernel and needs no
+`cuda` (core/backends.py at module load) and `sharded_cuda`
+(core/shard_backend.py, below).  It builds no kernel and needs no
 GPU: the CUDA kernels are built at their first launch.
 """
 from repro_torch.core.backends import (AUTOTUNE_POLICIES, OP_SET,
@@ -20,6 +21,7 @@ from repro_torch.core.backends import (AUTOTUNE_POLICIES, OP_SET,
 from repro_torch.core.compile_cache import (StepCompileCache,
                                             normalize_buckets, pick_bucket)
 from repro_torch.core.engine import ComputeEngine, make_engine
+from repro_torch.core import shard_backend as _shard_backend  # noqa: F401
 from repro_torch.core.precision import Precision, assert_non_quantized
 
 __all__ = ["ComputeEngine", "make_engine", "Precision",

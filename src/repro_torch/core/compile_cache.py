@@ -15,6 +15,12 @@ trace-bound gate of the JAX package keeps its meaning: `traces` <= the
 bucket-set product.  `_build` is where a per-bucket CUDA graph capture
 plugs in (a later PR): it returns the callable that serves a key, today the
 step function itself.
+
+`topology` is a hashable mesh fingerprint (`sharding.hints.mesh_topology`:
+``(("data", 2),)``, or ``()`` off-mesh).  It extends every shape key, so
+each topology owns its builds, and it prefixes the recorded dispatch keys,
+so `stats()['dispatches']` tells the same bucket under two meshes apart.
+Off-mesh the keys are as before.
 """
 from __future__ import annotations
 
@@ -60,8 +66,10 @@ class StepCompileCache:
     caller-chosen bucket key for `stats()['dispatches']`.
     """
 
-    def __init__(self, fn: Callable, *, name: str = "step"):
+    def __init__(self, fn: Callable, *, name: str = "step",
+                 topology: tuple = ()):
         self.name = name
+        self.topology = tuple(topology)
         self._fn = fn
         self._built: dict = {}
         self.calls = 0
@@ -74,15 +82,16 @@ class StepCompileCache:
 
     def __call__(self, *args):
         self.calls += 1
-        key = shape_key(args)
+        key = self.topology + shape_key(args)
         fn = self._built.get(key)
         if fn is None:
             fn = self._built[key] = self._build(key)
         return fn(*args)
 
     def record(self, key) -> None:
-        """Log one dispatch under a caller-chosen bucket key."""
-        self._dispatch_shapes[tuple(key)] += 1
+        """Log one dispatch under a caller-chosen bucket key (prefixed by
+        the mesh topology when one is set)."""
+        self._dispatch_shapes[self.topology + tuple(key)] += 1
 
     @property
     def traces(self) -> int:
@@ -90,5 +99,5 @@ class StepCompileCache:
 
     def stats(self) -> dict:
         return {"name": self.name, "traces": self.traces,
-                "calls": self.calls,
+                "calls": self.calls, "topology": self.topology,
                 "dispatches": dict(self._dispatch_shapes)}

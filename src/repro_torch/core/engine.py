@@ -255,7 +255,9 @@ def make_engine(backend: str = "cuda", policy: str = "fp32_strict",
     precision policy uses it, and under fp32_strict the products must be
     true fp32.  Raises RuntimeError for a CUDA device when no GPU is
     available (it never drops to the CPU), ValueError for an unknown
-    backend or for the `cuda` backend on a non-CUDA device.
+    backend or for the `cuda` backend on a non-CUDA device.  The
+    `sharded_cuda` backend takes a CPU device too: there its wrappers run
+    their plain versions per shard.
     """
     backends.get_backend(backend)  # fail fast on unknown backends
     device = torch.device(device)

@@ -6,6 +6,10 @@
 // kv-head h // G), causal queries right-aligned against the live key extent
 // (kv_len - Sq, or Skv - Sq without kv_len), keys at or past a per-batch
 // kv_len masked, dead key tiles skipped, fully-masked rows exact 0.
+// kv_len may be a relative extent that exceeds Skv or is <= 0 (the
+// sequence-split partials of kernels/ops.py::attention_partial, one span of
+// a longer key axis): the causal diagonal right-aligns against it
+// unclamped, and every row's live keys end at Skv.
 //
 // What bounds it on an H100: on the LM's prefill and training paths
 // (qwen2-0.5b: 14 query heads over 2 kv-heads, head dim 64, fp32 under
@@ -402,7 +406,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < RT; ++i) {
     const int r = row0 + RPW * i;
-    row_end[i] = r < nrows ? (causal ? kvlen - Sq + (r0 + r) / G + 1 : kvlen) : 0;
+    // keys past Skv are staged as zeros: a relative kv_len past Skv must
+    // not make them live.  For kv_len <= Skv the cap changes nothing.
+    row_end[i] = r < nrows
+        ? min(causal ? kvlen - Sq + (r0 + r) / G + 1 : kvlen, Skv) : 0;
     m[i] = NEG;
     l[i] = 0.f;
 #pragma unroll
@@ -585,8 +592,9 @@ int dispatch(const void* q, const void* k, const void* v, const void* kv_len,
 
 // q (B, Sq, H, D), k / v (B, Skv, KV, D) in the engine layout, each with
 // element strides (batch, position, head) in `strides` (q, k, v in turn) and
-// contiguous along D; kv_len a (B,) int32 device array clamped to Skv, or
-// null; o (B, Sq, H, D) contiguous, written in the operands' dtype; `plan`
+// contiguous along D; kv_len a (B,) int32 device array of live extents
+// (clamped to Skv, or relative: any value, the causal diagonal aligned
+// against it and live keys ending at Skv), or null; o (B, Sq, H, D) contiguous, written in the operands' dtype; `plan`
 // an id of the instantiated plans.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    const void* kv_len, void* o, int B, int Sq,

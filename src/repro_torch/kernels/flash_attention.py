@@ -135,27 +135,29 @@ def _grouped_scores(q, k):
     return torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float())
 
 
-def _live(q, k, kv_len, causal):
+def _live(q, k, kv_len, causal, relative=False):
     """(B or 1, 1, 1, Sq, Skv) bool mask of the live (query, key) pairs,
     broadcast against the grouped scores."""
     b, sq = q.shape[:2]
     return attention_mask(b, sq, k.shape[1], causal=causal, kv_len=kv_len,
-                          device=q.device)[:, None, None]
+                          device=q.device, relative=relative)[:, None, None]
 
 
 def flash_attention_plain(q, k, v, kv_len=None, *, causal: bool = True,
-                          return_lse: bool = False):
+                          return_lse: bool = False, relative: bool = False):
     """The kernel's function in plain PyTorch: softmax(q k^T) v with fp32
     statistics, grouped KV, keys at or past the (B,) ``kv_len`` masked,
     causal queries right-aligned against the live extent, exact 0 for rows
-    with no live key; q is already scaled.  Returns q's dtype; with
-    ``return_lse`` also the fp32 (B, H, Sq) logsumexp of each row's live
-    scores, 0 for a row with no live key."""
+    with no live key; q is already scaled.  ``relative``: kv_len is one
+    span's relative extent, which may exceed Skv or be <= 0
+    (`ref.attention_mask`).  Returns q's dtype; with ``return_lse`` also
+    the fp32 (B, H, Sq) logsumexp of each row's live scores, 0 for a row
+    with no live key."""
     o = flash_attention_ref(q, k, v, causal=causal, sm_scale=1.0,
-                            kv_len=kv_len)
+                            kv_len=kv_len, relative=relative)
     if not return_lse:
         return o
-    live = _live(q, k, kv_len, causal)
+    live = _live(q, k, kv_len, causal, relative)
     s = _grouped_scores(q, k).masked_fill(~live, float("-inf"))
     lse = torch.where(live.any(-1), torch.logsumexp(s, dim=-1), 0.0)
     b, sq, h, _ = q.shape
@@ -335,13 +337,17 @@ def _plan_id(plan, plans) -> int:
 
 
 def flash_attention_fwd(q, k, v, kv_len=None, *, causal: bool = True,
-                        return_lse: bool = False, plan=None):
+                        return_lse: bool = False, plan=None,
+                        relative: bool = False):
     """softmax(q k^T) v for q (B, Sq, H, D) and k, v (B, Skv, KV, D), q
     already scaled; head h reads kv-head h // (H // KV).
 
     ``kv_len``: None or a (B,) int32 tensor of live extents clamped to Skv
     (`ops.normalize_kv_len`); causal queries right-align against it (else
-    against Skv).  Returns (B, Sq, H, D) contiguous in q's dtype, fp32
+    against Skv).  With ``relative`` it is one span's relative extent
+    (`ops.attention_partial`): any value, not clamped, the causal diagonal
+    aligned against it and the live keys ending at Skv; the kernel caps
+    each row's end at Skv, which changes nothing for kv_len <= Skv.  Returns (B, Sq, H, D) contiguous in q's dtype, fp32
     softmax statistics.  With ``return_lse`` (the training launch) returns
     ``(o, lse)``, lse the fp32 (B, H, Sq) per-row m + log l in the scaled
     score space, 0 for a row with no live key; o has the bits of the
@@ -363,7 +369,8 @@ def flash_attention_fwd(q, k, v, kv_len=None, *, causal: bool = True,
                          f"in shared memory); use one of {plans_at(d)}")
     if not _on_card("flash_attention_fwd", q):
         return flash_attention_plain(q, k, v, kv_len, causal=causal,
-                                     return_lse=return_lse)
+                                     return_lse=return_lse,
+                                     relative=relative)
     b, sq, skv, h, kvh, d, strides = cuda_args(q, k, v, kv_len)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)

@@ -19,7 +19,9 @@ the forward kernels also write their training residuals (act'(u) and the
 accumulator; the softmax lse) and the backward runs the dX / dW and the
 dQ / dK / dV kernels.  Otherwise each makes the forward-only launch that
 serving makes.  The split-KV decode formulation is inference only, as in
-the JAX package: `attention_decode` raises under grad.  So is `ssd`,
+the JAX package: `attention_decode` raises under grad, and so does
+`attention_partial`, one key span's (o, lse) through the lse forward at a
+relative extent, the sequence split's building block.  So is `ssd`,
 the SSD chunk scan (its TPU kernel has no VJP).
 
 A wrapper called without a plan resolves it through the registry's
@@ -364,6 +366,55 @@ def attention_decode(q, k, v, kv_len=None, sm_scale=None, *,
     o_part, lse_part = decode_kernel.flash_decode_partials(
         qs, k, v, kvl, causal=causal, n_splits=n_splits, span=span)
     return decode_kernel.merge_plain(o_part, lse_part, q.dtype)
+
+
+def attention_partial(q, k, v, kv_len, sm_scale=None, *,
+                      causal: bool = True):
+    """Partial attention over ONE key span, the sequence-split building
+    block (kernels/sharded.py): returns (o, lse).
+
+    q (B, Sq, H, D) against a local span k / v (B, Skv, KV, D); ``kv_len``
+    (an int, or a scalar or (B,) tensor) is the GLOBAL live extent minus
+    the span's start, so it may exceed Skv (every local key is live) or be
+    <= 0 (no local key is).  Causal queries right-align against that same
+    relative extent, which puts the global diagonal span-locally, so it is
+    deliberately NOT clamped (the lse forward's relative contract,
+    `flash_attention.flash_attention_fwd`).
+
+    Returns ``o`` (B, H, Sq, D) span-normalised in q's dtype and ``lse``
+    (B, H, Sq) fp32, with `flash_decode.EMPTY_SPAN_LSE` on the rows that
+    see no live key (the kernel stores 0 there; liveness is set
+    analytically, as in the JAX package): the per-span contract of
+    `flash_decode.combine`.  The lse forward kernel on a CUDA tensor, its
+    plain version on a CPU one.  Inference only: raises
+    NotImplementedError under grad."""
+    validate_attention_shapes(q, k, v)
+    if needs_grad(q, k, v, sm_scale):
+        raise NotImplementedError(
+            "attention_partial (the sequence-split partials) is inference "
+            "only: it has no backward")
+    b, sq = q.shape[:2]
+    if kv_len is None:
+        raise ValueError("attention_partial needs the span's relative "
+                         "kv_len")
+    validate_kv_len(kv_len, b)
+    kvl = torch.as_tensor(kv_len, device=q.device).to(torch.int32)
+    kvl = kvl.reshape(-1).expand(b).contiguous()
+    # A decode-shaped key resolves to () (the split-KV kernel's); here
+    # such a span takes `flash_attention.plan_for`'s plan.
+    plan = cached_plan("attention", (tuple(q.shape), tuple(k.shape)),
+                       q.dtype) or None
+    o, lse = flash_kernel.flash_attention_fwd(
+        scale_queries(q, sm_scale), k, v, kvl, causal=causal,
+        return_lse=True, plan=plan, relative=True)
+    # a row sees a live key iff kv_len > 0 and, causal, its extent
+    # kv_len - Sq + i + 1 reaches key 0
+    live = (kvl[:, None] > 0).expand(-1, sq)
+    if causal:
+        rows = torch.arange(sq, device=q.device)[None, :]
+        live = live & (rows >= sq - kvl[:, None])
+    lse = torch.where(live[:, None, :], lse, decode_kernel.EMPTY_SPAN_LSE)
+    return o.transpose(1, 2), lse
 
 
 # ------------------------------------------------------------------- SSD ---

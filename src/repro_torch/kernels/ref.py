@@ -37,11 +37,15 @@ def bmm_ref(x, w, *, out_dtype=None):
 
 
 def attention_mask(b: int, sq: int, skv: int, *, causal: bool, kv_len,
-                   device) -> torch.Tensor:
+                   device, relative: bool = False) -> torch.Tensor:
     """(B or 1, Sq, Skv) bool mask of the live (query, key) pairs: keys at or
     past ``kv_len`` (None, an int, or a scalar or (B,) tensor; clamped to
     Skv) are masked per batch row, and causal queries right-align against
-    the live extent (kv_len when given, else Skv)."""
+    the live extent (kv_len when given, else Skv).  With ``relative`` the
+    extent is one span's share of a longer key axis
+    (`ops.attention_partial`): it may exceed Skv or be <= 0, is not
+    clamped, and causal queries right-align against it as given; keys are
+    live below min(row end, Skv).  For kv_len <= Skv both modes agree."""
     kj = torch.arange(skv, device=device)
     qi = torch.arange(sq, device=device)
     if kv_len is None:
@@ -50,7 +54,9 @@ def attention_mask(b: int, sq: int, skv: int, *, causal: bool, kv_len,
             mask = mask & (kj[None, :] <= qi[:, None] + (skv - sq))[None]
         return mask
     kvl = torch.as_tensor(kv_len, dtype=torch.int64, device=device)
-    kvl = torch.clamp(kvl.reshape(-1).expand(b), max=skv)
+    kvl = kvl.reshape(-1).expand(b)
+    if not relative:
+        kvl = torch.clamp(kvl, max=skv)
     mask = (kj[None, None] < kvl[:, None, None]).expand(b, sq, skv)
     if causal:
         mask = mask & (kj[None, None]
@@ -59,7 +65,7 @@ def attention_mask(b: int, sq: int, skv: int, *, causal: bool, kv_len,
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, sm_scale=None,
-                        kv_len=None):
+                        kv_len=None, relative: bool = False):
     """Oracle for the grouped attention kernels.
 
     q: (B, Sq, H, D); k, v: (B, Skv, KV, D) with H % KV == 0: query head
@@ -67,8 +73,9 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, sm_scale=None,
     grouped einsum, never broadcast.  ``kv_len`` (None, an int, or a scalar
     or (B,) tensor) masks keys at or past it per batch row, clamped to Skv;
     causal queries right-align against kv_len when given, else Skv; rows
-    with no live key return exact 0.  Returns (B, Sq, H, D) in q.dtype,
-    softmax in fp32.
+    with no live key return exact 0 (``relative``: kv_len is a span's
+    relative extent, not clamped, see `attention_mask`).  Returns
+    (B, Sq, H, D) in q.dtype, softmax in fp32.
     """
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
@@ -78,7 +85,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, sm_scale=None,
     qg = q.reshape(b, sq, kvh, g, d).float()
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * sm_scale
     mask = attention_mask(b, sq, skv, causal=causal, kv_len=kv_len,
-                          device=q.device)
+                          device=q.device, relative=relative)
     logits = logits.masked_fill(~mask[:, None, None], float("-inf"))
     p = torch.softmax(logits, dim=-1)
     p = torch.where(mask.any(-1)[:, None, None, :, None], p, 0.0)

@@ -31,6 +31,12 @@ and decodes the slot's stale last token).  A vision config is served on
 its text alone (no patch embeddings reach a decode step), as the JAX
 engine serves it; an encoder-only config is refused at construction
 (`serve_step.require_decoder`; JAX's engine takes it).
+
+Serving under a mesh (``mesh=``, a named `DeviceMesh` from
+`launch/mesh.py`): every decode step and admission prefill dispatches
+inside `hints.use_mesh(mesh)`, so the `sharded_cuda` backend shards the
+slot batch (or the heads, or the cache's key axis) over it.  Every rank
+runs the engine whole on replicated parameters and caches.
 """
 from __future__ import annotations
 
@@ -47,6 +53,7 @@ from repro_torch.serve import frontend as fe
 from repro_torch.serve import kvcache
 from repro_torch.serve.serve_step import (greedy_sample, make_decode_step,
                                           require_decoder)
+from repro_torch.sharding import hints
 
 
 @dataclasses.dataclass
@@ -60,7 +67,8 @@ class Request(fe.Request):
 class ServingEngine(fe.ServingFrontend):
     def __init__(self, cfg, params, *, engine: ComputeEngine | None = None,
                  slots: int = 4, max_len: int = 128,
-                 eos_id: int | None = None, on_overflow: str = "reject"):
+                 eos_id: int | None = None, on_overflow: str = "reject",
+                 mesh=None):
         if on_overflow not in ("reject", "truncate"):
             raise ValueError(f"on_overflow must be 'reject' or 'truncate', "
                              f"got {on_overflow!r}")
@@ -68,6 +76,7 @@ class ServingEngine(fe.ServingFrontend):
         self.cfg, self.params = cfg, params
         self.slots, self.max_len, self.eos_id = slots, max_len, eos_id
         self.on_overflow = on_overflow
+        self.mesh = mesh
         self.engine = engine = engine or make_engine()
         self.caches = kvcache.cache_init(cfg, slots, max_len,
                                          engine.precision.compute_dtype,
@@ -153,7 +162,7 @@ class ServingEngine(fe.ServingFrontend):
             return 0
         toks = torch.tensor([prompt[:-1]], dtype=torch.int64,
                             device=self.engine.device)
-        with torch.inference_mode():
+        with torch.inference_mode(), hints.use_mesh(self.mesh):
             _, caches = forward_prefill(self.engine, self.cfg, self.params,
                                         tokens=toks)
             for dst, src in zip(
@@ -180,7 +189,7 @@ class ServingEngine(fe.ServingFrontend):
                           else self._last[s])
         snap = backends.dispatch_counts() if self.op_counts is None else None
         dev = self.engine.device
-        with torch.inference_mode():
+        with torch.inference_mode(), hints.use_mesh(self.mesh):
             logits, self.caches = self._decode(
                 self.params, self.caches,
                 torch.tensor(toks, dtype=torch.int64, device=dev),
@@ -223,4 +232,5 @@ class ServingEngine(fe.ServingFrontend):
             extra={"tokens": self._tokens, "slots": self.slots,
                    "max_len": self.max_len,
                    "idle_steps": self._idle_steps,
+                   "mesh": hints.mesh_topology(self.mesh),
                    "op_counts": dict(self.op_counts or {})})

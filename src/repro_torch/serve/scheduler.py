@@ -28,6 +28,11 @@ product however ragged the traffic (padded rows point their block tables
 at the pool's trash block).  On the `cuda` backend a prefill chunk runs
 the flash-attention kernel and a decode dispatch against 256 or more
 gathered rows the split-KV decode kernel.
+
+Under a mesh (``mesh=``) every step dispatches inside
+`hints.use_mesh(mesh)`, so the `sharded_cuda` backend shards the bucketed
+batch over it; the step cache keys on the mesh topology
+(`hints.mesh_topology`) and `stats()` reports it under ``"mesh"``.
 """
 from __future__ import annotations
 
@@ -44,6 +49,7 @@ from repro_torch.serve import frontend as fe
 from repro_torch.serve import kvpool
 from repro_torch.serve.engine import Request
 from repro_torch.serve.serve_step import make_paged_step, require_decoder
+from repro_torch.sharding import hints
 
 
 @dataclasses.dataclass
@@ -75,9 +81,10 @@ class PagedServingEngine(fe.ServingFrontend):
                  max_len: int = 128, eos_id: int | None = None,
                  chunk: int = 16, prefill_budget: int = 64,
                  batch_buckets=(1, 2, 4, 8), block_buckets=None,
-                 max_wait_s: float | None = None):
+                 max_wait_s: float | None = None, mesh=None):
         require_decoder(cfg, "PagedServingEngine")
         self.cfg, self.params = cfg, params
+        self.mesh = mesh
         self.engine = engine = engine or make_engine()
         self.max_len, self.eos_id = max_len, eos_id
         self.chunk = chunk
@@ -101,7 +108,8 @@ class PagedServingEngine(fe.ServingFrontend):
             block_buckets.append(nb_max)
         self.block_buckets = normalize_buckets(block_buckets)
         self._step_fn = StepCompileCache(make_paged_step(engine, cfg),
-                                         name="paged_step")
+                                         name="paged_step",
+                                         topology=hints.mesh_topology(mesh))
         self.active: dict[int, _Seq] = {}      # rid -> _Seq, FIFO order
         self.pending: deque[Request] = deque()
         self._outstanding = 0   # Σ (ws_blocks - held) over active seqs
@@ -196,7 +204,7 @@ class PagedServingEngine(fe.ServingFrontend):
         greedy token ids.  The argmax runs on the device, so only the
         sampled tokens come to the host, never the (B, C, vocab) logits."""
         snap = backends.dispatch_counts() if self.op_counts is None else None
-        with torch.inference_mode():
+        with torch.inference_mode(), hints.use_mesh(self.mesh):
             logits, self.pools = self._step_fn(self.params, self.pools,
                                                tables, tokens, pos)
             toks = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
@@ -306,6 +314,7 @@ class PagedServingEngine(fe.ServingFrontend):
                    "pool": self.alloc.stats(),
                    "peak_active": self.peak_active,
                    "idle_steps": self._idle_steps,
+                   "mesh": hints.mesh_topology(self.mesh),
                    "expired": self._expired,
                    "compile": self._step_fn.stats(),
                    "trace_bound": self.trace_bound,

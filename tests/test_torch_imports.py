@@ -116,3 +116,26 @@ def test_unknown_backend_and_policy_fail_fast():
         make_engine("pallas", device="cpu")
     with pytest.raises(ValueError, match="unknown precision"):
         make_engine("eager", "int8", device="cpu")
+
+
+_SHARDED_IMPORT = """
+import sys
+for name in ("jax", "jaxlib", "repro"):
+    sys.modules[name] = None
+sys.path.insert(0, {src!r})
+from repro_torch.core import list_backends
+from repro_torch.core import shard_backend
+from repro_torch.kernels import sharded
+from repro_torch.launch import mesh, mesh_checks
+from repro_torch.sharding import hints
+assert "sharded_cuda" in list_backends()
+print("ok")
+"""
+
+
+def test_the_mesh_modules_import_with_jax_blocked():
+    res = subprocess.run(
+        [sys.executable, "-c", _SHARDED_IMPORT.format(src=str(ROOT / "src"))],
+        capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.split()[-1] == "ok"
