@@ -632,12 +632,40 @@ script exits non-zero.  Phases:
               ranks), the split-KV decode at 2 rows against 256, the lse
               forward of both ranks' spans (3 rows against 256 keys each
               at the relative extents of kv_len 3 / 300 / 512).
-Then the kernels line (51 entries: the lse forward, dQ and dK / dV at 80,
+ 66. sharded_train (run last, after phase 60)  two ranks on cuda:0 over
+              gloo, `launch.mesh_checks.train_check` at
+              `sharded_train_spec` (SHARDED_TRAIN's seeds, never `cgen`),
+              every run from fresh parameters with the counts set to 0
+              just before: full-width, full-depth qwen2-0.5b at 4 x 512
+              on ("data",) (rows and batch): one `value_and_grad` and its
+              rerun, three AdamW steps with replicated moments (the main
+              path) and three with ZeRO-1 moments (`zero1_pspecs`); qwen2
+              at `model_layers` of 24 layers on ("model",) (KV-head
+              groups): one `value_and_grad`; DARKNET19_CFG at batch 8 on
+              ("data",): the loss and gradients, then one
+              `make_cnn_train_step` step.  Rank 0 repeats each in one
+              process on `cuda` (and each trajectory on `eager`, the
+              drift floor).  Bars: the loss 1e-5 relative and every
+              gradient 1e-4 max-relative from the one-process `cuda`
+              step; later losses, parameters and moments within 1e-4 or
+              FLOOR_FACTOR x the `eager` vs `cuda` drift; bitwise both
+              ranks, the rerun, and the ZeRO-1 trajectory against the
+              replicated one (moments gathered); the ZeRO-1 moments under
+              0.6 x the replicated ones; every collective staged once;
+              every dispatch on `sharded_cuda`; the forward and backward
+              kernels launched.  Per rank the peak GB, the moments' GB,
+              ms a step and the collectives.  Then the backward kernels
+              at the shards' shapes against their plain versions: dX and
+              dW at qwen2's GEMMs at 1024 rows a rank (timed as phase 19,
+              with torch.matmul and the bound), the lse forward and dQ /
+              dK / dV at (2, 512, 14 / 2) and (4, 512, 7 / 1) (timed at
+              the first, with SDPA's backward).
+Then the kernels line (55 entries: the lse forward, dQ and dK / dV at 80,
 112 and 192, the expert bmm's dX and dW on mla_train and moe_train, the
-flash forward at 576 on mla_short_serve and mla_chunk, and the GEMM, the
-split-KV decode and the lse forward on the sharded paths added), and last
-the result line.  Every JSON line carries `t`, the
-seconds since the script started.
+flash forward at 576 on mla_short_serve and mla_chunk, the GEMM, the
+split-KV decode and the lse forward on the sharded paths, and dX, dW, dQ
+and dK / dV on sharded_train added), and last the result line.  Every
+JSON line carries `t`, the seconds since the script started.
 """
 from __future__ import annotations
 
@@ -833,6 +861,12 @@ SHARD_SEED = 301  # check_sharded's ranks' generator and timing_sharded's
 # sharded_serve's stream: each request's prompt and max_new from this seed
 SHARDED_SERVE = dict(requests=6, prompt=(4, 24), new=(8, 12), seed=302)
 SHARD_WORLD = 2  # ranks, all on cuda:0
+# sharded_train: qwen2-0.5b at full width and depth on ("data",) and at
+# `model_layers` on ("model",), DARKNET19 on ("data",); the ranks' data and
+# parameters from these seeds, the phase's own kernel checks from `gen`
+SHARDED_TRAIN = dict(batch=4, seq=512, steps=3, seed=321, data_seed=322,
+                     model_layers=4, cnn_batch=8, cnn_seed=323,
+                     cnn_data_seed=324, gen=325)
 AUTOTUNE_CNN = dict(batch=8, seed=91)  # DARKNET19 serving and a train step
 AUTOTUNE_LM = dict(batch=2, seq=512, seed=92)  # one qwen2-0.5b train step
 AUTOTUNE_MLA = dict(slots=2, max_len=256, new=4, seed=93)  # 4 decode steps
@@ -2321,6 +2355,162 @@ def timing_sharded_phase(cfg, dev, peak_flops, peak_bw, smi) -> dict:
     return {"gemm": gemm_row, "decode": decode_row, "lse": lse_row}
 
 
+# ---------------------------------------------------- training on a mesh ---
+
+def sharded_train_spec(cfg) -> dict:
+    """Phase sharded_train's work for `mesh_checks.train_check`."""
+    st = SHARDED_TRAIN
+    data, model = ((SHARD_WORLD,), ("data",)), ((SHARD_WORLD,), ("model",))
+    lm = dict(arch=cfg.name, seed=st["seed"], batch=(st["batch"], st["seq"]),
+              data_seed=st["data_seed"], ce_chunk=min(512, st["seq"]))
+    return dict(
+        ocfg=dict(lr=1e-3, warmup_steps=1, decay_steps=st["steps"]),
+        reference="cuda", floor="eager",
+        lm=[dict(lm, runs=[
+                dict(name="grad_data", mesh=data, rerun=True),
+                dict(name="steps_data", mesh=data, steps=st["steps"]),
+                dict(name="zero1_data", mesh=data, steps=st["steps"],
+                     zero1=True, same_as="steps_data")]),
+            dict(lm, layers=st["model_layers"], runs=[
+                dict(name="grad_model", mesh=model)])],
+        cnn=[dict(cfg=DARKNET19_CFG, name="DARKNET19_CFG",
+                  seed=st["cnn_seed"], batch=st["cnn_batch"],
+                  data_seed=st["cnn_data_seed"],
+                  runs=[dict(name="cnn_data", mesh=data)])])
+
+
+def sharded_train_checks(run: dict, ranks: list) -> None:
+    """The bars of one run of phase sharded_train (see the module
+    docstring); `ranks` holds the run's report from every rank."""
+    name, ref = run["name"], run.get("reference")
+    check(all(r["digest"] == run["digest"] and r["losses"] == run["losses"]
+              for r in ranks), f"sharded_train {name}: the ranks differ")
+    check(all(math.isfinite(x) for x in run["losses"]),
+          f"sharded_train {name}: a loss is not finite")
+    check(all(k.startswith("sharded_cuda.") for k in run["dispatch"]),
+          f"sharded_train {name}: a dispatch left sharded_cuda: "
+          f"{run['dispatch']}")
+    col = run["collectives"]
+    if not name.startswith("zero1"):   # ZeRO-1 gathers parameters as well
+        check(col["to_host"] == col["to_device"] == col["all_gather"]
+              + col["sum"], f"sharded_train {name}: a collective was not "
+              f"staged once: {col}")
+    if "rerun_bitwise" in run:
+        check(run["rerun_bitwise"], f"sharded_train {name}: a rerun "
+              f"differs")
+    if "bitwise_same_as" in run:
+        check(run["bitwise_same_as"], f"sharded_train {name}: not bit for "
+              f"bit the replicated-moment steps")
+    if ref is None:
+        return
+    errs = ref["loss_rel_err"]
+    floors = ref.get("loss_rel_floor", [])
+    errs, floors = (errs, floors) if isinstance(errs, list) else ([errs], [])
+    check(errs[0] <= FP32_TOL, f"sharded_train {name}: step-1 loss "
+          f"{errs[0]:.3e} from the one-process cuda step")
+    for i, (e, f) in enumerate(zip(errs[1:], floors[1:])):
+        check(e <= max(FP32_TOL, FLOOR_FACTOR * f), f"sharded_train {name}:"
+              f" step-{i + 2} loss {e:.3e} from the one-process cuda step, "
+              f"eager vs cuda {f:.3e}")
+    if "grad_relmax" in ref:
+        check(ref["grad_relmax"] <= TRAIN_TOL, f"sharded_train {name}: a "
+              f"gradient {ref['grad_relmax']:.3e} from the one-process "
+              f"cuda step")
+    for key in ("params", "mu", "nu"):
+        if f"{key}_relmax" in ref:
+            err, floor = ref[f"{key}_relmax"], ref[f"{key}_floor"]
+            check(err <= max(TRAIN_TOL, FLOOR_FACTOR * floor),
+                  f"sharded_train {name}: {key} {err:.3e} from the "
+                  f"one-process cuda run, eager vs cuda {floor:.3e}")
+
+
+def sharded_train_phase(cfg, dev, peak_flops, peak_bw, smi) -> dict:
+    """Phase sharded_train (66): see the module docstring.  Returns the
+    main path's launches (rank 0's replicated-moment steps), the
+    per-shard kernel rows and their max-abs errors, for the kernels
+    line."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = mesh.spawn(mesh_checks.train_check, SHARD_WORLD, "cuda",
+                           sharded_train_spec(cfg), device_type="cuda",
+                           store_path=Path(tmp) / "store", timeout=900)
+    wall = time.perf_counter() - t0
+    for kind in ("lm", "cnn"):
+        for i, model in enumerate(ranks[0][kind]):
+            for j, run in enumerate(model["runs"]):
+                others = [r[kind][i]["runs"][j] for r in ranks]
+                for rank, r in enumerate(others):
+                    emit("sharded_train", run=run["name"], rank=rank,
+                         model=model.get("arch", model.get("cfg")),
+                         layers=model.get("layers"), batch=model["batch"],
+                         **{k: v for k, v in r.items() if k != "digest"},
+                         note="both ranks share one card", smi=smi)
+                sharded_train_checks(run, others)
+    lm = {r["name"]: r for r in ranks[0]["lm"][0]["runs"]}
+    lm.update({r["name"]: r for r in ranks[0]["lm"][1]["runs"]})
+    check(lm["grad_data"]["paths"].get("matmul_rows", 0) > 0
+          and lm["grad_data"]["paths"].get("attention_batch", 0) > 0,
+          f"sharded_train: the row and batch paths did not run: "
+          f"{lm['grad_data']['paths']}")
+    check(lm["grad_model"]["paths"].get("attention_heads", 0) > 0,
+          f"sharded_train: the heads path did not run: "
+          f"{lm['grad_model']['paths']}")
+    launches = lm["steps_data"]["launches"]
+    for kernel in ("gemm_fused_fwd_res", "gemm_bwd_dx", "gemm_bwd_dw",
+                   "flash_attention_lse", "flash_attention_bwd_dq",
+                   "flash_attention_bwd_dkv"):
+        check(launches.get(kernel, 0) > 0, f"sharded_train: {kernel} did "
+              f"not launch on the main path: {launches}")
+    repl, zero1 = (lm[n]["moment_gb"] for n in ("steps_data", "zero1_data"))
+    check(zero1 < 0.6 * repl, f"sharded_train: ZeRO-1 moments {zero1:.3f} "
+          f"GB against {repl:.3f} replicated")
+
+    # the backward kernels at the shards' shapes, against their plain
+    # versions, on a generator of the phase's own
+    sgen = torch.Generator(device=dev).manual_seed(SHARDED_TRAIN["gen"])
+    b, s = SHARDED_TRAIN["batch"], SHARDED_TRAIN["seq"]
+    rows = b * s // SHARD_WORLD
+    gemm_rows = lm_train_gemm_rows(cfg, sgen, peak_flops, peak_bw, m=rows,
+                                   kernels=("gemm_bwd_dx", "gemm_bwd_dw"),
+                                   phase="sharded_train_gemm")
+    h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    attn_abs = {}
+    for where, shape in (("data", (b // SHARD_WORLD, h, kv)),
+                         ("model", (b, h // SHARD_WORLD, kv // SHARD_WORLD))):
+        q, k, v = qkv(shape[0], s, s, shape[1], shape[2], d, torch.float32,
+                      sgen)
+        errs, mabs = check_attn_bwd_case(q, k, v, None, True, sgen)
+        emit("sharded_train_attn", mesh=where, shape=[shape[0], s, s,
+                                                      shape[1], shape[2], d],
+             relmax=errs, max_abs=mabs, smi=smi)
+        for key, err in mabs.items():
+            attn_abs[key] = max(attn_abs.get(key, 0.0), err)
+        del q, k, v
+    attn_rows = attn_train_rows((b // SHARD_WORLD, s, h, kv, d, True), sgen,
+                                peak_flops, peak_bw)
+    for name, row in attn_rows.items():
+        emit("sharded_train_timing", kernel=name, smi=smi,
+             shape=[b // SHARD_WORLD, s, s, h, kv, d], causal=True, **row)
+    emit("sharded_train_gemm_total", smi=smi, m=rows, per_step=gemm_rows)
+    ref = lm["steps_data"]["reference"]
+    emit("sharded_train_total", ranks=SHARD_WORLD, wall_s=wall,
+         ms_per_step={"sharded": lm["steps_data"]["ms_per_step"],
+                      "zero1": lm["zero1_data"]["ms_per_step"],
+                      "unsharded_cuda": ref["ms_per_step"]},
+         peak_gb={n: [r["lm"][0]["runs"][i]["peak_gb"] for r in ranks]
+                  for i, n in enumerate(("grad_data", "steps_data",
+                                         "zero1_data"))},
+         moment_gb={"replicated": repl, "zero1": zero1},
+         collectives_per_step={
+             n: {k: v / SHARDED_TRAIN["steps"] for k, v in
+                 lm[n]["collectives"].items()}
+             for n in ("steps_data", "zero1_data")}, smi=smi)
+    return {"launches": launches, "gemm": gemm_rows, "attn": attn_rows,
+            "gemm_abs": {k: r["max_abs_err"] for k, r in gemm_rows.items()},
+            "attn_abs": attn_abs}
+
+
 # ---------------------------------------------------------- LM training ---
 
 def check_attn_bwd_case(q, k, v, kvl, causal, gen) -> tuple[dict, dict]:
@@ -2698,7 +2888,10 @@ def attn_train_rows(shape, cgen, peak_flops, peak_bw) -> dict:
     return rows
 
 
-def lm_train_gemm_rows(cfg, cgen, peak_flops, peak_bw) -> dict:
+def lm_train_gemm_rows(cfg, cgen, peak_flops, peak_bw, m=None,
+                       kernels=("gemm_fused_fwd_res", "gemm_bwd_dx",
+                                "gemm_bwd_dw"),
+                       phase="timing_lm_train_gemm") -> dict:
     """Each GEMM of the LM train step at M = batch x seq in fp32: the
     residual forward (the head reading the embedding transposed), dX and
     dW, each checked against its plain version (the head's dX and forward
@@ -2711,12 +2904,14 @@ def lm_train_gemm_rows(cfg, cgen, peak_flops, peak_bw) -> dict:
     terms part by about 2.4e-7 sqrt(151936 / 4096) relative.  Each row
     also gives the kernel's and the plain version's distance from an fp64
     product, to show which order lies nearer.  Returns per kernel the
-    sums and the fp32 max-abs error."""
-    m = LM_TRAIN["batch"] * LM_TRAIN["seq"]
+    sums and the fp32 max-abs error.  `m` (default LM_TRAIN's batch x
+    seq) and `kernels` pick the rows and kernels, `phase` names the
+    lines."""
+    m = m or LM_TRAIN["batch"] * LM_TRAIN["seq"]
     dev = cgen.device
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "bytes_ms")
     tot = {name: dict.fromkeys(keys, 0.0) | {"max_abs_err": 0.0}
-           for name in ("gemm_fused_fwd_res", "gemm_bwd_dx", "gemm_bwd_dw")}
+           for name in kernels}
     measured = {}
     for g in lm_gemms(cfg):
         k, n, act, trans = g["k"], g["n"], g["act"], g["trans"]
@@ -2740,7 +2935,7 @@ def lm_train_gemm_rows(cfg, cgen, peak_flops, peak_bw) -> dict:
         dx_args = dict(plan=dx_plan[0], splits=dx_plan[1])
         dw_args = dict(plan=dw_plan[0], splits=dw_plan[1])
         dw_ops = (dy, x) if trans else (x, dy)
-        kernels = {
+        calls = {
             "gemm_fused_fwd_res": (
                 lambda: gemm.gemm_fused_fwd(x, w, None, sh, act=act,
                                             plan=plan, residuals=True),
@@ -2762,7 +2957,9 @@ def lm_train_gemm_rows(cfg, cgen, peak_flops, peak_bw) -> dict:
                 4.0 * (m * k + m * n + k * n), m,
                 lambda: dw_ops[0].double().t() @ dw_ops[1].double())}
         for name, (fn, plain, library, nbytes, kdim, exact) in \
-                kernels.items():
+                calls.items():
+            if name not in tot:
+                continue
             got, want = fn(), plain()
             got, want = (got[0], want[0]) if isinstance(got, tuple) else (
                 got, want)
@@ -2793,7 +2990,7 @@ def lm_train_gemm_rows(cfg, cgen, peak_flops, peak_bw) -> dict:
                    "ops_ms": 2.0 * m * k * n / peak_flops * 1e3,
                    "bytes_ms": nbytes / peak_bw * 1e3}
             row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
-            emit("timing_lm_train_gemm", kernel=name, gemm=g["name"],
+            emit(phase, kernel=name, gemm=g["name"],
                  shape=[m, k, n], act=act, trans_w=trans,
                  plan=(list(plan) if name == "gemm_fused_fwd_res" else
                        dx_plan if name == "gemm_bwd_dx" else dw_plan),
@@ -6949,6 +7146,9 @@ def main() -> int:
                             peak_bw, smi, moe_tr["step_launches"])
     torch.cuda.empty_cache()
 
+    # ------------------------------------------------ 66. training on a mesh
+    sh_train = sharded_train_phase(cfg, dev, peak_flops, peak_bw, smi)
+
     def kernel_entry(name, source, replaces, path, launches, max_abs_err,
                      row):
         entry = {"name": name, "route": "cuda", "source": source,
@@ -7104,6 +7304,22 @@ def main() -> int:
                      REPLACES_ATTN, "sharded_serve",
                      sh_serve["slot_seq"]["launches"]["flash_attention_lse"],
                      sh_abs["flash_attention_lse"], sh_rows["lse"]),
+        *(kernel_entry(f"{name}:sharded_train", SOURCE_BWD, replaces,
+                       "sharded_train", sh_train["launches"][name],
+                       sh_train["gemm_abs"][name], sh_train["gemm"][name])
+          for name, replaces in (("gemm_bwd_dx", REPLACES_DX),
+                                 ("gemm_bwd_dw", REPLACES_DW))),
+        kernel_entry("flash_attention_bwd_dq:sharded_train", SOURCE_ATTN_BWD,
+                     REPLACES_DQ, "sharded_train",
+                     sh_train["launches"]["flash_attention_bwd_dq"],
+                     sh_train["attn_abs"]["dq"],
+                     sh_train["attn"]["flash_attention_bwd_dq"]),
+        kernel_entry("flash_attention_bwd_dkv:sharded_train",
+                     SOURCE_ATTN_BWD, REPLACES_DKV, "sharded_train",
+                     sh_train["launches"]["flash_attention_bwd_dkv"],
+                     max(sh_train["attn_abs"]["dk"],
+                         sh_train["attn_abs"]["dv"]),
+                     sh_train["attn"]["flash_attention_bwd_dkv"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -721,18 +721,25 @@ def _cuda_attention(q, k, v, *, causal, sm_scale, kv_len=None, ctx):
                                 plan=ctx.tiles)
 
 
-def _cuda_ssd(x, dt, A, B, C, *, chunk, init_state=None, ctx):
-    # Under grad the JAX package's own training form, `_eager_ssd` (the
-    # `ssd_chunked` einsums, which autograd differentiates); without grad
-    # the SSD kernel.  The choice follows grad mode only, never a failure.
-    if x.device.type != "cuda":
-        raise ValueError(f"backend 'cuda' runs on CUDA tensors, got x on "
-                         f"{x.device}; use backend 'eager' on the CPU")
+def kernel_or_einsum_ssd(x, dt, A, B, C, *, chunk, init_state=None, ctx):
+    """The SSD op of the kernel backends (`cuda`, `sharded_cuda`): under
+    grad the JAX package's own training form, `_eager_ssd` (the
+    `ssd_chunked` einsums, which autograd differentiates), counted in
+    `ssd.einsum_dispatches`; without grad the SSD kernel.  The choice
+    follows grad mode only, never a failure."""
     if kernel_ops.needs_grad(x, dt, A, B, C, init_state):
         ssd_kernel.einsum_dispatches += 1
         return _eager_ssd(x, dt, A, B, C, chunk=chunk, init_state=init_state,
                           ctx=ctx)
     return kernel_ops.ssd(x, dt, A, B, C, chunk=chunk, init_state=init_state)
+
+
+def _cuda_ssd(x, dt, A, B, C, *, chunk, init_state=None, ctx):
+    if x.device.type != "cuda":
+        raise ValueError(f"backend 'cuda' runs on CUDA tensors, got x on "
+                         f"{x.device}; use backend 'eager' on the CPU")
+    return kernel_or_einsum_ssd(x, dt, A, B, C, chunk=chunk,
+                                init_state=init_state, ctx=ctx)
 
 
 def bmm_spec(spec: str) -> tuple[str, str, str, str, str] | None:
@@ -800,9 +807,10 @@ def _cuda_einsum(spec, x, y, *, acc_dtype, out_dtype, ctx):
                          out_dtype=out_dtype)
 
 
-def _cuda_inference_only(op: str, operands: tuple) -> bool:
-    """A decode-shaped attention dispatch takes the split-KV kernel, which
-    has no backward."""
+def decode_inference_only(op: str, operands: tuple) -> bool:
+    """The `inference_only` hook of the kernel backends (`cuda`,
+    `sharded_cuda`): a decode-shaped attention dispatch takes the split-KV
+    kernel (or the sequence split's partials), which has no backward."""
     return op == "attention" and kernel_ops.use_decode_formulation(
         operands[0].shape[1], operands[1].shape[1])
 
@@ -893,4 +901,4 @@ register_backend("cuda", {
     "ssd": _cuda_ssd,
     "einsum": _cuda_einsum,
 }, tile_picker=_cuda_tile_picker, tile_candidates=_cuda_tile_candidates,
-    tile_bench=_cuda_tile_bench, inference_only=_cuda_inference_only)
+    tile_bench=_cuda_tile_bench, inference_only=decode_inference_only)

@@ -17,15 +17,22 @@ plan picks stay shard-local instead of keying on the global problem.
 
 Sharded ops: `matmul`, `bmm`, `conv2d` (im2col over the sharded matmul:
 the B·OH·OW patch rows shard) and `attention`.  `ssd` and `einsum`, which
-JAX's sharded backend lacks, run the `cuda` formulations (the SSD kernel,
-`backends.einsum_as_bmm`) unsharded on every rank.  Forward only: no op is
-declared differentiable, so the engine's `guard_grad` refuses each one
-under grad by name.
+JAX's sharded backend lacks, run the `cuda` formulations unsharded on
+every rank: the SSD kernel, or under grad the einsum form
+(`backends.kernel_or_einsum_ssd`), and `backends.einsum_as_bmm`.
+
+Every op is differentiable, as on `cuda`: the sharded ops through the
+autograd primitives of kernels/sharded.py (the per-shard backward
+kernels, the input cotangents gathered, the weight cotangents summed
+over the ranks in rank order), `conv2d` through `Im2col`'s backward
+over that matmul, `einsum` through `BmmFn`.  A decode-shaped attention
+dispatch stays inference only (`backends.decode_inference_only`, the
+`cuda` rule: the split-KV kernel and the sequence split have no
+backward), so the engine's `guard_grad` refuses it under grad by name.
 """
 from __future__ import annotations
 
 from repro_torch.core import backends
-from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import sharded
 
 
@@ -41,10 +48,6 @@ def _attention(q, k, v, *, causal, sm_scale, kv_len=None, ctx):
     return sharded.attention(q, k, v, kv_len, sm_scale, causal=causal)
 
 
-def _ssd(x, dt, A, B, C, *, chunk, init_state=None, ctx):
-    return kernel_ops.ssd(x, dt, A, B, C, chunk=chunk, init_state=init_state)
-
-
 def _einsum(spec, x, y, *, acc_dtype, out_dtype, ctx):
     return backends.einsum_as_bmm(spec, x, y, acc_dtype=acc_dtype,
                                   out_dtype=out_dtype)
@@ -55,6 +58,6 @@ backends.register_backend("sharded_cuda", {
     "bmm": _bmm,
     "conv2d": backends.im2col_conv2d(_matmul),
     "attention": _attention,
-    "ssd": _ssd,
+    "ssd": backends.kernel_or_einsum_ssd,
     "einsum": _einsum,
-}, differentiable=())
+}, inference_only=backends.decode_inference_only)

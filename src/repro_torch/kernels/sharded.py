@@ -42,10 +42,27 @@ wrapper off-mesh, on a one-rank mesh, or when nothing divides):
                all-gathered in rank order and `flash_decode.combine`
                merges them: the split-KV merge across ranks.
 
+Backward.  Three autograd primitives carry a sharded op's gradient, so
+the local wrappers keep their own autograd inside the slice (`GemmFused`,
+`BmmFn`, `FlashAttention` run the dX / dW and dQ / dK / dV kernels at the
+per-shard shapes, their plans under the `cuda` keys):
+
+  `_Slice`     a sliced operand (x's rows, q / k / v by batch or KV-head
+               group): forward this rank's slice, backward the all-gather
+               of every rank's slice cotangent in the same dims and order;
+  `_Gathered`  a gathered output: forward the all-gather, backward this
+               rank's slice of the cotangent (the cotangent is replicated,
+               as the loss is);
+  `_Summed`    a whole operand every rank reads (w, scale, shift on the row
+               path): forward the identity, backward the ranks' partial
+               cotangents summed in rank order (`launch.mesh.sum_over`),
+               so every rank gets the same bits.
+
+The sequence split stays inference only, as JAX's `attention_partial`.
+
 `path_counts` counts the dispatches by path and `collective_counts` the
 collectives (with the host-staged copies of `launch.mesh`), as the kernel
-modules count their launches.  Forward only: the `sharded_cuda` backend
-declares no op differentiable.
+modules count their launches.
 """
 from __future__ import annotations
 
@@ -73,10 +90,12 @@ def path_counts() -> dict[str, int]:
 
 
 def collective_counts() -> dict[str, int]:
-    """All-gathers made by the sharded ops (``all_gather``, one per axis
-    group crossed), and the host-staged copies of the transport."""
+    """All-gathers made by the sharded ops and their backward
+    (``all_gather``, one per axis group crossed), the rank-order sums of
+    the backward (``sum``, one per axis group, each one all-gather and
+    the adds), and the host-staged copies of the transport."""
     return {"all_gather": _COLLECTIVES["all_gather"],
-            **mesh_lib.staged_transfers()}
+            "sum": _COLLECTIVES["sum"], **mesh_lib.staged_transfers()}
 
 
 def reset_collectives() -> None:
@@ -145,13 +164,80 @@ def _piece(t, i: int, n: int, dim: int):
     return t.narrow(dim, i * size, size)
 
 
+def _sum(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """`t` summed over the ranks along `axes`, in rank order, one group
+    sum per dim, the last dim first (every rank gets the same bits)."""
+    for a in reversed(axes):
+        t = mesh_lib.sum_over(t, mesh.get_group(a))
+        _COLLECTIVES["sum"] += 1
+    return t
+
+
+class _Slice(torch.autograd.Function):
+    """A sliced operand: this rank's slice of `t` along `dim` over
+    `axes`; its cotangent is the ranks' slice cotangents all-gathered and
+    joined along `dim`, whole on every rank."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _piece(t, _axis_index(mesh, axes), _axis_size(mesh, axes),
+                      dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_cat(g, ctx.mesh, ctx.axes, ctx.dim), None, None, None
+
+
+class _Gathered(torch.autograd.Function):
+    """A gathered output: the ranks' slices of `t` over `axes` joined
+    along `dim`; its cotangent is this rank's slice of the (replicated)
+    output cotangent."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _gather_cat(t, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_piece(g, _axis_index(ctx.mesh, ctx.axes),
+                       _axis_size(ctx.mesh, ctx.axes), ctx.dim).contiguous(),
+                None, None, None)
+
+
+class _Summed(torch.autograd.Function):
+    """A whole operand every rank reads: the identity (a view, strides
+    kept: a tied head's transposed table stays transposed); its cotangent
+    is the ranks' partial cotangents summed over `axes` in rank order."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.mesh, ctx.axes), None, None
+
+
+def _summed(t, mesh, axes):
+    """`t` through `_Summed` when autograd will differentiate it, else
+    `t` itself (None stays None)."""
+    if not kernel_ops.needs_grad(t):
+        return t
+    return _Summed.apply(t, mesh, axes)
+
+
 # ------------------------------------------------------------------ GEMMs ---
 
 def matmul(x, w, scale=None, shift=None, *, act: str = "linear",
            out_dtype=None):
     """Row-sharded fused GEMM: the (M, K) rows over the batch dims, w and
-    the (N,) epilogue vectors replicated, the output rows gathered.  Falls
-    back to `ops.matmul` off-mesh or when the dims do not divide M."""
+    the (N,) epilogue vectors replicated, the output rows gathered; under
+    grad dX's rows are gathered and dW, dscale and dshift summed over the
+    ranks.  Falls back to `ops.matmul` off-mesh or when the dims do not
+    divide M."""
     plan = mesh_plan()
     n = _axis_size(plan[0], plan[1]) if plan else 1
     if n <= 1 or x.shape[0] % n:
@@ -160,15 +246,16 @@ def matmul(x, w, scale=None, shift=None, *, act: str = "linear",
                                  out_dtype=out_dtype)
     mesh, batch, _ = plan
     _PATHS["matmul_rows"] += 1
-    y = kernel_ops.matmul(_piece(x, _axis_index(mesh, batch), n, 0), w,
-                          scale, shift, act=act, out_dtype=out_dtype)
-    return _gather_cat(y, mesh, batch, 0)
+    w, scale, shift = (_summed(t, mesh, batch) for t in (w, scale, shift))
+    y = kernel_ops.matmul(_Slice.apply(x, mesh, batch, 0), w, scale, shift,
+                          act=act, out_dtype=out_dtype)
+    return _Gathered.apply(y, mesh, batch, 0)
 
 
 def bmm(x, w, *, out_dtype=None):
     """Batch-sharded (B, M, K) @ (B, K, N): both operands sliced along B
-    over the batch dims.  Falls back to `ops.bmm` off-mesh or when B does
-    not divide."""
+    over the batch dims (under grad both cotangents gathered along B).
+    Falls back to `ops.bmm` off-mesh or when B does not divide."""
     plan = mesh_plan()
     n = _axis_size(plan[0], plan[1]) if plan else 1
     if n <= 1 or x.shape[0] % n:
@@ -176,10 +263,9 @@ def bmm(x, w, *, out_dtype=None):
         return kernel_ops.bmm(x, w, out_dtype=out_dtype)
     mesh, batch, _ = plan
     _PATHS["bmm_batch"] += 1
-    i = _axis_index(mesh, batch)
-    y = kernel_ops.bmm(_piece(x, i, n, 0), _piece(w, i, n, 0),
-                       out_dtype=out_dtype)
-    return _gather_cat(y, mesh, batch, 0)
+    y = kernel_ops.bmm(_Slice.apply(x, mesh, batch, 0),
+                       _Slice.apply(w, mesh, batch, 0), out_dtype=out_dtype)
+    return _Gathered.apply(y, mesh, batch, 0)
 
 
 # -------------------------------------------------------------- attention ---
@@ -200,9 +286,10 @@ def attention(q, k, v, kv_len=None, sm_scale=None, *, causal: bool = True):
     contract.  sm_scale is folded into q first (`ops.scale_queries`; the
     local wrappers' fold of the remaining 1.0 is exact).  Then the first
     path that fits: batch rows over the batch dims and / or KV-head
-    groups over 'model' (strategy "tp"); a decode-shaped dispatch that
-    neither divides splits the key axis (`_seq_split_attention`); else the
-    local dispatch."""
+    groups over 'model' (strategy "tp"), under grad the q / k / v
+    cotangents gathered the same way; a decode-shaped dispatch that
+    neither divides splits the key axis (`_seq_split_attention`, inference
+    only); else the local dispatch."""
     kernel_ops.validate_attention_shapes(q, k, v)
     b, sq, _, _ = q.shape
     skv, kvh = k.shape[1], k.shape[2]
@@ -223,16 +310,15 @@ def attention(q, k, v, kv_len=None, sm_scale=None, *, causal: bool = True):
         _PATHS["attention_" + ("batch_heads" if batch and heads else
                                "batch" if batch else "heads")] += 1
         if batch:
-            i = _axis_index(mesh, batch)
-            q, k, v = (_piece(t, i, n_b, 0) for t in (q, k, v))
-            kvl = None if kvl is None else _piece(kvl, i, n_b, 0)
+            q, k, v = (_Slice.apply(t, mesh, batch, 0) for t in (q, k, v))
+            kvl = None if kvl is None else _piece(
+                kvl, _axis_index(mesh, batch), n_b, 0)
         if heads:
-            i = _axis_index(mesh, (heads,))
-            q, k, v = (_piece(t, i, n_m, 2) for t in (q, k, v))
+            q, k, v = (_Slice.apply(t, mesh, (heads,), 2) for t in (q, k, v))
         o = _local_attention(q, k, v, kvl, sm_scale, causal=causal)
         if heads:
-            o = _gather_cat(o, mesh, (heads,), 2)
-        return _gather_cat(o, mesh, batch, 0) if batch else o
+            o = _Gathered.apply(o, mesh, (heads,), 2)
+        return _Gathered.apply(o, mesh, batch, 0) if batch else o
     seq_axes = tuple(a for a, n in _sizes(mesh).items() if n > 1)
     n_s = _axis_size(mesh, seq_axes)
     if skv % n_s == 0 and kernel_ops.use_decode_formulation(sq, skv):

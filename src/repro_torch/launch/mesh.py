@@ -13,7 +13,9 @@ The transport is gloo's all-gather on host tensors, on the CPU and on the
 card alike.  A CUDA operand is staged through host memory explicitly: one
 copy to the host before the collective and one back after it, each
 counted in `staged_transfers` (with its bytes), so a run can report what
-the staging cost.
+the staging cost.  `sum_over` adds a tensor over a group on that same
+all-gather, in rank order, so every rank holds the same bits (gloo's
+all-reduce sums in ring order, which can give two ranks different bits).
 """
 from __future__ import annotations
 
@@ -37,6 +39,10 @@ PRODUCTION = {False: ((16, 16), ("data", "model")),
               True: ((2, 16, 16), ("pod", "data", "model"))}
 
 _STAGED = collections.Counter()
+# A gather of more than _GATHER_PIECE elements goes in up to _GATHER_PIECES
+# concurrent pieces of at least that many.
+_GATHER_PIECE = 1 << 20
+_GATHER_PIECES = 8
 
 
 def make_mesh(shape: tuple, axes: tuple, *, device_type: str = "cuda"):
@@ -90,21 +96,42 @@ def dp_size(mesh) -> int:
 def gather(t: torch.Tensor, group) -> torch.Tensor:
     """All-gather `t` over the ranks of `group`: returns (n, *t.shape) on
     t's device, rank i's tensor at index i.  gloo on host tensors; a CUDA
-    `t` is copied to the host and the result back to the card, both
-    counted in `staged_transfers`."""
+    `t` is copied to pinned host memory and the result back to the card
+    from pinned memory, both copies counted in `staged_transfers`."""
     n = dist.get_world_size(group)
-    host = t.contiguous()
-    if host.device.type != "cpu":
-        host = host.cpu()
+    staged = t.device.type != "cpu"
+    if staged:
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t)
         _STAGED["to_host"] += 1
         _STAGED["to_host_bytes"] += host.numel() * host.element_size()
-    parts = [torch.empty_like(host) for _ in range(n)]
-    dist.all_gather(parts, host, group=group)
-    out = torch.stack(parts)
-    if t.device.type != "cpu":
+    else:
+        host = t.contiguous()
+    # the ranks' tensors land in place, one row of `out` each, in pieces
+    # gathered concurrently (gloo's threads overlap their transfers)
+    out = torch.empty((n, *t.shape), dtype=t.dtype, pin_memory=staged)
+    flat, rows = host.reshape(-1), out.reshape(n, -1)
+    step = max(_GATHER_PIECE, -(-flat.numel() // _GATHER_PIECES))
+    works = [dist.all_gather(list(rows[:, i:i + step].unbind(0)),
+                             flat[i:i + step], group=group, async_op=True)
+             for i in range(0, max(flat.numel(), 1), step)]
+    for work in works:
+        work.wait()
+    if staged:
         out = out.to(t.device)
         _STAGED["to_device"] += 1
         _STAGED["to_device_bytes"] += out.numel() * out.element_size()
+    return out
+
+
+def sum_over(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every rank's `t` over `group`, added in rank order
+    after one `gather` (whose staging it shares and counts), so every
+    rank of the group gets the same bits."""
+    parts = gather(t, group)
+    out = parts[0].clone()
+    for part in parts[1:]:
+        out += part
     return out
 
 
@@ -143,15 +170,15 @@ def _rank_main(fn, rank: int, world: int, device_type: str, store: str,
         raise
 
 
-def spawn(fn, world: int, *args, device_type: str = "cpu",
+def spawn(fn, world: int, *args, device_type: str = "cuda",
           store_path, timeout: float = 900.0) -> list:
     """Run ``fn(*args)`` on `world` ranks, each a process started with the
     ``spawn`` method inside a gloo process group initialised from the file
     store `store_path` (which must not exist yet; it is removed after).
     `fn` must be importable by path from a module of the port, and its
     arguments and return value picklable (return host data, never a CUDA
-    tensor).  On ``device_type="cuda"`` every rank sets device 0; on the
-    CPU each rank runs one thread.
+    tensor).  On ``device_type="cuda"`` (the default) every rank sets
+    device 0; on ``"cpu"`` each rank runs one thread.
 
     Returns the ranks' return values in rank order.  Raises RuntimeError
     with a rank's traceback when one fails, or when the ranks do not all

@@ -1,2 +1,3 @@
-"""Sharding hints: the logical axis tags model code names and the mesh the
-sharded backend distributes over."""
+"""Sharding hints (the logical axis tags model code names and the mesh the
+sharded backend distributes over) and the sharding policy (partition
+specs for parameters, optimizer moments and inputs)."""

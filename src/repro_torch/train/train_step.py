@@ -5,7 +5,10 @@ fp32, optional error-feedback compression, global-norm clipping and AdamW
 over the flat name -> tensor dict of the nested LM parameters
 (`repro_torch.tree.flatten`: ``"layers.3.attn.wq"``).
 `make_cnn_train_step` is the Darknet counterpart: cross-entropy over a
-planned `Network`.  No backend-conditional gradient path: the engine
+planned `Network`.  Both run unchanged on a mesh: under
+``sharding.hints.use_mesh(mesh)`` with ``make_engine("sharded_cuda")``
+every op's gradient comes back whole and the same on every rank
+(kernels/sharded.py).  No backend-conditional gradient path: the engine
 dispatches its ops forward and backward alike; on the `cuda` backend every
 GEMM runs through `kernels/gemm.py::GemmFused` and every attention through
 `kernels/flash_attention.py::FlashAttention`, hand-written kernels both
@@ -28,7 +31,9 @@ def make_train_step(engine, cfg, ocfg: opt.AdamWConfig, *,
     """Returns ``train_step(params, opt_state, batch[, err])``.
 
     params: the nested LM parameters (`tfm.init_params`), updated in place
-    and returned; opt_state: ``opt.adamw_init(flatten(params))``; batch:
+    and returned; opt_state: ``opt.adamw_init(flatten(params))``, or on a
+    mesh ``opt.zero1_init(flatten(params), policy.flat_specs(cfg,
+    policy.zero1_pspecs(cfg, mesh)), mesh)`` for ZeRO-1 moments; batch:
     ``{"tokens", "labels"}``, (B, S) int tensors on the engine's device
     (``frames`` in place of tokens for an audio config).
     The batch is cut into `num_microbatches` equal slices along B; their

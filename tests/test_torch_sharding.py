@@ -8,9 +8,11 @@
   world size;
 * `StepCompileCache(topology=...)`, mirroring the JAX package's
   `test_compile_cache_topology_extends_keys` / `_off_mesh_keys_unchanged`;
-* `sharded_cuda` registered with the full op set and no tile hooks, bitwise
-  the local wrappers off-mesh and on a one-rank mesh, defaulting to the
-  card, and refusing every op under grad by name.
+* `sharded_cuda` registered with the full op set, every op differentiable
+  and no tile hooks, bitwise the local wrappers off-mesh and on a one-rank
+  mesh, defaulting to the card; off-mesh under grad every op's gradients
+  bitwise the local wrapper's (`ssd` through its einsum form, counted),
+  and a decode-shaped attention refused by name.
 """
 import types
 
@@ -23,6 +25,7 @@ from repro.launch import mesh as jax_mesh
 from repro.sharding import hints as jax_hints
 from repro_torch.core import OP_SET, StepCompileCache, backends, make_engine
 from repro_torch.kernels import ops, sharded
+from repro_torch.kernels import ssd as ssd_kernel
 from repro_torch.launch import mesh
 from repro_torch.sharding import hints
 
@@ -135,7 +138,8 @@ def test_compile_cache_off_mesh_keys_unchanged():
 def test_backend_registered_with_the_full_op_set():
     be = backends.get_backend("sharded_cuda")
     assert set(be.ops) == set(OP_SET)
-    assert be.differentiable == frozenset()
+    assert be.differentiable == frozenset(OP_SET)
+    assert be.inference_only is backends.decode_inference_only
     # no tile hooks: plans resolve from the per-shard shapes inside
     assert be.tiles("matmul", (64, 64, 64), "float32") == ()
     assert be.tile_candidates is None and be.tile_bench is None
@@ -226,23 +230,93 @@ def test_a_one_rank_mesh_takes_the_local_path(tmp_path):
         dist.destroy_process_group()
 
 
+EAGER = make_engine("eager", device="cpu")
+
+
+def _grad_calls(a, eng, local: bool):
+    """Each op of `OP_SET` on `a` through `eng`, or (`local`) the wrapper
+    the sharded op falls back to off-mesh."""
+    def mm(x, w, scale, shift, *, act, out_dtype, ctx):
+        return ops.matmul(x, w, scale, shift, act=act, out_dtype=out_dtype)
+
+    if not local:
+        return {
+            "matmul": lambda: eng.matmul(a["x"], a["w"], scale=a["scale"],
+                                         shift=a["shift"], act="silu"),
+            "bmm": lambda: eng.bmm(a["bx"], a["bw"]),
+            "conv2d": lambda: eng.conv2d(a["img"], a["cw"],
+                                         shift=a["shift"][:8], size=3,
+                                         pad=1, act="leaky"),
+            "attention": lambda: eng.attention(a["q"], a["k"], a["v"],
+                                               causal=True),
+            "ssd": lambda: eng.ssd(a["sx"], a["sdt"], a["sA"], a["sB"],
+                                   a["sC"], chunk=16)[0],
+            "einsum": lambda: eng.einsum("becd,edf->becf", a["ex"],
+                                         a["ey"])}
+    return {
+        "matmul": lambda: ops.matmul(a["x"], a["w"], a["scale"], a["shift"],
+                                     act="silu"),
+        "bmm": lambda: ops.bmm(a["bx"], a["bw"]),
+        "conv2d": lambda: backends.im2col_conv2d(mm)(
+            a["img"], a["cw"], None, a["shift"][:8], size=3, stride=1,
+            pad=1, act="leaky", out_dtype=torch.float32, ctx=None),
+        "attention": lambda: ops.attention(a["q"], a["k"], a["v"],
+                                           causal=True),
+        "ssd": lambda: EAGER.ssd(a["sx"], a["sdt"], a["sA"], a["sB"],
+                                 a["sC"], chunk=16)[0],
+        "einsum": lambda: backends.einsum_as_bmm(
+            "becd,edf->becf", a["ex"], a["ey"], acc_dtype=torch.float32,
+            out_dtype=torch.float32)}
+
+
+def test_gather_and_sum_in_pieces_on_a_one_rank_group(tmp_path):
+    """`launch.mesh.gather` sends a tensor of more than 2**20 elements in
+    concurrent pieces; each lands in place, and `sum_over` of one rank is
+    the tensor."""
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        g = torch.Generator().manual_seed(7)
+        for shape in [(), (0,), (3, 5), (3, (1 << 20) + 7)]:
+            t = torch.randn(shape, generator=g)
+            got = mesh.gather(t, None)
+            assert got.shape == (1, *shape) and torch.equal(got[0], t)
+            assert torch.equal(mesh.sum_over(t, None), t)
+        assert mesh.staged_transfers()["to_host"] == 0
+    finally:
+        dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("op", OP_SET)
-def test_grad_is_refused_by_name(op):
+def test_grad_off_mesh_equals_the_local_wrapper(op):
     a = {k: t.requires_grad_() for k, t in _operands(2).items()
-         if k not in ("sA",)}
-    a["sA"] = -torch.rand(4)
-    calls = {
-        "matmul": lambda: CPU.matmul(a["x"], a["w"]),
-        "bmm": lambda: CPU.bmm(a["bx"], a["bw"]),
-        "conv2d": lambda: CPU.conv2d(a["img"], a["cw"], size=3, pad=1),
-        "attention": lambda: CPU.attention(a["q"], a["k"], a["v"]),
-        "ssd": lambda: CPU.ssd(a["sx"], a["sdt"], a["sA"], a["sB"], a["sC"],
-                               chunk=16),
-        "einsum": lambda: CPU.einsum("becd,edf->becf", a["ex"], a["ey"])}
+         if k != "sA"}
+    a["sA"] = -torch.rand(4, generator=torch.Generator().manual_seed(3))
+    before = ssd_kernel.einsum_dispatches
+    got = _grad_calls(a, CPU, local=False)[op]()
+    # under grad `ssd` takes the einsum form, counted as on `cuda`
+    assert ssd_kernel.einsum_dispatches - before == (op == "ssd")
+    want = _grad_calls(a, CPU, local=True)[op]()
+    assert torch.equal(got, want)
+    leaves = [t for t in a.values() if t.requires_grad]
+    dy = torch.randn(got.shape, generator=torch.Generator().manual_seed(5))
+    g_got = torch.autograd.grad(got, leaves, dy, allow_unused=True)
+    g_want = torch.autograd.grad(want, leaves, dy, allow_unused=True)
+    used = [(g, w) for g, w in zip(g_got, g_want) if w is not None]
+    assert used and all(g is not None and torch.equal(g, w) for g, w in used)
+    with torch.no_grad():
+        before = ssd_kernel.einsum_dispatches
+        assert torch.equal(_grad_calls(a, CPU, local=False)[op](), want)
+        assert ssd_kernel.einsum_dispatches == before
+
+
+def test_decode_shaped_attention_under_grad_is_refused_by_name():
+    a = {k: t.requires_grad_() for k, t in _operands(2).items()
+         if k in ("dq", "dk", "dv")}
     with pytest.raises(NotImplementedError,
-                       match=rf"op '{op}' on backend 'sharded_cuda' is not "
-                             rf"differentiable"):
-        calls[op]()
+                       match=r"op 'attention' on backend 'sharded_cuda' is "
+                             r"differentiable, but this dispatch"):
+        CPU.attention(a["dq"], a["dk"], a["dv"])
     with torch.no_grad():
         assert np.isfinite(np.asarray(
-            calls[op]()[0] if op == "ssd" else calls[op]())).all()
+            CPU.attention(a["dq"], a["dk"], a["dv"]))).all()
