@@ -624,6 +624,9 @@ script exits non-zero.  Phases:
               and equal to rank 0's unsharded `cuda` engine on the same
               parameters, a differing token allowed only at a near tie
               (the rule of phase 14); every dispatch on `sharded_cuda`;
+              the paths and collectives (staged copies and bytes too)
+              equal to what `kernels.sharded.predict` reads off the run's
+              dispatch log (PR 32);
               per rank the launches, the collectives per step and the
               host-staged copies, and ms per step sharded and unsharded
               (the ranks share one card: no measure of distribution).
@@ -659,7 +662,26 @@ script exits non-zero.  Phases:
               dW at qwen2's GEMMs at 1024 rows a rank (timed as phase 19,
               with torch.matmul and the bound), the lse forward and dQ /
               dK / dV at (2, 512, 14 / 2) and (4, 512, 7 / 1) (timed at
-              the first, with SDPA's backward).
+              the first, with SDPA's backward).  Every run's paths and
+              collectives (the ZeRO-1 optimizer's gathers included) equal
+              `kernels.sharded.predict`'s from its dispatch log, and each
+              rank's ZeRO-1 moments hold the bytes of
+              `launch.dryrun.lower_cell(..., mesh={"data": 2})` (PR 32).
+ 67. dryrun   (after phase 66, its own generator `DRYRUN_SEED`) the dry
+              run's cells built with the real constructors on the card at
+              a one-rank mesh, DRYRUN_CELLS: qwen2-0.5b decode_32k at
+              batch 8 (6.44 GB of caches, a step at row 32767),
+              prefill_32k at batch 1, train_4k at batch 2, mamba2-1.3b
+              long_500k (a step at row 524287).  Per cell: the bytes of
+              the parameters, moments, caches and inputs built equal
+              `lower_cell(..., mesh={})["memory"]` term by term (the
+              allocator's delta beside them); one step on `cuda` (run
+              twice, both timed) whose dispatch log equals the meta
+              trace's op by op and shape by shape; the forward GEMM, the
+              flash forward or split-KV decode and, to train, dX / dW and
+              dQ / dK-dV launched; the output finite and of its shape;
+              the step's ms against the roofline's t_bound, the
+              temporary bytes (peak less what was allocated before).
 Then the kernels line (55 entries: the lse forward, dQ and dK / dV at 80,
 112 and 192, the expert bmm's dX and dW on mla_train and moe_train, the
 flash forward at 576 on mla_short_serve and mla_chunk, the GEMM, the
@@ -688,8 +710,8 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.configs.base import (ShapeConfig, get_arch,  # noqa: E402
-                                       input_tensors, reduced)
+from repro_torch.configs.base import (SHAPES, ShapeConfig,  # noqa: E402
+                                       get_arch, input_tensors, reduced)
 from repro_torch.configs.darknet_ref import DARKNET19_CFG  # noqa: E402
 from repro_torch.core import autotune, backends, make_engine  # noqa: E402
 from repro_torch.core.darknet import cfg as darknet_cfg  # noqa: E402
@@ -702,7 +724,7 @@ from repro_torch.kernels import (conv_direct, ssd, time_attention,  # noqa: E402
                                   time_ssd)
 from repro_torch.kernels.common import ACTIVATIONS, epilogue  # noqa: E402
 from repro_torch.kernels.ref import attention_mask  # noqa: E402
-from repro_torch.launch import mesh, mesh_checks  # noqa: E402
+from repro_torch.launch import dryrun, mesh, mesh_checks  # noqa: E402
 from repro_torch.launch.fault import FailureInjected  # noqa: E402
 from repro_torch.launch.train import train_loop  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
@@ -867,6 +889,14 @@ SHARD_WORLD = 2  # ranks, all on cuda:0
 SHARDED_TRAIN = dict(batch=4, seq=512, steps=3, seed=321, data_seed=322,
                      model_layers=4, cnn_batch=8, cnn_seed=323,
                      cnn_data_seed=324, gen=325)
+# dryrun: the dry run's cells built on the card at a one-rank mesh, each
+# (arch, shape, global batch) cut so it fits one H100; a decode step runs
+# at the cache's last row
+DRYRUN_CELLS = (("qwen2-0.5b", "decode_32k", 8),
+                ("qwen2-0.5b", "prefill_32k", 1),
+                ("qwen2-0.5b", "train_4k", 2),
+                ("mamba2-1.3b", "long_500k", 1))
+DRYRUN_SEED = 401
 AUTOTUNE_CNN = dict(batch=8, seed=91)  # DARKNET19 serving and a train step
 AUTOTUNE_LM = dict(batch=2, seq=512, seed=92)  # one qwen2-0.5b train step
 AUTOTUNE_MLA = dict(slots=2, max_len=256, new=4, seed=93)  # 4 decode steps
@@ -2278,6 +2308,7 @@ def sharded_serve_phase(cfg, abs_err, smi) -> dict:
                  unsharded_ms_per_step=ref["ms_per_step"],
                  note="both ranks share one card", launches=g["launches"],
                  paths=g["paths"], collectives=col,
+                 predicted=g["predicted"],
                  collectives_per_step=col["all_gather"] / max(1, g["steps"]),
                  host_staged_copies=col["to_host"] + col["to_device"],
                  dispatch=g["dispatch"],
@@ -2299,6 +2330,11 @@ def sharded_serve_phase(cfg, abs_err, smi) -> dict:
                   f"launch: {g['launches']}")
             check(col["to_host"] == col["to_device"] == col["all_gather"],
                   f"sharded_serve {name}: a gather was not staged: {col}")
+            check(g["predicted"]["collectives"] == col
+                  and g["predicted"]["paths"] == g["paths"],
+                  f"sharded_serve {name}: kernels/sharded.py's predict "
+                  f"gives {g['predicted']}, the run counted {g['paths']} "
+                  f"and {col}")
             check(g["mesh"] == [[run["mesh"][1][0], SHARD_WORLD]],
                   f"sharded_serve {name}: mesh {g['mesh']}")
         check(all(m["margin"] < MARGIN_FACTOR * abs_err
@@ -2391,6 +2427,10 @@ def sharded_train_checks(run: dict, ranks: list) -> None:
           f"sharded_train {name}: a dispatch left sharded_cuda: "
           f"{run['dispatch']}")
     col = run["collectives"]
+    pred = run["predicted"]
+    check(pred["collectives"] == col and pred["paths"] == run["paths"],
+          f"sharded_train {name}: kernels/sharded.py's predict gives "
+          f"{pred}, the run counted {run['paths']} and {col}")
     if not name.startswith("zero1"):   # ZeRO-1 gathers parameters as well
         check(col["to_host"] == col["to_device"] == col["all_gather"]
               + col["sum"], f"sharded_train {name}: a collective was not "
@@ -2465,6 +2505,15 @@ def sharded_train_phase(cfg, dev, peak_flops, peak_bw, smi) -> dict:
     repl, zero1 = (lm[n]["moment_gb"] for n in ("steps_data", "zero1_data"))
     check(zero1 < 0.6 * repl, f"sharded_train: ZeRO-1 moments {zero1:.3f} "
           f"GB against {repl:.3f} replicated")
+    st = SHARDED_TRAIN
+    want = dryrun.lower_cell(cfg, ShapeConfig("sharded_train", st["seq"],
+                                              st["batch"], "train"),
+                             mesh={"data": SHARD_WORLD})["memory"]["moments"]
+    got = [r["lm"][0]["runs"][2]["moment_bytes"] for r in ranks]
+    emit("sharded_train_moments", zero1_bytes_by_rank=got,
+         dryrun_bytes=want, smi=smi)
+    check(got == [want] * SHARD_WORLD, f"sharded_train: ZeRO-1 moments "
+          f"{got} B a rank, the dry run says {want}")
 
     # the backward kernels at the shards' shapes, against their plain
     # versions, on a generator of the phase's own
@@ -2509,6 +2558,133 @@ def sharded_train_phase(cfg, dev, peak_flops, peak_bw, smi) -> dict:
     return {"launches": launches, "gemm": gemm_rows, "attn": attn_rows,
             "gemm_abs": {k: r["max_abs_err"] for k, r in gemm_rows.items()},
             "attn_abs": attn_abs}
+
+
+# ------------------------------------------------------------ the dry run ---
+
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in flatten(tree).values())
+
+
+def _log_key(rec: dict) -> tuple:
+    """A dispatch as the dry run predicts it: everything but the backend
+    and its plan."""
+    return tuple(sorted((k, v) for k, v in rec.items()
+                        if k not in ("backend", "tiles")))
+
+
+def dryrun_cell(arch: str, shape_id: str, batch: int, dev, gen,
+                smi) -> dict:
+    """One cell of phase dryrun (see the module docstring)."""
+    cfg = get_arch(arch)
+    shape = dataclasses.replace(SHAPES[shape_id], global_batch=batch)
+    t0 = time.perf_counter()
+    rec, log = dryrun.lower_cell(cfg, shape, mesh={}, return_log=True)
+    trace_s = time.perf_counter() - t0
+    check(rec["status"] == "ok", f"dryrun {arch} x {shape_id}: {rec}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    params = tfm.init_params(cfg, generator=gen, device=dev)
+    built = {"params": _nbytes(params), "moments": 0, "caches": 0}
+    inputs = input_tensors(cfg, shape, generator=gen, device=dev)
+    state = caches = None
+    if shape.kind == "train":
+        state = opt.adamw_init(flatten(params))
+        built["moments"] = _nbytes([state["mu"], state["nu"]])
+    if shape.kind == "decode":
+        caches = kvcache.cache_init(cfg, batch, shape.seq_len, device=dev)
+        built["caches"] = _nbytes(caches)
+        inputs["pos"] = torch.tensor(shape.seq_len - 1, device=dev)
+    built["inputs"] = _nbytes(inputs)
+    built["total"] = sum(built[k] for k in dryrun.MEMORY_TERMS)
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated(dev) - base
+    engine = make_engine("cuda")
+    if shape.kind == "train":
+        step = make_train_step(engine, cfg, opt.AdamWConfig(),
+                               ce_chunk=min(512, shape.seq_len))
+
+        def run():
+            return step(params, state, inputs)[2]["loss"]
+    elif shape.kind == "prefill":
+        step = make_prefill_step(engine, cfg)
+
+        def run():
+            with torch.inference_mode():
+                return step(params, inputs)[0]
+    else:
+        step = make_decode_step(engine, cfg)
+
+        def run():
+            with torch.inference_mode():
+                return step(params, caches, inputs["token"],
+                            inputs["pos"])[0]
+
+    times, launches = [], None
+    for i in range(2):      # the first run's log and launches, both timed
+        torch.cuda.synchronize()
+        reset_all_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        t1 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+        if i == 0:
+            launches = {k: v for k, v in all_launches().items() if v}
+            got_log = backends.dispatch_log()
+            temp = torch.cuda.max_memory_allocated(dev) - before
+    want_shape = (() if shape.kind == "train"
+                  else (batch, 1, cfg.vocab_padded))
+    check(tuple(out.shape) == want_shape and bool(torch.isfinite(out).all()),
+          f"dryrun {arch} x {shape_id}: output {tuple(out.shape)} not "
+          f"finite or not {want_shape}")
+    same = [_log_key(a) == _log_key(b) for a, b in zip(got_log, log)]
+    diff = [i for i, ok in enumerate(same) if not ok][:5]
+    roof = rec["roofline"]
+    t_bound_ms = max(roof["t_compute_s"], roof["t_memory_s"],
+                     roof["t_collective_s"]) * 1e3
+    emit("dryrun", arch=arch, shape=shape_id, batch=batch,
+         seq=shape.seq_len, trace_s=trace_s, predicted=rec["memory"],
+         built=built, equal=built == rec["memory"],
+         allocated_delta=allocated, dispatches=len(got_log),
+         trace_dispatches=len(log), log_equal=len(got_log) == len(log)
+         and not diff, first_differences=[
+             [_log_key(got_log[i]), _log_key(log[i])] for i in diff],
+         flops_total=rec["flops_total"], roofline=roof,
+         ms=times, t_bound_ms=t_bound_ms,
+         bound_share=t_bound_ms / times[-1], temp_bytes=temp,
+         launches=launches, smi=smi)
+    check(built == rec["memory"], f"dryrun {arch} x {shape_id}: built "
+          f"{built}, the dry run predicts {rec['memory']}")
+    check(len(got_log) == len(log) and not diff,
+          f"dryrun {arch} x {shape_id}: the cuda step's dispatches differ "
+          f"from the meta trace's ({len(got_log)} against {len(log)}, "
+          f"first at {diff})")
+    kernels = ["gemm_fused_fwd_res" if shape.kind == "train"
+               else "gemm_fused_fwd"]
+    if cfg.n_heads and not cfg.is_ssm:
+        kernels.append({"train": "flash_attention_lse",
+                        "prefill": "flash_attention",
+                        "decode": "flash_decode"}[shape.kind])
+    if shape.kind == "train":
+        kernels += ["gemm_bwd_dx", "gemm_bwd_dw", "flash_attention_bwd_dq",
+                    "flash_attention_bwd_dkv"]
+    check(all(launches.get(k, 0) > 0 for k in kernels),
+          f"dryrun {arch} x {shape_id}: a kernel of the path did not "
+          f"launch: {launches}")
+    del params, inputs, state, caches, out, step
+    torch.cuda.empty_cache()
+    return {"ms": times[-1], "t_bound_ms": t_bound_ms}
+
+
+def dryrun_phase(dev, smi) -> dict:
+    """Phase dryrun (67): see the module docstring."""
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(DRYRUN_SEED)
+    return {f"{a}:{s}": dryrun_cell(a, s, b, dev, gen, smi)
+            for a, s, b in DRYRUN_CELLS}
 
 
 # ---------------------------------------------------------- LM training ---
@@ -7148,6 +7324,9 @@ def main() -> int:
 
     # ------------------------------------------------ 66. training on a mesh
     sh_train = sharded_train_phase(cfg, dev, peak_flops, peak_bw, smi)
+
+    # ----------------------------------------------------- 67. the dry run
+    dryrun_phase(dev, smi)
 
     def kernel_entry(name, source, replaces, path, launches, max_abs_err,
                      row):

@@ -2,11 +2,13 @@
 
 Every architecture is a frozen ``ArchConfig`` (hashable, so it can key a
 cache); ``reduced()`` gives the small same-family config of the CPU tests.
-The port carries its own copy because the JAX module imports jax.  The
-``SHAPES`` of the JAX dry run stay behind: the port has no dry run;
-`ShapeConfig` comes along for the trainer's data pipeline, and
-`input_tensors` gives the inputs of the JAX ``input_specs`` layout as
-seeded tensors rather than specs.
+The port carries its own copy because the JAX module imports jax.
+``SHAPES``, `cell_supported` and `input_specs` are the dry run's
+(launch/dryrun.py): the four cells of the JAX harness, its skip rules,
+and the inputs of a cell as tensors on the ``meta`` device (the port's
+``jax.ShapeDtypeStruct``).  `input_tensors` gives the same layout as
+seeded tensors.  Token ids and ``pos`` are int64 where JAX has int32:
+PyTorch indexes with int64.
 `get_arch` knows every config of the JAX package: the dense GQA ones,
 mamba2-1.3b (the SSM family), llama4-scout-17b-a16e (the MoE family's
 GQA program), deepseek-v2-lite-16b (its MLA programs), internvl2-2b
@@ -117,6 +119,13 @@ class ArchConfig:
                           self.attn_every))
 
 
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
 _MODULES = {
     "phi3-medium-14b": "phi3_medium_14b",
     "qwen2-1.5b": "qwen2_1p5b",
@@ -139,6 +148,17 @@ def get_arch(name: str) -> ArchConfig:
                          f"{ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     return mod.CONFIG
+
+
+def cell_supported(arch: ArchConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """The harness's skip rules: (False, reason) for a cell no step of
+    the arch runs, else (True, "")."""
+    if shape.kind == "decode" and arch.is_encoder:
+        return False, "encoder-only arch has no decode step"
+    if shape.name == "long_500k" and not arch.is_ssm:
+        return False, ("long_500k needs sub-quadratic attention; "
+                       f"{arch.name} is pure full-attention")
+    return True, ""
 
 
 def reduced(cfg: ArchConfig) -> ArchConfig:
@@ -168,6 +188,39 @@ def reduced(cfg: ArchConfig) -> ArchConfig:
     if cfg.n_kv_heads == cfg.n_heads:  # MHA archs stay MHA
         kw.update(n_kv_heads=4)
     return dataclasses.replace(cfg, **kw)
+
+
+def input_specs(arch: ArchConfig, shape: ShapeConfig) -> dict:
+    """Shape-and-dtype stand-ins for every model input of one cell: the
+    tensors of `input_tensors` on the ``meta`` device (no memory).
+
+    Train: tokens (or frames) and labels, with patch_embeds for a vision
+    frontend; prefill: the same without labels; decode: token (B, 1) and
+    pos, a 0-d tensor (the caches are `kvcache.cache_struct`'s).  Ids and
+    pos are int64 (JAX: int32), embeddings fp32."""
+    b, s = shape.global_batch, shape.seq_len
+    meta = torch.device("meta")
+
+    def ids(*size):
+        return torch.empty(size, dtype=torch.int64, device=meta)
+
+    def embeds(*size):
+        return torch.empty(size, dtype=torch.float32, device=meta)
+
+    if shape.kind == "decode":
+        return {"token": ids(b, 1), "pos": ids()}
+    specs: dict = {}
+    if arch.frontend == "audio":
+        specs["frames"] = embeds(b, s, arch.frontend_dim)
+    elif arch.frontend == "vision":
+        specs["tokens"] = ids(b, s - arch.frontend_tokens)
+        specs["patch_embeds"] = embeds(b, arch.frontend_tokens,
+                                       arch.frontend_dim)
+    else:
+        specs["tokens"] = ids(b, s)
+    if shape.kind == "train":
+        specs["labels"] = ids(b, s)
+    return specs
 
 
 def input_tensors(arch: ArchConfig, shape: ShapeConfig, *,

@@ -494,23 +494,48 @@ def clear_tile_cache() -> None:
 _DISPATCH = collections.Counter()
 _DISPATCH_LOG: list[dict] = []
 _DISPATCH_LOG_LIMIT = 65536
+_LAST: list = [None]    # the newest dispatch's record, if logged
 
 
 def record_dispatch(backend: str, op: str, shapes: tuple | None = None,
-                    dtype=None, tiles: tuple = ()) -> None:
+                    dtype=None, tiles: tuple = (), **extra) -> None:
     """Count one engine dispatch and append its detail record
-    ``{backend, op, shapes, dtype, tiles}`` to the bounded log (oldest
-    records win; past the limit only the counter advances)."""
+    ``{backend, op, shapes, dtype, tiles}`` and any `extra` fields to the
+    bounded log (oldest records win; past the limit only the counter
+    advances)."""
     _DISPATCH[(backend, op)] += 1
+    _LAST[0] = None
     if len(_DISPATCH_LOG) < _DISPATCH_LOG_LIMIT:
-        _DISPATCH_LOG.append({
+        _LAST[0] = {
             "backend": backend, "op": op, "shapes": shapes,
             "dtype": None if dtype is None else str(dtype),
-            "tiles": tuple(tiles or ())})
+            "tiles": tuple(tiles or ()), **extra}
+        _DISPATCH_LOG.append(_LAST[0])
+
+
+def differentiated(operands: tuple) -> tuple:
+    """Which of a dispatch's operands autograd will differentiate, as a
+    tuple of flags, or () when none will: grad is off, no operand
+    requires it, or the dispatch runs inside a backward pass (the
+    recompute of ``torch.utils.checkpoint``, whose graph is not
+    differentiated again)."""
+    if not torch.is_grad_enabled():
+        return ()
+    flags = tuple(isinstance(t, torch.Tensor) and t.requires_grad
+                  for t in operands)
+    if not any(flags) or torch._C._current_graph_task_id() != -1:
+        return ()
+    return flags
 
 
 def dispatch_counts() -> dict[tuple[str, str], int]:
     return dict(_DISPATCH)
+
+
+def last_dispatch() -> dict | None:
+    """The record of the newest dispatch (the caller may add fields to
+    it), or None when the log had no room for it."""
+    return _LAST[0]
 
 
 def dispatch_log() -> list[dict]:
@@ -533,6 +558,7 @@ def reset_dispatch_counts() -> None:
     """Clear the dispatch counters AND the detail log."""
     _DISPATCH.clear()
     _DISPATCH_LOG.clear()
+    _LAST[0] = None
 
 
 # --------------------------------------------------------- shared pieces ---

@@ -48,19 +48,41 @@ class ComputeEngine:
 
     # ---------------------------------------------------------- dispatch ---
     def _resolve(self, op: str, shapes: tuple, dtype,
-                 tile_shapes: tuple | None = None) -> backends.OpContext:
+                 tile_shapes: tuple | None = None,
+                 operands: tuple = ()) -> backends.OpContext:
         """Look up the backend's plan through the autotune cache (under
         `tile_shapes` where the plan's key differs from the dispatch's:
         bmm's carries the batch) and count the dispatch (with its shapes,
-        dtype and plan in the dispatch log)."""
+        dtype and plan in the dispatch log; a bmm's record adds its
+        ``batch``, a differentiated dispatch's its ``grad`` flags:
+        `backends.differentiated(operands)`)."""
         tiles = backends.get_backend(self.backend).tiles(
             op, shapes if tile_shapes is None else tile_shapes, dtype)
+        extra = {"batch": tile_shapes[0]} if op == "bmm" else {}
+        grad = backends.differentiated(operands)
+        if grad:
+            extra["grad"] = grad
         backends.record_dispatch(self.backend, op, shapes=shapes,
-                                 dtype=dtype, tiles=tiles)
+                                 dtype=dtype, tiles=tiles, **extra)
         return backends.OpContext(precision=self.precision, tiles=tiles)
 
     def _op(self, op: str):
         return backends.get_backend(self.backend).op(op)
+
+    def _call(self, op: str, *args, **kwargs):
+        """Run the backend's `op` on the dispatch `_resolve` just logged.
+        A dispatch that raises instead of returning is marked ``cut`` in
+        its log record: the recompute of ``torch.utils.checkpoint`` stops
+        inside the last dispatch of a region whose saved tensors it needs,
+        and that dispatch's remaining work (the sharded backend's output
+        gather, kernels/sharded.py) never runs."""
+        record = backends.last_dispatch()
+        try:
+            return self._op(op)(*args, **kwargs)
+        except BaseException:
+            if record is not None:
+                record["cut"] = True
+            raise
 
     def _guard(self, op: str, *operands) -> None:
         """The autodiff capability check (`backends.guard_grad`): an op the
@@ -94,9 +116,10 @@ class ComputeEngine:
         xc = x.to(self.precision.compute_dtype).reshape(-1, k)
         wc = w.to(self.precision.compute_dtype)
         self._guard("matmul", xc, wc, scale, shift)
-        ctx = self._resolve("matmul", (xc.shape[0], k, n), xc.dtype)
-        y = self._op("matmul")(xc, wc, scale, shift, act=act,
-                               out_dtype=out_dtype, ctx=ctx)
+        ctx = self._resolve("matmul", (xc.shape[0], k, n), xc.dtype,
+                            operands=(xc, wc, scale, shift))
+        y = self._call("matmul", xc, wc, scale, shift, act=act,
+                       out_dtype=out_dtype, ctx=ctx)
         return y.reshape(*lead, n)
 
     def bmm(self, x, w, *, out_dtype=None):
@@ -116,8 +139,8 @@ class ComputeEngine:
         wc = w.to(self.precision.compute_dtype)
         self._guard("bmm", xc, wc)
         ctx = self._resolve("bmm", (m, k, n), xc.dtype,
-                            tile_shapes=(b, m, k, n))
-        return self._op("bmm")(xc, wc, out_dtype=out_dtype, ctx=ctx)
+                            tile_shapes=(b, m, k, n), operands=(xc, wc))
+        return self._call("bmm", xc, wc, out_dtype=out_dtype, ctx=ctx)
 
     def conv2d(self, x, w, *, scale=None, shift=None, size: int,
                stride: int = 1, pad: int = 0, act: str = "linear",
@@ -141,8 +164,8 @@ class ComputeEngine:
         self._guard("conv2d", xc, wc, scale, shift)
         ctx = self._resolve(
             "conv2d", (tuple(xc.shape), wc.shape[-1], size, stride, pad),
-            xc.dtype)
-        return self._op("conv2d")(xc, wc, scale, shift, size=size,
+            xc.dtype, operands=(xc, wc, scale, shift))
+        return self._call("conv2d", xc, wc, scale, shift, size=size,
                                   stride=stride, pad=pad, act=act,
                                   out_dtype=out_dtype, ctx=ctx)
 
@@ -179,8 +202,9 @@ class ComputeEngine:
         qc, kc, vc = q.to(dt), k.to(dt), v.to(dt)
         self._guard("attention", qc, kc, vc, sm_scale)
         ctx = self._resolve("attention",
-                            (tuple(qc.shape), tuple(kc.shape)), qc.dtype)
-        return self._op("attention")(qc, kc, vc, causal=causal,
+                            (tuple(qc.shape), tuple(kc.shape)), qc.dtype,
+                            operands=(qc, kc, vc))
+        return self._call("attention", qc, kc, vc, causal=causal,
                                      sm_scale=sm_scale, kv_len=kv_len,
                                      ctx=ctx)
 
@@ -212,8 +236,8 @@ class ComputeEngine:
                                   init_state=init)
         self._guard("ssd", xc, dtf, af, bc, cc, init)
         ctx = self._resolve("ssd", (tuple(xc.shape), tuple(bc.shape), chunk),
-                            xc.dtype)
-        return self._op("ssd")(xc, dtf, af, bc, cc, chunk=chunk,
+                            xc.dtype, operands=(xc, dtf, af, bc, cc, init))
+        return self._call("ssd", xc, dtf, af, bc, cc, chunk=chunk,
                                init_state=init, ctx=ctx)
 
     def einsum(self, spec: str, x, y, *, out_dtype=None,
@@ -236,8 +260,9 @@ class ComputeEngine:
         yc = y.to(self.precision.compute_dtype)
         self._guard("einsum", xc, yc)
         ctx = self._resolve("einsum", (spec, tuple(xc.shape),
-                                       tuple(yc.shape)), xc.dtype)
-        return self._op("einsum")(spec, xc, yc, acc_dtype=acc_dtype,
+                                       tuple(yc.shape)), xc.dtype,
+                            operands=(xc, yc))
+        return self._call("einsum", spec, xc, yc, acc_dtype=acc_dtype,
                                   out_dtype=out_dtype, ctx=ctx)
 
 

@@ -63,11 +63,18 @@ The sequence split stays inference only, as JAX's `attention_partial`.
 `path_counts` counts the dispatches by path and `collective_counts` the
 collectives (with the host-staged copies of `launch.mesh`), as the kernel
 modules count their launches.
+
+`route` is the decision above as a pure function of (op, operand shapes,
+mesh sizes, strategy): the path, and the collectives the path issues
+forward and under grad, with their bytes.  The wrappers call it, and so
+does the dry run (launch/dryrun.py), which reads a step's dispatch log
+through `predict` without a mesh or a process group.
 """
 from __future__ import annotations
 
 import collections
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -109,6 +116,18 @@ def _sizes(mesh) -> dict[str, int]:
     return dict(zip(mesh.mesh_dim_names, mesh.shape))
 
 
+def _axes(sizes: dict, strategy: str):
+    """(batch_axes, model_axis) of a mesh of `sizes` under `strategy`, or
+    None for a mesh of one rank (see `mesh_plan`)."""
+    if math.prod(sizes.values()) <= 1:
+        return None
+    batch = tuple(a for a in hints.batch_axes(strategy)
+                  if sizes.get(a, 1) > 1)
+    model = ("model" if strategy == "tp" and sizes.get("model", 1) > 1
+             else None)
+    return batch, model
+
+
 def mesh_plan():
     """(mesh, batch_axes, model_axis) for the installed mesh, or None off
     a mesh or on a one-rank mesh (callers then run the local wrapper).
@@ -120,11 +139,192 @@ def mesh_plan():
     mesh = hints.physical_mesh()
     if mesh is None or mesh.size() <= 1:
         return None
-    sizes = _sizes(mesh)
-    batch = tuple(a for a in hints.batch_axes() if sizes.get(a, 1) > 1)
-    model = ("model" if hints.current_strategy() == "tp"
-             and sizes.get("model", 1) > 1 else None)
-    return mesh, batch, model
+    return (mesh, *_axes(_sizes(mesh), hints.current_strategy()))
+
+
+# ------------------------------------------------------------------ route ---
+
+class Collective(NamedTuple):
+    """One collective of a path: ``kind`` "all_gather" or "sum" (one
+    all-gather and the adds), over mesh dim ``dim`` of ``ranks`` ranks.
+    Each rank sends ``in_bytes`` and holds ``out_bytes`` after the
+    gather: the sizes of the two host-staged copies on a card."""
+    kind: str
+    dim: str
+    ranks: int
+    in_bytes: int
+    out_bytes: int
+
+
+class Route(NamedTuple):
+    """Where one dispatch goes on a mesh: the path (None for an op the
+    backend runs unsharded: ``ssd``, ``einsum``), the mesh dims it
+    slices (the batch dims, or the key axis's dims on the sequence
+    split), the KV-head dim ('model' or None), and the collectives it
+    issues forward and under grad."""
+    path: str | None
+    axes: tuple = ()
+    heads: str | None = None
+    forward: tuple = ()
+    backward: tuple = ()
+
+
+def _gathers(nbytes: int, sizes: dict, axes, kind: str = "all_gather"
+             ) -> list:
+    """The collectives of `_gather` (kind "all_gather") or `_sum`
+    ("sum") of a tensor of `nbytes` over `axes`: one per dim, the last
+    dim first; a gather's result feeds the next dim's."""
+    out = []
+    for a in reversed(axes):
+        out.append(Collective(kind, a, sizes[a], nbytes, nbytes * sizes[a]))
+        if kind == "all_gather":
+            nbytes *= sizes[a]
+    return out
+
+
+def _flags(grad, n: int) -> tuple:
+    return (tuple(grad) + (False,) * n)[:n]
+
+
+def route(op: str, shapes: tuple, sizes: dict, strategy: str = "tp", *,
+          itemsize: int = 4, grad: tuple = ()) -> Route:
+    """The path a dispatch of `op` takes on a mesh of `sizes` ({dim:
+    size}) under `strategy`, and the collectives it issues.
+
+    shapes: the operands' dims, as the engine logs them: ``matmul``
+    (M, K, N), ``conv2d`` ((B, H, W, C), Cout, size, stride, pad) (its
+    im2col GEMM), ``bmm`` (B, M, K, N), ``attention`` (q's (B, Sq, H, D),
+    k's (B, Skv, KV, D)); any other op runs unsharded (path None).
+    itemsize: bytes an element of the operands and outputs (the compute
+    dtype's; the sequence split's partials are fp32).  grad: which
+    operands autograd differentiates, in the engine's order (x, w,
+    scale, shift / x, w / q, k, v): each adds its `_Slice` gathers or
+    `_Summed` sums to ``backward`` (scale and shift are fp32)."""
+    plan = _axes(sizes, strategy)
+    if op in ("matmul", "conv2d"):
+        if op == "conv2d":
+            (b, h, w, c), cout, size, stride, pad = shapes
+            oh = (h + 2 * pad - size) // stride + 1
+            ow = (w + 2 * pad - size) // stride + 1
+            m, k, n = b * oh * ow, size * size * c, cout
+        else:
+            m, k, n = shapes
+        batch = plan[0] if plan else ()
+        ranks = math.prod(sizes[a] for a in batch)
+        if ranks <= 1 or m % ranks:
+            return Route("matmul_local")
+        gx, gw, gs, gh = _flags(grad, 4)
+        back = _gathers(m // ranks * k * itemsize, sizes, batch) if gx \
+            else []
+        for on, nbytes in ((gw, k * n * itemsize), (gs, n * 4), (gh, n * 4)):
+            if on:
+                back += _gathers(nbytes, sizes, batch, "sum")
+        return Route("matmul_rows", batch, None, tuple(_gathers(
+            m // ranks * n * itemsize, sizes, batch)), tuple(back))
+    if op == "bmm":
+        b, m, k, n = shapes
+        batch = plan[0] if plan else ()
+        ranks = math.prod(sizes[a] for a in batch)
+        if ranks <= 1 or b % ranks:
+            return Route("bmm_local")
+        per = b // ranks * itemsize
+        back = []
+        for on, nbytes in zip(_flags(grad, 2), (per * m * k, per * k * n)):
+            if on:
+                back += _gathers(nbytes, sizes, batch)
+        return Route("bmm_batch", batch, None,
+                     tuple(_gathers(per * m * n, sizes, batch)), tuple(back))
+    if op != "attention":
+        return Route(None)
+    (b, sq, h, d), (_, skv, kvh, _) = shapes
+    if plan is None:
+        return Route("attention_local")
+    batch, model = plan
+    n_b = math.prod(sizes[a] for a in batch)
+    batch = batch if (n_b > 1 and b % n_b == 0) else ()
+    n_m = sizes[model] if model else 1
+    heads = model if (model and kvh % n_m == 0) else None
+    if batch or heads:
+        path = "attention_" + ("batch_heads" if batch and heads else
+                               "batch" if batch else "heads")
+        bb = b // n_b if batch else b
+        split = n_m if heads else 1
+
+        def pieces(s, nh):
+            out = []
+            if heads:
+                out += _gathers(bb * s * nh // split * d * itemsize, sizes,
+                                (heads,))
+            if batch:
+                out += _gathers(bb * s * nh * d * itemsize, sizes, batch)
+            return out
+
+        back = []
+        for on, s, nh in zip(_flags(grad, 3), (sq, skv, skv), (h, kvh, kvh)):
+            if on:
+                back += pieces(s, nh)
+        return Route(path, batch, heads, tuple(pieces(sq, h)), tuple(back))
+    seq_axes = tuple(a for a, n in sizes.items() if n > 1)
+    n_s = math.prod(sizes[a] for a in seq_axes)
+    if skv % n_s == 0 and kernel_ops.use_decode_formulation(sq, skv):
+        return Route("attention_seq", seq_axes, None, tuple(_gathers(
+            b * h * sq * (d + 1) * 4, sizes, seq_axes)))
+    return Route("attention_local")
+
+
+def _itemsize(dtype) -> int:
+    if dtype is None:
+        return 4
+    name = str(dtype).removeprefix("torch.")
+    return torch.empty((), dtype=getattr(torch, name)).element_size()
+
+
+def predict(log, sizes: dict, strategy: str = "tp", *,
+            staged: bool = False, extra=()) -> dict:
+    """What `collective_counts` and `path_counts` would read after the
+    dispatches of `log` (`core.backends.dispatch_log` records: ``op``,
+    ``shapes``, ``dtype``, ``grad``, the per-operand flags, on a
+    dispatch autograd differentiates, and ``cut`` on one a recompute
+    stopped inside) on a mesh of `sizes` under
+    `strategy`, with `extra` collectives besides (the ZeRO-1 optimizer's
+    gathers: `optimizer.zero1_collectives`).  With `staged` (CUDA
+    operands) every gather is copied to the host and back.  Returns
+    ``{"paths", "collectives", "link_bytes"}``: the path counts, the
+    counts in `collective_counts`' keys, and the bytes the collectives
+    put through a rank's links (each gather's result, as JAX's roofline
+    counts an all-gather)."""
+    paths = collections.Counter()
+    coll = collections.Counter()
+    for rec in log:
+        shapes = rec["shapes"]
+        if rec["op"] == "bmm":
+            shapes = (rec.get("batch", 1), *shapes)
+        r = route(rec["op"], shapes, sizes, strategy,
+                  itemsize=_itemsize(rec.get("dtype")),
+                  grad=rec.get("grad", ()))
+        if r.path is not None:
+            paths[r.path] += 1
+        # a dispatch cut short by a recompute's early stop ran its kernel
+        # (which saved what the backward needs) but not its gathers
+        for c in (*(() if rec.get("cut") else r.forward), *r.backward):
+            coll[c.kind] += 1
+            coll["link_bytes"] += c.out_bytes
+            if staged:
+                coll["to_host_bytes"] += c.in_bytes
+                coll["to_device_bytes"] += c.out_bytes
+    for c in extra:
+        coll["link_bytes"] += c.out_bytes
+        if staged:
+            coll["to_host_bytes"] += c.in_bytes
+            coll["to_device_bytes"] += c.out_bytes
+    n = coll["all_gather"] + coll["sum"] + (len(extra) if staged else 0)
+    if staged:
+        coll["to_host"] = coll["to_device"] = n
+    return {"paths": {p: paths[p] for p in PATHS},
+            "collectives": {k: coll[k] for k in (
+                "all_gather", "sum", "to_host", "to_host_bytes",
+                "to_device", "to_device_bytes")},
+            "link_bytes": coll["link_bytes"]}
 
 
 def _axis_size(mesh, axes) -> int:
@@ -238,14 +438,15 @@ def matmul(x, w, scale=None, shift=None, *, act: str = "linear",
     grad dX's rows are gathered and dW, dscale and dshift summed over the
     ranks.  Falls back to `ops.matmul` off-mesh or when the dims do not
     divide M."""
-    plan = mesh_plan()
-    n = _axis_size(plan[0], plan[1]) if plan else 1
-    if n <= 1 or x.shape[0] % n:
-        _PATHS["matmul_local"] += 1
+    mesh = hints.physical_mesh()
+    r = route("matmul", (x.shape[0], x.shape[1], w.shape[1]),
+              _sizes(mesh) if mesh is not None else {},
+              hints.current_strategy())
+    _PATHS[r.path] += 1
+    if r.path == "matmul_local":
         return kernel_ops.matmul(x, w, scale, shift, act=act,
                                  out_dtype=out_dtype)
-    mesh, batch, _ = plan
-    _PATHS["matmul_rows"] += 1
+    batch = r.axes
     w, scale, shift = (_summed(t, mesh, batch) for t in (w, scale, shift))
     y = kernel_ops.matmul(_Slice.apply(x, mesh, batch, 0), w, scale, shift,
                           act=act, out_dtype=out_dtype)
@@ -256,13 +457,14 @@ def bmm(x, w, *, out_dtype=None):
     """Batch-sharded (B, M, K) @ (B, K, N): both operands sliced along B
     over the batch dims (under grad both cotangents gathered along B).
     Falls back to `ops.bmm` off-mesh or when B does not divide."""
-    plan = mesh_plan()
-    n = _axis_size(plan[0], plan[1]) if plan else 1
-    if n <= 1 or x.shape[0] % n:
-        _PATHS["bmm_local"] += 1
+    mesh = hints.physical_mesh()
+    r = route("bmm", (*x.shape, w.shape[-1]),
+              _sizes(mesh) if mesh is not None else {},
+              hints.current_strategy())
+    _PATHS[r.path] += 1
+    if r.path == "bmm_local":
         return kernel_ops.bmm(x, w, out_dtype=out_dtype)
-    mesh, batch, _ = plan
-    _PATHS["bmm_batch"] += 1
+    batch = r.axes
     y = kernel_ops.bmm(_Slice.apply(x, mesh, batch, 0),
                        _Slice.apply(w, mesh, batch, 0), out_dtype=out_dtype)
     return _Gathered.apply(y, mesh, batch, 0)
@@ -291,42 +493,35 @@ def attention(q, k, v, kv_len=None, sm_scale=None, *, causal: bool = True):
     neither divides splits the key axis (`_seq_split_attention`, inference
     only); else the local dispatch."""
     kernel_ops.validate_attention_shapes(q, k, v)
-    b, sq, _, _ = q.shape
-    skv, kvh = k.shape[1], k.shape[2]
+    b = q.shape[0]
     kernel_ops.validate_kv_len(kv_len, b)
-    plan = mesh_plan()
-    if plan is None:
-        _PATHS["attention_local"] += 1
+    mesh = hints.physical_mesh()
+    r = route("attention", (tuple(q.shape), tuple(k.shape)),
+              _sizes(mesh) if mesh is not None else {},
+              hints.current_strategy())
+    _PATHS[r.path] += 1
+    if mesh is None or mesh.size() <= 1:   # off a mesh: q as given
         return _local_attention(q, k, v, kv_len, sm_scale, causal=causal)
-    mesh, batch, model = plan
     q, sm_scale = kernel_ops.scale_queries(q, sm_scale), 1.0
-    n_b = _axis_size(mesh, batch)
-    batch = batch if (n_b > 1 and b % n_b == 0) else ()
-    n_m = _sizes(mesh)[model] if model else 1
-    heads = model if (model and kvh % n_m == 0) else None
     kvl = (None if kv_len is None else torch.as_tensor(
         kv_len, device=q.device).to(torch.int32).reshape(-1).expand(b))
-    if batch or heads:
-        _PATHS["attention_" + ("batch_heads" if batch and heads else
-                               "batch" if batch else "heads")] += 1
-        if batch:
-            q, k, v = (_Slice.apply(t, mesh, batch, 0) for t in (q, k, v))
-            kvl = None if kvl is None else _piece(
-                kvl, _axis_index(mesh, batch), n_b, 0)
-        if heads:
-            q, k, v = (_Slice.apply(t, mesh, (heads,), 2) for t in (q, k, v))
-        o = _local_attention(q, k, v, kvl, sm_scale, causal=causal)
-        if heads:
-            o = _Gathered.apply(o, mesh, (heads,), 2)
-        return _Gathered.apply(o, mesh, batch, 0) if batch else o
-    seq_axes = tuple(a for a, n in _sizes(mesh).items() if n > 1)
-    n_s = _axis_size(mesh, seq_axes)
-    if skv % n_s == 0 and kernel_ops.use_decode_formulation(sq, skv):
-        _PATHS["attention_seq"] += 1
-        return _seq_split_attention(q, k, v, kvl, mesh, seq_axes,
+    if r.path == "attention_seq":
+        return _seq_split_attention(q, k, v, kvl, mesh, r.axes,
                                     causal=causal)
-    _PATHS["attention_local"] += 1
-    return _local_attention(q, k, v, kvl, sm_scale, causal=causal)
+    if r.path == "attention_local":
+        return _local_attention(q, k, v, kvl, sm_scale, causal=causal)
+    batch, heads = r.axes, r.heads
+    n_b = _axis_size(mesh, batch)
+    if batch:
+        q, k, v = (_Slice.apply(t, mesh, batch, 0) for t in (q, k, v))
+        kvl = None if kvl is None else _piece(
+            kvl, _axis_index(mesh, batch), n_b, 0)
+    if heads:
+        q, k, v = (_Slice.apply(t, mesh, (heads,), 2) for t in (q, k, v))
+    o = _local_attention(q, k, v, kvl, sm_scale, causal=causal)
+    if heads:
+        o = _Gathered.apply(o, mesh, (heads,), 2)
+    return _Gathered.apply(o, mesh, batch, 0) if batch else o
 
 
 def _seq_split_attention(q, k, v, kvl, mesh, axes, *, causal):

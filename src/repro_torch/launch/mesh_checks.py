@@ -80,6 +80,21 @@ def _counters() -> dict:
                          backends.dispatch_counts().items()}}
 
 
+def predicted(mesh, strategy: str, dev, extra=()) -> dict:
+    """What `kernels.sharded.predict` reads off the dispatch log since the
+    counts were last set to 0 (the paths and the collectives, staged on a
+    card), with `extra` collectives besides (the ZeRO-1 gathers): the
+    figures `_counters` must then show."""
+    log = backends.dispatch_log()
+    if len(log) != sum(backends.dispatch_counts().values()):
+        raise RuntimeError("the dispatch log overflowed; no prediction")
+    sizes = policy.mesh_sizes(mesh) if mesh is not None else {}
+    pred = sharded.predict(log, sizes, strategy, staged=dev.type == "cuda",
+                           extra=extra)
+    return {"paths": {p: c for p, c in pred["paths"].items() if c},
+            "collectives": pred["collectives"]}
+
+
 def _synchronize(dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -339,7 +354,8 @@ def _serve(cfg, params, eng, run: dict, mesh) -> dict:
     out = {"name": run["name"], "streams": [r.out for r in reqs],
            "done": all(r.done for r in reqs), "steps": st["steps"],
            "wall_s": wall, "ms_per_step": wall / max(1, st["steps"]) * 1e3,
-           "mesh": [list(t) for t in st["mesh"]], **_counters()}
+           "mesh": [list(t) for t in st["mesh"]], **_counters(),
+           "predicted": predicted(mesh, run.get("strategy", "tp"), dev)}
     if run["engine"] == "paged":
         out["compile_keys"] = sorted(
             json.dumps(k) for k in st["compile"]["dispatches"])
@@ -494,12 +510,8 @@ def _lm_steps(eng, cfg, model, run, ocfg, batches, dev, mesh=None):
     params = _lm_params(cfg, model, dev)
     base, peak = _memory(dev)
     if run.get("zero1"):
-        specs = policy.zero1_pspecs(cfg, mesh, run.get("strategy", "tp"))
-        if run["zero1"] == "layers":
-            specs = {**specs, "stacks": [_by_layer(t)
-                                         for t in specs["stacks"]]}
-        state = opt.zero1_init(flatten(params), policy.flat_specs(cfg, specs),
-                               mesh)
+        state = opt.zero1_init(flatten(params), policy.flat_specs(
+            cfg, _zero1_specs(cfg, mesh, run)), mesh)
     else:
         state = opt.adamw_init(flatten(params))
     step = make_train_step(eng, cfg, ocfg, ce_chunk=model["ce_chunk"])
@@ -519,10 +531,32 @@ def _lm_steps(eng, cfg, model, run, ocfg, batches, dev, mesh=None):
               "lrs": [float(m["lr"]) for m in metrics],
               "ms_per_step": wall / max(1, run["steps"]) * 1e3,
               "peak_gb": peak(), "moment_gb": moment_bytes / 1e9,
+              "moment_bytes": moment_bytes,
               "base_gb": base / 1e9}
     flat = flatten(params)
     return report, {"params": flat, **{key: {k: moments[key][k] for k in flat}
                                        for key in ("mu", "nu")}}
+
+
+def _zero1_specs(cfg, mesh, run: dict):
+    """The moment specs of a ZeRO-1 run: `zero1_pspecs` at the run's
+    strategy, or with ``zero1="layers"`` 'data' on every stack's layer
+    dim (`_by_layer`)."""
+    specs = policy.zero1_pspecs(cfg, mesh, run.get("strategy", "tp"))
+    if run["zero1"] == "layers":
+        specs = {**specs, "stacks": [_by_layer(t) for t in specs["stacks"]]}
+    return specs
+
+
+def _lm_predicted(cfg, run: dict, mesh, dev) -> dict:
+    """`predicted` for an LM run: a ZeRO-1 run's steps each gather every
+    leaf's new parameter block, and `gather_moments` then its mu and nu
+    blocks (the same gathers)."""
+    extra = ()
+    if run.get("zero1"):
+        extra = opt.zero1_collectives(cfg, _zero1_specs(cfg, mesh, run),
+                                      mesh) * (run["steps"] + 2)
+    return predicted(mesh, run.get("strategy", "tp"), dev, extra)
 
 
 def _by_layer(stack: dict) -> dict:
@@ -632,6 +666,7 @@ def _lm_train(model: dict, spec: dict, eng, mesh_of, dev) -> dict:
             _synchronize(dev)
             wall = time.perf_counter() - t0
             counts = _counters()
+            counts["predicted"] = _lm_predicted(cfg, run, mesh, dev)
             if run.get("rerun"):
                 rep["rerun_bitwise"] = _same(got, _lm_grad(
                     eng, cfg, model, batches[0], dev)[1])
@@ -715,6 +750,8 @@ def _cnn_train(model: dict, spec: dict, eng, mesh_of, dev) -> dict:
             rep, got = _cnn_step(eng, model, ocfg, batch, dev)
             wall = time.perf_counter() - t0
             counts = _counters()
+            counts["predicted"] = predicted(mesh, run.get("strategy", "tp"),
+                                            dev)
         rep.update(_report(run, mesh, wall, counts, got))
         if spec.get("arrays"):
             rep["arrays"] = {k: float(v) if k == "loss" else
@@ -779,6 +816,34 @@ def train_check(device_type: str, spec: dict) -> dict:
     out = {"rank": dist.get_rank(),
            "ops": check_ops(device_type, spec.get("ops", []),
                             spec.get("ops_seed", 0)),
+           "lm": [_lm_train(m, spec, eng, mesh_of, dev)
+                  for m in spec.get("lm", [])],
+           "cnn": [_cnn_train(m, spec, eng, mesh_of, dev)
+                   for m in spec.get("cnn", [])]}
+    dist.barrier()
+    return out
+
+
+def collective_check(device_type: str, spec: dict) -> dict:
+    """The paths and collectives `kernels.sharded.predict` reads off each
+    run's dispatch log beside the counts the run made, on this rank.
+
+    `spec`: ``arch``, ``reduced`` and ``seed`` (the LM, `random_lm_params`),
+    ``serve`` (runs of `serve_streams`' form), ``lm`` and ``cnn`` (models
+    of `train_check`'s form, with ``ocfg``).  Returns ``{rank, serve, lm,
+    cnn}``:
+    every run's report, each with ``paths``, ``collectives`` and
+    ``predicted``."""
+    dev = rank_device(device_type)
+    cfg = get_arch(spec["arch"])
+    if spec.get("reduced"):
+        cfg = reduced(cfg)
+    params = random_lm_params(cfg, dev, spec["seed"])
+    eng = make_engine("sharded_cuda", device=dev)
+    mesh_of = _meshes(device_type)
+    out = {"rank": dist.get_rank(),
+           "serve": [_serve(cfg, params, eng, run, mesh_of(run["mesh"]))
+                     for run in spec.get("serve", [])],
            "lm": [_lm_train(m, spec, eng, mesh_of, dev)
                   for m in spec.get("lm", [])],
            "cnn": [_cnn_train(m, spec, eng, mesh_of, dev)

@@ -61,6 +61,8 @@ chunks, on `ref` and `eager`) in place of the attention op, as in JAX.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -177,6 +179,7 @@ def head_weight(params: dict, cfg):
     return params["lm_head"]["w"]
 
 
+@functools.lru_cache(maxsize=32)
 def param_counts(cfg) -> tuple[int, int]:
     """(total, active) parameter counts.  The shapes come from
     `init_params` on the ``meta`` device, so nothing is allocated at any

@@ -16,51 +16,143 @@ mamba stack, and for a hybrid super entry of n ``{"mamba": {the mamba
 leaves, (n, attn_every, B, ...)}, "shared": {"k", "v": (n, B, S_max, KV,
 hd)}}`` (JAX's ``cache_struct``), its tail's mamba entry after it.  The
 dtype follows the engine's compute dtype (fp32 under fp32_strict, bf16
-under mixed).  `slot_rows` and `copy_prefill` are the one place outside
-`cache_init` that reads this layout.
+under mixed).  `cache_struct` writes the layout once, as tensors on the
+``meta`` device (JAX's ``ShapeDtypeStruct`` tree); `cache_init` is its
+zeros, and `slot_rows` and `copy_prefill` are the one place outside it
+that reads this layout.  `cache_pspecs`, `cache_bytes` and
+`kv_broadcast_bytes` are the dry run's accounting (launch/dryrun.py):
+JAX's specs as tuples (`sharding/policy.py`'s convention), for a mesh
+given as a ``DeviceMesh`` or a ``{dim: size}`` mapping.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
-from repro_torch.models.ssm import ssm_cache_init
 from repro_torch.models.transformer import stack_program
+from repro_torch.sharding.policy import mesh_sizes
+from repro_torch.tree import flatten, unflatten_like
+
+_META = torch.device("meta")
 
 
-def _kv(lead: tuple, cfg, B: int, S_max: int, dtype, device) -> dict:
-    shape = (*lead, B, S_max, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+def _empty(*shape, dtype):
+    return torch.empty(shape, dtype=dtype, device=_META)
 
 
-def _latent(lead: tuple, cfg, B: int, S_max: int, dtype, device) -> dict:
-    return {"c_kv": torch.zeros((*lead, B, S_max, cfg.kv_lora_rank),
-                                dtype=dtype, device=device),
-            "k_rope": torch.zeros((*lead, B, S_max, cfg.qk_rope_dim),
-                                  dtype=dtype, device=device)}
+def _entry_struct(kind: str, cfg, n: int, B: int, S: int, dtype,
+                  inner: int = 0) -> dict:
+    lead = (n, inner) if inner else (n,)
+    if kind in ("dense", "gqa_moe", "zamba_shared"):
+        shape = (*lead, B, S, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": _empty(*shape, dtype=dtype),
+                "v": _empty(*shape, dtype=dtype)}
+    if kind in ("mla_dense", "mla_moe"):
+        return {"c_kv": _empty(*lead, B, S, cfg.kv_lora_rank, dtype=dtype),
+                "k_rope": _empty(*lead, B, S, cfg.qk_rope_dim, dtype=dtype)}
+    if kind == "mamba":
+        conv, di = cfg.ssm_conv, cfg.ssm_d_inner
+        gn = cfg.ssm_ngroups * cfg.ssm_state
+        return {"conv_x": _empty(*lead, B, conv - 1, di, dtype=dtype),
+                "conv_B": _empty(*lead, B, conv - 1, gn, dtype=dtype),
+                "conv_C": _empty(*lead, B, conv - 1, gn, dtype=dtype),
+                "ssm": _empty(*lead, B, cfg.ssm_nheads, cfg.ssm_headdim,
+                              cfg.ssm_state, dtype=dtype)}
+    raise ValueError(f"no cache layout for layer kind {kind!r}")
 
 
-def _mamba(lead: tuple, cfg, B: int, dtype, device) -> dict:
-    return {name: torch.zeros((*lead, *t.shape), dtype=dtype, device=device)
-            for name, t in ssm_cache_init(B, cfg, dtype, device).items()}
+def cache_struct(cfg, B: int, S_max: int, dtype=torch.float32) -> list:
+    """The caches of `B` sequences of up to `S_max` rows as ``meta``
+    tensors: one entry per layer-program entry, in the layout of the
+    module docstring (the tree `forward_prefill` returns and
+    `decode_hidden` takes)."""
+    out = []
+    for kind, n in stack_program(cfg):
+        if kind == "zamba_super":
+            out.append({"mamba": _entry_struct("mamba", cfg, n, B, S_max,
+                                               dtype, inner=cfg.attn_every),
+                        "shared": _entry_struct("zamba_shared", cfg, n, B,
+                                                S_max, dtype)})
+        else:
+            out.append(_entry_struct(kind, cfg, n, B, S_max, dtype))
+    return out
+
+
+def _by_leaf(fn, tree):
+    """`fn(leaf name, leaf)` for every leaf of a cache tree, in the tree's
+    structure."""
+    return unflatten_like({path: fn(path.rsplit(".", 1)[-1], t)
+                           for path, t in flatten(tree).items()}, tree)
 
 
 def cache_init(cfg, B: int, S_max: int, dtype=torch.float32,
                device=None) -> list[dict]:
-    """Zeroed caches for `B` sequences of up to `S_max` rows."""
-    out = []
-    for kind, n in stack_program(cfg):
-        if kind == "mamba":
-            out.append(_mamba((n,), cfg, B, dtype, device))
-        elif kind == "zamba_super":
-            out.append({"mamba": _mamba((n, cfg.attn_every), cfg, B, dtype,
-                                        device),
-                        "shared": _kv((n,), cfg, B, S_max, dtype, device)})
-        elif kind in ("mla_dense", "mla_moe"):
-            out.append(_latent((n,), cfg, B, S_max, dtype, device))
-        else:
-            out.append(_kv((n,), cfg, B, S_max, dtype, device))
-    return out
+    """Zeroed caches for `B` sequences of up to `S_max` rows: the zeros of
+    `cache_struct` on `device`."""
+    return _by_leaf(lambda _, t: torch.zeros(t.shape, dtype=t.dtype,
+                                             device=device),
+                    cache_struct(cfg, B, S_max, dtype))
+
+
+def cache_pspecs(cfg, mesh, B: int, S_max: int) -> list:
+    """The spec of every cache leaf (JAX's ``cache_pspecs``, a tuple per
+    leaf, one entry a dim): the batch over the data-parallel dims when
+    they divide B, K / V and the latents' sequence over 'model' (a
+    batch they do not divide spreads the sequence over the data dims and
+    'model' when those divide S_max), an SSM leaf's channels or heads
+    over 'model' when it divides them."""
+    sizes = mesh_sizes(mesh)
+    dp = tuple(a for a in ("pod", "data") if a in sizes)
+    dp_size = math.prod(sizes[a] for a in dp) if dp else 1
+    tp = sizes.get("model", 1)
+    # one dim as its name, as a PartitionSpec holds it
+    batch_ax = ((dp[0] if len(dp) == 1 else dp)
+                if dp and B % dp_size == 0 else None)
+    seq_ax = "model"
+    if batch_ax is None and dp and S_max % (dp_size * tp) == 0:
+        seq_ax = (*dp, "model")
+
+    def spec(name, leaf):
+        nd = leaf.dim()
+        if name in ("k", "v"):               # (..., B, S, KV, hd)
+            return (None,) * (nd - 4) + (batch_ax, seq_ax, None, None)
+        if name in ("c_kv", "k_rope"):       # (..., B, S, r)
+            return (None,) * (nd - 3) + (batch_ax, seq_ax, None)
+        if name.startswith("conv"):          # (..., B, conv - 1, C)
+            last = "model" if leaf.shape[-1] % tp == 0 else None
+            return (None,) * (nd - 3) + (batch_ax, None, last)
+        if name == "ssm":                    # (..., B, H, P, N)
+            heads = "model" if leaf.shape[-3] % tp == 0 else None
+            return (None,) * (nd - 4) + (batch_ax, heads, None, None)
+        return (None,) * nd
+
+    return _by_leaf(spec, cache_struct(cfg, B, S_max))
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+def cache_bytes(cfg, B: int, S_max: int, dtype=torch.float32) -> int:
+    """Bytes of the whole caches of `B` sequences of `S_max` rows."""
+    return sum(_nbytes(t) for t in
+               flatten(cache_struct(cfg, B, S_max, dtype)).values())
+
+
+def kv_broadcast_bytes(cfg, B: int, S: int, dtype=torch.float32
+                       ) -> tuple[int, int]:
+    """(compact, broadcast) bytes of the attention K / V tensors of a
+    prefill of S tokens: the grouped (B, S, KV, hd) layout the caches
+    store and the attention op reads, and what expanding K / V to every
+    query head would take (H / KV times as much).  (0, 0) with no
+    attention layer (a pure SSM)."""
+    compact = sum(_nbytes(t) for path, t in
+                  flatten(cache_struct(cfg, B, S, dtype)).items()
+                  if path.rsplit(".", 1)[-1] in ("k", "v"))
+    if not compact:
+        return 0, 0
+    return compact, compact * (cfg.n_heads // cfg.n_kv_heads)
 
 
 def slot_rows(cfg, caches: list, s, kv_rows: int = 0) -> list:

@@ -174,6 +174,15 @@ class PagedKVCache:
              "v": torch.zeros((n, *shape), dtype=dtype, device=device)}
             for _, n in prog]
 
+    def pool_bytes(self, include_trash: bool = False) -> int:
+        """Physical pool size; the trash block is a fixed O(block) overhead
+        left out of capacity comparisons by default."""
+        total = sum(t.numel() * t.element_size()
+                    for entry in self.pools for t in entry.values())
+        if include_trash:
+            return total
+        return total * self.n_blocks // (self.n_blocks + 1)
+
 
 def gather_block_cache(pools: list, block_tables: torch.Tensor) -> list:
     """Gather each sequence's blocks into the dense cache layout.

@@ -47,10 +47,11 @@ def current_strategy() -> str:
     return _STRATEGY
 
 
-def batch_axes() -> tuple:
-    """The mesh dims that carry the batch under the current strategy."""
-    return (("pod", "data", "model") if _STRATEGY == "fsdp"
-            else ("pod", "data"))
+def batch_axes(strategy: str | None = None) -> tuple:
+    """The mesh dims that carry the batch under `strategy` (default: the
+    current one)."""
+    return (("pod", "data", "model")
+            if (strategy or _STRATEGY) == "fsdp" else ("pod", "data"))
 
 
 def physical_mesh():

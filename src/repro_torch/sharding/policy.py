@@ -29,6 +29,8 @@ and ``shape``) or a ``{dim: size}`` mapping.
 """
 from __future__ import annotations
 
+import copy
+import functools
 import math
 from typing import Mapping, NamedTuple
 
@@ -122,7 +124,12 @@ def _maximal_spec(shape: tuple, sizes: dict) -> tuple:
 def stacked_shapes(cfg) -> dict:
     """The parameter shapes in JAX's nested layout: ``torch.Size`` leaves
     under the keys of `convert.lm_params_to_numpy` (each program entry's
-    layers stacked under ``stacks[e]``)."""
+    layers stacked under ``stacks[e]``).  A fresh tree each call."""
+    return copy.deepcopy(_stacked_shapes(cfg))
+
+
+@functools.lru_cache(maxsize=32)
+def _stacked_shapes(cfg) -> dict:
     params = tfm.init_params(cfg, generator=None, device="meta")
 
     def shapes(tree, lead=()):

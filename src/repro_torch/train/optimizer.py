@@ -33,6 +33,7 @@ from typing import Mapping
 import torch
 from torch.distributed.tensor import Shard
 
+from repro_torch.kernels import sharded
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.sharding import policy
 
@@ -219,6 +220,37 @@ def zero1_init(params: Mapping[str, torch.Tensor], specs: Mapping,
         state["nu"][path] = torch.zeros_like(state["mu"][path])
         state["zero1"][path] = leaf
     return state
+
+
+def zero1_collectives(cfg, specs, mesh) -> list:
+    """The gathers one `adamw_update` step on a `zero1_init` state makes
+    (each leaf's new parameter block, fp32, gathered over every mesh dim
+    that shards it, the last dim first), as `kernels.sharded.Collective`
+    records: a pure function of `cfg`'s stacked shapes, the moment spec
+    tree `specs` (``policy.zero1_pspecs`` or a variant of it) and the
+    mesh (a DeviceMesh or a ``{dim: size}`` mapping)."""
+    sizes = policy.mesh_sizes(mesh)
+    out = []
+
+    def walk(shape, spec):
+        if isinstance(shape, Mapping):
+            for k, v in shape.items():
+                walk(v, spec[k])
+            return
+        if isinstance(shape, list):
+            for v, sp in zip(shape, spec):
+                walk(v, sp)
+            return
+        dims = [dim for dim, place in zip(sizes, policy.placements(
+            sizes, spec)) if isinstance(place, Shard) and sizes[dim] > 1]
+        nbytes = math.prod(shape) // math.prod(sizes[d] for d in dims) * 4
+        for dim in reversed(dims):
+            out.append(sharded.Collective("all_gather", dim, sizes[dim],
+                                          nbytes, nbytes * sizes[dim]))
+            nbytes *= sizes[dim]
+
+    walk(policy.stacked_shapes(cfg), specs)
+    return out
 
 
 @torch.no_grad()
