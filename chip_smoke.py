@@ -667,6 +667,11 @@ script exits non-zero.  Phases:
               `kernels.sharded.predict`'s from its dispatch log, and each
               rank's ZeRO-1 moments hold the bytes of
               `launch.dryrun.lower_cell(..., mesh={"data": 2})` (PR 32).
+              The ZeRO-1 run saves a checkpoint after step 2 (moments
+              gathered whole, rank 0 writes), then both ranks restore it
+              into fresh parameters with ``shardings=`` (their ZeRO-1
+              blocks) and with the moments replicated, and step each to
+              step 3: both bit for bit the uninterrupted run's.
  67. dryrun   (after phase 66, its own generator `DRYRUN_SEED`) the dry
               run's cells built with the real constructors on the card at
               a one-rank mesh, DRYRUN_CELLS: qwen2-0.5b decode_32k at
@@ -682,6 +687,26 @@ script exits non-zero.  Phases:
               dQ / dK-dV launched; the output finite and of its shape;
               the step's ms against the roofline's t_bound, the
               temporary bytes (peak less what was allocated before).
+ 68. lint     (after phase 67, its own generator `LINT_SEED`, zeros
+              elsewhere) the analysis toolchain on `cuda`: DARKNET19_CFG
+              at batch 8 through ``compile(8, lint="error")``: no error,
+              R004 checked the build's 12 plans, 12 GEMM launches, the
+              logits bit for bit a build without a trace, the build's ms
+              with and without the trace; full-width, full-depth
+              qwen2-0.5b: a 2 x 512 prefill through the trace, no error
+              and R001 silent at H 14 / KV 2, the same step's
+              `value_and_grad` of `loss_fn` with no R002 finding and its
+              backward records under their forward's scope (carried onto
+              autograd's device thread); full mamba2-1.3b's 2 x 512
+              prefill whose findings equal `eager`'s on the card; an
+              injected ``torch.einsum`` after a network's engine ops
+              raising `LintError` from ``compile(lint="error")``, an
+              injected dispatch record with an illegal plan firing R004;
+              `diagnose.attribute` of the qwen2 prefill on `cuda` and on
+              `eager`, its FLOPs equal to ``FlopCounterMode``'s on the
+              same step, the top 5 traffic rows; the five examples
+              (`python -m repro_torch.examples.<name>`, train_lm with
+              ``--steps 20``) as subprocesses, each exiting 0.
 Then the kernels line (55 entries: the lse forward, dQ and dK / dV at 80,
 112 and 192, the expert bmm's dX and dW on mla_train and moe_train, the
 flash forward at 576 on mla_short_serve and mla_chunk, the GEMM, the
@@ -710,12 +735,18 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from torch.utils.flop_counter import FlopCounterMode  # noqa: E402
+
+from repro_torch.analysis import diagnose, lint  # noqa: E402
+from repro_torch.analysis import trace as trace_lib  # noqa: E402
 from repro_torch.configs.base import (SHAPES, ShapeConfig,  # noqa: E402
                                        get_arch, input_tensors, reduced)
-from repro_torch.configs.darknet_ref import DARKNET19_CFG  # noqa: E402
+from repro_torch.configs.darknet_ref import (DARKNET19_CFG,  # noqa: E402
+                                             DARKNET_SMALL_CFG)
 from repro_torch.core import autotune, backends, make_engine  # noqa: E402
 from repro_torch.core.darknet import cfg as darknet_cfg  # noqa: E402
-from repro_torch.core.darknet.network import Network  # noqa: E402
+from repro_torch.core.darknet.network import (CompiledNetwork,  # noqa: E402
+                                              Network)
 from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
 from repro_torch.kernels import build, gemm, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -897,6 +928,12 @@ DRYRUN_CELLS = (("qwen2-0.5b", "decode_32k", 8),
                 ("qwen2-0.5b", "train_4k", 2),
                 ("mamba2-1.3b", "long_500k", 1))
 DRYRUN_SEED = 401
+# lint: the analysis toolchain on the card, on a generator of its own
+LINT_SEED = 501
+LINT = dict(cnn_batch=8, lm_prefill=(2, 512), ssm_prefill=(2, 512),
+            train_steps=20, examples_timeout=600)
+EXAMPLES = ("quickstart", "cnn_inference", "serve_cnn", "serve_lm",
+            "train_lm")
 AUTOTUNE_CNN = dict(batch=8, seed=91)  # DARKNET19 serving and a train step
 AUTOTUNE_LM = dict(batch=2, seq=512, seed=92)  # one qwen2-0.5b train step
 AUTOTUNE_MLA = dict(slots=2, max_len=256, new=4, seed=93)  # 4 decode steps
@@ -2393,8 +2430,9 @@ def timing_sharded_phase(cfg, dev, peak_flops, peak_bw, smi) -> dict:
 
 # ---------------------------------------------------- training on a mesh ---
 
-def sharded_train_spec(cfg) -> dict:
-    """Phase sharded_train's work for `mesh_checks.train_check`."""
+def sharded_train_spec(cfg, ckpt_dir: str) -> dict:
+    """Phase sharded_train's work for `mesh_checks.train_check`; the
+    ZeRO-1 run's checkpoint goes under `ckpt_dir`."""
     st = SHARDED_TRAIN
     data, model = ((SHARD_WORLD,), ("data",)), ((SHARD_WORLD,), ("model",))
     lm = dict(arch=cfg.name, seed=st["seed"], batch=(st["batch"], st["seq"]),
@@ -2406,7 +2444,9 @@ def sharded_train_spec(cfg) -> dict:
                 dict(name="grad_data", mesh=data, rerun=True),
                 dict(name="steps_data", mesh=data, steps=st["steps"]),
                 dict(name="zero1_data", mesh=data, steps=st["steps"],
-                     zero1=True, same_as="steps_data")]),
+                     zero1=True, same_as="steps_data",
+                     restore_at=st["steps"] - 1,
+                     ckpt_dir=str(Path(ckpt_dir) / "zero1_data"))]),
             dict(lm, layers=st["model_layers"], runs=[
                 dict(name="grad_model", mesh=model)])],
         cnn=[dict(cfg=DARKNET19_CFG, name="DARKNET19_CFG",
@@ -2441,6 +2481,15 @@ def sharded_train_checks(run: dict, ranks: list) -> None:
     if "bitwise_same_as" in run:
         check(run["bitwise_same_as"], f"sharded_train {name}: not bit for "
               f"bit the replicated-moment steps")
+    if "restored" in run:
+        res = run["restored"]
+        for r in ranks:
+            check(r["restored"] == res, f"sharded_train {name}: the ranks' "
+                  f"restores differ")
+        check(res["zero1_bitwise"] and res["replicated_bitwise"]
+              and res["zero1_step"] == res["replicated_step"]
+              == len(run["losses"]), f"sharded_train {name}: a restored "
+              f"checkpoint's last step is not the run's bit for bit: {res}")
     if ref is None:
         return
     errs = ref["loss_rel_err"]
@@ -2473,7 +2522,7 @@ def sharded_train_phase(cfg, dev, peak_flops, peak_bw, smi) -> dict:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         ranks = mesh.spawn(mesh_checks.train_check, SHARD_WORLD, "cuda",
-                           sharded_train_spec(cfg), device_type="cuda",
+                           sharded_train_spec(cfg, tmp), device_type="cuda",
                            store_path=Path(tmp) / "store", timeout=900)
     wall = time.perf_counter() - t0
     for kind in ("lm", "cnn"):
@@ -2685,6 +2734,259 @@ def dryrun_phase(dev, smi) -> dict:
     gen = torch.Generator(device=dev).manual_seed(DRYRUN_SEED)
     return {f"{a}:{s}": dryrun_cell(a, s, b, dev, gen, smi)
             for a, s, b in DRYRUN_CELLS}
+
+
+# ------------------------------------------------------------ 68. lint
+def lint_run(fn, roots: tuple, hints=()):
+    """Run ``fn()`` once under the trace, `roots` its argument trees; (the
+    lint report with the trace's totals, the trace, the dispatch log, the
+    result)."""
+    mark = backends.dispatch_log_size()
+    with trace_lib.record(*roots) as trace:
+        out = fn()
+    log = tuple(backends.dispatch_log()[mark:])
+    report = lint.run_lint(lint.LintContext(trace=trace, op_log=log,
+                                            head_hints=hints, cost=True))
+    return report, trace, log, out
+
+
+def lint_counts(report) -> dict:
+    return dict(collections.Counter(f"{f.rule_id}:{f.severity}"
+                                    for f in report.findings))
+
+
+def lint_cnn(dev, gen, smi) -> dict:
+    """DARKNET19 through ``compile(lint="error")`` against a build without
+    a trace; an injected einsum refused by the gate."""
+    net = Network(DARKNET19_CFG, make_engine("cuda", device=dev),
+                  generator=torch.Generator().manual_seed(LINT_SEED))
+    b = LINT["cnn_batch"]
+    ms = {}
+    # the process's first trace also imports what TorchDispatchMode needs
+    # once: the second pair is the steady cost
+    for name in ("plain", "lint", "plain_again", "lint_again"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name.startswith("lint"):
+            reset_all_launches()
+            built = net.compile(b, lint="error")
+            if name == "lint":
+                cn = built
+                gemm_launches = gemm.launch_counts()["gemm_fused_fwd"]
+        else:
+            plain = CompiledNetwork(net, b, trace=False)
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+    report = cn.lint()
+    # R004 reads every dispatch's plan (each distinct key validated once)
+    planned = [r for r in cn.op_log if r.get("tiles")]
+    distinct = {(r["op"], repr(r["shapes"]), r["dtype"], tuple(r["tiles"]))
+                for r in planned}
+    illegal = [r for r in planned if backends.validate_tiles(
+        r["op"], r["shapes"], r["dtype"], r["tiles"])]
+    x = torch.randn((b, *net.in_shape), generator=gen, device=dev)
+    same = torch.equal(cn(x), plain(x))
+    emit("lint_cnn", cfg="DARKNET19_CFG", batch=b, build_ms=ms,
+         trace_records=len(cn.trace.records), dispatches=len(cn.op_log),
+         plans=len(planned), distinct_plans=len(distinct),
+         gemm_launches=gemm_launches, findings=lint_counts(report),
+         totals=report.hlo_totals, logits_bitwise=same,
+         note="build_ms lint: one build with the trace and the rules; "
+              "plain: CompiledNetwork(trace=False)", smi=smi)
+    del built
+    check(report.ok and not report.findings, f"lint: DARKNET19 "
+          f"{report.format()}")
+    check(len(planned) == len(cn.op_log) == 12 and not illegal,
+          f"lint: {len(planned)} of {len(cn.op_log)} dispatches carry a "
+          f"plan, illegal: {illegal}")
+    check(gemm_launches == 12, f"lint: {gemm_launches} GEMM launches in "
+          f"the build, not 12")
+    check(same, "lint: the linted build's logits differ from a build "
+          "without a trace")
+    check(cn.trace_count == 1, "lint: the build ran twice")
+
+    class Injected(Network):
+        def forward(self, x):
+            y = super().forward(x)
+            return torch.einsum("bn,nm->bm", y, torch.eye(
+                y.shape[-1], device=y.device))
+
+    bad = Injected(DARKNET_SMALL_CFG, make_engine("cuda", device=dev))
+    try:
+        bad.compile(2, lint="error")
+        raised = None
+    except lint.LintError as e:
+        raised = e.report
+    check(raised is not None and {f.rule_id for f in raised.errors}
+          == {"R002"}, f"lint: an injected einsum did not raise LintError "
+          f"on R002: {raised}")
+    illegal = lint.run_lint(lint.LintContext(op_log=(
+        {"backend": "cuda", "op": "matmul", "shapes": (64, 256, 128),
+         "dtype": "float32", "tiles": ("A", 12, 100)},)))
+    check([f.rule_id for f in illegal.findings] == ["R004"],
+          f"lint: an illegal plan did not fire R004: {illegal.format()}")
+    emit("lint_injected", einsum=raised.errors[0].op_path,
+         illegal_plan=illegal.findings[0].message)
+    return {"build_ms": ms}
+
+
+def lint_lm(dev, gen, smi) -> dict:
+    """Full qwen2-0.5b's prefill and value_and_grad traced on `cuda`;
+    the prefill's attribution against FlopCounterMode on `cuda` and
+    `eager`."""
+    cfg = get_arch(LM_ARCH)
+    hints = ((cfg.n_heads, cfg.n_kv_heads, cfg.head_dim),)
+    b, s = LINT["lm_prefill"]
+    params = tfm.init_params(cfg, generator=gen, device=dev)
+    inputs = input_tensors(cfg, ShapeConfig("lint", s, b, "prefill"),
+                           generator=gen, device=dev)
+    out = {}
+    for backend in ("cuda", "eager"):
+        step = make_prefill_step(make_engine(backend, device=dev), cfg)
+
+        def prefill():
+            with torch.inference_mode():
+                return step(params, inputs)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        report, trace, log, _ = lint_run(prefill, (params, inputs),
+                                         hints=hints)
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+        with FlopCounterMode(display=False) as counter:
+            prefill()
+        rep = diagnose.attribute(trace, top=5, log=log)
+        flops = rep["totals"]["flops"]
+        emit("lint_lm_prefill", arch=cfg.name, backend=backend, batch=b,
+             seq=s, traced_ms=traced_ms, records=len(trace.records),
+             boundaries=len(trace.boundaries), dispatches=len(log),
+             findings=lint_counts(report), totals=rep["totals"],
+             flop_counter_mode=counter.get_total_flops(),
+             top_traffic=rep["traffic"], smi=smi)
+        check(report.ok, f"lint: qwen2 prefill on {backend}: "
+              f"{report.format()}")
+        check(not [f for f in report.findings if f.rule_id == "R001"],
+              f"lint: R001 fired at H {cfg.n_heads} / KV {cfg.n_kv_heads}")
+        check(flops == counter.get_total_flops(), f"lint: attribute's "
+              f"FLOPs {flops} on {backend}, FlopCounterMode's "
+              f"{counter.get_total_flops()}")
+        out[f"prefill_{backend}"] = lint_counts(report)
+    check(out["prefill_eager"] == out["prefill_cuda"], f"lint: the qwen2 "
+          f"prefill's findings differ between cuda and eager: {out}")
+    eng = make_engine("cuda", device=dev)
+    leaves = list(flatten(params).values())
+    for t in leaves:
+        t.requires_grad_(True)
+    batch = input_tensors(cfg, ShapeConfig("lint", s, b, "train"),
+                          generator=gen, device=dev)
+
+    def value_and_grad(p, bt):
+        loss = tfm.loss_fn(eng, cfg, p, bt, ce_chunk=min(512, s))
+        return loss, torch.autograd.grad(loss, leaves)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report, trace, log, (loss, grads) = lint_run(
+        lambda: value_and_grad(params, batch), (params, batch), hints=hints)
+    torch.cuda.synchronize()
+    traced_ms = (time.perf_counter() - t0) * 1e3
+    back = collections.Counter(
+        r.scope for r in trace.records
+        if r.backward and backends.OP_SCOPE_PREFIX in r.scope)
+    emit("lint_lm_grad", arch=cfg.name, batch=b, seq=s, traced_ms=traced_ms,
+         loss=float(loss.detach()), records=len(trace.records),
+         backward_records=sum(1 for r in trace.records if r.backward),
+         backward_scopes=dict(back.most_common(8)),
+         findings=lint_counts(report), smi=smi)
+    check(not [f for f in report.findings if f.rule_id == "R002"],
+          f"lint: value_and_grad R002: {report.format()}")
+    check(math.isfinite(float(loss)) and all(
+        bool(torch.isfinite(g).all()) for g in grads),
+        "lint: a non-finite loss or gradient")
+    for fwd, bwd in (("matmul", "gemm_bwd"), ("attention", "attention_bwd")):
+        where = f"repro.op.{fwd}/repro.op.{bwd}"
+        check(back.get(where, 0) > 0, f"lint: no backward record under "
+              f"{where}: the forward scope did not reach the backward "
+              f"({dict(back)})")
+    del grads, leaves, params
+    return out
+
+
+def lint_ssm(dev, gen, smi) -> dict:
+    """Full mamba2-1.3b's prefill traced on `cuda` and on `eager`: the same
+    findings."""
+    cfg = get_arch(SSM_ARCH)
+    b, s = LINT["ssm_prefill"]
+    params = tfm.init_params(cfg, generator=gen, device=dev)
+    inputs = input_tensors(cfg, ShapeConfig("lint", s, b, "prefill"),
+                           generator=gen, device=dev)
+    got = {}
+    for backend in ("cuda", "eager"):
+        step = make_prefill_step(make_engine(backend, device=dev), cfg)
+
+        def prefill():
+            with torch.inference_mode():
+                return step(params, inputs)
+
+        report, trace, log, _ = lint_run(prefill, (params, inputs))
+        got[backend] = sorted((f.rule_id, f.severity, f.op_path)
+                              for f in report.findings)
+        emit("lint_ssm_prefill", arch=cfg.name, backend=backend, batch=b,
+             seq=s, records=len(trace.records), dispatches=len(log),
+             findings=lint_counts(report), totals=report.hlo_totals,
+             smi=smi)
+    check(got["cuda"] == got["eager"], f"lint: mamba2's findings differ "
+          f"between cuda and eager: {got}")
+    return got
+
+
+def lint_examples(smi) -> dict:
+    """The five examples as subprocesses on the card, all at once."""
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {}
+        for name in EXAMPLES:
+            args = [sys.executable, "-m", f"repro_torch.examples.{name}"]
+            if name == "train_lm":
+                args += ["--steps", str(LINT["train_steps"]), "--ckpt-dir",
+                         str(Path(tmp) / "train_lm")]
+            procs[name] = (subprocess.Popen(
+                args, cwd=root, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True), time.perf_counter())
+        out = {}
+        for name, (proc, t0) in procs.items():
+            try:
+                text, _ = proc.communicate(timeout=LINT["examples_timeout"])
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                text, _ = proc.communicate()
+            out[name] = {"rc": proc.returncode,
+                         "seconds": time.perf_counter() - t0,
+                         "tail": text.strip().splitlines()[-4:]}
+            emit("lint_example", example=name, **out[name], smi=smi)
+    for name, r in out.items():
+        check(r["rc"] == 0, f"lint: example {name} exited {r['rc']}: "
+              f"{r['tail']}")
+    return out
+
+
+def lint_phase(dev, smi) -> dict:
+    """Phase lint (68): see the module docstring."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(LINT_SEED)
+    out = {"cnn": lint_cnn(dev, gen, smi)}
+    torch.cuda.empty_cache()
+    out["lm"] = lint_lm(dev, gen, smi)
+    torch.cuda.empty_cache()
+    out["ssm"] = lint_ssm(dev, gen, smi)
+    torch.cuda.empty_cache()
+    out["examples"] = lint_examples(smi)
+    emit("lint_total", seconds=time.perf_counter() - t0,
+         torch=torch.__version__, smi=smi)
+    return out
 
 
 # ---------------------------------------------------------- LM training ---
@@ -7327,6 +7629,9 @@ def main() -> int:
 
     # ----------------------------------------------------- 67. the dry run
     dryrun_phase(dev, smi)
+
+    # ------------------------------------------- 68. the analysis toolchain
+    lint_phase(dev, smi)
 
     def kernel_entry(name, source, replaces, path, launches, max_abs_err,
                      row):

@@ -11,7 +11,14 @@ Fault-tolerance contract (launch/train.py):
   * device-free: tensors are saved from the host as fp32 numpy arrays
     keyed by their flat names, and `restore` puts each back on the device
     and in the dtype of the tree it restores into, so a run restores onto
-    another device than it saved from.
+    another device than it saved from;
+  * elastic (JAX's contract): a ZeRO-1 optimizer state
+    (`optimizer.zero1_init`, each rank holding blocks of the moments) is
+    saved whole: every rank gathers its moments (`optimizer.gather_moments`)
+    and rank 0 writes, so a checkpoint is the same file whichever layout
+    wrote it; `restore(..., shardings=...)` cuts the whole moments back
+    into this rank's blocks of any ZeRO-1 layout, or keeps them whole for
+    a replicated run.
 """
 from __future__ import annotations
 
@@ -19,8 +26,11 @@ import json
 import os
 import shutil
 
+from typing import Mapping
+
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.tree import flatten, unflatten_like
 
@@ -29,10 +39,53 @@ def _step_dir(ckpt_dir: str, step: int) -> str:
     return os.path.join(ckpt_dir, f"step_{step:08d}")
 
 
+def _is_zero1(node) -> bool:
+    return isinstance(node, Mapping) and "zero1" in node and "mu" in node
+
+
+def _whole(tree):
+    """`tree` with every ZeRO-1 optimizer state replaced by its whole
+    moments (a collective: every rank of the state's mesh calls it)."""
+    if _is_zero1(tree):
+        from repro_torch.train import optimizer
+        return optimizer.gather_moments(tree)
+    if isinstance(tree, Mapping):
+        return {k: _whole(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_whole(v) for v in tree)
+    return tree
+
+
+def _holds_zero1(tree) -> bool:
+    if _is_zero1(tree):
+        return True
+    if isinstance(tree, Mapping):
+        return any(_holds_zero1(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_holds_zero1(v) for v in tree)
+    return False
+
+
 def save(ckpt_dir: str, step: int, tree, extra: dict | None = None) -> str:
     """Atomically persist a tree of tensors and scalars.  Returns the
-    final directory."""
+    final directory.
+
+    A tree holding a ZeRO-1 state is saved with its moments whole: every
+    rank must call `save` (the moments are gathered), rank 0 writes, and
+    every rank returns after the write (a barrier of the default group)."""
     final = _step_dir(ckpt_dir, step)
+    if _holds_zero1(tree):
+        tree = _whole(tree)
+        if dist.is_initialized():
+            if dist.get_rank() == 0:
+                _write(final, step, tree, extra)
+            dist.barrier()
+            return final
+    _write(final, step, tree, extra)
+    return final
+
+
+def _write(final: str, step: int, tree, extra: dict | None) -> None:
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -50,7 +103,6 @@ def save(ckpt_dir: str, step: int, tree, extra: dict | None = None) -> str:
     if os.path.exists(final):
         shutil.rmtree(final)
     os.rename(tmp, final)
-    return final
 
 
 def _steps(ckpt_dir: str) -> list[int]:
@@ -66,10 +118,18 @@ def latest_step(ckpt_dir: str) -> int | None:
     return steps[-1] if steps else None
 
 
-def restore(ckpt_dir: str, step: int, like_tree):
+def restore(ckpt_dir: str, step: int, like_tree, *, shardings=None):
     """``(tree, manifest)``: the checkpoint of `step` in the structure of
     `like_tree`, each tensor on the device and in the dtype of the leaf it
-    replaces.  Raises KeyError naming a leaf the checkpoint lacks."""
+    replaces.  Raises KeyError naming a leaf the checkpoint lacks.
+
+    `shardings` is JAX's elastic restore onto another mesh: a tree with
+    `like_tree`'s structure down to its optimizer states, None where a
+    subtree stays as restored and a ZeRO-1 state (`optimizer.zero1_init`
+    on this rank's mesh) where the whole moments restored there (in
+    `like_tree`'s replicated layout, ``{"mu", "nu": {flat name: tensor},
+    "step"}``) become this rank's blocks of that layout
+    (`optimizer.zero1_shard`).  No collective runs."""
     final = _step_dir(ckpt_dir, step)
     with open(os.path.join(final, "manifest.json")) as f:
         manifest = json.load(f)
@@ -82,7 +142,23 @@ def restore(ckpt_dir: str, step: int, like_tree):
                     device=leaf.device, dtype=leaf.dtype)
             else:
                 flat[name] = type(leaf)(manifest["scalars"][name])
-    return unflatten_like(flat, like_tree), manifest
+    tree = unflatten_like(flat, like_tree)
+    if shardings is not None:
+        tree = _shard(tree, shardings)
+    return tree, manifest
+
+
+def _shard(tree, shardings):
+    if shardings is None:
+        return tree
+    if _is_zero1(shardings):
+        from repro_torch.train import optimizer
+        return optimizer.zero1_shard(tree, shardings)
+    if isinstance(tree, Mapping):
+        return {k: _shard(v, shardings.get(k)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_shard(v, s) for v, s in zip(tree, shardings))
+    return tree
 
 
 def retain(ckpt_dir: str, keep: int = 3) -> None:

@@ -111,8 +111,16 @@ from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd as ssd_kernel
 from repro_torch.kernels.common import apply_act, im2col
+from repro_torch.scopes import (OP_SCOPE_PREFIX, named_scope,  # noqa: F401
+                                op_scope)
 
 OP_SET = ("matmul", "bmm", "conv2d", "attention", "ssd", "einsum")
+
+# Every engine dispatch runs its backend impl under
+# ``named_scope(op_scope(op))`` (repro_torch/scopes.py, re-exported here as
+# in the JAX registry); the trace recorder (analysis/trace.py) stamps the
+# scope on every aten call it records, where the trace linter's R002 rule
+# checks that every dense contraction came from a registry op.
 
 
 @dataclasses.dataclass(frozen=True)
@@ -225,6 +233,11 @@ def get_backend(name: str) -> Backend:
 def list_backends() -> tuple[str, ...]:
     """Sorted names of all registered backends."""
     return tuple(sorted(_REGISTRY))
+
+
+def unregister_backend(name: str) -> None:
+    """Remove a backend registration (no-op when absent)."""
+    _REGISTRY.pop(name, None)
 
 
 def guard_grad(backend: Backend, op: str, *operands) -> None:

@@ -28,11 +28,13 @@ import collections
 import contextlib
 import dataclasses
 import time
+import warnings
 from typing import Any, Iterable
 
 import torch
 from torch import nn
 
+from repro_torch.analysis import trace as trace_lib
 from repro_torch.core import backends
 from repro_torch.core.darknet import cfg as cfg_mod
 from repro_torch.core.darknet import layers as L
@@ -201,20 +203,44 @@ class Network(nn.Module):
     # -------------------------------------------------------------- compile
     def compile(self, batch_size: int = 1, *,
                 dtype: torch.dtype = torch.float32,
-                autotune: str | None = None) -> "CompiledNetwork":
+                autotune: str | None = None,
+                lint: str | None = None) -> "CompiledNetwork":
         """Build the artifact for a fixed (batch_size, H, W, C) input of
-        `dtype`: one forward on zeros, with the engine op plan of that
-        build captured (see `CompiledNetwork`).  This replaces
-        ``nn.Module.compile``: the port never runs ``torch.compile``.
+        `dtype`: one forward on zeros, with the engine op plan and the
+        trace of that build captured (see `CompiledNetwork`).  This
+        replaces ``nn.Module.compile``: the port never runs
+        ``torch.compile``.
 
         `autotune` is an optional policy ("off" | "heuristic" | "measure")
         scoped to the build pass; "measure" is the opt-in measured pass:
         keys first seen there are timed on the card and persisted to the
         per-device table, and their picks serve every later call (the
         cache is memoized whatever the policy).  None inherits the
-        process policy.  Raises ValueError for an unknown policy."""
-        return CompiledNetwork(self, batch_size, dtype=dtype,
-                               autotune=autotune)
+        process policy.
+
+        `lint` is an optional trace-lint gate (docs/lint.md) over the
+        build's trace and dispatch log: "warn" emits a UserWarning
+        listing any findings; "error" additionally raises
+        `repro_torch.analysis.lint.LintError` on error-severity findings.
+        None (the default) skips linting.
+
+        Raises ValueError for an unknown autotune policy or lint mode, and
+        `LintError` under ``lint="error"`` when an error-severity finding
+        survives."""
+        if lint not in (None, "warn", "error"):
+            raise ValueError(f"unknown lint mode {lint!r}; choose "
+                             f"'warn', 'error' or None")
+        cn = CompiledNetwork(self, batch_size, dtype=dtype,
+                             autotune=autotune)
+        if lint is not None:
+            from repro_torch.analysis.lint import LintError
+            report = cn.lint()
+            if lint == "error" and not report.ok:
+                raise LintError(report)
+            if report.findings:
+                warnings.warn("trace-lint findings:\n" + report.format(),
+                              stacklevel=2)
+        return cn
 
     def compile_cache(self, buckets: Iterable[int] = (1, 2, 4, 8), *,
                       dtype: torch.dtype = torch.float32,
@@ -235,14 +261,18 @@ class CompiledNetwork:
     every call.  The one build (a forward on zeros) captures the engine's
     op plan from the registry's dispatch counters (`op_counts`, e.g.
     ``{('cuda', 'conv2d'): 11, ('cuda', 'matmul'): 1}``) and its dispatch
-    records (`op_log`), and the autotune keys first resolved there
-    (`autotune_keys`, `autotune_report()`); `trace_count` counts builds and
-    stays 1.  Exposes `__call__`, `warmup()` and `profile()`.
+    records (`op_log`), the autotune keys first resolved there
+    (`autotune_keys`, `autotune_report()`) and, unless ``trace=False``,
+    the build's `trace` (`analysis/trace.py`: every aten call, the
+    counterpart of JAX's ``closed_jaxpr``, which `lint()` reads; the
+    network's parameters and buffers are its arguments); `trace_count`
+    counts builds and stays 1.  Exposes `__call__`, `warmup()`,
+    `profile()` and `lint()`.
     """
 
     def __init__(self, net: Network, batch_size: int, *,
                  dtype: torch.dtype = torch.float32,
-                 autotune: str | None = None):
+                 autotune: str | None = None, trace: bool = True):
         self.net = net
         self.batch_size = batch_size
         self.device = net.engine.device
@@ -254,9 +284,13 @@ class CompiledNetwork:
         log_mark = backends.dispatch_log_size()
         policy = (backends.autotune_policy(autotune) if autotune
                   else contextlib.nullcontext())
-        with policy, torch.inference_mode():
-            net(self._zeros())
+        x = self._zeros()
+        recording = (trace_lib.record(net, x) if trace
+                     else contextlib.nullcontext())
+        with policy, torch.inference_mode(), recording as recorded:
+            net(x)
         self._builds += 1
+        self.trace = recorded
         self.op_counts = backends.counts_since(before)
         self.op_log = tuple(backends.dispatch_log()[log_mark:])
         # The autotune records this build resolved first (heuristic,
@@ -271,6 +305,24 @@ class CompiledNetwork:
     @property
     def trace_count(self) -> int:
         return self._builds
+
+    def lint(self, *, suppress=(), const_threshold: int | None = None):
+        """Run the trace-lint rules (docs/lint.md) over this artifact's
+        build record, its trace and dispatch log; nothing runs again.
+
+        Args:
+          suppress: suppression tokens, e.g. ("R005", "R002:ssm").
+          const_threshold: R005 byte threshold override.
+
+        Returns a `repro_torch.analysis.lint.LintReport`.  Raises
+        ValueError for an artifact built with ``trace=False``.
+        """
+        if self.trace is None:
+            raise ValueError("this artifact was built with trace=False: "
+                             "there is no trace to lint")
+        from repro_torch.analysis import lint as lint_mod
+        return lint_mod.lint_compiled_network(
+            self, suppress=suppress, const_threshold=const_threshold)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         """Run the network on a batch that matches the built spec.
@@ -383,8 +435,9 @@ class CompileCache:
         cn = self._compiled.get(bucket)
         if cn is None:
             self.misses += 1
-            cn = self.net.compile(bucket, dtype=self.dtype,
-                                  autotune=self.autotune)
+            # serving never lints: its builds keep no trace
+            cn = CompiledNetwork(self.net, bucket, dtype=self.dtype,
+                                 autotune=self.autotune, trace=False)
             self._compiled[bucket] = cn
         else:
             self.hits += 1

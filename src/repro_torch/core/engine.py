@@ -24,6 +24,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import scopes
 from repro_torch.core import backends
 from repro_torch.core.precision import Precision
 from repro_torch.kernels import ops as kernel_ops
@@ -70,19 +71,26 @@ class ComputeEngine:
         return backends.get_backend(self.backend).op(op)
 
     def _call(self, op: str, *args, **kwargs):
-        """Run the backend's `op` on the dispatch `_resolve` just logged.
+        """Run the backend's `op` on the dispatch `_resolve` just logged,
+        under ``named_scope(op_scope(op))`` (the JAX engine's
+        ``jax.named_scope``), telling any trace recorder its operands and
+        results (`named_scope.boundary`).
         A dispatch that raises instead of returning is marked ``cut`` in
         its log record: the recompute of ``torch.utils.checkpoint`` stops
         inside the last dispatch of a region whose saved tensors it needs,
         and that dispatch's remaining work (the sharded backend's output
         gather, kernels/sharded.py) never runs."""
         record = backends.last_dispatch()
-        try:
-            return self._op(op)(*args, **kwargs)
-        except BaseException:
-            if record is not None:
-                record["cut"] = True
-            raise
+        with backends.named_scope(backends.op_scope(op)) as scope:
+            try:
+                out = self._op(op)(*args, **kwargs)
+            except BaseException:
+                if record is not None:
+                    record["cut"] = True
+                raise
+            if scopes.OBSERVERS:
+                scope.boundary(op, args, out)
+        return out
 
     def _guard(self, op: str, *operands) -> None:
         """The autodiff capability check (`backends.guard_grad`): an op the

@@ -19,6 +19,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import scopes
+
 # Darknet's default conv activation is leaky ReLU with slope 0.1; LM blocks
 # use silu/gelu.
 _LEAKY_SLOPE = 0.1
@@ -102,6 +104,7 @@ class Im2col(torch.autograd.Function):
         return _im2col(x, kh, kw, stride, pad)
 
     @staticmethod
+    @scopes.scoped(scopes.op_scope("gemm_bwd"))
     def backward(ctx, g):
         x_shape, dtype, kh, kw, stride, pad = ctx.geometry
         dx = col2im(g, x_shape, kh, kw, stride, pad).to(dtype)

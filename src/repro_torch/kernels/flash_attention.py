@@ -61,6 +61,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import scopes
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import attention_mask, flash_attention_ref
 
@@ -541,6 +542,7 @@ class FlashAttention(torch.autograd.Function):
         return o
 
     @staticmethod
+    @scopes.scoped(scopes.op_scope("attention_bwd"))
     def backward(ctx, do):
         q, k, v, kv_len, o, lse = ctx.saved_tensors
         if do.stride(-1) != 1:

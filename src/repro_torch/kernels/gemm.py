@@ -64,6 +64,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import scopes
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (ACTIVATIONS, act_deriv, apply_act,
                                        epilogue)
@@ -520,6 +521,7 @@ class GemmFused(torch.autograd.Function):
         return y
 
     @staticmethod
+    @scopes.scoped(scopes.op_scope("gemm_bwd"))
     def backward(ctx, dy):
         x, w, scale, g, racc = ctx.saved_tensors
         need_x, need_w, need_scale, need_shift = ctx.needs_input_grad[:4]
@@ -650,6 +652,7 @@ class BmmFn(torch.autograd.Function):
         return bmm_fwd(x, w, out_dtype=out_dtype, plan=plan)
 
     @staticmethod
+    @scopes.scoped(scopes.op_scope("gemm_bwd"))
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
         (dx_plan, dx_splits), (dw_plan, dw_splits) = ctx.plans

@@ -119,34 +119,50 @@ def _mesh_of(multi_pod: bool, mesh) -> tuple[str, dict]:
             sizes)
 
 
+def cell_step(cfg, shape, policy_name: str = "fp32_strict",
+              num_microbatches: int = 1):
+    """One cell's step on the meta device on `eager`: (a thunk that runs
+    it once, its argument trees (params, [moments,] inputs[, caches])).
+    A train step also builds its AdamW moments; a serving step runs under
+    ``torch.inference_mode``."""
+    engine = make_engine("eager", policy_name, device=META)
+    params = tfm.init_params(cfg, generator=None, device=META)
+    inputs = input_specs(cfg, shape)
+    if shape.kind == "train":
+        state = opt.adamw_init(flatten(params))
+        step = make_train_step(engine, cfg, opt.AdamWConfig(),
+                               num_microbatches=num_microbatches,
+                               ce_chunk=min(512, shape.seq_len))
+        return (lambda: step(params, state, inputs)), (params, state,
+                                                       inputs)
+    if shape.kind == "prefill":
+        make = make_forward_step if cfg.is_encoder else make_prefill_step
+        prefill = make(engine, cfg)
+
+        def run():
+            with torch.inference_mode():
+                return prefill(params, inputs)
+        return run, (params, inputs)
+    caches = kvcache.cache_struct(cfg, shape.global_batch, shape.seq_len,
+                                  engine.precision.compute_dtype)
+    decode = make_decode_step(engine, cfg)
+
+    def run():
+        with torch.inference_mode():
+            return decode(params, caches, inputs["token"], inputs["pos"])
+    return run, (params, inputs, caches)
+
+
 @functools.lru_cache(maxsize=4)
 def _trace(cfg, shape, policy_name: str, num_microbatches: int):
     """Run the cell's step once on the meta device; returns (FLOPs, the
     dispatch log, seconds).  The trace does not depend on the mesh."""
-    engine = make_engine("eager", policy_name, device=META)
-    params = tfm.init_params(cfg, generator=None, device=META)
-    inputs = input_specs(cfg, shape)
+    run, _ = cell_step(cfg, shape, policy_name, num_microbatches)
     mark, counted = backends.dispatch_log_size(), sum(
         backends.dispatch_counts().values())
     t0 = time.perf_counter()
     with FlopCounterMode(display=False) as counter:
-        if shape.kind == "train":
-            state = opt.adamw_init(flatten(params))
-            step = make_train_step(engine, cfg, opt.AdamWConfig(),
-                                   num_microbatches=num_microbatches,
-                                   ce_chunk=min(512, shape.seq_len))
-            step(params, state, inputs)
-        elif shape.kind == "prefill":
-            make = make_forward_step if cfg.is_encoder else make_prefill_step
-            with torch.inference_mode():
-                make(engine, cfg)(params, inputs)
-        else:
-            caches = kvcache.cache_struct(cfg, shape.global_batch,
-                                          shape.seq_len,
-                                          engine.precision.compute_dtype)
-            with torch.inference_mode():
-                make_decode_step(engine, cfg)(params, caches,
-                                              inputs["token"], inputs["pos"])
+        run()
     seconds = time.perf_counter() - t0
     log = backends.dispatch_log()[mark:]
     if len(log) != sum(backends.dispatch_counts().values()) - counted:

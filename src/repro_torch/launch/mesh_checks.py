@@ -30,6 +30,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import convert
+from repro_torch.checkpoint import manager as ckpt
 from repro_torch.configs.base import ShapeConfig, get_arch, reduced
 from repro_torch.core import backends, make_engine
 from repro_torch.core.darknet.network import Network
@@ -520,9 +521,11 @@ def _lm_steps(eng, cfg, model, run, ocfg, batches, dev, mesh=None):
     metrics = []
     _synchronize(dev)
     t0 = time.perf_counter()
-    for batch in batches[:run["steps"]]:
+    for i, batch in enumerate(batches[:run["steps"]]):
         params, state, m = step(params, state, batch)
         metrics.append(m)
+        if i + 1 == run.get("restore_at"):
+            ckpt.save(run["ckpt_dir"], i + 1, (flatten(params), state))
     _synchronize(dev)
     wall = time.perf_counter() - t0
     moments = opt.gather_moments(state) if run.get("zero1") else state
@@ -536,6 +539,49 @@ def _lm_steps(eng, cfg, model, run, ocfg, batches, dev, mesh=None):
     flat = flatten(params)
     return report, {"params": flat, **{key: {k: moments[key][k] for k in flat}
                                        for key in ("mu", "nu")}}
+
+
+def _lm_resume(eng, cfg, model, run, ocfg, batches, dev, mesh,
+               got: dict) -> dict:
+    """A ZeRO-1 run's checkpoint (saved after step ``restore_at``, its
+    moments whole), restored with ``shardings=`` (this rank's ZeRO-1
+    blocks, cut on the host) and without (the moments replicated on the
+    device), each stepped to the run's end: whether each equals the
+    uninterrupted run (`got`) bit for bit.  The restore's templates are
+    empty tensors (`restore` reads only their device and dtype), so the
+    run's memory grows by the restored tree alone."""
+    k = run["restore_at"]
+    names = list(got["params"])
+
+    def empty(device):
+        return {n: torch.empty(0, dtype=got["params"][n].dtype,
+                               device=device) for n in names}
+
+    layout = opt.zero1_init(got["params"], policy.flat_specs(
+        cfg, _zero1_specs(cfg, mesh, run)), mesh)
+    skeleton = tfm.init_params(cfg, generator=None, device="meta")
+    step = make_train_step(eng, cfg, ocfg, ce_chunk=model["ce_chunk"])
+    out = {}
+    for name, moments, shardings in (
+            ("zero1", "cpu", (None, layout)), ("replicated", dev, None)):
+        like = (empty(dev), {"mu": empty(moments), "nu": empty(moments),
+                             "step": 0})
+        (pflat, state), _ = ckpt.restore(run["ckpt_dir"], k, like,
+                                         shardings=shardings)
+        p = unflatten_like(pflat, skeleton)
+        for batch in batches[k:run["steps"]]:
+            p, state, _ = step(p, state, batch)
+        whole = opt.gather_moments(state) if "zero1" in state else state
+        pf = flatten(p)
+        out[f"{name}_bitwise"] = _same(
+            {"params": pf, **{key: {n: whole[key][n] for n in pf}
+                              for key in ("mu", "nu")}},
+            {key: got[key] for key in ("params", "mu", "nu")})
+        out[f"{name}_step"] = state["step"]
+        del p, pf, pflat, state, whole
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
 
 
 def _zero1_specs(cfg, mesh, run: dict):
@@ -554,8 +600,11 @@ def _lm_predicted(cfg, run: dict, mesh, dev) -> dict:
     blocks (the same gathers)."""
     extra = ()
     if run.get("zero1"):
+        # each step, gather_moments' mu and nu, and a checkpoint's mu and
+        # nu when the run saves one
         extra = opt.zero1_collectives(cfg, _zero1_specs(cfg, mesh, run),
-                                      mesh) * (run["steps"] + 2)
+                                      mesh) * (run["steps"] + 2 + (
+                                          2 if run.get("restore_at") else 0))
     return predicted(mesh, run.get("strategy", "tp"), dev, extra)
 
 
@@ -670,6 +719,9 @@ def _lm_train(model: dict, spec: dict, eng, mesh_of, dev) -> dict:
             if run.get("rerun"):
                 rep["rerun_bitwise"] = _same(got, _lm_grad(
                     eng, cfg, model, batches[0], dev)[1])
+            if run.get("restore_at"):
+                rep["restored"] = _lm_resume(eng, cfg, model, run, ocfg,
+                                             batches, dev, mesh, got)
         rep.update(_report(run, mesh, wall, counts, got))
         if run.get("same_as"):
             rep["bitwise_same_as"] = _same(got, kept[run["same_as"]])
@@ -799,7 +851,10 @@ def train_check(device_type: str, spec: dict) -> dict:
     by `optimizer.zero1_init` under `zero1_pspecs` at the run's strategy,
     or with ``"layers"`` under 'data' on every stack's layer dim
     (`_by_layer`); ``same_as``: a run whose parameters and
-    gathered moments it must equal bit for bit) or none (one
+    gathered moments it must equal bit for bit; with ``zero1``,
+    ``restore_at`` and ``ckpt_dir``: save a checkpoint after that step,
+    then restore it with and without ``shardings=`` and step each to the
+    end, `_lm_resume`) or none (one
     `lm_value_and_grad`; ``rerun``: again, bit for bit).  A Darknet
     model: ``cfg`` (its text), ``name``, ``params`` (a JAX tree) or
     ``seed``, ``batch``, ``images`` / ``labels`` (numpy) or

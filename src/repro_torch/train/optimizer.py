@@ -267,6 +267,22 @@ def gather_moments(state: dict) -> dict:
     return out
 
 
+def zero1_shard(moments: Mapping, layout: dict) -> dict:
+    """The inverse of `gather_moments`: a `zero1_init` state in the layout
+    of `layout` (a `zero1_init` state on this rank's mesh) holding this
+    rank's blocks of the whole moments ``{"mu", "nu": {flat name:
+    tensor}, "step"}`` (a restored checkpoint's; no collective)."""
+    out = {"mu": {}, "nu": {}, "step": moments["step"],
+           "zero1": layout["zero1"]}
+    for key in ("mu", "nu"):
+        for path, leaf in layout["zero1"].items():
+            block = leaf.block(moments[key])
+            out[key][path] = block.to(
+                dtype=torch.float32,
+                device=layout[key][path].device).contiguous().clone()
+    return out
+
+
 def sgdm_init(params: Mapping[str, torch.Tensor]) -> dict:
     """``{"mom": {...}, "step": 0}``, fp32 zero momentum."""
     return {"mom": {k: torch.zeros_like(p, dtype=torch.float32)

@@ -20,6 +20,9 @@ runs `repro_torch.launch.mesh_checks.train_check`:
   with ZeRO-1 moments (`optimizer.zero1_init` by `zero1_pspecs`) against
   JAX's `make_train_step`, and the ZeRO-1 trajectory bit for bit the
   replicated one, the moments gathered; the ZeRO-1 moments half the size;
+  a ZeRO-1 checkpoint saved after step 2 (`checkpoint.manager.save`: the
+  moments gathered, rank 0 writes) restored with ``shardings=`` and with
+  the moments replicated, step 3 bit for bit the uninterrupted run's;
 * one `make_cnn_train_step` step of DARKNET_SMALL_CFG on ("data",)
   against JAX's, at tests/test_torch_train.py's bars;
 * both ranks' results bit for bit the same throughout.
@@ -52,6 +55,7 @@ CPU_BLAS_TOL = 1e-6
 B, S, CE_CHUNK = 4, 32, 16
 OCFG = dict(lr=1e-3, warmup_steps=1, decay_steps=3)
 STEPS = 3
+RESTORE_AT = 2   # a ZeRO-1 run's checkpoint, restored and stepped to STEPS
 
 OP_CASES = [
     dict(name="matmul_rows", op="matmul", m=16, k=96, n=40, act="silu",
@@ -87,9 +91,9 @@ LM_RUNS = [dict(name="grad_data", mesh=DATA, rerun=True),
            # 2**20 elements); under "fsdp" it shards the embedding and the
            # MLP weights; "layers" gives each rank whole layers' moments
            dict(name="zero1_fsdp", mesh=DATA, strategy="fsdp", steps=STEPS,
-                zero1=True, same_as="steps_data"),
+                zero1=True, same_as="steps_data", restore_at=RESTORE_AT),
            dict(name="zero1_layers", mesh=DATA, steps=STEPS, zero1="layers",
-                same_as="steps_data")]
+                same_as="steps_data", restore_at=RESTORE_AT)]
 
 
 def _relmax(got, want) -> float:
@@ -181,11 +185,14 @@ def _cnn_jax():
 def trained(tmp_path_factory):
     lm_params, lm_want = _lm_jax()
     cnn_params, x, labels, cnn_want = _cnn_jax()
+    ckpts = tmp_path_factory.mktemp("ckpt")
     spec = dict(ocfg=OCFG, arrays=True, ops=OP_CASES + [REFUSED],
                 ops_seed=12,
                 lm=[dict(arch="qwen2-0.5b", reduced=True, params=lm_params,
                          batch=(B, S), data_seed=3, ce_chunk=CE_CHUNK,
-                         runs=LM_RUNS)],
+                         runs=[dict(run, ckpt_dir=str(ckpts / run["name"]))
+                               if run.get("restore_at") else run
+                               for run in LM_RUNS])],
                 cnn=[dict(cfg=DARKNET_SMALL_CFG, name="darknet_small",
                           params=cnn_params, batch=4, images=x,
                           labels=labels, runs=[dict(name="cnn_data",
@@ -303,6 +310,19 @@ def test_zero1_steps_are_the_replicated_steps_bit_for_bit(trained, name):
     else:                          # every stacked leaf halved
         top = runs[name]["moment_gb"] - 0.5 * replicated
         assert 0 < top < 0.5 * replicated
+
+
+@pytest.mark.parametrize("name", ["zero1_fsdp", "zero1_layers"])
+def test_zero1_checkpoint_restores_bit_for_bit(trained, name):
+    """The ZeRO-1 run saved after step RESTORE_AT (moments gathered whole,
+    written by rank 0), restored on both ranks with ``shardings=`` (each
+    rank's blocks) and with the moments replicated: the last step equals
+    the uninterrupted run bit for bit in both."""
+    for rank in trained[0]:
+        restored = _runs(rank)[name]["restored"]
+        assert restored == {"zero1_bitwise": True, "zero1_step": STEPS,
+                            "replicated_bitwise": True,
+                            "replicated_step": STEPS}, restored
 
 
 def test_darknet_step_on_a_mesh_matches_the_jax_step(trained):
