@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.engine import ComputeEngine
 from repro_torch.kernels.common import apply_act, col2im
+from repro_torch.scopes import span
 
 _BN_EPS = 1e-5
 
@@ -33,8 +34,9 @@ def fold_batchnorm(gamma, beta, mean, var, bias=None):
 
 def _epilogue_params(params, batch_normalize: bool):
     if batch_normalize:
-        return fold_batchnorm(params["gamma"], params["beta"],
-                              params["mean"], params["var"])
+        with span("darknet.fold"):
+            return fold_batchnorm(params["gamma"], params["beta"],
+                                  params["mean"], params["var"])
     return None, params.get("b")
 
 

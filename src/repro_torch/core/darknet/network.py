@@ -39,6 +39,7 @@ from repro_torch.core import backends
 from repro_torch.core.darknet import cfg as cfg_mod
 from repro_torch.core.darknet import layers as L
 from repro_torch.core.engine import ComputeEngine, make_engine, synchronize
+from repro_torch.scopes import span
 
 
 @dataclasses.dataclass
@@ -47,6 +48,7 @@ class LayerPlan:
     type: str
     options: dict[str, Any]
     out_shape: tuple  # (H, W, C) or (N,)
+    span: str         # its profiler span's name, "darknet.l{index}.{type}"
 
 
 class Network(nn.Module):
@@ -115,7 +117,8 @@ class Network(nn.Module):
             else:
                 raise ValueError(f"unplanned layer {t}")
             shapes.append((h, w, c))
-            self.plans.append(LayerPlan(i, t, dict(s.options), (h, w, c)))
+            self.plans.append(LayerPlan(i, t, dict(s.options), (h, w, c),
+                                        f"darknet.l{i}.{t}"))
         self.out_shape = shapes[-1]
 
     # ----------------------------------------------------------------- init
@@ -153,49 +156,54 @@ class Network(nn.Module):
     # -------------------------------------------------------------- forward
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, H, W, C) on the engine's device -> network output."""
-        eng = self.engine
         outputs: list = []
         for p in self.plans:
-            t, o = p.type, p.options
-            if t == "convolutional":
-                size = o.get("size", 3)
-                x = L.conv2d(eng, getattr(self, f"l{p.index}"), x, size=size,
-                             stride=o.get("stride", 1),
-                             pad=cfg_mod.conv_pad(o, size),
-                             act=o.get("activation", "leaky"),
-                             batch_normalize=bool(o.get("batch_normalize", 0)))
-            elif t == "deconvolutional":
-                size = o.get("size", 3)
-                x = L.deconv2d(eng, getattr(self, f"l{p.index}"), x,
-                               size=size, stride=o.get("stride", 1),
-                               pad=cfg_mod.conv_pad(o, size),
-                               act=o.get("activation", "leaky"),
-                               batch_normalize=bool(o.get("batch_normalize", 0)))
-            elif t == "maxpool":
-                x = L.maxpool(x, size=o.get("size", 2),
-                              stride=o.get("stride", 2),
-                              pad=o.get("padding", 0))
-            elif t == "avgpool":
-                x = L.avgpool_global(x)
-            elif t == "upsample":
-                x = L.upsample(x, stride=o.get("stride", 2))
-            elif t == "route":
-                idxs = [j if j >= 0 else p.index + j for j in o["layers"]]
-                x = L.route([outputs[j] for j in idxs])
-            elif t == "shortcut":
-                j = o["from"]
-                j = j if j >= 0 else p.index + j
-                x = L.shortcut(x, outputs[j],
-                               act=o.get("activation", "linear"))
-            elif t == "connected":
-                x = L.connected(eng, getattr(self, f"l{p.index}"), x,
-                                act=o.get("activation", "linear"))
-            elif t == "softmax":
-                x = L.softmax(x)
-            elif t == "dropout":
-                pass  # inference no-op
+            with span(p.span):
+                x = self._layer(p, x, outputs)
             outputs.append(x)
         return x
+
+    def _layer(self, p: LayerPlan, x: torch.Tensor, outputs: list):
+        """One planned layer on `x`; `outputs` holds the earlier layers'."""
+        eng = self.engine
+        t, o = p.type, p.options
+        if t == "convolutional":
+            size = o.get("size", 3)
+            return L.conv2d(eng, getattr(self, f"l{p.index}"), x, size=size,
+                            stride=o.get("stride", 1),
+                            pad=cfg_mod.conv_pad(o, size),
+                            act=o.get("activation", "leaky"),
+                            batch_normalize=bool(o.get("batch_normalize", 0)))
+        if t == "deconvolutional":
+            size = o.get("size", 3)
+            return L.deconv2d(eng, getattr(self, f"l{p.index}"), x,
+                              size=size, stride=o.get("stride", 1),
+                              pad=cfg_mod.conv_pad(o, size),
+                              act=o.get("activation", "leaky"),
+                              batch_normalize=bool(
+                                  o.get("batch_normalize", 0)))
+        if t == "maxpool":
+            return L.maxpool(x, size=o.get("size", 2),
+                             stride=o.get("stride", 2),
+                             pad=o.get("padding", 0))
+        if t == "avgpool":
+            return L.avgpool_global(x)
+        if t == "upsample":
+            return L.upsample(x, stride=o.get("stride", 2))
+        if t == "route":
+            idxs = [j if j >= 0 else p.index + j for j in o["layers"]]
+            return L.route([outputs[j] for j in idxs])
+        if t == "shortcut":
+            j = o["from"]
+            j = j if j >= 0 else p.index + j
+            return L.shortcut(x, outputs[j],
+                              act=o.get("activation", "linear"))
+        if t == "connected":
+            return L.connected(eng, getattr(self, f"l{p.index}"), x,
+                               act=o.get("activation", "linear"))
+        if t == "softmax":
+            return L.softmax(x)
+        return x  # dropout: an inference no-op
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
@@ -461,17 +469,28 @@ class CompileCache:
                              f"got {x.dtype}")
         top = self.buckets[-1]
         if n > top:
-            return torch.cat(
-                [self.run(x[i:i + top]) for i in range(0, n, top)], dim=0)
-        b = self.bucket_for(n)
-        cn = self.get(b)
-        xb = x if b == n else torch.cat(
-            [x, x.new_zeros((b - n,) + tuple(x.shape[1:]))], dim=0)
-        y = cn(xb)
-        self._dispatches[b] += 1
-        self._rows_real += n
-        self._rows_pad += b - n
-        return y[:n]
+            return torch.cat([self._dispatch(x[i:i + top])
+                              for i in range(0, n, top)], dim=0)
+        return self._dispatch(x)
+
+    def _dispatch(self, x: torch.Tensor) -> torch.Tensor:
+        """One compiled call for at most a top bucket of rows, under the
+        ``cache.run`` span (its host enqueue): the bucket, the padding
+        (``cache.pad``), the call and the slice."""
+        with span("cache.run"):
+            n = x.shape[0]
+            b = self.bucket_for(n)
+            cn = self.get(b)
+            xb = x
+            if b != n:
+                with span("cache.pad"):
+                    xb = torch.cat([x, x.new_zeros(
+                        (b - n,) + tuple(x.shape[1:]))], dim=0)
+            y = cn(xb)
+            self._dispatches[b] += 1
+            self._rows_real += n
+            self._rows_pad += b - n
+            return y[:n]
 
     @property
     def trace_count(self) -> int:

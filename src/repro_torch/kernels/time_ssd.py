@@ -153,6 +153,13 @@ def device_time_by_kernel(step_fn) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         step_fn()
         torch.cuda.synchronize()
+    return kernel_times(prof)
+
+
+def kernel_times(prof) -> dict:
+    """Device time by kernel name from a finished torch.profiler profile,
+    largest first; {} when it recorded no device time."""
+    import torch
     out = {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:

@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.core.darknet.network import CompileCache
 from repro_torch.core.engine import synchronize
+from repro_torch.scopes import span
 
 # Every ServingFrontend.stats() dict carries at least these keys; "requests"
 # is itself a dict with the REQUEST_KEYS counters and "latency_s" a dict
@@ -191,7 +192,10 @@ class CNNServingEngine(ServingFrontend):
     input plan); each step() drains up to top-bucket requests, stacks them
     into one ragged batch on the network's device, dispatches through
     `CompileCache.run` (pad/slice and one build per bucket live there),
-    and synchronises the device before it stamps `t_done`.
+    and synchronises the device before it stamps `t_done`.  Each phase of
+    a step is a span (`repro_torch.scopes.span`) inside ``serve.step``:
+    ``serve.stage``, ``serve.h2d``, ``serve.forward``, ``serve.sync``,
+    ``serve.d2h`` and ``serve.complete``.
     """
 
     def __init__(self, cache: CompileCache):
@@ -227,22 +231,30 @@ class CNNServingEngine(ServingFrontend):
         """Drain one micro-batch through the compile cache."""
         if not self.pending:
             return 0
-        t0 = time.perf_counter()
-        batch = [self.pending.popleft()
-                 for _ in range(min(self.max_batch, len(self.pending)))]
-        x = torch.as_tensor(np.stack([r.image for r in batch]))
-        y = self.cache.run(x.to(self.device, self.cache.dtype))
-        synchronize(self.device)
-        t1 = time.perf_counter()
-        y = y.cpu().numpy()
-        for i, r in enumerate(batch):
-            r.result = y[i]
-            r.done = True
-            r.t_done = t1
-            self._latency.add(r.latency_s)
-        self._completed += len(batch)
-        self._steps += 1
-        self._wall_s += t1 - t0
+        with span("serve.step"):
+            t0 = time.perf_counter()
+            with span("serve.stage"):
+                batch = [self.pending.popleft() for _ in
+                         range(min(self.max_batch, len(self.pending)))]
+                x = torch.as_tensor(np.stack([r.image for r in batch]))
+            with span("serve.h2d"):
+                x = x.to(self.device, self.cache.dtype)
+            with span("serve.forward"):
+                y = self.cache.run(x)
+            with span("serve.sync"):
+                synchronize(self.device)
+            t1 = time.perf_counter()
+            with span("serve.d2h"):
+                y = y.cpu().numpy()
+            with span("serve.complete"):
+                for i, r in enumerate(batch):
+                    r.result = y[i]
+                    r.done = True
+                    r.t_done = t1
+                    self._latency.add(r.latency_s)
+                self._completed += len(batch)
+                self._steps += 1
+                self._wall_s += t1 - t0
         return len(batch)
 
     def stats(self) -> dict:

@@ -32,10 +32,9 @@ from repro_torch.configs.base import get_arch
 from repro_torch.core import make_engine
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
-from repro_torch.kernels import gemm
+from repro_torch.kernels import gemm, time_ssd
 from repro_torch.models import transformer as tfm
 from repro_torch.serve.kvpool import PagedKVCache
-from repro_torch.serve.profile_cnn import device_kernels
 from repro_torch.serve.serve_step import make_paged_step
 
 # name -> (batch, tokens per row, gathered blocks, start position)
@@ -72,8 +71,8 @@ def profile_shape(step, params, pools, name: str, reps: int) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         profiled_s = calls()
-    kernels = device_kernels(prof)
-    device_us = sum(kernels.values())
+    kernels = time_ssd.kernel_times(prof)
+    device_ms = sum(k["ms"] for k in kernels.values()) / reps
     wall_ms = wall_s * 1e3 / reps
     out = {"phase": "profile_lm", "shape": name, "batch": b, "tokens": c,
            "gathered_rows": nb * pools[0]["k"].shape[2], "reps": reps,
@@ -81,16 +80,15 @@ def profile_shape(step, params, pools, name: str, reps: int) -> dict:
            "profiled_wall_ms_per_call": profiled_s * 1e3 / reps,
            "launches_per_call": launches,
            "tokens_per_s": b * c * reps / wall_s}
-    if device_us == 0:
+    if not kernels:
         out.update(device_ms_per_call=None, idle_share=None, kernels=None)
         return out
-    device_ms = device_us / 1e3 / reps
     out.update(
         device_ms_per_call=device_ms,
         idle_share=max(0.0, 1.0 - device_ms / wall_ms),
-        kernels=[{"name": k[:120], "ms_per_call": us / 1e3 / reps,
-                  "share": us / device_us}
-                 for k, us in kernels.most_common(12)])
+        kernels=[{"name": k[:120], "ms_per_call": t["ms"] / reps,
+                  "share": t["ms"] / reps / device_ms}
+                 for k, t in list(kernels.items())[:12]])
     return out
 
 
