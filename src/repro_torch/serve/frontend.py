@@ -8,15 +8,17 @@ carrying identity + lifecycle + latency timestamps, and one stats schema
 share.
 
 `CNNServingEngine` drains its request queue into padded-bucket dispatches
-through a `CompileCache`: each step stacks up to top-bucket images, pads to
-the smallest bucket that fits, runs ONE compiled call, waits for the
-device, and completes every request in the batch.  Per-request latency and
-aggregate images/sec come out of `stats()`.
+through a `CompileCache`: each step stacks up to top-bucket images into a
+reused staging slot, pads to the smallest bucket that fits, runs ONE
+compiled call, stages the queue's next batch while the device runs it,
+waits for the device, and completes every request in the batch.
+Per-request latency and aggregate images/sec come out of `stats()`.
 """
 from __future__ import annotations
 
 import abc
 import dataclasses
+import itertools
 import math
 import random
 import time
@@ -196,6 +198,20 @@ class CNNServingEngine(ServingFrontend):
     a step is a span (`repro_torch.scopes.span`) inside ``serve.step``:
     ``serve.stage``, ``serve.h2d``, ``serve.forward``, ``serve.sync``,
     ``serve.d2h`` and ``serve.complete``.
+
+    Staging is a ring of two slots of the top bucket's shape in fp32: a
+    host slot (pinned on a card) and a device slot each.  A step stacks
+    its images into a host slot in place and copies the rows it uses to
+    the device slot.  Once the forward is enqueued, the step stacks the
+    head of `pending` (read in place, not popped) into the other slot and
+    copies it on a copy stream: its own ``serve.stage`` and ``serve.h2d``
+    after ``serve.forward``.  The next step takes those rows when its
+    batch starts with the same request objects, and stages only the rest;
+    the staged rows are the images as they were at the look-ahead.  Every
+    step synchronises the device, so no slot is written while a copy or a
+    forward still reads it.  ``stats()["staging"]`` counts the rows the
+    steps took (``rows_staged``) and, of them, those a look-ahead had
+    staged (``rows_ahead``).
     """
 
     def __init__(self, cache: CompileCache):
@@ -210,6 +226,17 @@ class CNNServingEngine(ServingFrontend):
         self._steps = 0
         self._wall_s = 0.0
         self._latency = LatencyAgg()
+        on_card = self.device.type == "cuda"
+        shape = (self.max_batch, *self.in_shape)
+        self._host = [torch.empty(shape, dtype=torch.float32,
+                                  pin_memory=on_card) for _ in range(2)]
+        self._dev = [torch.empty(shape, dtype=torch.float32,
+                                 device=self.device) for _ in range(2)]
+        self._copy_stream = torch.cuda.Stream(self.device) if on_card \
+            else None
+        self._ahead = None    # (slot, requests, copy event) staged ahead
+        self._rows_ahead = 0
+        self._rows_staged = 0
 
     def submit(self, req: ImageRequest) -> None:
         try:
@@ -236,11 +263,21 @@ class CNNServingEngine(ServingFrontend):
             with span("serve.stage"):
                 batch = [self.pending.popleft() for _ in
                          range(min(self.max_batch, len(self.pending)))]
-                x = torch.as_tensor(np.stack([r.image for r in batch]))
+                n = len(batch)
+                slot, ahead, event = self._staged_rows(batch)
+                if ahead < n:
+                    np.stack([r.image for r in batch[ahead:]],
+                             out=self._host[slot][ahead:n].numpy())
             with span("serve.h2d"):
-                x = x.to(self.device, self.cache.dtype)
+                if event is not None:
+                    torch.cuda.current_stream(self.device).wait_event(event)
+                if ahead < n:
+                    self._dev[slot][ahead:n].copy_(
+                        self._host[slot][ahead:n], non_blocking=True)
+                x = self._dev[slot][:n].to(self.cache.dtype)
             with span("serve.forward"):
                 y = self.cache.run(x)
+            self._look_ahead(1 - slot)
             with span("serve.sync"):
                 synchronize(self.device)
             t1 = time.perf_counter()
@@ -252,10 +289,42 @@ class CNNServingEngine(ServingFrontend):
                     r.done = True
                     r.t_done = t1
                     self._latency.add(r.latency_s)
-                self._completed += len(batch)
+                self._completed += n
+                self._rows_staged += n
+                self._rows_ahead += ahead
                 self._steps += 1
                 self._wall_s += t1 - t0
-        return len(batch)
+        return n
+
+    def _staged_rows(self, batch: list) -> tuple:
+        """(slot, rows, copy event) of the last look-ahead for `batch`: all
+        the rows it staged when `batch` starts with the same requests, else
+        none (the slot is then staged anew)."""
+        staged, self._ahead = self._ahead, None
+        if staged is None:
+            return 0, 0, None
+        slot, reqs, event = staged
+        if len(reqs) > len(batch) or any(
+                a is not b for a, b in zip(reqs, batch)):
+            return slot, 0, None
+        return slot, len(reqs), event
+
+    def _look_ahead(self, slot: int) -> None:
+        """Stack the head of `pending` into `slot` and start its copy to
+        the device while the forward runs."""
+        reqs = list(itertools.islice(self.pending, self.max_batch))
+        if not reqs:
+            return
+        n = len(reqs)
+        with span("serve.stage"):
+            np.stack([r.image for r in reqs], out=self._host[slot][:n].numpy())
+        with span("serve.h2d"):
+            with torch.cuda.stream(self._copy_stream):  # None: no-op
+                self._dev[slot][:n].copy_(self._host[slot][:n],
+                                          non_blocking=True)
+            event = None if self._copy_stream is None else \
+                self._copy_stream.record_event()
+        self._ahead = (slot, reqs, event)
 
     def stats(self) -> dict:
         return build_stats(
@@ -263,4 +332,6 @@ class CNNServingEngine(ServingFrontend):
             completed=self._completed, rejected=self._rejected, truncated=0,
             steps=self._steps, wall_s=self._wall_s,
             latency=self._latency, items=self._completed,
-            extra={"images": self._completed, "cache": self.cache.stats()})
+            extra={"images": self._completed, "cache": self.cache.stats(),
+                   "staging": {"rows_ahead": self._rows_ahead,
+                               "rows_staged": self._rows_staged}})

@@ -9,7 +9,8 @@ so it runs on a machine that has PyTorch for CUDA and no jax:
 (``--noconftest`` because tests/conftest.py imports jax.)  It holds the
 fused-GEMM kernel, its residual variant and the dX / dW kernels against
 their plain versions, checks the row-independence that bucketed serving
-relies on, that a training forward leaves the serving bits unchanged and
+relies on, that the serving engine's pinned staging ring keeps
+`cache.run`'s bits, that a training forward leaves the serving bits unchanged and
 that a split dW gives the same bits twice, and runs a small network and a
 small train step on the `cuda` engine against `eager` on the same card.
 For the LM: the GEMM reading a transposed weight in place (the tied head),
@@ -88,6 +89,7 @@ from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import gemm, ops
 from repro_torch.kernels import conv_direct, ssd
 from repro_torch.models import transformer as tfm
+from repro_torch.serve.frontend import CNNServingEngine, ImageRequest
 from repro_torch.serve.engine import Request, ServingEngine
 from repro_torch.serve.scheduler import PagedServingEngine
 from repro_torch.serve import kvcache
@@ -222,6 +224,30 @@ def test_network_on_cuda_engine_matches_eager(card, cfg):
         got, want = net(x), ref(x)
     assert _relmax(got, want) <= 1e-4
 
+
+
+def test_serving_ring_is_pinned_and_keeps_cache_runs_bits(card):
+    """Three top-bucket steps with the look-ahead engaged (the queue holds
+    one more bucket throughout): each served row is byte-equal to
+    `cache.run` on the same stacked images, copied to the card."""
+    net = Network(DARKNET_SMALL_CFG, make_engine("cuda"),
+                  generator=torch.Generator().manual_seed(0))
+    cache = net.compile_cache(buckets=(2, 4)).warmup()
+    server = CNNServingEngine(cache)
+    assert all(h.is_pinned() for h in server._host)
+    images = np.random.default_rng(0).standard_normal(
+        (16, *net.in_shape)).astype(np.float32)
+    reqs = [ImageRequest(i, image=im) for i, im in enumerate(images)]
+    for r in reqs:
+        server.submit(r)
+    for _ in range(3):
+        assert server.step() == 4
+    assert server.stats()["staging"] == {"rows_ahead": 8, "rows_staged": 12}
+    for k in range(0, 12, 4):
+        want = cache.run(torch.from_numpy(np.stack(images[k:k + 4])).to(
+            card)).cpu().numpy()
+        for r, w in zip(reqs[k:k + 4], want):
+            assert r.result.tobytes() == w.tobytes()
 
 def _operands(card, m, k, n, dtype=torch.float32, seed=0):
     g = torch.Generator(device=card).manual_seed(seed + m + k + n)

@@ -144,6 +144,124 @@ def test_serving_engine_answers_ragged_bursts_like_jax(nets):
     assert _relmax(served, want) <= 1e-4
 
 
+def _requests(images, start=0):
+    return [fe.ImageRequest(rid=start + i, image=im)
+            for i, im in enumerate(images)]
+
+
+def _assert_served_like_cache_run(server, batch):
+    """Each result of `batch` is byte-equal to `cache.run` on the same
+    stacked images (the same batch size, so the same kernels)."""
+    assert all(r.done for r in batch)
+    x = torch.from_numpy(np.stack([r.image for r in batch]))
+    want = server.cache.run(x).numpy()
+    for r, w in zip(batch, want):
+        assert r.result.tobytes() == w.tobytes()
+
+
+def _staging(server):
+    st = server.stats()["staging"]
+    return st["rows_ahead"], st["rows_staged"]
+
+
+def test_closed_loop_takes_every_batch_but_the_first_from_the_look_ahead(
+        nets):
+    """Two top buckets kept waiting, six steps, then a drain: every step
+    after the first finds its batch staged by the one before."""
+    _, _, net = nets
+    server = fe.CNNServingEngine(net.compile_cache(buckets=BUCKETS))
+    top = server.max_batch
+    reqs = _requests(_images(2 * top + 5 * top, seed=11))
+    arriving, batches = iter(reqs), []
+    for _ in range(6):
+        while len(server.pending) < 2 * top:
+            server.submit(next(arriving))
+        batches.append(list(server.pending)[:top])
+        assert server.step() == top
+    while server.pending:
+        batches.append(list(server.pending)[:top])
+        server.step()
+    assert all(r.done for r in reqs)
+    for batch in batches:
+        _assert_served_like_cache_run(server, batch)
+    assert _staging(server) == (len(reqs) - top, len(reqs))
+
+
+def test_bursts_through_the_staging_ring_match_the_exact_batch(nets):
+    """BURSTS submitted one per step: the queue outgrows the top bucket,
+    look-aheads engage, later requests join a staged batch's tail."""
+    _, _, net = nets
+    server = fe.CNNServingEngine(net.compile_cache(buckets=BUCKETS))
+    images = _images(sum(BURSTS), seed=12)
+    reqs = _requests(images)
+    start = 0
+    for n in BURSTS:
+        for r in reqs[start:start + n]:
+            server.submit(r)
+        start += n
+        server.step()
+    while server.step():
+        pass
+    assert all(r.done for r in reqs)
+    ahead, staged = _staging(server)
+    assert staged == len(reqs) and 0 < ahead < staged
+    with torch.inference_mode():
+        exact = net(torch.from_numpy(images)).numpy()
+    assert _relmax(np.stack([r.result for r in reqs]), exact) <= 1e-6
+
+
+def test_requests_after_a_look_ahead_join_the_staged_batch(nets):
+    _, _, net = nets
+    server = fe.CNNServingEngine(net.compile_cache(buckets=BUCKETS))
+    top = server.max_batch
+    images = _images(top + 7, seed=13)
+    reqs = _requests(images)
+    for r in reqs[:top + 3]:
+        server.submit(r)
+    assert server.step() == top           # stages the 3 left waiting
+    for r in reqs[top + 3:]:
+        server.submit(r)
+    assert server.step() == 7             # 3 staged ahead + 4 stacked now
+    assert _staging(server) == (3, top + 7)
+    _assert_served_like_cache_run(server, reqs[:top])
+    _assert_served_like_cache_run(server, reqs[top:])
+
+
+def test_a_changed_queue_head_is_staged_afresh(nets):
+    _, _, net = nets
+    server = fe.CNNServingEngine(net.compile_cache(buckets=BUCKETS))
+    top = server.max_batch
+    reqs = _requests(_images(2 * top + 4, seed=14))
+    for r in reqs:
+        server.submit(r)
+    assert server.step() == top           # stages reqs[top:2 * top]
+    removed = server.pending.popleft()
+    assert removed is reqs[top]
+    assert server.step() == top           # reqs[top + 1:2 * top + 1]
+    assert _staging(server) == (0, 2 * top)
+    assert server.step() == 3             # the second step's look-ahead
+    assert _staging(server) == (3, 2 * top + 3)
+    assert not removed.done
+    for batch in (reqs[:top], reqs[top + 1:2 * top + 1], reqs[2 * top + 1:]):
+        _assert_served_like_cache_run(server, batch)
+
+
+def test_an_open_loop_that_drains_each_step_never_looks_ahead(nets):
+    _, _, net = nets
+    server = fe.CNNServingEngine(net.compile_cache(buckets=BUCKETS))
+    reqs = _requests(_images(sum(BURSTS[:4]), seed=15))
+    start = 0
+    for n in BURSTS[:4]:                  # each at most the top bucket
+        batch = reqs[start:start + n]
+        start += n
+        for r in batch:
+            server.submit(r)
+        while server.step():
+            pass
+        _assert_served_like_cache_run(server, batch)
+    assert _staging(server) == (0, len(reqs))
+
+
 def test_bad_requests_are_rejected_and_skipped(nets):
     _, _, net = nets
     server = fe.CNNServingEngine(net.compile_cache(buckets=(1, 2)))

@@ -41,17 +41,18 @@ def _requests(net, n, seed=0):
 
 
 def _serve(net, n, profiled=False):
-    """One step over `n` requests; (requests, the step's program ranges
-    as (start, end, name) or None)."""
+    """One step over `n` requests, at most a top bucket of them; (requests,
+    the step's program ranges as (start, end, name) or None)."""
     engine = CNNServingEngine(net.compile_cache(buckets=BUCKETS).warmup())
     reqs = _requests(net, n)
     for r in reqs:
         engine.submit(r)
+    drained = min(n, BUCKETS[-1])
     if not profiled:
-        assert engine.step() == n
+        assert engine.step() == drained
         return reqs, None
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        assert engine.step() == n
+        assert engine.step() == drained
     ranges = [(ev.start_ns(), ev.start_ns() + ev.duration_ns(), ev.name())
               for ev in prof.profiler.kineto_results.events()
               if ev.name().startswith(PREFIXES)]
@@ -71,7 +72,7 @@ def _tree(ranges):
     return root[1]
 
 
-def _expected(net, padded):
+def _expected(net, padded, ahead=False):
     layers = []
     for p in net.plans:
         if p.type == "convolutional":
@@ -83,9 +84,10 @@ def _expected(net, padded):
             kids = []
         layers.append((p.span, kids))
     run = ([("cache.pad", [])] if padded else []) + layers
+    look_ahead = [("serve.stage", []), ("serve.h2d", [])] if ahead else []
     return [("serve.step", [
         ("serve.stage", []), ("serve.h2d", []),
-        ("serve.forward", [("cache.run", run)]),
+        ("serve.forward", [("cache.run", run)]), *look_ahead,
         ("serve.sync", []), ("serve.d2h", []), ("serve.complete", [])])]
 
 
@@ -123,6 +125,13 @@ def test_profiled_step_gives_the_span_tree(net, kind):
     assert _tree(ranges) == _expected(net, padded=kind == "padded")
     assert [p.span for p in net.plans][:2] == [
         "darknet.l0.convolutional", "darknet.l1.maxpool"]
+
+
+def test_profiled_step_stages_the_next_batch_after_the_forward(net):
+    """A queue longer than the top bucket: the step's look-ahead stages
+    and copies the rest between ``serve.forward`` and ``serve.sync``."""
+    _, ranges = _serve(net, BUCKETS[-1] + 2, profiled=True)
+    assert _tree(ranges) == _expected(net, padded=False, ahead=True)
 
 
 @pytest.mark.parametrize("kind", list(STEPS))
